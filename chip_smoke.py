@@ -24,6 +24,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``FitResult`` -> ``recommend_topk`` for 256 users.  Checks: costs
    finite and falling, each kernel launched in its phase, sparse and dense
    FullGD states agree, top-k agrees with a float64 host reference.
+4. The int8 score kernel against its plain version at the top serving
+   bucket (1024 users) of the fitted index, with the same times and bound,
+   the ``"dequant"`` method's time and a ``torch._int_mm`` yardstick.
+5. ``[serve]``: ``quantize_index`` of the sparse FullGD fit's index ->
+   ``ServingEngine(quant="int8")`` with buckets (16, 64, 256, 1024) ->
+   ~200 requests of 1-3000 users -> ``refresh`` from the dense FullGD fit
+   -> 50 more requests; then an f32 engine over the same requests.
+   Checks: int8 codes and scales equal the CPU's bitwise, the kernel
+   launched once per bucket run (startup included),
+   ``serve_compiles_total`` stays 4, every answer equals ``recommend_topk``
+   on the same index, overlap@100 of int8 against f32 >= 0.95.  Prints
+   per-bucket latency for both layouts and the index bytes.
 
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
 (``benchmarks/table3_rmse.py --full``): the 6040x3706 ``movielens_proxy``
@@ -58,6 +70,11 @@ from repro_torch.kernels.masked_factor_grad import ops as mfg_ops  # noqa: E402
 from repro_torch.kernels.masked_factor_grad.ref import (  # noqa: E402
     masked_factor_grad_ref,
 )
+from repro_torch.kernels.quant import ops as quant_ops  # noqa: E402
+from repro_torch.kernels.quant.ref import (  # noqa: E402
+    dequant_score_ref,
+    fused_score_ref,
+)
 from repro_torch.kernels.sddmm import ops as sddmm_ops  # noqa: E402
 from repro_torch.kernels.sddmm.ref import sddmm_factor_grad_ref  # noqa: E402
 from repro_torch.kernels.sddmm.segment import (  # noqa: E402
@@ -70,7 +87,14 @@ from repro_torch.mc import (  # noqa: E402
     Trainer,
     Wave,
 )
+from repro_torch import obs  # noqa: E402
+from repro_torch.serve.quant import index_nbytes, quantize_index  # noqa: E402
 from repro_torch.serve.recommend import recommend_topk  # noqa: E402
+from repro_torch.serving import (  # noqa: E402
+    DEFAULT_BUCKETS,
+    BucketLadder,
+    ServingEngine,
+)
 
 P = Q = 5
 RANK = 15
@@ -83,6 +107,7 @@ WRAPPERS = {
     "sddmm_segment_grad": sddmm_ops.sddmm_segment_grad,
     "sddmm_factor_grad": sddmm_ops.sddmm_factor_grad,
     "masked_factor_grad": mfg_ops.masked_factor_grad,
+    "dequant_score": quant_ops.dequant_score,
 }
 META = {
     "sddmm_segment_grad": ("src/repro_torch/kernels/csrc/sddmm.cu",
@@ -92,10 +117,15 @@ META = {
     "masked_factor_grad": (
         "src/repro_torch/kernels/csrc/masked_factor_grad.cu",
         "src/repro/kernels/masked_factor_grad/kernel.py:75"),
+    "dequant_score": ("src/repro_torch/kernels/csrc/dequant_score.cu",
+                      "src/repro/kernels/quant/kernel.py:48"),
 }
-# (HBM bytes/s, f32 non-tensor flop/s): NVIDIA data sheets, dense rates
-PEAKS = {"PCIe": (2.0e12, 51e12), "NVL": (3.9e12, 60e12),
-         "H100": (3.35e12, 67e12)}
+# (HBM bytes/s, f32 non-tensor flop/s, int8 tensor-core op/s): NVIDIA data
+# sheets, dense rates
+PEAKS = {"PCIe": (2.0e12, 51e12, 1513e12), "NVL": (3.9e12, 60e12, 1671e12),
+         "H100": (3.35e12, 67e12, 1979e12)}
+TOP_BUCKET = DEFAULT_BUCKETS[-1]
+OVERLAP_MIN = 0.95  # overlap@100 of int8 against f32 top-k on the fit
 
 
 def fail(msg: str) -> None:
@@ -103,7 +133,7 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def peaks(name: str) -> tuple[float, float]:
+def peaks(name: str) -> tuple[float, float, float]:
     for key in ("PCIe", "NVL", "H100"):
         if key in name:
             return PEAKS[key]
@@ -206,7 +236,7 @@ def compare(got, want) -> tuple[float, float]:
 def kernel_phase(sparse, dense, state, card):
     """Each kernel against its plain version on the main path's stack."""
 
-    bw, flops = peaks(card)
+    bw, flops, _ = peaks(card)
     ent, U, W = sparse.data.entries, state.U, state.W
     X, Mk = dense.data.xb, dense.data.maskb
     B, M, r = U.shape[0] * U.shape[1], U.shape[2], U.shape[3]
@@ -297,6 +327,222 @@ def check_topk(index, users, items, scores, k):
                        atol=1e-4):
         fail("recommend_topk scores disagree with the host reference")
     return int(tie_free.sum())
+
+
+def quant_kernel_row(qidx, users, card):
+    """The int8 score kernel against its plain version on one top bucket
+    of the fitted index: error (must be 0), times, bound, the dequant
+    method's time and the ``torch._int_mm`` yardstick."""
+
+    bw, _, int8_ops = peaks(card)
+    uq, us = qidx.u_q[users].contiguous(), qidx.u_scale[users].contiguous()
+    wq, ws = qidx.w_q, qidx.w_scale
+    B, r = uq.shape
+    n = wq.shape[0]
+    args = (uq, us, wq, ws)
+    kern = lambda: quant_ops.dequant_score(*args, method="fused")  # noqa: E731
+    plain = lambda: fused_score_ref(*args)                         # noqa: E731
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    abs_err = float((got.double() - want.double()).abs().max())
+    nbytes = B * r + 4 * B + n * r + 4 * n + 4 * B * n
+    ops = 2 * B * n * r
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / int8_ops * 1e3
+    # yardstick only, never called by the port: cuBLASLt's int8 GEMM on
+    # codes zero-padded to r -> 16 and n -> a multiple of 8, then the same
+    # epilogue
+    rp, np_ = -(-r // 16) * 16, -(-n // 8) * 8
+    uq_p = torch.zeros((B, rp), dtype=torch.int8, device="cuda")
+    wq_p = torch.zeros((np_, rp), dtype=torch.int8, device="cuda")
+    uq_p[:, :r], wq_p[:n, :r] = uq, wq
+
+    def library():
+        acc = torch._int_mm(uq_p, wq_p.T)[:, :n]
+        return acc.float() * us[:, None] * ws[None, :]
+
+    try:
+        lib_equal = bool(torch.equal(library(), want))
+        library_ms, library_error = graph_ms(library), None
+    except RuntimeError as err:
+        lib_equal, library_ms, library_error = None, None, str(err)[:200]
+    row = {
+        "name": "dequant_score", "route": "cuda",
+        "source": META["dequant_score"][0],
+        "replaces": META["dequant_score"][1], "launches": 0,
+        "max_abs_err": abs_err, "tolerance": 0.0,
+        "ms": graph_ms(kern), "plain_ms": graph_ms(plain),
+        "eager_ms": eager_ms(kern), "plain_eager_ms": eager_ms(plain),
+        "dequant_method_ms": graph_ms(lambda: dequant_score_ref(*args)),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "operations": ops,
+        "library_ms": library_ms, "library_call": "torch._int_mm + epilogue",
+        "library_equal": lib_equal, "library_error": library_error,
+        "device_breakdown_ms": device_breakdown(kern),
+        "shape": {"B": B, "n": n, "r": r},
+    }
+    print(json.dumps(row), flush=True)
+    if abs_err != 0.0:
+        fail(f"dequant_score disagrees with its plain version: max abs "
+             f"error {abs_err:.3e}, tolerance 0")
+    return row
+
+
+def serve_requests(rng, count: int, m: int) -> list:
+    """``count`` requests: every bucket edge and one split first, the rest
+    log-uniform in 1..3000 users, user ids uniform over the m users."""
+
+    sizes = [1, 16, 17, 64, 65, 256, 257, 1024, 1025, 3000]
+    sizes += np.exp(rng.uniform(0, np.log(3000), count - len(sizes))
+                    ).astype(int).clip(1, 3000).tolist()
+    return [rng.integers(0, m, size).astype(np.int32) for size in sizes]
+
+
+def chunks(ladder, requests) -> int:
+    return sum(len(ladder.plan(len(x))) for x in requests)
+
+
+def check_answers(label, ladder, requests, answers, index, k, method,
+                  exact):
+    """Each engine answer against ``recommend_topk`` on the same index and
+    the same padded chunks: scores bitwise (``exact``) or to 1e-6, items
+    on rows whose k+1 top scores have no ties."""
+
+    checked = 0
+    for users, (items, scores) in zip(requests, answers):
+        for start, length, bucket in ladder.plan(len(users)):
+            chunk = np.pad(users[start:start + length], (0, bucket - length))
+            ri, rs = recommend_topk(index, chunk, k=k + 1, method=method)
+            ri, rs = ri.cpu().numpy()[:length], rs.cpu().numpy()[:length]
+            got_i = items[start:start + length]
+            got_s = scores[start:start + length]
+            if exact:
+                ok = np.array_equal(got_s, rs[:, :k])
+            else:
+                ok = np.allclose(got_s, rs[:, :k], rtol=1e-6, atol=1e-6)
+            tie_free = (np.diff(rs, axis=1) != 0).all(axis=1)
+            if not ok or not np.array_equal(got_i[tie_free],
+                                            ri[tie_free, :k]):
+                fail(f"{label}: engine answer differs from recommend_topk "
+                     f"(request of {len(users)} users, chunk at {start})")
+            checked += int(tie_free.sum())
+    return checked
+
+
+def serve_engine(label, index, refresh_from, before, after, k, expect_q):
+    """One engine over ``before``, a refresh, then ``after``; prints its
+    latencies and returns both lists of answers, the launch counts and the
+    engine's scoring method."""
+
+    obs.reset()
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = ServingEngine(index, buckets=DEFAULT_BUCKETS, k=k)
+    startup = time.perf_counter() - t0
+    with eng:
+        if eng.quant != expect_q:
+            fail(f"{label}: engine layout {eng.quant}, expected {expect_q}")
+        compiles = [obs.counter("serve_compiles_total").value]
+        t0 = time.perf_counter()
+        first = [f.result(timeout=120) for f in
+                 [eng.submit(x) for x in before]]
+        t_first = time.perf_counter() - t0
+        compiles.append(obs.counter("serve_compiles_total").value)
+        eng.refresh(refresh_from)
+        second = [f.result(timeout=120) for f in
+                  [eng.submit(x) for x in after]]
+        compiles.append(obs.counter("serve_compiles_total").value)
+        got = counts()
+        metrics = eng.metrics()
+        method = eng.quant_method
+    if compiles != [len(DEFAULT_BUCKETS)] * 3:
+        fail(f"{label}: serve_compiles_total went {compiles}, expected "
+             f"{len(DEFAULT_BUCKETS)} throughout")
+    users = sum(len(x) for x in before)
+    print(f"[serve] {label}: startup {startup:.3f}s, {len(before)} requests "
+          f"({users} users) in {t_first:.3f}s = {users / t_first:.0f} "
+          f"users/s, then refresh and {len(after)} requests; "
+          f"compiles {compiles}; launches {got}", flush=True)
+    for b in DEFAULT_BUCKETS:
+        h = metrics["buckets"][b]
+        print(f"[serve] {label} bucket {b}: count={h['count']} "
+              f"p50={1e3 * h['p50']:.3f}ms p99={1e3 * h['p99']:.3f}ms "
+              f"mean={1e3 * h['mean']:.3f}ms min={1e3 * h['min']:.3f}ms "
+              f"max={1e3 * h['max']:.3f}ms", flush=True)
+    lat = metrics["latency"]
+    print(f"[serve] {label} request: p50={1e3 * lat['p50']:.3f}ms "
+          f"p99={1e3 * lat['p99']:.3f}ms (queue wait included)", flush=True)
+    return first, second, got, method
+
+
+def serve_phase(fit_a, fit_b):
+    """The int8 serving path end to end, then the f32 engine over the same
+    requests."""
+
+    k = 10
+    rng = np.random.default_rng(11)
+    index_a = fit_a.to_recommend_index()
+    m = index_a.num_users
+    before = serve_requests(rng, 200, m)
+    after = serve_requests(rng, 50, m)
+    qidx = quantize_index(index_a)
+    q_host = quantize_index(index_a._replace(
+        u=index_a.u.cpu(), w=index_a.w.cpu(), seen=index_a.seen.cpu()))
+    for name in ("u_q", "u_scale", "w_q", "w_scale"):
+        if not torch.equal(getattr(qidx, name).cpu(), getattr(q_host, name)):
+            fail(f"[serve] quantize_index on the card differs from the CPU "
+                 f"in {name}")
+    print("[serve] quantize_index: codes and scales on the card equal the "
+          "CPU's bitwise", flush=True)
+    ladder = BucketLadder(DEFAULT_BUCKETS)
+    first, second, got, method = serve_engine("int8", qidx, fit_b, before,
+                                              after, k, "int8")
+    expect = len(DEFAULT_BUCKETS) + chunks(ladder, before + after)
+    if got["dequant_score"] != expect:
+        fail(f"[serve] dequant_score launched {got['dequant_score']} times, "
+             f"expected {expect} (startup runs + bucket executions)")
+    qidx_b = quantize_index(fit_b.to_recommend_index())
+    n1 = check_answers("int8", ladder, before, first, qidx, k, method, True)
+    n2 = check_answers("int8 refreshed", ladder, after, second, qidx_b, k,
+                       method, True)
+    print(f"[serve] int8 ({method}): every answer equals recommend_topk on "
+          f"the same quantized index (scores bitwise, items on {n1 + n2} "
+          f"tie-free "
+          f"rows); dequant_score launches {got['dequant_score']} = "
+          f"{len(DEFAULT_BUCKETS)} startup + "
+          f"{expect - len(DEFAULT_BUCKETS)} bucket runs",
+          flush=True)
+
+    first_f, second_f, got_f, _ = serve_engine("f32", index_a, fit_b,
+                                               before, after, k, None)
+    if got_f["dequant_score"] != 0:
+        fail("[serve] the f32 engine launched the int8 kernel")
+    check_answers("f32", ladder, before, first_f, index_a, k, None, False)
+    check_answers("f32 refreshed", ladder, after, second_f,
+                  fit_b.to_recommend_index(), k, None, False)
+
+    users = np.arange(m)
+    overlaps = []
+    for s in range(0, m, TOP_BUCKET):
+        i_f, _ = recommend_topk(index_a, users[s:s + TOP_BUCKET], k=100)
+        i_q, _ = recommend_topk(qidx, users[s:s + TOP_BUCKET], k=100)
+        for a, b in zip(i_f.cpu().numpy(), i_q.cpu().numpy()):
+            overlaps.append(len(set(a.tolist()) & set(b.tolist())) / 100)
+    overlap = float(np.mean(overlaps))
+    nb_f, nb_q = index_nbytes(index_a), index_nbytes(qidx)
+    print(f"[serve] overlap@100 int8 vs f32 over all {m} users: "
+          f"{overlap:.4f} (gate {OVERLAP_MIN}); index bytes f32 {nb_f}, "
+          f"int8 {nb_q} ({nb_q / nb_f:.4f}x)", flush=True)
+    if not overlap >= OVERLAP_MIN:
+        fail(f"[serve] overlap@100 {overlap:.4f} < {OVERLAP_MIN}")
+
+    # where the time of one top-bucket execution goes, on the device
+    chunk = torch.as_tensor(before[9][:TOP_BUCKET], device="cuda")
+    for label, idx in (("int8", qidx), ("f32", index_a)):
+        bd = device_breakdown(lambda: recommend_topk(idx, chunk, k=k))
+        print(f"[serve] {label} bucket {TOP_BUCKET} device ms by kernel: "
+              f"{json.dumps(bd)}", flush=True)
+    return got["dequant_score"]
 
 
 def main() -> None:
@@ -400,6 +646,16 @@ def main() -> None:
     print(f"[main] recommend_topk: 256 users, k=10, {ms:.3f} ms, "
           f"{n_checked} tie-free users equal to the host reference",
           flush=True)
+
+    # 4. the int8 score kernel at the top bucket of the fitted index
+    qidx = quantize_index(index)
+    top_users = torch.as_tensor(np.random.default_rng(5).choice(
+        qidx.num_users, TOP_BUCKET, replace=False), device="cuda")
+    rows.append(quant_kernel_row(qidx, top_users, card))
+
+    # 5. the serving path: int8 engine, refresh, f32 engine
+    total["dequant_score"] = serve_phase(results["FullGD sparse/segment"],
+                                         results["FullGD dense"])
 
     for row in rows:
         row["launches"] = total[row["name"]]

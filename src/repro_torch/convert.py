@@ -13,6 +13,8 @@ import numpy as np
 import torch
 
 from repro_torch.core.state import Problem, State
+from repro_torch.serve.quant import QuantizedRecommendIndex
+from repro_torch.serve.recommend import RecommendIndex
 from repro_torch.sparse.entries import BlockEntries
 from repro_torch.sparse.store import SparseProblem
 
@@ -52,3 +54,23 @@ def sparse_problem_from_numpy(rows, cols, vals, valid, col_perm, row_ptr,
         _tensor(col_ptr, i32, device),
     )
     return SparseProblem(entries, _tensor(nnz, i32, device))
+
+
+def index_from_numpy(u, w, seen, device) -> RecommendIndex:
+    """f32 ``RecommendIndex`` from (m, r) / (n, r) factors and the (m, S)
+    seen table."""
+
+    return RecommendIndex(_tensor(u, np.float32, device),
+                          _tensor(w, np.float32, device),
+                          _tensor(seen, np.int32, device))
+
+
+def quantized_index_from_numpy(u_q, u_scale, w_q, w_scale, seen,
+                               device) -> QuantizedRecommendIndex:
+    """``QuantizedRecommendIndex`` from int8 codes, f32 scales and the
+    seen table, field for field."""
+
+    return QuantizedRecommendIndex(
+        _tensor(u_q, np.int8, device), _tensor(u_scale, np.float32, device),
+        _tensor(w_q, np.int8, device), _tensor(w_scale, np.float32, device),
+        _tensor(seen, np.int32, device))

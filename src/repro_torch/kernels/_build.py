@@ -46,6 +46,10 @@ SIGNATURES = {
         # X mask U W | loss gU gW partials | B M N r | stream
         "masked_factor_grad": ((_P,) * 8 + (_I,) * 4 + (_P,), _I),
     },
+    "dequant_score": {
+        # Q_u s_u Q_w s_w | out | B n r | stream
+        "dequant_score": ((_P,) * 5 + (_I,) * 3 + (_P,), _I),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

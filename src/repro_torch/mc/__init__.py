@@ -5,7 +5,8 @@
     Trainer           — one ``fit(problem, schedule=...)`` with the
                         Sequential / Wave / FullGD schedules
     FitResult         — final State, loss trace, wall time, and
-                        ``.to_recommend_index()`` into ``serve.recommend``
+                        ``.to_recommend_index()`` / ``.to_service()`` /
+                        ``.to_engine()`` into serving
 """
 
 from repro_torch.mc.callbacks import Callback, EvalRMSE

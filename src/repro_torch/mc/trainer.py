@@ -7,11 +7,13 @@ Port of ``repro.mc.trainer``::
     problem = CompletionProblem.from_dataset(ds, p=4, q=4, rank=8,
                                              layout="sparse")
     result = Trainer(cfg).fit(problem, FullGD(num_rounds=500), seed=0)
-    index = result.to_recommend_index()
+    svc = result.to_service(k=10)                  # fixed-batch front end
+    engine = result.to_engine(quant="int8")        # bucketed, int8 cache
 
 ``FitResult`` carries the final ``State``, the (t, cost) loss trace, the
 wall time and the bridges into evaluation (``factors``, ``rmse``) and
-serving (``to_recommend_index``).  The random stream is a
+serving (``to_recommend_index``, ``to_service``, ``to_engine``), on the
+problem's device.  The random stream is a
 ``torch.Generator`` on the problem's device seeded with ``seed``; it
 draws the initial state (unless ``state=`` is given), the wave order and
 the sequential structure picks.
@@ -32,7 +34,8 @@ from repro_torch.core.state import State, init_state
 from repro_torch.mc.callbacks import Callback
 from repro_torch.mc.problem import CompletionProblem
 from repro_torch.mc.schedules import Schedule, make_schedule
-from repro_torch.serve.recommend import RecommendIndex, build_index
+from repro_torch.serve.recommend import (RecommendIndex, RecommendService,
+                                        build_index)
 
 
 def synchronize(device: torch.device) -> None:
@@ -98,6 +101,33 @@ class FitResult:
             self.state.U, self.state.W, p.spec,
             num_users=p.num_users or None, num_items=p.num_items or None,
             seen_coo=p.seen_coo,
+        )
+
+    def to_service(self, batch: int = 256, k: int = 10,
+                   exclude_seen: bool = True, quant=None,
+                   quant_method=None) -> RecommendService:
+        """Fixed-batch top-k serving front end over the trained factors.
+        ``quant="int8"`` serves the int8 factor cache; ``quant_method``
+        picks its scoring path."""
+
+        return RecommendService(self.to_recommend_index(), batch=batch, k=k,
+                                exclude_seen=exclude_seen, quant=quant,
+                                quant_method=quant_method)
+
+    def to_engine(self, buckets=None, k: int = 10, exclude_seen: bool = True,
+                  seen_headroom: int = 64, quant=None, quant_method=None):
+        """Bucket-batched serving engine over the trained factors
+        (``repro_torch.serving.ServingEngine``), every bucket readied here,
+        so the first request is already hot.  ``quant="int8"`` serves the
+        int8 factor cache through the ``dequant_score`` kernel."""
+
+        from repro_torch.serving import DEFAULT_BUCKETS, ServingEngine
+
+        return ServingEngine(
+            self.to_recommend_index(),
+            buckets=buckets if buckets is not None else DEFAULT_BUCKETS,
+            k=k, exclude_seen=exclude_seen, seen_headroom=seen_headroom,
+            quant=quant, quant_method=quant_method,
         )
 
 

@@ -1,10 +1,33 @@
+"""``repro_torch.serve`` — matrix-completion serving: the top-k index (f32
+and its int8 twin) and its fixed-batch front end.  ``repro_torch.serving``
+wraps them in the bucket-batched engine."""
+
+from repro_torch.serve.quant import (
+    QuantizedRecommendIndex,
+    index_nbytes,
+    quantize_index,
+    quantize_rows,
+)
 from repro_torch.serve.recommend import (
     RecommendIndex,
+    RecommendService,
     build_index,
     build_seen_table,
     build_seen_table_coo,
     recommend_topk,
+    score_pairs,
 )
 
-__all__ = ["RecommendIndex", "build_index", "build_seen_table",
-           "build_seen_table_coo", "recommend_topk"]
+__all__ = [
+    "QuantizedRecommendIndex",
+    "RecommendIndex",
+    "RecommendService",
+    "build_index",
+    "build_seen_table",
+    "build_seen_table_coo",
+    "index_nbytes",
+    "quantize_index",
+    "quantize_rows",
+    "recommend_topk",
+    "score_pairs",
+]

@@ -1,0 +1,312 @@
+"""``ServingEngine`` — the always-hot request path over a trained index.
+
+Port of ``repro.serving.engine`` without the mesh (``plan=``) and the
+policy-driven refit (``RefreshPolicy``, ``bind``, ``note_append``).  A
+:class:`BucketLadder` routes every request onto a fixed set of batch
+shapes, ``compile_buckets`` readies one callable per bucket **at
+startup**, and a :class:`~repro_torch.serving.queue.ServeWorker` drains
+submitted requests into bucketed executions behind futures.  It serves on
+the device the index lives on.  The contract the tests pin:
+
+* **nothing readied at serve time** — ``serve_compiles_total`` equals the
+  bucket count after ``__init__`` and never moves again;
+* **identity** — each bucket runs ``recommend_topk`` itself, so engine
+  answers equal a direct call on the same padded chunk exactly;
+* **hot refresh** — ``refresh(result)`` swaps the factor buffers (same
+  shapes, seen table re-padded to the fixed ``seen_capacity``) by one
+  attribute store, and a request always runs against exactly one factor
+  version (one snapshot per request);
+* **clean shutdown** — ``drain()`` resolves the backlog, ``shutdown()``
+  then rejects new work.
+
+The worker is a thread of its own.  The kernel wrapper makes the tensors'
+device current around its launch, and the kernel library is loaded by the
+startup runs on the constructing thread, so the worker holds no device
+state of its own.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from concurrent.futures import Future
+from typing import Iterable, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import obs
+from repro_torch.kernels.quant import resolve_method
+from repro_torch.serve.quant import (QuantizedRecommendIndex, index_nbytes,
+                                     quantize_index)
+from repro_torch.serve.recommend import _u_shape, _w_shape
+from repro_torch.serving.buckets import DEFAULT_BUCKETS, BucketLadder
+from repro_torch.serving.compiler import compile_buckets
+from repro_torch.serving.queue import Request, ServeWorker
+
+
+def _pad_seen(seen, capacity: int, num_items: int) -> torch.Tensor:
+    """Widen a seen table to the engine's fixed capacity (pad = n, the
+    out-of-range id the serve-time mask drops)."""
+
+    width = seen.shape[1]
+    if width > capacity:
+        raise ValueError(
+            f"seen table width {width} exceeds the engine's fixed capacity "
+            f"{capacity}; rebuild the engine with a larger seen_headroom "
+            f"(bucket shapes are frozen at startup, so the seen axis "
+            f"cannot grow under a refresh)"
+        )
+    if width == capacity:
+        return seen
+    pad = torch.full((seen.shape[0], capacity - width), num_items,
+                     dtype=torch.int32, device=seen.device)
+    return torch.cat([seen, pad], dim=1)
+
+
+class ServingEngine:
+    """Bucket-batched serving front end (see module docstring).
+
+    ``seen_headroom`` reserves extra seen-table columns so that later
+    refreshes (whose tables may be wider) still fit the frozen shapes.
+
+    ``quant="int8"`` serves the int8 factor cache: the index is quantized
+    (symmetric per-row, serve/quant.py) before the buckets are readied, so
+    every bucket scores through ``kernels/quant.dequant_score`` — on the
+    card, the hand-written kernel — and ``refresh`` re-quantizes on every
+    hot swap.  ``quant_method`` picks the scoring path
+    (``"fused"``/``"dequant"``; ``None`` resolves from the index's device
+    once, at startup, so all buckets and every later refresh serve one
+    concrete method)."""
+
+    def __init__(
+        self,
+        index,
+        *,
+        buckets: Sequence[int] = DEFAULT_BUCKETS,
+        k: int = 10,
+        exclude_seen: bool = True,
+        seen_headroom: int = 64,
+        quant: Optional[str] = None,
+        quant_method: Optional[str] = None,
+    ):
+        self.ladder = (buckets if isinstance(buckets, BucketLadder)
+                       else BucketLadder(tuple(buckets)))
+        self.k = k
+        self.exclude_seen = exclude_seen
+        if quant not in (None, "int8"):
+            raise ValueError(
+                f"unknown quant mode {quant!r}; expected None or 'int8'"
+            )
+        if isinstance(index, QuantizedRecommendIndex):
+            quant = "int8"        # already-quantized input implies the mode
+        elif quant == "int8":
+            index = quantize_index(index)
+        self.quant = quant
+        self.device = index.seen.device
+        self.quant_method = (resolve_method(quant_method, self.device)
+                             if quant else None)
+        self.num_users = int(index.num_users)
+        self.num_items = int(index.num_items)
+        if seen_headroom < 0:
+            raise ValueError(f"seen_headroom must be >= 0, "
+                             f"got {seen_headroom}")
+        self.seen_capacity = int(index.seen.shape[1]) + int(seen_headroom)
+        index = index._replace(
+            seen=_pad_seen(index.seen, self.seen_capacity, self.num_items)
+        )
+        obs.gauge("serve_index_bytes",
+                  dtype="int8" if quant else "f32").set(index_nbytes(index))
+        self._bufs = index
+        self._execs = compile_buckets(index, self.ladder, k, exclude_seen,
+                                      method=self.quant_method)
+        self._refresh_lock = threading.Lock()
+        self._t_last_refresh = time.perf_counter()
+        # QPS window, same discipline as RecommendService
+        self._t_first: Optional[float] = None
+        self._t_last: Optional[float] = None
+        self._served_users = 0
+        self._served_requests = 0
+        self._worker = ServeWorker(self._execute)
+
+    # ------------------------------------------------------------------ #
+    # request path
+    # ------------------------------------------------------------------ #
+
+    def submit(self, user_ids) -> Future:
+        """Enqueue one request; the future resolves to (items, scores)
+        numpy arrays of shape (len(user_ids), k)."""
+
+        user_ids = np.asarray(user_ids, np.int32).ravel()
+        if user_ids.size == 0:
+            raise ValueError("empty request")
+        return self._worker.submit(user_ids)
+
+    def recommend(self, user_ids) -> Tuple[np.ndarray, np.ndarray]:
+        """Synchronous convenience: submit + wait."""
+
+        return self.submit(user_ids).result()
+
+    def recommend_many(
+        self, requests: Iterable
+    ) -> List[Tuple[np.ndarray, np.ndarray]]:
+        """Submit a batch of requests, wait for all, return results in
+        submission order."""
+
+        futures = [self.submit(r) for r in requests]
+        return [f.result() for f in futures]
+
+    def _execute(self, req: Request) -> Tuple[np.ndarray, np.ndarray]:
+        """Worker-thread body: route one request through the ladder.
+
+        The factor snapshot is taken ONCE per request — a concurrent
+        ``refresh`` lands between requests, never inside one.  The user
+        ids of each chunk cross to the device inside ``recommend_topk``;
+        the host copies of the answer wait for the card, so each batch
+        stamp is device-true."""
+
+        bufs = self._bufs
+        user_ids = req.user_ids
+        n = len(user_ids)
+        out_items = np.empty((n, self.k), np.int32)
+        out_scores = np.empty((n, self.k), np.float32)
+        if self._t_first is None:
+            self._t_first = time.perf_counter()
+        for start, length, bucket in self.ladder.plan(n):
+            t0 = time.perf_counter()
+            chunk = user_ids[start : start + length]
+            if length < bucket:
+                chunk = np.pad(chunk, (0, bucket - length))
+            items, scores = self._execs[bucket](bufs, chunk)
+            out_items[start : start + length] = items.cpu().numpy()[:length]
+            out_scores[start : start + length] = scores.cpu().numpy()[:length]
+            obs.histogram("serve_batch_seconds", bucket=str(bucket)).observe(
+                time.perf_counter() - t0
+            )
+            obs.counter("engine_batches_total").inc()
+        obs.histogram("serve_request_seconds").observe(
+            time.perf_counter() - req.t_submit
+        )
+        obs.counter("engine_requests_total").inc()
+        obs.counter("engine_users_total").inc(n)
+        self._t_last = time.perf_counter()
+        self._served_users += n
+        self._served_requests += 1
+        return out_items, out_scores
+
+    # ------------------------------------------------------------------ #
+    # refresh
+    # ------------------------------------------------------------------ #
+
+    def refresh(self, result) -> "ServingEngine":
+        """Hot-swap the factor buffers from a refit (or a bare index).
+
+        Accepts a ``FitResult`` (anything with ``to_recommend_index``) or
+        a bare index.  The new factors must keep the engine's
+        (m, r) × (n, r) shapes and the new seen table must fit the fixed
+        ``seen_capacity`` — then the swap is one attribute store and the
+        bucket callables keep running untouched.
+
+        On an int8 engine a fresh f32 fit **re-quantizes on the swap**.
+        The layouts never mix: handing a quantized index to an f32 engine
+        raises instead of serving it through the other layout."""
+
+        if hasattr(result, "to_recommend_index"):
+            new = result.to_recommend_index()
+        else:
+            new = result
+        if self.quant is None and isinstance(new, QuantizedRecommendIndex):
+            raise ValueError(
+                "refresh would mix factor layouts: this engine's buckets "
+                "serve the f32 layout, but the swap-in is a "
+                "QuantizedRecommendIndex (int8); serve int8 through "
+                "ServingEngine(quant='int8') — a refresh cannot change "
+                "the layout"
+            )
+        if self.quant == "int8":
+            # f32 fit → fresh codes + scales; already-int8 → unchanged
+            new = quantize_index(new)
+        with self._refresh_lock:
+            old_u, old_w = self._factor_shapes()
+            got_u, got_w = _u_shape(new), _w_shape(new)
+            if got_u != old_u or got_w != old_w:
+                raise ValueError(
+                    f"refresh changes the factor shapes: expected "
+                    f"u{old_u} x w{old_w}"
+                    f"{' (int8 layout)' if self.quant else ''}, got "
+                    f"u{got_u} x w{got_w}; a re-shaped problem needs a "
+                    f"new ServingEngine, not a refresh"
+                )
+            new = new._replace(
+                seen=_pad_seen(new.seen, self.seen_capacity, self.num_items)
+            )
+            obs.gauge("serve_index_bytes",
+                      dtype="int8" if self.quant else "f32").set(
+                          index_nbytes(new))
+            self._bufs = new
+            self._t_last_refresh = time.perf_counter()
+        obs.counter("engine_refreshes_total").inc()
+        obs.gauge("engine_last_refresh_age_seconds").set(0.0)
+        return self
+
+    def _factor_shapes(self):
+        return _u_shape(self._bufs), _w_shape(self._bufs)
+
+    # ------------------------------------------------------------------ #
+    # observability + lifecycle
+    # ------------------------------------------------------------------ #
+
+    def metrics(self) -> dict:
+        """Engine health in one dict, riding the ``repro_torch.obs``
+        registry: queue depth, per-bucket batch latency, end-to-end
+        request latency, queue wait (kept separate from device time),
+        compile/refresh counters, and the QPS window."""
+
+        age = time.perf_counter() - self._t_last_refresh
+        obs.gauge("engine_last_refresh_age_seconds").set(age)
+        window = 0.0
+        if self._t_first is not None and self._t_last is not None:
+            window = self._t_last - self._t_first
+        rate = (1.0 / window) if window > 0 else 0.0
+        return {
+            "queue_depth": self._worker.depth,
+            "latency": obs.histogram("serve_request_seconds").summary(),
+            "queue_wait": obs.histogram("queue_wait_seconds").summary(),
+            "buckets": {
+                b: obs.histogram("serve_batch_seconds",
+                                 bucket=str(b)).summary()
+                for b in self.ladder.sizes
+            },
+            "compiles": obs.counter("serve_compiles_total").value,
+            "refreshes": obs.counter("engine_refreshes_total").value,
+            "last_refresh_age_seconds": age,
+            "requests": self._served_requests,
+            "users": self._served_users,
+            "qps": self._served_requests * rate,
+            "users_per_s": self._served_users * rate,
+            "window_seconds": window,
+        }
+
+    def reset_metrics(self) -> None:
+        """Zero the engine's QPS window (benches: call after warmup).
+        Shared registry metrics reset separately via ``obs.reset()``."""
+
+        self._t_first = self._t_last = None
+        self._served_users = self._served_requests = 0
+
+    def drain(self) -> None:
+        """Block until every already-submitted request has resolved."""
+
+        self._worker.drain()
+
+    def shutdown(self, drain: bool = True) -> None:
+        """Reject new requests, finish (or cancel) the backlog, stop the
+        worker thread.  Idempotent."""
+
+        self._worker.shutdown(drain=drain)
+
+    def __enter__(self) -> "ServingEngine":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.shutdown(drain=True)

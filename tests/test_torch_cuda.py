@@ -12,18 +12,22 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.config import GossipMCConfig  # noqa: E402
-from repro_torch.convert import state_from_numpy  # noqa: E402
+from repro_torch.convert import index_from_numpy, state_from_numpy  # noqa: E402
 from repro_torch.data import lowrank_problem  # noqa: E402
 from repro_torch.kernels.masked_factor_grad import ops as mfg_ops  # noqa: E402
 from repro_torch.kernels.masked_factor_grad.ref import (  # noqa: E402
     masked_factor_grad_ref,
 )
+from repro_torch.kernels.quant import ops as quant_ops  # noqa: E402
+from repro_torch.kernels.quant.ref import fused_score_ref  # noqa: E402
 from repro_torch.kernels.sddmm import ops as sddmm_ops  # noqa: E402
 from repro_torch.kernels.sddmm.ref import sddmm_factor_grad_ref  # noqa: E402
 from repro_torch.kernels.sddmm.segment import (  # noqa: E402
     sddmm_segment_grad_ref,
 )
 from repro_torch.mc import CompletionProblem, FullGD, Trainer  # noqa: E402
+from repro_torch.serve.quant import quantize_index, quantize_rows  # noqa: E402
+from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.sparse.store import from_blocks  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -154,3 +158,89 @@ def test_fit_on_card_matches_cpu(cuda, layout, method):
         ref = b.double()
         torch.testing.assert_close(a.cpu().double(), ref, rtol=1e-4,
                                    atol=1e-5 * float(ref.abs().max()))
+
+
+def _codes(B, n, r, seed, device):
+    rng = np.random.default_rng(seed)
+    u_q = rng.integers(-127, 128, size=(B, r)).astype(np.int8)
+    w_q = rng.integers(-127, 128, size=(n, r)).astype(np.int8)
+    u_s = rng.lognormal(-3.0, 1.0, size=B).astype(np.float32)
+    w_s = rng.lognormal(-3.0, 1.0, size=n).astype(np.float32)
+    return [torch.from_numpy(a).to(device) for a in (u_q, u_s, w_q, w_s)]
+
+
+# ragged batch and catalog (neither a multiple of the 32 x 128 tile), ranks
+# below, at and across the 4-byte word and the 32-byte rank chunk
+@pytest.mark.parametrize("r", [1, 4, 15, 33, 128, 300])
+def test_dequant_score_kernel_equals_plain_bitwise(cuda, r):
+    for B, n in ((1, 1), (45, 333), (16, 3706)):
+        args = _codes(B, n, r, seed=r, device=cuda)
+        n0 = quant_ops.dequant_score.launches
+        got = quant_ops.dequant_score(*args, method="fused")
+        assert quant_ops.dequant_score.launches == n0 + 1
+        torch.cuda.synchronize()
+        assert got.shape == (B, n) and got.dtype == torch.float32
+        assert torch.equal(got, fused_score_ref(*args))
+        assert torch.equal(got.cpu(), fused_score_ref(*(a.cpu() for a in args)))
+
+
+def test_dequant_score_kernel_at_the_top_bucket(cuda):
+    args = _codes(1024, 3706, 15, seed=0, device=cuda)
+    got = quant_ops.dequant_score(*args)             # None -> fused on cuda
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_score_ref(*args))
+
+
+def test_dequant_score_kernel_rejects_bad_inputs(cuda):
+    u_q, u_s, w_q, w_s = _codes(8, 40, 6, seed=1, device=cuda)
+    n0 = quant_ops.dequant_score.launches
+    with pytest.raises(ValueError, match="u_q"):
+        quant_ops.dequant_score(u_q.float(), u_s, w_q, w_s, method="fused")
+    with pytest.raises(ValueError, match="w_scale"):
+        quant_ops.dequant_score(u_q, u_s, w_q, w_s.double(), method="fused")
+    with pytest.raises(ValueError, match="one device"):
+        quant_ops.dequant_score(u_q.cpu(), u_s, w_q, w_s, method="fused")
+    wide = torch.zeros((40, 12), dtype=torch.int8, device=cuda)
+    wide[:, :6] = w_q
+    with pytest.raises(ValueError, match="contiguous"):
+        quant_ops.dequant_score(u_q, u_s, wide[:, :6], w_s, method="fused")
+    assert quant_ops.dequant_score.launches == n0
+
+
+def test_quantize_rows_on_card_equals_cpu(cuda):
+    # the CPU codes and scales equal the JAX package's (test_torch_quant.py);
+    # the card must give the same bits
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=(6040, 15)) * rng.lognormal(size=(6040, 1))
+         ).astype(np.float32)
+    x[::7] = 0.0
+    q_cpu, s_cpu = quantize_rows(torch.from_numpy(x))
+    q_card, s_card = quantize_rows(torch.from_numpy(x).to(cuda))
+    assert torch.equal(s_card.cpu(), s_cpu)
+    assert torch.equal(q_card.cpu(), q_cpu)
+
+
+def test_int8_engine_on_card_matches_cpu(cuda):
+    rng = np.random.default_rng(0)
+    m, n, r, k = 300, 1000, 15, 10
+    u = rng.normal(size=(m, r)).astype(np.float32)
+    w = rng.normal(size=(n, r)).astype(np.float32)
+    seen = np.full((m, 16), n, np.int32)
+    seen[:, :5] = rng.integers(0, n, size=(m, 5))
+    requests = [rng.integers(0, m, size).astype(np.int32)
+                for size in (1, 16, 17, 64, 100, 300)]
+    out = {}
+    for dev in ("cpu", cuda):
+        index = quantize_index(index_from_numpy(u, w, seen, dev))
+        n0 = quant_ops.dequant_score.launches
+        with ServingEngine(index, buckets=(16, 64), k=k,
+                           quant_method="fused") as eng:
+            out[str(dev)] = [eng.submit(x).result(timeout=60)
+                             for x in requests]
+        launched = quant_ops.dequant_score.launches - n0
+        # startup: one run per bucket; then one per chunk (1+1+1+1+2+5)
+        assert launched == (2 + 11 if dev == cuda else 0)
+    for (ci, cs), (gi, gs) in zip(out["cpu"], out[str(cuda)]):
+        np.testing.assert_array_equal(gs, cs)
+        tie_free = (np.diff(cs, axis=1) != 0).all(axis=1)
+        np.testing.assert_array_equal(gi[tie_free], ci[tie_free])

@@ -27,6 +27,9 @@ def _modules():
 def test_port_imports_no_jax_and_no_reference():
     mods = list(_modules())
     assert "repro_torch.kernels.sddmm.ops" in mods and len(mods) > 25
+    assert {"repro_torch.kernels.quant.ops", "repro_torch.serve.quant",
+            "repro_torch.serving.engine", "repro_torch.serving.queue"} <= set(
+                mods)
     code = (
         "import sys\n"
         f"for m in {mods!r}: __import__(m)\n"
@@ -77,6 +80,7 @@ def test_default_device_raises_without_cuda():
 
 def test_cpu_tensors_run_plain_versions_without_launching():
     from repro_torch.kernels.masked_factor_grad import ops as mfg
+    from repro_torch.kernels.quant import ops as quant
     from repro_torch.kernels.sddmm import ops as sddmm
     from repro_torch.sparse.store import from_blocks
 
@@ -86,13 +90,20 @@ def test_cpu_tensors_run_plain_versions_without_launching():
     sp = from_blocks(x, mask, bucket=8, device="cpu")
     u = torch.randn(1, 2, 6, 3)
     w = torch.randn(1, 2, 5, 3)
-    before = (sddmm.sddmm_segment_grad.launches,
-              sddmm.sddmm_factor_grad.launches, mfg.masked_factor_grad.launches)
+    codes = torch.ones((4, 3), dtype=torch.int8)
+    scales = torch.ones(4)
+
+    def launches():
+        return (sddmm.sddmm_segment_grad.launches,
+                sddmm.sddmm_factor_grad.launches,
+                mfg.masked_factor_grad.launches, quant.dequant_score.launches)
+
+    before = launches()
     sddmm.sddmm_segment_grad(sp.entries, u, w)
     sddmm.sddmm_factor_grad(sp.entries, u, w)
     mfg.masked_factor_grad(torch.from_numpy(x), torch.from_numpy(mask), u, w)
-    assert (sddmm.sddmm_segment_grad.launches,
-            sddmm.sddmm_factor_grad.launches,
-            mfg.masked_factor_grad.launches) == before
+    for method in ("fused", "dequant", None):
+        quant.dequant_score(codes, scales, codes, scales, method=method)
+    assert launches() == before
     with pytest.raises(ValueError, match="one device"):
         sddmm.sddmm_factor_grad(sp.entries, u.to("meta"), w)
