@@ -36,11 +36,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``serve_compiles_total`` stays 4, every answer equals ``recommend_topk``
    on the same index, overlap@100 of int8 against f32 >= 0.95.  Prints
    per-bucket latency for both layouts and the index bytes.
+6. ``[lm]``: gemma2-2b serving at full width and depth (26 layers, d_model
+   2304, f32 parameters from a seeded generator, bf16 KV cache).  First
+   the flash kernel against its plain version at the path's shapes (q
+   (4, 8, 8000, 256), k/v (4, 4, 8000, 256)): one global call (causal,
+   softcap 50), one local call (window 4096), both at rtol 2e-4 / atol
+   2e-5, and a bf16 call at max abs error 5e-2, with times, bound and an
+   SDPA yardstick (no softcap, explicit mask).  Then a warm-up
+   ``generate`` (batch 1, 256 tokens, 2 new), then ``build_model`` ->
+   ``init`` -> ``ServeLoop(max_len=8192).generate`` of 32 greedy tokens
+   after 4 prompts of 8000 tokens (numpy seed 13).  Checks: 26 flash
+   launches (one per attention sublayer of the prefill, none in decode),
+   finite logits, output (4, 32); then the same prefill through the plain
+   attention (``Ctx(attn_impl="ref")``) agrees within 1e-3 x max|logit|
+   and gives the same first token wherever the top-2 margin exceeds that.
+   Prints prefill and decode times, tokens/s and peak device memory.
 
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
 (``benchmarks/table3_rmse.py --full``): the 6040x3706 ``movielens_proxy``
 with 1M ratings (800k for training), a 5x5 grid, rank 15, mean-centred,
 rho=1e3, lam=1e-6, a=2e-4, b=5e-7; random initial factors from seed 0.
+
+The LM cell is gemma2-2b (``repro_torch/configs/gemma2_2b.py``) as
+``examples/serve_lm.py`` serves it, at its published widths and depth;
+8000-token prompts leave room for the 32 new tokens in Gemma 2's context
+of 8192, exceed the local window and fit no tile exactly.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` summary, and the line before that the card's
@@ -62,10 +82,14 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.config import GossipMCConfig  # noqa: E402
+from repro_torch.config import GossipMCConfig, get_model_config  # noqa: E402
 from repro_torch.core.state import init_state  # noqa: E402
 from repro_torch.data import movielens_proxy  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    attention_ref,
+)
 from repro_torch.kernels.masked_factor_grad import ops as mfg_ops  # noqa: E402
 from repro_torch.kernels.masked_factor_grad.ref import (  # noqa: E402
     masked_factor_grad_ref,
@@ -88,6 +112,8 @@ from repro_torch.mc import (  # noqa: E402
     Wave,
 )
 from repro_torch import obs  # noqa: E402
+from repro_torch.launch.lm_engine import ServeLoop  # noqa: E402
+from repro_torch.models import Ctx, build_model  # noqa: E402
 from repro_torch.serve.quant import index_nbytes, quantize_index  # noqa: E402
 from repro_torch.serve.recommend import recommend_topk  # noqa: E402
 from repro_torch.serving import (  # noqa: E402
@@ -108,6 +134,7 @@ WRAPPERS = {
     "sddmm_factor_grad": sddmm_ops.sddmm_factor_grad,
     "masked_factor_grad": mfg_ops.masked_factor_grad,
     "dequant_score": quant_ops.dequant_score,
+    "flash_attention": flash_ops.flash_attention,
 }
 META = {
     "sddmm_segment_grad": ("src/repro_torch/kernels/csrc/sddmm.cu",
@@ -119,6 +146,8 @@ META = {
         "src/repro/kernels/masked_factor_grad/kernel.py:75"),
     "dequant_score": ("src/repro_torch/kernels/csrc/dequant_score.cu",
                       "src/repro/kernels/quant/kernel.py:48"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention/kernel.py:106"),
 }
 # (HBM bytes/s, f32 non-tensor flop/s, int8 tensor-core op/s): NVIDIA data
 # sheets, dense rates
@@ -126,6 +155,11 @@ PEAKS = {"PCIe": (2.0e12, 51e12, 1513e12), "NVL": (3.9e12, 60e12, 1671e12),
          "H100": (3.35e12, 67e12, 1979e12)}
 TOP_BUCKET = DEFAULT_BUCKETS[-1]
 OVERLAP_MIN = 0.95  # overlap@100 of int8 against f32 top-k on the fit
+LM_ARCH = "gemma2-2b"
+LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 4, 8000, 32, 8192
+# the JAX package's own tolerances (tests/test_kernel_flash_attention.py)
+FLASH_RTOL, FLASH_ATOL, FLASH_BF16_ABS = 2e-4, 2e-5, 5e-2
+LOGIT_TOL = 1e-3    # kernel vs plain model: |diff| <= LOGIT_TOL * max|logit|
 
 
 def fail(msg: str) -> None:
@@ -197,6 +231,42 @@ def eager_ms(fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
+def _kernel_ms(prof, calls: int) -> dict[str, float]:
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0.0)
+        if us > 0:
+            # "void (anonymous namespace)::segment_kernel<16>(int const*, ..."
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0].strip() or "other"
+            out[name] = out.get(name, 0.0) + us / calls / 1e3
+    return out
+
+
+def profiled(fn):
+    """One ``fn()`` under ``torch.profiler`` (CUPTI): its result, the host
+    seconds it took (ended by a synchronize) and the device ms of each CUDA
+    kernel it launched."""
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    return out, seconds, _kernel_ms(prof, 1)
+
+
+def top(breakdown: dict[str, float], n: int = 8) -> str:
+    total = sum(breakdown.values())
+    rows = sorted(breakdown.items(), key=lambda kv: -kv[1])[:n]
+    return f"total {total:.3f} ms; " + "; ".join(
+        f"{name[:60]} {ms:.3f} ms ({100 * ms / total:.1f}%)"
+        for name, ms in rows)
+
+
 def device_breakdown(fn, calls: int = 5) -> dict[str, float]:
     """Device ms per call of each CUDA kernel ``fn`` launches, from
     ``torch.profiler`` (CUPTI) over ``calls`` calls."""
@@ -209,15 +279,7 @@ def device_breakdown(fn, calls: int = 5) -> dict[str, float]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "device_time_total", 0.0)
-        if us > 0:
-            # "void (anonymous namespace)::segment_kernel<16>(int const*, ..."
-            name = ev.key.replace("(anonymous namespace)::", "")
-            name = name.removeprefix("void ").split("(")[0].strip() or "other"
-            out[name] = out.get(name, 0.0) + us / calls / 1e3
-    return out
+    return _kernel_ms(prof, calls)
 
 
 def compare(got, want) -> tuple[float, float]:
@@ -545,6 +607,221 @@ def serve_phase(fit_a, fit_b):
     return got["dequant_score"]
 
 
+def live_pairs(L: int, window: int) -> int:
+    """Unmasked (q, k) pairs of one causal head of length L."""
+
+    i = np.arange(L, dtype=np.int64)
+    lo = np.maximum(0, i - window + 1) if window else np.zeros_like(i)
+    return int((i - lo + 1).sum())
+
+
+def flash_row(card):
+    """The flash kernel against its plain version at the [lm] path's
+    shapes: the global and the local layer of gemma2-2b's prefill in f32,
+    then one bf16 call; times, bound and the SDPA yardstick."""
+
+    bw, flops, _ = peaks(card)
+    B, Hq, Hkv, L, D = LM_BATCH, 8, 4, LM_PROMPT, 256
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v = (torch.randn(shape, generator=g, device="cuda")
+               for shape in ((B, Hq, L, D), (B, Hkv, L, D), (B, Hkv, L, D)))
+    nbytes = 4 * (2 * q.numel() + 2 * k.numel())   # q, k, v in; o out
+    layers = {}
+    for label, window in (("global", 0), ("local", 4096)):
+        kw = dict(causal=True, softcap=50.0, window=window)
+        kern = lambda: flash_ops.flash_attention(q, k, v, **kw)  # noqa: E731
+        plain = lambda: attention_ref(q, k, v, **kw)             # noqa: E731
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        abs_err = float(err.max())
+        ok = bool((err <= FLASH_ATOL + FLASH_RTOL * want.abs()).all())
+        del got, want, err
+        ops = 4 * D * live_pairs(L, window) * B * Hq
+        t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
+        layers[label] = {
+            "ms": eager_ms(kern, reps=7), "plain_ms": eager_ms(plain, reps=5),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "operations": ops, "bytes": nbytes, "max_abs_err": abs_err}
+        print(f"[lm] flash {label}: {json.dumps(layers[label])}", flush=True)
+        if not ok:
+            fail(f"flash_attention {label} layer disagrees with its plain "
+                 f"version beyond rtol {FLASH_RTOL} / atol {FLASH_ATOL} "
+                 f"(max abs error {abs_err:.3e})")
+
+    # yardstick only, never called by the port: SDPA in f32 on the local
+    # layer's inputs with an explicit causal-and-window mask and no softcap
+    # (no single PyTorch call computes the softcapped function); K/V are
+    # repeated to Hq heads beforehand
+    pos = torch.arange(L, device="cuda")
+    mask = (pos[:, None] >= pos[None, :]) & (pos[:, None] - pos[None, :]
+                                             < 4096)
+    kr, vr = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (k, v))
+    library_ms = eager_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, kr, vr, attn_mask=mask), reps=5)
+    del kr, vr, mask
+
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    got = flash_ops.flash_attention(qb, kb, vb, causal=True, softcap=50.0)
+    want = attention_ref(qb, kb, vb, causal=True, softcap=50.0)
+    torch.cuda.synchronize()
+    bf16_err = float((got.float() - want.float()).abs().max())
+    del got, want, qb, kb, vb, q, k, v
+    torch.cuda.empty_cache()
+    print(f"[lm] flash bf16 global: max abs error {bf16_err:.3e} "
+          f"(limit {FLASH_BF16_ABS})", flush=True)
+    if not bf16_err < FLASH_BF16_ABS:
+        fail(f"flash_attention bf16 max abs error {bf16_err:.3e} >= "
+             f"{FLASH_BF16_ABS}")
+
+    local = layers["local"]
+    row = {
+        "name": "flash_attention", "route": "cuda",
+        "source": META["flash_attention"][0],
+        "replaces": META["flash_attention"][1], "launches": 0,
+        "max_abs_err": max(x["max_abs_err"] for x in layers.values()),
+        "tolerance": {"rtol": FLASH_RTOL, "atol": FLASH_ATOL},
+        "ms": local["ms"], "plain_ms": local["plain_ms"],
+        "bound_ms": local["bound_ms"], "bound_by": local["bound_by"],
+        "operations": local["operations"], "bytes": local["bytes"],
+        "timing": "eager: median of single calls between CUDA events",
+        "row_layer": "local (window 4096); global below",
+        "library_ms": library_ms,
+        "library_call": "scaled_dot_product_attention f32, explicit causal "
+                        "+ window bool mask, no softcap, K/V repeated to Hq",
+        "global": layers["global"], "bf16_max_abs_err": bf16_err,
+        "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "L": L, "D": D},
+    }
+    print(json.dumps(row), flush=True)
+    return row
+
+
+def timed(fn, log):
+    """``fn`` with each call's seconds (host clock, ended by a
+    synchronize) and logits recorded in ``log``."""
+
+    def call(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = fn(*args)
+        torch.cuda.synchronize()
+        log.append((time.perf_counter() - t0, logits))
+        return logits, cache
+
+    return call
+
+
+def lm_phase(card):
+    """gemma2-2b serving on the card: ``ServeLoop.generate`` through the
+    flash kernel, then the same prefill through the plain attention."""
+
+    row = flash_row(card)
+    cfg = get_model_config(LM_ARCH)
+    t0 = time.perf_counter()
+    model = build_model(cfg, Ctx(attn_impl="kernel"))
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    print(f"[lm] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {n_params} parameters in {cfg.param_dtype}, init "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    prompts = np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+
+    ServeLoop(model, params, 1, LM_MAX_LEN).generate(
+        {"tokens": prompts[:1, :256]}, 2)                # warm-up
+    torch.cuda.synchronize()
+
+    pre, dec = [], []
+    spy = model._replace(prefill=timed(model.prefill, pre),
+                         decode=timed(model.decode, dec))
+    loop = ServeLoop(spy, params, LM_BATCH, LM_MAX_LEN)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = loop.generate({"tokens": prompts}, LM_NEW)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    if got["flash_attention"] != cfg.num_layers:
+        fail(f"[lm] flash_attention launched {got['flash_attention']} "
+             f"times, expected {cfg.num_layers} (one per prefill sublayer)")
+    if tuple(out.shape) != (LM_BATCH, LM_NEW):
+        fail(f"[lm] generate gave shape {tuple(out.shape)}")
+    if not all(bool(torch.isfinite(lg).all()) for _, lg in pre + dec):
+        fail("[lm] non-finite logits")
+    t_pre = pre[0][0]
+    t_dec = sum(s for s, _ in dec)
+    print(f"[lm] generate: prefill {t_pre:.3f}s "
+          f"({LM_BATCH * LM_PROMPT / t_pre:.0f} prompt tokens/s), decode "
+          f"{1e3 * t_dec / len(dec):.3f} ms/step over {len(dec)} steps "
+          f"({LM_BATCH * len(dec) / t_dec:.1f} generated tokens/s), total "
+          f"{total:.3f}s ({LM_BATCH * LM_NEW / total:.1f} tokens/s); "
+          f"launches {got}; peak device memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    print(f"[lm] first row: {out[0].tolist()}", flush=True)
+
+    # where the device time of one prefill and one decode step goes
+    batch = {"tokens": prompts}
+    with torch.inference_mode():
+        (_, cache), s_pre, bd_pre = profiled(
+            lambda: model.prefill(params, batch, LM_MAX_LEN))
+        tok = torch.zeros(LM_BATCH, dtype=torch.int32, device="cuda")
+        _, s_dec, bd_dec = profiled(
+            lambda: model.decode(params, cache, tok, LM_PROMPT))
+    del cache
+    for label, secs, bd in (("prefill", s_pre, bd_pre),
+                            ("decode step", s_dec, bd_dec)):
+        busy = sum(bd.values()) / (1e3 * secs)
+        print(f"[lm] {label} under the profiler: wall {1e3 * secs:.3f} ms, "
+              f"device busy {100 * busy:.1f}%; by kernel: {top(bd)}",
+              flush=True)
+
+    lk = pre[0][1].float()
+    ref = build_model(cfg, Ctx(attn_impl="ref"))
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lr, _ = ref.prefill(params, {"tokens": prompts}, LM_MAX_LEN)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    if counts()["flash_attention"] != 0:
+        fail("[lm] the plain model launched the flash kernel")
+    lr = lr.float()
+    bound = LOGIT_TOL * float(lr.abs().max())
+    diff = float((lk - lr).abs().max())
+    top2 = lr.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > bound
+    same = bool(torch.equal(lk.argmax(-1)[sure], lr.argmax(-1)[sure]))
+    print(f"[lm] kernel vs plain model prefill ({t_ref:.3f}s): last-position "
+          f"logits max diff {diff:.3e}, bound {bound:.3e} (1e-3 x max|logit| "
+          f"{float(lr.abs().max()):.4f}); first token equal on "
+          f"{int(sure.sum())} of {LM_BATCH} rows with margin > bound: {same}",
+          flush=True)
+    if not diff <= bound:
+        fail(f"[lm] kernel model logits differ from the plain model's by "
+             f"{diff:.3e} > {bound:.3e}")
+    if not same:
+        fail("[lm] first greedy token differs on a row with a clear margin")
+    row["launches"] = got["flash_attention"]
+    row["lm"] = {"prefill_s": t_pre, "decode_ms_per_step":
+                 1e3 * t_dec / len(dec), "plain_prefill_s": t_ref,
+                 "peak_gib": peak / 2**30, "logit_max_diff": diff}
+    del params, lr, lk
+    return row
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an "
@@ -659,6 +936,9 @@ def main() -> None:
 
     for row in rows:
         row["launches"] = total[row["name"]]
+
+    # 6. gemma2-2b serving through the flash kernel
+    rows.append(lm_phase(card))
     print(f"[main] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     print(smi)

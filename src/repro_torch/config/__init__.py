@@ -1,10 +1,20 @@
-"""The paper's workload configuration (a copy of
-``repro.config.GossipMCConfig``; the LM configs are not part of the port
-yet)."""
+"""Configurations: the paper's workload (a copy of
+``repro.config.GossipMCConfig``) and the LM harness's ``ModelConfig``,
+``ShapeConfig``/``SHAPES`` and the ``--arch`` registry (copies of
+``repro.config``).
+
+Only the dense family is ported so far: ``get_model_config`` and
+``get_smoke_config`` load ``repro_torch.configs.<arch>`` for the four dense
+archs and raise ``NotImplementedError`` for the others.  The analytic
+``ModelConfig.param_count``/``active_param_count`` of the JAX package (an
+``eval_shape`` of its init) are not ported.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+import importlib
+from typing import Any, Optional, Sequence
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,3 +68,108 @@ class GossipMCConfig:
                 f"unknown mode {self.mode!r}; expected 'sequential', 'wave', "
                 "'full' or 'gossip'"
             )
+
+
+# ---------------------------------------------------------------------------
+# LM harness (copies of repro.config; see the module docstring)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                        # dense | moe | ssm | hybrid | encdec | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                  # 0 -> d_model // num_heads
+    # attention variants
+    qkv_bias: bool = False             # qwen1.5
+    logit_softcap: float = 0.0         # gemma2 final-logit softcap
+    attn_softcap: float = 0.0          # gemma2 attention-logit softcap
+    sliding_window: int = 0            # gemma2 local layers
+    local_global_pattern: int = 0      # every k-th layer is global (gemma2: 2)
+    rope_theta: float = 10000.0
+    # norm / mlp
+    mlp_act: str = "silu"              # silu (SwiGLU) | gelu; not read: every
+                                       # dense MLP is SwiGLU, as in repro
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = False
+    # sub-configs of families the port does not run yet
+    moe: Optional[Any] = None
+    mla: Optional[Any] = None
+    ssm: Optional[Any] = None
+    shared_attn_every: int = 0
+    encoder_layers: int = 0
+    encoder_seq_len: int = 1500
+    num_patch_tokens: int = 0
+    # numerics: compute runs in param_dtype; dtype is not read (as in repro)
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    supports_long_context: bool = False
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                          # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+ARCHS: Sequence[str] = (
+    "internlm2-20b",
+    "granite-34b",
+    "gemma2-2b",
+    "qwen1.5-32b",
+    "mamba2-780m",
+    "internvl2-76b",
+    "zamba2-2.7b",
+    "whisper-large-v3",
+    "granite-moe-3b-a800m",
+    "deepseek-v2-lite-16b",
+)
+# archs whose family (dense) the port runs; the others wait for their
+# families (ROADMAP queue 1, item 6)
+PORTED_ARCHS: Sequence[str] = (
+    "internlm2-20b", "granite-34b", "gemma2-2b", "qwen1.5-32b")
+
+
+def _module(arch: str):
+    if arch not in ARCHS:
+        raise ValueError(f"unknown arch {arch!r}; expected one of {ARCHS}")
+    if arch not in PORTED_ARCHS:
+        raise NotImplementedError(
+            f"{arch}: its model family is not ported to repro_torch yet "
+            f"(ROADMAP.md queue 1, item 6); ported: {PORTED_ARCHS}")
+    return importlib.import_module(
+        "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
+
+
+def get_model_config(arch: str, **overrides: Any) -> ModelConfig:
+    """Load ``repro_torch/configs/<arch>.py`` and return its CONFIG."""
+
+    cfg: ModelConfig = _module(arch).CONFIG
+    if overrides:
+        cfg = dataclasses.replace(cfg, **overrides)
+    return cfg
+
+
+def get_smoke_config(arch: str) -> ModelConfig:
+    """Reduced same-family config for CPU smoke tests."""
+
+    return _module(arch).smoke_config()

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.state import Problem, State
+from repro_torch.models.attention import KVCache
 from repro_torch.serve.quant import QuantizedRecommendIndex
 from repro_torch.serve.recommend import RecommendIndex
 from repro_torch.sparse.entries import BlockEntries
@@ -74,3 +75,33 @@ def quantized_index_from_numpy(u_q, u_scale, w_q, w_scale, seen,
         _tensor(u_q, np.int8, device), _tensor(u_scale, np.float32, device),
         _tensor(w_q, np.int8, device), _tensor(w_scale, np.float32, device),
         _tensor(seen, np.int32, device))
+
+
+def _leaf(a, device) -> torch.Tensor:
+    """A tensor from a numpy array of any dtype, bfloat16 included (numpy
+    has no bfloat16 of its own: its bits go through uint16)."""
+
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def lm_params_from_numpy(tree, device) -> dict:
+    """The port's LM parameters from the JAX parameter tree as nested dicts
+    of numpy arrays, field for field (same names, same stacked layout)."""
+
+    if isinstance(tree, dict):
+        return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
+    return _leaf(tree, device)
+
+
+def kv_cache_from_numpy(tree, device) -> dict:
+    """The port's LM cache from the JAX cache tree (nested dicts whose
+    leaves are ``KVCache``-like (k, v) pairs of numpy arrays)."""
+
+    if isinstance(tree, dict):
+        return {k: kv_cache_from_numpy(v, device) for k, v in tree.items()}
+    k, v = tree
+    return KVCache(_leaf(k, device), _leaf(v, device))

@@ -11,7 +11,8 @@ kernel is rebuilt and a current one is reused.  Building happens at first
 use, never at import (the CPU tests import every module); :func:`build`
 starts one ``nvcc`` per missing library, all at once, and waits for them.
 The libraries are loaded with ``ctypes``: every pointer and the stream are
-``c_void_p``, sizes are ``c_int``, and every launch entry returns
+``c_void_p``, sizes are ``c_int``, floats ``c_float``, and every launch
+entry returns
 ``cudaGetLastError()``, which :func:`check` turns into an exception.
 """
 
@@ -30,7 +31,7 @@ _OUT = Path(__file__).resolve().parent / "_build"
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # name -> {C entry: (argtypes, restype)}
 SIGNATURES = {
     "sddmm": {
@@ -49,6 +50,12 @@ SIGNATURES = {
     "dequant_score": {
         # Q_u s_u Q_w s_w | out | B n r | stream
         "dequant_score": ((_P,) * 5 + (_I,) * 3 + (_P,), _I),
+    },
+    "flash_attention": {
+        # q k v | o | B Hq Hkv Lq Lk D Dv causal window | softcap | q_offset
+        # dtype aligned | stream
+        "flash_attention": ((_P,) * 4 + (_I,) * 9 + (_F,) + (_I,) * 3
+                            + (_P,), _I),
     },
 }
 

@@ -1,0 +1,60 @@
+"""Model API of the port (``repro.models.api`` for the dense family):
+``build_model(cfg, ctx, device) -> Model``.
+
+A ``Model`` packages init / prefill / decode / init_cache behind one
+signature, as in the JAX package; batches are dicts ``{"tokens": (B, L)
+int}``.  ``loss`` (training) and the MoE, SSM, hybrid, enc-dec and VLM
+families are not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.core.state import resolve_device
+from repro_torch.models import transformer as T
+
+Ctx = T.Ctx
+
+
+class Model(NamedTuple):
+    cfg: ModelConfig
+    ctx: T.Ctx
+    device: torch.device
+    init: Callable[..., Any]          # (generator) -> params
+    prefill: Callable[..., Any]       # (params, batch, max_len) -> (logits, cache)
+    decode: Callable[..., Any]        # (params, cache, token, pos) -> (logits, cache)
+    init_cache: Callable[..., Any]    # (batch, max_len) -> cache
+
+
+def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
+                device="cuda") -> Model:
+    """The dense LM on ``device`` (the card unless ``device="cpu"``).
+
+    ``init`` takes a ``torch.Generator`` on that device; its draws cannot
+    match JAX's threefry, only the distributions do.  Tokens given to
+    ``prefill``/``decode`` are moved to the device.
+    """
+
+    ctx = ctx or T.Ctx()
+    device = resolve_device(device)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
+            "yet (ROADMAP.md queue 1, item 6)")
+
+    def tokens(x):
+        return torch.as_tensor(x, device=device).long()
+
+    return Model(
+        cfg, ctx, device,
+        init=lambda gen: T.init_lm(gen, cfg, ctx, device),
+        prefill=lambda p, b, ml: T.lm_prefill(p, tokens(b["tokens"]), ml,
+                                              cfg, ctx),
+        decode=lambda p, c, tok, pos: T.lm_decode_step(
+            p, c, tokens(tok), int(pos), cfg, ctx),
+        init_cache=lambda bs, ml: T.lm_init_cache(cfg, ctx, bs, ml, device),
+    )

@@ -1,0 +1,105 @@
+"""Shared primitive layers of the dense LM (port of ``repro.models.layers``).
+
+Params are nested dicts of tensors; every layer is ``apply(params, x,
+...)``.  Initializers take an explicit ``torch.Generator``, a dtype, a
+device and a ``lead`` shape: ``lead=(n,)`` draws ``n`` stacked copies at
+once, the layout of the JAX package's scanned unit params.  The values
+cannot match JAX's threefry draws; the distributions do.
+
+``mlp_gelu``, ``layer_norm``, ``embed_onehot`` and ``cross_entropy`` serve
+other families, sharding or training and are not ported yet.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _normal(gen, shape, std, dtype, device, lead=()):
+    x = torch.randn(tuple(lead) + tuple(shape), generator=gen,
+                    dtype=torch.float32, device=device)
+    return x.mul_(std).to(dtype)
+
+
+def rms_norm(x, w, eps: float = 1e-6):
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * (1.0 + w.float())).to(x.dtype)
+
+
+def linear(x, w, b=None):
+    y = x @ w
+    if b is not None:
+        y = y + b
+    return y
+
+
+def softcap(x, cap: float):
+    return cap * torch.tanh(x / cap) if cap else x
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings (GPT-NeoX half-rotation convention)
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None):
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """x: (B, H, L, D); positions: (L,) or (B, L)."""
+
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                 # (D/2,)
+    angles = positions[..., None].float() * freqs          # (..., L, D/2)
+    if angles.ndim == 2:                                   # (L, D/2)
+        angles = angles[None, None]
+    else:                                                  # (B, L, D/2)
+        angles = angles[:, None]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+
+def mlp_swiglu(params, x):
+    g = F.silu(x @ params["wi_gate"])
+    return (g * (x @ params["wi_up"])) @ params["wo"]
+
+
+def init_mlp_swiglu(gen, d_model: int, d_ff: int, dtype, device,
+                    lead=()) -> dict:
+    s_in, s_ff = d_model ** -0.5, d_ff ** -0.5
+    return {
+        "wi_gate": _normal(gen, (d_model, d_ff), s_in, dtype, device, lead),
+        "wi_up": _normal(gen, (d_model, d_ff), s_in, dtype, device, lead),
+        "wo": _normal(gen, (d_ff, d_model), s_ff, dtype, device, lead),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+
+
+def init_embedding(gen, vocab: int, d_model: int, dtype, device):
+    return _normal(gen, (vocab, d_model), d_model ** -0.5, dtype, device)
+
+
+def embed(emb, tokens):
+    return emb[tokens]
+
+
+def unembed(x, emb_or_head, tied: bool, cap: float = 0.0):
+    logits = x @ (emb_or_head.T if tied else emb_or_head)
+    return softcap(logits, cap)

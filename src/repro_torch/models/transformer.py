@@ -1,0 +1,240 @@
+"""Decoder-only LM of the dense family (port of ``repro.models.transformer``).
+
+A model is ``embed -> n_scan x unit -> final_norm -> unembed``.  A *unit*
+is a tuple of sublayers (gemma2's local/global alternation is a
+2-sublayer unit repeated 13 times).  As in the JAX package the unit params
+are stacked with a leading (n_scan,) axis under ``units.s{i}.*``, so a JAX
+parameter tree carries over leaf for leaf; JAX's ``lax.scan`` over that
+axis becomes a Python loop, and its sharding constraints (``wsc``) are
+dropped.  The KV cache is stacked the same way and filled in place.
+
+Only what the dense family runs is ported: attention mixers and SwiGLU
+MLPs.  ``init_sublayer`` builds SwiGLU for every dense config, gemma2's
+included, exactly as the reference does (its ``mlp_act`` is not read).
+MoE, MLA and SSM sublayers, training (``lm_loss``) and the mesh fields of
+``Ctx`` (EP, remat, dp, one-hot embedding) wait for later slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.config import ModelConfig
+from repro_torch.models import attention as A
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True)
+class SubLayer:
+    mixer: str = "attn"        # attn (mla | ssm | none: not ported)
+    ffn: str = "dense"         # dense (moe | none: not ported)
+    window: int = 0            # sliding window (0 = global)
+    post_norm: bool = False    # gemma2 sandwich norms
+
+
+@dataclasses.dataclass(frozen=True)
+class Ctx:
+    """Build-time execution context: the attention implementation of the
+    prefill (``"kernel"``: the flash kernel; ``"ref"``: the plain
+    reference) and the KV cache's dtype."""
+
+    attn_impl: str = "ref"
+    cache_dtype: torch.dtype = torch.bfloat16
+
+    def __post_init__(self) -> None:
+        if self.attn_impl not in A.ATTN_IMPLS:
+            raise ValueError(
+                f"attn_impl {self.attn_impl!r} is not ported; expected one "
+                f"of {A.ATTN_IMPLS} (the JAX package's 'flashref' XLA scan "
+                "serves HLO cost probes and has no twin here)")
+
+
+def unit_spec(cfg: ModelConfig) -> tuple[tuple[SubLayer, ...], int]:
+    """(unit sublayers, n_scan) of a dense model; the dense family has no
+    head sublayers."""
+
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
+            "yet (ROADMAP.md queue 1, item 6)")
+    if cfg.local_global_pattern:
+        k = cfg.local_global_pattern
+        unit = tuple(
+            SubLayer(window=cfg.sliding_window if (i % k) != k - 1 else 0,
+                     post_norm=True)
+            for i in range(k))
+        return unit, cfg.num_layers // k
+    return (SubLayer(),), cfg.num_layers
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.param_dtype)
+
+
+def _index(tree, i):
+    """Leaf ``[i]`` of every tensor in a nested dict / KVCache."""
+
+    if isinstance(tree, dict):
+        return {key: _index(val, i) for key, val in tree.items()}
+    if isinstance(tree, A.KVCache):
+        return A.KVCache(tree.k[i], tree.v[i])
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# Sublayer init / apply
+# ---------------------------------------------------------------------------
+
+
+def init_sublayer(gen, cfg: ModelConfig, sl: SubLayer, device,
+                  lead=()) -> dict:
+    if sl.mixer != "attn" or sl.ffn != "dense":
+        raise NotImplementedError(f"sublayer {sl} is not ported yet")
+    dtype = _dtype(cfg)
+
+    def norm():
+        return torch.zeros(tuple(lead) + (cfg.d_model,), dtype=dtype,
+                           device=device)
+
+    p: dict = {"norm1": norm()}
+    p["attn"] = A.init_attention(
+        gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+        cfg.resolved_head_dim, cfg.qkv_bias, dtype, device, lead)
+    p["norm2"] = norm()
+    p["mlp"] = L.init_mlp_swiglu(gen, cfg.d_model, cfg.d_ff, dtype, device,
+                                 lead)
+    if sl.post_norm:
+        p["post_norm1"] = norm()
+        p["post_norm2"] = norm()
+    return p
+
+
+def _ffn(p, x, cfg: ModelConfig, sl: SubLayer):
+    h = L.mlp_swiglu(p["mlp"], L.rms_norm(x, p["norm2"], cfg.norm_eps))
+    if sl.post_norm:
+        h = L.rms_norm(h, p["post_norm2"], cfg.norm_eps)
+    return x + h
+
+
+def apply_sublayer_prefill(p, x, max_len, cfg: ModelConfig, sl: SubLayer,
+                           ctx: Ctx, cache=None):
+    """Causal forward + cache for decode continuation; returns (x, cache)."""
+
+    h, cache = A.attention_prefill(
+        p["attn"], L.rms_norm(x, p["norm1"], cfg.norm_eps), max_len,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, window=sl.window,
+        attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
+        impl=ctx.attn_impl, cache_dtype=ctx.cache_dtype, cache=cache)
+    if sl.post_norm:
+        h = L.rms_norm(h, p["post_norm1"], cfg.norm_eps)
+    return _ffn(p, x + h, cfg, sl), cache
+
+
+def apply_sublayer_decode(p, cache, x, pos, cfg: ModelConfig, sl: SubLayer,
+                          ctx: Ctx):
+    h, cache = A.decode_attention(
+        p["attn"], L.rms_norm(x, p["norm1"], cfg.norm_eps), cache, pos,
+        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
+        head_dim=cfg.resolved_head_dim, window=sl.window,
+        attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta)
+    if sl.post_norm:
+        h = L.rms_norm(h, p["post_norm1"], cfg.norm_eps)
+    return _ffn(p, x + h, cfg, sl), cache
+
+
+# ---------------------------------------------------------------------------
+# Unit = tuple of sublayers
+# ---------------------------------------------------------------------------
+
+
+def apply_unit_prefill(params, x, max_len, cfg, unit, ctx, cache=None):
+    out = {}
+    for i, sl in enumerate(unit):
+        x, out[f"s{i}"] = apply_sublayer_prefill(
+            params[f"s{i}"], x, max_len, cfg, sl, ctx,
+            None if cache is None else cache[f"s{i}"])
+    return x, out
+
+
+def apply_unit_decode(params, cache, x, pos, cfg, unit, ctx):
+    out = {}
+    for i, sl in enumerate(unit):
+        x, out[f"s{i}"] = apply_sublayer_decode(
+            params[f"s{i}"], cache[f"s{i}"], x, pos, cfg, sl, ctx)
+    return x, out
+
+
+# ---------------------------------------------------------------------------
+# Whole model
+# ---------------------------------------------------------------------------
+
+
+def init_lm(gen, cfg: ModelConfig, ctx: Ctx, device) -> dict:
+    unit, n_scan = unit_spec(cfg)
+    dtype = _dtype(cfg)
+    params: dict = {
+        "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype,
+                                  device),
+        "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
+                                  device=device),
+        "units": {f"s{i}": init_sublayer(gen, cfg, sl, device, (n_scan,))
+                  for i, sl in enumerate(unit)},
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = L._normal(gen, (cfg.d_model, cfg.vocab_size),
+                                      cfg.d_model ** -0.5, dtype, device)
+    return params
+
+
+def _embed_scale(cfg: ModelConfig) -> float:
+    # gemma-style sqrt(d) embedding scale for softcapped models
+    return cfg.d_model ** 0.5 if cfg.logit_softcap else 1.0
+
+
+def embed_tokens(params, tokens, cfg: ModelConfig):
+    return L.embed(params["embed"], tokens) * _embed_scale(cfg)
+
+
+def _unembed(params, x, cfg: ModelConfig):
+    emb = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    return L.unembed(x, emb, cfg.tie_embeddings, cfg.logit_softcap)
+
+
+def lm_init_cache(cfg: ModelConfig, ctx: Ctx, batch: int, max_len: int,
+                  device) -> dict:
+    unit, n_scan = unit_spec(cfg)
+    return {"units": {
+        f"s{i}": A.init_cache(batch, cfg.num_kv_heads, max_len,
+                              cfg.resolved_head_dim, ctx.cache_dtype, device,
+                              lead=(n_scan,))
+        for i in range(len(unit))}}
+
+
+def lm_prefill(params, tokens, max_len, cfg: ModelConfig, ctx: Ctx):
+    """tokens (B, L) -> (last-position logits (B, V), cache for decode)."""
+
+    unit, n_scan = unit_spec(cfg)
+    x = embed_tokens(params, tokens, cfg)
+    cache = lm_init_cache(cfg, ctx, tokens.shape[0], max_len, x.device)
+    for n in range(n_scan):
+        x, _ = apply_unit_prefill(_index(params["units"], n), x, max_len,
+                                  cfg, unit, ctx, _index(cache["units"], n))
+    h = L.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
+    return _unembed(params, h, cfg), cache
+
+
+def lm_decode_step(params, cache, token, pos, cfg: ModelConfig, ctx: Ctx):
+    """token: (B,) int; pos: int.  Writes position ``pos`` of ``cache`` in
+    place; returns (logits (B, V), cache)."""
+
+    unit, n_scan = unit_spec(cfg)
+    x = embed_tokens(params, token[:, None], cfg)
+    for n in range(n_scan):
+        x, _ = apply_unit_decode(_index(params["units"], n),
+                                 _index(cache["units"], n), x, pos, cfg,
+                                 unit, ctx)
+    h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _unembed(params, h[:, 0], cfg), cache

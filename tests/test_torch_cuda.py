@@ -13,7 +13,11 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.config import GossipMCConfig  # noqa: E402
 from repro_torch.convert import index_from_numpy, state_from_numpy  # noqa: E402
+from repro_torch.config import get_smoke_config  # noqa: E402
 from repro_torch.data import lowrank_problem  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.launch.lm_engine import ServeLoop  # noqa: E402
 from repro_torch.kernels.masked_factor_grad import ops as mfg_ops  # noqa: E402
 from repro_torch.kernels.masked_factor_grad.ref import (  # noqa: E402
     masked_factor_grad_ref,
@@ -26,6 +30,7 @@ from repro_torch.kernels.sddmm.segment import (  # noqa: E402
     sddmm_segment_grad_ref,
 )
 from repro_torch.mc import CompletionProblem, FullGD, Trainer  # noqa: E402
+from repro_torch.models import Ctx, build_model  # noqa: E402
 from repro_torch.serve.quant import quantize_index, quantize_rows  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.sparse.store import from_blocks  # noqa: E402
@@ -244,3 +249,111 @@ def test_int8_engine_on_card_matches_cpu(cuda):
         np.testing.assert_array_equal(gs, cs)
         tie_free = (np.diff(cs, axis=1) != 0).all(axis=1)
         np.testing.assert_array_equal(gi[tie_free], ci[tie_free])
+
+
+# the JAX kernel tests' CASES, the gemma2 shape at a smaller length, head
+# dims that are not a multiple of 4 (the threads' loader), V with its own
+# head dim (MLA), and non-causal windows
+FLASH_CASES = [
+    dict(B=1, Hq=2, Hkv=2, Lq=128, Lk=128, D=64),
+    dict(B=2, Hq=8, Hkv=2, Lq=256, Lk=256, D=64, causal=True),
+    dict(B=1, Hq=4, Hkv=4, Lq=100, Lk=100, D=32, causal=False),
+    dict(B=1, Hq=4, Hkv=2, Lq=300, Lk=300, D=64, causal=True, window=128),
+    dict(B=1, Hq=2, Hkv=1, Lq=256, Lk=256, D=128, causal=True, softcap=50.0),
+    dict(B=1, Hq=2, Hkv=2, Lq=17, Lk=450, D=64, causal=True, q_offset=433),
+    dict(B=1, Hq=6, Hkv=3, Lq=64, Lk=64, D=80, causal=True),
+    dict(B=2, Hq=8, Hkv=4, Lq=1000, Lk=1000, D=256, causal=True, window=300,
+         softcap=50.0),
+    dict(B=1, Hq=2, Hkv=1, Lq=70, Lk=70, D=30, causal=True),
+    dict(B=1, Hq=2, Hkv=1, Lq=70, Lk=90, D=17, causal=False, window=20),
+    dict(B=1, Hq=4, Hkv=4, Lq=64, Lk=64, D=192, Dv=128, causal=True),
+    dict(B=1, Hq=3, Hkv=1, Lq=130, Lk=200, D=48, causal=False, window=50),
+]
+
+
+def _qkv(B, Hq, Hkv, Lq, Lk, D, Dv=None, seed=0, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed)
+    q = torch.randn(B, Hq, Lq, D, generator=g, device=device)
+    k = torch.randn(B, Hkv, Lk, D, generator=g, device=device)
+    v = torch.randn(B, Hkv, Lk, Dv or D, generator=g, device=device)
+    return q, k, v
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda, case):
+    case = dict(case)
+    dims = [case.pop(n) for n in ("B", "Hq", "Hkv", "Lq", "Lk", "D")]
+    q, k, v = _qkv(*dims, Dv=case.pop("Dv", None))
+    n0 = flash_ops.flash_attention.launches
+    got = flash_ops.flash_attention(q, k, v, **case)
+    assert flash_ops.flash_attention.launches == n0 + 1
+    torch.cuda.synchronize()
+    # the JAX kernel tests' tolerance
+    torch.testing.assert_close(got, attention_ref(q, k, v, **case),
+                               rtol=2e-4, atol=2e-5)
+
+
+def test_flash_kernel_fully_masked_rows_give_zero(cuda):
+    # queries past Lk + window - 1 see no key: the TPU kernel's _finalize
+    # (and this kernel) write 0 there, where the plain version averages V
+    q, k, v = _qkv(1, 3, 1, 200, 130, 48)
+    got = flash_ops.flash_attention(q, k, v, causal=False, window=50)
+    torch.cuda.synchronize()
+    live = 130 + 50 - 1
+    assert torch.equal(got[:, :, live:], torch.zeros_like(got[:, :, live:]))
+    torch.testing.assert_close(
+        got[:, :, :live],
+        attention_ref(q, k, v, causal=False, window=50)[:, :, :live],
+        rtol=2e-4, atol=2e-5)
+
+
+def test_flash_kernel_bf16(cuda):
+    q, k, v = (x.to(torch.bfloat16) for x in _qkv(1, 4, 2, 256, 256, 64))
+    got = flash_ops.flash_attention(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16
+    want = attention_ref(q, k, v, causal=True)
+    assert float((got.float() - want.float()).abs().max()) < 5e-2
+
+
+def test_flash_kernel_rejects_bad_inputs(cuda):
+    q, k, v = _qkv(1, 4, 2, 32, 32, 64)
+    n0 = flash_ops.flash_attention.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_ops.flash_attention(q.transpose(1, 2).contiguous()
+                                  .transpose(1, 2), k, v)
+    with pytest.raises(ValueError, match="one device"):
+        flash_ops.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_ops.flash_attention(*_qkv(1, 2, 2, 8, 8, 264))
+    with pytest.raises(ValueError, match="k:"):
+        flash_ops.flash_attention(q, k.double(), v)
+    assert flash_ops.flash_attention.launches == n0
+
+
+def test_gemma2_smoke_model_on_card_matches_cpu(cuda):
+    cfg = get_smoke_config("gemma2-2b")
+    ctx = Ctx(attn_impl="kernel")
+    card = build_model(cfg, ctx, device=cuda)
+    params = card.init(torch.Generator(device=cuda).manual_seed(0))
+    host = build_model(cfg, ctx, device="cpu")
+    host_params = _tree_to(params, "cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+    n0 = flash_ops.flash_attention.launches
+    lc, cc = card.prefill(params, {"tokens": tokens}, 48)
+    assert flash_ops.flash_attention.launches == n0 + cfg.num_layers
+    lh, ch = host.prefill(host_params, {"tokens": tokens}, 48)
+    scale = float(lh.abs().max())
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-5 * scale)
+    out_c = ServeLoop(card, params, 2, 48).generate({"tokens": tokens}, 6)
+    out_h = ServeLoop(host, host_params, 2, 48).generate({"tokens": tokens},
+                                                          6)
+    assert flash_ops.flash_attention.launches == n0 + 2 * cfg.num_layers
+    top2 = lh.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 1e-3
+    assert torch.equal(out_c.cpu()[sure, 0], out_h[sure, 0])
+
+
+def _tree_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device)

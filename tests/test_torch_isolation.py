@@ -28,8 +28,10 @@ def test_port_imports_no_jax_and_no_reference():
     mods = list(_modules())
     assert "repro_torch.kernels.sddmm.ops" in mods and len(mods) > 25
     assert {"repro_torch.kernels.quant.ops", "repro_torch.serve.quant",
-            "repro_torch.serving.engine", "repro_torch.serving.queue"} <= set(
-                mods)
+            "repro_torch.serving.engine", "repro_torch.serving.queue",
+            "repro_torch.kernels.flash_attention.ops",
+            "repro_torch.models.transformer",
+            "repro_torch.launch.lm_engine"} <= set(mods)
     code = (
         "import sys\n"
         f"for m in {mods!r}: __import__(m)\n"
@@ -78,7 +80,20 @@ def test_default_device_raises_without_cuda():
             build()
 
 
+def test_build_model_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    from repro_torch.config import get_smoke_config
+    from repro_torch.models import build_model
+
+    cfg = get_smoke_config("gemma2-2b")
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        build_model(cfg)
+    assert build_model(cfg, device="cpu").device.type == "cpu"
+
+
 def test_cpu_tensors_run_plain_versions_without_launching():
+    from repro_torch.kernels.flash_attention import ops as flash
     from repro_torch.kernels.masked_factor_grad import ops as mfg
     from repro_torch.kernels.quant import ops as quant
     from repro_torch.kernels.sddmm import ops as sddmm
@@ -96,7 +111,8 @@ def test_cpu_tensors_run_plain_versions_without_launching():
     def launches():
         return (sddmm.sddmm_segment_grad.launches,
                 sddmm.sddmm_factor_grad.launches,
-                mfg.masked_factor_grad.launches, quant.dequant_score.launches)
+                mfg.masked_factor_grad.launches, quant.dequant_score.launches,
+                flash.flash_attention.launches)
 
     before = launches()
     sddmm.sddmm_segment_grad(sp.entries, u, w)
@@ -104,6 +120,10 @@ def test_cpu_tensors_run_plain_versions_without_launching():
     mfg.masked_factor_grad(torch.from_numpy(x), torch.from_numpy(mask), u, w)
     for method in ("fused", "dequant", None):
         quant.dequant_score(codes, scales, codes, scales, method=method)
+    q = torch.randn(1, 4, 5, 16)
+    kv = torch.randn(1, 2, 5, 16)
+    out = flash.flash_attention(q, kv, kv, window=3, softcap=5.0)
+    assert out.shape == (1, 4, 5, 16)
     assert launches() == before
     with pytest.raises(ValueError, match="one device"):
         sddmm.sddmm_factor_grad(sp.entries, u.to("meta"), w)
