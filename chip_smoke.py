@@ -41,8 +41,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the flash kernel against its plain version at the path's shapes (q
    (4, 8, 8000, 256), k/v (4, 4, 8000, 256)): one global call (causal,
    softcap 50), one local call (window 4096), both at rtol 2e-4 / atol
-   2e-5, and a bf16 call at max abs error 5e-2, with times, bound and an
-   SDPA yardstick (no softcap, explicit mask).  Then a warm-up
+   2e-5, one (b, h) slice of the global call against float64 (the
+   kernel's error at most 4x the plain version's + 1e-7), and a bf16 call
+   at max abs error 5e-2, with times, two bounds (3xTF32 on the tensor
+   cores and f32 on the CUDA cores) and an SDPA yardstick (no softcap,
+   explicit mask).  Then a warm-up
    ``generate`` (batch 1, 256 tokens, 2 new), then ``build_model`` ->
    ``init`` -> ``ServeLoop(max_len=8192).generate`` of 32 greedy tokens
    after 4 prompts of 8000 tokens (numpy seed 13).  Checks: 26 flash
@@ -149,16 +152,21 @@ META = {
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:106"),
 }
-# (HBM bytes/s, f32 non-tensor flop/s, int8 tensor-core op/s): NVIDIA data
-# sheets, dense rates
-PEAKS = {"PCIe": (2.0e12, 51e12, 1513e12), "NVL": (3.9e12, 60e12, 1671e12),
-         "H100": (3.35e12, 67e12, 1979e12)}
+# (HBM bytes/s, f32 non-tensor flop/s, int8 tensor-core op/s, TF32
+# tensor-core flop/s): NVIDIA data sheets, dense rates
+PEAKS = {"PCIe": (2.0e12, 51e12, 1513e12, 378e12),
+         "NVL": (3.9e12, 60e12, 1671e12, 417e12),
+         "H100": (3.35e12, 67e12, 1979e12, 495e12)}
 TOP_BUCKET = DEFAULT_BUCKETS[-1]
 OVERLAP_MIN = 0.95  # overlap@100 of int8 against f32 top-k on the fit
 LM_ARCH = "gemma2-2b"
 LM_BATCH, LM_PROMPT, LM_NEW, LM_MAX_LEN = 4, 8000, 32, 8192
 # the JAX package's own tolerances (tests/test_kernel_flash_attention.py)
 FLASH_RTOL, FLASH_ATOL, FLASH_BF16_ABS = 2e-4, 2e-5, 5e-2
+# the kernel's f32 products are three TF32 products (3xTF32): against a
+# float64 attention its error stays within F64_FACTOR x the plain f32
+# version's + F64_SLACK, which one TF32 or bf16 pass would not
+TF32_PASSES, F64_FACTOR, F64_SLACK = 3, 4.0, 1e-7
 LOGIT_TOL = 1e-3    # kernel vs plain model: |diff| <= LOGIT_TOL * max|logit|
 
 
@@ -167,7 +175,7 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def peaks(name: str) -> tuple[float, float, float]:
+def peaks(name: str) -> tuple[float, float, float, float]:
     for key in ("PCIe", "NVL", "H100"):
         if key in name:
             return PEAKS[key]
@@ -298,7 +306,7 @@ def compare(got, want) -> tuple[float, float]:
 def kernel_phase(sparse, dense, state, card):
     """Each kernel against its plain version on the main path's stack."""
 
-    bw, flops, _ = peaks(card)
+    bw, flops, _, _ = peaks(card)
     ent, U, W = sparse.data.entries, state.U, state.W
     X, Mk = dense.data.xb, dense.data.maskb
     B, M, r = U.shape[0] * U.shape[1], U.shape[2], U.shape[3]
@@ -396,7 +404,7 @@ def quant_kernel_row(qidx, users, card):
     of the fitted index: error (must be 0), times, bound, the dequant
     method's time and the ``torch._int_mm`` yardstick."""
 
-    bw, _, int8_ops = peaks(card)
+    bw, _, int8_ops, _ = peaks(card)
     uq, us = qidx.u_q[users].contiguous(), qidx.u_scale[users].contiguous()
     wq, ws = qidx.w_q, qidx.w_scale
     B, r = uq.shape
@@ -615,12 +623,40 @@ def live_pairs(L: int, window: int) -> int:
     return int((i - lo + 1).sum())
 
 
+def f64_check(q, k, v, got, want, softcap, b=LM_BATCH - 1, h=7):
+    """Max abs error of the kernel's and the plain version's (b, h) slice
+    of a causal, softcapped layer against the same attention in float64;
+    fails the run when the kernel's exceeds F64_FACTOR x the plain
+    version's + F64_SLACK."""
+
+    L, D = q.shape[2], q.shape[3]
+    kvh = h // (q.shape[1] // k.shape[1])
+    qd, kd, vd = q[b, h].double(), k[b, kvh].double(), v[b, kvh].double()
+    logits = qd @ kd.T / D ** 0.5                        # 512 MB at L = 8000
+    logits = softcap * torch.tanh(logits / softcap)
+    pos = torch.arange(L, device=q.device)
+    logits.masked_fill_(pos[:, None] < pos[None, :], float("-inf"))
+    ref = torch.softmax(logits, -1) @ vd
+    del logits
+    err = float((got[b, h].double() - ref).abs().max())
+    err_plain = float((want[b, h].double() - ref).abs().max())
+    limit = F64_FACTOR * err_plain + F64_SLACK
+    print(f"[lm] flash f64 check, slice (b={b}, h={h}) of (L={L}, D={D}): "
+          f"kernel max abs error {err:.3e}, plain {err_plain:.3e}, limit "
+          f"{F64_FACTOR:g} x plain + {F64_SLACK:g} = {limit:.3e}", flush=True)
+    if not err <= limit:
+        fail(f"flash_attention is not f32-accurate: max abs error {err:.3e} "
+             f"against float64 exceeds {limit:.3e}")
+    return {"f64_max_abs_err": err, "plain_f64_max_abs_err": err_plain}
+
+
 def flash_row(card):
     """The flash kernel against its plain version at the [lm] path's
-    shapes: the global and the local layer of gemma2-2b's prefill in f32,
-    then one bf16 call; times, bound and the SDPA yardstick."""
+    shapes: the global and the local layer of gemma2-2b's prefill in f32
+    (the global one also against float64), then one bf16 call; times,
+    bounds and the SDPA yardstick."""
 
-    bw, flops, _ = peaks(card)
+    bw, flops, _, tf32 = peaks(card)
     B, Hq, Hkv, L, D = LM_BATCH, 8, 4, LM_PROMPT, 256
     g = torch.Generator(device="cuda").manual_seed(13)
     q, k, v = (torch.randn(shape, generator=g, device="cuda")
@@ -636,14 +672,23 @@ def flash_row(card):
         err = (got - want).abs()
         abs_err = float(err.max())
         ok = bool((err <= FLASH_ATOL + FLASH_RTOL * want.abs()).all())
-        del got, want, err
+        del err
+        f64 = (f64_check(q, k, v, got, want, kw["softcap"])
+               if label == "global" else {})
+        del got, want
         ops = 4 * D * live_pairs(L, window) * B * Hq
-        t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
+        # the least time for the same f32-accurate work: 3xTF32 on the
+        # tensor cores or f32 on the CUDA cores, whichever is quicker
+        t_bytes = nbytes / bw * 1e3
+        t_f32, t_tc = ops / flops * 1e3, TF32_PASSES * ops / tf32 * 1e3
+        t_ops = min(t_f32, t_tc)
         layers[label] = {
             "ms": eager_ms(kern, reps=7), "plain_ms": eager_ms(plain, reps=5),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "operations": ops, "bytes": nbytes, "max_abs_err": abs_err}
+            "bound_f32_cuda_core_ms": max(t_bytes, t_f32),
+            "operations": ops, "bytes": nbytes, "max_abs_err": abs_err,
+            **f64}
         print(f"[lm] flash {label}: {json.dumps(layers[label])}", flush=True)
         if not ok:
             fail(f"flash_attention {label} layer disagrees with its plain "
@@ -684,6 +729,7 @@ def flash_row(card):
         "tolerance": {"rtol": FLASH_RTOL, "atol": FLASH_ATOL},
         "ms": local["ms"], "plain_ms": local["plain_ms"],
         "bound_ms": local["bound_ms"], "bound_by": local["bound_by"],
+        "bound_f32_cuda_core_ms": local["bound_f32_cuda_core_ms"],
         "operations": local["operations"], "bytes": local["bytes"],
         "timing": "eager: median of single calls between CUDA events",
         "row_layer": "local (window 4096); global below",

@@ -253,7 +253,8 @@ def test_int8_engine_on_card_matches_cpu(cuda):
 
 # the JAX kernel tests' CASES, the gemma2 shape at a smaller length, head
 # dims that are not a multiple of 4 (the threads' loader), V with its own
-# head dim (MLA), and non-causal windows
+# head dim (MLA), non-causal windows, and the tile edges: Lq and Lk off the
+# 128-row q tile and the 32-key tile, D and Dv off the MMA's k-step of 8
 FLASH_CASES = [
     dict(B=1, Hq=2, Hkv=2, Lq=128, Lk=128, D=64),
     dict(B=2, Hq=8, Hkv=2, Lq=256, Lk=256, D=64, causal=True),
@@ -268,6 +269,13 @@ FLASH_CASES = [
     dict(B=1, Hq=2, Hkv=1, Lq=70, Lk=90, D=17, causal=False, window=20),
     dict(B=1, Hq=4, Hkv=4, Lq=64, Lk=64, D=192, Dv=128, causal=True),
     dict(B=1, Hq=3, Hkv=1, Lq=130, Lk=200, D=48, causal=False, window=50),
+    dict(B=1, Hq=2, Hkv=1, Lq=333, Lk=333, D=20, causal=True),
+    dict(B=1, Hq=4, Hkv=2, Lq=259, Lk=301, D=100, causal=False),
+    dict(B=1, Hq=2, Hkv=2, Lq=161, Lk=161, D=100, causal=True, window=70,
+         softcap=30.0),
+    dict(B=2, Hq=2, Hkv=1, Lq=129, Lk=97, D=100, Dv=20, causal=False),
+    dict(B=1, Hq=2, Hkv=1, Lq=31, Lk=290, D=36, Dv=44, causal=True,
+         q_offset=259),
 ]
 
 
@@ -291,6 +299,26 @@ def test_flash_kernel_matches_plain(cuda, case):
     # the JAX kernel tests' tolerance
     torch.testing.assert_close(got, attention_ref(q, k, v, **case),
                                rtol=2e-4, atol=2e-5)
+
+
+def test_flash_kernel_is_f32_accurate(cuda):
+    # against float64: within a small factor of the plain f32 version's own
+    # error, which a single TF32 (10-bit) or bf16 pass would not be
+    B, Hq, Hkv, L, D = 1, 2, 1, 1024, 256
+    q, k, v = _qkv(B, Hq, Hkv, L, L, D, seed=7)
+    got = flash_ops.flash_attention(q, k, v, causal=True, softcap=50.0)
+    plain = attention_ref(q, k, v, causal=True, softcap=50.0)
+    qd, kd, vd = (x.double() for x in (q, k, v))
+    kd, vd = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (kd, vd))
+    logits = qd @ kd.transpose(-1, -2) / D ** 0.5
+    logits = 50.0 * torch.tanh(logits / 50.0)
+    pos = torch.arange(L, device=cuda)
+    logits = logits.masked_fill(pos[:, None] < pos[None, :], float("-inf"))
+    want = torch.softmax(logits, dim=-1) @ vd
+    torch.cuda.synchronize()
+    err = float((got.double() - want).abs().max())
+    err_plain = float((plain.double() - want).abs().max())
+    assert err <= 4 * err_plain + 1e-7, (err, err_plain)
 
 
 def test_flash_kernel_fully_masked_rows_give_zero(cuda):
