@@ -15,9 +15,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernel's and the plain version's time (CUDA events; median over
    CUDA-graph replays, so the host's launch cost is not in it), and the
    least time the card could take (bytes over HBM rate or operations over
-   f32 rate, whichever is larger, counted from this run's data).
+   f32 rate, whichever is larger, counted from this run's data).  The
+   segment kernel is also measured on the three blocks of one Sequential
+   structure (keys ending in ``_b3``), the stack most of its launches get.
 3. The main path through the user entry points, each phase with the
-   launch counters set to 0 just before it and read just after:
+   launch counters set to 0 just before it and read just after (the
+   segment kernel's also by stack shape):
    ``CompletionProblem`` -> ``Trainer.fit`` (FullGD on the sparse store
    with the segment and scatter methods and on the dense layout, one Wave
    round on each layout, Sequential iterations on each layout) ->
@@ -86,7 +89,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.config import GossipMCConfig, get_model_config  # noqa: E402
-from repro_torch.core.state import init_state  # noqa: E402
+from repro_torch.core import grid as G  # noqa: E402
+from repro_torch.core.state import build_tables, init_state  # noqa: E402
 from repro_torch.data import movielens_proxy  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
@@ -185,6 +189,7 @@ def peaks(name: str) -> tuple[float, float, float, float]:
 def reset_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    sddmm_ops.sddmm_segment_grad.by_stack.clear()
 
 
 def counts() -> dict[str, int]:
@@ -303,17 +308,46 @@ def compare(got, want) -> tuple[float, float]:
     return abs_err, rel_err
 
 
-def kernel_phase(sparse, dense, state, card):
-    """Each kernel against its plain version on the main path's stack."""
+def measure(kern, plain, nbytes, ops, card):
+    """Error, times and bound of one kernel call against its plain
+    version on the same inputs."""
 
     bw, flops, _, _ = peaks(card)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    abs_err, rel_err = compare(got, want)
+    t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
+    return {
+        "max_abs_err": abs_err, "max_rel_err": rel_err,
+        "ms": graph_ms(kern), "plain_ms": graph_ms(plain),
+        "eager_ms": eager_ms(kern), "plain_eager_ms": eager_ms(plain),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "operations": ops,
+        "device_breakdown_ms": device_breakdown(kern),
+    }
+
+
+def sparse_work(ent, U, W, nnz):
+    """(bytes, operations) of one sparse f-gradient call: each real
+    entry's index and value words, the factors in, the gradients and the
+    loss out; about 6r + 4 flops an entry."""
+
+    B = U.numel() // (U.shape[-2] * U.shape[-1])
+    M, N, r = U.shape[-2], W.shape[-2], U.shape[-1]
+    factor_bytes = 2 * 4 * B * (M + N) * r + 4 * B   # U, W in; gU, gW, loss out
+    return factor_bytes, nnz * (6 * r + 4), B, M, N, r
+
+
+def kernel_phase(sparse, dense, state, card):
+    """Each kernel against its plain version on the main path's stack; the
+    segment kernel also on one Sequential structure's three blocks."""
+
     ent, U, W = sparse.data.entries, state.U, state.W
     X, Mk = dense.data.xb, dense.data.maskb
-    B, M, r = U.shape[0] * U.shape[1], U.shape[2], U.shape[3]
-    N, E = W.shape[2], ent.capacity
+    E = ent.capacity
     nnz = int(sparse.data.nnz.sum())
-    factor_bytes = 2 * 4 * B * (M + N) * r + 4 * B   # U, W in; gU, gW, loss out
-    sparse_ops = nnz * (6 * r + 4)
+    factor_bytes, sparse_ops, B, M, N, r = sparse_work(ent, U, W, nnz)
     work = {
         "sddmm_segment_grad": (
             lambda: sddmm_ops.sddmm_segment_grad(ent, U, W),
@@ -330,29 +364,39 @@ def kernel_phase(sparse, dense, state, card):
     }
     rows = []
     for name, (kern, plain, nbytes, ops) in work.items():
-        got, want = kern(), plain()
-        torch.cuda.synchronize()
-        abs_err, rel_err = compare(got, want)
-        t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
-        row = {
-            "name": name, "route": "cuda", "source": META[name][0],
-            "replaces": META[name][1], "launches": 0,
-            "max_abs_err": abs_err, "max_rel_err": rel_err, "tolerance": TOL,
-            "ms": graph_ms(kern), "plain_ms": graph_ms(plain),
-            "eager_ms": eager_ms(kern), "plain_eager_ms": eager_ms(plain),
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "operations": ops, "library_ms": None,
-            "device_breakdown_ms": device_breakdown(kern),
-            "shape": {"blocks": B, "mb": M, "nb": N, "r": r, "E": E,
-                      "nnz": nnz},
-        }
+        row = {"name": name, "route": "cuda", "source": META[name][0],
+               "replaces": META[name][1], "launches": 0, "tolerance": TOL,
+               **measure(kern, plain, nbytes, ops, card),
+               "library_ms": None,
+               "shape": {"blocks": B, "mb": M, "nb": N, "r": r, "E": E,
+                         "nnz": nnz}}
+        if name == "sddmm_segment_grad":
+            row.update(structure_trio(sparse, state, card))
         print(json.dumps(row), flush=True)
-        if not rel_err <= TOL:
-            fail(f"{name} disagrees with its plain version: "
-                 f"max error {rel_err:.3e} > {TOL:.0e}")
+        for key in ("max_rel_err", "max_rel_err_b3"):
+            if key in row and not row[key] <= TOL:
+                fail(f"{name} disagrees with its plain version ({key}): "
+                     f"max error {row[key]:.3e} > {TOL:.0e}")
         rows.append(row)
     return rows
+
+
+def structure_trio(sparse, state, card):
+    """The segment kernel on the three blocks of Sequential's structure 0,
+    gathered as ``sgd_structure_step`` gathers them; keys end in ``_b3``."""
+
+    tables = build_tables(P, Q, G.enumerate_structures(P, Q), "cuda")
+    idx = tables.blocks[0].long()
+    bi, bj = idx[:, 0], idx[:, 1]
+    ent = sparse.data.entries.gather(bi, bj)
+    U, W = state.U[bi, bj], state.W[bi, bj]
+    nnz = int(sparse.data.nnz[bi, bj].sum())
+    factor_bytes, ops, B, M, N, _ = sparse_work(ent, U, W, nnz)
+    got = measure(lambda: sddmm_ops.sddmm_segment_grad(ent, U, W),
+                  lambda: sddmm_segment_grad_ref(ent, U, W),
+                  nnz * 5 * 4 + 4 * B * (M + N + 2) + factor_bytes, ops, card)
+    got["shape"] = {"blocks": B, "structure": idx.tolist(), "nnz": nnz}
+    return {f"{key}_b3": val for key, val in got.items()}
 
 
 def run_phase(label, expect, fit):
@@ -365,9 +409,12 @@ def run_phase(label, expect, fit):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     got = counts()
+    by_stack = {"x".join(map(str, lead)): n for lead, n in
+                sddmm_ops.sddmm_segment_grad.by_stack.items()}
     costs = [c for _, c in result.history]
     print(f"[main] {label}: t={result.t} costs={costs} "
-          f"wall={seconds:.3f}s launches={got}", flush=True)
+          f"wall={seconds:.3f}s launches={got} "
+          f"sddmm_segment_grad launches by stack={by_stack}", flush=True)
     if not np.isfinite(costs).all():
         fail(f"{label}: non-finite cost {costs}")
     for name in expect:

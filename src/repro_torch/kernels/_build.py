@@ -36,9 +36,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "sddmm": {
         "sddmm_num_partials": ((_I, _I, _I), _I),    # B E r
-        # rows cols vals valid col_perm row_ptr col_ptr U W | loss gU gW e
+        # rows cols vals valid col_perm row_ptr col_ptr U W | loss gU gW
         # partials | B E M N r | stream
-        "sddmm_segment_grad": ((_P,) * 14 + (_I,) * 5 + (_P,), _I),
+        "sddmm_segment_grad": ((_P,) * 13 + (_I,) * 5 + (_P,), _I),
         # rows cols vals valid U W | loss gU gW partials | B E M N r | stream
         "sddmm_factor_grad": ((_P,) * 10 + (_I,) * 5 + (_P,), _I),
     },

@@ -19,48 +19,75 @@
 // one call.
 //
 // Bound on this card: bytes.  Each real entry moves its 5 index/value
-// words (20 B) and does about 6r+3 flops; at r = 15 that is ~5 flop/B,
+// words (20 B) and does about 6r+4 flops; at r = 15 that is ~5 flop/B,
 // far below the ~20 flop/B at which 67 TFLOP/s of f32 would bind before
 // 3.35 TB/s.  The factors are a few MB and stay in the 50 MB L2, so the
-// entry streams are what has to come from HBM.  The design reads each
-// entry stream with neighbouring threads on neighbouring slots, keeps the
-// factor-row gathers in L2, and writes each gradient row once (segment) or
-// accumulates it in L2 with atomics (scatter).  Measured on an H100 80GB
-// HBM3 at 700 W (PERF.md), both run far above that bound while moving
-// ~0.1 TB/s, so HBM is not what holds them; the likely cost is the latency
-// of each entry's dependent index -> factor-row loads.
+// entry streams are what has to come from HBM: at the MovieLens-1M cell
+// (5 x 5 blocks of 1208 x 742, r = 15, 800k entries) 22.0 MB, 6.6 us.
+// What a kernel can reach instead is set by the latency of its dependent
+// loads (index -> factor row, from L2) and by how many it keeps in flight.
 //
-// Entry groups (phase one and scatter): an entry is handled by a group of
-// lg lanes, lg the least power of two >= r (at most 32), so a factor row
-// is read as one coalesced segment and the dot product is a shuffle
-// reduction; a warp holds 32/lg groups (two at r = 15).  Above r = 32 a
-// lane takes every 32nd component (r <= 256).
+// sddmm_segment_grad walks the sorted store's CSR and CSC views, as the
+// TPU kernel does: one side per output row, the residual recomputed on
+// each side (segment_kernel.py: "one pallas_call produces one side"), so
+// no e goes back to memory and the two sides are independent.  It is one
+// walk launch over the whole stack plus one small loss launch, and it is
+// deterministic: no atomics, every sum in a fixed order.
 //
-// sddmm_segment_grad is deterministic: no atomics anywhere.
-//   phase one  ~1024 CTAs over the stack loop over the entry slots, one
-//              group per slot: e -> scratch, fixed-order per-CTA sums of
-//              e^2 -> partials
-//   phase two  one warp per output row, both sides in one launch: warps
-//              [0, M) of block b walk the CSR segment [row_ptr[m],
-//              row_ptr[m+1]) summing -2 e W[cols]; warps [M, M+N) walk the
-//              CSC segment of col_ptr through col_perm summing -2 e U[rows].
-//              Lane i takes entries i, i+32, ... of the segment, so 32
-//              entries are in flight at once and their index loads are
-//              coalesced; each lane keeps the row's partial sum in
-//              registers (up to 32 components at a time) and one
-//              fixed-order warp reduction finishes it.  Segment lengths
-//              follow item and user popularity (a hot item's column in a
-//              1208-row block can hold most of its rows), so a long
-//              segment is walked 32 entries at a time.
-//   phase three one CTA per block sums its partials in a fixed order.
-// Padding slots (valid = 0, rows = mb-1) give e = 0 and lie outside every
-// segment (row_ptr[M] = col_ptr[N] = nnz), so they add exactly nothing.
+//   Groups.  A group of lg lanes holds one factor row, two components a
+//   lane (c and c + lg; lg the least power of two >= r / 2, so 8 at
+//   r = 15); above r = 32 a warp holds a row, a lane every 32nd component
+//   (r <= 256).  A CTA of G = 256 / lg groups owns G consecutive output
+//   rows of one side of one block: CTAs [0, ceil(M/G)) of block b the CSR
+//   side (own U[b, m], segment [row_ptr[m], row_ptr[m+1]), gathered
+//   W[cols]), the rest the CSC side (own W[b, n], segment [col_ptr[n],
+//   col_ptr[n+1]) through col_perm, gathered U[rows]).  The own rows are
+//   contiguous: the CTA stages them in shared memory once, with their
+//   segment offsets.
+//   Long segments.  Segment lengths follow user and item popularity: at
+//   the cell above rows hold 26.5 entries on average (p99 135, max 513),
+//   columns 43.1 (p99 358, max 978, 20 empty).  The G rows' segments are
+//   one contiguous range of the sorted stream, so the CTA splits that range
+//   evenly between its groups, whatever the rows' lengths: a 978-entry
+//   column is walked by all 32 groups of its CTA (at most 76 entries a
+//   group at that cell, 42 on average), never by one.  A group's first row
+//   may have begun in an earlier group; its part goes to a shared-memory
+//   slot and is added, after a barrier and in group order, to the part of
+//   the group where the row begins.  Every other row is complete in one
+//   group.
+//   Entries in flight.  A group takes lg entries at a time: lane j loads
+//   entry j's index, value and valid with one coalesced load each (on the
+//   CSC side behind a coalesced col_perm load), one chunk ahead of use
+//   (col_perm two chunks ahead), and the lg gathers of the other factor's
+//   rows are issued back to back, lanes on neighbouring components.
+//   Residual and sums.  Each lane forms own * gathered over its components
+//   for the lg entries; a transposing butterfly (lg - 1 shuffles, not
+//   lg log lg) leaves entry j's dot product on lane j, next to its value,
+//   so lane j computes e_j; one shuffle an entry broadcasts it and each
+//   lane adds e * gathered into its own components.  The output needs no
+//   cross-lane reduction and is written once, -2 * acc.
+//   Tuning (H100 80GB HBM3 at 700 W): two components a lane issue about
+//   half the shuffles and address arithmetic an entry of one, and at most
+//   85 registers keep three CTAs on an SM; one component a lane (16 lanes
+//   at r = 15) and four (4 lanes) both ran slower at the cell's stacks.
+//   Loss.  Only the CSR side adds e^2: each group in walk order, the CTA's
+//   groups in a fixed order into one partial per CTA; the second launch
+//   sums each block's partials in a fixed order.  Padding slots lie
+//   outside every segment (row_ptr[M] = col_ptr[N] = nnz) and add nothing.
+//   Indices are clamped into range, so a malformed store cannot read
+//   outside the arrays.
+//
+// The design this one replaced (0.189 ms at that cell on the same card)
+// was three launches: a residual pass with ~16k entries in flight on the
+// whole card writing e to scratch, a warp per output row with lanes over
+// entries ending in an r x 5-step shuffle reduction per row (80 shuffles
+// for ~1 entry a lane), and a launch that summed the loss partials.
 //
 // sddmm_factor_grad is order-agnostic (no sorted aux needed): one group
 // per entry computes e and atomicAdds -2 e W[col] into gU[row] and
 // -2 e U[row] into gW[col], neighbouring lanes on neighbouring addresses.
 // The gradient sums land in no fixed order, so it is held to a tolerance,
-// not bit for bit; its loss uses the same fixed-order partials as above.
+// not bit for bit; its loss is a fixed-order sum of per-CTA partials.
 
 #include <cuda_runtime.h>
 
@@ -68,8 +95,10 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxRank = 256;
-constexpr int kEntryCtas = 1024;   // entry-phase CTAs over the whole stack
+constexpr int kEntryCtas = 1024;   // scatter CTAs over the whole stack
+constexpr int kMaxSide = 1 << 23;  // rows a side: 23 bits + an 8-bit offset
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWalkCpl = 2;       // walk: components a lane up to r = 32
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);
@@ -115,96 +144,200 @@ __device__ __forceinline__ float group_residual(
   return valid[slot] * (vals[slot] - part);
 }
 
-// grid (sddmm_num_partials(B, E, r), B): a grid-stride loop over the slots;
-// the loop bound is the warp's first slot, so every lane of a warp runs
-// the same iterations (the group shuffles take the full warp mask).
-__global__ void __launch_bounds__(kThreads) residual_kernel(
+// Segment walk: grid (ceil(M / G) + ceil(N / G), B), G = kThreads / LG
+// groups of LG lanes a CTA, CPL components a lane.  See the note at the
+// top.  Every loop that shuffles runs the same iterations on all 32 lanes
+// of a warp (the shuffles take the full mask); what differs between the
+// groups of a warp is predicated.  While the gathered rows fit in
+// registers, three CTAs stay on an SM (at most 85 registers a thread).
+template <int LG, int CPL>
+__global__ void __launch_bounds__(kThreads, LG * CPL <= 32 ? 3 : 1)
+segment_walk_kernel(
     const int* __restrict__ rows, const int* __restrict__ cols,
     const float* __restrict__ vals, const float* __restrict__ valid,
-    const float* __restrict__ U, const float* __restrict__ W,
-    float* __restrict__ e, float* __restrict__ partials,
-    int E, int M, int N, int r, int lg) {
-  const int b = blockIdx.y;
-  const int j = threadIdx.x % lg;
-  const int per_cta = kThreads / lg;
-  const int first = blockIdx.x * per_cta + (threadIdx.x >> 5) * (32 / lg);
-  float sq = 0.f;
-#pragma unroll 2
-  for (int kw = first; kw < E; kw += gridDim.x * per_cta) {
-    const int k = kw + (threadIdx.x & 31) / lg;
-    const bool live = k < E;
-    const long long slot = (long long)b * E + (live ? k : E - 1);
-    const float *u_row, *w_row;
-    const float ek = group_residual(rows, cols, vals, valid, U, W, slot, b,
-                                    M, N, r, j, lg, &u_row, &w_row);
-    if (live && j == 0) {
-      e[slot] = ek;
-      sq = fmaf(ek, ek, sq);
-    }
-  }
-  const float tot = block_sum(sq);
-  if (threadIdx.x == 0) partials[(long long)b * gridDim.x + blockIdx.x] = tot;
-}
-
-// One warp per output row; B * (M + N) warps in all.  Each lane takes
-// every 32nd entry of the segment and sums -2 e * (factor row) into RK
-// registers; one fixed-order warp reduction per component finishes the
-// row.  Ranks above RK (= 32) are done RK components at a time.
-template <int RK>
-__global__ void __launch_bounds__(kThreads) segment_kernel(
-    const int* __restrict__ rows, const int* __restrict__ cols,
     const int* __restrict__ col_perm, const int* __restrict__ row_ptr,
     const int* __restrict__ col_ptr, const float* __restrict__ U,
-    const float* __restrict__ W, const float* __restrict__ e,
-    float* __restrict__ gU, float* __restrict__ gW,
-    int B, int E, int M, int N, int r) {
-  const long long warp =
-      ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  const long long per_block = (long long)M + N;
-  if (warp >= (long long)B * per_block) return;   // warp-uniform
-  const int b = (int)(warp / per_block);
-  const int s = (int)(warp % per_block);
-  const bool side_u = s < M;
-  const int own = side_u ? s : s - M;
-  const int* ptr = side_u ? row_ptr + (long long)b * (M + 1) + own
-                          : col_ptr + (long long)b * (N + 1) + own;
-  const int lo = clampi(ptr[0], 0, E);
-  const int hi = clampi(ptr[1], lo, E);
+    const float* __restrict__ W, float* __restrict__ gU,
+    float* __restrict__ gW, float* __restrict__ partials, int E, int M,
+    int N, int r, int ctas_u) {
+  constexpr int G = kThreads / LG;      // groups, and output rows, a CTA
+  constexpr int SPAN = kThreads * CPL;  // >= G * r floats
+  constexpr bool kKeep = LG * CPL <= 32;  // keep gathered rows in registers
+  __shared__ int ptr_s[G + 1];
+  __shared__ float own_s[SPAN];         // the CTA's own rows, (G, r)
+  __shared__ float out_s[SPAN];         // rows complete in one group
+  __shared__ float cont_s[SPAN];        // each group's continued first row
+  __shared__ int cont_row[G];
+  __shared__ float sq_s[G];
+
+  const int b = blockIdx.y;
+  const bool side_u = (int)blockIdx.x < ctas_u;
+  const int S = side_u ? M : N;
   const int other_n = side_u ? N : M;
+  const int s0 = (side_u ? (int)blockIdx.x : (int)blockIdx.x - ctas_u) * G;
+  const int nrows = min(G, S - s0);
+  const int* ptr = side_u ? row_ptr + (long long)b * (M + 1) + s0
+                          : col_ptr + (long long)b * (N + 1) + s0;
+  const float* own = (side_u ? U + (long long)b * M * r
+                             : W + (long long)b * N * r) + (long long)s0 * r;
   const float* other = side_u ? W + (long long)b * N * r
                               : U + (long long)b * M * r;
+  float* out = (side_u ? gU + (long long)b * M * r
+                       : gW + (long long)b * N * r) + (long long)s0 * r;
   const long long base = (long long)b * E;
-  float* out = side_u ? gU + ((long long)b * M + own) * r
-                      : gW + ((long long)b * N + own) * r;
+  const int grp = threadIdx.x / LG;
+  const int j = threadIdx.x % LG;
 
-  for (int cb = 0; cb < r; cb += RK) {
-    const int rc = min(RK, r - cb);
-    float acc[RK];
+  for (int i = threadIdx.x; i <= nrows; i += kThreads)
+    ptr_s[i] = clampi(ptr[i], 0, E);
+  for (int i = threadIdx.x; i < nrows * r; i += kThreads) {
+    own_s[i] = own[i];
+    out_s[i] = 0.f;
+  }
+  if (threadIdx.x < G) cont_row[threadIdx.x] = -1;
+  __syncthreads();
+
+  // this group's even share [a, z) of the CTA's entry range
+  const int A = ptr_s[0];
+  const long long T = max(ptr_s[nrows] - A, 0);
+  const int a = A + (int)(T * grp / G);
+  const int z = A + (int)(T * (grp + 1) / G);
+  const int trips = __reduce_max_sync(kFull, (z - a + LG - 1) / LG);
+
+  // entry k's slot (stage one) and its packed (other row << 8 | own row
+  // offset), value and valid (stage two); nothing for k outside [a, z)
+  auto slot_of = [&](int k) -> int {
+    if (k >= z) return 0;
+    return side_u ? k : clampi(col_perm[base + k], 0, E - 1);
+  };
+  auto fetch = [&](int k, int slot, int& pk, float& val, float& vld) {
+    pk = 0;
+    val = vld = 0.f;
+    if (k >= z) return;
+    const int o = clampi(side_u ? cols[base + slot] : rows[base + slot], 0,
+                         other_n - 1);
+    val = vals[base + slot];
+    vld = valid[base + slot];
+    int l = 0;                   // the row whose segment holds k
 #pragma unroll
-    for (int c = 0; c < RK; ++c) acc[c] = 0.f;
-    for (int k = lo + lane; k < hi; k += 32) {
-      const long long slot =
-          base + (side_u ? k : clampi(col_perm[base + k], 0, E - 1));
-      const int o = clampi(side_u ? cols[slot] : rows[slot], 0, other_n - 1);
-      const float d = -2.f * e[slot];
-      const float* orow = other + (long long)o * r + cb;
+    for (int step = G / 2; step >= 1; step >>= 1)
+      if (l + step < nrows && ptr_s[l + step] <= k) l += step;
+    pk = (o << 8) | l;
+  };
+
+  int pk1, slot1 = slot_of(a + j);
+  float val1, vld1;
+  fetch(a + j, slot1, pk1, val1, vld1);
+  slot1 = slot_of(a + LG + j);
+
+  float acc[CPL];
 #pragma unroll
-      for (int c = 0; c < RK; ++c)
-        if (c < rc) acc[c] = fmaf(d, orow[c], acc[c]);
+  for (int q = 0; q < CPL; ++q) acc[q] = 0.f;
+  int cur = -1;                  // own row offset acc belongs to
+  float sq = 0.f;
+  auto flush = [&]() {
+    if (cur < 0) return;
+    float* dst = out_s + cur * r;
+    if (ptr_s[cur] < a) {        // begun in an earlier group
+      dst = cont_s + grp * r;
+      cont_row[grp] = cur;
     }
 #pragma unroll
-    for (int c = 0; c < RK; ++c) {
-      float v = acc[c];
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(kFull, v, off);
-      if (lane == c && c < rc) out[cb + c] = v;
+    for (int q = 0; q < CPL; ++q)
+      if (j + q * LG < r) dst[j + q * LG] = acc[q];
+  };
+
+  for (int t = 0, k0 = a; t < trips; ++t, k0 += LG) {
+    const int pk = pk1;
+    const float val = val1, vld = vld1;
+    fetch(k0 + LG + j, slot1, pk1, val1, vld1);
+    slot1 = slot_of(k0 + 2 * LG + j);
+    const int n = clampi(z - k0, 0, LG);   // this group's live entries
+
+    float g[kKeep ? LG : 1][kKeep ? CPL : 1];
+    float v[LG];
+    int pks[LG];
+#pragma unroll
+    for (int i = 0; i < LG; ++i) {
+      pks[i] = __shfl_sync(kFull, pk, i, LG);
+      const float* orow = other + (long long)(pks[i] >> 8) * r;
+      const float* wrow = own_s + (pks[i] & 255) * r;
+      float d = 0.f;
+#pragma unroll
+      for (int q = 0; q < CPL; ++q) {
+        const int c = j + q * LG;
+        const float x = (i < n && c < r) ? orow[c] : 0.f;
+        if constexpr (kKeep) g[i][q] = x;
+        d = fmaf(c < r ? wrow[c] : 0.f, x, d);
+      }
+      v[i] = d;
     }
+    // transposing butterfly: after it v[0] on lane j is entry j's dot
+#pragma unroll
+    for (int h = LG / 2; h >= 1; h >>= 1) {
+      const bool upper = j & h;
+#pragma unroll
+      for (int i = 0; i < h; ++i) {
+        const float send = upper ? v[i] : v[i + h];
+        const float keep = upper ? v[i + h] : v[i];
+        v[i] = keep + __shfl_xor_sync(kFull, send, h);
+      }
+    }
+    const float e = j < n ? vld * (val - v[0]) : 0.f;
+    if (side_u) sq = fmaf(e, e, sq);
+#pragma unroll
+    for (int i = 0; i < LG; ++i) {
+      const float ei = __shfl_sync(kFull, e, i, LG);
+      if (i < n) {
+        if ((pks[i] & 255) != cur) {
+          flush();
+          cur = pks[i] & 255;
+#pragma unroll
+          for (int q = 0; q < CPL; ++q) acc[q] = 0.f;
+        }
+        const float* orow = other + (long long)(pks[i] >> 8) * r;
+#pragma unroll
+        for (int q = 0; q < CPL; ++q) {
+          const int c = j + q * LG;
+          float x;
+          if constexpr (kKeep) x = g[i][q];
+          else x = c < r ? orow[c] : 0.f;   // reread: hits L1
+          acc[q] = fmaf(ei, x, acc[q]);
+        }
+      }
+    }
+  }
+  flush();
+  for (int off = LG >> 1; off > 0; off >>= 1)
+    sq += __shfl_xor_sync(kFull, sq, off);
+  if (j == 0) sq_s[grp] = sq;
+  __syncthreads();
+
+  // group grp finishes row grp: its complete part, then the continued
+  // parts in group order
+  if (grp < nrows) {
+#pragma unroll
+    for (int q = 0; q < CPL; ++q) {
+      const int c = j + q * LG;
+      if (c < r) {
+        float s = out_s[grp * r + c];
+        for (int g2 = 0; g2 < G; ++g2)
+          if (cont_row[g2] == grp) s += cont_s[g2 * r + c];
+        out[grp * r + c] = -2.f * s;
+      }
+    }
+  }
+  if (side_u && threadIdx.x == 0) {
+    float tot = 0.f;
+    for (int g2 = 0; g2 < G; ++g2) tot += sq_s[g2];
+    partials[(long long)b * ctas_u + blockIdx.x] = tot;
   }
 }
 
-// grid (sddmm_num_partials(B, E, r), B), looping like residual_kernel; gU
-// and gW zeroed beforehand.
+// grid (sddmm_num_partials(B, E, r), B): a grid-stride loop over the slots,
+// one group a slot; the loop bound is the warp's first slot, so every lane
+// of a warp runs the same iterations (the group shuffles take the full warp
+// mask).  gU and gW zeroed beforehand.
 __global__ void __launch_bounds__(kThreads) scatter_kernel(
     const int* __restrict__ rows, const int* __restrict__ cols,
     const float* __restrict__ vals, const float* __restrict__ valid,
@@ -254,6 +387,19 @@ bool bad_shape(int B, int E, int M, int N, int r) {
   return B > 65535 || E <= 0 || M <= 0 || N <= 0 || r < 1 || r > kMaxRank;
 }
 
+template <int LG, int CPL>
+void launch_walk(const int* rows, const int* cols, const float* vals,
+                 const float* valid, const int* col_perm, const int* row_ptr,
+                 const int* col_ptr, const float* U, const float* W,
+                 float* gU, float* gW, float* partials, int B, int E, int M,
+                 int N, int r, int ctas_u, cudaStream_t st) {
+  constexpr int G = kThreads / LG;
+  const dim3 grid(ctas_u + (N + G - 1) / G, B);
+  segment_walk_kernel<LG, CPL><<<grid, kThreads, 0, st>>>(
+      rows, cols, vals, valid, col_perm, row_ptr, col_ptr, U, W, gU, gW,
+      partials, E, M, N, r, ctas_u);
+}
+
 }  // namespace
 
 #define RETURN_IF_ERROR()                        \
@@ -272,37 +418,41 @@ extern "C" int sddmm_num_partials(int B, int E, int r) {
   return need < share ? need : share;
 }
 
+// Two launches: the segment walk (both sides, gU and gW written whole, one
+// loss partial per CSR CTA) and the fixed-order loss sum.  partials holds
+// at least B * ceil(M / G) floats; (B, M) always does.
 extern "C" int sddmm_segment_grad(
     const int* rows, const int* cols, const float* vals, const float* valid,
     const int* col_perm, const int* row_ptr, const int* col_ptr,
     const float* U, const float* W, float* loss, float* gU, float* gW,
-    float* e, float* partials, int B, int E, int M, int N, int r,
-    void* stream) {
+    float* partials, int B, int E, int M, int N, int r, void* stream) {
   if (B <= 0) return 0;
-  if (bad_shape(B, E, M, N, r)) return (int)cudaErrorInvalidValue;
+  if (bad_shape(B, E, M, N, r) || M >= kMaxSide || N >= kMaxSide)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int lg = group_lanes(r);
-  const dim3 entry_grid(sddmm_num_partials(B, E, r), B);
-  residual_kernel<<<entry_grid, kThreads, 0, st>>>(
-      rows, cols, vals, valid, U, W, e, partials, E, M, N, r, lg);
-  RETURN_IF_ERROR();
-  const long long threads = (long long)B * (M + N) * 32;
-  const unsigned row_blocks = (unsigned)((threads + kThreads - 1) / kThreads);
-  if (r <= 8) {
-    segment_kernel<8><<<row_blocks, kThreads, 0, st>>>(
-        rows, cols, col_perm, row_ptr, col_ptr, U, W, e, gU, gW, B, E, M, N,
-        r);
-  } else if (r <= 16) {
-    segment_kernel<16><<<row_blocks, kThreads, 0, st>>>(
-        rows, cols, col_perm, row_ptr, col_ptr, U, W, e, gU, gW, B, E, M, N,
-        r);
-  } else {
-    segment_kernel<32><<<row_blocks, kThreads, 0, st>>>(
-        rows, cols, col_perm, row_ptr, col_ptr, U, W, e, gU, gW, B, E, M, N,
-        r);
+  // a row's lanes and a lane's components: up to r = 32, kWalkCpl
+  // components a lane; above, a warp a row
+  const int cpl = r <= 32 ? kWalkCpl : r <= 64 ? 2 : r <= 128 ? 4 : 8;
+  const int lg = r <= 32 ? group_lanes((r + kWalkCpl - 1) / kWalkCpl) : 32;
+  const int G = kThreads / lg;
+  const int ctas_u = (M + G - 1) / G;
+#define WALK(LG, CPL)                                                       \
+  launch_walk<LG, CPL>(rows, cols, vals, valid, col_perm, row_ptr, col_ptr, \
+                       U, W, gU, gW, partials, B, E, M, N, r, ctas_u, st)
+  switch (lg) {
+    case 1: WALK(1, kWalkCpl); break;
+    case 2: WALK(2, kWalkCpl); break;
+    case 4: WALK(4, kWalkCpl); break;
+    case 8: WALK(8, kWalkCpl); break;
+    case 16: WALK(16, kWalkCpl); break;
+    default:
+      if (cpl == 2) WALK(32, 2);
+      else if (cpl == 4) WALK(32, 4);
+      else WALK(32, 8);
   }
+#undef WALK
   RETURN_IF_ERROR();
-  sum_partials_kernel<<<B, kThreads, 0, st>>>(partials, loss, entry_grid.x);
+  sum_partials_kernel<<<B, kThreads, 0, st>>>(partials, loss, ctas_u);
   RETURN_IF_ERROR();
   return 0;
 }

@@ -8,11 +8,15 @@ leading axes.  A CUDA tensor launches the hand-written kernel in
 plain version.  There is no size threshold and no fallback from the card.
 
     sddmm_segment_grad  sorted store (``method="segment"``): deterministic
-                        segment sums over the CSR/CSC views
+                        segment sums over the CSR/CSC views, the residual
+                        recomputed on each side (one walk launch and one
+                        loss launch)
     sddmm_factor_grad   order-agnostic (``method="scatter"``): atomics on
                         the card, so gradients are held to a tolerance
 
-Each wrapper counts its kernel launches in ``.launches``.
+Each wrapper counts its kernel launches in ``.launches``;
+``sddmm_segment_grad.by_stack`` also counts them by the stack's leading
+shape (a structure's ``(3,)``, a wave's ``(S, 3)``, the grid's ``(p, q)``).
 """
 
 from __future__ import annotations
@@ -65,14 +69,15 @@ def sddmm_segment_grad(entries, u, w, *, chunk: int | None = None):
     gu = torch.empty_like(ins[-2])
     gw = torch.empty_like(ins[-1])
     lib = _build.load("sddmm")
-    e = torch.empty((B, E), dtype=torch.float32, device=u.device)
-    partials = torch.empty((B, lib.sddmm_num_partials(B, E, r)),
-                           dtype=torch.float32, device=u.device)
+    # one loss partial per CSR CTA of the walk: at most M a block
+    partials = torch.empty((B, M), dtype=torch.float32, device=u.device)
     rc = lib.sddmm_segment_grad(
-        *(t.data_ptr() for t in (*ins, loss, gu, gw, e, partials)),
+        *(t.data_ptr() for t in (*ins, loss, gu, gw, partials)),
         B, E, M, N, r, torch.cuda.current_stream(u.device).cuda_stream)
     _build.check("sddmm_segment_grad", rc)
     sddmm_segment_grad.launches += 1
+    by_stack = sddmm_segment_grad.by_stack
+    by_stack[lead] = by_stack.get(lead, 0) + 1
     return loss, gu, gw
 
 
@@ -100,4 +105,5 @@ def sddmm_factor_grad(entries, u, w):
 
 
 sddmm_segment_grad.launches = 0
+sddmm_segment_grad.by_stack = {}
 sddmm_factor_grad.launches = 0

@@ -88,6 +88,74 @@ def test_segment_kernel_matches_plain(cuda, case):
     assert float(got[1][0, 0].abs().max()) == 0.0
 
 
+# (p, q, mb, nb, r): in every block one column holds all but 7 rows and one
+# row all but 2 columns, segments far longer than a chunk of lanes or a
+# group's share of its CTA's entries; ranks across the segment walk's
+# templates (8 and 2 lanes a group, two components a lane; a warp a row)
+SKEWED = [(2, 2, 700, 300, 15), (2, 1, 260, 530, 3), (1, 2, 400, 200, 40)]
+
+
+def _skewed(p, q, mb, nb, r, seed):
+    rng = np.random.default_rng(seed)
+    mask = (rng.random((p, q, mb, nb)) < 0.05).astype(np.float32)
+    mask[..., : mb - 7, 3] = 1.0        # a hot item
+    mask[..., 5, 2:] = 1.0              # a heavy user
+    mask[..., 1, :] = 0.0               # an empty row
+    mask[..., :, 0] = 0.0               # an empty column
+    x = (rng.normal(size=(p, q, mb, nb)) * mask).astype(np.float32)
+    u = rng.normal(size=(p, q, mb, r)).astype(np.float32)
+    w = rng.normal(size=(p, q, nb, r)).astype(np.float32)
+    return x, mask, u, w
+
+
+@pytest.mark.parametrize("case", SKEWED)
+def test_segment_kernel_on_skewed_store(cuda, case):
+    x, mask, u, w = _skewed(*case, seed=6)
+    sp = from_blocks(x, mask, bucket=64, device=cuda)
+    hot = sp.entries.col_ptr[..., 4] - sp.entries.col_ptr[..., 3]
+    assert int(hot.min()) >= case[2] - 8        # all but 7 rows, less row 1
+    U, W = torch.from_numpy(u).to(cuda), torch.from_numpy(w).to(cuda)
+    got = sddmm_ops.sddmm_segment_grad(sp.entries, U, W)
+    torch.cuda.synchronize()
+    _close(got, sddmm_segment_grad_ref(sp.entries, U, W))
+    assert float(got[1][..., 1, :].abs().max()) == 0.0      # the empty row
+    assert float(got[2][..., 0, :].abs().max()) == 0.0      # the empty column
+
+
+def test_segment_kernel_on_a_structure_trio(cuda):
+    """A Sequential structure's three blocks, gathered as
+    ``sgd_structure_step`` gathers them, against the plain version and
+    against the same blocks of the whole-stack call."""
+
+    x, mask, u, w = _skewed(2, 2, 700, 300, 15, seed=7)
+    sp = from_blocks(x, mask, bucket=64, device=cuda)
+    U, W = torch.from_numpy(u).to(cuda), torch.from_numpy(w).to(cuda)
+    bi = torch.tensor([0, 1, 0], device=cuda)
+    bj = torch.tensor([0, 0, 1], device=cuda)
+    trio = sp.entries.gather(bi, bj)
+    n0 = dict(sddmm_ops.sddmm_segment_grad.by_stack)
+    got = sddmm_ops.sddmm_segment_grad(trio, U[bi, bj], W[bi, bj])
+    assert sddmm_ops.sddmm_segment_grad.by_stack[(3,)] == n0.get((3,), 0) + 1
+    torch.cuda.synchronize()
+    assert got[1].shape == (3, 700, 15) and got[2].shape == (3, 300, 15)
+    _close(got, sddmm_segment_grad_ref(trio, U[bi, bj], W[bi, bj]))
+    whole = sddmm_ops.sddmm_segment_grad(sp.entries, U, W)
+    _close(got, [t[bi, bj] for t in whole])
+
+
+@pytest.mark.parametrize("case", [SKEWED[0], CASES[2]])
+def test_segment_kernel_is_deterministic(cuda, case):
+    make = _skewed if case in SKEWED else _blocks
+    x, mask, u, w = make(*case, seed=8)
+    sp = from_blocks(x, mask, bucket=64, device=cuda)
+    U, W = torch.from_numpy(u).to(cuda), torch.from_numpy(w).to(cuda)
+    first = sddmm_ops.sddmm_segment_grad(sp.entries, U, W)
+    for _ in range(3):
+        again = sddmm_ops.sddmm_segment_grad(sp.entries, U, W)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("case", CASES)
 def test_scatter_kernel_matches_plain(cuda, case):
     x, mask, u, w = _blocks(*case, seed=2)

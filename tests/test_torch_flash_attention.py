@@ -50,7 +50,9 @@ def _rand(B, Hq, Hkv, Lq, Lk, D, Dv=None, seed=0):
 
 def _port(q, k, v, **kw):
     n0 = flash_attention.launches
-    out = flash_attention(*(torch.from_numpy(a) for a in (q, k, v)), **kw)
+    # copies: no buffer is shared between the port's tensors and JAX
+    out = flash_attention(*(torch.from_numpy(a.copy()) for a in (q, k, v)),
+                          **kw)
     assert flash_attention.launches == n0      # CPU: the plain version
     return out.numpy()
 
@@ -66,9 +68,11 @@ def test_matches_jax_kernel_and_reference(case):
     dims, kw = _split(case)
     q, k, v = _rand(*dims)
     got = _port(q, k, v, **kw)
-    for want in (j_flash(q, k, v, **kw), j_ref(q, k, v, **kw)):
+    for name, fn in (("Pallas interpret", j_flash), ("attention_ref", j_ref)):
+        want = fn(q.copy(), k.copy(), v.copy(), **kw)
         np.testing.assert_allclose(got, np.asarray(want), rtol=RTOL,
-                                   atol=ATOL)
+                                   atol=ATOL,
+                                   err_msg=f"port vs JAX {name}")
 
 
 def test_separate_v_dim_mla():

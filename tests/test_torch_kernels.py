@@ -5,8 +5,9 @@ same numpy inputs as its JAX twin.  On CPU tensors the port's wrapper runs
 its plain PyTorch version; the JAX side runs its Pallas kernel in
 interpret mode (``force_kernel=True``, as the JAX package's own tests do)
 and its XLA reference.  Cases: a block with no entries, empty rows and
-columns, padding slots, a store with no padding, and a batched stack
-against per-block calls.
+columns, padding slots, a store with no padding, a skewed store whose hot
+column and heavy row are longer than the plain segment reduce's chunk, and
+a batched stack against per-block calls.
 
 Tolerance: rtol=1e-5, atol=1e-5·max|ref| — float32 sums run in another
 order on each side; at these sizes losses are in the hundreds and
@@ -31,26 +32,36 @@ from repro.kernels.sddmm.segment import (  # noqa: E402
 from repro_torch.convert import sparse_problem_from_numpy  # noqa: E402
 from repro_torch.kernels.masked_factor_grad import ops as t_mfg  # noqa: E402
 from repro_torch.kernels.sddmm import ops as t_sddmm  # noqa: E402
-from repro_torch.kernels.sddmm.segment import segment_reduce  # noqa: E402
+from repro_torch.kernels.sddmm.segment import (  # noqa: E402
+    SEG_CHUNK,
+    segment_reduce,
+)
 
 torch.set_num_threads(2)
 
 P, Q, MB, NB, R = 2, 2, 24, 30, 5
-KINDS = ["random", "empty_block", "empty_lines", "no_padding"]
+KINDS = ["random", "empty_block", "empty_lines", "no_padding", "skewed"]
+# "skewed" blocks: one column holds all but 3 of 90 rows and one row all
+# but 2 of 70 columns, segments longer than the plain version's SEG_CHUNK
+SKEW_MB, SKEW_NB = 90, 70
 
 
 def _blocks(kind, seed=0, r=R):
     rng = np.random.default_rng(seed)
-    density = 1.0 if kind == "no_padding" else 0.3
-    mask = (rng.random((P, Q, MB, NB)) < density).astype(np.float32)
+    density = {"no_padding": 1.0, "skewed": 0.1}.get(kind, 0.3)
+    mb, nb = (SKEW_MB, SKEW_NB) if kind == "skewed" else (MB, NB)
+    mask = (rng.random((P, Q, mb, nb)) < density).astype(np.float32)
+    if kind == "skewed":
+        mask[..., :-3, 4] = 1.0             # a hot item
+        mask[..., 6, 2:] = 1.0              # a heavy user
     if kind == "empty_block":
         mask[0, 1] = 0.0
     if kind == "empty_lines":
         mask[..., [1, 5, 23], :] = 0.0      # empty rows, the last one too
         mask[..., :, [0, 7, 29]] = 0.0      # empty columns, both ends
     x = (rng.normal(size=mask.shape) * 3.0 * mask).astype(np.float32)
-    u = rng.normal(size=(P, Q, MB, r)).astype(np.float32)
-    w = rng.normal(size=(P, Q, NB, r)).astype(np.float32)
+    u = rng.normal(size=(P, Q, mb, r)).astype(np.float32)
+    w = rng.normal(size=(P, Q, nb, r)).astype(np.float32)
     return x, mask, u, w
 
 
@@ -115,6 +126,10 @@ def test_sparse_kernel_module_matches_jax(method, kind):
     if kind == "empty_lines":
         assert float(got[1][..., [1, 5, 23], :].abs().max()) == 0.0
         assert float(got[2][..., [0, 7, 29], :].abs().max()) == 0.0
+    if kind == "skewed":
+        e = tsp.entries
+        assert int((e.col_ptr[..., 5] - e.col_ptr[..., 4]).min()) > SEG_CHUNK
+        assert int((e.row_ptr[..., 7] - e.row_ptr[..., 6]).min()) > SEG_CHUNK
 
 
 @pytest.mark.parametrize("kind", ["random", "empty_block", "empty_lines"])
