@@ -13,14 +13,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
 2. Kernels against their plain PyTorch versions, at the main path's
    shapes (the full 5x5 stack of MovieLens-1M-scale blocks): error, the
    kernel's and the plain version's time (CUDA events; median over
-   CUDA-graph replays, so the host's launch cost is not in it), and the
+   CUDA-graph replays, so the host's launch cost is not in it; the
+   kernel's replay range in ``ms_range``), the device ms of each kernel
+   of the call from ``torch.profiler`` with the launches it recorded
+   (``device_breakdown_ms``, ``device_launches_seen``), and the
    least time the card could take (bytes over HBM rate or operations over
    f32 rate, whichever is larger, counted from this run's data).  The
-   segment kernel is also measured on the three blocks of one Sequential
-   structure (keys ending in ``_b3``), the stack most of its launches get.
+   segment kernel and the dense kernel are also measured on the three
+   blocks of one Sequential structure, gathered as ``sgd_structure_step``
+   gathers them (keys ending in ``_b3``: ``max_rel_err_b3``, ``ms_b3``,
+   ``eager_ms_b3``, ``plain_ms_b3``, ``bound_ms_b3``,
+   ``device_breakdown_ms_b3``, ...), the stack most of their launches get.
 3. The main path through the user entry points, each phase with the
    launch counters set to 0 just before it and read just after (the
-   segment kernel's also by stack shape):
+   segment and dense kernels' also by stack shape):
    ``CompletionProblem`` -> ``Trainer.fit`` (FullGD on the sparse store
    with the segment and scatter methods and on the dense layout, one Wave
    round on each layout, Sequential iterations on each layout) ->
@@ -143,6 +149,8 @@ WRAPPERS = {
     "dequant_score": quant_ops.dequant_score,
     "flash_attention": flash_ops.flash_attention,
 }
+# wrappers that also count their launches by stack shape
+STACKED = (sddmm_ops.sddmm_segment_grad, mfg_ops.masked_factor_grad)
 META = {
     "sddmm_segment_grad": ("src/repro_torch/kernels/csrc/sddmm.cu",
                            "src/repro/kernels/sddmm/segment_kernel.py:113"),
@@ -189,7 +197,8 @@ def peaks(name: str) -> tuple[float, float, float, float]:
 def reset_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
-    sddmm_ops.sddmm_segment_grad.by_stack.clear()
+    for fn in STACKED:
+        fn.by_stack.clear()
 
 
 def counts() -> dict[str, int]:
@@ -200,6 +209,12 @@ def graph_ms(fn, calls: int = 10, reps: int = 25) -> float:
     """Device time of one ``fn()``: ``calls`` calls captured in a CUDA
     graph, the graph replayed ``reps`` times between CUDA events; the
     median replay over ``calls``."""
+
+    return statistics.median(graph_replays_ms(fn, calls, reps))
+
+
+def graph_replays_ms(fn, calls: int = 10, reps: int = 25) -> list[float]:
+    """Each of ``graph_ms``'s ``reps`` replays, over ``calls``."""
 
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
@@ -222,7 +237,7 @@ def graph_ms(fn, calls: int = 10, reps: int = 25) -> float:
         stop.record()
         stop.synchronize()
         times.append(start.elapsed_time(stop) / calls)
-    return statistics.median(times)
+    return times
 
 
 def eager_ms(fn, reps: int = 25) -> float:
@@ -244,7 +259,10 @@ def eager_ms(fn, reps: int = 25) -> float:
     return statistics.median(times)
 
 
-def _kernel_ms(prof, calls: int) -> dict[str, float]:
+def _kernel_ms(prof, calls: int, seen=None) -> dict[str, float]:
+    """Device ms per call of each kernel name; ``seen``, when given, gets
+    the launches the profiler recorded of each."""
+
     out = {}
     for ev in prof.key_averages():
         us = getattr(ev, "device_time_total", 0.0)
@@ -253,6 +271,8 @@ def _kernel_ms(prof, calls: int) -> dict[str, float]:
             name = ev.key.replace("(anonymous namespace)::", "")
             name = name.removeprefix("void ").split("(")[0].strip() or "other"
             out[name] = out.get(name, 0.0) + us / calls / 1e3
+            if seen is not None:
+                seen[name] = seen.get(name, 0) + ev.count
     return out
 
 
@@ -280,9 +300,10 @@ def top(breakdown: dict[str, float], n: int = 8) -> str:
         for name, ms in rows)
 
 
-def device_breakdown(fn, calls: int = 5) -> dict[str, float]:
+def device_breakdown(fn, calls: int = 5, seen=None) -> dict[str, float]:
     """Device ms per call of each CUDA kernel ``fn`` launches, from
-    ``torch.profiler`` (CUPTI) over ``calls`` calls."""
+    ``torch.profiler`` (CUPTI) over ``calls`` calls (``seen``: see
+    ``_kernel_ms``)."""
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -292,7 +313,7 @@ def device_breakdown(fn, calls: int = 5) -> dict[str, float]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return _kernel_ms(prof, calls)
+    return _kernel_ms(prof, calls, seen)
 
 
 def compare(got, want) -> tuple[float, float]:
@@ -317,14 +338,17 @@ def measure(kern, plain, nbytes, ops, card):
     torch.cuda.synchronize()
     abs_err, rel_err = compare(got, want)
     t_bytes, t_ops = nbytes / bw * 1e3, ops / flops * 1e3
+    replays, seen = graph_replays_ms(kern), {}
     return {
         "max_abs_err": abs_err, "max_rel_err": rel_err,
-        "ms": graph_ms(kern), "plain_ms": graph_ms(plain),
+        "ms": statistics.median(replays),
+        "ms_range": [min(replays), max(replays)], "plain_ms": graph_ms(plain),
         "eager_ms": eager_ms(kern), "plain_eager_ms": eager_ms(plain),
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bytes": nbytes, "operations": ops,
-        "device_breakdown_ms": device_breakdown(kern),
+        "device_breakdown_ms": device_breakdown(kern, seen=seen),
+        "device_launches_seen": seen,   # over 5 calls
     }
 
 
@@ -339,9 +363,19 @@ def sparse_work(ent, U, W, nnz):
     return factor_bytes, nnz * (6 * r + 4), B, M, N, r
 
 
+def dense_work(U, W):
+    """(bytes, operations) of one dense f-gradient call: X and mask read
+    once, the factors in, the gradients and the loss out; 6r + 4 flops a
+    matrix entry."""
+
+    factor_bytes, _, B, M, N, r = sparse_work(None, U, W, 0)
+    return 2 * 4 * B * M * N + factor_bytes, B * M * N * (6 * r + 4)
+
+
 def kernel_phase(sparse, dense, state, card):
     """Each kernel against its plain version on the main path's stack; the
-    segment kernel also on one Sequential structure's three blocks."""
+    segment and dense kernels also on one Sequential structure's three
+    blocks."""
 
     ent, U, W = sparse.data.entries, state.U, state.W
     X, Mk = dense.data.xb, dense.data.maskb
@@ -359,8 +393,7 @@ def kernel_phase(sparse, dense, state, card):
             nnz * 4 * 4 + factor_bytes, sparse_ops),
         "masked_factor_grad": (
             lambda: mfg_ops.masked_factor_grad(X, Mk, U, W),
-            lambda: masked_factor_grad_ref(X, Mk, U, W),
-            2 * 4 * B * M * N + factor_bytes, B * M * N * (6 * r + 4)),
+            lambda: masked_factor_grad_ref(X, Mk, U, W), *dense_work(U, W)),
     }
     rows = []
     for name, (kern, plain, nbytes, ops) in work.items():
@@ -370,8 +403,8 @@ def kernel_phase(sparse, dense, state, card):
                "library_ms": None,
                "shape": {"blocks": B, "mb": M, "nb": N, "r": r, "E": E,
                          "nnz": nnz}}
-        if name == "sddmm_segment_grad":
-            row.update(structure_trio(sparse, state, card))
+        if name in ("sddmm_segment_grad", "masked_factor_grad"):
+            row.update(structure_trio(name, sparse, dense, state, card))
         print(json.dumps(row), flush=True)
         for key in ("max_rel_err", "max_rel_err_b3"):
             if key in row and not row[key] <= TOL:
@@ -381,20 +414,29 @@ def kernel_phase(sparse, dense, state, card):
     return rows
 
 
-def structure_trio(sparse, state, card):
-    """The segment kernel on the three blocks of Sequential's structure 0,
-    gathered as ``sgd_structure_step`` gathers them; keys end in ``_b3``."""
+def structure_trio(name, sparse, dense, state, card):
+    """The segment or the dense kernel on the three blocks of Sequential's
+    structure 0, gathered as ``sgd_structure_step`` gathers them; keys end
+    in ``_b3``."""
 
     tables = build_tables(P, Q, G.enumerate_structures(P, Q), "cuda")
     idx = tables.blocks[0].long()
     bi, bj = idx[:, 0], idx[:, 1]
-    ent = sparse.data.entries.gather(bi, bj)
     U, W = state.U[bi, bj], state.W[bi, bj]
     nnz = int(sparse.data.nnz[bi, bj].sum())
-    factor_bytes, ops, B, M, N, _ = sparse_work(ent, U, W, nnz)
-    got = measure(lambda: sddmm_ops.sddmm_segment_grad(ent, U, W),
-                  lambda: sddmm_segment_grad_ref(ent, U, W),
-                  nnz * 5 * 4 + 4 * B * (M + N + 2) + factor_bytes, ops, card)
+    if name == "sddmm_segment_grad":
+        ent = sparse.data.entries.gather(bi, bj)
+        factor_bytes, ops, B, M, N, _ = sparse_work(ent, U, W, nnz)
+        got = measure(lambda: sddmm_ops.sddmm_segment_grad(ent, U, W),
+                      lambda: sddmm_segment_grad_ref(ent, U, W),
+                      nnz * 5 * 4 + 4 * B * (M + N + 2) + factor_bytes, ops,
+                      card)
+    else:
+        X, Mk = dense.data.xb[bi, bj], dense.data.maskb[bi, bj]
+        B = len(idx)
+        got = measure(lambda: mfg_ops.masked_factor_grad(X, Mk, U, W),
+                      lambda: masked_factor_grad_ref(X, Mk, U, W),
+                      *dense_work(U, W), card)
     got["shape"] = {"blocks": B, "structure": idx.tolist(), "nnz": nnz}
     return {f"{key}_b3": val for key, val in got.items()}
 
@@ -409,12 +451,12 @@ def run_phase(label, expect, fit):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     got = counts()
-    by_stack = {"x".join(map(str, lead)): n for lead, n in
-                sddmm_ops.sddmm_segment_grad.by_stack.items()}
+    by_stack = {fn.__name__: {"x".join(map(str, lead)): n for lead, n in
+                              fn.by_stack.items()} for fn in STACKED}
     costs = [c for _, c in result.history]
     print(f"[main] {label}: t={result.t} costs={costs} "
           f"wall={seconds:.3f}s launches={got} "
-          f"sddmm_segment_grad launches by stack={by_stack}", flush=True)
+          f"launches by stack={by_stack}", flush=True)
     if not np.isfinite(costs).all():
         fail(f"{label}: non-finite cost {costs}")
     for name in expect:

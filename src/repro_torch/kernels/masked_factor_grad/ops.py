@@ -6,7 +6,8 @@ axes — X, mask (..., M, N), U (..., M, r), W (..., N, r) — and returns
 hand-written kernel in ``kernels/csrc/masked_factor_grad.cu`` once over the
 whole stack; a CPU tensor runs the plain version.  There is no size
 threshold and no fallback from the card.  Launches are counted in
-``masked_factor_grad.launches``.
+``masked_factor_grad.launches`` and, by the leading axes of the stack, in
+``masked_factor_grad.by_stack``.
 """
 
 from __future__ import annotations
@@ -49,7 +50,10 @@ def masked_factor_grad(x, mask, u, w):
         B, M, N, r, torch.cuda.current_stream(u.device).cuda_stream)
     _build.check("masked_factor_grad", rc)
     masked_factor_grad.launches += 1
+    by_stack = masked_factor_grad.by_stack
+    by_stack[lead] = by_stack.get(lead, 0) + 1
     return loss, gu, gw
 
 
 masked_factor_grad.launches = 0
+masked_factor_grad.by_stack = {}

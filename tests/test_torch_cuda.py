@@ -166,13 +166,55 @@ def test_scatter_kernel_matches_plain(cuda, case):
     _close(got, sddmm_factor_grad_ref(sp.entries, U, W))
 
 
-@pytest.mark.parametrize("case", CASES)
+# (p, q, mb, nb, r, density): sides that are not multiples of 32, ranks at
+# the edges of the register-blocked kernel's templates (RK = 4 ... 32) and
+# the first rank of the shared-memory kernel
+MASKED_EDGES = [(2, 1, 45, 70, 1, 0.3), (1, 2, 70, 45, 16, 0.3),
+                (2, 1, 45, 70, 17, 0.3), (1, 2, 61, 37, 33, 0.3)]
+
+
+@pytest.mark.parametrize("case", CASES + MASKED_EDGES)
 def test_masked_kernel_matches_plain(cuda, case):
     x, mask, u, w = _blocks(*case, seed=3)
     X, Mk, U, W = (torch.from_numpy(a).to(cuda) for a in (x, mask, u, w))
     got = mfg_ops.masked_factor_grad(X, Mk, U, W)
     torch.cuda.synchronize()
     _close(got, masked_factor_grad_ref(X, Mk, U, W))
+
+
+@pytest.mark.parametrize("case", [CASES[2], CASES[4]])
+def test_masked_kernel_is_deterministic(cuda, case):
+    """Bitwise-equal (loss, gU, gW) from repeated calls, for the
+    register-blocked kernel (r <= 32) and the shared-memory one."""
+
+    x, mask, u, w = _blocks(*case, seed=10)
+    X, Mk, U, W = (torch.from_numpy(a).to(cuda) for a in (x, mask, u, w))
+    first = mfg_ops.masked_factor_grad(X, Mk, U, W)
+    for _ in range(3):
+        again = mfg_ops.masked_factor_grad(X, Mk, U, W)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+def test_masked_kernel_on_a_structure_trio(cuda):
+    """A Sequential structure's three blocks, gathered as
+    ``sgd_structure_step`` gathers them, against the plain version and
+    against the same blocks of the whole-stack call."""
+
+    x, mask, u, w = _blocks(2, 2, 150, 70, 15, 0.3, seed=11)
+    X, Mk, U, W = (torch.from_numpy(a).to(cuda) for a in (x, mask, u, w))
+    bi = torch.tensor([0, 1, 0], device=cuda)
+    bj = torch.tensor([0, 0, 1], device=cuda)
+    n0 = dict(mfg_ops.masked_factor_grad.by_stack)
+    got = mfg_ops.masked_factor_grad(X[bi, bj], Mk[bi, bj], U[bi, bj],
+                                     W[bi, bj])
+    assert mfg_ops.masked_factor_grad.by_stack[(3,)] == n0.get((3,), 0) + 1
+    torch.cuda.synchronize()
+    assert got[1].shape == (3, 150, 15) and got[2].shape == (3, 70, 15)
+    _close(got, masked_factor_grad_ref(X[bi, bj], Mk[bi, bj], U[bi, bj],
+                                       W[bi, bj]))
+    whole = mfg_ops.masked_factor_grad(X, Mk, U, W)
+    _close(got, [t[bi, bj] for t in whole])
 
 
 def test_batched_launch_equals_per_block_launches(cuda):

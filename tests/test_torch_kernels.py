@@ -6,8 +6,10 @@ its plain PyTorch version; the JAX side runs its Pallas kernel in
 interpret mode (``force_kernel=True``, as the JAX package's own tests do)
 and its XLA reference.  Cases: a block with no entries, empty rows and
 columns, padding slots, a store with no padding, a skewed store whose hot
-column and heavy row are longer than the plain segment reduce's chunk, and
-a batched stack against per-block calls.
+column and heavy row are longer than the plain segment reduce's chunk,
+dense blocks at the ML-1M cell's rank (r = 15) whose sides are not
+multiples of the CUDA kernel's 32-wide tiles, and a batched stack against
+per-block calls.
 
 Tolerance: rtol=1e-5, atol=1e-5·max|ref| — float32 sums run in another
 order on each side; at these sizes losses are in the hundreds and
@@ -44,12 +46,16 @@ KINDS = ["random", "empty_block", "empty_lines", "no_padding", "skewed"]
 # "skewed" blocks: one column holds all but 3 of 90 rows and one row all
 # but 2 of 70 columns, segments longer than the plain version's SEG_CHUNK
 SKEW_MB, SKEW_NB = 90, 70
+# "cell_rank" blocks: the ML-1M cell's rank on sides that are not multiples
+# of the CUDA kernel's 32-wide tiles
+CELL_MB, CELL_NB, CELL_R = 45, 70, 15
 
 
 def _blocks(kind, seed=0, r=R):
     rng = np.random.default_rng(seed)
     density = {"no_padding": 1.0, "skewed": 0.1}.get(kind, 0.3)
-    mb, nb = (SKEW_MB, SKEW_NB) if kind == "skewed" else (MB, NB)
+    mb, nb = {"skewed": (SKEW_MB, SKEW_NB),
+              "cell_rank": (CELL_MB, CELL_NB)}.get(kind, (MB, NB))
     mask = (rng.random((P, Q, mb, nb)) < density).astype(np.float32)
     if kind == "skewed":
         mask[..., :-3, 4] = 1.0             # a hot item
@@ -132,9 +138,10 @@ def test_sparse_kernel_module_matches_jax(method, kind):
         assert int((e.row_ptr[..., 7] - e.row_ptr[..., 6]).min()) > SEG_CHUNK
 
 
-@pytest.mark.parametrize("kind", ["random", "empty_block", "empty_lines"])
+@pytest.mark.parametrize("kind", ["random", "empty_block", "empty_lines",
+                                  "cell_rank"])
 def test_masked_kernel_module_matches_jax(kind):
-    x, mask, u, w = _blocks(kind)
+    x, mask, u, w = _blocks(kind, r=CELL_R if kind == "cell_rank" else R)
     got = t_mfg.masked_factor_grad(*(torch.from_numpy(a)
                                      for a in (x, mask, u, w)))
     for i in range(P):
