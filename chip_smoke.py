@@ -33,15 +33,25 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``FitResult`` -> ``recommend_topk`` for 256 users.  Checks: costs
    finite and falling, each kernel launched in its phase, sparse and dense
    FullGD states agree, top-k agrees with a float64 host reference.
-4. The int8 score kernel against its plain version at the top serving
-   bucket (1024 users) of the fitted index, with the same times and bound,
-   the ``"dequant"`` method's time and a ``torch._int_mm`` yardstick.
+4. The int8 score kernel against its plain version on the fitted index
+   at the top serving bucket (1024 users), with the same times and bound,
+   the ``"dequant"`` method's time and a ``torch._int_mm`` yardstick; and
+   at every other bucket (``by_bucket``: B = 16, 64, 256, users drawn the
+   same way), each with its graph time and replay range, eager and plain
+   times, bound, profiler breakdown and error, held to 0, the tile shape
+   and grid the kernel picks, a ``sweep`` of every tile shape, the first
+   kernel, the picked shape without a walk and the capped-grid walks
+   through the library's measurement entry, each held to 0, and the time
+   of ``fill_`` on the same output (``store_floor_ms``: what writing those
+   bytes alone costs).
 5. ``[serve]``: ``quantize_index`` of the sparse FullGD fit's index ->
    ``ServingEngine(quant="int8")`` with buckets (16, 64, 256, 1024) ->
    ~200 requests of 1-3000 users -> ``refresh`` from the dense FullGD fit
    -> 50 more requests; then an f32 engine over the same requests.
    Checks: int8 codes and scales equal the CPU's bitwise, the kernel
-   launched once per bucket run (startup included),
+   launched once per bucket run (startup included), its launches by batch
+   size (``dequant_score.by_batch``, printed on the int8 line) add up to
+   that and match the ladder's plan bucket by bucket,
    ``serve_compiles_total`` stays 4, every answer equals ``recommend_topk``
    on the same index, overlap@100 of int8 against f32 >= 0.95.  Prints
    per-bucket latency for both layouts and the index bytes.
@@ -81,6 +91,7 @@ the ``{"kernels": [...]}`` summary, and the line before that the card's
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import statistics
@@ -199,6 +210,7 @@ def reset_counts() -> None:
         fn.launches = 0
     for fn in STACKED:
         fn.by_stack.clear()
+    quant_ops.dequant_score.by_batch.clear()
 
 
 def counts() -> dict[str, int]:
@@ -488,17 +500,14 @@ def check_topk(index, users, items, scores, k):
     return int(tie_free.sum())
 
 
-def quant_kernel_row(qidx, users, card):
-    """The int8 score kernel against its plain version on one top bucket
-    of the fitted index: error (must be 0), times, bound, the dequant
-    method's time and the ``torch._int_mm`` yardstick."""
+def score_timing(args, card):
+    """The int8 score kernel against its plain version on one batch: error
+    (must be 0), times, replay range, device breakdown and bound."""
 
     bw, _, int8_ops, _ = peaks(card)
-    uq, us = qidx.u_q[users].contiguous(), qidx.u_scale[users].contiguous()
-    wq, ws = qidx.w_q, qidx.w_scale
+    uq, wq = args[0], args[2]
     B, r = uq.shape
     n = wq.shape[0]
-    args = (uq, us, wq, ws)
     kern = lambda: quant_ops.dequant_score(*args, method="fused")  # noqa: E731
     plain = lambda: fused_score_ref(*args)                         # noqa: E731
     got, want = kern(), plain()
@@ -507,6 +516,94 @@ def quant_kernel_row(qidx, users, card):
     nbytes = B * r + 4 * B + n * r + 4 * n + 4 * B * n
     ops = 2 * B * n * r
     t_bytes, t_ops = nbytes / bw * 1e3, ops / int8_ops * 1e3
+    replays = graph_replays_ms(kern)
+    timing = {
+        "max_abs_err": abs_err, "ms": statistics.median(replays),
+        "ms_range": [min(replays), max(replays)], "plain_ms": graph_ms(plain),
+        "eager_ms": eager_ms(kern), "plain_eager_ms": eager_ms(plain),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "operations": ops,
+        "device_breakdown_ms": device_breakdown(kern),
+        "shape": {"B": B, "n": n, "r": r},
+    }
+    if abs_err != 0.0:
+        fail(f"dequant_score disagrees with its plain version at B = {B}: "
+             f"max abs error {abs_err:.3e}, tolerance 0")
+    timing.update(tile_sweep(args, want))
+    return timing
+
+
+def tile_sweep(args, want):
+    """The score kernel's launch at every tile shape, as the first kernel
+    (``first``), with the picked shape on a CTA for every tile (``nowalk``)
+    and as a walk with the grid capped at 1 and 2 CTAs an SM (``walk1``,
+    ``walk2``), through the C library's measurement entry
+    ``dequant_score_tiled``: each held bitwise to the plain version, with
+    its graph ms, tile count and grid.  ``tile`` is the shape
+    ``dequant_score`` picks, ``grid`` its grid; ``store_floor_ms`` the
+    graph ms of ``fill_`` on the same (B, n) f32 output, a PyTorch call
+    that writes the same bytes and computes nothing."""
+
+    lib = _build.load("dequant_score")
+    uq, us, wq, ws = args
+    B, r = uq.shape
+    n = wq.shape[0]
+    out = torch.empty((B, n), dtype=torch.float32, device="cuda")
+    info = (ctypes.c_int * 4)()
+
+    def call(tile, cap, dst):
+        rc = lib.dequant_score_tiled(
+            uq.data_ptr(), us.data_ptr(), wq.data_ptr(), ws.data_ptr(), dst,
+            B, n, r, tile, cap, info,
+            torch.cuda.current_stream().cuda_stream)
+        return rc, f"{info[0]}x{info[1]}", info[2], info[3]
+
+    variants, tile = [], 0
+    while call(tile, 0, None)[0] == 0:          # every tile shape it has
+        variants.append((str(tile), tile, 0))
+        tile += 1
+    variants += [("first", -2, 0), ("nowalk", -1, -1), ("walk1", -1, 1),
+                 ("walk2", -1, 2)]
+    sweep = {}
+    for label, tile, cap in variants:
+        def run(tile=tile, cap=cap):
+            rc = call(tile, cap, out.data_ptr())[0]
+            _build.check("dequant_score_tiled", rc)
+            return out
+
+        run()
+        torch.cuda.synchronize()
+        err = float((out.double() - want.double()).abs().max())
+        _, shape, tiles, grid = call(tile, cap, None)
+        sweep[label] = {"shape": shape, "ms": graph_ms(run), "tiles": tiles,
+                        "grid": grid, "max_abs_err": err}
+        if err != 0.0:
+            fail(f"dequant_score_tiled ({label}, {shape}) disagrees with the "
+                 f"plain version at B = {B}: max abs error {err:.3e}")
+    _, shape, tiles, grid = call(-1, 0, None)
+    return {"tile": shape, "tiles": tiles, "grid": grid, "sweep": sweep,
+            "store_floor_ms": graph_ms(lambda: out.fill_(0.0))}
+
+
+def quant_kernel_row(qidx, users, card):
+    """The int8 score kernel against its plain version on the fitted index
+    at every serving bucket (the top bucket's numbers at the row's top
+    level, the others under ``by_bucket``): error (must be 0), times,
+    bound; at the top bucket also the dequant method's time and the
+    ``torch._int_mm`` yardstick."""
+
+    def batch(size):
+        sel = users[:size]
+        return (qidx.u_q[sel].contiguous(), qidx.u_scale[sel].contiguous(),
+                qidx.w_q, qidx.w_scale)
+
+    args = batch(TOP_BUCKET)
+    uq, us, wq, ws = args
+    B, r = uq.shape
+    n = wq.shape[0]
+    top = score_timing(args, card)
+    want = fused_score_ref(*args)
     # yardstick only, never called by the port: cuBLASLt's int8 GEMM on
     # codes zero-padded to r -> 16 and n -> a multiple of 8, then the same
     # epilogue
@@ -528,22 +625,14 @@ def quant_kernel_row(qidx, users, card):
         "name": "dequant_score", "route": "cuda",
         "source": META["dequant_score"][0],
         "replaces": META["dequant_score"][1], "launches": 0,
-        "max_abs_err": abs_err, "tolerance": 0.0,
-        "ms": graph_ms(kern), "plain_ms": graph_ms(plain),
-        "eager_ms": eager_ms(kern), "plain_eager_ms": eager_ms(plain),
+        "tolerance": 0.0, **top,
         "dequant_method_ms": graph_ms(lambda: dequant_score_ref(*args)),
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bytes": nbytes, "operations": ops,
         "library_ms": library_ms, "library_call": "torch._int_mm + epilogue",
         "library_equal": lib_equal, "library_error": library_error,
-        "device_breakdown_ms": device_breakdown(kern),
-        "shape": {"B": B, "n": n, "r": r},
+        "by_bucket": {b: score_timing(batch(b), card)
+                      for b in DEFAULT_BUCKETS if b != TOP_BUCKET},
     }
     print(json.dumps(row), flush=True)
-    if abs_err != 0.0:
-        fail(f"dequant_score disagrees with its plain version: max abs "
-             f"error {abs_err:.3e}, tolerance 0")
     return row
 
 
@@ -612,6 +701,7 @@ def serve_engine(label, index, refresh_from, before, after, k, expect_q):
                   [eng.submit(x) for x in after]]
         compiles.append(obs.counter("serve_compiles_total").value)
         got = counts()
+        by_batch = dict(sorted(quant_ops.dequant_score.by_batch.items()))
         metrics = eng.metrics()
         method = eng.quant_method
     if compiles != [len(DEFAULT_BUCKETS)] * 3:
@@ -621,7 +711,8 @@ def serve_engine(label, index, refresh_from, before, after, k, expect_q):
     print(f"[serve] {label}: startup {startup:.3f}s, {len(before)} requests "
           f"({users} users) in {t_first:.3f}s = {users / t_first:.0f} "
           f"users/s, then refresh and {len(after)} requests; "
-          f"compiles {compiles}; launches {got}", flush=True)
+          f"compiles {compiles}; launches {got}; dequant_score launches by "
+          f"batch {by_batch}", flush=True)
     for b in DEFAULT_BUCKETS:
         h = metrics["buckets"][b]
         print(f"[serve] {label} bucket {b}: count={h['count']} "
@@ -631,7 +722,7 @@ def serve_engine(label, index, refresh_from, before, after, k, expect_q):
     lat = metrics["latency"]
     print(f"[serve] {label} request: p50={1e3 * lat['p50']:.3f}ms "
           f"p99={1e3 * lat['p99']:.3f}ms (queue wait included)", flush=True)
-    return first, second, got, method
+    return first, second, got, by_batch, method
 
 
 def serve_phase(fit_a, fit_b):
@@ -654,12 +745,22 @@ def serve_phase(fit_a, fit_b):
     print("[serve] quantize_index: codes and scales on the card equal the "
           "CPU's bitwise", flush=True)
     ladder = BucketLadder(DEFAULT_BUCKETS)
-    first, second, got, method = serve_engine("int8", qidx, fit_b, before,
-                                              after, k, "int8")
+    first, second, got, by_batch, method = serve_engine(
+        "int8", qidx, fit_b, before, after, k, "int8")
     expect = len(DEFAULT_BUCKETS) + chunks(ladder, before + after)
     if got["dequant_score"] != expect:
         fail(f"[serve] dequant_score launched {got['dequant_score']} times, "
              f"expected {expect} (startup runs + bucket executions)")
+    if sum(by_batch.values()) != got["dequant_score"]:
+        fail(f"[serve] dequant_score launches by batch {by_batch} do not add "
+             f"up to its {got['dequant_score']} launches")
+    want_by_batch = dict.fromkeys(DEFAULT_BUCKETS, 1)       # startup runs
+    for x in before + after:
+        for _, _, bucket in ladder.plan(len(x)):
+            want_by_batch[bucket] += 1
+    if by_batch != want_by_batch:
+        fail(f"[serve] dequant_score launches by batch {by_batch}, expected "
+             f"{want_by_batch} from the ladder's plan")
     qidx_b = quantize_index(fit_b.to_recommend_index())
     n1 = check_answers("int8", ladder, before, first, qidx, k, method, True)
     n2 = check_answers("int8 refreshed", ladder, after, second, qidx_b, k,
@@ -672,7 +773,7 @@ def serve_phase(fit_a, fit_b):
           f"{expect - len(DEFAULT_BUCKETS)} bucket runs",
           flush=True)
 
-    first_f, second_f, got_f, _ = serve_engine("f32", index_a, fit_b,
+    first_f, second_f, got_f, _, _ = serve_engine("f32", index_a, fit_b,
                                                before, after, k, None)
     if got_f["dequant_score"] != 0:
         fail("[serve] the f32 engine launched the int8 kernel")

@@ -11,30 +11,72 @@
 // (kernels/quant/ref.py::fused_score_ref) bit for bit.  The integer sum is
 // exact for any rank below 2^31 / 127^2; (float)acc is exact below r ~ 1040.
 //
-// Bound on this card: bytes, and almost all of them the output.  At a
-// serving bucket of B = 1024 users against n = 3706 items at r = 15 the
-// scores are 15.18 MB and the inputs 0.09 MB (Q_w 56 KB, s_w 15 KB, Q_u
-// 15 KB, s_u 4 KB): ~4.6 us at 3.35 TB/s.  The 114 M int8 multiply-adds
-// take 0.06 us at the tensor cores' int8 rate, so the work is the store.
+// Bound on this card: bytes, and almost all of them the output.  Against
+// n = 3706 items at r = 15 the bytes B*r + 4B + n*r + 4n + 4*B*n over
+// 3.35 TB/s give, at the four serving buckets,
+//   B = 16: 0.092 us   B = 64: 0.305 us   B = 256: 1.155 us
+//   B = 1024: 4.558 us (15.18 MB of scores; the inputs are 0.09 MB).
+// The 114 M int8 multiply-adds at B = 1024 take 0.06 us on the tensor
+// cores and ~1.3 us as __dp4a over 132 SMs, both under the store bound, so
+// the products stay on __dp4a from shared memory.
 //
-// Design, simple first: one CTA of 32 x 8 threads per tile of 32 users x
-// 128 items.  The TPU kernel keeps the user batch resident in VMEM and
-// streams item tiles through a sequential grid; here every tile is its own
-// CTA and the codes (a few KB) come from L2.  The rank is walked in chunks
-// of at most 32 code bytes: each chunk's code rows are staged in shared
-// memory as int8, zero-padded to a multiple of 4 and at the ragged B and n
-// edges, and consumed four at a time by __dp4a (signed int8 x 4 dot with
-// int32 accumulate).  Each thread holds a 4 x 4 accumulator: users ty + 8i,
-// items tx + 32j, so a warp stores 32 neighbouring floats of one output
-// row (128 B, coalesced along n).  The shared-memory row stride is an odd
-// number of words, so the 32 lanes' item rows fall in 32 distinct banks;
-// the user rows are a broadcast.  Tensor cores (mma.sync int8) and TMA
-// stores are for a later revision: the product is not what binds.
+// Two kernels, chosen by rank in the C entry (a choice by shape):
+//
+// * r <= kStagedMaxRank (64): staged_score_kernel.  The edge is 64 so that
+//   the largest tile's shared memory (72 KB at r = 64) still lets three
+//   CTAs share an SM; the serving ranks (15, 32) are far below it.  What
+//   held the first kernel (PR 12, kept below for larger r) back, and what
+//   this design does about it:
+//   - Staging was a latency chain: every thread made ~10 one-byte global
+//     loads per rank chunk, each behind a division and two branches, and
+//     no product started before the slowest returned; at the small buckets
+//     that chain is most of the kernel.  Here a tile's codes are
+//     contiguous runs (Q_w[j0 : j0+BN) is BN*r bytes from byte j0*r,
+//     16-byte aligned when BN is a multiple of 16 and the base is), so
+//     they, and the tile's scales, arrive by 16-byte cp.async: one or two
+//     copies a thread.  A head or tail off the 16-byte grid (a base such
+//     as w_q[1:], the ragged last tile) goes by bytes.  One pass from
+//     shared to shared memory then spreads the flat runs into zero-padded
+//     word rows of an odd stride, which __dp4a reads without bank
+//     conflicts.
+//   - Scalar stores off the line grid: the output's row stride, n*4 =
+//     14,824 bytes at n = 3706, is 104 bytes off a multiple of 128, so
+//     most warp stores straddled two lines.  Here the tile's scores go to
+//     shared memory first, each row placed at the same address modulo 16
+//     as its destination, and each warp writes whole row segments as
+//     float4 at 16-byte-aligned addresses, with at most 3 scalars at each
+//     end.  Every output element is written once, by one thread: no
+//     atomics, and two calls give the same bits.
+//   - Stores from too few warps: at B = 1024 the time is the store stream
+//     (a flat fill_ of the same 15.18 MB takes ~6 us on this card, PERF.md),
+//     and it drains faster the more warps have stores in flight.  The
+//     kernel is capped at 64 registers a thread, so four 256-thread CTAs
+//     share an SM and all 464 tiles of 64 x 128 are in flight at once.
+//   - One wave in lockstep: the grid is persistent, min(tiles, the CTAs
+//     that fit on the card at once); each CTA walks tiles t = blockIdx.x,
+//     t += gridDim.x, with the code stages double-buffered, so the next
+//     tile's copies are in flight while this tile stores.  At the four
+//     serving buckets every tile has a CTA of its own; capping the grid so
+//     that CTAs walk several tiles was slower at each (PERF.md), since a
+//     CTA's stores then go out one tile after another.  Larger catalogs
+//     walk.
+//   - Small buckets did not fill the card (B = 16 launched 29 CTAs): the
+//     tile shape is picked by (B, n) from kTiles, the largest tile that
+//     still gives every SM a tile, else 32 x 64: the fastest shape measured
+//     at each of the four buckets.  16-user tiles, and tiles of whole rows
+//     against a catalog held in shared memory, were slower at every bucket,
+//     and bulk (TMA) stores of the row bodies no faster than float4
+//     (PERF.md).
+// * r > 64, up to the wrapper's MAX_RANK: dequant_score_kernel, the first
+//   kernel, unchanged: one CTA of 32 x 8 threads per 32 x 128 tile, the
+//   rank walked in 32-byte chunks staged by byte loads.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+// --- the first kernel (PR 12), for r > kStagedMaxRank ----------------------
 
 constexpr int kTX = 32;                 // threads along items
 constexpr int kTY = 8;                  // threads along users
@@ -115,17 +157,345 @@ __global__ void __launch_bounds__(kThreads) dequant_score_kernel(
   }
 }
 
+// --- the staged kernel, for r <= kStagedMaxRank ----------------------------
+
+constexpr int kStagedMaxRank = 64;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// Shared-memory room for a run of `len` bytes copied to the address that
+// matches its source modulo 16: up to 15 bytes of offset, and 8 bytes past
+// the end that the spread pass may read (and masks off).
+__host__ __device__ constexpr int run_room(int len) {
+  return ((len + 15) & ~15) + 32;
+}
+
+// Byte offsets of one tile's regions in dynamic shared memory: the scores
+// tile first (BM rows of BN + 4 floats), then two staging buffers of the
+// users' runs (Q_u, s_u), then two of the catalog's runs (Q_w, s_w), then
+// the word rows of both sides (users first).
+struct Layout {
+  int ld;                 // floats per row of the scores tile
+  int stride;             // words per staged code row (odd)
+  int ru, rsu, rw, rsw;   // room of each run in a staging buffer
+  int user;               // offset of user buffer 0; buffer 1 follows
+  int cat;                // offset of catalog buffer 0; buffer 1 follows
+  int words;              // offset of the word rows
+  int total;
+  __host__ __device__ Layout(int bm, int bn, int r) {
+    ld = bn + 4;
+    stride = ((r + 3) / 4) | 1;
+    ru = run_room(bm * r);
+    rsu = run_room(4 * bm);
+    rw = run_room(bn * r);
+    rsw = run_room(4 * bn);
+    user = 4 * bm * ld;
+    cat = user + 2 * (ru + rsu);
+    words = cat + 2 * (rw + rsw);
+    total = words + 4 * (bm + bn) * stride;
+  }
+};
+
+// Issue the copies of `len` bytes from `src` into the room at `room`, so
+// that they land at room + (src & 15): the 16-byte pieces by cp.async, a
+// head or tail off the 16-byte grid by bytes.  Returns where they landed.
+__device__ __forceinline__ const unsigned char* stage_run(
+    const void* src, int len, unsigned char* room, int tid) {
+  const unsigned char* g = static_cast<const unsigned char*>(src);
+  const int off = static_cast<int>(reinterpret_cast<uintptr_t>(g) & 15);
+  unsigned char* dst = room + off;
+  const int head = min(len, (16 - off) & 15);
+  const int body = (len - head) & ~15;
+  for (int c = tid; c < body / 16; c += kThreads)
+    cp_async16(dst + head + 16 * c, g + head + 16 * c);
+  const int rest = len - head - body;
+  for (int e = tid; e < head + rest; e += kThreads) {
+    const int k = e < head ? e : head + body + (e - head);
+    dst[k] = g[k];
+  }
+  return dst;
+}
+
+// Spread `rows` code rows of r bytes, flat at `flat`, into word rows of
+// `stride` words at `words`; bytes past r and rows past `valid` are zeros.
+__device__ __forceinline__ void spread(const unsigned char* flat, int valid,
+                                       int rows, int r, int stride,
+                                       int* words, int tid) {
+  const int kw = (r + 3) / 4;
+  const int base = static_cast<int>(reinterpret_cast<uintptr_t>(flat) & 3);
+  const unsigned* aligned = reinterpret_cast<const unsigned*>(flat - base);
+  for (int e = tid; e < rows * kw; e += kThreads) {
+    const int row = e / kw, w = e - row * kw;
+    unsigned v = 0;
+    if (row < valid) {
+      const int at = base + row * r + 4 * w;      // byte from `aligned`
+      v = __funnelshift_r(aligned[at >> 2], aligned[(at >> 2) + 1],
+                          8 * (at & 3));
+      const int left = r - 4 * w;                 // this row's bytes here
+      if (left < 4) v &= (1u << (8 * left)) - 1u;
+    }
+    words[row * stride + w] = static_cast<int>(v);
+  }
+}
+
+// Where a tile's four runs landed in its staging buffer.
+struct Runs {
+  const unsigned char* u;
+  const unsigned char* w;
+  const float* su;
+  const float* sw;
+};
+
+// Tile shapes: BM = kTY * RM users x BN = kTX * RN items, one CTA of the
+// first kernel's 32 x 8 threads, each with an RM x RN block of outputs
+// (users ty + kTY*ii, items tx + kTX*jj).  BM and BN are multiples of 16,
+// so a tile's code runs start 16-byte aligned whenever the tensors do.
+struct Tile {
+  int rm, rn;
+};
+constexpr Tile kTiles[] = {
+    {8, 4},   // 64 x 128
+    {4, 4},   // 32 x 128
+    {4, 2},   // 32 x 64
+};
+constexpr int kNumTiles = sizeof(kTiles) / sizeof(kTiles[0]);
+
+// At most 64 registers a thread, so that four CTAs fit an SM: all 464
+// tiles of the B = 1024 bucket are then in flight at once.
+template <int RM, int RN>
+__global__ void __launch_bounds__(kThreads, 4) staged_score_kernel(
+    const int8_t* __restrict__ uq, const float* __restrict__ us,
+    const int8_t* __restrict__ wq, const float* __restrict__ ws,
+    float* __restrict__ out, int B, int n, int r) {
+  constexpr int BM = kTY * RM, BN = kTX * RN;
+  constexpr int kWarps = kThreads / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout L(BM, BN, r);
+  float* tile = reinterpret_cast<float*>(smem);
+  int* wu = reinterpret_cast<int*>(smem + L.words);
+  int* ww = wu + BM * L.stride;
+  const int tid = threadIdx.x, tx = tid % kTX, ty = tid / kTX;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int kw = (r + 3) / 4;
+  const int tiles_n = (n + BN - 1) / BN;
+  const int tiles = ((B + BM - 1) / BM) * tiles_n;
+
+  // issue tile t's copies into staging buffer b; returns where they land
+  auto stage = [&](int t, int b) {
+    unsigned char* user = smem + L.user + b * (L.ru + L.rsu);
+    unsigned char* cat = smem + L.cat + b * (L.rw + L.rsw);
+    const int i0 = (t / tiles_n) * BM, j0 = (t % tiles_n) * BN;
+    const int vu = min(BM, B - i0), vw = min(BN, n - j0);
+    Runs got;
+    got.u = stage_run(uq + (size_t)i0 * r, vu * r, user, tid);
+    got.su = reinterpret_cast<const float*>(
+        stage_run(us + i0, 4 * vu, user + L.ru, tid));
+    got.w = stage_run(wq + (size_t)j0 * r, vw * r, cat, tid);
+    got.sw = reinterpret_cast<const float*>(
+        stage_run(ws + j0, 4 * vw, cat + L.rw, tid));
+    cp_async_commit();
+    return got;
+  };
+
+  int t = blockIdx.x, b = 0;
+  if (t >= tiles) return;
+  Runs cur = stage(t, 0);
+  for (; t < tiles; t += gridDim.x, b ^= 1) {
+    const int i0 = (t / tiles_n) * BM, j0 = (t % tiles_n) * BN;
+    const int vu = min(BM, B - i0), vw = min(BN, n - j0);
+    cp_async_wait_all();
+    __syncthreads();   // this tile's runs are in; the last stores are done
+    spread(cur.u, vu, BM, r, L.stride, wu, tid);
+    spread(cur.w, vw, BN, r, L.stride, ww, tid);
+    __syncthreads();   // word rows ready; the other buffer is free
+    Runs next = cur;
+    if (t + gridDim.x < tiles) next = stage(t + gridDim.x, b ^ 1);
+
+    int acc[RM][RN];
+#pragma unroll
+    for (int ii = 0; ii < RM; ++ii)
+#pragma unroll
+      for (int jj = 0; jj < RN; ++jj) acc[ii][jj] = 0;
+    for (int w = 0; w < kw; ++w) {
+      int a[RM], c[RN];
+#pragma unroll
+      for (int ii = 0; ii < RM; ++ii) a[ii] = wu[(ty + kTY * ii) * L.stride + w];
+#pragma unroll
+      for (int jj = 0; jj < RN; ++jj) c[jj] = ww[(tx + kTX * jj) * L.stride + w];
+#pragma unroll
+      for (int ii = 0; ii < RM; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < RN; ++jj)
+          acc[ii][jj] = __dp4a(a[ii], c[jj], acc[ii][jj]);
+    }
+
+    // scores into the tile, row i at the float that matches its
+    // destination's address modulo 16 bytes
+    const float* s_u = cur.su;
+    const float* s_w = cur.sw;
+#pragma unroll
+    for (int ii = 0; ii < RM; ++ii) {
+      const int i = ty + kTY * ii;
+      const float s = s_u[i];                 // rows past vu: never stored
+      const int pad = static_cast<int>(
+          (reinterpret_cast<uintptr_t>(out + (size_t)(i0 + i) * n + j0) >> 2) &
+          3);
+      float* row = tile + i * L.ld + pad;
+#pragma unroll
+      for (int jj = 0; jj < RN; ++jj) {
+        const int j = tx + kTX * jj;
+        // the plain version's order: (float(acc) * s_u) * s_w
+        row[j] = __fmul_rn(__fmul_rn(__int2float_rn(acc[ii][jj]), s), s_w[j]);
+      }
+    }
+    __syncthreads();   // the tile is complete
+
+    // each warp writes whole row segments: scalars up to the first 16-byte
+    // boundary, float4 bodies, scalars after the last
+    for (int i = warp; i < vu; i += kWarps) {
+      float* g = out + (size_t)(i0 + i) * n + j0;
+      const int pad =
+          static_cast<int>((reinterpret_cast<uintptr_t>(g) >> 2) & 3);
+      const float* s = tile + i * L.ld + pad;
+      const int head = min(vw, (4 - pad) & 3);
+      const int body = (vw - head) >> 2;
+      const int tail = vw - head - 4 * body;
+      for (int v = lane; v < body; v += 32)
+        reinterpret_cast<float4*>(g + head)[v] =
+            reinterpret_cast<const float4*>(s + head)[v];
+      if (lane < head) g[lane] = s[lane];
+      if (lane < tail) g[head + 4 * body + lane] = s[head + 4 * body + lane];
+    }
+    cur = next;
+  }
+  cp_async_wait_all();   // no copy outlives the CTA
+}
+
+using Kernel = void (*)(const int8_t*, const float*, const int8_t*,
+                        const float*, float*, int, int, int);
+
+const Kernel kKernels[kNumTiles] = {
+    staged_score_kernel<kTiles[0].rm, kTiles[0].rn>,
+    staged_score_kernel<kTiles[1].rm, kTiles[1].rn>,
+    staged_score_kernel<kTiles[2].rm, kTiles[2].rn>};
+
+// What the C entry reads of each device once, and sets or learns once per
+// kernel (and rank).  Writes race only with writes of the same values.
+struct DeviceState {
+  int sms;                                   // 0: not read yet
+  int smem_set[kNumTiles];                   // attribute set so far
+  int fit[kNumTiles][kStagedMaxRank + 1];    // CTAs an SM, by r
+};
+constexpr int kMaxDevices = 16;
+DeviceState g_dev[kMaxDevices];
+
+long long tile_count(int k, int B, int n) {
+  const int bm = kTY * kTiles[k].rm, bn = kTX * kTiles[k].rn;
+  return (long long)((B + bm - 1) / bm) * ((n + bn - 1) / bn);
+}
+
+// The tile shape for (B, n): the largest that still gives every SM a tile,
+// else the smallest (from the four serving buckets' measurements, PERF.md).
+int pick_tile(int B, int n, int sms) {
+  for (int k = 0; k < kNumTiles; ++k)
+    if (tile_count(k, B, n) >= sms) return k;
+  return kNumTiles - 1;
+}
+
+constexpr int kFirstKernel = -2;   // measurement entry: the first kernel
+
+// Launch with tile shape `k` (-1: pick_tile's; kFirstKernel) and at most
+// `cap` CTAs an SM (0: as many as fit; -1: a CTA for every tile, no walk);
+// info, when given, gets BM, BN, tiles, grid.  r > kStagedMaxRank always
+// runs the first kernel.
+int launch(const void* uq, const float* us, const void* wq, const float* ws,
+           float* out, int B, int n, int r, int k, int cap, int* info,
+           cudaStream_t stream) {
+  if (B <= 0 || n <= 0 || r < 1 || k < kFirstKernel || k >= kNumTiles ||
+      cap < -1)
+    return (int)cudaErrorInvalidValue;
+  if (r > kStagedMaxRank || k == kFirstKernel) {
+    const dim3 grid((n + kBN - 1) / kBN, (B + kBM - 1) / kBM);
+    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+    if (info) {
+      info[0] = kBM, info[1] = kBN, info[2] = grid.x * grid.y;
+      info[3] = grid.x * grid.y;
+    }
+    if (!out) return 0;
+    dequant_score_kernel<<<grid, dim3(kTX, kTY), 0, stream>>>(
+        static_cast<const int8_t*>(uq), us, static_cast<const int8_t*>(wq),
+        ws, out, B, n, r);
+    return (int)cudaGetLastError();
+  }
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  DeviceState& d = g_dev[dev];
+  if (d.sms == 0) {
+    err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  if (k < 0) k = pick_tile(B, n, d.sms);
+  const int bm = kTY * kTiles[k].rm, bn = kTX * kTiles[k].rn;
+  const Layout L(bm, bn, r);
+  if (d.smem_set[k] < L.total) {
+    err = cudaFuncSetAttribute(
+        kKernels[k], cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (err != cudaSuccess) return (int)err;
+    d.smem_set[k] = L.total;
+  }
+  if (d.fit[k][r] == 0) {
+    int fit = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kKernels[k],
+                                                        kThreads, L.total);
+    if (err != cudaSuccess) return (int)err;
+    if (fit < 1) return (int)cudaErrorInvalidConfiguration;
+    d.fit[k][r] = fit;
+  }
+  const int per_sm = cap > 0 ? min(cap, d.fit[k][r]) : d.fit[k][r];
+  const long long tiles = tile_count(k, B, n);
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(cap < 0 || tiles < (long long)per_sm * d.sms
+                             ? tiles : (long long)per_sm * d.sms);
+  if (info) info[0] = bm, info[1] = bn, info[2] = (int)tiles, info[3] = grid;
+  if (!out) return 0;
+  kKernels[k]<<<grid, kThreads, L.total, stream>>>(
+      static_cast<const int8_t*>(uq), us, static_cast<const int8_t*>(wq), ws,
+      out, B, n, r);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int dequant_score(const void* uq, const float* us, const void* wq,
                              const float* ws, float* out, int B, int n, int r,
                              void* stream) {
-  if (B <= 0 || n <= 0 || r < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + kBN - 1) / kBN, (B + kBM - 1) / kBM);
-  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  dequant_score_kernel<<<grid, dim3(kTX, kTY), 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(uq), us, static_cast<const int8_t*>(wq), ws,
-      out, B, n, r);
-  return (int)cudaGetLastError();
+  return launch(uq, us, wq, ws, out, B, n, r, -1, 0, nullptr,
+                static_cast<cudaStream_t>(stream));
+}
+
+// Measurement entry (chip_smoke.py's tile sweep): the launch dequant_score
+// makes, with tile shape `tile` (-1: the one dequant_score picks; 0 ..
+// kNumTiles-1: kTiles; -2: the first kernel; any other value is refused
+// with cudaErrorInvalidValue) and at most `ctas_per_sm` CTAs an SM (0: as
+// many as fit; -1: a CTA for every tile, in waves, so that no CTA walks).
+// `info` (4 ints, or NULL) receives BM, BN, the tile count and the grid; a
+// NULL `out` launches nothing.
+extern "C" int dequant_score_tiled(const void* uq, const float* us,
+                                   const void* wq, const float* ws,
+                                   float* out, int B, int n, int r, int tile,
+                                   int ctas_per_sm, int* info, void* stream) {
+  return launch(uq, us, wq, ws, out, B, n, r, tile, ctas_per_sm, info,
+                static_cast<cudaStream_t>(stream));
 }

@@ -14,7 +14,8 @@
 
 The kernel takes any shape, so the TPU padding of the JAX wrapper (rank to
 128 lanes, batch to 32 sublanes, catalog to the item tile) and its VMEM
-back-off are gone.  Launches are counted in ``dequant_score.launches``.
+back-off are gone.  Launches are counted in ``dequant_score.launches``
+and, by batch size B, in ``dequant_score.by_batch``.
 """
 
 from __future__ import annotations
@@ -68,7 +69,10 @@ def dequant_score(u_q, u_scale, w_q, w_scale, *, method: str | None = None):
             torch.cuda.current_stream(u_q.device).cuda_stream)
     _build.check("dequant_score", rc)
     dequant_score.launches += 1
+    by_batch = dequant_score.by_batch
+    by_batch[B] = by_batch.get(B, 0) + 1
     return out
 
 
 dequant_score.launches = 0
+dequant_score.by_batch = {}

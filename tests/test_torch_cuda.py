@@ -6,6 +6,8 @@ with an H100 with ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``.  This file imports no JAX, so it runs where
 only PyTorch is installed."""
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -15,6 +17,7 @@ from repro_torch.config import GossipMCConfig  # noqa: E402
 from repro_torch.convert import index_from_numpy, state_from_numpy  # noqa: E402
 from repro_torch.config import get_smoke_config  # noqa: E402
 from repro_torch.data import lowrank_problem  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
 from repro_torch.launch.lm_engine import ServeLoop  # noqa: E402
@@ -304,6 +307,95 @@ def test_dequant_score_kernel_at_the_top_bucket(cuda):
     got = quant_ops.dequant_score(*args)             # None -> fused on cuda
     torch.cuda.synchronize()
     assert torch.equal(got, fused_score_ref(*args))
+
+
+# the staged kernel's edges (r <= 64): every serving bucket against the
+# cell's catalog; rows starting at every misalignment (n = 1, 2, 3 mod 4);
+# batches across the tile and the grid (1, 17, 1025); ranks across the
+# 16-byte pieces and the rank split (15, 16, 17, 63, 64, 65); a catalog
+# that makes every CTA walk several tiles
+STAGED_CASES = ([(b, 3706, 15) for b in (16, 64, 256, 1024)]
+                + [(45, n, 15) for n in (333, 334, 335)]
+                + [(b, 1000, 15) for b in (1, 17, 1025)]
+                + [(70, 333, r) for r in (15, 16, 17, 63, 64, 65)]
+                + [(1024, 50_000, 15)])
+
+
+@pytest.mark.parametrize("B,n,r", STAGED_CASES)
+def test_dequant_score_staged_kernel_equals_plain_bitwise(cuda, B, n, r):
+    args = _codes(B, n, r, seed=B + n + r, device=cuda)
+    got = quant_ops.dequant_score(*args, method="fused")
+    again = quant_ops.dequant_score(*args, method="fused")
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_score_ref(*args))
+    assert torch.equal(again, got)
+
+
+def _off_grid(t, elems):
+    """A contiguous view equal to ``t`` whose data start ``elems``
+    elements into a larger allocation (as ``big[1:]`` does)."""
+
+    big = torch.empty(t.numel() + elems, dtype=t.dtype, device=t.device)
+    view = big[elems:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+# contiguous views whose data start off the 16-byte grid: the codes' runs
+# then have byte heads and tails, the scales' runs scalar ones
+@pytest.mark.parametrize("r", [15, 16, 64])
+def test_dequant_score_kernel_on_views_off_16_bytes(cuda, r):
+    args = _codes(70, 333, r, seed=r, device=cuda)
+    views = [_off_grid(a, e) for a, e in zip(args, (1, 1, 3, 2))]
+    assert all(v.is_contiguous() for v in views)
+    assert all(v.data_ptr() % 16 for v in views)
+    got = quant_ops.dequant_score(*views, method="fused")
+    torch.cuda.synchronize()
+    assert torch.equal(got, fused_score_ref(*args))
+
+
+# every tile shape, the first kernel and the capped-grid walks, through the
+# library's measurement entry (what chip_smoke.py's sweep times)
+@pytest.mark.parametrize("B,n,r", [(1, 1, 1), (17, 335, 15), (64, 3706, 15),
+                                   (100, 1000, 64), (33, 5000, 17)])
+def test_dequant_score_every_tile_shape(cuda, B, n, r):
+    lib = _build.load("dequant_score")
+    u_q, u_s, w_q, w_s = _codes(B, n, r, seed=7, device=cuda)
+    want = fused_score_ref(u_q, u_s, w_q, w_s)
+    info = (ctypes.c_int * 4)()
+    variants = [(-2, 0), (-1, -1), (-1, 1), (-1, 2)]
+    tile = 0
+    while (rc := lib.dequant_score_tiled(
+            u_q.data_ptr(), u_s.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+            None, B, n, r, tile, 0, info, None)) == 0:
+        variants.append((tile, 0))
+        tile += 1
+    assert rc == 1 and tile == 3            # cudaErrorInvalidValue: no tile
+    for tile, cap in variants:
+        out = torch.full((B, n), float("nan"), device=cuda)
+        rc = lib.dequant_score_tiled(
+            u_q.data_ptr(), u_s.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+            out.data_ptr(), B, n, r, tile, cap, info,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc == 0
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), (tile, cap, list(info))
+        if cap > 0:
+            assert info[3] <= cap * torch.cuda.get_device_properties(
+                cuda).multi_processor_count
+        elif cap < 0:
+            assert info[3] == info[2]                # a CTA for every tile
+
+
+def test_dequant_score_counts_launches_by_batch(cuda):
+    by_batch = quant_ops.dequant_score.by_batch
+    before = dict(by_batch)
+    n0 = quant_ops.dequant_score.launches
+    for B in (16, 64, 16):
+        quant_ops.dequant_score(*_codes(B, 100, 15, seed=B, device=cuda))
+    assert quant_ops.dequant_score.launches == n0 + 3
+    assert by_batch[16] == before.get(16, 0) + 2
+    assert by_batch[64] == before.get(64, 0) + 1
 
 
 def test_dequant_score_kernel_rejects_bad_inputs(cuda):

@@ -149,9 +149,14 @@ def test_quantized_refresh_requantizes_and_guards_shapes():
 
 
 # the JAX package's kernel-parity shapes, and a top serving bucket against
-# the MovieLens-1M catalog at the paper's rank
+# the MovieLens-1M catalog at the paper's rank; then the CUDA kernel's
+# edges at the bucket B = 16 and 64: catalogs of n = 1 and 3 (mod 4), so
+# output rows start at every misalignment, and r = 16 and 17 across its
+# 16-byte staging
 @pytest.mark.parametrize("seed,b,n,r", [(0, 8, 100, 16), (1, 32, 700, 32),
-                                        (2, 5, 129, 50), (3, 64, 3706, 15)])
+                                        (2, 5, 129, 50), (3, 64, 3706, 15),
+                                        (4, 16, 333, 15), (5, 16, 335, 15),
+                                        (6, 64, 700, 16), (7, 64, 700, 17)])
 def test_fused_equals_pallas_kernel_and_xla_bitwise(seed, b, n, r):
     _, jqi, _, tqi = _indexes(max(b, 8), n, r, seed=seed)
     args_j = (jqi.u_q[:b], jqi.u_scale[:b], jqi.w_q, jqi.w_scale)
