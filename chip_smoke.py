@@ -38,12 +38,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the ``"dequant"`` method's time and a ``torch._int_mm`` yardstick; and
    at every other bucket (``by_bucket``: B = 16, 64, 256, users drawn the
    same way), each with its graph time and replay range, eager and plain
-   times, bound, profiler breakdown and error, held to 0, the tile shape
-   and grid the kernel picks, a ``sweep`` of every tile shape, the first
-   kernel, the picked shape without a walk and the capped-grid walks
-   through the library's measurement entry, each held to 0, and the time
-   of ``fill_`` on the same output (``store_floor_ms``: what writing those
-   bytes alone costs).
+   times, bound, profiler breakdown (its kernel name gives the tile
+   shape picked) and error, held to 0; beside them, at each bucket, the
+   first kernel through its own C entry (``first_ms``, held to 0), the
+   host's µs per call of the wrapper and of both C entries (``host_us``),
+   and the time of ``fill_`` on the same output (``store_floor_ms``: what
+   writing those bytes alone costs); and at the top bucket the kernel's
+   time against seeded catalogs of 3704, 3706 and 3712 items
+   (``catalog_alignment_ms``: output rows on and off the 16-byte grid).
 5. ``[serve]``: ``quantize_index`` of the sparse FullGD fit's index ->
    ``ServingEngine(quant="int8")`` with buckets (16, 64, 256, 1024) ->
    ~200 requests of 1-3000 users -> ``refresh`` from the dense FullGD fit
@@ -91,7 +93,6 @@ the ``{"kernels": [...]}`` summary, and the line before that the card's
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import statistics
@@ -530,19 +531,19 @@ def score_timing(args, card):
     if abs_err != 0.0:
         fail(f"dequant_score disagrees with its plain version at B = {B}: "
              f"max abs error {abs_err:.3e}, tolerance 0")
-    timing.update(tile_sweep(args, want))
+    timing.update(first_kernel_and_host(args, want))
     return timing
 
 
-def tile_sweep(args, want):
-    """The score kernel's launch at every tile shape, as the first kernel
-    (``first``), with the picked shape on a CTA for every tile (``nowalk``)
-    and as a walk with the grid capped at 1 and 2 CTAs an SM (``walk1``,
-    ``walk2``), through the C library's measurement entry
-    ``dequant_score_tiled``: each held bitwise to the plain version, with
-    its graph ms, tile count and grid.  ``tile`` is the shape
-    ``dequant_score`` picks, ``grid`` its grid; ``store_floor_ms`` the
-    graph ms of ``fill_`` on the same (B, n) f32 output, a PyTorch call
+def first_kernel_and_host(args, want):
+    """On the same inputs: the first, byte-staged kernel (which
+    ``dequant_score`` runs for r > 64) through its own C entry
+    ``dequant_score_first``, held bitwise to the plain version, and its
+    graph ms (``first_ms``); ``host_us``, the host's µs per call of the
+    wrapper, of the C entry ``dequant_score`` and of ``dequant_score_first``
+    (wall time of ``calls`` calls queued back to back, the three in turn
+    ``rounds`` times, the median round of each); and ``store_floor_ms``,
+    the graph ms of ``fill_`` on the same (B, n) f32 output, a PyTorch call
     that writes the same bytes and computes nothing."""
 
     lib = _build.load("dequant_score")
@@ -550,40 +551,64 @@ def tile_sweep(args, want):
     B, r = uq.shape
     n = wq.shape[0]
     out = torch.empty((B, n), dtype=torch.float32, device="cuda")
-    info = (ctypes.c_int * 4)()
 
-    def call(tile, cap, dst):
-        rc = lib.dequant_score_tiled(
-            uq.data_ptr(), us.data_ptr(), wq.data_ptr(), ws.data_ptr(), dst,
-            B, n, r, tile, cap, info,
-            torch.cuda.current_stream().cuda_stream)
-        return rc, f"{info[0]}x{info[1]}", info[2], info[3]
+    def entry(name):
+        fn = getattr(lib, name)
 
-    variants, tile = [], 0
-    while call(tile, 0, None)[0] == 0:          # every tile shape it has
-        variants.append((str(tile), tile, 0))
-        tile += 1
-    variants += [("first", -2, 0), ("nowalk", -1, -1), ("walk1", -1, 1),
-                 ("walk2", -1, 2)]
-    sweep = {}
-    for label, tile, cap in variants:
-        def run(tile=tile, cap=cap):
-            rc = call(tile, cap, out.data_ptr())[0]
-            _build.check("dequant_score_tiled", rc)
+        def run():
+            rc = fn(uq.data_ptr(), us.data_ptr(), wq.data_ptr(),
+                    ws.data_ptr(), out.data_ptr(), B, n, r,
+                    torch.cuda.current_stream().cuda_stream)
+            _build.check(name, rc)
             return out
+        return run
 
-        run()
-        torch.cuda.synchronize()
-        err = float((out.double() - want.double()).abs().max())
-        _, shape, tiles, grid = call(tile, cap, None)
-        sweep[label] = {"shape": shape, "ms": graph_ms(run), "tiles": tiles,
-                        "grid": grid, "max_abs_err": err}
-        if err != 0.0:
-            fail(f"dequant_score_tiled ({label}, {shape}) disagrees with the "
-                 f"plain version at B = {B}: max abs error {err:.3e}")
-    _, shape, tiles, grid = call(-1, 0, None)
-    return {"tile": shape, "tiles": tiles, "grid": grid, "sweep": sweep,
+    first = entry("dequant_score_first")
+    first()
+    torch.cuda.synchronize()
+    err = float((out.double() - want.double()).abs().max())
+    if err != 0.0:
+        fail(f"dequant_score_first disagrees with the plain version at "
+             f"B = {B}: max abs error {err:.3e}")
+    first_ms = graph_ms(first)
+    host = {"wrapper": lambda: quant_ops.dequant_score(*args, method="fused"),
+            "entry": entry("dequant_score"), "first_entry": first}
+    calls, rounds = 200, 5
+    times = {label: [] for label in host}
+    for _ in range(rounds):
+        for label, fn in host.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            times[label].append((t1 - t0) / calls * 1e6)
+    return {"first_ms": first_ms, "first_max_abs_err": err,
+            "host_us": {k: statistics.median(v) for k, v in times.items()},
             "store_floor_ms": graph_ms(lambda: out.fill_(0.0))}
+
+
+def catalog_alignment(B, r, seed=17):
+    """Graph ms of ``dequant_score`` at B users of rank r against seeded
+    random catalogs of n = 3704, 3706 and 3712 items, each held bitwise to
+    the plain version: at the cell's 3706 every other output row starts 8
+    bytes off the 16-byte grid, at 3704 and 3712 every row starts on it."""
+
+    rng = np.random.default_rng(seed)
+    times = {}
+    for n in (3704, 3706, 3712):
+        args = [torch.from_numpy(a).to("cuda") for a in (
+            rng.integers(-127, 128, size=(B, r)).astype(np.int8),
+            rng.lognormal(-3.0, 1.0, size=B).astype(np.float32),
+            rng.integers(-127, 128, size=(n, r)).astype(np.int8),
+            rng.lognormal(-3.0, 1.0, size=n).astype(np.float32))]
+        kern = lambda: quant_ops.dequant_score(*args, method="fused")  # noqa: E731
+        if not torch.equal(kern(), fused_score_ref(*args)):
+            fail(f"dequant_score disagrees with its plain version at B = {B}, "
+                 f"n = {n}")
+        times[n] = graph_ms(kern)
+    return times
 
 
 def quant_kernel_row(qidx, users, card):
@@ -629,6 +654,7 @@ def quant_kernel_row(qidx, users, card):
         "dequant_method_ms": graph_ms(lambda: dequant_score_ref(*args)),
         "library_ms": library_ms, "library_call": "torch._int_mm + epilogue",
         "library_equal": lib_equal, "library_error": library_error,
+        "catalog_alignment_ms": catalog_alignment(B, r),
         "by_bucket": {b: score_timing(batch(b), card)
                       for b in DEFAULT_BUCKETS if b != TOP_BUCKET},
     }

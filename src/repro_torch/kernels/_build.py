@@ -50,8 +50,8 @@ SIGNATURES = {
     "dequant_score": {
         # Q_u s_u Q_w s_w | out | B n r | stream
         "dequant_score": ((_P,) * 5 + (_I,) * 3 + (_P,), _I),
-        # Q_u s_u Q_w s_w | out | B n r tile ctas_per_sm | info | stream
-        "dequant_score_tiled": ((_P,) * 5 + (_I,) * 5 + (_P,) * 2, _I),
+        # the first kernel at any rank: the same arguments
+        "dequant_score_first": ((_P,) * 5 + (_I,) * 3 + (_P,), _I),
     },
     "flash_attention": {
         # q k v | o | B Hq Hkv Lq Lk D Dv causal window | softcap | q_offset

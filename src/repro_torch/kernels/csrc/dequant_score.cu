@@ -22,11 +22,11 @@
 //
 // Two kernels, chosen by rank in the C entry (a choice by shape):
 //
-// * r <= kStagedMaxRank (64): staged_score_kernel.  The edge is 64 so that
-//   the largest tile's shared memory (72 KB at r = 64) still lets three
-//   CTAs share an SM; the serving ranks (15, 32) are far below it.  What
-//   held the first kernel (PR 12, kept below for larger r) back, and what
-//   this design does about it:
+// * r <= kStagedMaxRank (64): staged_score_kernel, one CTA for each output
+//   tile.  The edge is 64 so that the largest tile's shared memory (58.6 KiB
+//   at r = 64) still lets three CTAs share an SM; the serving ranks (15,
+//   32) are far below it.  What held the first kernel (kept below for
+//   larger r) back, and what this design does about it:
 //   - Staging was a latency chain: every thread made ~10 one-byte global
 //     loads per rank chunk, each behind a division and two branches, and
 //     no product started before the slowest returned; at the small buckets
@@ -47,19 +47,21 @@
 //     float4 at 16-byte-aligned addresses, with at most 3 scalars at each
 //     end.  Every output element is written once, by one thread: no
 //     atomics, and two calls give the same bits.
-//   - Stores from too few warps: at B = 1024 the time is the store stream
-//     (a flat fill_ of the same 15.18 MB takes ~6 us on this card, PERF.md),
-//     and it drains faster the more warps have stores in flight.  The
-//     kernel is capped at 64 registers a thread, so four 256-thread CTAs
-//     share an SM and all 464 tiles of 64 x 128 are in flight at once.
-//   - One wave in lockstep: the grid is persistent, min(tiles, the CTAs
-//     that fit on the card at once); each CTA walks tiles t = blockIdx.x,
-//     t += gridDim.x, with the code stages double-buffered, so the next
-//     tile's copies are in flight while this tile stores.  At the four
-//     serving buckets every tile has a CTA of its own; capping the grid so
-//     that CTAs walk several tiles was slower at each (PERF.md), since a
-//     CTA's stores then go out one tile after another.  Larger catalogs
-//     walk.
+//   - One wave in lockstep, stores from too few warps: at B = 1024 the
+//     time is the store stream (a flat fill_ of the same 15.18 MB takes
+//     ~6 us on this card, PERF.md), and it drains faster the more warps
+//     have stores in flight.  The 64 x 128 tile's kernel is held to 64
+//     registers a thread and takes 40.4 KiB of shared memory at r = 15, so
+//     four 256-thread CTAs share an SM and all 464 tiles of the bucket are
+//     in flight at once, each at its own phase of staging, products or
+//     stores.  A persistent grid
+//     (min(tiles, resident CTAs), each CTA walking tiles with the next
+//     tile's copies in flight during this tile's stores) was built and
+//     measured: at the four serving buckets every tile already has a
+//     resident CTA, and capping the grid so that CTAs walk was 17-76%
+//     slower at B = 1024 (PERF.md), since a CTA's stores then go out one
+//     tile after another.  So the grid is a CTA for every tile; a catalog
+//     larger than the card holds at once runs in waves.
 //   - Small buckets did not fill the card (B = 16 launched 29 CTAs): the
 //     tile shape is picked by (B, n) from kTiles, the largest tile that
 //     still gives every SM a tile, else 32 x 64: the fastest shape measured
@@ -76,7 +78,7 @@
 
 namespace {
 
-// --- the first kernel (PR 12), for r > kStagedMaxRank ----------------------
+// --- the first kernel, for r > kStagedMaxRank ----------------------------
 
 constexpr int kTX = 32;                 // threads along items
 constexpr int kTY = 8;                  // threads along users
@@ -166,11 +168,8 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(gmem));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
+__device__ __forceinline__ void cp_async_commit_and_wait() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
 }
 
 // Shared-memory room for a run of `len` bytes copied to the address that
@@ -180,28 +179,23 @@ __host__ __device__ constexpr int run_room(int len) {
   return ((len + 15) & ~15) + 32;
 }
 
-// Byte offsets of one tile's regions in dynamic shared memory: the scores
-// tile first (BM rows of BN + 4 floats), then two staging buffers of the
-// users' runs (Q_u, s_u), then two of the catalog's runs (Q_w, s_w), then
-// the word rows of both sides (users first).
+// Byte offsets of a tile's regions in dynamic shared memory: the scores
+// tile first (BM rows of BN + 4 floats), then the rooms of the runs of Q_u,
+// s_u, Q_w and s_w, then the word rows of both sides (users first).
 struct Layout {
   int ld;                 // floats per row of the scores tile
   int stride;             // words per staged code row (odd)
-  int ru, rsu, rw, rsw;   // room of each run in a staging buffer
-  int user;               // offset of user buffer 0; buffer 1 follows
-  int cat;                // offset of catalog buffer 0; buffer 1 follows
+  int qu, su, qw, sw;     // offsets of the four runs' rooms
   int words;              // offset of the word rows
   int total;
   __host__ __device__ Layout(int bm, int bn, int r) {
     ld = bn + 4;
     stride = ((r + 3) / 4) | 1;
-    ru = run_room(bm * r);
-    rsu = run_room(4 * bm);
-    rw = run_room(bn * r);
-    rsw = run_room(4 * bn);
-    user = 4 * bm * ld;
-    cat = user + 2 * (ru + rsu);
-    words = cat + 2 * (rw + rsw);
+    qu = 4 * bm * ld;
+    su = qu + run_room(bm * r);
+    qw = su + run_room(4 * bm);
+    sw = qw + run_room(bn * r);
+    words = sw + run_room(4 * bn);
     total = words + 4 * (bm + bn) * stride;
   }
 };
@@ -248,32 +242,27 @@ __device__ __forceinline__ void spread(const unsigned char* flat, int valid,
   }
 }
 
-// Where a tile's four runs landed in its staging buffer.
-struct Runs {
-  const unsigned char* u;
-  const unsigned char* w;
-  const float* su;
-  const float* sw;
-};
-
 // Tile shapes: BM = kTY * RM users x BN = kTX * RN items, one CTA of the
 // first kernel's 32 x 8 threads, each with an RM x RN block of outputs
 // (users ty + kTY*ii, items tx + kTX*jj).  BM and BN are multiples of 16,
 // so a tile's code runs start 16-byte aligned whenever the tensors do.
+// `ctas` is the CTAs an SM that the register budget must leave room for:
+// four (64 registers a thread) for the shapes that can outnumber the SMs
+// several times over, so that all 464 tiles of the B = 1024 bucket are in
+// flight at once; two for 32 x 64, which pick_tile takes only when 32 x 128
+// gives fewer tiles than there are SMs, so fewer than two an SM.
 struct Tile {
-  int rm, rn;
+  int rm, rn, ctas;
 };
 constexpr Tile kTiles[] = {
-    {8, 4},   // 64 x 128
-    {4, 4},   // 32 x 128
-    {4, 2},   // 32 x 64
+    {8, 4, 4},   // 64 x 128
+    {4, 4, 4},   // 32 x 128
+    {4, 2, 2},   // 32 x 64
 };
 constexpr int kNumTiles = sizeof(kTiles) / sizeof(kTiles[0]);
 
-// At most 64 registers a thread, so that four CTAs fit an SM: all 464
-// tiles of the B = 1024 bucket are then in flight at once.
-template <int RM, int RN>
-__global__ void __launch_bounds__(kThreads, 4) staged_score_kernel(
+template <int RM, int RN, int CTAS>
+__global__ void __launch_bounds__(kThreads, CTAS) staged_score_kernel(
     const int8_t* __restrict__ uq, const float* __restrict__ us,
     const int8_t* __restrict__ wq, const float* __restrict__ ws,
     float* __restrict__ out, int B, int n, int r) {
@@ -286,115 +275,92 @@ __global__ void __launch_bounds__(kThreads, 4) staged_score_kernel(
   int* ww = wu + BM * L.stride;
   const int tid = threadIdx.x, tx = tid % kTX, ty = tid / kTX;
   const int lane = tid & 31, warp = tid >> 5;
-  const int kw = (r + 3) / 4;
   const int tiles_n = (n + BN - 1) / BN;
-  const int tiles = ((B + BM - 1) / BM) * tiles_n;
+  const int i0 = (blockIdx.x / tiles_n) * BM, j0 = (blockIdx.x % tiles_n) * BN;
+  const int vu = min(BM, B - i0), vw = min(BN, n - j0);
 
-  // issue tile t's copies into staging buffer b; returns where they land
-  auto stage = [&](int t, int b) {
-    unsigned char* user = smem + L.user + b * (L.ru + L.rsu);
-    unsigned char* cat = smem + L.cat + b * (L.rw + L.rsw);
-    const int i0 = (t / tiles_n) * BM, j0 = (t % tiles_n) * BN;
-    const int vu = min(BM, B - i0), vw = min(BN, n - j0);
-    Runs got;
-    got.u = stage_run(uq + (size_t)i0 * r, vu * r, user, tid);
-    got.su = reinterpret_cast<const float*>(
-        stage_run(us + i0, 4 * vu, user + L.ru, tid));
-    got.w = stage_run(wq + (size_t)j0 * r, vw * r, cat, tid);
-    got.sw = reinterpret_cast<const float*>(
-        stage_run(ws + j0, 4 * vw, cat + L.rw, tid));
-    cp_async_commit();
-    return got;
-  };
+  const unsigned char* cu =
+      stage_run(uq + (size_t)i0 * r, vu * r, smem + L.qu, tid);
+  const float* s_u = reinterpret_cast<const float*>(
+      stage_run(us + i0, 4 * vu, smem + L.su, tid));
+  const unsigned char* cw =
+      stage_run(wq + (size_t)j0 * r, vw * r, smem + L.qw, tid);
+  const float* s_w = reinterpret_cast<const float*>(
+      stage_run(ws + j0, 4 * vw, smem + L.sw, tid));
+  cp_async_commit_and_wait();
+  __syncthreads();     // the tile's runs are in
+  spread(cu, vu, BM, r, L.stride, wu, tid);
+  spread(cw, vw, BN, r, L.stride, ww, tid);
+  __syncthreads();     // the word rows are ready
 
-  int t = blockIdx.x, b = 0;
-  if (t >= tiles) return;
-  Runs cur = stage(t, 0);
-  for (; t < tiles; t += gridDim.x, b ^= 1) {
-    const int i0 = (t / tiles_n) * BM, j0 = (t % tiles_n) * BN;
-    const int vu = min(BM, B - i0), vw = min(BN, n - j0);
-    cp_async_wait_all();
-    __syncthreads();   // this tile's runs are in; the last stores are done
-    spread(cur.u, vu, BM, r, L.stride, wu, tid);
-    spread(cur.w, vw, BN, r, L.stride, ww, tid);
-    __syncthreads();   // word rows ready; the other buffer is free
-    Runs next = cur;
-    if (t + gridDim.x < tiles) next = stage(t + gridDim.x, b ^ 1);
-
-    int acc[RM][RN];
+  int acc[RM][RN];
+#pragma unroll
+  for (int ii = 0; ii < RM; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < RN; ++jj) acc[ii][jj] = 0;
+  for (int w = 0; w < (r + 3) / 4; ++w) {
+    int a[RM], c[RN];
+#pragma unroll
+    for (int ii = 0; ii < RM; ++ii) a[ii] = wu[(ty + kTY * ii) * L.stride + w];
+#pragma unroll
+    for (int jj = 0; jj < RN; ++jj) c[jj] = ww[(tx + kTX * jj) * L.stride + w];
 #pragma unroll
     for (int ii = 0; ii < RM; ++ii)
 #pragma unroll
-      for (int jj = 0; jj < RN; ++jj) acc[ii][jj] = 0;
-    for (int w = 0; w < kw; ++w) {
-      int a[RM], c[RN];
-#pragma unroll
-      for (int ii = 0; ii < RM; ++ii) a[ii] = wu[(ty + kTY * ii) * L.stride + w];
-#pragma unroll
-      for (int jj = 0; jj < RN; ++jj) c[jj] = ww[(tx + kTX * jj) * L.stride + w];
-#pragma unroll
-      for (int ii = 0; ii < RM; ++ii)
-#pragma unroll
-        for (int jj = 0; jj < RN; ++jj)
-          acc[ii][jj] = __dp4a(a[ii], c[jj], acc[ii][jj]);
-    }
-
-    // scores into the tile, row i at the float that matches its
-    // destination's address modulo 16 bytes
-    const float* s_u = cur.su;
-    const float* s_w = cur.sw;
-#pragma unroll
-    for (int ii = 0; ii < RM; ++ii) {
-      const int i = ty + kTY * ii;
-      const float s = s_u[i];                 // rows past vu: never stored
-      const int pad = static_cast<int>(
-          (reinterpret_cast<uintptr_t>(out + (size_t)(i0 + i) * n + j0) >> 2) &
-          3);
-      float* row = tile + i * L.ld + pad;
-#pragma unroll
-      for (int jj = 0; jj < RN; ++jj) {
-        const int j = tx + kTX * jj;
-        // the plain version's order: (float(acc) * s_u) * s_w
-        row[j] = __fmul_rn(__fmul_rn(__int2float_rn(acc[ii][jj]), s), s_w[j]);
-      }
-    }
-    __syncthreads();   // the tile is complete
-
-    // each warp writes whole row segments: scalars up to the first 16-byte
-    // boundary, float4 bodies, scalars after the last
-    for (int i = warp; i < vu; i += kWarps) {
-      float* g = out + (size_t)(i0 + i) * n + j0;
-      const int pad =
-          static_cast<int>((reinterpret_cast<uintptr_t>(g) >> 2) & 3);
-      const float* s = tile + i * L.ld + pad;
-      const int head = min(vw, (4 - pad) & 3);
-      const int body = (vw - head) >> 2;
-      const int tail = vw - head - 4 * body;
-      for (int v = lane; v < body; v += 32)
-        reinterpret_cast<float4*>(g + head)[v] =
-            reinterpret_cast<const float4*>(s + head)[v];
-      if (lane < head) g[lane] = s[lane];
-      if (lane < tail) g[head + 4 * body + lane] = s[head + 4 * body + lane];
-    }
-    cur = next;
+      for (int jj = 0; jj < RN; ++jj)
+        acc[ii][jj] = __dp4a(a[ii], c[jj], acc[ii][jj]);
   }
-  cp_async_wait_all();   // no copy outlives the CTA
+
+  // scores into the tile, row i at the float that matches its
+  // destination's address modulo 16 bytes
+#pragma unroll
+  for (int ii = 0; ii < RM; ++ii) {
+    const int i = ty + kTY * ii;
+    const float s = s_u[i];                 // rows past vu: never stored
+    const int pad = static_cast<int>(
+        (reinterpret_cast<uintptr_t>(out + (size_t)(i0 + i) * n + j0) >> 2) &
+        3);
+    float* row = tile + i * L.ld + pad;
+#pragma unroll
+    for (int jj = 0; jj < RN; ++jj) {
+      const int j = tx + kTX * jj;
+      // the plain version's order: (float(acc) * s_u) * s_w
+      row[j] = __fmul_rn(__fmul_rn(__int2float_rn(acc[ii][jj]), s), s_w[j]);
+    }
+  }
+  __syncthreads();     // the tile is complete
+
+  // each warp writes whole row segments: scalars up to the first 16-byte
+  // boundary, float4 bodies, scalars after the last
+  for (int i = warp; i < vu; i += kWarps) {
+    float* g = out + (size_t)(i0 + i) * n + j0;
+    const int pad = static_cast<int>((reinterpret_cast<uintptr_t>(g) >> 2) & 3);
+    const float* s = tile + i * L.ld + pad;
+    const int head = min(vw, (4 - pad) & 3);
+    const int body = (vw - head) >> 2;
+    const int tail = vw - head - 4 * body;
+    for (int v = lane; v < body; v += 32)
+      reinterpret_cast<float4*>(g + head)[v] =
+          reinterpret_cast<const float4*>(s + head)[v];
+    if (lane < head) g[lane] = s[lane];
+    if (lane < tail) g[head + 4 * body + lane] = s[head + 4 * body + lane];
+  }
 }
 
 using Kernel = void (*)(const int8_t*, const float*, const int8_t*,
                         const float*, float*, int, int, int);
 
 const Kernel kKernels[kNumTiles] = {
-    staged_score_kernel<kTiles[0].rm, kTiles[0].rn>,
-    staged_score_kernel<kTiles[1].rm, kTiles[1].rn>,
-    staged_score_kernel<kTiles[2].rm, kTiles[2].rn>};
+    staged_score_kernel<kTiles[0].rm, kTiles[0].rn, kTiles[0].ctas>,
+    staged_score_kernel<kTiles[1].rm, kTiles[1].rn, kTiles[1].ctas>,
+    staged_score_kernel<kTiles[2].rm, kTiles[2].rn, kTiles[2].ctas>};
 
-// What the C entry reads of each device once, and sets or learns once per
-// kernel (and rank).  Writes race only with writes of the same values.
+// What the C entry reads of each device once: its SM count, and whether
+// each kernel's dynamic shared-memory limit has been raised to what its
+// largest rank needs.  Writes race only with writes of the same values.
 struct DeviceState {
   int sms;                                   // 0: not read yet
-  int smem_set[kNumTiles];                   // attribute set so far
-  int fit[kNumTiles][kStagedMaxRank + 1];    // CTAs an SM, by r
+  bool smem_set[kNumTiles];
 };
 constexpr int kMaxDevices = 16;
 DeviceState g_dev[kMaxDevices];
@@ -412,31 +378,21 @@ int pick_tile(int B, int n, int sms) {
   return kNumTiles - 1;
 }
 
-constexpr int kFirstKernel = -2;   // measurement entry: the first kernel
+int launch_first(const void* uq, const float* us, const void* wq,
+                 const float* ws, float* out, int B, int n, int r,
+                 cudaStream_t stream) {
+  const dim3 grid((n + kBN - 1) / kBN, (B + kBM - 1) / kBM);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  dequant_score_kernel<<<grid, dim3(kTX, kTY), 0, stream>>>(
+      static_cast<const int8_t*>(uq), us, static_cast<const int8_t*>(wq), ws,
+      out, B, n, r);
+  return (int)cudaGetLastError();
+}
 
-// Launch with tile shape `k` (-1: pick_tile's; kFirstKernel) and at most
-// `cap` CTAs an SM (0: as many as fit; -1: a CTA for every tile, no walk);
-// info, when given, gets BM, BN, tiles, grid.  r > kStagedMaxRank always
-// runs the first kernel.
-int launch(const void* uq, const float* us, const void* wq, const float* ws,
-           float* out, int B, int n, int r, int k, int cap, int* info,
-           cudaStream_t stream) {
-  if (B <= 0 || n <= 0 || r < 1 || k < kFirstKernel || k >= kNumTiles ||
-      cap < -1)
-    return (int)cudaErrorInvalidValue;
-  if (r > kStagedMaxRank || k == kFirstKernel) {
-    const dim3 grid((n + kBN - 1) / kBN, (B + kBM - 1) / kBM);
-    if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-    if (info) {
-      info[0] = kBM, info[1] = kBN, info[2] = grid.x * grid.y;
-      info[3] = grid.x * grid.y;
-    }
-    if (!out) return 0;
-    dequant_score_kernel<<<grid, dim3(kTX, kTY), 0, stream>>>(
-        static_cast<const int8_t*>(uq), us, static_cast<const int8_t*>(wq),
-        ws, out, B, n, r);
-    return (int)cudaGetLastError();
-  }
+// One CTA for each tile of the shape pick_tile gives.
+int launch_staged(const void* uq, const float* us, const void* wq,
+                  const float* ws, float* out, int B, int n, int r,
+                  cudaStream_t stream) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -446,33 +402,20 @@ int launch(const void* uq, const float* us, const void* wq, const float* ws,
     err = cudaDeviceGetAttribute(&d.sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return (int)err;
   }
-  if (k < 0) k = pick_tile(B, n, d.sms);
+  const int k = pick_tile(B, n, d.sms);
   const int bm = kTY * kTiles[k].rm, bn = kTX * kTiles[k].rn;
-  const Layout L(bm, bn, r);
-  if (d.smem_set[k] < L.total) {
-    err = cudaFuncSetAttribute(
-        kKernels[k], cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (!d.smem_set[k]) {
+    err = cudaFuncSetAttribute(kKernels[k],
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               Layout(bm, bn, kStagedMaxRank).total);
     if (err != cudaSuccess) return (int)err;
-    d.smem_set[k] = L.total;
+    d.smem_set[k] = true;
   }
-  if (d.fit[k][r] == 0) {
-    int fit = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kKernels[k],
-                                                        kThreads, L.total);
-    if (err != cudaSuccess) return (int)err;
-    if (fit < 1) return (int)cudaErrorInvalidConfiguration;
-    d.fit[k][r] = fit;
-  }
-  const int per_sm = cap > 0 ? min(cap, d.fit[k][r]) : d.fit[k][r];
   const long long tiles = tile_count(k, B, n);
   if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int grid = (int)(cap < 0 || tiles < (long long)per_sm * d.sms
-                             ? tiles : (long long)per_sm * d.sms);
-  if (info) info[0] = bm, info[1] = bn, info[2] = (int)tiles, info[3] = grid;
-  if (!out) return 0;
-  kKernels[k]<<<grid, kThreads, L.total, stream>>>(
-      static_cast<const int8_t*>(uq), us, static_cast<const int8_t*>(wq), ws,
-      out, B, n, r);
+  kKernels[k]<<<(unsigned)tiles, kThreads, Layout(bm, bn, r).total,
+                stream>>>(static_cast<const int8_t*>(uq), us,
+                          static_cast<const int8_t*>(wq), ws, out, B, n, r);
   return (int)cudaGetLastError();
 }
 
@@ -481,21 +424,19 @@ int launch(const void* uq, const float* us, const void* wq, const float* ws,
 extern "C" int dequant_score(const void* uq, const float* us, const void* wq,
                              const float* ws, float* out, int B, int n, int r,
                              void* stream) {
-  return launch(uq, us, wq, ws, out, B, n, r, -1, 0, nullptr,
-                static_cast<cudaStream_t>(stream));
+  if (B <= 0 || n <= 0 || r < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return r > kStagedMaxRank ? launch_first(uq, us, wq, ws, out, B, n, r, s)
+                            : launch_staged(uq, us, wq, ws, out, B, n, r, s);
 }
 
-// Measurement entry (chip_smoke.py's tile sweep): the launch dequant_score
-// makes, with tile shape `tile` (-1: the one dequant_score picks; 0 ..
-// kNumTiles-1: kTiles; -2: the first kernel; any other value is refused
-// with cudaErrorInvalidValue) and at most `ctas_per_sm` CTAs an SM (0: as
-// many as fit; -1: a CTA for every tile, in waves, so that no CTA walks).
-// `info` (4 ints, or NULL) receives BM, BN, the tile count and the grid; a
-// NULL `out` launches nothing.
-extern "C" int dequant_score_tiled(const void* uq, const float* us,
+// The first kernel at any rank, with dequant_score's arguments: the old
+// kernel that chip_smoke.py times beside the staged one on the same inputs.
+extern "C" int dequant_score_first(const void* uq, const float* us,
                                    const void* wq, const float* ws,
-                                   float* out, int B, int n, int r, int tile,
-                                   int ctas_per_sm, int* info, void* stream) {
-  return launch(uq, us, wq, ws, out, B, n, r, tile, ctas_per_sm, info,
-                static_cast<cudaStream_t>(stream));
+                                   float* out, int B, int n, int r,
+                                   void* stream) {
+  if (B <= 0 || n <= 0 || r < 1) return (int)cudaErrorInvalidValue;
+  return launch_first(uq, us, wq, ws, out, B, n, r,
+                      static_cast<cudaStream_t>(stream));
 }

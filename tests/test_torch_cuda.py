@@ -6,8 +6,6 @@ with an H100 with ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py``.  This file imports no JAX, so it runs where
 only PyTorch is installed."""
 
-import ctypes
-
 import numpy as np
 import pytest
 
@@ -313,7 +311,7 @@ def test_dequant_score_kernel_at_the_top_bucket(cuda):
 # cell's catalog; rows starting at every misalignment (n = 1, 2, 3 mod 4);
 # batches across the tile and the grid (1, 17, 1025); ranks across the
 # 16-byte pieces and the rank split (15, 16, 17, 63, 64, 65); a catalog
-# that makes every CTA walk several tiles
+# whose tiles outnumber the CTAs the card holds at once many times over
 STAGED_CASES = ([(b, 3706, 15) for b in (16, 64, 256, 1024)]
                 + [(45, n, 15) for n in (333, 334, 335)]
                 + [(b, 1000, 15) for b in (1, 17, 1025)]
@@ -354,37 +352,55 @@ def test_dequant_score_kernel_on_views_off_16_bytes(cuda, r):
     assert torch.equal(got, fused_score_ref(*args))
 
 
-# every tile shape, the first kernel and the capped-grid walks, through the
-# library's measurement entry (what chip_smoke.py's sweep times)
+# the staged kernel's tile shapes (BM, BN) and the kernel name each runs
+STAGED_KERNELS = {(64, 128): "staged_score_kernel<8, 4, 4>",
+                  (32, 128): "staged_score_kernel<4, 4, 4>",
+                  (32, 64): "staged_score_kernel<4, 2, 2>"}
+
+
+def _picked_tile(B, n, sms):
+    """The shape the C entry picks: the largest that gives every SM a
+    tile, else the smallest."""
+
+    for bm, bn in STAGED_KERNELS:
+        if -(-B // bm) * -(-n // bn) >= sms:
+            return bm, bn
+    return 32, 64
+
+
+# every tile shape through the wrapper, at a (B, n) that picks it on a card
+# of 132 SMs (the serving buckets 1024, 256 and 64 against the cell's
+# catalog); the profiler names the kernel that ran
+@pytest.mark.parametrize("B,n,r", [(1024, 3706, 15), (256, 3706, 15),
+                                   (64, 3706, 15), (20, 3000, 64)])
+def test_dequant_score_picks_the_tile_shape(cuda, B, n, r):
+    from torch.profiler import ProfilerActivity, profile
+
+    args = _codes(B, n, r, seed=B + r, device=cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        got = quant_ops.dequant_score(*args, method="fused")
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    want = STAGED_KERNELS[_picked_tile(B, n, sms)]
+    assert [x for x in names if "score_kernel" in x and want in x], names
+    assert torch.equal(got, fused_score_ref(*args))
+
+
+# the first kernel through its own entry, at staged and larger ranks
 @pytest.mark.parametrize("B,n,r", [(1, 1, 1), (17, 335, 15), (64, 3706, 15),
-                                   (100, 1000, 64), (33, 5000, 17)])
-def test_dequant_score_every_tile_shape(cuda, B, n, r):
+                                   (100, 1000, 64), (33, 500, 65)])
+def test_dequant_score_first_entry_equals_plain_bitwise(cuda, B, n, r):
     lib = _build.load("dequant_score")
     u_q, u_s, w_q, w_s = _codes(B, n, r, seed=7, device=cuda)
-    want = fused_score_ref(u_q, u_s, w_q, w_s)
-    info = (ctypes.c_int * 4)()
-    variants = [(-2, 0), (-1, -1), (-1, 1), (-1, 2)]
-    tile = 0
-    while (rc := lib.dequant_score_tiled(
-            u_q.data_ptr(), u_s.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
-            None, B, n, r, tile, 0, info, None)) == 0:
-        variants.append((tile, 0))
-        tile += 1
-    assert rc == 1 and tile == 3            # cudaErrorInvalidValue: no tile
-    for tile, cap in variants:
-        out = torch.full((B, n), float("nan"), device=cuda)
-        rc = lib.dequant_score_tiled(
-            u_q.data_ptr(), u_s.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
-            out.data_ptr(), B, n, r, tile, cap, info,
-            torch.cuda.current_stream().cuda_stream)
-        assert rc == 0
-        torch.cuda.synchronize()
-        assert torch.equal(out, want), (tile, cap, list(info))
-        if cap > 0:
-            assert info[3] <= cap * torch.cuda.get_device_properties(
-                cuda).multi_processor_count
-        elif cap < 0:
-            assert info[3] == info[2]                # a CTA for every tile
+    out = torch.full((B, n), float("nan"), device=cuda)
+    rc = lib.dequant_score_first(
+        u_q.data_ptr(), u_s.data_ptr(), w_q.data_ptr(), w_s.data_ptr(),
+        out.data_ptr(), B, n, r, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, fused_score_ref(u_q, u_s, w_q, w_s))
 
 
 def test_dequant_score_counts_launches_by_batch(cuda):
