@@ -19,11 +19,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``device_breakdown_ms``, ``device_launches_seen``), and the
    least time the card could take (bytes over HBM rate or operations over
    f32 rate, whichever is larger, counted from this run's data).  The
-   segment kernel and the dense kernel are also measured on the three
-   blocks of one Sequential structure, gathered as ``sgd_structure_step``
-   gathers them (keys ending in ``_b3``: ``max_rel_err_b3``, ``ms_b3``,
+   three f-gradient kernels are also measured on the three blocks of one
+   Sequential structure, gathered as ``sgd_structure_step`` gathers them
+   (keys ending in ``_b3``: ``max_rel_err_b3``, ``ms_b3``,
    ``eager_ms_b3``, ``plain_ms_b3``, ``bound_ms_b3``,
    ``device_breakdown_ms_b3``, ...), the stack most of their launches get.
+   The scatter kernel's row also gives the cluster size its C entry picks
+   (``cluster_size``), the first scatter design's time on the same inputs
+   through ``sddmm_factor_grad_first`` (``first_ms``, its error held to
+   the same tolerance), and its time on the same entries permuted within
+   each block (``ms_permuted``, error held too), at both stacks.
 3. The main path through the user entry points, each phase with the
    launch counters set to 0 just before it and read just after (the
    segment and dense kernels' also by stack shape):
@@ -34,12 +39,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    finite and falling, each kernel launched in its phase, sparse and dense
    FullGD states agree, top-k agrees with a float64 host reference.
 4. The int8 score kernel against its plain version on the fitted index
-   at the top serving bucket (1024 users), with the same times and bound,
-   the ``"dequant"`` method's time and a ``torch._int_mm`` yardstick; and
-   at every other bucket (``by_bucket``: B = 16, 64, 256, users drawn the
-   same way), each with its graph time and replay range, eager and plain
-   times, bound, profiler breakdown (its kernel name gives the tile
-   shape picked) and error, held to 0; beside them, at each bucket, the
+   at the top serving bucket (1024 users), with the same times and bound
+   and the ``"dequant"`` method's time; and at every other bucket
+   (``by_bucket``: B = 16, 64, 256, users drawn the same way), each with
+   its graph time and replay range, eager and plain times, bound, profiler
+   breakdown (its kernel name gives the tile shape picked) and error, held
+   to 0; at every bucket a ``torch._int_mm`` yardstick on the same codes
+   (B = 16 padded to 32 rows, which ``_int_mm`` needs, and sliced); beside
+   them, at each bucket, the
    first kernel through its own C entry (``first_ms``, held to 0), the
    host's µs per call of the wrapper and of both C entries (``host_us``),
    and the time of ``fill_`` on the same output (``store_floor_ms``: what
@@ -416,8 +423,9 @@ def kernel_phase(sparse, dense, state, card):
                "library_ms": None,
                "shape": {"blocks": B, "mb": M, "nb": N, "r": r, "E": E,
                          "nnz": nnz}}
-        if name in ("sddmm_segment_grad", "masked_factor_grad"):
-            row.update(structure_trio(name, sparse, dense, state, card))
+        if name == "sddmm_factor_grad":
+            row.update(scatter_extras(ent, U, W, plain()))
+        row.update(structure_trio(name, sparse, dense, state, card))
         print(json.dumps(row), flush=True)
         for key in ("max_rel_err", "max_rel_err_b3"):
             if key in row and not row[key] <= TOL:
@@ -427,10 +435,64 @@ def kernel_phase(sparse, dense, state, card):
     return rows
 
 
+def scatter_first(ent, U, W):
+    """A callable that runs the first scatter design through its own C
+    entry, ``sddmm_factor_grad_first``, on the wrapper's inputs, into
+    outputs of its own; it returns (loss, gU, gW)."""
+
+    lib = _build.load("sddmm")
+    lead, (M, r), N = U.shape[:-2], U.shape[-2:], W.shape[-2]
+    B, E = U.numel() // (M * r), ent.capacity
+    loss = torch.empty(lead, dtype=torch.float32, device="cuda")
+    gu, gw = torch.empty_like(U), torch.empty_like(W)
+    partials = torch.empty((B, lib.sddmm_num_partials(B, E, r)),
+                           dtype=torch.float32, device="cuda")
+    ptrs = [t.data_ptr() for t in (ent.rows, ent.cols, ent.vals, ent.valid,
+                                   U, W, loss, gu, gw, partials)]
+
+    def run():
+        rc = lib.sddmm_factor_grad_first(
+            *ptrs, B, E, M, N, r, torch.cuda.current_stream().cuda_stream)
+        _build.check("sddmm_factor_grad_first", rc)
+        return loss, gu, gw
+    return run
+
+
+def scatter_extras(ent, U, W, want):
+    """On the scatter kernel's inputs: the cluster size its C entry picks;
+    the first design through ``sddmm_factor_grad_first`` (``first_ms``,
+    its error held to TOL); and the same entries in a seeded random order
+    within each block, padding slots interleaved (``ms_permuted``, error
+    held to TOL): the kernel's any-order contract at the path's size."""
+
+    lib = _build.load("sddmm")
+    M, r, N = U.shape[-2], U.shape[-1], W.shape[-2]
+    B = U.numel() // (M * r)
+    first = scatter_first(ent, U, W)
+    first_err = compare(first(), want)[1]
+    rng = np.random.default_rng(3)
+    E = ent.capacity
+    perm = torch.as_tensor(np.stack([rng.permutation(E) for _ in range(B)])
+                           .reshape(*ent.rows.shape[:-1], E), device="cuda")
+    shuffled = type(ent)(*(torch.take_along_dim(f, perm, -1) for f in (
+        ent.rows, ent.cols, ent.vals, ent.valid)))
+    kern = lambda: sddmm_ops.sddmm_factor_grad(shuffled, U, W)  # noqa: E731
+    perm_err = compare(kern(), want)[1]
+    out = {"cluster_size": lib.sddmm_cluster_size(B, M, N, r),
+           "first_ms": graph_ms(first), "first_max_rel_err": first_err,
+           "ms_permuted": graph_ms(kern),
+           "max_rel_err_permuted": perm_err}
+    for key in ("first_max_rel_err", "max_rel_err_permuted"):
+        if not out[key] <= TOL:
+            fail(f"sddmm_factor_grad ({key}) at B = {B}: max error "
+                 f"{out[key]:.3e} > {TOL:.0e}")
+    return out
+
+
 def structure_trio(name, sparse, dense, state, card):
-    """The segment or the dense kernel on the three blocks of Sequential's
-    structure 0, gathered as ``sgd_structure_step`` gathers them; keys end
-    in ``_b3``."""
+    """A kernel on the three blocks of Sequential's structure 0, gathered
+    as ``sgd_structure_step`` gathers them; keys end in ``_b3``.  The
+    scatter kernel's also include ``scatter_extras`` there."""
 
     tables = build_tables(P, Q, G.enumerate_structures(P, Q), "cuda")
     idx = tables.blocks[0].long()
@@ -444,6 +506,13 @@ def structure_trio(name, sparse, dense, state, card):
                       lambda: sddmm_segment_grad_ref(ent, U, W),
                       nnz * 5 * 4 + 4 * B * (M + N + 2) + factor_bytes, ops,
                       card)
+    elif name == "sddmm_factor_grad":
+        ent = sparse.data.entries.gather(bi, bj)
+        factor_bytes, ops, B, M, N, _ = sparse_work(ent, U, W, nnz)
+        plain = lambda: sddmm_factor_grad_ref(ent, U, W)  # noqa: E731
+        got = measure(lambda: sddmm_ops.sddmm_factor_grad(ent, U, W), plain,
+                      nnz * 4 * 4 + factor_bytes, ops, card)
+        got.update(scatter_extras(ent, U, W, plain()))
     else:
         X, Mk = dense.data.xb[bi, bj], dense.data.maskb[bi, bj]
         B = len(idx)
@@ -532,7 +601,38 @@ def score_timing(args, card):
         fail(f"dequant_score disagrees with its plain version at B = {B}: "
              f"max abs error {abs_err:.3e}, tolerance 0")
     timing.update(first_kernel_and_host(args, want))
+    timing.update(int_mm_yardstick(args, want))
     return timing
+
+
+def int_mm_yardstick(args, want):
+    """``torch._int_mm`` + the same epilogue on the same codes, a yardstick
+    the port never calls: cuBLASLt's int8 GEMM on the codes zero-padded to
+    r -> a multiple of 16 and n -> a multiple of 8 and, at 16 users or
+    fewer (``_int_mm`` takes more than 16 rows), to 32 users, the padding
+    sliced off.  Its graph ms, whether it equals the plain version bitwise,
+    and the rows it ran (``library_rows``)."""
+
+    uq, us, wq, ws = args
+    B, r = uq.shape
+    n = wq.shape[0]
+    bp, rp, np_ = B if B > 16 else 32, -(-r // 16) * 16, -(-n // 8) * 8
+    uq_p = torch.zeros((bp, rp), dtype=torch.int8, device="cuda")
+    wq_p = torch.zeros((np_, rp), dtype=torch.int8, device="cuda")
+    uq_p[:B, :r], wq_p[:n, :r] = uq, wq
+
+    def library():
+        acc = torch._int_mm(uq_p, wq_p.T)[:B, :n]
+        return acc.float() * us[:, None] * ws[None, :]
+
+    try:
+        equal = bool(torch.equal(library(), want))
+        ms, error = graph_ms(library), None
+    except RuntimeError as err:
+        equal, ms, error = None, None, str(err)[:200]
+    return {"library_ms": ms, "library_call": "torch._int_mm + epilogue",
+            "library_equal": equal, "library_error": error,
+            "library_rows": bp}
 
 
 def first_kernel_and_host(args, want):
@@ -615,8 +715,8 @@ def quant_kernel_row(qidx, users, card):
     """The int8 score kernel against its plain version on the fitted index
     at every serving bucket (the top bucket's numbers at the row's top
     level, the others under ``by_bucket``): error (must be 0), times,
-    bound; at the top bucket also the dequant method's time and the
-    ``torch._int_mm`` yardstick."""
+    bound, the ``torch._int_mm`` yardstick; at the top bucket also the
+    dequant method's time."""
 
     def batch(size):
         sel = users[:size]
@@ -624,36 +724,13 @@ def quant_kernel_row(qidx, users, card):
                 qidx.w_q, qidx.w_scale)
 
     args = batch(TOP_BUCKET)
-    uq, us, wq, ws = args
-    B, r = uq.shape
-    n = wq.shape[0]
-    top = score_timing(args, card)
-    want = fused_score_ref(*args)
-    # yardstick only, never called by the port: cuBLASLt's int8 GEMM on
-    # codes zero-padded to r -> 16 and n -> a multiple of 8, then the same
-    # epilogue
-    rp, np_ = -(-r // 16) * 16, -(-n // 8) * 8
-    uq_p = torch.zeros((B, rp), dtype=torch.int8, device="cuda")
-    wq_p = torch.zeros((np_, rp), dtype=torch.int8, device="cuda")
-    uq_p[:, :r], wq_p[:n, :r] = uq, wq
-
-    def library():
-        acc = torch._int_mm(uq_p, wq_p.T)[:, :n]
-        return acc.float() * us[:, None] * ws[None, :]
-
-    try:
-        lib_equal = bool(torch.equal(library(), want))
-        library_ms, library_error = graph_ms(library), None
-    except RuntimeError as err:
-        lib_equal, library_ms, library_error = None, None, str(err)[:200]
+    B, r = args[0].shape
     row = {
         "name": "dequant_score", "route": "cuda",
         "source": META["dequant_score"][0],
         "replaces": META["dequant_score"][1], "launches": 0,
-        "tolerance": 0.0, **top,
+        "tolerance": 0.0, **score_timing(args, card),
         "dequant_method_ms": graph_ms(lambda: dequant_score_ref(*args)),
-        "library_ms": library_ms, "library_call": "torch._int_mm + epilogue",
-        "library_equal": lib_equal, "library_error": library_error,
         "catalog_alignment_ms": catalog_alignment(B, r),
         "by_bucket": {b: score_timing(batch(b), card)
                       for b in DEFAULT_BUCKETS if b != TOP_BUCKET},

@@ -41,6 +41,9 @@ SIGNATURES = {
         "sddmm_segment_grad": ((_P,) * 13 + (_I,) * 5 + (_P,), _I),
         # rows cols vals valid U W | loss gU gW partials | B E M N r | stream
         "sddmm_factor_grad": ((_P,) * 10 + (_I,) * 5 + (_P,), _I),
+        # the first scatter design at any shape: the same arguments
+        "sddmm_factor_grad_first": ((_P,) * 10 + (_I,) * 5 + (_P,), _I),
+        "sddmm_cluster_size": ((_I,) * 4, _I),       # B M N r
     },
     "masked_factor_grad": {
         "mfg_num_partials": ((_I,), _I),                    # M

@@ -11,8 +11,13 @@ plain version.  There is no size threshold and no fallback from the card.
                         segment sums over the CSR/CSC views, the residual
                         recomputed on each side (one walk launch and one
                         loss launch)
-    sddmm_factor_grad   order-agnostic (``method="scatter"``): atomics on
-                        the card, so gradients are held to a tolerance
+    sddmm_factor_grad   order-agnostic (``method="scatter"``): one launch,
+                        a thread-block cluster a block, each CTA adding its
+                        share of the entries into its own shared-memory
+                        copy of gU and gW, the copies summed in rank
+                        order; the adds land in arrival order, so gradients
+                        are held to a tolerance (the loss repeats bit for
+                        bit)
 
 Each wrapper counts its kernel launches in ``.launches``;
 ``sddmm_segment_grad.by_stack`` also counts them by the stack's leading
@@ -94,6 +99,8 @@ def sddmm_factor_grad(entries, u, w):
     gu = torch.empty_like(ins[-2])
     gw = torch.empty_like(ins[-1])
     lib = _build.load("sddmm")
+    # loss partials of the first scatter design, which the C entry launches
+    # only where a block's gU and gW do not fit a CTA's shared memory
     partials = torch.empty((B, lib.sddmm_num_partials(B, E, r)),
                            dtype=torch.float32, device=u.device)
     rc = lib.sddmm_factor_grad(

@@ -34,6 +34,7 @@ from repro_torch.mc import CompletionProblem, FullGD, Trainer  # noqa: E402
 from repro_torch.models import Ctx, build_model  # noqa: E402
 from repro_torch.serve.quant import quantize_index, quantize_rows  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
+from repro_torch.sparse.entries import BlockEntries  # noqa: E402
 from repro_torch.sparse.store import from_blocks  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -165,6 +166,152 @@ def test_scatter_kernel_matches_plain(cuda, case):
     got = sddmm_ops.sddmm_factor_grad(sp.entries, U, W)
     torch.cuda.synchronize()
     _close(got, sddmm_factor_grad_ref(sp.entries, U, W))
+
+
+def _permuted(entries, seed):
+    """The same entries in a seeded random order within each block, padding
+    slots interleaved, without the sorted aux (the scatter kernel's "any
+    order")."""
+
+    lead, E = entries.rows.shape[:-1], entries.capacity
+    rng = np.random.default_rng(seed)
+    perm = np.stack([rng.permutation(E) for _ in range(int(np.prod(lead)))])
+    idx = torch.from_numpy(perm.reshape(*lead, E)).to(entries.rows.device)
+    fields = (entries.rows, entries.cols, entries.vals, entries.valid)
+    return BlockEntries(*(torch.take_along_dim(f, idx, -1) for f in fields))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_scatter_kernel_on_permuted_store(cuda, case):
+    x, mask, u, w = _blocks(*case, seed=12)
+    sp = from_blocks(x, mask, bucket=64, device=cuda)
+    ent = _permuted(sp.entries, seed=12)
+    live = (ent.valid != 0).int()
+    live_after = live.flip(-1).cummax(-1).values.flip(-1)
+    if live.any():                     # padding slots among live entries
+        assert bool(((live_after == 1) & (live == 0)).any())
+    U, W = torch.from_numpy(u).to(cuda), torch.from_numpy(w).to(cuda)
+    got = sddmm_ops.sddmm_factor_grad(ent, U, W)
+    torch.cuda.synchronize()
+    _close(got, sddmm_factor_grad_ref(ent, U, W))
+    _close(got, sddmm_factor_grad_ref(sp.entries, U, W))
+    assert float(got[0][0, 0]) == 0.0                 # the empty block
+    assert float(got[1][0, 0].abs().max()) == 0.0
+
+
+# the hot column's adds all go to one owner CTA of each cluster
+@pytest.mark.parametrize("order", ["sorted", "permuted"])
+@pytest.mark.parametrize("case", SKEWED)
+def test_scatter_kernel_on_skewed_store(cuda, case, order):
+    x, mask, u, w = _skewed(*case, seed=6)
+    sp = from_blocks(x, mask, bucket=64, device=cuda)
+    ent = sp.entries if order == "sorted" else _permuted(sp.entries, seed=6)
+    U, W = torch.from_numpy(u).to(cuda), torch.from_numpy(w).to(cuda)
+    got = sddmm_ops.sddmm_factor_grad(ent, U, W)
+    torch.cuda.synchronize()
+    _close(got, sddmm_factor_grad_ref(ent, U, W))
+    assert float(got[1][..., 1, :].abs().max()) == 0.0      # the empty row
+    assert float(got[2][..., 0, :].abs().max()) == 0.0      # the empty column
+
+
+# (M, N, r) at B = 1 on each side of a CTA's copy budget, 220 KiB for a
+# block's gU and gW: (120 + 100) * 256 * 4 bytes fit exactly, (121 + 100) *
+# 256 * 4 do not, and the first design runs; only the first design writes
+# the loss partials, so the C entry's partials tell which ran
+@pytest.mark.parametrize("shape,K", [((120, 100, 256), 8),
+                                     ((121, 100, 256), 0)])
+def test_scatter_kernel_dispatch_by_shape(cuda, shape, K):
+    M, N, r = shape
+    lib = _build.load("sddmm")
+    assert lib.sddmm_cluster_size(1, M, N, r) == K
+    rng = np.random.default_rng(13)
+    mask = (rng.random((1, 1, M, N)) < 0.3).astype(np.float32)
+    x = (rng.normal(size=mask.shape) * mask).astype(np.float32)
+    ent = _permuted(from_blocks(x, mask, bucket=64, device=cuda).entries,
+                    seed=13)
+    U = torch.from_numpy(rng.normal(size=(1, 1, M, r)).astype(np.float32))
+    W = torch.from_numpy(rng.normal(size=(1, 1, N, r)).astype(np.float32))
+    U, W = U.to(cuda), W.to(cuda)
+    want = sddmm_factor_grad_ref(ent, U, W)
+    _close(sddmm_ops.sddmm_factor_grad(ent, U, W), want)
+    E = ent.capacity
+    loss = torch.full((1, 1), float("nan"), device=cuda)
+    gu, gw = torch.full_like(U, float("nan")), torch.full_like(W, float("nan"))
+    partials = torch.full((1, lib.sddmm_num_partials(1, E, r)), float("nan"),
+                          device=cuda)
+    rc = lib.sddmm_factor_grad(
+        *(t.data_ptr() for t in (ent.rows, ent.cols, ent.vals, ent.valid,
+                                 U, W, loss, gu, gw, partials)),
+        1, E, M, N, r, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    assert bool(partials.isnan().all()) == (K > 0)
+    _close((loss, gu, gw), want)
+
+
+# one block (a lone cluster) and a Sequential structure's three blocks,
+# permuted, against the plain version and the whole stack's call
+@pytest.mark.parametrize("B", [1, 3])
+def test_scatter_kernel_on_small_stacks(cuda, B):
+    x, mask, u, w = _skewed(2, 2, 700, 300, 15, seed=14)
+    sp = from_blocks(x, mask, bucket=64, device=cuda)
+    ent = _permuted(sp.entries, seed=14)
+    U, W = torch.from_numpy(u).to(cuda), torch.from_numpy(w).to(cuda)
+    if B == 1:
+        idx = (1, 1)
+    else:
+        idx = (torch.tensor([0, 1, 0], device=cuda),
+               torch.tensor([0, 0, 1], device=cuda))
+    assert _build.load("sddmm").sddmm_cluster_size(B, 700, 300, 15) == 8
+    n0 = sddmm_ops.sddmm_factor_grad.launches
+    got = sddmm_ops.sddmm_factor_grad(ent.gather(*idx), U[idx], W[idx])
+    assert sddmm_ops.sddmm_factor_grad.launches == n0 + 1
+    torch.cuda.synchronize()
+    assert got[1].shape == U[idx].shape and got[2].shape == W[idx].shape
+    _close(got, sddmm_factor_grad_ref(ent.gather(*idx), U[idx], W[idx]))
+    whole = sddmm_ops.sddmm_factor_grad(ent, U, W)
+    _close(got, [t[idx] for t in whole])
+
+
+@pytest.mark.parametrize("case", [CASES[0], CASES[2], CASES[5]])
+def test_scatter_first_entry_matches_plain(cuda, case):
+    """The first scatter design through its own C entry, at any shape."""
+
+    lib = _build.load("sddmm")
+    p, q, mb, nb, r, _ = case
+    x, mask, u, w = _blocks(*case, seed=15)
+    ent = _permuted(from_blocks(x, mask, bucket=64, device=cuda).entries,
+                    seed=15)
+    U, W = torch.from_numpy(u).to(cuda), torch.from_numpy(w).to(cuda)
+    B, E = p * q, ent.capacity
+    loss = torch.full((p, q), float("nan"), device=cuda)
+    gu, gw = torch.full_like(U, float("nan")), torch.full_like(W, float("nan"))
+    partials = torch.empty((B, lib.sddmm_num_partials(B, E, r)), device=cuda)
+    rc = lib.sddmm_factor_grad_first(
+        *(t.data_ptr() for t in (ent.rows, ent.cols, ent.vals, ent.valid,
+                                 U, W, loss, gu, gw, partials)),
+        B, E, mb, nb, r, torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    torch.cuda.synchronize()
+    _close((loss, gu, gw), sddmm_factor_grad_ref(ent, U, W))
+
+
+@pytest.mark.parametrize("case", [SKEWED[0], CASES[2], CASES[4]])
+def test_scatter_kernel_repeats(cuda, case):
+    """Repeated calls: the loss bit for bit (a fixed-order sum), the
+    gradients within the tolerance (shared-memory adds in arrival
+    order)."""
+
+    make = _skewed if case in SKEWED else _blocks
+    x, mask, u, w = make(*case, seed=16)
+    ent = _permuted(from_blocks(x, mask, bucket=64, device=cuda).entries,
+                    seed=16)
+    U, W = torch.from_numpy(u).to(cuda), torch.from_numpy(w).to(cuda)
+    first = sddmm_ops.sddmm_factor_grad(ent, U, W)
+    for _ in range(3):
+        again = sddmm_ops.sddmm_factor_grad(ent, U, W)
+        assert torch.equal(first[0], again[0])
+        _close(again[1:], first[1:])
 
 
 # (p, q, mb, nb, r, density): sides that are not multiples of 32, ranks at

@@ -8,8 +8,10 @@ and its XLA reference.  Cases: a block with no entries, empty rows and
 columns, padding slots, a store with no padding, a skewed store whose hot
 column and heavy row are longer than the plain segment reduce's chunk,
 dense blocks at the ML-1M cell's rank (r = 15) whose sides are not
-multiples of the CUDA kernel's 32-wide tiles, and a batched stack against
-per-block calls.
+multiples of the CUDA kernel's 32-wide tiles, a batched stack against
+per-block calls, and the scatter method on each kind of store with its
+entries permuted within each block (padding slots interleaved, no sorted
+aux).
 
 Tolerance: rtol=1e-5, atol=1e-5·max|ref| — float32 sums run in another
 order on each side; at these sizes losses are in the hundreds and
@@ -38,6 +40,7 @@ from repro_torch.kernels.sddmm.segment import (  # noqa: E402
     SEG_CHUNK,
     segment_reduce,
 )
+from repro_torch.sparse.entries import BlockEntries  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -136,6 +139,47 @@ def test_sparse_kernel_module_matches_jax(method, kind):
         e = tsp.entries
         assert int((e.col_ptr[..., 5] - e.col_ptr[..., 4]).min()) > SEG_CHUNK
         assert int((e.row_ptr[..., 7] - e.row_ptr[..., 6]).min()) > SEG_CHUNK
+
+
+def _permuted(jsp, seed):
+    """The store's entries in a seeded random order within each block,
+    padding slots interleaved, without the sorted aux: (rows, cols, vals,
+    valid) as numpy arrays of shape (P, Q, E)."""
+
+    e = jsp.entries
+    rng = np.random.default_rng(seed)
+    perm = np.stack([rng.permutation(e.capacity)
+                     for _ in range(P * Q)]).reshape(P, Q, -1)
+    return [np.take_along_axis(np.asarray(f), perm, -1)
+            for f in (e.rows, e.cols, e.vals, e.valid)]
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_scatter_module_on_permuted_store_matches_jax(kind):
+    """The port's ``sddmm_factor_grad`` on entries in any order against the
+    JAX Pallas kernel (interpret mode) and its XLA reference on the same
+    permuted entries."""
+
+    x, mask, u, w = _blocks(kind, seed=5)
+    jsp, _ = _stores(x, mask, kind)
+    fields = _permuted(jsp, seed=5)
+    if kind != "no_padding":                  # padding among live entries
+        live = fields[3] != 0
+        first_pad = (~live).argmax(-1)
+        last_live = live.shape[-1] - 1 - live[..., ::-1].argmax(-1)
+        assert (first_pad < last_live).any()
+    port = t_sddmm.sddmm_factor_grad
+    got = port(BlockEntries(*(torch.from_numpy(f) for f in fields)),
+               torch.from_numpy(u), torch.from_numpy(w))
+    jent = type(jsp.entries).from_coo(*fields)
+    for i in range(P):
+        for j in range(Q):
+            ent = jent.gather(i, j)
+            for want in (j_sddmm.sddmm_factor_grad(ent, u[i, j], w[i, j],
+                                                   force_kernel=True),
+                         j_scatter_ref(ent, u[i, j], w[i, j])):
+                for g, wv in zip(got, want):
+                    _close(g[i, j], wv)
 
 
 @pytest.mark.parametrize("kind", ["random", "empty_block", "empty_lines",
