@@ -3,7 +3,11 @@
 
 Run from the repository root on a machine with one NVIDIA H100::
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--paper]
+
+``--paper`` runs ``[table2]`` at every checkpoint of exp1-exp6 (the
+paper's full trajectories, as ``benchmarks/table2_synthetic.py --full``);
+by default exp1-exp5 stop at their first checkpoint.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -33,11 +37,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launch counters set to 0 just before it and read just after (the
    segment and dense kernels' also by stack shape):
    ``CompletionProblem`` -> ``Trainer.fit`` (FullGD on the sparse store
-   with the segment and scatter methods and on the dense layout, one Wave
-   round on each layout, Sequential iterations on each layout) ->
-   ``FitResult`` -> ``recommend_topk`` for 256 users.  Checks: costs
+   with the segment method for the Table 3 cell's 800 rounds, printing
+   its held-out RMSE, with the scatter method, and on the dense layout,
+   one Wave round on each layout, Sequential iterations on each layout)
+   -> ``FitResult`` -> ``recommend_topk`` for 256 users.  Checks: costs
    finite and falling, each kernel launched in its phase, sparse and dense
-   FullGD states agree, top-k agrees with a float64 host reference.
+   FullGD states agree at round 40, top-k agrees with a float64 host
+   reference.
+   ``[table2]``: the paper's Table 2 cells (``configs/gossip_mc.py``)
+   through ``launch/paper_tables.py``: exp1-exp5 to their first checkpoint
+   (80k structure updates, 10k for exp5) on the dense layout, each with
+   the cost at t = 0 and at the checkpoint, us per iteration, ms per
+   round and the dense kernel's launches by stack (B = 16/20/25/36/25).
+   Checks: costs finite and falling, the kernel launched.
+   ``[gossip]``: the synchronous ``Gossip`` schedule.  On the 1x1 plan,
+   200 rounds of exp3 (dense, B = 25) and of the ML-1M cell (segment and
+   scatter methods) against FullGD from one state (max |dU|, |dW|, the
+   relative cost difference, and whether they are bitwise equal).  Then
+   one 2x2 grid of four ``gloo`` processes sharing the card
+   (``launch/gossip.py``, the edges staged through pinned host buffers)
+   runs exp1 (4x4 dense, B = 4 a rank) and a 4x4 ML-1M sparse grid for
+   300 rounds against the 1x1 run from the same state (max |dU| < 1e-5,
+   cost rel < 1e-4, tests/test_distributed.py's tolerance), and
+   staleness 2 with int8 messages on exp1 (the cost must fall).  Prints
+   ms per round, staged bytes per round, the start-up seconds of the
+   grid's processes, and checks ``train_gossip_halo_bytes_total`` against
+   exchanges x ``halo_bytes_per_round``.  A 2x2 grid on one card measures
+   the exchange's correctness and its host cost, not a wire between
+   cards.
 4. The int8 score kernel against its plain version on the fitted index
    at the top serving bucket (1024 users), with the same times and bound
    and the ``"dequant"`` method's time; and at every other bucket
@@ -83,6 +110,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and gives the same first token wherever the top-2 margin exceeds that.
    Prints prefill and decode times, tokens/s and peak device memory.
 
+The launch counts of the ``{"kernels": ...}`` line add up the main
+path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included) and
+``[serve]``/``[lm]``.
+
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
 (``benchmarks/table3_rmse.py --full``): the 6040x3706 ``movielens_proxy``
 with 1M ratings (800k for training), a 5x5 grid, rank 15, mean-centred,
@@ -100,6 +131,8 @@ the ``{"kernels": [...]}`` summary, and the line before that the card's
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 import os
 import statistics
@@ -114,9 +147,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.config import GossipMCConfig, get_model_config  # noqa: E402
+from repro_torch.configs.gossip_mc import EXPERIMENTS  # noqa: E402
+from repro_torch.core import gossip as core_gossip  # noqa: E402
 from repro_torch.core import grid as G  # noqa: E402
-from repro_torch.core.state import build_tables, init_state  # noqa: E402
-from repro_torch.data import movielens_proxy  # noqa: E402
+from repro_torch.core.state import State, build_tables, init_state  # noqa: E402
+from repro_torch.data import lowrank_problem, movielens_proxy  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
@@ -137,14 +172,24 @@ from repro_torch.kernels.sddmm.segment import (  # noqa: E402
     sddmm_segment_grad_ref,
 )
 from repro_torch.mc import (  # noqa: E402
+    Callback,
     CompletionProblem,
     FullGD,
+    Gossip,
     Sequential,
     Trainer,
     Wave,
 )
 from repro_torch import obs  # noqa: E402
+from repro_torch.launch import paper_tables  # noqa: E402
+from repro_torch.launch.gossip import (  # noqa: E402
+    FitJob,
+    ProblemRecipe,
+    fit_on_grid,
+)
+from repro_torch.launch.gossip import shutdown as shutdown_grids  # noqa: E402
 from repro_torch.launch.lm_engine import ServeLoop  # noqa: E402
+from repro_torch.mesh import MeshPlan  # noqa: E402
 from repro_torch.models import Ctx, build_model  # noqa: E402
 from repro_torch.serve.quant import index_nbytes, quantize_index  # noqa: E402
 from repro_torch.serve.recommend import recommend_topk  # noqa: E402
@@ -157,9 +202,18 @@ from repro_torch.serving import (  # noqa: E402
 P = Q = 5
 RANK = 15
 CFG = dict(rho=1e3, lam=1e-6, a=2.0e-4, b=5.0e-7)
-FULL_ROUNDS = 40
+FULL_ROUNDS = 800   # the Table 3 cell's rounds (benchmarks/table3_rmse.py)
+COMPARE_ROUNDS = 40  # sparse and dense FullGD are compared at this round
 TOL = 1e-5          # |kernel - plain| <= TOL * (|plain| + max|plain|)
-STATE_RTOL = 1e-4   # sparse vs dense FullGD after FULL_ROUNDS rounds
+STATE_RTOL = 1e-4   # sparse vs dense FullGD after COMPARE_ROUNDS rounds
+# [gossip]: rounds of the 1x1 runs and of the 2x2 grids, and the 2x2
+# grid's tolerance against 1x1, tests/test_distributed.py's own
+GOSSIP_ROUNDS, GRID_ROUNDS = 200, 300
+GRID_U_ATOL, GRID_COST_RTOL = 1e-5, 1e-4
+GRID = (2, 2)
+# [table2] --paper: a converged cost may move by float32 rounding between
+# checkpoints, no more
+FLOOR_RTOL = 1e-5
 
 WRAPPERS = {
     "sddmm_segment_grad": sddmm_ops.sddmm_segment_grad,
@@ -370,6 +424,90 @@ def measure(kern, plain, nbytes, ops, card):
         "device_breakdown_ms": device_breakdown(kern, seen=seen),
         "device_launches_seen": seen,   # over 5 calls
     }
+
+
+def dense_f64(X, Mk, U, W):
+    """(loss, gU, gW) of the dense f-gradient in float64."""
+
+    X, Mk, U, W = (t.double() for t in (X, Mk, U, W))
+    R = Mk * (X - U @ W.mT)
+    return (R * R).sum((-2, -1)), -2.0 * R @ W, -2.0 * R.mT @ U
+
+
+def sparse_f64(ent, U, W):
+    """(loss, gU, gW) of the sparse f-gradient in float64, by
+    scatter-adds over the padded-COO entries."""
+
+    lead, (M, r), N = U.shape[:-2], U.shape[-2:], W.shape[-2]
+    B = U.numel() // (M * r)
+    U, W = U.double().reshape(B, M, r), W.double().reshape(B, N, r)
+    rows = ent.rows.reshape(B, -1, 1).long().expand(-1, -1, r)
+    cols = ent.cols.reshape(B, -1, 1).long().expand(-1, -1, r)
+    ue, we = U.gather(1, rows), W.gather(1, cols)
+    e = ent.valid.reshape(B, -1).double() * (
+        ent.vals.reshape(B, -1).double() - (ue * we).sum(-1))
+    d = -2.0 * e.unsqueeze(-1)
+    gu = torch.zeros_like(U).scatter_add_(1, rows, d * we)
+    gw = torch.zeros_like(W).scatter_add_(1, cols, d * ue)
+    return ((e * e).sum(-1).reshape(lead), gu.reshape(*lead, M, r),
+            gw.reshape(*lead, N, r))
+
+
+def shape_check(label, name, kern, plain, exact, work, card, shape) -> dict:
+    """A kernel against its plain version at one more shape its path
+    gives it, both also against ``exact`` (the same function in float64):
+    errors, graph-replay times of both and the bound from ``work`` =
+    (bytes, operations).  Fails unless the kernel is within TOL of its
+    plain version or, where the two differ by more (long f32 sums whose
+    result cancels, as at a fitted state), within TOL of float64."""
+
+    bw, flops, _, _ = peaks(card)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    abs_err, rel_err = compare(got, want)
+    ref = exact()
+    plain_f64, kern_f64 = compare(want, ref)[1], compare(got, ref)[1]
+    t_bytes, t_ops = work[0] / bw * 1e3, work[1] / flops * 1e3
+    out = {"phase": label, "shape": shape, "max_abs_err": abs_err,
+           "max_rel_err": rel_err, "kernel_f64_rel_err": kern_f64,
+           "plain_f64_rel_err": plain_f64, "tolerance": TOL,
+           "ms": graph_ms(kern), "plain_ms": graph_ms(plain),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    print(f"[{label.split()[0]}] {name} against its plain version, "
+          f"{label}: {json.dumps(out)}", flush=True)
+    if not min(rel_err, kern_f64) <= TOL:
+        fail(f"{name} at {label}: max error {rel_err:.3e} against its plain "
+             f"version and {kern_f64:.3e} against float64, both > "
+             f"{TOL:.0e}")
+    return out
+
+
+def dense_check(label, X, Mk, U, W, card) -> dict:
+    """``shape_check`` of the dense kernel on (X, mask, U, W)."""
+
+    return shape_check(
+        label, "masked_factor_grad",
+        lambda: mfg_ops.masked_factor_grad(X, Mk, U, W),
+        lambda: masked_factor_grad_ref(X, Mk, U, W),
+        lambda: dense_f64(X, Mk, U, W), dense_work(U, W), card,
+        {"lead": list(U.shape[:-2]), "mb": U.shape[-2], "nb": W.shape[-2],
+         "r": U.shape[-1]})
+
+
+def segment_check(label, ent, U, W, card) -> dict:
+    """``shape_check`` of the segment kernel on (entries, U, W)."""
+
+    nnz = int(ent.valid.sum())
+    factor_bytes, ops, B, M, N, r = sparse_work(ent, U, W, nnz)
+    return shape_check(
+        label, "sddmm_segment_grad",
+        lambda: sddmm_ops.sddmm_segment_grad(ent, U, W),
+        lambda: sddmm_segment_grad_ref(ent, U, W),
+        lambda: sparse_f64(ent, U, W),
+        (nnz * 5 * 4 + 4 * B * (M + N + 2) + factor_bytes, ops), card,
+        {"lead": list(U.shape[:-2]), "mb": M, "nb": N, "r": r,
+         "E": ent.capacity, "nnz": nnz})
 
 
 def sparse_work(ent, U, W, nnz):
@@ -1153,6 +1291,259 @@ def lm_phase(card):
     return row
 
 
+class StateAt(Callback):
+    """Keeps a copy of the fit's state at one eval boundary."""
+
+    def __init__(self, unit: int):
+        self.unit, self.state = unit, None
+
+    def on_eval(self, unit, cost, state):
+        if unit == self.unit:
+            self.state = State(*(x.clone() for x in state))
+
+
+def stacks(fn) -> dict[str, int]:
+    return {"x".join(map(str, lead)): n for lead, n in fn.by_stack.items()}
+
+
+def table2_phase(full: bool, card) -> tuple[int, list]:
+    """``[table2]``: the paper's Table 2 cells through the port's
+    ``paper_tables.run_experiment`` (dense layout, FullGD warm-started
+    across checkpoints).  By default exp1-exp5 to their first checkpoint;
+    ``full`` runs every checkpoint of exp1-exp6.  Fails unless the cost is
+    finite, falls to the first checkpoint and rises by no more than
+    FLOOR_RTOL after it, the dense kernel launched, and
+    the kernel agrees with its plain version on each experiment's stack
+    and fitted state.  Returns the dense kernel's launches and those
+    checks."""
+
+    names = [n for n in EXPERIMENTS if full or EXPERIMENTS[n].m < 10000]
+    launches, checks = 0, []
+    for name in names:
+        cfg = EXPERIMENTS[name]
+        checkpoints = paper_tables.checkpoints_for(name, full)
+        if not full:
+            checkpoints = checkpoints[:1]
+        t0 = time.perf_counter()
+        ds = lowrank_problem(cfg.m, cfg.n, cfg.rank, density=cfg.density,
+                             seed=1)
+        problem = CompletionProblem.from_dataset(ds, cfg.p, cfg.q, cfg.rank)
+        setup = time.perf_counter() - t0
+        reset_counts()
+        rows, wall, state = paper_tables.run_experiment(
+            name, problem=problem, checkpoints=checkpoints)
+        got = counts()["masked_factor_grad"]
+        launches += got
+        n_struct = problem.spec.num_structures
+        rounds = rows[-1][0] // n_struct
+        print(f"[table2] {name}: {cfg.m}x{cfg.n} grid {cfg.p}x{cfg.q} "
+              f"density {cfg.density} B={cfg.p * cfg.q}: cost "
+              + " ".join(f"t={t}:{c:.6e}" for t, c in rows)
+              + f"; {rounds} FullGD rounds in {wall:.3f}s = "
+              f"{1e6 * wall / max(rows[-1][0], 1):.3f} us/iter, "
+              f"{1e3 * wall / rounds:.4f} ms/round (cost evals included); "
+              f"setup {setup:.2f}s; masked_factor_grad launches {got} by "
+              f"stack {stacks(mfg_ops.masked_factor_grad)}", flush=True)
+        print(f"[table2] {paper_tables.row(name, rows, wall)}", flush=True)
+        costs = [c for _, c in rows]
+        if not np.isfinite(costs).all():
+            fail(f"table2 {name}: non-finite cost {costs}")
+        # falls to the first checkpoint; later ones may sit on the float32
+        # floor of a converged fit, where they may not rise past rounding
+        if not (costs[1] < costs[0] and all(
+                b <= a * (1 + FLOOR_RTOL) for a, b in zip(costs[1:],
+                                                          costs[2:]))):
+            fail(f"table2 {name}: cost did not fall: {costs}")
+        if got == 0:
+            fail(f"table2 {name}: masked_factor_grad was never launched")
+        checks.append(dense_check(
+            f"table2 {name} B={cfg.p * cfg.q}", problem.data.xb,
+            problem.data.maskb, state.U, state.W, card))
+        del problem, ds, state
+    return launches, checks
+
+
+def state_diff(a: State, b: State) -> dict:
+    return {"max_abs_dU": float((a.U - b.U).abs().max()),
+            "max_abs_dW": float((a.W - b.W).abs().max()),
+            "bitwise": bool(torch.equal(a.U, b.U) and torch.equal(a.W, b.W))}
+
+
+def gossip_1x1(label, problem, cfg, state0, expect) -> dict[str, int]:
+    """Gossip on the 1x1 plan against FullGD from the same state: the
+    kernel launched, the states compared (bitwise or not), the cost."""
+
+    trainer = Trainer(cfg)
+    trainer.fit(problem, Gossip(num_rounds=2), state=state0)     # warm-up
+    full = trainer.fit(problem, FullGD(num_rounds=GOSSIP_ROUNDS,
+                                       eval_every=GOSSIP_ROUNDS // 4),
+                       state=state0)
+    reset_counts()
+    obs.reset()
+    gos = trainer.fit(problem, Gossip(num_rounds=GOSSIP_ROUNDS,
+                                      eval_every=GOSSIP_ROUNDS // 4),
+                      state=state0)
+    got = counts()
+    diff = state_diff(gos.state, full.state)
+    c_g, c_f = gos.final_cost, full.final_cost
+    diff["cost_rel"] = abs(c_g - c_f) / abs(c_f)
+    print(f"[gossip] 1x1 {label}: {GOSSIP_ROUNDS} rounds, Gossip vs FullGD "
+          f"from one state: {json.dumps(diff)}; cost {c_g:.6e} vs "
+          f"{c_f:.6e}; ms/round gossip "
+          f"{1e3 * gos.wall_time / GOSSIP_ROUNDS:.4f} fullgd "
+          f"{1e3 * full.wall_time / GOSSIP_ROUNDS:.4f}; halo bytes "
+          f"{obs.counter('train_gossip_halo_bytes_total').value:.0f}; "
+          f"launches {got} by stack "
+          f"{ {fn.__name__: stacks(fn) for fn in STACKED} }", flush=True)
+    if got[expect] == 0:
+        fail(f"gossip 1x1 {label}: {expect} was never launched")
+    if not (diff["max_abs_dU"] < GRID_U_ATOL
+            and diff["max_abs_dW"] < GRID_U_ATOL
+            and diff["cost_rel"] < GRID_COST_RTOL):
+        fail(f"gossip 1x1 {label} disagrees with FullGD: {diff}")
+    return got
+
+
+def grid_reference(recipe, cfg):
+    """Gossip on the 1x1 plan of ``recipe``'s problem from the seed-0
+    state: (the fit, the cost at t = 0, the state as numpy)."""
+
+    problem = recipe.build(device="cuda")
+    state0 = init_state(torch.Generator(device="cuda").manual_seed(0),
+                        problem.spec)
+    one = Trainer(cfg).fit(problem, Gossip(num_rounds=GRID_ROUNDS,
+                                           eval_every=GRID_ROUNDS // 3),
+                           state=state0)
+    c0 = problem.total_cost(state0, cfg.lam)
+    return one, c0, (state0.U.cpu().numpy(), state0.W.cpu().numpy(), 0)
+
+
+def check_grid(label, recipe, out, one, c0) -> None:
+    """A 2x2 grid's fit against the 1x1 one from the same state, to
+    tests/test_distributed.py's tolerance; the halo-byte counter against
+    the plan's geometry; the exchange staged."""
+
+    diff = {"max_abs_dU": float(np.abs(out["U"] - one.state.U.cpu().numpy())
+                                .max()),
+            "max_abs_dW": float(np.abs(out["W"] - one.state.W.cpu().numpy())
+                                .max())}
+    diff["cost_rel"] = abs(out["history"][-1][1] - one.final_cost) / abs(
+        one.final_cost)
+    spec = one.problem.spec
+    plan = MeshPlan.build(recipe.p, recipe.q, grid=GRID)
+    exchange = core_gossip.halo_bytes_per_round(plan, spec.mb, spec.nb,
+                                                spec.r)["total_bytes"]
+    halo = out["counters"]["train_gossip_halo_bytes_total"]
+    blocks = plan.blocks_per_row_shard * plan.blocks_per_col_shard
+    print(f"[gossip] 2x2 {label}: {plan.num_devices} {out['backend']} "
+          f"processes sharing one card, the exchange staged through pinned "
+          f"host buffers: {out['staged']}; B={blocks} a rank; {GRID_ROUNDS} "
+          f"rounds against 1x1 from one state: {json.dumps(diff)}; cost "
+          f"{out['history'][-1][1]:.6e} (1x1 {one.final_cost:.6e}, t=0 "
+          f"{c0:.6e}); ms/round 2x2 {out['ms_per_round']:.4f} 1x1 "
+          f"{1e3 * one.wall_time / GRID_ROUNDS:.4f}; staged bytes/round "
+          f"{out['staged_bytes_per_round']:.0f}; "
+          f"train_gossip_halo_bytes_total {halo:.0f} = {GRID_ROUNDS} "
+          f"exchanges x {exchange} B; launches on the ranks "
+          f"{out['launches']}; build {out['build_s']:.2f}s warm-up "
+          f"{out['warmup_s']:.2f}s", flush=True)
+    if not (diff["max_abs_dU"] < GRID_U_ATOL
+            and diff["max_abs_dW"] < GRID_U_ATOL
+            and diff["cost_rel"] < GRID_COST_RTOL):
+        fail(f"gossip 2x2 {label} disagrees with 1x1: {diff}")
+    if halo != GRID_ROUNDS * exchange:
+        fail(f"gossip 2x2 {label}: train_gossip_halo_bytes_total {halo} != "
+             f"{GRID_ROUNDS} x {exchange}")
+    if not out["staged"] or out["staged_bytes_per_round"] <= 0:
+        fail(f"gossip 2x2 {label}: the exchange was not staged")
+
+
+def gossip_phase(sparse, scatter, state0, ml_cfg, card) -> tuple[dict, list]:
+    """``[gossip]``: the synchronous Gossip schedule.  1x1 at full size
+    (exp3 dense, the ML-1M 5x5 sparse cell with the segment and the
+    scatter method) against FullGD; then one 2x2 grid of four gloo
+    processes sharing the card, which runs exp1 dense and ML-1M 4x4 sparse
+    against 1x1 and staleness 2 with int8 messages on exp1.  Returns the
+    kernels' launches (the ranks' included) and the kernels held against
+    their plain versions at the shapes this phase adds: the ML-1M 4x4
+    stack, and a rank's tile of each 2x2 problem (exp3 and exp1 at 1x1
+    are [table2]'s stacks, ML-1M 5x5 is [main]'s)."""
+
+    total = dict.fromkeys(WRAPPERS, 0)
+
+    def add(got):
+        for name, n in got.items():
+            total[name] += n
+
+    exp3 = EXPERIMENTS["exp3"]
+    ds3 = lowrank_problem(exp3.m, exp3.n, exp3.rank, density=exp3.density,
+                          seed=1)
+    dense3 = CompletionProblem.from_dataset(ds3, exp3.p, exp3.q, exp3.rank)
+    st3 = init_state(torch.Generator(device="cuda").manual_seed(0),
+                     dense3.spec)
+    add(gossip_1x1("exp3 dense B=25", dense3, exp3, st3,
+                   "masked_factor_grad"))
+    del dense3
+    add(gossip_1x1("ML-1M sparse/segment B=25", sparse, ml_cfg, state0,
+                   "sddmm_segment_grad"))
+    add(gossip_1x1("ML-1M sparse/scatter B=25", scatter, ml_cfg, state0,
+                   "sddmm_factor_grad"))
+
+    exp1 = EXPERIMENTS["exp1"]
+    rec1 = ProblemRecipe("lowrank_problem", dict(
+        m=exp1.m, n=exp1.n, r=exp1.rank, density=exp1.density, seed=1),
+        p=exp1.p, q=exp1.q, rank=exp1.rank)
+    recml = ProblemRecipe("movielens_proxy", {}, p=4, q=4, rank=RANK,
+                          layout="sparse", mean_center=True)
+    cfg4 = dataclasses.replace(ml_cfg, p=4, q=4)
+    reset_counts()
+    one1, c1, st1 = grid_reference(rec1, exp1)
+    oneml, cml, stml = grid_reference(recml, cfg4)
+    add(counts())
+    sched = Gossip(num_rounds=GRID_ROUNDS, eval_every=GRID_ROUNDS // 3)
+    stale = dataclasses.replace(sched, staleness=2, compression="int8")
+    t0 = time.perf_counter()
+    try:
+        outs = fit_on_grid([FitJob(rec1, exp1, sched, st1),
+                            FitJob(rec1, exp1, stale, st1),
+                            FitJob(recml, cfg4, sched, stml)],
+                           grid=GRID, warmup_rounds=2, timeout=600)
+    finally:
+        shutdown_grids()        # the forkserver would outlive this phase
+    print(f"[gossip] 2x2 grid: 3 fits in {time.perf_counter() - t0:.1f}s; "
+          f"slowest rank's seconds from spawn: "
+          f"{json.dumps(outs[0]['startup'])}", flush=True)
+    for out in outs:
+        add(out["launches"])
+    check_grid("exp1 dense", rec1, outs[0], one1, c1)
+    costs = [c for _, c in outs[1]["history"]]
+    print(f"[gossip] 2x2 exp1 dense, staleness=2 compression=int8: cost "
+          f"t=0 {c1:.6e} -> {costs}; ms/round {outs[1]['ms_per_round']:.4f};"
+          f" train_gossip_halo_bytes_total "
+          f"{outs[1]['counters']['train_gossip_halo_bytes_total']:.0f}",
+          flush=True)
+    if not (np.isfinite(costs).all() and costs[-1] < c1
+            and all(b < a for a, b in zip(costs, costs[1:]))):
+        fail(f"gossip staleness=2 int8: cost did not fall: {c1} -> {costs}")
+    check_grid("ML-1M 4x4 sparse/segment", recml, outs[2], oneml, cml)
+
+    plan1 = MeshPlan.build(rec1.p, rec1.q, grid=GRID)
+    planml = MeshPlan.build(recml.p, recml.q, grid=GRID)
+    d1, s1 = (plan1.local_slice(x, rank=0) for x in (one1.problem.data,
+                                                      one1.state))
+    sml = oneml.state
+    entml = oneml.problem.data.entries
+    tile = planml.local_slice((entml, sml), rank=0)
+    checks = [
+        dense_check("gossip 2x2 exp1 rank-0 tile", d1.xb, d1.maskb, s1.U,
+                    s1.W, card),
+        segment_check("gossip 1x1 ML-1M 4x4 stack", entml, sml.U, sml.W,
+                      card),
+        segment_check("gossip 2x2 ML-1M rank-0 tile", tile[0], tile[1].U,
+                      tile[1].W, card)]
+    return total, checks
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1162,6 +1553,11 @@ def _leaves(tree):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--paper", action="store_true",
+                    help="[table2] at every checkpoint of exp1-exp6")
+    paper = ap.parse_args().paper
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an "
              "NVIDIA GPU")
@@ -1203,14 +1599,16 @@ def main() -> None:
     for problem in (sparse, scatter, dense):
         trainer.fit(problem, FullGD(num_rounds=2), state=state0)
         trainer.fit(problem, Wave(num_rounds=1), seed=0)
+    at_compare = StateAt(COMPARE_ROUNDS)
     runs = [
-        ("FullGD sparse/segment", ["sddmm_segment_grad"], lambda: trainer.fit(
-            sparse, FullGD(num_rounds=FULL_ROUNDS, eval_every=10),
-            state=state0)),
+        ("FullGD sparse/segment", ["sddmm_segment_grad"], lambda: Trainer(
+            cfg, callbacks=[at_compare]).fit(
+            sparse, FullGD(num_rounds=FULL_ROUNDS,
+                           eval_every=COMPARE_ROUNDS), state=state0)),
         ("FullGD sparse/scatter", ["sddmm_factor_grad"], lambda: trainer.fit(
             scatter, FullGD(num_rounds=10, eval_every=5), state=state0)),
         ("FullGD dense", ["masked_factor_grad"], lambda: trainer.fit(
-            dense, FullGD(num_rounds=FULL_ROUNDS, eval_every=10),
+            dense, FullGD(num_rounds=COMPARE_ROUNDS, eval_every=10),
             state=state0)),
         ("Wave sparse", ["sddmm_segment_grad"], lambda: trainer.fit(
             sparse, Wave(num_rounds=1), seed=1)),
@@ -1237,15 +1635,19 @@ def main() -> None:
               f"over {rounds} rounds (cost evals included), held-out RMSE "
               f"{res.rmse():.4f}", flush=True)
 
-    a = results["FullGD sparse/segment"].state
+    res = results["FullGD sparse/segment"]
+    print(f"[main] Table 3 cell (ML-1M proxy, grid {P}x{Q}, r={RANK}) after "
+          f"{FULL_ROUNDS} FullGD rounds: held-out RMSE {res.rmse():.6f}, "
+          f"cost {res.final_cost:.6e}", flush=True)
+    a = at_compare.state
     b = results["FullGD dense"].state
     for x, y, nm in ((a.U, b.U, "U"), (a.W, b.W, "W")):
         scale = float(y.abs().max())
         if not torch.allclose(x, y, rtol=STATE_RTOL, atol=1e-5 * scale):
             fail(f"sparse and dense FullGD {nm} disagree: max diff "
                  f"{float((x - y).abs().max()):.3e} (max |{nm}| {scale:.3e})")
-    print(f"[main] sparse and dense FullGD states agree after {FULL_ROUNDS} "
-          f"rounds (rtol {STATE_RTOL:.0e})", flush=True)
+    print(f"[main] sparse and dense FullGD states agree after "
+          f"{COMPARE_ROUNDS} rounds (rtol {STATE_RTOL:.0e})", flush=True)
 
     reset_counts()
     index = results["FullGD sparse/segment"].to_recommend_index()
@@ -1263,6 +1665,15 @@ def main() -> None:
           f"{n_checked} tie-free users equal to the host reference",
           flush=True)
 
+    # the paper's Table 2 cells, then the Gossip schedule
+    got, t2_checks = table2_phase(paper, card)
+    total["masked_factor_grad"] += got
+    got, g_checks = gossip_phase(sparse, scatter, state0, cfg, card)
+    for name, n in got.items():
+        total[name] += n
+    other_shapes = {"masked_factor_grad": t2_checks + [g_checks[0]],
+                    "sddmm_segment_grad": g_checks[1:]}
+
     # 4. the int8 score kernel at the top bucket of the fitted index
     qidx = quantize_index(index)
     top_users = torch.as_tensor(np.random.default_rng(5).choice(
@@ -1275,11 +1686,14 @@ def main() -> None:
 
     for row in rows:
         row["launches"] = total[row["name"]]
+        if row["name"] in other_shapes:
+            row["other_shapes"] = other_shapes[row["name"]]
 
     # 6. gemma2-2b serving through the flash kernel
     rows.append(lm_phase(card))
     print(f"[main] peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+          f"{time.perf_counter() - started:.1f}s since start", flush=True)
     print(smi)
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {

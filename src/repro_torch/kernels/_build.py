@@ -95,14 +95,21 @@ def build(names=None) -> dict[str, float]:
         procs[name] = (time.perf_counter(), tmp, out, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     seconds = {}
-    for name, (t0, tmp, out, proc) in procs.items():
-        log, _ = proc.communicate()
-        seconds[name] = time.perf_counter() - t0
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
-        if log.strip():
-            print(f"[nvcc {name}]\n{log.rstrip()}")
-        os.replace(tmp, out)                 # atomic: never a half-written .so
+    try:
+        for name, (t0, tmp, out, proc) in procs.items():
+            log, _ = proc.communicate()
+            seconds[name] = time.perf_counter() - t0
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on csrc/{name}.cu:\n{log}")
+            if log.strip():
+                print(f"[nvcc {name}]\n{log.rstrip()}")
+            os.replace(tmp, out)             # atomic: never a half-written .so
+    finally:                                 # a failed build stops the others
+        for _, tmp, _, proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+                tmp.unlink(missing_ok=True)
     return seconds
 
 

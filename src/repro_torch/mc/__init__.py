@@ -3,7 +3,7 @@
     CompletionProblem — owns the data (dense or sorted-COO layout) on one
                         device, the grid spec, and the engine options
     Trainer           — one ``fit(problem, schedule=...)`` with the
-                        Sequential / Wave / FullGD schedules
+                        Sequential / Wave / FullGD / Gossip schedules
     FitResult         — final State, loss trace, wall time, and
                         ``.to_recommend_index()`` / ``.to_service()`` /
                         ``.to_engine()`` into serving
@@ -13,6 +13,7 @@ from repro_torch.mc.callbacks import Callback, EvalRMSE
 from repro_torch.mc.problem import CompletionProblem, EngineOptions
 from repro_torch.mc.schedules import (
     FullGD,
+    Gossip,
     Schedule,
     Sequential,
     Wave,
@@ -27,6 +28,7 @@ __all__ = [
     "EvalRMSE",
     "FitResult",
     "FullGD",
+    "Gossip",
     "Schedule",
     "Sequential",
     "Trainer",

@@ -12,8 +12,10 @@ schedule::
     problem = CompletionProblem.from_dataset(ds, p=4, q=4, rank=8)
 
 The constructors put the data on ``device="cuda"`` unless asked for the
-CPU; without a card that default raises.  Meshes and streaming appends
-are not ported yet.
+CPU; without a card that default raises.  ``plan=`` (a ``MeshPlan`` over a
+grid of ``torch.distributed`` ranks) keeps only this rank's tile of the
+blocks, cut from the global data; the ``Gossip`` schedule runs on it.
+Streaming appends are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from repro_torch.core import waves as core_waves
 from repro_torch.core.state import (Problem, State, make_problem,
                                     resolve_device)
 from repro_torch.data.synthetic import MCDataset
+from repro_torch.mesh.plan import MeshPlan
 from repro_torch.sparse import store
 from repro_torch.sparse.store import SparseProblem
 
@@ -65,6 +68,23 @@ class EngineOptions:
             )
 
 
+def _place(data, p: int, q: int, plan, device):
+    """(plan, this rank's tile of ``data`` on ``device``): the ingest-side
+    placement hook.  ``plan=None`` keeps every block."""
+
+    if plan is None:
+        return None, _to(data, device)
+    plan = MeshPlan.build(p, q, plan)
+    return plan, _to(plan.local_slice(data), device)
+
+
+def _to(data, device):
+    parts = [None if f is None else
+             (_to(f, device) if isinstance(f, tuple) else f.to(device))
+             for f in data]
+    return type(data)(*parts)
+
+
 @dataclasses.dataclass(frozen=True)
 class CompletionProblem:
     """Immutable bundle of blockified data + grid spec + engine options.
@@ -73,7 +93,8 @@ class CompletionProblem:
     ``seen_coo`` holds the observed (user, item) pairs for serve-time
     exclusion; ``mu`` is the observed-mean offset subtracted when
     ``mean_center=True``; ``dataset`` (optional) carries held-out test
-    entries for eval-RMSE.
+    entries for eval-RMSE; ``plan`` (when built with ``plan=``) says which
+    tile of the block grid ``data`` holds, while ``spec`` stays global.
     """
 
     data: Union[Problem, SparseProblem]
@@ -84,6 +105,7 @@ class CompletionProblem:
     seen_coo: Optional[Tuple[np.ndarray, np.ndarray]] = None
     mu: float = 0.0
     dataset: Optional[MCDataset] = None
+    plan: Optional[MeshPlan] = None
 
     # ------------------------------------------------------------------ #
     # constructors
@@ -103,11 +125,13 @@ class CompletionProblem:
         mean_center: bool = False,
         dataset: MCDataset | None = None,
         headroom: int | None = None,
+        plan=None,
         device="cuda",
     ) -> "CompletionProblem":
         """From a dense (m, n) matrix + 0/1 observation mask.  Pads to the
         grid, blockifies, and builds the sparse store when
-        ``layout="sparse"``; ``headroom`` overrides ``engine.headroom``."""
+        ``layout="sparse"``; ``headroom`` overrides ``engine.headroom``.
+        ``plan`` keeps this rank's tile only."""
 
         device = resolve_device(device)
         if layout not in ("dense", "sparse"):
@@ -131,17 +155,19 @@ class CompletionProblem:
         if mean_center:
             mu = float((xp * mp).sum() / max(mp.sum(), 1.0))
             xp = xp - mu                       # blockify re-masks (x*mask)
+        # built on the host, then each rank's tile moves to its device
         if layout == "sparse":
             xb, maskb = G.blockify(xp * mp, mp, spec)
             data: Union[Problem, SparseProblem] = store.from_blocks(
-                xb, maskb, engine.bucket, engine.headroom, device=device)
+                xb, maskb, engine.bucket, engine.headroom, device="cpu")
         else:
-            data = make_problem(xp, mp, spec, device)
+            data = make_problem(xp, mp, spec, "cpu")
+        plan, data = _place(data, p, q, plan, device)
         rows, cols = np.nonzero(mask)
         return cls(data=data, spec=spec, engine=engine, num_users=m0,
                    num_items=n0, seen_coo=(rows.astype(np.int64),
                                            cols.astype(np.int64)),
-                   mu=mu, dataset=dataset)
+                   mu=mu, dataset=dataset, plan=plan)
 
     @classmethod
     def from_entries(
@@ -159,11 +185,12 @@ class CompletionProblem:
         mean_center: bool = False,
         dataset: MCDataset | None = None,
         headroom: int | None = None,
+        plan=None,
         device="cuda",
     ) -> "CompletionProblem":
         """From a global COO triplet list.  ``layout="sparse"`` (default)
         never materializes the dense matrix; ``layout="dense"`` scatters
-        into dense tensors first."""
+        into dense tensors first.  ``plan`` keeps this rank's tile only."""
 
         device = resolve_device(device)
         engine = engine or EngineOptions()
@@ -181,7 +208,7 @@ class CompletionProblem:
             mask[rows, cols] = 1.0
             return cls.from_dense(x, mask, p, q, rank, layout="dense",
                                   engine=engine, mean_center=mean_center,
-                                  dataset=dataset, device=device)
+                                  dataset=dataset, plan=plan, device=device)
         if layout != "sparse":
             raise ValueError(
                 f"unknown layout {layout!r}; expected 'dense' or 'sparse'"
@@ -189,13 +216,14 @@ class CompletionProblem:
         cvals = vals - mu if mu else vals
         sp, (m, n) = store.from_entries(
             rows, cols, cvals, m0, n0, p, q, engine.bucket, engine.headroom,
-            device=device,
+            device="cpu",
         )
+        plan, sp = _place(sp, p, q, plan, device)
         spec = G.GridSpec(m, n, p, q, rank)
         order = np.argsort(rows, kind="stable")   # seen table wants user-sorted
         return cls(data=sp, spec=spec, engine=engine, num_users=m0,
                    num_items=n0, seen_coo=(rows[order], cols[order]),
-                   mu=mu, dataset=dataset)
+                   mu=mu, dataset=dataset, plan=plan)
 
     @classmethod
     def from_dataset(
@@ -209,14 +237,17 @@ class CompletionProblem:
         engine: EngineOptions | None = None,
         mean_center: bool = False,
         headroom: int | None = None,
+        plan=None,
         device="cuda",
     ) -> "CompletionProblem":
         """From an ``MCDataset``; keeps the held-out test split attached
-        for eval-RMSE callbacks and ``FitResult.rmse()``."""
+        for eval-RMSE callbacks and ``FitResult.rmse()``.  ``plan`` keeps
+        this rank's tile only."""
 
         return cls.from_dense(ds.x, ds.train_mask, p, q, rank, layout=layout,
                               engine=engine, mean_center=mean_center,
-                              dataset=ds, headroom=headroom, device=device)
+                              dataset=ds, headroom=headroom, plan=plan,
+                              device=device)
 
     # ------------------------------------------------------------------ #
     # derived views
@@ -272,7 +303,9 @@ class CompletionProblem:
     # ------------------------------------------------------------------ #
 
     def total_cost(self, state: State, lam: float) -> float:
-        """Paper Table-2 cost at ``state`` (layout-dispatching)."""
+        """Paper Table-2 cost at ``state`` (layout-dispatching).  A problem
+        placed on a rank grid holds one tile: its whole-grid cost is
+        ``core.gossip.distributed_cost``."""
 
         return float(core_obj.total_cost(self.data, state.U, state.W, lam,
                                          method=self.engine.method))

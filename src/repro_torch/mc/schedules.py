@@ -7,33 +7,42 @@ produces the same ``(State, history)`` pair.
     Sequential  — Algorithm 1 verbatim: one random structure per iteration
     Wave        — ≤8 conflict-free parity waves per round
     FullGD      — deterministic limit: all structures at once (GD on L)
+    Gossip      — synchronous rounds over a grid of torch.distributed
+                  ranks, factor edges exchanged point to point
 
 ``run(problem, cfg, generator, state=..., eval_cb=None)`` starts from
 ``state``; ``eval_cb(unit, cost, state)`` fires at every eval boundary,
-``unit`` in the schedule's own units (iterations or rounds).  The gossip,
+``unit`` in the schedule's own units (iterations or rounds).  The
 incremental and checkpoint-resume paths are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Union
+import time
+from typing import Any, Callable, Optional, Union
 
 import torch
 
+from repro_torch import obs
 from repro_torch.config import GossipMCConfig
+from repro_torch.core import gossip as core_gossip
 from repro_torch.core import sequential as core_sequential
 from repro_torch.core import waves as core_waves
 from repro_torch.core.state import State
 from repro_torch.mc.problem import CompletionProblem
+from repro_torch.mesh.plan import MeshPlan
 
 EvalCb = Optional[Callable[[int, float, State], None]]
 
 
 class Schedule:
-    """Strategy interface: subclasses define ``name`` and ``run``."""
+    """Strategy interface: subclasses define ``name`` and ``run``;
+    ``runs_on_tiles`` says whether ``run`` takes a problem whose rank
+    holds only its tile of the blocks."""
 
     name = "abstract"
+    runs_on_tiles = False
 
     def run(self, problem: CompletionProblem, cfg: GossipMCConfig,
             generator: torch.Generator, *, state: State,
@@ -90,18 +99,119 @@ class FullGD(Wave):
     _mode = "full"
 
 
+@dataclasses.dataclass(frozen=True)
+class Gossip(Schedule):
+    """Synchronous full-GD rounds over a grid of ``torch.distributed``
+    ranks: each rank steps its tile of the (p, q) block grid, factor edges
+    travel to the four grid neighbours point to point, and bounded
+    staleness and int8/top-k message compression ride on the exchange.
+
+    The plan comes from ``plan=`` on the schedule, then the problem's own
+    ``CompletionProblem.plan``, else the 1×1 plan — the degenerate case,
+    which runs the FullGD step op for op.  Under an R×C plan the problem
+    must have been built with that plan (each rank holds its tile) inside
+    a process group of R·C ranks (``repro_torch.launch.gossip``); the
+    returned ``State`` is the global one, all-gathered from the tiles.
+
+    ``faults=``, ``async_rounds=True`` and ``batch=`` raise
+    ``NotImplementedError`` (ROADMAP.md queue 1 item 3b)."""
+
+    num_rounds: int = 200
+    eval_every: int = 0
+    plan: Any = None
+    staleness: int = 1
+    compression: str = "none"
+    topk_fraction: float = 0.25
+    faults: Any = None
+    batch: Optional[int] = None
+    async_rounds: bool = False
+    exchange_every: int = 1
+
+    name = "gossip"
+    runs_on_tiles = True
+
+    def _plan(self, problem) -> MeshPlan:
+        p, q = problem.spec.p, problem.spec.q
+        if self.plan is not None:
+            return MeshPlan.build(p, q, self.plan)
+        if problem.plan is not None:
+            return problem.plan
+        return MeshPlan.build(p, q)
+
+    def run(self, problem, cfg, generator, *, state, eval_cb=None):
+        eng = problem.engine
+        plan = self._plan(problem)
+        spec = problem.spec
+
+        def step_for(n: int):
+            if n not in steps:
+                steps[n] = core_gossip.make_gossip_step(
+                    (spec.p, spec.q), cfg, plan=plan,
+                    staleness=self.staleness, compression=self.compression,
+                    topk_fraction=self.topk_fraction, steps_per_call=n,
+                    layout=problem.layout, method=eng.method,
+                    chunk=eng.chunk, faults=self.faults,
+                    async_rounds=self.async_rounds,
+                    exchange_every=self.exchange_every, batch=self.batch,
+                )
+            return steps[n]
+
+        steps: dict[int, Any] = {}
+        eval_every = self.eval_every or self.num_rounds
+        step_for(min(eval_every, self.num_rounds))   # validates the options
+        if not plan.is_single_device and problem.plan != plan:
+            raise ValueError(
+                f"Gossip over a {plan.row_size}x{plan.col_size} rank grid "
+                "needs the problem's tiles: build it with "
+                "CompletionProblem.from_*(..., plan=plan)")
+        if tuple(state.U.shape[:2]) == (spec.p, spec.q):
+            state = plan.local_slice(state)      # the global draw -> my tile
+        carry = core_gossip.init_carry(state)
+
+        # exact comm accounting from the plan's geometry: what one exchange
+        # moves over the wires (0 on a 1x1 plan)
+        exchange_bytes = core_gossip.halo_bytes_per_round(
+            plan, spec.mb, spec.nb, spec.r, self.compression,
+        )["total_bytes"]
+        rounds_c = obs.counter("train_gossip_rounds_total")
+        bytes_c = obs.counter("train_gossip_halo_bytes_total")
+        round_h = obs.histogram("train_gossip_round_seconds")
+
+        history: list[tuple[int, float]] = []
+        rd = 0
+        while rd < self.num_rounds:
+            n = min(eval_every - rd % eval_every, self.num_rounds - rd)
+            t0 = time.perf_counter()
+            carry = step_for(n)(problem.data, carry)
+            if carry.state.U.device.type == "cuda":
+                torch.cuda.synchronize(carry.state.U.device)
+            round_h.observe((time.perf_counter() - t0) / n)
+            rounds_c.inc(n)
+            # the staleness clock restarts with every chunked call
+            n_ex = core_gossip.exchange_rounds_in(0, n, self.staleness)
+            bytes_c.inc(n_ex * exchange_bytes)
+            rd += n
+            cost = float(core_gossip.distributed_cost(
+                problem.data, carry.state, cfg.lam, plan, method=eng.method))
+            history.append((int(carry.state.t), cost))
+            if eval_cb:
+                eval_cb(rd, cost, core_gossip.gather_state(plan, carry.state))
+        return core_gossip.gather_state(plan, carry.state), history
+
+
 _BY_NAME = {
     "sequential": Sequential,
     "wave": Wave,
     "full": FullGD,
     "full_gd": FullGD,
+    "gossip": Gossip,
 }
 
 
 def make_schedule(spec: Union[str, Schedule], **overrides) -> Schedule:
     """Resolve a schedule: pass a ``Schedule`` through, or build one from
-    its name (``"sequential" | "wave" | "full"``) with default sizes
-    overridable by keyword."""
+    its name (``"sequential" | "wave" | "full" | "gossip"``) with default
+    sizes overridable by keyword."""
 
     if isinstance(spec, Schedule):
         if overrides:

@@ -52,7 +52,8 @@ class FitResult:
     state: State
     history: list            # (t, cost) pairs at eval boundaries
     wall_time: float         # seconds inside the schedule loop
-    schedule: str            # schedule name ("sequential" | "wave" | "full")
+    schedule: str            # schedule name ("sequential" | "wave" | "full" |
+                             # "gossip")
     problem: CompletionProblem
 
     @property
@@ -163,7 +164,7 @@ class Trainer:
         """Run the schedule to completion and return a :class:`FitResult`.
 
         ``schedule`` is a ``Schedule`` instance or a name ("sequential",
-        "wave", "full"); keyword overrides (e.g. ``num_rounds=500``) are
+        "wave", "full", "gossip"); keyword overrides (e.g. ``num_rounds=500``) are
         applied either way.  ``state`` starts from given factors (the
         parity tests inject the reference's initial state this way)."""
 
@@ -174,6 +175,13 @@ class Trainer:
                 "CompletionProblem.from_dense/from_entries/from_dataset"
             )
         sched = make_schedule(schedule, **schedule_overrides)
+        if problem.plan is not None and not problem.plan.is_single_device \
+                and not sched.runs_on_tiles:
+            raise ValueError(
+                f"a problem placed on a {problem.plan.row_size}x"
+                f"{problem.plan.col_size} rank grid holds one tile of the "
+                f"blocks; only the Gossip schedule runs on it, not "
+                f"{sched.name!r}")
         cfg = self._config_for(problem)
         generator = torch.Generator(device=problem.device)
         generator.manual_seed(seed)

@@ -75,6 +75,41 @@ def test_matches_jax_kernel_and_reference(case):
                                    err_msg=f"port vs JAX {name}")
 
 
+def _f64_attention(q, k, v, causal=True, **_):
+    """The same attention in float64 numpy (global, no softcap)."""
+
+    q, k, v = (a.astype(np.float64) for a in (q, k, v))
+    group = q.shape[1] // k.shape[1]
+    k, v = (np.repeat(a, group, axis=1) for a in (k, v))
+    logits = np.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(q.shape[-1])
+    if causal:
+        Lq, Lk = logits.shape[-2:]
+        keep = np.arange(Lq)[:, None] >= np.arange(Lk)[None, :]
+        logits = np.where(keep, logits, -np.inf)
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    return np.einsum("bhqk,bhkd->bhqd", p / p.sum(-1, keepdims=True), v)
+
+
+@pytest.mark.parametrize("side", ["port", "Pallas interpret",
+                                  "attention_ref"])
+def test_case0_each_side_against_float64(side):
+    """Which side of ``test_matches_jax_kernel_and_reference[case0]``
+    moved, should it fail again: each output against a float64 oracle, to
+    the same tolerance."""
+
+    dims, kw = _split(CASES[0])
+    q, k, v = _rand(*dims)
+    if side == "port":
+        got = _port(q, k, v, **kw)
+    else:
+        fn = j_flash if side == "Pallas interpret" else j_ref
+        got = np.asarray(fn(q.copy(), k.copy(), v.copy(), **kw))
+    want = _f64_attention(q, k, v, **kw)
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL,
+                               err_msg=f"JAX {side} vs float64"
+                               if side != "port" else "port vs float64")
+
+
 def test_separate_v_dim_mla():
     q, k, v = _rand(1, 4, 4, 64, 64, 192, Dv=128)
     got = _port(q, k, v, causal=True)

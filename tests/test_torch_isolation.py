@@ -1,6 +1,7 @@
 """The port stands alone: it imports no JAX and nothing of ``repro``, its
-entry points refuse to run on the CPU unless asked, and on CPU tensors its
-kernel wrappers run the plain versions without counting a launch."""
+entry points refuse to run on the CPU unless asked, on CPU tensors its
+kernel wrappers run the plain versions without counting a launch, and a
+kernel build that fails leaves no compiler running."""
 
 import ast
 import os
@@ -31,7 +32,11 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.serving.engine", "repro_torch.serving.queue",
             "repro_torch.kernels.flash_attention.ops",
             "repro_torch.models.transformer",
-            "repro_torch.launch.lm_engine"} <= set(mods)
+            "repro_torch.launch.lm_engine",
+            "repro_torch.mesh.plan", "repro_torch.core.compress",
+            "repro_torch.core.gossip", "repro_torch.configs.gossip_mc",
+            "repro_torch.launch.gossip",
+            "repro_torch.launch.paper_tables"} <= set(mods)
     code = (
         "import sys\n"
         f"for m in {mods!r}: __import__(m)\n"
@@ -127,3 +132,34 @@ def test_cpu_tensors_run_plain_versions_without_launching():
     assert launches() == before
     with pytest.raises(ValueError, match="one device"):
         sddmm.sddmm_factor_grad(sp.entries, u.to("meta"), w)
+
+
+def test_failed_build_stops_the_other_compilers(tmp_path, monkeypatch):
+    from repro_torch.kernels import _build
+
+    # a stand-in compiler: fails on csrc/sddmm.cu, hangs on the others
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        'case "$*" in *sddmm.cu*) echo "error: bad source"; exit 1;; esac\n'
+        "exec sleep 120\n")
+    fake.chmod(0o755)
+    started, real_popen = [], subprocess.Popen
+
+    def popen(*args, **kw):
+        started.append(real_popen(*args, **kw))
+        return started[-1]
+
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "_OUT", tmp_path / "out")
+    monkeypatch.setattr(_build.subprocess, "Popen", popen)
+    names = ["sddmm", "masked_factor_grad", "dequant_score"]
+    with pytest.raises(RuntimeError, match="nvcc failed on csrc/sddmm.cu"):
+        _build.build(names)
+    assert len(started) == len(names)
+    # every compiler has ended and been reaped, none is left running
+    assert [proc.returncode for proc in started][1:] == [-9, -9]
+    for proc in started:
+        with pytest.raises(ProcessLookupError):
+            os.kill(proc.pid, 0)
+    assert list((tmp_path / "out").iterdir()) == []
