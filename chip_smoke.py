@@ -110,9 +110,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and gives the same first token wherever the top-2 margin exceeds that.
    Prints prefill and decode times, tokens/s and peak device memory.
 
+``[stream]`` (after ``[gossip]``): the streaming loop at the Table 3
+cell through ``launch/streaming.py``: 85% of the training ratings
+ingested with the headroom of the stream's largest per-block count; the
+append sweep (batches of 100, 1000, 10000, repeated as
+``benchmarks/streaming_ingest.py`` repeats them; the base store must be
+unchanged after it); the cell's 800 FullGD rounds on the base, the rest
+appended, ``Trainer.refit`` (``Incremental``: 40 Wave rounds) and a cold
+800-round fit, with their held-out RMSE and wall seconds (gated: costs
+finite, the refit's cost falling; the reference's RMSE gate is printed,
+not gated); the segment kernel on the spliced store against its plain
+version and bitwise against a fresh ingest of the union at the same
+capacity; an int8 engine bound with ``RefreshPolicy(max_appends=60000)``
+and a seen headroom sized from the data, fed the stream in batches of
+10000 through ``append`` + ``note_append`` while a second thread sends
+requests (2 policy refreshes, ``serve_compiles_total`` unchanged, every
+answer equal to the index live at submit or the one swapped in while it
+ran); ``Gossip(batch=8192)`` for 200 rounds on the 5x5 cell and on a 2x2
+grid of the 4x4 cut against its 1x1 run (the grid's tolerance above),
+the segment kernel on a (5, 5) minibatch and a rank's (2, 2) minibatch
+tile; and an append and refit of exp3 on the dense layout.
+
 The launch counts of the ``{"kernels": ...}`` line add up the main
-path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included) and
-``[serve]``/``[lm]``.
+path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included),
+``[stream]`` and ``[serve]``/``[lm]``.
 
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
 (``benchmarks/table3_rmse.py --full``): the 6040x3706 ``movielens_proxy``
@@ -138,7 +159,9 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -188,16 +211,23 @@ from repro_torch.launch.gossip import (  # noqa: E402
     fit_on_grid,
 )
 from repro_torch.launch.gossip import shutdown as shutdown_grids  # noqa: E402
+from repro_torch.launch import streaming  # noqa: E402
 from repro_torch.launch.lm_engine import ServeLoop  # noqa: E402
 from repro_torch.mesh import MeshPlan  # noqa: E402
 from repro_torch.models import Ctx, build_model  # noqa: E402
 from repro_torch.serve.quant import index_nbytes, quantize_index  # noqa: E402
-from repro_torch.serve.recommend import recommend_topk  # noqa: E402
+from repro_torch.serve.recommend import (  # noqa: E402
+    build_seen_table_coo,
+    recommend_topk,
+)
 from repro_torch.serving import (  # noqa: E402
     DEFAULT_BUCKETS,
     BucketLadder,
+    RefreshPolicy,
     ServingEngine,
 )
+from repro_torch.sparse import store as sparse_store  # noqa: E402
+from repro_torch.sparse.store import MinibatchStream  # noqa: E402
 
 P = Q = 5
 RANK = 15
@@ -211,6 +241,15 @@ STATE_RTOL = 1e-4   # sparse vs dense FullGD after COMPARE_ROUNDS rounds
 GOSSIP_ROUNDS, GRID_ROUNDS = 200, 300
 GRID_U_ATOL, GRID_COST_RTOL = 1e-5, 1e-4
 GRID = (2, 2)
+# the ML-1M cell cut 4x4, which tiles the 2x2 rank grid
+ML_4X4 = ProblemRecipe("movielens_proxy", {}, p=4, q=4, rank=RANK,
+                       layout="sparse", mean_center=True)
+# [stream]: the benchmark's held-back share and append batches
+# (benchmarks/streaming_ingest.py), the engine's append batch and policy,
+# minibatch gossip's batch and rounds
+STREAM_FRAC, STREAM_BATCHES = 0.15, (100, 1000, 10000)
+ENGINE_BATCH, POLICY_APPENDS = 10_000, 60_000
+MB_BATCH, MB_ROUNDS = 8192, 200
 # [table2] --paper: a converged cost may move by float32 rounding between
 # checkpoints, no more
 FLOOR_RTOL = 1e-5
@@ -1404,21 +1443,19 @@ def gossip_1x1(label, problem, cfg, state0, expect) -> dict[str, int]:
     return got
 
 
-def grid_reference(recipe, cfg):
-    """Gossip on the 1x1 plan of ``recipe``'s problem from the seed-0
+def grid_reference(recipe, cfg, sched):
+    """``sched`` on the 1x1 plan of ``recipe``'s problem from the seed-0
     state: (the fit, the cost at t = 0, the state as numpy)."""
 
     problem = recipe.build(device="cuda")
     state0 = init_state(torch.Generator(device="cuda").manual_seed(0),
                         problem.spec)
-    one = Trainer(cfg).fit(problem, Gossip(num_rounds=GRID_ROUNDS,
-                                           eval_every=GRID_ROUNDS // 3),
-                           state=state0)
+    one = Trainer(cfg).fit(problem, sched, state=state0)
     c0 = problem.total_cost(state0, cfg.lam)
     return one, c0, (state0.U.cpu().numpy(), state0.W.cpu().numpy(), 0)
 
 
-def check_grid(label, recipe, out, one, c0) -> None:
+def check_grid(label, recipe, out, one, c0, rounds=GRID_ROUNDS) -> None:
     """A 2x2 grid's fit against the 1x1 one from the same state, to
     tests/test_distributed.py's tolerance; the halo-byte counter against
     the plan's geometry; the exchange staged."""
@@ -1437,13 +1474,13 @@ def check_grid(label, recipe, out, one, c0) -> None:
     blocks = plan.blocks_per_row_shard * plan.blocks_per_col_shard
     print(f"[gossip] 2x2 {label}: {plan.num_devices} {out['backend']} "
           f"processes sharing one card, the exchange staged through pinned "
-          f"host buffers: {out['staged']}; B={blocks} a rank; {GRID_ROUNDS} "
+          f"host buffers: {out['staged']}; B={blocks} a rank; {rounds} "
           f"rounds against 1x1 from one state: {json.dumps(diff)}; cost "
           f"{out['history'][-1][1]:.6e} (1x1 {one.final_cost:.6e}, t=0 "
           f"{c0:.6e}); ms/round 2x2 {out['ms_per_round']:.4f} 1x1 "
-          f"{1e3 * one.wall_time / GRID_ROUNDS:.4f}; staged bytes/round "
+          f"{1e3 * one.wall_time / rounds:.4f}; staged bytes/round "
           f"{out['staged_bytes_per_round']:.0f}; "
-          f"train_gossip_halo_bytes_total {halo:.0f} = {GRID_ROUNDS} "
+          f"train_gossip_halo_bytes_total {halo:.0f} = {rounds} "
           f"exchanges x {exchange} B; launches on the ranks "
           f"{out['launches']}; build {out['build_s']:.2f}s warm-up "
           f"{out['warmup_s']:.2f}s", flush=True)
@@ -1451,9 +1488,9 @@ def check_grid(label, recipe, out, one, c0) -> None:
             and diff["max_abs_dW"] < GRID_U_ATOL
             and diff["cost_rel"] < GRID_COST_RTOL):
         fail(f"gossip 2x2 {label} disagrees with 1x1: {diff}")
-    if halo != GRID_ROUNDS * exchange:
+    if halo != rounds * exchange:
         fail(f"gossip 2x2 {label}: train_gossip_halo_bytes_total {halo} != "
-             f"{GRID_ROUNDS} x {exchange}")
+             f"{rounds} x {exchange}")
     if not out["staged"] or out["staged_bytes_per_round"] <= 0:
         fail(f"gossip 2x2 {label}: the exchange was not staged")
 
@@ -1493,14 +1530,13 @@ def gossip_phase(sparse, scatter, state0, ml_cfg, card) -> tuple[dict, list]:
     rec1 = ProblemRecipe("lowrank_problem", dict(
         m=exp1.m, n=exp1.n, r=exp1.rank, density=exp1.density, seed=1),
         p=exp1.p, q=exp1.q, rank=exp1.rank)
-    recml = ProblemRecipe("movielens_proxy", {}, p=4, q=4, rank=RANK,
-                          layout="sparse", mean_center=True)
+    recml = ML_4X4
     cfg4 = dataclasses.replace(ml_cfg, p=4, q=4)
-    reset_counts()
-    one1, c1, st1 = grid_reference(rec1, exp1)
-    oneml, cml, stml = grid_reference(recml, cfg4)
-    add(counts())
     sched = Gossip(num_rounds=GRID_ROUNDS, eval_every=GRID_ROUNDS // 3)
+    reset_counts()
+    one1, c1, st1 = grid_reference(rec1, exp1, sched)
+    oneml, cml, stml = grid_reference(recml, cfg4, sched)
+    add(counts())
     stale = dataclasses.replace(sched, staleness=2, compression="int8")
     t0 = time.perf_counter()
     try:
@@ -1541,6 +1577,339 @@ def gossip_phase(sparse, scatter, state0, ml_cfg, card) -> tuple[dict, list]:
                       card),
         segment_check("gossip 2x2 ML-1M rank-0 tile", tile[0], tile[1].U,
                       tile[1].W, card)]
+    return total, checks
+
+
+def stream_sizes(coo, stream, base, m, n):
+    """(per-block append headroom, engine seen headroom) sized from the
+    data: the stream's largest per-block count, and how much wider the
+    seen table of the grown problem is than the base's."""
+
+    rr, cc, _ = coo
+    mb, nb = -(-m // P), -(-n // Q)
+    blk = (rr[stream] // mb) * Q + cc[stream] // nb
+    headroom = int(np.bincount(blk, minlength=P * Q).max())
+    width = {}
+    for label, idx in (("base", base), ("grown", np.concatenate([base,
+                                                                 stream]))):
+        order = np.argsort(rr[idx], kind="stable")
+        width[label] = build_seen_table_coo(rr[idx][order], cc[idx][order],
+                                            m, n).shape[1]
+    return headroom, width["grown"] - width["base"], width
+
+
+def stream_store_checks(problem, grown, coo, state, card) -> list:
+    """The segment kernel on the spliced store: against its plain version
+    (``segment_check``), and bitwise against the kernel on a fresh ingest
+    of the union at the same capacity, whose arrays must be the same."""
+
+    rr, cc, vv = coo
+    sp = grown.data
+    E = sp.capacity
+    fresh, _ = sparse_store.from_entries(
+        rr, cc, np.asarray(vv, np.float32) - problem.mu, *problem.dataset.x
+        .shape, P, Q, headroom=E - int(sp.nnz.max()), device="cuda")
+    same = [bool(torch.equal(a, b)) for a, b in zip(
+        (*sp.entries, sp.nnz), (*fresh.entries, fresh.nnz))]
+    got = sddmm_ops.sddmm_segment_grad(sp.entries, state.U, state.W)
+    want = sddmm_ops.sddmm_segment_grad(fresh.entries, state.U, state.W)
+    bitwise = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+    print(f"[stream] appended store against a fresh ingest of the union at "
+          f"E={E} (headroom {E - int(sp.nnz.max())}): arrays equal "
+          f"{dict(zip(list(sp.entries._fields) + ['nnz'], same))}; segment "
+          f"kernel outputs bitwise equal: {bitwise}", flush=True)
+    if not all(same):
+        fail("[stream] the appended store differs from a fresh ingest of "
+             "the union")
+    if not bitwise:
+        fail("[stream] the segment kernel on the appended store differs "
+             "from the kernel on the fresh ingest")
+    return [segment_check("stream appended ML-1M B=25", sp.entries,
+                          state.U, state.W, card)]
+
+
+def stream_engine(out, coo, stream, seen_headroom) -> dict:
+    """An int8 engine bound to the trainer with a RefreshPolicy; the
+    stream appended in batches through ``problem.append`` +
+    ``note_append`` while a second thread sends requests.  Returns the
+    kernels' launches."""
+
+    rr, cc, vv = coo
+    result, trainer = out["result"], out["trainer"]
+    policy = RefreshPolicy(max_appends=POLICY_APPENDS)
+    obs.reset()
+    reset_counts()
+    engine = result.to_engine(quant="int8", trainer=trainer,
+                              refresh_policy=policy,
+                              seen_headroom=seen_headroom)
+    compiles0 = obs.counter("serve_compiles_total").value
+    m = result.problem.num_users
+    requests = serve_requests(np.random.default_rng(21), 200, m)
+    stop, log, windows = threading.Event(), [], []
+    streams = {"main": torch.cuda.current_stream().cuda_stream}
+
+    def client():
+        streams["client"] = torch.cuda.current_stream().cuda_stream
+        i = 0
+        while not stop.is_set():
+            users = requests[i % len(requests)]
+            i += 1
+            before, t0 = engine._bufs, time.perf_counter()
+            ans = engine.submit(users).result(timeout=120)
+            log.append((users, ans, before, engine._bufs, t0,
+                        time.perf_counter()))
+            time.sleep(0.002)
+
+    trips = 0
+    t_start = time.perf_counter()
+    with engine, ThreadPoolExecutor(max_workers=1) as pool:
+        fut = pool.submit(client)
+        try:
+            problem = result.problem
+            for s in range(0, len(stream), ENGINE_BATCH):
+                take = stream[s:s + ENGINE_BATCH]
+                problem = problem.append(rr[take], cc[take], vv[take])
+                t0 = time.perf_counter()
+                if engine.note_append(len(take), problem):
+                    trips += 1
+                    windows.append((t0, time.perf_counter()))
+            time.sleep(0.05)        # answers after the last swap too
+        finally:
+            stop.set()
+        fut.result(timeout=300)
+        got = counts()
+        by_stack = stacks(sddmm_ops.sddmm_segment_grad)
+        by_batch = dict(sorted(quant_ops.dequant_score.by_batch.items()))
+        metrics = engine.metrics()
+    wall = time.perf_counter() - t_start
+    refreshes = obs.counter("engine_refreshes_total").value
+    compiles = obs.counter("serve_compiles_total").value
+    versions, n_old, n_new, checked = set(), 0, 0, 0
+    during, outside = [], []
+    for users, (items, scores), before, after, t0, t1 in log:
+        versions.update((id(before), id(after)))
+        which = []
+        for label, idx in (("old", before), ("new", after)):
+            ok = True
+            for start, length, bucket in engine.ladder.plan(len(users)):
+                chunk = np.pad(users[start:start + length],
+                               (0, bucket - length))
+                ri, rs = recommend_topk(idx, chunk, k=engine.k + 1,
+                                        method=engine.quant_method)
+                ri, rs = ri.cpu().numpy()[:length], rs.cpu().numpy()[:length]
+                tie_free = (np.diff(rs, axis=1) != 0).all(axis=1)
+                if not (np.array_equal(scores[start:start + length],
+                                       rs[:, :engine.k])
+                        and np.array_equal(
+                            items[start:start + length][tie_free],
+                            ri[tie_free, :engine.k])):
+                    ok = False
+                    break
+            if ok:
+                which.append(label)
+        if not which:
+            fail("[stream] an answer during the stream equals neither the "
+                 "old nor the new index's")
+        n_old += which[0] == "old"
+        n_new += which == ["new"]
+        checked += 1
+        overlap = any(t0 < b and t1 > a for a, b in windows)
+        (during if overlap else outside).append(1e3 * (t1 - t0))
+    print(f"[stream] engine: int8, RefreshPolicy(max_appends="
+          f"{POLICY_APPENDS}), seen_headroom {seen_headroom}; "
+          f"{len(stream)} ratings in batches of {ENGINE_BATCH} in "
+          f"{wall:.2f}s; policy trips {trips}, engine_refreshes_total "
+          f"{refreshes:.0f}, serve_compiles_total {compiles0:.0f} -> "
+          f"{compiles:.0f}; refit+swap seconds "
+          f"{[round(b - a, 3) for a, b in windows]}; {checked} answers from "
+          f"a second thread, each equal to the old or the new index's "
+          f"({n_old} the index live at submit, {n_new} one swapped in while "
+          f"it ran; {len(versions)} index versions seen); request ms during "
+          f"a refit p50/p99 "
+          f"{_pct(during)} ({len(during)}), outside {_pct(outside)} "
+          f"({len(outside)}); CUDA stream handle of the main thread "
+          f"{streams['main']}, of another thread {streams.get('client')}; "
+          f"appends_since_refresh {metrics['appends_since_refresh']}; "
+          f"launches {got}; sddmm_segment_grad by stack {by_stack}; "
+          f"dequant_score by batch {by_batch}", flush=True)
+    if trips != len(stream) // POLICY_APPENDS or refreshes != trips:
+        fail(f"[stream] {trips} policy trips and {refreshes} refreshes, "
+             f"expected {len(stream) // POLICY_APPENDS}")
+    if compiles != compiles0 or compiles0 != len(DEFAULT_BUCKETS):
+        fail(f"[stream] serve_compiles_total went {compiles0} -> {compiles}")
+    if got["dequant_score"] == 0:
+        fail("[stream] dequant_score was never launched")
+    if len(versions) < 2 or checked == 0:
+        fail("[stream] no request was answered across a refresh")
+    return got
+
+
+def _pct(ms: list) -> str:
+    if not ms:
+        return "n/a"
+    return f"{np.percentile(ms, 50):.3f}/{np.percentile(ms, 99):.3f}"
+
+
+def stream_gossip(sparse, state0, ml_cfg, card) -> tuple[dict, list]:
+    """``Gossip(batch=)`` on the ML-1M cell on 1x1, then a 2x2 grid of the
+    4x4 cut against 1x1 from one state and stream; the segment kernel on
+    a (5, 5) minibatch and a rank's (2, 2) minibatch tile."""
+
+    total = dict.fromkeys(WRAPPERS, 0)
+    sched = Gossip(num_rounds=MB_ROUNDS, eval_every=MB_ROUNDS // 4,
+                   batch=MB_BATCH)
+    reset_counts()
+    one = Trainer(ml_cfg).fit(sparse, sched, state=state0)
+    c0 = sparse.total_cost(state0, ml_cfg.lam)
+    costs = [c for _, c in one.history]
+    got = counts()
+    print(f"[stream] Gossip(batch={MB_BATCH}) 1x1 ML-1M 5x5: {MB_ROUNDS} "
+          f"rounds, cost t=0 {c0:.6e} -> {costs}; "
+          f"{1e3 * one.wall_time / MB_ROUNDS:.4f} ms/round (the host draw "
+          f"included); held-out RMSE {one.rmse():.6f}; launches {got} by "
+          f"stack {stacks(sddmm_ops.sddmm_segment_grad)}", flush=True)
+    if not (np.isfinite(costs).all() and costs[-1] < c0):
+        fail(f"[stream] Gossip(batch=) 1x1: cost did not fall: {c0} -> "
+             f"{costs}")
+    for name, n in got.items():
+        total[name] += n
+    stream = MinibatchStream(sparse.data, MB_BATCH, seed=0)
+    mbat = stream.batch_at(0)
+    checks = [segment_check("stream minibatch ML-1M B=25", mbat.entries,
+                            one.state.U, one.state.W, card)]
+
+    cfg4 = dataclasses.replace(ml_cfg, p=4, q=4)
+    reset_counts()
+    oneml, cml, stml = grid_reference(ML_4X4, cfg4, sched)
+    for name, n in counts().items():
+        total[name] += n
+    try:
+        out, = fit_on_grid([FitJob(ML_4X4, cfg4, sched, stml)], grid=GRID,
+                           warmup_rounds=2, timeout=600)
+    finally:
+        shutdown_grids()        # the forkserver would outlive this phase
+    for name, n in out["launches"].items():
+        total[name] += n
+    check_grid(f"ML-1M 4x4 sparse/segment Gossip(batch={MB_BATCH})", ML_4X4,
+               out, oneml, cml, rounds=MB_ROUNDS)
+    plan = MeshPlan.build(ML_4X4.p, ML_4X4.q, grid=GRID)
+    full = MinibatchStream(oneml.problem.data, MB_BATCH, seed=0).batch_at(0)
+    tile_sp, tile_st = plan.local_slice((oneml.problem.data, oneml.state),
+                                        rank=0)
+    mine = MinibatchStream(tile_sp, MB_BATCH, seed=0, plan=plan).batch_at(0)
+    want = plan.local_slice(full, rank=0)
+    if not all(bool(torch.equal(a, b)) for a, b in zip(
+            (*mine.entries, mine.nnz), (*want.entries, want.nnz))):
+        fail("[stream] rank 0's minibatch differs from its tile of the 1x1 "
+             "minibatch")
+    print("[stream] rank 0's minibatch on the card equals its tile of the "
+          "1x1 minibatch, field for field", flush=True)
+    checks.append(segment_check("stream minibatch 2x2 ML-1M rank-0 tile",
+                                mine.entries, tile_st.U, tile_st.W, card))
+    return total, checks
+
+
+def stream_dense(card) -> dict:
+    """exp3 on the dense layout: a base fit, an append, one refit."""
+
+    exp3 = EXPERIMENTS["exp3"]
+    ds3 = lowrank_problem(exp3.m, exp3.n, exp3.rank, density=exp3.density,
+                          seed=1)
+    (rr, cc, vv), (base, stream) = streaming.split(ds3, STREAM_FRAC)
+    dense = CompletionProblem.from_entries(
+        rr[base], cc[base], vv[base], ds3.x.shape, exp3.p, exp3.q,
+        exp3.rank, layout="dense", dataset=ds3)
+    trainer = Trainer(exp3)
+    fit = trainer.fit(dense, FullGD(num_rounds=50), seed=1)
+    grown = dense.append(rr[stream], cc[stream], vv[stream])
+    c_before = grown.total_cost(fit.state, exp3.lam)
+    reset_counts()
+    ref = trainer.refit(fit, grown)
+    torch.cuda.synchronize()
+    got = counts()
+    print(f"[stream] exp3 dense: {len(stream)} ratings appended to "
+          f"{len(base)}; Trainer.refit (Incremental, 40 Wave rounds) cost "
+          f"{c_before:.6e} -> {ref.final_cost:.6e} in {ref.wall_time:.3f}s; "
+          f"launches {got} by stack "
+          f"{stacks(mfg_ops.masked_factor_grad)}", flush=True)
+    if not (np.isfinite(ref.final_cost) and ref.final_cost < c_before):
+        fail(f"[stream] exp3 dense refit: cost {c_before} -> "
+             f"{ref.final_cost}")
+    if got["masked_factor_grad"] == 0:
+        fail("[stream] exp3 dense refit: masked_factor_grad never launched")
+    return got
+
+
+def stream_phase(ds, sparse, state0, cfg, card) -> tuple[dict, list]:
+    """``[stream]``: the streaming loop at the Table 3 cell (see the
+    module docstring).  Returns the kernels' launches and the shapes held
+    against their plain versions."""
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(WRAPPERS, 0)
+
+    def add(got):
+        for name, n in got.items():
+            total[name] += n
+
+    coo, (base, stream) = streaming.split(ds, STREAM_FRAC)
+    m, n = ds.x.shape
+    headroom, seen_headroom, widths = stream_sizes(coo, stream, base, m, n)
+    problem, ingest_ms = streaming.ingest(ds, coo, base, P, Q, RANK,
+                                          headroom=headroom,
+                                          mean_center=True)
+    print(f"[stream] ingest: {len(base)} of {len(base) + len(stream)} "
+          f"training ratings in {ingest_ms:.1f} ms, headroom {headroom} "
+          f"(the stream's largest per-block count), capacity "
+          f"{problem.data.capacity}/block, largest block "
+          f"{int(problem.data.nnz.max())}; seen table width {widths} -> "
+          f"seen_headroom {seen_headroom}", flush=True)
+    before = [t.clone() for t in (*problem.data.entries, problem.data.nnz)]
+    sweep = streaming.append_sweep(problem, coo, stream, STREAM_BATCHES)
+    streaming.print_appends(sweep, len(stream))
+    if not all(bool(torch.equal(a, b)) for a, b in zip(
+            before, (*problem.data.entries, problem.data.nnz))):
+        fail("[stream] the append sweep changed the base store")
+    print(f"[stream] append sweep {json.dumps(sweep)}; the base store is "
+          f"unchanged", flush=True)
+    del before
+
+    reset_counts()
+    out = streaming.refit_vs_cold(
+        problem, coo, stream, cfg,
+        FullGD(num_rounds=FULL_ROUNDS, eval_every=FULL_ROUNDS // 4))
+    got = counts()
+    add(got)
+    streaming.print_refit(out, len(stream))
+    result, refit, cold = out["result"], out["refit"], out["cold"]
+    c_warm = out["fresh"].total_cost(result.state, cfg.lam)
+    rmse = {k: out[k].rmse() for k in ("result", "refit", "cold")}
+    gate = abs(rmse["refit"] - rmse["cold"]) <= 1e-3
+    print(f"[stream] fits: base FullGD {FULL_ROUNDS} rounds RMSE "
+          f"{rmse['result']:.6f} ({out['wall_s']['initial fit']:.3f}s), "
+          f"refit Incremental {out['rounds']['warm refit']} Wave rounds "
+          f"RMSE {rmse['refit']:.6f} ({out['wall_s']['warm refit']:.3f}s), "
+          f"cold FullGD RMSE {rmse['cold']:.6f} "
+          f"({out['wall_s']['cold fit']:.3f}s); refit cost {c_warm:.6e} -> "
+          f"{refit.final_cost:.6e}; the reference's gate (refit RMSE within "
+          f"1e-3 of the cold fit's) holds: {gate}; launches {got} by stack "
+          f"{stacks(sddmm_ops.sddmm_segment_grad)}", flush=True)
+    costs = [c for _, c in result.history + refit.history + cold.history]
+    if not np.isfinite(costs).all():
+        fail(f"[stream] non-finite cost {costs}")
+    if not refit.final_cost < c_warm:
+        fail(f"[stream] the refit's cost did not fall: {c_warm} -> "
+             f"{refit.final_cost}")
+    checks = stream_store_checks(problem, out["fresh"], coo, result.state,
+                                 card)
+
+    add(stream_engine(out, coo, stream, seen_headroom))
+    got, mb_checks = stream_gossip(sparse, state0, cfg, card)
+    add(got)
+    checks += mb_checks
+    add(stream_dense(card))
+    print(f"[stream] phase: {time.perf_counter() - t_phase:.1f}s of command; "
+          f"launches {total}", flush=True)
     return total, checks
 
 
@@ -1671,8 +2040,12 @@ def main() -> None:
     got, g_checks = gossip_phase(sparse, scatter, state0, cfg, card)
     for name, n in got.items():
         total[name] += n
+    # the streaming loop: append, refit, policy-driven refresh, minibatches
+    got, s_checks = stream_phase(ds, sparse, state0, cfg, card)
+    for name, n in got.items():
+        total[name] += n
     other_shapes = {"masked_factor_grad": t2_checks + [g_checks[0]],
-                    "sddmm_segment_grad": g_checks[1:]}
+                    "sddmm_segment_grad": g_checks[1:] + s_checks}
 
     # 4. the int8 score kernel at the top bucket of the fitted index
     qidx = quantize_index(index)
@@ -1681,8 +2054,8 @@ def main() -> None:
     rows.append(quant_kernel_row(qidx, top_users, card))
 
     # 5. the serving path: int8 engine, refresh, f32 engine
-    total["dequant_score"] = serve_phase(results["FullGD sparse/segment"],
-                                         results["FullGD dense"])
+    total["dequant_score"] += serve_phase(results["FullGD sparse/segment"],
+                                          results["FullGD dense"])
 
     for row in rows:
         row["launches"] = total[row["name"]]

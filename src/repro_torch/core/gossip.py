@@ -24,10 +24,14 @@ ranks share one card (``gloo``, which moves CPU tensors only) the four
 edges are staged through pinned host buffers, and the bytes staged are
 counted in ``train_gossip_staged_bytes_total``.
 
-Not ported yet (ROADMAP queue 1 item 3b): ``faults=``,
-``async_rounds``/``exchange_every`` and ``batch=``.  The carry keeps the
-fault counters (``FaultStats``, zeros) and the halo ages so that slice can
-fill them in.
+``batch=`` makes each round's f-gradients stochastic: the step consumes a
+per-round minibatch store plus the ``minibatch_grad_scale`` correction
+(nnz/batch per block of the full store), so a round costs O(batch)
+instead of O(nnz) a rank.
+
+Not ported yet (ROADMAP queue 1 item 3b): ``faults=`` and
+``async_rounds``/``exchange_every``.  The carry keeps the fault counters
+(``FaultStats``, zeros) and the halo ages so that slice can fill them in.
 """
 
 from __future__ import annotations
@@ -52,8 +56,8 @@ AGE_NEVER = 1_000_000
 # message's tag is the receiver's direction
 LEFT, RIGHT, UP, DOWN = range(4)
 
-NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1 item 3b: faults, "
-              "async rounds and minibatch gossip)")
+NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1 item 3b: faults "
+              "and async rounds)")
 
 
 class HaloState(NamedTuple):
@@ -191,13 +195,13 @@ def exchange_halos(U, W, exchange: HaloExchange, compression="none",
 
 
 def _local_gradients(problem, U, W, halos: HaloState, exchange, rho, lam,
-                     method="segment", chunk=None):
+                     method="segment", chunk=None, f_scale=None):
     """∇L on the local tile, seam terms from the halos; a seam without a
     neighbour (the grid's boundary, or every seam of a 1×1 plan) is left
-    out."""
+    out.  ``f_scale`` (minibatch rounds) multiplies only the f-part."""
 
     gU, gW = full_gradients(problem, U, W, rho=rho, lam=lam, method=method,
-                            chunk=chunk)
+                            chunk=chunk, f_scale=f_scale)
     if exchange is None:
         return gU, gW
     # seam pair (left neighbour's last col, my first col):
@@ -240,9 +244,16 @@ def make_gossip_step(
     kernels on the card, their plain versions on the CPU).  The plan's
     rank grid must match the process group's.
 
-    ``faults``, ``async_rounds``/``exchange_every`` and ``batch`` are
-    validated as the reference validates them, then raise
-    ``NotImplementedError`` (ROADMAP.md queue 1 item 3b)."""
+    ``batch=<int>`` makes the round stochastic: the step becomes
+    ``step(problem, f_scale, carry)`` for one round, where ``problem`` is
+    the round's minibatch store (``MinibatchStream.batch_at``) and
+    ``f_scale`` the ``minibatch_grad_scale`` of the *full* store (the
+    rank's tile of it).  It needs the sparse layout and
+    ``steps_per_call=1``; halos are exchanged every round.
+
+    ``faults`` and ``async_rounds``/``exchange_every`` are validated as
+    the reference validates them, then raise ``NotImplementedError``
+    (ROADMAP.md queue 1 item 3b)."""
 
     p, q = spec_pq
     if exchange_every < 1:
@@ -275,8 +286,7 @@ def make_gossip_step(
             "residuals (the sender already folded the residual update in)"
         )
     for name, on in (("faults=", faults is not None),
-                     ("async_rounds=True", async_rounds),
-                     ("batch=", batch is not None)):
+                     ("async_rounds=True", async_rounds)):
         if on:
             raise NotImplementedError(f"gossip with {name} {NOT_PORTED}")
     if staleness < 1:
@@ -300,7 +310,7 @@ def make_gossip_step(
     exchanges: dict = {}
 
     def local_round(problem, carry: GossipCarry, step_i: int,
-                    exchange) -> GossipCarry:
+                    exchange, f_scale=None) -> GossipCarry:
         state, halos = carry.state, carry.halos
         ef = (carry.ef_u_last, carry.ef_u_first, carry.ef_w_last,
               carry.ef_w_first)
@@ -316,29 +326,39 @@ def make_gossip_step(
         # consensus damped 1/2 in deterministic full-grad mode (waves.py)
         gU, gW = _local_gradients(problem, state.U, state.W, halos,
                                   exchange, rho=rho * 0.5, lam=lam,
-                                  method=method, chunk=chunk)
+                                  method=method, chunk=chunk,
+                                  f_scale=f_scale)
         lr = obj.gamma(state.t.float(), a, b)
         new_state = State(state.U - lr * gU, state.W - lr * gW,
                           state.t + n_struct)
         return GossipCarry(new_state, halos, *ef, carry.rnd + 1,
                            carry.stats)
 
-    def step(problem, carry: GossipCarry) -> GossipCarry:
+    def exchange_for(problem, carry: GossipCarry):
         if (layout == "sparse") != isinstance(problem, SparseProblem):
             raise ValueError(
                 f"layout={layout!r} but the problem is a "
                 f"{type(problem).__name__}")
-        exchange = None
-        if not plan.is_single_device:
-            device = carry.state.U.device
-            if device not in exchanges:
-                exchanges[device] = HaloExchange(plan, device)
-            exchange = exchanges[device]
+        if plan.is_single_device:
+            return None
+        device = carry.state.U.device
+        if device not in exchanges:
+            exchanges[device] = HaloExchange(plan, device)
+        return exchanges[device]
+
+    def step(problem, carry: GossipCarry) -> GossipCarry:
+        exchange = exchange_for(problem, carry)
         for i in range(steps_per_call):
             carry = local_round(problem, carry, i, exchange)
         return carry
 
-    return step
+    def step_minibatch(problem, f_scale, carry: GossipCarry) -> GossipCarry:
+        # one sampled store per call: the schedule feeds a fresh minibatch
+        # (and the same full-store nnz/batch scale) every round
+        return local_round(problem, carry, 0, exchange_for(problem, carry),
+                           f_scale=f_scale)
+
+    return step if batch is None else step_minibatch
 
 
 def exchange_rounds_in(start: int, n: int, exchange_every: int = 1) -> int:

@@ -78,18 +78,25 @@ def wave_step(
 def full_gradients(
     problem: Problem | SparseProblem, U: torch.Tensor, W: torch.Tensor, *,
     rho: float, lam: float, method: str = "segment",
-    chunk: int | None = None,
+    chunk: int | None = None, f_scale: torch.Tensor | None = None,
 ):
     """∇L of the collapsed objective (objective.full_objective).
 
     Accepts either layout; a SparseProblem routes the f-part through the
-    nnz-proportional sparse kernels with identical consensus/reg terms."""
+    nnz-proportional sparse kernels with identical consensus/reg terms.
+    ``f_scale`` (per block, shape (p, q)) multiplies only the f-part — the
+    minibatch unbiasedness correction (``minibatch_grad_scale``); ``None``
+    leaves the expression as it is."""
 
     if isinstance(problem, SparseProblem):
         return sparse_obj.full_gradients_sparse(
             problem, U, W, rho=rho, lam=lam, method=method, chunk=chunk,
+            f_scale=f_scale,
         )
     _, gu_f, gw_f = obj.f_grads(problem.xb, problem.maskb, U, W)
+    if f_scale is not None:
+        gu_f = gu_f * f_scale[..., None, None]
+        gw_f = gw_f * f_scale[..., None, None]
     gU = gu_f + 2.0 * lam * U + 2.0 * rho * sparse_obj.consensus_pulls(U, axis=1)
     gW = gw_f + 2.0 * lam * W + 2.0 * rho * sparse_obj.consensus_pulls(W, axis=0)
     return gU, gW

@@ -3,7 +3,8 @@
     CompletionProblem — owns the data (dense or sorted-COO layout) on one
                         device, the grid spec, and the engine options
     Trainer           — one ``fit(problem, schedule=...)`` with the
-                        Sequential / Wave / FullGD / Gossip schedules
+                        Sequential / Wave / FullGD / Gossip schedules, and
+                        ``refit`` (Incremental by default) after an append
     FitResult         — final State, loss trace, wall time, and
                         ``.to_recommend_index()`` / ``.to_service()`` /
                         ``.to_engine()`` into serving
@@ -14,6 +15,7 @@ from repro_torch.mc.problem import CompletionProblem, EngineOptions
 from repro_torch.mc.schedules import (
     FullGD,
     Gossip,
+    Incremental,
     Schedule,
     Sequential,
     Wave,
@@ -29,6 +31,7 @@ __all__ = [
     "FitResult",
     "FullGD",
     "Gossip",
+    "Incremental",
     "Schedule",
     "Sequential",
     "Trainer",

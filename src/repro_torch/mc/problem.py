@@ -15,7 +15,8 @@ The constructors put the data on ``device="cuda"`` unless asked for the
 CPU; without a card that default raises.  ``plan=`` (a ``MeshPlan`` over a
 grid of ``torch.distributed`` ranks) keeps only this rank's tile of the
 blocks, cut from the global data; the ``Gossip`` schedule runs on it.
-Streaming appends are not ported yet.
+``append`` splices new ratings in (the streaming ingestion path) and
+returns a new problem.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ from repro_torch.core import waves as core_waves
 from repro_torch.core.state import (Problem, State, make_problem,
                                     resolve_device)
 from repro_torch.data.synthetic import MCDataset
-from repro_torch.mesh.plan import MeshPlan
+from repro_torch.mesh.plan import MeshPlan, current_rank
 from repro_torch.sparse import store
 from repro_torch.sparse.store import SparseProblem
 
@@ -309,6 +310,93 @@ class CompletionProblem:
 
         return float(core_obj.total_cost(self.data, state.U, state.W, lam,
                                          method=self.engine.method))
+
+    # ------------------------------------------------------------------ #
+    # streaming ingestion
+    # ------------------------------------------------------------------ #
+
+    def append(self, rows, cols, vals) -> "CompletionProblem":
+        """New ratings spliced into the problem's store — the streaming
+        ingestion path.
+
+        ``rows``/``cols`` are true (pre-padding) user/item indices; values
+        are mean-centred by the problem's μ.  On the sparse layout the
+        entries are merged into the sorted padded-COO store at its
+        capacity (``store.append_entries``; pre-allocate slack with
+        ``headroom=`` at ingest, a full bucket raises with the headroom
+        that would have absorbed the append).  On the dense layout they
+        scatter into fresh copies of the block tensors.  Under a plan of
+        more than one rank, each rank splices only the entries of the
+        blocks its tile holds.  A (user, item) pair already rated updates
+        its value; duplicate pairs within the batch resolve to the last
+        occurrence; an empty append returns ``self``.
+
+        Returns a new problem sharing the spec/engine/dataset; the old
+        one's tensors are not written.  The seen-item table grows, so
+        serving built from a refit excludes the new ratings.  Appends never
+        grow the matrix: new users or items need a fresh ingest (and a
+        cold fit, since factor shapes change)."""
+
+        rows = np.asarray(rows, np.int64)
+        cols = np.asarray(cols, np.int64)
+        vals = np.asarray(vals, np.float32)
+        if not (rows.shape == cols.shape == vals.shape) or rows.ndim != 1:
+            raise ValueError(
+                f"rows/cols/vals must be equal-length 1-D arrays, got "
+                f"{rows.shape}/{cols.shape}/{vals.shape}"
+            )
+        if len(rows) == 0:
+            return self
+        if (rows.min() < 0 or rows.max() >= self.num_users
+                or cols.min() < 0 or cols.max() >= self.num_items):
+            raise ValueError(
+                f"append indices out of range for the "
+                f"{self.num_users}x{self.num_items} matrix: rows in "
+                f"[{rows.min()}, {rows.max()}], cols in "
+                f"[{cols.min()}, {cols.max()}] — appends cover existing "
+                f"users/items; a grown matrix needs a fresh from_entries "
+                f"ingest (factor shapes change)"
+            )
+        rows, cols, vals = store.dedupe_last_write(rows, cols, vals,
+                                                   self.num_items)
+        cvals = vals - self.mu if self.mu else vals
+        mb, nb = self.spec.mb, self.spec.nb
+        trows, tcols, tvals, origin = rows, cols, cvals, (0, 0)
+        if self.plan is not None and not self.plan.is_single_device:
+            # this rank's tile: its blocks' entries, in the tile's frame
+            brows, bcols = self.plan.tile(current_rank())
+            keep = ((rows // mb >= brows.start) & (rows // mb < brows.stop)
+                    & (cols // nb >= bcols.start) & (cols // nb < bcols.stop))
+            origin = (brows.start, bcols.start)
+            trows = rows[keep] - origin[0] * mb
+            tcols = cols[keep] - origin[1] * nb
+            tvals = cvals[keep]
+        data: Union[Problem, SparseProblem]
+        if len(trows) == 0:
+            data = self.data
+        elif isinstance(self.data, SparseProblem):
+            data = store.splice_entries(self.data, trows, tcols, tvals,
+                                        origin)
+        else:
+            dev = self.device
+            bi, rr = (torch.from_numpy(a).to(dev) for a in divmod(trows, mb))
+            bj, cc = (torch.from_numpy(a).to(dev) for a in divmod(tcols, nb))
+            xb, maskb = self.data.xb.clone(), self.data.maskb.clone()
+            xb[bi, bj, rr, cc] = torch.from_numpy(tvals).to(dev)
+            maskb[bi, bj, rr, cc] = 1.0
+            data = Problem(xb, maskb)
+        if self.seen_coo is not None:
+            ar = np.concatenate([np.asarray(self.seen_coo[0], np.int64), rows])
+            ac = np.concatenate([np.asarray(self.seen_coo[1], np.int64), cols])
+        else:
+            ar, ac = rows, cols
+        ni = max(self.num_items, 1)
+        # user-sorted + deduped: np.unique's sorted result, by one sort
+        # (numpy 2.3's np.unique hashes, several times slower at ML-1M)
+        keys = np.sort(ar * ni + ac)
+        uniq = keys[np.concatenate(([True], keys[1:] != keys[:-1]))]
+        return dataclasses.replace(self, data=data,
+                                   seen_coo=(uniq // ni, uniq % ni))
 
     def full_gradients(self, state: State, *, rho: float, lam: float):
         """∇L of the collapsed objective with this problem's engine options."""

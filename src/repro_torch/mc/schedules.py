@@ -7,13 +7,15 @@ produces the same ``(State, history)`` pair.
     Sequential  — Algorithm 1 verbatim: one random structure per iteration
     Wave        — ≤8 conflict-free parity waves per round
     FullGD      — deterministic limit: all structures at once (GD on L)
+    Incremental — short warm-start Wave run, ``Trainer.refit``'s default
     Gossip      — synchronous rounds over a grid of torch.distributed
-                  ranks, factor edges exchanged point to point
+                  ranks, factor edges exchanged point to point; full or
+                  minibatch (``batch=``) f-gradients
 
 ``run(problem, cfg, generator, state=..., eval_cb=None)`` starts from
 ``state``; ``eval_cb(unit, cost, state)`` fires at every eval boundary,
 ``unit`` in the schedule's own units (iterations or rounds).  The
-incremental and checkpoint-resume paths are not ported yet.
+checkpoint-resume path is not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import dataclasses
 import time
 from typing import Any, Callable, Optional, Union
 
+import numpy as np
 import torch
 
 from repro_torch import obs
@@ -32,6 +35,7 @@ from repro_torch.core import waves as core_waves
 from repro_torch.core.state import State
 from repro_torch.mc.problem import CompletionProblem
 from repro_torch.mesh.plan import MeshPlan
+from repro_torch.sparse.store import MinibatchStream, minibatch_grad_scale
 
 EvalCb = Optional[Callable[[int, float, State], None]]
 
@@ -100,6 +104,22 @@ class FullGD(Wave):
 
 
 @dataclasses.dataclass(frozen=True)
+class Incremental(Wave):
+    """Warm-start refresh rounds — the default of ``Trainer.refit``.
+
+    The same wave updates as :class:`Wave`, sized for the streaming loop:
+    after an append the factors are already near the new optimum, so a
+    short run of rounds recovers the cold fit's quality at a fraction of
+    the iterations.  Only the default size differs; resuming from a
+    trained ``State`` is what makes it incremental."""
+
+    num_rounds: int = 40
+    eval_every: int = 0
+
+    name = "incremental"
+
+
+@dataclasses.dataclass(frozen=True)
 class Gossip(Schedule):
     """Synchronous full-GD rounds over a grid of ``torch.distributed``
     ranks: each rank steps its tile of the (p, q) block grid, factor edges
@@ -113,8 +133,17 @@ class Gossip(Schedule):
     a process group of R·C ranks (``repro_torch.launch.gossip``); the
     returned ``State`` is the global one, all-gathered from the tiles.
 
-    ``faults=``, ``async_rounds=True`` and ``batch=`` raise
-    ``NotImplementedError`` (ROADMAP.md queue 1 item 3b)."""
+    ``batch=<int>`` switches to stochastic rounds: every round samples a
+    fresh per-block minibatch of the sparse store through a restart-exact
+    ``MinibatchStream`` (its seed derived from the fit's generator seed,
+    or ``batch_seed``; the step's positions keyed on the absolute round)
+    and feeds it to the step with the ``minibatch_grad_scale`` correction
+    of the full store, so a round costs O(batch) a rank instead of
+    O(nnz).  Every rank draws the whole grid's positions and keeps its
+    tile, so an R×C grid runs the 1×1 stream.  Requires the sparse layout.
+
+    ``faults=`` and ``async_rounds=True`` raise ``NotImplementedError``
+    (ROADMAP.md queue 1 item 3b)."""
 
     num_rounds: int = 200
     eval_every: int = 0
@@ -124,6 +153,7 @@ class Gossip(Schedule):
     topk_fraction: float = 0.25
     faults: Any = None
     batch: Optional[int] = None
+    batch_seed: Optional[int] = None
     async_rounds: bool = False
     exchange_every: int = 1
 
@@ -142,6 +172,11 @@ class Gossip(Schedule):
         eng = problem.engine
         plan = self._plan(problem)
         spec = problem.spec
+        if self.batch is not None and problem.layout != "sparse":
+            raise ValueError(
+                "Gossip(batch=) needs layout='sparse': stochastic rounds "
+                "sample the sparse store"
+            )
 
         def step_for(n: int):
             if n not in steps:
@@ -158,7 +193,9 @@ class Gossip(Schedule):
 
         steps: dict[int, Any] = {}
         eval_every = self.eval_every or self.num_rounds
-        step_for(min(eval_every, self.num_rounds))   # validates the options
+        # validates the options; a minibatch step takes one round a call
+        step_for(1 if self.batch is not None
+                 else min(eval_every, self.num_rounds))
         if not plan.is_single_device and problem.plan != plan:
             raise ValueError(
                 f"Gossip over a {plan.row_size}x{plan.col_size} rank grid "
@@ -167,6 +204,17 @@ class Gossip(Schedule):
         if tuple(state.U.shape[:2]) == (spec.p, spec.q):
             state = plan.local_slice(state)      # the global draw -> my tile
         carry = core_gossip.init_carry(state)
+
+        stream = scale = None
+        if self.batch is not None:
+            # the stream's seed is a pure function of the fit's seed, so
+            # a rerun replays the identical per-round minibatches
+            seed = (self.batch_seed if self.batch_seed is not None else int(
+                np.random.SeedSequence([generator.initial_seed(), 0x0BA7C4])
+                .generate_state(1, np.uint64)[0]))
+            stream = MinibatchStream(problem.data, self.batch, seed=seed,
+                                     plan=plan)
+            scale = minibatch_grad_scale(problem.data, self.batch)
 
         # exact comm accounting from the plan's geometry: what one exchange
         # moves over the wires (0 on a 1x1 plan)
@@ -182,7 +230,13 @@ class Gossip(Schedule):
         while rd < self.num_rounds:
             n = min(eval_every - rd % eval_every, self.num_rounds - rd)
             t0 = time.perf_counter()
-            carry = step_for(n)(problem.data, carry)
+            if stream is None:
+                carry = step_for(n)(problem.data, carry)
+            else:
+                # one sampled store a round, keyed on the absolute round
+                step = step_for(1)
+                for t in range(rd, rd + n):
+                    carry = step(stream.batch_at(t), scale, carry)
             if carry.state.U.device.type == "cuda":
                 torch.cuda.synchronize(carry.state.U.device)
             round_h.observe((time.perf_counter() - t0) / n)
@@ -204,13 +258,15 @@ _BY_NAME = {
     "wave": Wave,
     "full": FullGD,
     "full_gd": FullGD,
+    "incremental": Incremental,
     "gossip": Gossip,
 }
 
 
 def make_schedule(spec: Union[str, Schedule], **overrides) -> Schedule:
     """Resolve a schedule: pass a ``Schedule`` through, or build one from
-    its name (``"sequential" | "wave" | "full" | "gossip"``) with default
+    its name (``"sequential" | "wave" | "full" | "incremental" |
+    "gossip"``) with default
     sizes overridable by keyword."""
 
     if isinstance(spec, Schedule):

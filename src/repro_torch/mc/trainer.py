@@ -10,6 +10,9 @@ Port of ``repro.mc.trainer``::
     svc = result.to_service(k=10)                  # fixed-batch front end
     engine = result.to_engine(quant="int8")        # bucketed, int8 cache
 
+    grown = problem.append(rows, cols, vals)       # streaming ratings
+    refreshed = Trainer(cfg).refit(result, grown)  # warm start, Incremental
+
 ``FitResult`` carries the final ``State``, the (t, cost) loss trace, the
 wall time and the bridges into evaluation (``factors``, ``rmse``) and
 serving (``to_recommend_index``, ``to_service``, ``to_engine``), on the
@@ -53,7 +56,7 @@ class FitResult:
     history: list            # (t, cost) pairs at eval boundaries
     wall_time: float         # seconds inside the schedule loop
     schedule: str            # schedule name ("sequential" | "wave" | "full" |
-                             # "gossip")
+                             # "incremental" | "gossip")
     problem: CompletionProblem
 
     @property
@@ -116,20 +119,31 @@ class FitResult:
                                 quant_method=quant_method)
 
     def to_engine(self, buckets=None, k: int = 10, exclude_seen: bool = True,
-                  seen_headroom: int = 64, quant=None, quant_method=None):
+                  refresh_policy=None, trainer=None, seen_headroom: int = 64,
+                  quant=None, quant_method=None):
         """Bucket-batched serving engine over the trained factors
         (``repro_torch.serving.ServingEngine``), every bucket readied here,
-        so the first request is already hot.  ``quant="int8"`` serves the
-        int8 factor cache through the ``dequant_score`` kernel."""
+        so the first request is already hot.
+
+        Pass ``trainer`` (plus a ``refresh_policy``) and the engine is bound
+        for policy-driven auto-refit: ``engine.note_append(n, problem)``
+        runs ``trainer.refit`` and hot-swaps the factors once the policy
+        trips.  ``quant="int8"`` serves the int8 factor cache through the
+        ``dequant_score`` kernel."""
 
         from repro_torch.serving import DEFAULT_BUCKETS, ServingEngine
 
-        return ServingEngine(
+        engine = ServingEngine(
             self.to_recommend_index(),
             buckets=buckets if buckets is not None else DEFAULT_BUCKETS,
             k=k, exclude_seen=exclude_seen, seen_headroom=seen_headroom,
-            quant=quant, quant_method=quant_method,
+            refresh_policy=refresh_policy, quant=quant,
+            quant_method=quant_method,
         )
+        engine._fit_result = self
+        if trainer is not None:
+            engine.bind(trainer, self)
+        return engine
 
 
 class Trainer:
@@ -207,3 +221,46 @@ class Trainer:
         for cb in self.callbacks:
             cb.on_fit_end(result)
         return result
+
+    def refit(
+        self,
+        result: FitResult,
+        problem: CompletionProblem | None = None,
+        schedule: Union[str, Schedule, None] = None,
+        *,
+        seed: int = 0,
+        reset_clock: bool = False,
+        **schedule_overrides,
+    ) -> FitResult:
+        """Warm-start refresh from a finished fit — the incremental half of
+        the streaming loop.
+
+        Resumes from ``result``'s trained ``(U, W)`` against ``problem``
+        (typically ``result.problem.append(...)``'s output; defaults to
+        ``result.problem``) and runs only the cheap incremental rounds:
+        ``schedule`` defaults to :class:`~repro_torch.mc.Incremental`, a
+        short wave run.  The iteration clock ``t`` carries over, so the
+        γ_t = a/(1+bt) step size continues its decay; ``reset_clock=True``
+        restarts it for appends that shift the data hard.  The refreshed
+        ``FitResult`` feeds ``ServingEngine.refresh``."""
+
+        if problem is None:
+            problem = result.problem
+        if not isinstance(problem, CompletionProblem):
+            raise TypeError(
+                f"Trainer.refit expects a CompletionProblem, got "
+                f"{type(problem).__name__}"
+            )
+        if problem.spec != result.problem.spec:
+            raise ValueError(
+                f"refit needs matching factor shapes: new problem grid "
+                f"{problem.spec} != fitted grid {result.problem.spec}; a "
+                f"reshaped problem needs a cold Trainer.fit"
+            )
+        state = result.state
+        if reset_clock:
+            state = state._replace(t=state.t * 0)
+        if schedule is None:
+            schedule = "incremental"
+        return self.fit(problem, schedule, seed=seed, state=state,
+                        **schedule_overrides)

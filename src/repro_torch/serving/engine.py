@@ -1,7 +1,6 @@
 """``ServingEngine`` — the always-hot request path over a trained index.
 
-Port of ``repro.serving.engine`` without the mesh (``plan=``) and the
-policy-driven refit (``RefreshPolicy``, ``bind``, ``note_append``).  A
+Port of ``repro.serving.engine`` without the mesh (``plan=``).  A
 :class:`BucketLadder` routes every request onto a fixed set of batch
 shapes, ``compile_buckets`` readies one callable per bucket **at
 startup**, and a :class:`~repro_torch.serving.queue.ServeWorker` drains
@@ -19,6 +18,12 @@ the device the index lives on.  The contract the tests pin:
 * **clean shutdown** — ``drain()`` resolves the backlog, ``shutdown()``
   then rejects new work.
 
+:class:`RefreshPolicy` adds the auto-refit loop: ``note_append(n)``
+bookkeeping runs ``Trainer.refit`` and a hot swap once enough appends (or
+enough wall time) accumulate — the serving side of the streaming loop.
+The refit runs on the caller's thread while the worker keeps serving the
+old factors; the swap is one attribute store.
+
 The worker is a thread of its own.  The kernel wrapper makes the tensors'
 device current around its launch, and the kernel library is loaded by the
 startup runs on the constructing thread, so the worker holds no device
@@ -27,6 +32,7 @@ state of its own.
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 import time
 from concurrent.futures import Future
@@ -43,6 +49,40 @@ from repro_torch.serve.recommend import _u_shape, _w_shape
 from repro_torch.serving.buckets import DEFAULT_BUCKETS, BucketLadder
 from repro_torch.serving.compiler import compile_buckets
 from repro_torch.serving.queue import Request, ServeWorker
+
+
+@dataclasses.dataclass(frozen=True)
+class RefreshPolicy:
+    """When should the engine refit and hot-swap its factors?
+
+    ``max_appends``: refit once this many appended ratings accumulate
+    (``note_append`` counts them).  ``max_age_seconds``: refit once the
+    serving factors are this stale, checked at ``note_append`` time (the
+    engine never starts a timer thread).  Either may be ``None``; at
+    least one must be set."""
+
+    max_appends: Optional[int] = None
+    max_age_seconds: Optional[float] = None
+
+    def __post_init__(self) -> None:
+        if self.max_appends is None and self.max_age_seconds is None:
+            raise ValueError(
+                "RefreshPolicy needs max_appends and/or max_age_seconds"
+            )
+        if self.max_appends is not None and self.max_appends <= 0:
+            raise ValueError(f"max_appends must be positive, "
+                             f"got {self.max_appends}")
+        if self.max_age_seconds is not None and self.max_age_seconds <= 0:
+            raise ValueError(f"max_age_seconds must be positive, "
+                             f"got {self.max_age_seconds}")
+
+    def due(self, appends: int, age_seconds: float) -> bool:
+        if self.max_appends is not None and appends >= self.max_appends:
+            return True
+        if (self.max_age_seconds is not None
+                and age_seconds >= self.max_age_seconds):
+            return True
+        return False
 
 
 def _pad_seen(seen, capacity: int, num_items: int) -> torch.Tensor:
@@ -69,6 +109,8 @@ class ServingEngine:
 
     ``seen_headroom`` reserves extra seen-table columns so that later
     refreshes (whose tables may be wider) still fit the frozen shapes.
+    ``refresh_policy`` (with a trainer from :meth:`bind`) turns on the
+    policy-driven refit of :meth:`note_append`.
 
     ``quant="int8"`` serves the int8 factor cache: the index is quantized
     (symmetric per-row, serve/quant.py) before the buckets are readied, so
@@ -87,6 +129,7 @@ class ServingEngine:
         k: int = 10,
         exclude_seen: bool = True,
         seen_headroom: int = 64,
+        refresh_policy: Optional[RefreshPolicy] = None,
         quant: Optional[str] = None,
         quant_method: Optional[str] = None,
     ):
@@ -94,6 +137,7 @@ class ServingEngine:
                        else BucketLadder(tuple(buckets)))
         self.k = k
         self.exclude_seen = exclude_seen
+        self.refresh_policy = refresh_policy
         if quant not in (None, "int8"):
             raise ValueError(
                 f"unknown quant mode {quant!r}; expected None or 'int8'"
@@ -120,6 +164,11 @@ class ServingEngine:
         self._bufs = index
         self._execs = compile_buckets(index, self.ladder, k, exclude_seen,
                                       method=self.quant_method)
+        # auto-refit state (RefreshPolicy / note_append)
+        self._trainer = None
+        self._fit_result = None
+        self._latest_problem = None
+        self._appends_since_refresh = 0
         self._refresh_lock = threading.Lock()
         self._t_last_refresh = time.perf_counter()
         # QPS window, same discipline as RecommendService
@@ -244,6 +293,9 @@ class ServingEngine:
                       dtype="int8" if self.quant else "f32").set(
                           index_nbytes(new))
             self._bufs = new
+            if hasattr(result, "to_recommend_index"):
+                self._fit_result = result
+            self._appends_since_refresh = 0
             self._t_last_refresh = time.perf_counter()
         obs.counter("engine_refreshes_total").inc()
         obs.gauge("engine_last_refresh_age_seconds").set(0.0)
@@ -251,6 +303,46 @@ class ServingEngine:
 
     def _factor_shapes(self):
         return _u_shape(self._bufs), _w_shape(self._bufs)
+
+    def bind(self, trainer, result) -> "ServingEngine":
+        """Attach the training side for policy-driven auto-refit:
+        ``trainer.refit(result, problem)`` is what ``note_append`` runs
+        when the :class:`RefreshPolicy` trips."""
+
+        self._trainer = trainer
+        self._fit_result = result
+        return self
+
+    def note_append(self, n: int, problem=None) -> bool:
+        """Record ``n`` just-appended ratings (and optionally the grown
+        problem); refit and hot-swap when the policy is due.
+
+        Returns True iff a refresh happened.  The refit runs on the
+        caller's thread; requests in flight keep the factor version they
+        started with.  Without a bound trainer (or without a policy) this
+        is pure bookkeeping."""
+
+        if n < 0:
+            raise ValueError(f"note_append takes a non-negative count, "
+                             f"got {n}")
+        self._appends_since_refresh += n
+        if problem is not None:
+            self._latest_problem = problem
+        age = time.perf_counter() - self._t_last_refresh
+        obs.gauge("engine_last_refresh_age_seconds").set(age)
+        policy = self.refresh_policy
+        if policy is None or self._trainer is None \
+                or self._fit_result is None:
+            return False
+        if not policy.due(self._appends_since_refresh, age):
+            return False
+        refit = self._trainer.refit(self._fit_result, self._latest_problem)
+        self.refresh(refit)
+        return True
+
+    @property
+    def appends_since_refresh(self) -> int:
+        return self._appends_since_refresh
 
     # ------------------------------------------------------------------ #
     # observability + lifecycle
@@ -279,6 +371,7 @@ class ServingEngine:
             },
             "compiles": obs.counter("serve_compiles_total").value,
             "refreshes": obs.counter("engine_refreshes_total").value,
+            "appends_since_refresh": self._appends_since_refresh,
             "last_refresh_age_seconds": age,
             "requests": self._served_requests,
             "users": self._served_users,

@@ -61,11 +61,20 @@ def consensus_pulls(A: torch.Tensor, axis: int) -> torch.Tensor:
 
 def full_gradients_sparse(sp: SparseProblem, U, W, *, rho: float,
                           lam: float, method: str = "segment",
-                          chunk: int | None = None):
-    """∇L of the collapsed objective, f-part from the sparse store."""
+                          chunk: int | None = None, f_scale=None):
+    """∇L of the collapsed objective, f-part from the sparse store.
+
+    ``f_scale`` ((p, q), minibatch rounds) multiplies only the f-part:
+    with ``sp`` a sampled minibatch and ``f_scale = nnz/batch`` of the
+    full store the stochastic gradient is unbiased; the consensus and
+    regularization terms stay unscaled.  ``None`` leaves the expression
+    as it is."""
 
     _, gu_f, gw_f = f_grads_sparse(sp.entries, U, W, method=method,
                                    chunk=chunk)
+    if f_scale is not None:
+        gu_f = gu_f * f_scale[..., None, None]
+        gw_f = gw_f * f_scale[..., None, None]
     gU = gu_f + 2.0 * lam * U + 2.0 * rho * consensus_pulls(U, axis=1)
     gW = gw_f + 2.0 * lam * W + 2.0 * rho * consensus_pulls(W, axis=0)
     return gU, gW

@@ -35,7 +35,12 @@ from repro_torch.models import Ctx, build_model  # noqa: E402
 from repro_torch.serve.quant import quantize_index, quantize_rows  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.sparse.entries import BlockEntries  # noqa: E402
-from repro_torch.sparse.store import from_blocks  # noqa: E402
+from repro_torch.sparse.store import (  # noqa: E402
+    MinibatchStream,
+    append_entries,
+    from_blocks,
+    from_entries,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -156,6 +161,86 @@ def test_segment_kernel_is_deterministic(cuda, case):
         again = sddmm_ops.sddmm_segment_grad(sp.entries, U, W)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+def _split_store(x, mask, cuda, frac=0.7, seed=0, headroom=0):
+    """(base store on the card with ``headroom``, the global COO triplets,
+    the streamed indices): ``frac`` of the entries in the base."""
+
+    p, q, mb, nb = mask.shape
+    bi, bj, rr, cc = np.nonzero(mask)
+    rows, cols, vals = bi * mb + rr, bj * nb + cc, x[bi, bj, rr, cc]
+    perm = np.random.default_rng(seed).permutation(len(rows))
+    cut = int(frac * len(rows))
+    base = perm[:cut]
+    sp, _ = from_entries(rows[base], cols[base], vals[base], p * mb, q * nb,
+                         p, q, bucket=64, headroom=headroom, device=cuda)
+    return sp, (rows, cols, vals), perm[cut:]
+
+
+@pytest.mark.parametrize("case", [SKEWED[0], CASES[2], CASES[5]])
+def test_segment_kernel_on_appended_store(cuda, case):
+    """A store grown by ``append_entries`` (CSR offsets and ``col_perm``
+    patched by the splice, not built by a sort): the kernel against its
+    plain version, and bitwise against the kernel on a fresh ingest of
+    the union at the same capacity, whose arrays are the same."""
+
+    make = _skewed if case in SKEWED else _blocks
+    x, mask, u, w = make(*case, seed=9)
+    p, q, mb, nb = mask.shape
+    sp, (rows, cols, vals), stream = _split_store(x, mask, cuda,
+                                                  headroom=int(mask.sum()))
+    grown = append_entries(sp, rows[stream], cols[stream], vals[stream])
+    assert grown.device == sp.device and grown.capacity == sp.capacity
+    E = grown.capacity
+    fresh, _ = from_entries(rows, cols, vals, p * mb, q * nb, p, q,
+                            bucket=64, headroom=E - int(grown.nnz.max()),
+                            device=cuda)
+    for a, b in zip((*grown.entries, grown.nnz), (*fresh.entries, fresh.nnz)):
+        assert torch.equal(a, b)
+    U, W = torch.from_numpy(u).to(cuda), torch.from_numpy(w).to(cuda)
+    got = sddmm_ops.sddmm_segment_grad(grown.entries, U, W)
+    torch.cuda.synchronize()
+    _close(got, sddmm_segment_grad_ref(grown.entries, U, W))
+    again = sddmm_ops.sddmm_segment_grad(fresh.entries, U, W)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+def test_segment_kernel_on_minibatch_store(cuda):
+    """A sampled store: duplicate (row, col) pairs from sampling with
+    replacement, rows with no entry and an empty block."""
+
+    x, mask, u, w = _blocks(2, 2, 150, 70, 15, 0.05, seed=10)
+    sp = from_blocks(x, mask, bucket=64, device=cuda)
+    mbat = MinibatchStream(sp, batch=4096, seed=2).batch_at(0)
+    rows, cols = mbat.entries.rows[1, 1], mbat.entries.cols[1, 1]
+    keys = rows.long() * 70 + cols.long()
+    assert len(keys.unique()) < len(keys)             # duplicates
+    assert int(mbat.nnz[0, 0]) == 0                   # the empty block
+    U, W = torch.from_numpy(u).to(cuda), torch.from_numpy(w).to(cuda)
+    got = sddmm_ops.sddmm_segment_grad(mbat.entries, U, W)
+    torch.cuda.synchronize()
+    _close(got, sddmm_segment_grad_ref(mbat.entries, U, W))
+    assert float(got[0][0, 0]) == 0.0
+    assert float(got[1][0, 0].abs().max()) == 0.0
+
+
+def test_minibatch_stream_on_card_equals_cpu(cuda):
+    """The positions come from a CPU generator whatever the store's
+    device (torch's CUDA and CPU generators draw different streams), so
+    the card's minibatches equal the CPU's bit for bit."""
+
+    x, mask, _, _ = _blocks(2, 3, 40, 30, 5, 0.3, seed=11)
+    on_card = MinibatchStream(from_blocks(x, mask, bucket=64, device=cuda),
+                              batch=300, seed=4)
+    on_cpu = MinibatchStream(from_blocks(x, mask, bucket=64, device="cpu"),
+                             batch=300, seed=4)
+    for step in (0, 1, 50):
+        a, b = on_card.batch_at(step), on_cpu.batch_at(step)
+        assert a.nnz.device.type == "cuda"
+        for fa, fb in zip((*a.entries, a.nnz), (*b.entries, b.nnz)):
+            assert torch.equal(fa.cpu(), fb)
 
 
 @pytest.mark.parametrize("case", CASES)

@@ -353,7 +353,6 @@ def test_gossip_schedule_registry_and_counters():
     (dict(faults=object()), NotImplementedError),
     (dict(async_rounds=True), NotImplementedError),
     (dict(async_rounds=True, exchange_every=2), NotImplementedError),
-    (dict(batch=64, layout="sparse"), NotImplementedError),
     (dict(exchange_every=2), ValueError),
     (dict(async_rounds=True, staleness=2), ValueError),
     (dict(batch=64), ValueError),
@@ -371,6 +370,27 @@ def test_unported_and_invalid_options_raise_like_the_reference(kw, kind):
         jgossip.make_gossip_step(None, (4, 4), JConfig(m=M, n=N, p=4, q=4,
                                                        rank=R), **kw)
     assert str(got.value) == str(want.value)
+
+
+def test_minibatch_step_builds_and_takes_problem_f_scale_carry():
+    """``batch=`` on the sparse layout is ported: the step takes one
+    minibatch store, the (p, q) f-scale and the carry, and runs a round."""
+
+    import inspect
+
+    from repro_torch import sparse as tsparse
+
+    cfg = TConfig(m=M, n=N, p=4, q=4, rank=R, **HP)
+    step = tgossip.make_gossip_step((4, 4), cfg, batch=64, layout="sparse")
+    assert list(inspect.signature(step).parameters) == ["problem", "f_scale",
+                                                         "carry"]
+    _, tp = _problems("sparse")
+    _, np0 = _state0()
+    carry = tgossip.init_carry(state_from_numpy(*np0, "cpu"))
+    mbat = tsparse.MinibatchStream(tp.data, 64, seed=0).batch_at(0)
+    out = step(mbat, tsparse.minibatch_grad_scale(tp.data, 64), carry)
+    assert out.rnd == 1 and int(out.state.t) == tp.spec.num_structures
+    assert not torch.equal(out.state.U, carry.state.U)
 
 
 def test_gossip_schedule_raises_for_unported_options():
