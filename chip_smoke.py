@@ -131,9 +131,32 @@ grid of the 4x4 cut against its 1x1 run (the grid's tolerance above),
 the segment kernel on a (5, 5) minibatch and a rank's (2, 2) minibatch
 tile; and an append and refit of exp3 on the dense layout.
 
+``[faults]`` (after ``[stream]``): fault injection, staleness gates,
+asynchronous rounds, self-healing and resume through ``Trainer.fit`` and
+``Gossip`` on one 2x2 grid of four gloo processes on the card
+(``launch/gossip.py``), at the ML-1M cell cut 4x4 (sparse/segment, r =
+15), 300 rounds a job, eval every 100: a clean fit, first and again
+last; ``FaultPlan(p=0)`` bitwise it; ``p_drop_edge`` 0.05 and 0.2 x ``max_staleness`` 1 and 3,
+and ``p_straggle`` 0.05, their observed drops and straggles equal to
+``FaultPlan.replay`` masked to existing edges; ``async_rounds`` with
+``exchange_every`` 1, 2, 4 (``max_staleness`` e - 1), full-gradient and
+with ``batch=8192``, the skipped exchanges and halo bytes exact and e = 1
+bitwise the synchronous fit; ``nan_at=150`` with ``Checkpoint(every=1)``,
+eval every 50 and ``RecoveryPolicy()``: one restart, from unit 150 or
+earlier, the cost finite and below the restored checkpoint's after it; a
+fit stopped by ``StopAt`` after its second checkpoint and resumed with
+``resume_from=``, bitwise the clean fit; exp1 dense clean, p = 0 and
+async e = 1, bitwise.  Each job prints its held-out RMSE,
+``rmse_vs_clean``, the counters and ms per round.  Then a 1x1 Wave fit of
+the Table 3 cell stopped and resumed, bitwise.  ``[main]``'s 800-round
+FullGD fit runs under ``Telemetry()`` inside ``obs.trace``: the trace must
+hold a ``fit.full`` slice and CUDA kernel events, ``train_units_total``
+must be 800.
+
 The launch counts of the ``{"kernels": ...}`` line add up the main
 path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included),
-``[stream]`` and ``[serve]``/``[lm]``.
+``[stream]``, ``[faults]`` (the ranks' by stack shape in
+``faults_launches_by_stack``) and ``[serve]``/``[lm]``.
 
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
 (``benchmarks/table3_rmse.py --full``): the 6040x3706 ``movielens_proxy``
@@ -156,9 +179,11 @@ import argparse
 import dataclasses
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -194,12 +219,21 @@ from repro_torch.kernels.sddmm.ref import sddmm_factor_grad_ref  # noqa: E402
 from repro_torch.kernels.sddmm.segment import (  # noqa: E402
     sddmm_segment_grad_ref,
 )
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
+from repro_torch.faults import (  # noqa: E402
+    FaultPlan,
+    RecoveryPolicy,
+    edges_exist,
+)
 from repro_torch.mc import (  # noqa: E402
     Callback,
+    Checkpoint,
     CompletionProblem,
+    FitResult,
     FullGD,
     Gossip,
     Sequential,
+    Telemetry,
     Trainer,
     Wave,
 )
@@ -207,9 +241,13 @@ from repro_torch import obs  # noqa: E402
 from repro_torch.launch import paper_tables  # noqa: E402
 from repro_torch.launch.gossip import (  # noqa: E402
     FitJob,
+    FitStopped,
     ProblemRecipe,
+    StopAt,
     fit_on_grid,
 )
+from repro_torch.launch.gossip_async import check_skips  # noqa: E402
+from repro_torch.launch.gossip_faults import expected_drops  # noqa: E402
 from repro_torch.launch.gossip import shutdown as shutdown_grids  # noqa: E402
 from repro_torch.launch import streaming  # noqa: E402
 from repro_torch.launch.lm_engine import ServeLoop  # noqa: E402
@@ -253,6 +291,16 @@ MB_BATCH, MB_ROUNDS = 8192, 200
 # [table2] --paper: a converged cost may move by float32 rounding between
 # checkpoints, no more
 FLOOR_RTOL = 1e-5
+# [faults]: rounds and eval interval of each grid job; the drop x
+# staleness-bound sweep and the straggle case (benchmarks/gossip_faults.py's
+# cells); the async exchange intervals (benchmarks/gossip_async.py's, and
+# e = 1); the one-shot NaN round and its eval interval; the 1x1 Wave fit
+# stopped after its second checkpoint and resumed
+FAULT_ROUNDS, FAULT_EVAL = 300, 100
+FAULT_DROPS, FAULT_BOUNDS, FAULT_STRAGGLE = (0.05, 0.2), (1, 3), 0.05
+ASYNC_EVERY = (1, 2, 4)
+NAN_AT, NAN_EVAL = 150, 50
+WAVE_ROUNDS, WAVE_EVAL = 30, 10
 
 WRAPPERS = {
     "sddmm_segment_grad": sddmm_ops.sddmm_segment_grad,
@@ -698,6 +746,32 @@ def structure_trio(name, sparse, dense, state, card):
                       *dense_work(U, W), card)
     got["shape"] = {"blocks": B, "structure": idx.tolist(), "nnz": nnz}
     return {f"{key}_b3": val for key, val in got.items()}
+
+
+def trace_check(trace_dir) -> None:
+    """The traced Table 3 fit: Telemetry's counts, and a Chrome trace that
+    holds the ``fit.full`` span and CUDA kernel events."""
+
+    snap = obs.snapshot()
+    units = snap["counters"].get("train_units_total")
+    fit_s = snap["histograms"].get("train_fit_seconds", {}).get("sum")
+    with open(os.path.join(trace_dir, obs.spans.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    fit_slices = sum(1 for e in events if e.get("name") == "fit.full")
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"[main] FullGD sparse/segment under Telemetry() in obs.trace: "
+          f"train_units_total {units}, train_evals_total "
+          f"{snap['counters'].get('train_evals_total')}, train_fit_seconds "
+          f"{fit_s}; the trace holds {len(events)} events, {fit_slices} "
+          f"fit.full slices, {kernels} CUDA kernel events (the fit's "
+          f"ms/round above includes the profiler)", flush=True)
+    if units != FULL_ROUNDS or not fit_s:
+        fail(f"Telemetry: train_units_total {units}, train_fit_seconds "
+             f"{fit_s}")
+    if not fit_slices or not kernels:
+        fail(f"the trace holds {fit_slices} fit.full slices and {kernels} "
+             "kernel events")
 
 
 def run_phase(label, expect, fit):
@@ -1336,7 +1410,7 @@ class StateAt(Callback):
     def __init__(self, unit: int):
         self.unit, self.state = unit, None
 
-    def on_eval(self, unit, cost, state):
+    def on_eval(self, unit, cost, state, key):
         if unit == self.unit:
             self.state = State(*(x.clone() for x in state))
 
@@ -1913,6 +1987,251 @@ def stream_phase(ds, sparse, state0, cfg, card) -> tuple[dict, list]:
     return total, checks
 
 
+def grid_rmse(out, problem) -> float:
+    """Held-out RMSE of a grid job's gathered factors on ``problem`` (the
+    global problem of the job's recipe)."""
+
+    dev = problem.device
+    state = State(torch.as_tensor(out["U"], device=dev),
+                  torch.as_tensor(out["W"], device=dev),
+                  torch.tensor(out["t"], device=dev))
+    return FitResult(state, out["history"], out["wall_time"], "gossip",
+                     problem).rmse()
+
+
+def same(a, b) -> bool:
+    return bool(np.array_equal(a["U"], b["U"])
+                and np.array_equal(a["W"], b["W"]))
+
+
+def faults_jobs(ml_cfg, tmp) -> dict:
+    """``[faults]``'s grid jobs by label, in the order they run."""
+
+    cfg4 = dataclasses.replace(ml_cfg, p=4, q=4)
+    base = Gossip(num_rounds=FAULT_ROUNDS, eval_every=FAULT_EVAL)
+
+    def ml(sched, **kw):
+        return FitJob(ML_4X4, cfg4, sched, **kw)
+
+    jobs = {"clean": ml(base),
+            "p=0": ml(dataclasses.replace(base, faults=FaultPlan(key=0)))}
+    for pd in FAULT_DROPS:
+        for bound in FAULT_BOUNDS:
+            jobs[f"p_drop={pd} max_staleness={bound}"] = ml(
+                dataclasses.replace(base, max_staleness=bound, faults=FaultPlan(
+                    key=0, p_drop_edge=pd)))
+    jobs[f"p_straggle={FAULT_STRAGGLE} max_staleness=1"] = ml(
+        dataclasses.replace(base, max_staleness=1, faults=FaultPlan(
+            key=0, p_straggle=FAULT_STRAGGLE)))
+    jobs[f"sync batch={MB_BATCH}"] = ml(dataclasses.replace(
+        base, batch=MB_BATCH))
+    for e in ASYNC_EVERY:
+        asy = dataclasses.replace(base, async_rounds=True, exchange_every=e,
+                                  max_staleness=e - 1)
+        jobs[f"async e={e}"] = ml(asy)
+        jobs[f"async e={e} batch={MB_BATCH}"] = ml(dataclasses.replace(
+            asy, batch=MB_BATCH))
+    jobs["nan_at"] = ml(
+        dataclasses.replace(base, eval_every=NAN_EVAL,
+                            faults=FaultPlan(nan_at=NAN_AT)),
+        callbacks=(Checkpoint(CheckpointManager(
+            os.path.join(tmp, "nan"), keep=FAULT_ROUNDS // NAN_EVAL)),),
+        recovery=RecoveryPolicy())
+    jobs["stopped"] = ml(base, callbacks=(
+        Checkpoint(os.path.join(tmp, "stop")), StopAt(2 * FAULT_EVAL)))
+    jobs["resumed"] = ml(base, resume_from=os.path.join(tmp, "stop"))
+    # the clean fit again, last: the spread of a job's ms/round by its
+    # place in the list, beside the fault path's cost
+    jobs["clean, last"] = ml(base)
+    exp1 = EXPERIMENTS["exp1"]
+    rec1 = ProblemRecipe("lowrank_problem", dict(
+        m=exp1.m, n=exp1.n, r=exp1.rank, density=exp1.density, seed=1),
+        p=exp1.p, q=exp1.q, rank=exp1.rank)
+    for label, sched in (
+            ("exp1 clean", base),
+            ("exp1 p=0", dataclasses.replace(base, faults=FaultPlan(key=0))),
+            ("exp1 async e=1", dataclasses.replace(
+                base, async_rounds=True, max_staleness=0))):
+        jobs[label] = FitJob(rec1, exp1, sched)
+    return jobs
+
+
+def wave_resume(sparse, ml_cfg, tmp) -> dict[str, int]:
+    """A 1x1 Wave fit of the Table 3 cell stopped after its second
+    checkpoint and resumed, against the uninterrupted fit: bitwise."""
+
+    sched = Wave(num_rounds=WAVE_ROUNDS, eval_every=WAVE_EVAL)
+    reset_counts()
+    whole = Trainer(ml_cfg).fit(sparse, sched, seed=3)
+    ck = Checkpoint(os.path.join(tmp, "wave"))
+    try:
+        Trainer(ml_cfg, callbacks=[ck, StopAt(2 * WAVE_EVAL)]).fit(
+            sparse, sched, seed=3)
+        fail("[faults] StopAt did not stop the Wave fit")
+    except FitStopped:
+        pass
+    resumed = Trainer(ml_cfg).fit(sparse, sched, seed=3,
+                                  resume_from=ck.manager.directory)
+    got = counts()
+    bitwise = bool(torch.equal(whole.state.U, resumed.state.U)
+                   and torch.equal(whole.state.W, resumed.state.W))
+    print(f"[faults] 1x1 Wave ML-1M 5x5, {WAVE_ROUNDS} rounds: stopped at "
+          f"unit {2 * WAVE_EVAL} after checkpoints {ck.manager.valid_steps()},"
+          f" resumed: bitwise the uninterrupted fit: {bitwise}; cost "
+          f"{resumed.final_cost:.6e}; launches {got}", flush=True)
+    if not bitwise:
+        fail("[faults] the resumed 1x1 Wave fit differs from the "
+             "uninterrupted one")
+    return got
+
+
+def faults_phase(sparse, ml_cfg, card) -> tuple[dict, dict]:
+    """``[faults]``: fault injection, staleness gates, asynchronous rounds,
+    self-healing and resume on one 2x2 grid of four gloo processes on the
+    card (ML-1M 4x4 sparse/segment, 300 rounds a job; exp1 dense for the
+    bitwise cases), then a 1x1 Wave resume.  Returns the kernels' launches
+    (the ranks' included) and the segment and dense kernels' launches by
+    stack shape."""
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-faults-")
+    jobs = faults_jobs(ml_cfg, tmp)
+    t0 = time.perf_counter()
+    try:
+        outs = fit_on_grid(list(jobs.values()), grid=GRID, warmup_rounds=2,
+                           timeout=600)
+    finally:
+        shutdown_grids()        # the forkserver would outlive this phase
+    print(f"[faults] 2x2 grid: {len(jobs)} fits in "
+          f"{time.perf_counter() - t0:.1f}s; slowest rank's seconds from "
+          f"spawn: {json.dumps(outs[0]['startup'])}", flush=True)
+    out = dict(zip(jobs, outs))
+    total = dict.fromkeys(WRAPPERS, 0)
+    by_stack: dict = {}
+    for o in outs:
+        for name, n in o["launches"].items():
+            total[name] += n
+        for name, got in o["launches_by_stack"].items():
+            mine = by_stack.setdefault(name, {})
+            for lead, n in got.items():
+                mine[lead] = mine.get(lead, 0) + n
+
+    problem = ML_4X4.build(device=sparse.device)
+    spec = problem.spec
+    plan = MeshPlan.build(ML_4X4.p, ML_4X4.q, grid=GRID)
+    exists = edges_exist(plan)
+    exchange = core_gossip.halo_bytes_per_round(
+        plan, spec.mb, spec.nb, spec.r)["total_bytes"]
+    clean = out["clean"]
+    clean_rmse = grid_rmse(clean, problem)
+    for label, o in out.items():
+        if o["diverged"] is not None or (
+                o["stopped_at"] is None and not np.isfinite(
+                    [c for _, c in o["history"]]).all()):
+            fail(f"[faults] {label}: {o['diverged'] or o['history']}")
+
+    def line(label, o, extra=""):
+        c = o["counters"]
+        rmse = grid_rmse(o, problem)
+        # a restarted fit's wall time is its last attempt's
+        ms = "n/a (restarted)" if o["recovery_log"] else \
+            f"{o['ms_per_round']:.4f}"
+        print(f"[faults] {label}: held-out RMSE {rmse:.6f} "
+              f"(rmse_vs_clean {rmse / clean_rmse:.6f}), cost "
+              f"{o['history'][-1][1]:.6e}, {ms} ms/round;"
+              f" dropped {c['gossip_edges_dropped_total']:.0f} stale "
+              f"{c['gossip_stale_rounds_total']:.0f} straggled "
+              f"{c['gossip_straggled_edges_total']:.0f} skipped "
+              f"{c['gossip_skipped_exchanges_total']:.0f} halo bytes "
+              f"{c['train_gossip_halo_bytes_total']:.0f}{extra}", flush=True)
+
+    # (a) clean, and p = 0 bitwise it
+    line("clean", clean)
+    line("clean, last", out["clean, last"], f"; bitwise the first: "
+         f"{same(clean, out['clean, last'])}")
+    line("FaultPlan(p=0)", out["p=0"], f"; bitwise the clean fit: "
+         f"{same(clean, out['p=0'])}")
+    if not (same(clean, out["p=0"]) and same(clean, out["clean, last"])):
+        fail("[faults] FaultPlan(p=0) or the last clean fit differs from "
+             "the clean fit")
+    # (b) drops x staleness bounds, one straggle case: observed == replay
+    for label in [k for k in jobs if k.startswith(("p_drop", "p_straggle"))]:
+        fp = jobs[label].schedule.faults
+        rp = fp.replay(FAULT_ROUNDS, plan.num_devices)
+        want = (expected_drops(fp, plan, FAULT_ROUNDS),
+                int((rp["straggles"] & ~rp["drops"] & exists[None]).sum()))
+        c = out[label]["counters"]
+        got = (c["gossip_edges_dropped_total"],
+               c["gossip_straggled_edges_total"])
+        line(label, out[label], f"; replay: dropped {want[0]} straggled "
+             f"{want[1]}")
+        if got != want:
+            fail(f"[faults] {label}: observed (dropped, straggled) {got}, "
+                 f"FaultPlan.replay says {want}")
+    # (c) the async regime: the skip count and halo bytes exactly, e = 1
+    # bitwise the synchronous fit
+    for e in ASYNC_EVERY:
+        for suffix, sync in (("", "clean"), (f" batch={MB_BATCH}",
+                                             f"sync batch={MB_BATCH}")):
+            label = f"async e={e}{suffix}"
+            o = out[label]
+            check_skips(label, FAULT_ROUNDS, e, o["counters"])
+            n_ex = -(-FAULT_ROUNDS // e)
+            halo = o["counters"]["train_gossip_halo_bytes_total"]
+            bitwise = same(o, out[sync])
+            line(label, o, f"; against {sync} {out[sync]['ms_per_round']:.4f}"
+                 f" ms/round; halo bytes = {n_ex} exchanges x {exchange}; "
+                 f"bitwise {sync}: {bitwise}")
+            if halo != n_ex * exchange:
+                fail(f"[faults] {label}: halo bytes {halo} != {n_ex} x "
+                     f"{exchange}")
+            if e == 1 and not bitwise:
+                fail(f"[faults] {label} differs from {sync}")
+    # (d) nan_at with Checkpoint(every=1) and RecoveryPolicy()
+    o = out["nan_at"]
+    log = o["recovery_log"]
+    if len(log) != 1 or log[0]["resumed_from"] > NAN_AT:
+        fail(f"[faults] nan_at={NAN_AT}: recovery log {log}")
+    step, tree = CheckpointManager(os.path.join(tmp, "nan")).restore(
+        {"U": 0, "W": 0, "t": 0}, step=log[0]["resumed_from"],
+        device=problem.device)
+    restored = problem.total_cost(State(tree["U"], tree["W"], tree["t"]),
+                                  ml_cfg.lam)
+    after = [c for _, c in o["history"]]
+    line(f"nan_at={NAN_AT}", o, f"; recovery_log {json.dumps(log)}; cost "
+         f"restored at unit {step} {restored:.6e} -> {after}; clean final "
+         f"cost {clean['history'][-1][1]:.6e}")
+    if not all(np.isfinite(c) and c < restored for c in after):
+        fail(f"[faults] after the restart the cost did not fall below the "
+             f"restored {restored}: {after}")
+    # (e) stopped after its second checkpoint, resumed: bitwise
+    o = out["resumed"]
+    print(f"[faults] stopped at unit {out['stopped']['stopped_at']}, resumed "
+          f"for {o['counters']['train_gossip_rounds_total']:.0f} rounds: "
+          f"bitwise the uninterrupted fit: {same(clean, o)}", flush=True)
+    if out["stopped"]["stopped_at"] != 2 * FAULT_EVAL or not same(clean, o):
+        fail("[faults] the resumed 2x2 fit differs from the uninterrupted "
+             "one")
+    # exp1 dense: p = 0 and async e = 1 bitwise the clean fit
+    e1 = {k: same(out["exp1 clean"], out[k])
+          for k in ("exp1 p=0", "exp1 async e=1")}
+    print(f"[faults] exp1 dense 2x2, {FAULT_ROUNDS} rounds: bitwise the "
+          f"clean fit: {e1}; cost {out['exp1 clean']['history'][-1][1]:.6e};"
+          f" {out['exp1 clean']['ms_per_round']:.4f} ms/round", flush=True)
+    if not all(e1.values()):
+        fail(f"[faults] exp1: {e1}")
+    for name in ("sddmm_segment_grad", "masked_factor_grad"):
+        if total[name] == 0:
+            fail(f"[faults] {name} was never launched on the ranks")
+    for name, n in wave_resume(sparse, ml_cfg, tmp).items():
+        total[name] += n
+    shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[faults] phase: {time.perf_counter() - t_phase:.1f}s of command; "
+          f"launches {total}, on the ranks by stack {json.dumps(by_stack)}",
+          flush=True)
+    return total, by_stack
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -1969,11 +2288,18 @@ def main() -> None:
         trainer.fit(problem, FullGD(num_rounds=2), state=state0)
         trainer.fit(problem, Wave(num_rounds=1), seed=0)
     at_compare = StateAt(COMPARE_ROUNDS)
+    trace_dir = tempfile.mkdtemp(prefix="chip-smoke-trace-")
+
+    def traced_fit():
+        # the Table 3 fit under Telemetry, inside a profiler trace
+        obs.reset()
+        with obs.trace(trace_dir):
+            return Trainer(cfg, callbacks=[at_compare, Telemetry()]).fit(
+                sparse, FullGD(num_rounds=FULL_ROUNDS,
+                               eval_every=COMPARE_ROUNDS), state=state0)
+
     runs = [
-        ("FullGD sparse/segment", ["sddmm_segment_grad"], lambda: Trainer(
-            cfg, callbacks=[at_compare]).fit(
-            sparse, FullGD(num_rounds=FULL_ROUNDS,
-                           eval_every=COMPARE_ROUNDS), state=state0)),
+        ("FullGD sparse/segment", ["sddmm_segment_grad"], traced_fit),
         ("FullGD sparse/scatter", ["sddmm_factor_grad"], lambda: trainer.fit(
             scatter, FullGD(num_rounds=10, eval_every=5), state=state0)),
         ("FullGD dense", ["masked_factor_grad"], lambda: trainer.fit(
@@ -2004,6 +2330,7 @@ def main() -> None:
               f"over {rounds} rounds (cost evals included), held-out RMSE "
               f"{res.rmse():.4f}", flush=True)
 
+    trace_check(trace_dir)
     res = results["FullGD sparse/segment"]
     print(f"[main] Table 3 cell (ML-1M proxy, grid {P}x{Q}, r={RANK}) after "
           f"{FULL_ROUNDS} FullGD rounds: held-out RMSE {res.rmse():.6f}, "
@@ -2044,6 +2371,10 @@ def main() -> None:
     got, s_checks = stream_phase(ds, sparse, state0, cfg, card)
     for name, n in got.items():
         total[name] += n
+    # fault injection, async rounds, self-healing and resume on a 2x2 grid
+    got, faults_by_stack = faults_phase(sparse, cfg, card)
+    for name, n in got.items():
+        total[name] += n
     other_shapes = {"masked_factor_grad": t2_checks + [g_checks[0]],
                     "sddmm_segment_grad": g_checks[1:] + s_checks}
 
@@ -2061,6 +2392,8 @@ def main() -> None:
         row["launches"] = total[row["name"]]
         if row["name"] in other_shapes:
             row["other_shapes"] = other_shapes[row["name"]]
+        if row["name"] in faults_by_stack:
+            row["faults_launches_by_stack"] = faults_by_stack[row["name"]]
 
     # 6. gemma2-2b serving through the flash kernel
     rows.append(lm_phase(card))

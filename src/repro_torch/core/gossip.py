@@ -29,15 +29,27 @@ per-round minibatch store plus the ``minibatch_grad_scale`` correction
 (nnz/batch per block of the full store), so a round costs O(batch)
 instead of O(nnz) a rank.
 
-Not ported yet (ROADMAP queue 1 item 3b): ``faults=`` and
-``async_rounds``/``exchange_every``.  The carry keeps the fault counters
-(``FaultStats``, zeros) and the halo ages so that slice can fill them in.
+Fault tolerance (``faults=FaultPlan(...)``, DESIGN.md §13): a dropped or
+straggling edge message leaves the receiver on its **last received**
+halo; ``HaloState.age`` counts rounds since each direction's receive,
+and past ``max_staleness`` the seam degrades to the block's local-only
+gradient.  Asynchronous rounds (``async_rounds=True``, DESIGN.md §15):
+the exchange fires only every ``exchange_every``-th absolute round, and
+the skipped rounds age the halos like drops.  Every decision (drop,
+straggle, NaN injection, exchange or not, the gates) is a Python value
+known on the host before the round starts, so none needs a read from
+the card, and every rank agrees on whether an exchange happens without a
+collective.  A drop is decided on the receiver's side after a symmetric
+exchange: every rank still sends and receives all its edges, so the
+point-to-point calls always pair.  The counters (``FaultStats``) are
+host ints of the rank's own events.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -47,38 +59,43 @@ from repro_torch.core import compress as C
 from repro_torch.core import objective as obj
 from repro_torch.core.state import Problem, State
 from repro_torch.core.waves import full_gradients
+from repro_torch.faults.plan import AGE_NEVER
 from repro_torch.mesh.plan import MeshPlan, current_rank
 from repro_torch.sparse.store import SparseProblem
 
-# a halo direction never received yet (the reference's faults.AGE_NEVER)
-AGE_NEVER = 1_000_000
-# the halo directions, in the reference's faults.DIRECTIONS order; a
-# message's tag is the receiver's direction
+# the halo directions, in faults.DIRECTIONS order; a message's tag is the
+# receiver's direction
 LEFT, RIGHT, UP, DOWN = range(4)
-
-NOT_PORTED = ("is not ported yet (ROADMAP.md queue 1 item 3b: faults "
-              "and async rounds)")
 
 
 class HaloState(NamedTuple):
-    """Cached neighbour edges (refreshed every ``staleness`` rounds), on
-    the rank's own tile: ``pl = p / R`` block rows, ``ql = q / C`` block
-    columns.  ``age`` counts missed refreshes per direction; the
-    synchronous path threads it through untouched."""
+    """Cached neighbour edges on the rank's own tile: ``pl = p / R`` block
+    rows, ``ql = q / C`` block columns.
+
+    ``age`` counts rounds since each direction's halo was last received
+    (0 = fresh, ``AGE_NEVER`` = never received), lanes in
+    ``faults.DIRECTIONS`` order.  Every block of a tile shares one age.
+    It is a host (CPU) tensor: the host decides the gates from it, so
+    reading it never waits for the card.  Ages move under a
+    ``FaultPlan`` and under ``async_rounds``; the plain synchronous path
+    threads them through untouched."""
 
     left_u: torch.Tensor   # left neighbour's last block-col U   (pl, mb, r)
     right_u: torch.Tensor  # right neighbour's first block-col U (pl, mb, r)
     up_w: torch.Tensor     # upper neighbour's last block-row W  (ql, nb, r)
     down_w: torch.Tensor   # lower neighbour's first block-row W (ql, nb, r)
-    age: torch.Tensor      # rounds since last receive           (pl, ql, 4)
+    age: torch.Tensor      # rounds since last receive, host int32 (pl, ql, 4)
 
 
 class FaultStats(NamedTuple):
-    """Fault counters on the rank's tile (zeros until faults are ported)."""
+    """The rank's own fault counts since the carry was made (host ints;
+    the ``Gossip`` schedule sums them over the ranks once a chunk into
+    ``gossip_edges_dropped_total`` / ``gossip_stale_rounds_total`` /
+    ``gossip_straggled_edges_total``)."""
 
-    dropped: torch.Tensor
-    stale: torch.Tensor
-    straggled: torch.Tensor
+    dropped: int = 0      # edge messages lost outright
+    stale: int = 0        # rounds computed on >=1 stale halo
+    straggled: int = 0    # edge messages late (reused-stale, counted apart)
 
 
 class GossipCarry(NamedTuple):
@@ -187,34 +204,94 @@ def exchange_halos(U, W, exchange: HaloExchange, compression="none",
                                               topk_fraction)
             new_ef[k] = stn.residual if stn is not None else None
     if age is None:
-        age = torch.zeros(U.shape[:2] + (4,), dtype=torch.int32,
-                          device=U.device)
+        age = torch.zeros(U.shape[:2] + (4,), dtype=torch.int32)
     left, right, up, down = exchange(msgs["u_last"], msgs["u_first"],
                                      msgs["w_last"], msgs["w_first"])
     return HaloState(left, right, up, down, age), new_ef
 
 
 def _local_gradients(problem, U, W, halos: HaloState, exchange, rho, lam,
-                     method="segment", chunk=None, f_scale=None):
+                     method="segment", chunk=None, f_scale=None, gates=None):
     """∇L on the local tile, seam terms from the halos; a seam without a
     neighbour (the grid's boundary, or every seam of a 1×1 plan) is left
-    out.  ``f_scale`` (minibatch rounds) multiplies only the f-part."""
+    out.  ``f_scale`` (minibatch rounds) multiplies only the f-part.
+
+    ``gates`` (fault/async path only): 4 host bools in DIRECTIONS order,
+    edge-exists AND halo age within ``max_staleness``.  A closed gate
+    substitutes the *halo operand* with the block's own edge, so the seam
+    reads x − x = 0 and a NaN-poisoned stale halo cannot leak (a masked
+    product would: 0 · NaN = NaN).  With every gate open the expression
+    is the ungated one, op for op."""
 
     gU, gW = full_gradients(problem, U, W, rho=rho, lam=lam, method=method,
                             chunk=chunk, f_scale=f_scale)
     if exchange is None:
         return gU, gW
+    left_h, right_h = halos.left_u, halos.right_u
+    up_h, down_h = halos.up_w, halos.down_w
+    if gates is not None:
+        left_h = left_h if gates[LEFT] else U[:, 0]
+        right_h = right_h if gates[RIGHT] else U[:, -1]
+        up_h = up_h if gates[UP] else W[0]
+        down_h = down_h if gates[DOWN] else W[-1]
     # seam pair (left neighbour's last col, my first col):
     # d/dU_mine = 2ρ(mine - theirs)
     if exchange.has(LEFT):
-        gU[:, 0] += 2.0 * rho * (U[:, 0] - halos.left_u)
+        gU[:, 0] += 2.0 * rho * (U[:, 0] - left_h)
     if exchange.has(RIGHT):
-        gU[:, -1] += 2.0 * rho * (U[:, -1] - halos.right_u)
+        gU[:, -1] += 2.0 * rho * (U[:, -1] - right_h)
     if exchange.has(UP):
-        gW[0] += 2.0 * rho * (W[0] - halos.up_w)
+        gW[0] += 2.0 * rho * (W[0] - up_h)
     if exchange.has(DOWN):
-        gW[-1] += 2.0 * rho * (W[-1] - halos.down_w)
+        gW[-1] += 2.0 * rho * (W[-1] - down_h)
     return gU, gW
+
+
+def _merge_halos(prev: HaloState, fresh: HaloState, *, faults, exists,
+                 edge_index: int, rnd: int, is_refresh: bool,
+                 async_rounds: bool, max_staleness: int,
+                 stats: FaultStats):
+    """The fault/async half of a round, decided on the host: which fresh
+    halos arrived, the NaN injection, the new ages, the seam gates and
+    the updated counters.  ``exists`` are the rank's four directions with
+    a neighbour; ``edge_index`` is the receiver's linear rank."""
+
+    drops = straggles = np.zeros(4, bool)
+    if faults is not None and is_refresh:
+        # fault events count on exchange rounds only (async skips are
+        # planned, not faults)
+        drops, straggles = faults.edge_events(rnd, edge_index)
+    exists = np.asarray(exists, bool)
+    # a straggler is a late message: this synchronous simulation reuses
+    # the stale halo exactly like a drop, accounted apart
+    arrived = is_refresh & ~(drops | straggles)
+    inject = faults is not None and faults.nan_event(rnd)
+    prev_age = prev.age[0, 0].tolist()
+    merged, ages = [], []
+    for d in range(4):
+        v = fresh[d] if arrived[d] else prev[d]
+        if inject and exists[d]:
+            v = torch.full_like(v, float("nan"))
+        merged.append(v)
+        if arrived[d]:
+            ages.append(0)
+        elif async_rounds or is_refresh:
+            # a missed receive ages the halo (saturating); under
+            # async_rounds every skipped round does, while a planned
+            # synchronous keep round (staleness k) freezes it
+            ages.append(min(prev_age[d] + 1, AGE_NEVER))
+        else:
+            ages.append(prev_age[d])
+    age = torch.tensor(ages, dtype=torch.int32).expand(prev.age.shape)
+    gates = tuple(bool(exists[d]) and ages[d] <= max_staleness
+                  for d in range(4))
+    stats = FaultStats(
+        dropped=stats.dropped + int((drops & exists).sum()),
+        stale=stats.stale + int(any(exists[d] and ages[d] >= 1
+                                    for d in range(4))),
+        straggled=stats.straggled + int((straggles & ~drops & exists).sum()),
+    )
+    return HaloState(*merged, age.contiguous()), gates, stats
 
 
 def make_gossip_step(
@@ -230,6 +307,7 @@ def make_gossip_step(
     method: str = "segment",
     chunk: int | None = None,
     faults=None,
+    max_staleness: int = 3,
     async_rounds: bool = False,
     exchange_every: int = 1,
     batch: int | None = None,
@@ -249,11 +327,24 @@ def make_gossip_step(
     the round's minibatch store (``MinibatchStream.batch_at``) and
     ``f_scale`` the ``minibatch_grad_scale`` of the *full* store (the
     rank's tile of it).  It needs the sparse layout and
-    ``steps_per_call=1``; halos are exchanged every round.
+    ``steps_per_call=1``.
 
-    ``faults`` and ``async_rounds``/``exchange_every`` are validated as
-    the reference validates them, then raise ``NotImplementedError``
-    (ROADMAP.md queue 1 item 3b)."""
+    ``faults`` takes a ``repro_torch.faults.FaultPlan``; each exchange
+    round it draws drop/straggle events keyed on ``(carry.rnd,
+    receiver rank)`` and a missed edge keeps the last received halo.
+    Once a direction's ``HaloState.age`` exceeds ``max_staleness``, that
+    seam is gated out of the gradient.  With every event false the step
+    is the ``faults=None`` step bit for bit.  Faults + compression is
+    rejected: dropping a compressed message after its error-feedback
+    update would corrupt the residuals.
+
+    ``async_rounds=True`` is the non-blocking regime (DESIGN.md §15):
+    exchanges fire only when ``carry.rnd % exchange_every == 0`` (the
+    *absolute* round, so chunked calls and resumed fits keep one
+    schedule), skipped rounds compute against the last received halos,
+    and every round since a receive ages the halo.  ``exchange_every=1,
+    max_staleness=0`` without ``batch`` is the synchronous step bit for
+    bit."""
 
     p, q = spec_pq
     if exchange_every < 1:
@@ -285,10 +376,6 @@ def make_gossip_step(
             "compressed message would desynchronize the error-feedback "
             "residuals (the sender already folded the residual update in)"
         )
-    for name, on in (("faults=", faults is not None),
-                     ("async_rounds=True", async_rounds)):
-        if on:
-            raise NotImplementedError(f"gossip with {name} {NOT_PORTED}")
     if staleness < 1:
         raise ValueError(f"staleness must be >= 1, got {staleness}")
     if compression not in ("none", "int8", "topk"):
@@ -308,31 +395,48 @@ def make_gossip_step(
     rho, lam, a, b = cfg.rho, cfg.lam, cfg.a, cfg.b
     n_struct = 2 * (p - 1) * (q - 1)
     exchanges: dict = {}
+    robust = faults is not None or async_rounds
 
     def local_round(problem, carry: GossipCarry, step_i: int,
                     exchange, f_scale=None) -> GossipCarry:
-        state, halos = carry.state, carry.halos
+        state, prev = carry.state, carry.halos
+        halos = prev
         ef = (carry.ef_u_last, carry.ef_u_first, carry.ef_w_last,
               carry.ef_w_first)
-        if exchange is not None and step_i % staleness == 0:
+        if async_rounds:
+            # the absolute round is the clock: chunked calls and resumed
+            # fits land on the same exchange schedule
+            is_refresh = carry.rnd % exchange_every == 0
+        else:
+            is_refresh = step_i % staleness == 0
+        if exchange is not None and is_refresh:
             keys = ("u_last", "u_first", "w_last", "w_first")
             halos, ef_new = exchange_halos(
                 state.U, state.W, exchange, compression,
                 dict(zip(keys, ef)) if compression != "none" else None,
-                topk_fraction, age=halos.age,
+                topk_fraction, age=prev.age,
             )
             if compression != "none":
                 ef = tuple(ef_new[k] for k in keys)
+        stats, gates = carry.stats, None
+        if robust:
+            exists = [exchange is not None and exchange.has(d)
+                      for d in range(4)]
+            halos, gates, stats = _merge_halos(
+                prev, halos, faults=faults, exists=exists,
+                edge_index=exchange.rank if exchange is not None else 0,
+                rnd=carry.rnd, is_refresh=is_refresh,
+                async_rounds=async_rounds, max_staleness=max_staleness,
+                stats=stats)
         # consensus damped 1/2 in deterministic full-grad mode (waves.py)
         gU, gW = _local_gradients(problem, state.U, state.W, halos,
                                   exchange, rho=rho * 0.5, lam=lam,
                                   method=method, chunk=chunk,
-                                  f_scale=f_scale)
+                                  f_scale=f_scale, gates=gates)
         lr = obj.gamma(state.t.float(), a, b)
         new_state = State(state.U - lr * gU, state.W - lr * gW,
                           state.t + n_struct)
-        return GossipCarry(new_state, halos, *ef, carry.rnd + 1,
-                           carry.stats)
+        return GossipCarry(new_state, halos, *ef, carry.rnd + 1, stats)
 
     def exchange_for(problem, carry: GossipCarry):
         if (layout == "sparse") != isinstance(problem, SparseProblem):
@@ -412,24 +516,25 @@ def init_carry(state: State, round0: int = 0) -> GossipCarry:
     """Zero halos and zero error feedback for ``state``, the rank's tile.
 
     Ages start at ``AGE_NEVER`` (nothing received yet) and the round clock
-    at ``round0``."""
+    at ``round0`` — a resumed fit passes its completed round count, so
+    the ``FaultPlan`` and the async exchange clock continue where the
+    checkpoint left them."""
 
     pl, ql, mb, r = state.U.shape
     nb = state.W.shape[2]
     dev = state.U.device
 
-    def zeros(*shape, dtype=torch.float32):
-        return torch.zeros(shape, dtype=dtype, device=dev)
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
 
     halos = HaloState(
         zeros(pl, mb, r), zeros(pl, mb, r), zeros(ql, nb, r),
         zeros(ql, nb, r),
-        torch.full((pl, ql, 4), AGE_NEVER, dtype=torch.int32, device=dev),
+        torch.full((pl, ql, 4), AGE_NEVER, dtype=torch.int32),
     )
     return GossipCarry(
         state, halos, zeros(pl, mb, r), zeros(pl, mb, r), zeros(ql, nb, r),
-        zeros(ql, nb, r), int(round0),
-        FaultStats(*(zeros(pl, ql, dtype=torch.int32) for _ in range(3))),
+        zeros(ql, nb, r), int(round0), FaultStats(),
     )
 
 
@@ -470,3 +575,18 @@ def gather_state(plan: MeshPlan, state: State) -> State:
             full[plan.tile(k)] = part
         out.append(full.to(device))
     return State(out[0], out[1], state.t)
+
+
+def gather_ints(plan: MeshPlan, values, device: torch.device) -> np.ndarray:
+    """Every rank's ``values`` (a short list of ints), as a (ranks, k)
+    array in rank order: one all-gather on a grid, none on a 1×1 plan.
+    The ``Gossip`` schedule sums its counters with it once a chunk."""
+
+    mine = torch.tensor([list(values)], dtype=torch.int64)
+    if plan.is_single_device:
+        return mine.numpy()
+    if not host_collectives(device) and device.type == "cuda":
+        mine = mine.to(device)
+    parts = [torch.empty_like(mine) for _ in range(plan.num_devices)]
+    dist.all_gather(parts, mine)
+    return torch.cat(parts).cpu().numpy()

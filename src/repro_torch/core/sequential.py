@@ -95,17 +95,21 @@ def _fit(
     eval_every: int = 0,
     method: str = "segment",
     chunk: int | None = None,
-    progress_cb: Callable[[int, float, State], None] | None = None,
+    done: int = 0,
+    progress_cb: Callable[[int, float, State, torch.Generator], None]
+    | None = None,
 ) -> tuple[State, list[tuple[int, float]]]:
     """Run Algorithm 1 for ``num_iters`` iterations from ``state``,
     logging the paper's Table-2 cost every ``eval_every`` iterations;
-    ``progress_cb(done, cost, state)`` fires at every eval boundary."""
+    ``progress_cb(done, cost, state, generator)`` fires at every eval
+    boundary.  ``done`` resumes the chunked loop mid-run (iterations
+    already taken; ``state`` and the generator as saved at that
+    boundary)."""
 
     structures = G.enumerate_structures(spec.p, spec.q)
     tables = build_tables(spec.p, spec.q, structures, state.U.device)
     history: list[tuple[int, float]] = []
     eval_every = eval_every or num_iters
-    done = 0
     while done < num_iters:
         step_n = min(eval_every, num_iters - done)
         state = run_chunk(problem, state, tables, generator, step_n, cfg,
@@ -115,5 +119,5 @@ def _fit(
                                     method=method))
         history.append((done, cost))
         if progress_cb:
-            progress_cb(done, cost, state)
+            progress_cb(done, cost, state, generator)
     return state, history

@@ -143,22 +143,25 @@ def _fit(
     mode: str = "wave",
     method: str = "segment",
     chunk: int | None = None,
-    progress_cb: Callable[[int, float, State], None] | None = None,
+    start_round: int = 0,
+    progress_cb: Callable[[int, float, State, torch.Generator], None]
+    | None = None,
 ) -> tuple[State, list[tuple[int, float]]]:
-    """Run ``num_rounds`` rounds of wave (or full-GD) updates from
-    ``state``.
+    """Run rounds ``start_round .. num_rounds - 1`` of wave (or full-GD)
+    updates from ``state``.
 
     One round ≈ num_structures sequential iterations of Algorithm 1; the
     cost history is reported against the equivalent sequential iteration
     count ``t``.  The wave order of each round is drawn from
-    ``generator``; ``progress_cb(round, cost, state)`` fires at every eval
-    boundary."""
+    ``generator``; ``progress_cb(round, cost, state, generator)`` fires at
+    every eval boundary.  ``start_round`` resumes a checkpointed run
+    (``state`` and the generator as saved at that boundary)."""
 
     tables = wave_tables(spec.p, spec.q, state.U.device)
     history: list[tuple[int, float]] = []
     eval_every = eval_every or num_rounds
 
-    for rd in range(num_rounds):
+    for rd in range(start_round, num_rounds):
         if mode == "full":
             state = full_gradient_step(
                 problem, state, rho=cfg.rho, lam=cfg.lam, a=cfg.a, b=cfg.b,
@@ -178,5 +181,5 @@ def _fit(
                                         method=method))
             history.append((int(state.t), cost))
             if progress_cb:
-                progress_cb(rd + 1, cost, state)
+                progress_cb(rd + 1, cost, state, generator)
     return state, history

@@ -12,7 +12,10 @@ in each.
 
 ``fit_on_grid`` runs its jobs one after the other in one grid of
 processes, which pays its start-up once; ``run_on_grid`` runs any
-picklable ``fn(rank, device, *args)`` on every rank.
+picklable ``fn(rank, device, *args)`` on every rank.  A job may carry
+picklable callbacks (``Checkpoint`` on a directory, ``DivergenceGuard``,
+:class:`StopAt`), a ``RecoveryPolicy`` and a checkpoint to resume from;
+each rank gets its own copy of them.
 
 Each rank is a process started by ``torch.multiprocessing`` (forked from
 a ``forkserver`` that imported torch once and holds no CUDA context) that
@@ -51,7 +54,8 @@ from repro_torch import data as data_mod
 from repro_torch import obs
 from repro_torch.config import GossipMCConfig
 from repro_torch.convert import state_from_numpy
-from repro_torch.mc import CompletionProblem, Trainer
+from repro_torch.faults import DivergenceError
+from repro_torch.mc import Callback, CompletionProblem, Trainer
 from repro_torch.mesh.plan import MeshPlan
 
 
@@ -211,16 +215,61 @@ def _wrappers():
             "masked_factor_grad": mfg.masked_factor_grad}
 
 
+class FitStopped(Exception):
+    """Raised by :class:`StopAt` to end a fit at an eval boundary."""
+
+    def __init__(self, unit: int):
+        super().__init__(f"fit stopped at unit {unit}")
+        self.unit = unit
+
+
+class StopAt(Callback):
+    """Ends the fit at the first eval boundary at or past ``unit`` by
+    raising :class:`FitStopped`, after the callbacks before it in the
+    list have seen that boundary (a ``Checkpoint`` placed before it has
+    saved it): a killed fit, for resume tests."""
+
+    def __init__(self, unit: int):
+        self.unit = unit
+
+    def on_eval(self, unit, cost, state, key) -> None:
+        if unit >= self.unit:
+            raise FitStopped(unit)
+
+
+# the counters each rank reports per job (rank 0's are the grid totals
+# for the gossip_* fault counters, which the schedule sums over ranks)
+COUNTERS = ("train_gossip_rounds_total", "train_gossip_halo_bytes_total",
+            "train_gossip_staged_bytes_total", "gossip_edges_dropped_total",
+            "gossip_stale_rounds_total", "gossip_straggled_edges_total",
+            "gossip_skipped_exchanges_total", "fit_recoveries_total")
+
+
+def _stacks() -> dict:
+    """Launches so far by the stack's leading shape ("2x2"), of the
+    wrappers that count them."""
+
+    return {k: {"x".join(map(str, lead)): n
+                for lead, n in fn.by_stack.items()}
+            for k, fn in _wrappers().items() if hasattr(fn, "by_stack")}
+
+
 @dataclasses.dataclass(frozen=True)
 class FitJob:
     """One fit of :func:`fit_on_grid`: ``state`` is an optional global
     initial ``(U, W, t)`` of numpy arrays, else every rank draws the same
-    one from the trainer's default seed."""
+    one from the trainer's default seed.  ``callbacks`` are picklable
+    ``Trainer`` callbacks (each rank gets its own copy), ``recovery`` a
+    ``RecoveryPolicy`` and ``resume_from`` a checkpoint directory, as
+    ``Trainer.fit`` takes them."""
 
     recipe: ProblemRecipe
     cfg: GossipMCConfig
     schedule: Any
     state: Any = None
+    callbacks: tuple = ()
+    recovery: Any = None
+    resume_from: Any = None
 
 
 def _fit_rank(rank, device, jobs, grid, warmup_rounds):
@@ -237,28 +286,44 @@ def _fit_rank(rank, device, jobs, grid, warmup_rounds):
             problems.append((recipe, problem))
         st0 = None if job.state is None else state_from_numpy(*job.state,
                                                               device)
-        trainer = Trainer(job.cfg)
         t1 = time.perf_counter()
         if warmup_rounds:
-            trainer.fit(problem, dataclasses.replace(
+            Trainer(job.cfg).fit(problem, dataclasses.replace(
                 job.schedule, num_rounds=warmup_rounds, eval_every=0),
                 state=st0)
         t2 = time.perf_counter()
         obs.reset()
         launches = {k: fn.launches for k, fn in _wrappers().items()}
-        res = trainer.fit(problem, job.schedule, state=st0)
-        out = {"rank": rank, "wall_time": res.wall_time,
-               "history": res.history, "t": res.t,
-               "build_s": t1 - t0, "warmup_s": t2 - t1,
-               "counters": {name: obs.counter(name).value for name in (
-                   "train_gossip_rounds_total",
-                   "train_gossip_halo_bytes_total",
-                   "train_gossip_staged_bytes_total")},
-               "launches": {k: fn.launches - launches[k]
-                            for k, fn in _wrappers().items()}}
-        if rank == 0:
-            out["U"] = res.state.U.cpu().numpy()
-            out["W"] = res.state.W.cpu().numpy()
+        stacks = _stacks()
+        out = {"rank": rank, "build_s": t1 - t0, "warmup_s": t2 - t1,
+               "history": [], "recovery_log": [], "t": None,
+               "stopped_at": None, "diverged": None}
+        try:
+            res = Trainer(job.cfg, callbacks=job.callbacks).fit(
+                problem, job.schedule, state=st0,
+                resume_from=job.resume_from, recovery=job.recovery)
+        except FitStopped as stop:
+            out["stopped_at"] = stop.unit
+        except DivergenceError as err:
+            out["diverged"] = {"unit": err.unit, "cost": err.cost,
+                               "reason": err.reason, "message": str(err)}
+        else:
+            out.update(wall_time=res.wall_time, history=res.history,
+                       t=res.t, recovery_log=res.recovery_log)
+            if rank == 0:
+                out["U"] = res.state.U.cpu().numpy()
+                out["W"] = res.state.W.cpu().numpy()
+        out["wall_time"] = out.get("wall_time", time.perf_counter() - t2)
+        out["counters"] = {name: obs.counter(name).value
+                           for name in COUNTERS}
+        ages = obs.histogram("gossip_halo_age")
+        out["halo_age"] = {"count": ages.count, "sum": ages.sum}
+        out["launches"] = {k: fn.launches - launches[k]
+                           for k, fn in _wrappers().items()}
+        out["launches_by_stack"] = {
+            k: {lead: n - stacks[k].get(lead, 0) for lead, n in got.items()
+                if n > stacks[k].get(lead, 0)}
+            for k, got in _stacks().items()}
         outs.append(out)
     return outs
 
@@ -271,10 +336,17 @@ def fit_on_grid(jobs, *, grid: tuple[int, int], device: str = "cuda",
 
     ``warmup_rounds`` runs a short fit before each, so that the timed one
     does not pay one-time loading.  Per job: rank 0's global factors
-    ``U``/``W``, cost ``history``, ``t`` and gossip counters; the fit's
+    ``U``/``W``, cost ``history``, ``t``, ``recovery_log`` and counters
+    (:data:`COUNTERS`; the ``gossip_*`` fault counters are the grid's
+    sums) and the ``gossip_halo_age`` histogram's ``halo_age`` count and
+    sum (every rank's ages); ``stopped_at`` (the unit a :class:`StopAt`
+    ended it at) or ``diverged`` (the ``DivergenceError``'s unit, cost,
+    reason and message) where the fit did not finish, and then no
+    factors; the fit's
     ``wall_time`` and ``ms_per_round``, and ``build_s``/``warmup_s``
-    (slowest rank); summed over the ranks, ``staged_bytes_per_round`` and
-    the f-gradient kernels' ``launches``; and the grid's ``startup``
+    (slowest rank); summed over the ranks, ``staged_bytes_per_round``, the
+    f-gradient kernels' ``launches`` and, for the segment and dense
+    kernels, ``launches_by_stack``; and the grid's ``startup``
     marks (``run_on_grid``'s, slowest rank)."""
 
     jobs = list(jobs)
@@ -289,13 +361,19 @@ def fit_on_grid(jobs, *, grid: tuple[int, int], device: str = "cuda",
         out = dict(per_rank[0])
         rounds = out["counters"]["train_gossip_rounds_total"]
         out["wall_time"] = max(r["wall_time"] for r in per_rank)
-        out["ms_per_round"] = 1e3 * out["wall_time"] / rounds
+        out["ms_per_round"] = 1e3 * out["wall_time"] / max(rounds, 1)
         staged = sum(r["counters"]["train_gossip_staged_bytes_total"]
                      for r in per_rank)
-        out["staged_bytes_per_round"] = staged / rounds
+        out["staged_bytes_per_round"] = staged / max(rounds, 1)
         out["staged"] = staged > 0
         out["launches"] = {name: sum(r["launches"][name] for r in per_rank)
                            for name in out["launches"]}
+        out["launches_by_stack"] = {
+            name: {lead: sum(r["launches_by_stack"][name].get(lead, 0)
+                             for r in per_rank)
+                   for lead in {ld for r in per_rank
+                                for ld in r["launches_by_stack"][name]}}
+            for name in out["launches_by_stack"]}
         out["backend"] = pick_backend(device, grid[0] * grid[1])
         out["build_s"] = max(r["build_s"] for r in per_rank)
         out["warmup_s"] = max(r["warmup_s"] for r in per_rank)

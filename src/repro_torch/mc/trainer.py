@@ -20,21 +20,29 @@ problem's device.  The random stream is a
 ``torch.Generator`` on the problem's device seeded with ``seed``; it
 draws the initial state (unless ``state=`` is given), the wave order and
 the sequential structure picks.
+
+Checkpoint resume (``resume_from=``) restores (state, generator state,
+unit) saved by the ``Checkpoint`` callback and replays the identical
+stream; ``recovery=RecoveryPolicy(...)`` makes the fit self-healing.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import time
 from typing import Sequence, Union
 
 import numpy as np
 import torch
 
+from repro_torch import obs
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import GossipMCConfig
 from repro_torch.core import assemble as asm
 from repro_torch.core.state import State, init_state
-from repro_torch.mc.callbacks import Callback
+from repro_torch.faults import DivergenceError, DivergenceGuard
+from repro_torch.mc.callbacks import Callback, Checkpoint, restore_session
 from repro_torch.mc.problem import CompletionProblem
 from repro_torch.mc.schedules import Schedule, make_schedule
 from repro_torch.serve.recommend import (RecommendIndex, RecommendService,
@@ -48,6 +56,27 @@ def synchronize(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def restart_seed(seed: int, restart: int) -> int:
+    """The generator seed of self-healing restart ``restart`` of a fit
+    whose generator was seeded ``seed``: a pure function of the two (the
+    reference folds its key by the restart), below 2**63."""
+
+    return int(np.random.SeedSequence([int(seed), int(restart)])
+               .generate_state(1, np.uint64)[0]) & (2**63 - 1)
+
+
+def _check_protocol(callbacks) -> None:
+    for cb in callbacks:
+        try:
+            inspect.signature(cb.on_eval).bind(0, 0.0, None, None)
+        except TypeError:
+            raise TypeError(
+                f"{type(cb).__name__}.on_eval does not take (unit, cost, "
+                "state, key): the callback protocol is on_eval(unit, cost, "
+                "state, key), where key is the fit's torch.Generator"
+            ) from None
+
+
 @dataclasses.dataclass
 class FitResult:
     """Everything a finished fit produced."""
@@ -58,6 +87,9 @@ class FitResult:
     schedule: str            # schedule name ("sequential" | "wave" | "full" |
                              # "incremental" | "gossip")
     problem: CompletionProblem
+    # one entry per self-healing restart (Trainer.fit(recovery=...)):
+    # {restart, unit, cost, reason, resumed_from, step_a}
+    recovery_log: list = dataclasses.field(default_factory=list)
 
     @property
     def final_cost(self) -> float:
@@ -173,14 +205,39 @@ class Trainer:
         *,
         seed: int = 0,
         state: State | None = None,
+        resume_from: Union[Checkpoint, CheckpointManager, str, None] = None,
+        recovery=None,
         **schedule_overrides,
     ) -> FitResult:
         """Run the schedule to completion and return a :class:`FitResult`.
 
         ``schedule`` is a ``Schedule`` instance or a name ("sequential",
-        "wave", "full", "gossip"); keyword overrides (e.g. ``num_rounds=500``) are
-        applied either way.  ``state`` starts from given factors (the
-        parity tests inject the reference's initial state this way)."""
+        "wave", "full", "gossip"); keyword overrides (e.g.
+        ``num_rounds=500``) are applied either way.  ``state`` starts from
+        given factors (the parity tests inject the reference's initial
+        state this way).
+
+        ``resume_from`` (a :class:`Checkpoint`, a manager or a directory)
+        restarts from the latest session checkpoint: state, generator
+        state and progress unit, replaying the exact stream of the
+        uninterrupted run — the per-round minibatches of a
+        ``Gossip(batch=)`` fit included, whose stream seed is a pure
+        function of the generator's seed.
+
+        ``recovery=RecoveryPolicy(...)`` makes the fit self-healing
+        (DESIGN.md §13): a ``DivergenceGuard`` watches every eval boundary
+        (one is added if the callbacks carry none; guards always run
+        *before* ``Checkpoint``, so a poisoned state is never persisted),
+        and on divergence the fit restores the latest valid checkpoint
+        (or starts over when there is none), re-seeds the generator by
+        :func:`restart_seed`, runs at ``a * backoff**restart``, refolds
+        the schedule's ``FaultPlan`` and resumes.  Restarts land in
+        ``FitResult.recovery_log`` and the ``fit_recoveries_total``
+        counter; exhausting ``max_restarts`` (or
+        ``on_divergence="raise"``) re-raises the ``DivergenceError``.
+        On a rank grid every rank sees the same all-reduced cost, so every
+        guard fires at the same boundary and every rank restores from the
+        same directory."""
 
         if not isinstance(problem, CompletionProblem):
             raise TypeError(
@@ -196,31 +253,125 @@ class Trainer:
                 f"{problem.plan.col_size} rank grid holds one tile of the "
                 f"blocks; only the Gossip schedule runs on it, not "
                 f"{sched.name!r}")
+        _check_protocol(self.callbacks)
         cfg = self._config_for(problem)
         generator = torch.Generator(device=problem.device)
         generator.manual_seed(seed)
+
+        mgr = resume_from
+        if isinstance(mgr, Checkpoint):
+            mgr = mgr.manager
+        if isinstance(mgr, str):
+            mgr = CheckpointManager(mgr)
+        done = 0
+        if mgr is not None:
+            restored = restore_session(mgr, problem)
+            if restored is not None:
+                done, state, key = restored
+                generator.set_state(key)
+
+        if recovery is None:
+            return self._run_attempt(problem, sched, cfg, generator, state,
+                                     done, self.callbacks)
+        return self._run_recovering(problem, sched, cfg, generator, state,
+                                    done, mgr, recovery)
+
+    def _run_attempt(self, problem, sched, cfg, generator, state, done,
+                     callbacks, recovery_log=None) -> FitResult:
+        """One uninterrupted schedule run (the body every fit shares)."""
+
         if state is None:
             state = init_state(generator, problem.spec)
-
-        for cb in self.callbacks:
+        for cb in callbacks:
             cb.on_fit_start(problem, sched, cfg)
 
-        def eval_cb(unit, cost, st):
-            for cb in self.callbacks:
-                cb.on_eval(unit, cost, st)
+        def eval_cb(unit, cost, st, key):
+            for cb in callbacks:
+                cb.on_eval(unit, cost, st, key)
 
+        # the fit's outermost timer: device-true (synchronizes on the
+        # final factors before the clock stops) and annotated, so a
+        # profiler trace (obs.trace) shows one slice per fit
         t0 = time.perf_counter()
-        state, history = sched.run(
-            problem, cfg, generator, state=state,
-            eval_cb=eval_cb if self.callbacks else None,
+        with obs.span(f"fit.{sched.name}", annotate=True) as sp:
+            state, history = sp.outputs(sched.run(
+                problem, cfg, generator, state=state, done=done,
+                eval_cb=eval_cb if callbacks else None,
+            ))
+        result = FitResult(
+            state=state, history=history,
+            wall_time=time.perf_counter() - t0,
+            schedule=sched.name, problem=problem,
+            recovery_log=recovery_log if recovery_log is not None else [],
         )
-        synchronize(problem.device)
-        result = FitResult(state=state, history=history,
-                           wall_time=time.perf_counter() - t0,
-                           schedule=sched.name, problem=problem)
-        for cb in self.callbacks:
+        for cb in callbacks:
             cb.on_fit_end(result)
         return result
+
+    def _run_recovering(self, problem, sched, cfg, generator, state, done,
+                        mgr, recovery) -> FitResult:
+        """The self-healing loop around :meth:`_run_attempt`."""
+
+        if mgr is None:
+            for cb in self.callbacks:
+                if isinstance(cb, Checkpoint):
+                    mgr = cb.manager
+                    break
+        if mgr is None and recovery.on_divergence == "restore":
+            raise ValueError(
+                "recovery with on_divergence='restore' needs a checkpoint "
+                "to restore from: add a Checkpoint callback to the Trainer "
+                "or pass resume_from="
+            )
+        # guards before everything else — in particular before Checkpoint,
+        # so a diverged state is never persisted as a restore point
+        guards = [cb for cb in self.callbacks
+                  if isinstance(cb, DivergenceGuard)]
+        others = [cb for cb in self.callbacks
+                  if not isinstance(cb, DivergenceGuard)]
+        if not guards:
+            guards = [DivergenceGuard()]
+        callbacks = guards + others
+
+        recovery_log: list = []
+        restart = 0
+        attempt_sched, attempt_cfg = sched, cfg
+        while True:
+            try:
+                return self._run_attempt(problem, attempt_sched, attempt_cfg,
+                                         generator, state, done, callbacks,
+                                         recovery_log=recovery_log)
+            except DivergenceError as err:
+                if recovery.on_divergence == "raise" \
+                        or restart >= recovery.max_restarts:
+                    raise
+                restart += 1
+                obs.counter("fit_recoveries_total").inc()
+                restored = restore_session(mgr, problem) if mgr else None
+                if restored is not None:
+                    done, state, key = restored
+                    generator.set_state(key)
+                else:
+                    # nothing valid on disk yet: start the fit over (with
+                    # the decayed step size and a re-seeded generator)
+                    done, state = 0, None
+                # a restarted node draws a fresh (deterministic) stream
+                generator.manual_seed(
+                    restart_seed(generator.initial_seed(), restart))
+                a = cfg.a * recovery.backoff ** restart
+                attempt_cfg = dataclasses.replace(cfg, a=a)
+                faults = getattr(attempt_sched, "faults", None)
+                if faults is not None:
+                    attempt_sched = dataclasses.replace(
+                        attempt_sched, faults=faults.refold(restart))
+                recovery_log.append({
+                    "restart": restart,
+                    "unit": err.unit,
+                    "cost": err.cost,
+                    "reason": err.reason,
+                    "resumed_from": done,
+                    "step_a": a,
+                })
 
     def refit(
         self,

@@ -835,3 +835,77 @@ def _tree_to(tree, device):
     if isinstance(tree, dict):
         return {k: _tree_to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+@pytest.mark.parametrize("layout", ["sparse", "dense"])
+def test_fault_and_async_steps_are_bitwise_the_plain_step_on_card(cuda,
+                                                                  layout):
+    """On the card, through the kernels: the ``FaultPlan(p=0)`` gossip
+    step and the async step with ``exchange_every=1, max_staleness=0`` on
+    one (2, 2) tile are bitwise the ``faults=None`` step."""
+
+    from repro_torch.core import gossip
+    from repro_torch.core.state import init_state
+    from repro_torch.faults import FaultPlan
+
+    prob = CompletionProblem.from_dataset(
+        lowrank_problem(300, 140, 15, density=0.3, seed=3), 2, 2, 15,
+        layout=layout, device=cuda)
+    cfg = GossipMCConfig(m=300, n=140, p=2, q=2, rank=15)
+    state = init_state(torch.Generator(device=cuda).manual_seed(0),
+                       prob.spec)
+    wrapper = (sddmm_ops.sddmm_segment_grad if layout == "sparse"
+               else mfg_ops.masked_factor_grad)
+    before = wrapper.launches
+    outs = []
+    for kw in ({}, dict(faults=FaultPlan(key=0)),
+               dict(async_rounds=True, max_staleness=0)):
+        step = gossip.make_gossip_step((2, 2), cfg, layout=layout,
+                                       steps_per_call=20, **kw)
+        outs.append(step(prob.data, gossip.init_carry(state)).state)
+    assert wrapper.launches - before == 60
+    for got in outs[1:]:
+        assert torch.equal(got.U, outs[0].U) and torch.equal(got.W,
+                                                             outs[0].W)
+
+
+def test_wave_resume_is_bitwise_on_card(cuda, tmp_path):
+    """A Wave fit on the card stopped after its second checkpoint and
+    resumed (the CUDA generator's state restored) equals the
+    uninterrupted fit bitwise."""
+
+    from repro_torch.launch.gossip import FitStopped, StopAt
+    from repro_torch.mc import Checkpoint, Wave
+
+    prob = CompletionProblem.from_dataset(
+        lowrank_problem(300, 140, 15, density=0.3, seed=3), 3, 3, 15,
+        layout="sparse", device=cuda)
+    cfg = GossipMCConfig(m=300, n=140, p=3, q=3, rank=15)
+    sched = Wave(num_rounds=9, eval_every=3)
+    whole = Trainer(cfg).fit(prob, sched, seed=5)
+    ck = Checkpoint(str(tmp_path))
+    with pytest.raises(FitStopped):
+        Trainer(cfg, callbacks=[ck, StopAt(6)]).fit(prob, sched, seed=5)
+    resumed = Trainer(cfg).fit(prob, sched, seed=5,
+                               resume_from=str(tmp_path))
+    assert torch.equal(resumed.state.U, whole.state.U)
+    assert torch.equal(resumed.state.W, whole.state.W)
+    assert resumed.history == whole.history[2:]
+
+
+def test_trace_on_card_holds_the_span_and_kernel_events(cuda, tmp_path):
+    import json
+    import os
+
+    from repro_torch import obs
+
+    prob = CompletionProblem.from_dataset(
+        lowrank_problem(300, 140, 15, density=0.3, seed=3), 2, 2, 15,
+        layout="sparse", device=cuda)
+    with obs.trace(str(tmp_path)):
+        Trainer(GossipMCConfig(m=300, n=140, p=2, q=2, rank=15)).fit(
+            prob, FullGD(num_rounds=3))
+    with open(os.path.join(str(tmp_path), obs.spans.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "fit.full" for e in events)
+    assert any(e.get("cat") == "kernel" for e in events)

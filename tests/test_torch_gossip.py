@@ -44,6 +44,7 @@ from repro_torch.config import GossipMCConfig as TConfig  # noqa: E402
 from repro_torch.convert import state_from_numpy  # noqa: E402
 from repro_torch.core import compress as tcompress  # noqa: E402
 from repro_torch.core import gossip as tgossip  # noqa: E402
+from repro_torch.faults import FaultPlan  # noqa: E402
 from repro_torch.launch import gossip as tlaunch  # noqa: E402
 from repro_torch.mesh import MeshPlan  # noqa: E402
 
@@ -350,9 +351,9 @@ def test_gossip_schedule_registry_and_counters():
 
 
 @pytest.mark.parametrize("kw,kind", [
-    (dict(faults=object()), NotImplementedError),
-    (dict(async_rounds=True), NotImplementedError),
-    (dict(async_rounds=True, exchange_every=2), NotImplementedError),
+    (dict(faults=FaultPlan(p_drop_edge=0.5)), None),
+    (dict(async_rounds=True), None),
+    (dict(async_rounds=True, exchange_every=2), None),
     (dict(exchange_every=2), ValueError),
     (dict(async_rounds=True, staleness=2), ValueError),
     (dict(batch=64), ValueError),
@@ -360,12 +361,22 @@ def test_gossip_schedule_registry_and_counters():
     (dict(faults=object(), compression="int8"), ValueError),
 ])
 def test_unported_and_invalid_options_raise_like_the_reference(kw, kind):
-    cfg = TConfig(m=M, n=N, p=4, q=4, rank=R)
+    """``faults=`` and ``async_rounds`` (the options this file once pinned
+    as unported) build a step that runs a round; invalid options raise
+    the reference's ``ValueError`` word for word."""
+
+    cfg = TConfig(m=M, n=N, p=4, q=4, rank=R, **HP)
+    if kind is None:
+        step = tgossip.make_gossip_step((4, 4), cfg, **kw)
+        _, tp = _problems("dense")
+        _, np0 = _state0()
+        carry = tgossip.init_carry(state_from_numpy(*np0, "cpu"))
+        out = step(tp.data, carry)
+        assert out.rnd == 1 and int(out.state.t) == tp.spec.num_structures
+        assert not torch.equal(out.state.U, carry.state.U)
+        return
     with pytest.raises(kind) as got:
         tgossip.make_gossip_step((4, 4), cfg, **kw)
-    if kind is NotImplementedError:
-        assert "queue 1 item 3b" in str(got.value)
-        return
     with pytest.raises(ValueError) as want:
         jgossip.make_gossip_step(None, (4, 4), JConfig(m=M, n=N, p=4, q=4,
                                                        rank=R), **kw)
@@ -394,15 +405,26 @@ def test_minibatch_step_builds_and_takes_problem_f_scale_carry():
 
 
 def test_gossip_schedule_raises_for_unported_options():
+    """The schedule runs ``faults=`` and ``async_rounds`` (once unported)
+    for a round on the 1×1 plan, bitwise the plain round there (no edge
+    exists, so no event counts); ``batch=`` on the dense layout still
+    raises."""
+
     _, tp = _problems("dense")
-    trainer = tmc.Trainer(TConfig(m=M, n=N, p=4, q=4, rank=R))
-    for kw in (dict(faults=object()), dict(async_rounds=True),
-               dict(batch=8)):
-        with pytest.raises((NotImplementedError, ValueError)) as got:
-            trainer.fit(tp, tmc.Gossip(num_rounds=1, **kw))
-        if "batch" not in kw:
-            assert got.type is NotImplementedError
-            assert "queue 1 item 3b" in str(got.value)
+    _, np0 = _state0()
+    trainer = tmc.Trainer(TConfig(m=M, n=N, p=4, q=4, rank=R, **HP))
+    plain = trainer.fit(tp, tmc.Gossip(num_rounds=1),
+                        state=state_from_numpy(*np0, "cpu"))
+    for kw in (dict(faults=FaultPlan(p_drop_edge=0.5)),
+               dict(async_rounds=True, exchange_every=2), dict(batch=8)):
+        if "batch" in kw:
+            with pytest.raises(ValueError, match="layout='sparse'"):
+                trainer.fit(tp, tmc.Gossip(num_rounds=1, **kw))
+            continue
+        got = trainer.fit(tp, tmc.Gossip(num_rounds=1, **kw),
+                          state=state_from_numpy(*np0, "cpu"))
+        assert torch.equal(got.state.U, plain.state.U)
+        assert got.history == plain.history
 
 
 # ---------------------------------------------------------------------- #

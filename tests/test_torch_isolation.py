@@ -36,7 +36,11 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.mesh.plan", "repro_torch.core.compress",
             "repro_torch.core.gossip", "repro_torch.configs.gossip_mc",
             "repro_torch.launch.gossip",
-            "repro_torch.launch.paper_tables"} <= set(mods)
+            "repro_torch.launch.paper_tables",
+            "repro_torch.faults.plan", "repro_torch.faults.recovery",
+            "repro_torch.checkpoint.manager", "repro_torch.obs.spans",
+            "repro_torch.launch.gossip_faults",
+            "repro_torch.launch.gossip_async"} <= set(mods)
     code = (
         "import sys\n"
         f"for m in {mods!r}: __import__(m)\n"
