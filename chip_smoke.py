@@ -153,10 +153,41 @@ FullGD fit runs under ``Telemetry()`` inside ``obs.trace``: the trace must
 hold a ``fit.full`` slice and CUDA kernel events, ``train_units_total``
 must be 800.
 
+``[sharded]`` (after ``[serve]``): the sharded session on one 2x2 grid
+of four gloo processes on the card (``sharded_rank``), each part closed
+by a barrier.  a. The ML-1M cell cut 4x4: 10,000 training ratings held
+back, the rest ingested owner-routed (``CompletionProblem.from_entries(
+plan=)``, ``sparse.ShardedEntries.from_coo``) and by the global
+pack-and-slice, per-rank seconds of both, the tiles bitwise; 300
+``Gossip`` rounds on each store from one state, bitwise;
+``f_grads_sharded`` against the tile of the 1x1 gradients (1e-5); the
+held-back ratings appended owner-routed, bitwise the tile of
+``append_entries``.  b. The Netflix Prize shape (480,189 x 17,770) with
+10,000,000 seeded distinct ratings in 1-5 on 8x8 blocks (the public
+set's 100,480,507 cut to the run's time): routed against global ingest,
+per-rank seconds, the tiles bitwise.  c. ``FitResult.to_engine()`` on
+every rank of an 800-round ML-1M 4x4 ``Gossip`` fit, int8 and f32,
+``[serve]``'s ~250 requests with a hot refresh between them to 100
+more rounds fitted on the grid while the engines serve the first 200
+(``launch/serve_recommend.serve_fit_rank``): rank 0's
+answers against the unsharded engine on the same fits (items exactly;
+int8 scores bitwise, f32 within 1e-5), p50/p99 by bucket of both.  d.
+The ``PRODUCTION`` catalog (m = n = 2^20, r = 64; seeded factors, 100
+seen items a user) served by the int8 grid engine (262,144 items a
+shard) at every bucket, k = 10, 512 users bitwise the unsharded int8
+path; the bytes each rank holds and its peak.  Then, in this process,
+the segment kernel on a Netflix-shape rank tile and ``dequant_score`` at
+B = 256 against a PRODUCTION shard (n = 262,144, r = 64) against their
+plain versions (with bound, ``torch._int_mm`` yardstick), and the
+ordered top-k on the fit's masked scores at (1024, 3706) against the
+int64-key selection of every row it replaced (the same positions) and a
+bare ``torch.topk``.
+
 The launch counts of the ``{"kernels": ...}`` line add up the main
 path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included),
 ``[stream]``, ``[faults]`` (the ranks' by stack shape in
-``faults_launches_by_stack``) and ``[serve]``/``[lm]``.
+``faults_launches_by_stack``), ``[serve]``, ``[sharded]`` (the ranks')
+and ``[lm]``.
 
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
 (``benchmarks/table3_rmse.py --full``): the 6040x3706 ``movielens_proxy``
@@ -195,7 +226,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.config import GossipMCConfig, get_model_config  # noqa: E402
-from repro_torch.configs.gossip_mc import EXPERIMENTS  # noqa: E402
+from repro_torch.configs.gossip_mc import EXPERIMENTS, PRODUCTION  # noqa: E402
 from repro_torch.core import gossip as core_gossip  # noqa: E402
 from repro_torch.core import grid as G  # noqa: E402
 from repro_torch.core.state import State, build_tables, init_state  # noqa: E402
@@ -245,18 +276,28 @@ from repro_torch.launch.gossip import (  # noqa: E402
     ProblemRecipe,
     StopAt,
     fit_on_grid,
+    run_on_grid,
 )
 from repro_torch.launch.gossip_async import check_skips  # noqa: E402
 from repro_torch.launch.gossip_faults import expected_drops  # noqa: E402
 from repro_torch.launch.gossip import shutdown as shutdown_grids  # noqa: E402
 from repro_torch.launch import streaming  # noqa: E402
 from repro_torch.launch.lm_engine import ServeLoop  # noqa: E402
+from repro_torch.launch.serve_recommend import (  # noqa: E402
+    ServeJob,
+    collective_floor,
+    serve_fit_rank,
+    serve_requests,
+)
 from repro_torch.mesh import MeshPlan  # noqa: E402
 from repro_torch.models import Ctx, build_model  # noqa: E402
 from repro_torch.serve.quant import index_nbytes, quantize_index  # noqa: E402
 from repro_torch.serve.recommend import (  # noqa: E402
+    RecommendIndex,
+    _keyed_topk,
     build_seen_table_coo,
     recommend_topk,
+    topk_ordered,
 )
 from repro_torch.serving import (  # noqa: E402
     DEFAULT_BUCKETS,
@@ -265,6 +306,11 @@ from repro_torch.serving import (  # noqa: E402
     ServingEngine,
 )
 from repro_torch.sparse import store as sparse_store  # noqa: E402
+from repro_torch.sparse.objective import f_grads_sparse  # noqa: E402
+from repro_torch.sparse.sharded import (  # noqa: E402
+    ShardedEntries,
+    f_grads_sharded,
+)
 from repro_torch.sparse.store import MinibatchStream  # noqa: E402
 
 P = Q = 5
@@ -301,6 +347,17 @@ FAULT_DROPS, FAULT_BOUNDS, FAULT_STRAGGLE = (0.05, 0.2), (1, 3), 0.05
 ASYNC_EVERY = (1, 2, 4)
 NAN_AT, NAN_EVAL = 150, 50
 WAVE_ROUNDS, WAVE_EVAL = 30, 10
+# [sharded]: the ratings appended owner-routed at the ML-1M 4x4 cell; the
+# Netflix Prize shape with its 100,480,507 ratings cut to 10M (the run's
+# time limit) on 8x8 blocks; the grid engine's refresh fit (rounds past
+# FULL_ROUNDS); the PRODUCTION catalog's seen items a user, requests a
+# bucket, users compared with the unsharded path, k, and the score
+# kernel's timed batch
+SHARD_APPEND = 10_000
+NETFLIX = dict(m=480_189, n=17_770, ratings=10_000_000, p=8, q=8)
+SHARD_REFIT = 100
+PROD_SEEN, PROD_REQUESTS, PROD_COMPARE, PROD_K = 100, 20, 512, 10
+PROD_SCORE_B = 256
 
 WRAPPERS = {
     "sddmm_segment_grad": sddmm_ops.sddmm_segment_grad,
@@ -990,16 +1047,6 @@ def quant_kernel_row(qidx, users, card):
     return row
 
 
-def serve_requests(rng, count: int, m: int) -> list:
-    """``count`` requests: every bucket edge and one split first, the rest
-    log-uniform in 1..3000 users, user ids uniform over the m users."""
-
-    sizes = [1, 16, 17, 64, 65, 256, 257, 1024, 1025, 3000]
-    sizes += np.exp(rng.uniform(0, np.log(3000), count - len(sizes))
-                    ).astype(int).clip(1, 3000).tolist()
-    return [rng.integers(0, m, size).astype(np.int32) for size in sizes]
-
-
 def chunks(ladder, requests) -> int:
     return sum(len(ladder.plan(len(x))) for x in requests)
 
@@ -1154,8 +1201,9 @@ def serve_phase(fit_a, fit_b):
     chunk = torch.as_tensor(before[9][:TOP_BUCKET], device="cuda")
     for label, idx in (("int8", qidx), ("f32", index_a)):
         bd = device_breakdown(lambda: recommend_topk(idx, chunk, k=k))
-        print(f"[serve] {label} bucket {TOP_BUCKET} device ms by kernel: "
-              f"{json.dumps(bd)}", flush=True)
+        print(f"[serve] {label} bucket {TOP_BUCKET} device ms by kernel "
+              f"({sum(bd.values()):.4f} in all): {json.dumps(bd)}",
+              flush=True)
     return got["dequant_score"]
 
 
@@ -2232,6 +2280,388 @@ def faults_phase(sparse, ml_cfg, card) -> tuple[dict, dict]:
     return total, by_stack
 
 
+# ---------------------------------------------------------------------- #
+# [sharded]: owner-routed ingest and item-sharded serving on a 2x2 grid
+# ---------------------------------------------------------------------- #
+
+
+def _tiles_equal(a, b) -> bool:
+    """Every array of two stores (entries and nnz) bitwise equal."""
+
+    return all(torch.equal(x, y) for x, y in zip((*a.entries, a.nnz),
+                                                 (*b.entries, b.nnz)))
+
+
+def _synced(fn):
+    """(fn(), its wall seconds, ended by a synchronize of the card)."""
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def ml_split():
+    """The ML-1M proxy's training ratings as COO, and a seeded split into
+    (base, the SHARD_APPEND appended ratings)."""
+
+    ds = movielens_proxy()
+    rr, cc = np.nonzero(ds.train_mask)
+    perm = np.random.default_rng(0).permutation(len(rr))
+    return ds, (rr, cc, ds.x[rr, cc]), perm[SHARD_APPEND:], perm[:SHARD_APPEND]
+
+
+def sharded_ingest_ml(rank, device, ml_cfg) -> dict:
+    """Part a on one rank: the ML-1M 4x4 cell ingested owner-routed
+    against the global pack-and-slice, bitwise; Gossip on both stores from
+    one state, bitwise; ``f_grads_sharded`` against the tile of the 1x1
+    gradients; a routed append against the tile of the global append."""
+
+    seg = sddmm_ops.sddmm_segment_grad
+    ds, (rr, cc, vv), base, stream = ml_split()
+    plan = MeshPlan.build(4, 4, grid=GRID)
+    mb, nb = -(-ds.x.shape[0] // 4), -(-ds.x.shape[1] // 4)
+    headroom = int(np.bincount((rr[stream] // mb) * 4 + cc[stream] // nb,
+                               minlength=16).max())
+    kw = dict(headroom=headroom, mean_center=True, dataset=ds, device=device)
+    args = (rr[base], cc[base], vv[base], ds.x.shape, 4, 4, RANK)
+    routed, t_routed = _synced(lambda: CompletionProblem.from_entries(
+        *args, plan=plan, **kw))
+    whole, t_whole = _synced(lambda: CompletionProblem.from_entries(
+        *args, **kw))
+    sliced, t_slice = _synced(lambda: whole.with_plan(plan))
+    out = {"ingest_routed_s": t_routed,
+           "ingest_global_s": t_whole + t_slice,
+           "tiles_bitwise": _tiles_equal(routed.data, sliced.data),
+           "E": routed.data.capacity, "nnz": int(routed.data.nnz.sum())}
+    cfg4 = dataclasses.replace(ml_cfg, p=4, q=4)
+    state0 = init_state(torch.Generator(device=device).manual_seed(0),
+                        routed.spec)
+    sched = Gossip(num_rounds=GRID_ROUNDS, eval_every=GRID_ROUNDS // 3)
+    n0 = seg.launches
+    fit = Trainer(cfg4).fit(routed, sched, state=state0)
+    out["fit_launches"] = seg.launches - n0
+    ref = Trainer(cfg4).fit(sliced, sched, state=state0)
+    out["fit_bitwise"] = bool(torch.equal(fit.state.U, ref.state.U)
+                              and torch.equal(fit.state.W, ref.state.W))
+    out["fit_cost"] = fit.final_cost
+    n0 = seg.launches
+    gu, gw = f_grads_sharded(ShardedEntries(routed.data, plan, rank),
+                             fit.state.U, fit.state.W)
+    out["grads_launches"] = seg.launches - n0
+    want = f_grads_sparse(whole.data.entries, fit.state.U, fit.state.W)
+    out["grads_rel"] = compare((gu, gw), plan.local_slice(
+        (want[1], want[2]), rank))[1]
+    grown, t_append = _synced(lambda: routed.append(
+        rr[stream], cc[stream], vv[stream]))
+    want = plan.local_slice(whole.append(rr[stream], cc[stream],
+                                         vv[stream]).data, rank)
+    out.update(append_s=t_append, append_bitwise=_tiles_equal(grown.data,
+                                                              want))
+    return out
+
+
+def netflix_coo(seed: int = 7):
+    """NETFLIX["ratings"] distinct seeded (user, movie) pairs of the
+    Netflix Prize shape, rated 1..5."""
+
+    m, n, count = NETFLIX["m"], NETFLIX["n"], NETFLIX["ratings"]
+    rng = np.random.default_rng(seed)
+    lin = np.unique(rng.integers(0, m * n, count + count // 500))
+    lin = np.sort(rng.choice(lin, count, replace=False))
+    vals = rng.integers(1, 6, count).astype(np.float32)
+    return lin // n, lin % n, vals
+
+
+def sharded_ingest_netflix(rank, device) -> dict:
+    """Part b on one rank: the Netflix-shape ratings ingested owner-routed
+    against the global pack-and-slice, bitwise, with their seconds."""
+
+    rows, cols, vals = netflix_coo()
+    m, n, p, q = (NETFLIX[k] for k in ("m", "n", "p", "q"))
+    plan = MeshPlan.build(p, q, grid=GRID)
+    (sh, _), t_routed = _synced(lambda: ShardedEntries.from_coo(
+        rows, cols, vals, m, n, plan, rank=rank, device=device))
+    (whole, _), t_pack = _synced(lambda: sparse_store.from_entries(
+        rows, cols, vals, m, n, p, q, device="cpu"))
+
+    def cut():
+        host = plan.local_slice(whole, rank)
+        return sparse_store.SparseProblem(
+            type(host.entries)(*(t.to(device) for t in host.entries)),
+            host.nnz.to(device))
+
+    tile, t_slice = _synced(cut)
+    return {"ingest_routed_s": t_routed, "ingest_global_s": t_pack + t_slice,
+            "tiles_bitwise": _tiles_equal(sh.sp, tile),
+            "E": sh.capacity, "nnz": int(sh.nnz.sum())}
+
+
+def production_serving(rank, device) -> dict:
+    """Part d on one rank: the PRODUCTION catalog (seeded factors, every
+    rank the same) quantized and served item-sharded by an int8 engine at
+    every bucket; rank 0 then holds PROD_COMPARE users' answers against
+    the unsharded int8 path, bitwise."""
+
+    cfg = PRODUCTION
+    m, n, r = cfg.m, cfg.n, cfg.rank
+    torch.cuda.reset_peak_memory_stats(device)
+    g = torch.Generator(device=device).manual_seed(31)
+    u = torch.randn((m, r), generator=g, device=device)
+    w = torch.randn((n, r), generator=g, device=device)
+    seen = torch.randint(0, n, (m, PROD_SEEN), generator=g, device=device,
+                         dtype=torch.int32)
+    width = -(-PROD_SEEN // 16) * 16                # build_seen_table's pad
+    seen = torch.cat([seen, torch.full((m, width - PROD_SEEN), n,
+                                       dtype=torch.int32, device=device)], 1)
+    factor_bytes = (u.numel() + w.numel()) * 4
+    qidx = quantize_index(RecommendIndex(u, w, seen))
+    del u, w
+    obs.reset()                     # this engine's latencies only
+    q0 = quant_ops.dequant_score.launches
+    engine, startup = _synced(lambda: ServingEngine(
+        qidx, buckets=DEFAULT_BUCKETS, k=PROD_K, plan=MeshPlan.for_world(
+            GRID[0] * GRID[1]), seen_headroom=0, quant_method="fused"))
+    shard = engine._bufs.index
+    out = {"startup_s": startup, "shard_items": engine._bufs.shard_items,
+           "factor_f32_bytes": factor_bytes,
+           "held_int8_bytes": sum(t.numel() * t.element_size() for t in (
+               shard.u_q, shard.u_scale, shard.w_q, shard.w_scale)),
+           "seen_bytes": shard.seen.numel() * 4}
+    rng = np.random.default_rng(41)
+    users = rng.choice(m, PROD_COMPARE, replace=False).astype(np.int32)
+    with engine:
+        if rank == 0:
+            for b in DEFAULT_BUCKETS:
+                for _ in range(PROD_REQUESTS):
+                    engine.recommend(rng.integers(0, m, b).astype(np.int32))
+            got = engine.recommend(users)
+            metrics = engine.metrics()
+            out["buckets"] = {b: metrics["buckets"][b]
+                              for b in DEFAULT_BUCKETS}
+    out["launches"] = quant_ops.dequant_score.launches - q0
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    if rank == 0:
+        del engine, shard
+        items, scores = recommend_topk(qidx, users, k=PROD_K,
+                                       method="fused")
+        out["bitwise"] = bool(np.array_equal(got[0], items.cpu().numpy())
+                              and np.array_equal(got[1].view(np.int32),
+                                                 scores.cpu().numpy().view(
+                                                     np.int32)))
+    return out
+
+
+def sharded_rank(rank, device, ml_cfg, jobs) -> dict:
+    """``[sharded]``'s rank body: parts a-d in turn, a barrier after
+    each, so that no part's timing shares the card with another's."""
+
+    import torch.distributed as dist
+
+    seg = sddmm_ops.sddmm_segment_grad
+    out = {"rank": rank}
+    t0 = time.perf_counter()
+    out["a"] = sharded_ingest_ml(rank, device, ml_cfg)
+    dist.barrier()
+    out["b"] = sharded_ingest_netflix(rank, device)
+    dist.barrier()
+    n0 = seg.launches
+    out["c"] = {label: serve_fit_rank(rank, device, job, GRID)
+                for label, job in jobs.items()}
+    out["c_fit_launches"] = seg.launches - n0
+    dist.barrier()
+    out["floor"] = collective_floor(device, PROD_K)
+    out["d"] = production_serving(rank, device)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def topk_tie_timing(index) -> dict:
+    """``recommend_topk``'s ordered top-k at the top bucket of the fitted
+    index, on the masked (1024, n) scores it selects from: eager ms of
+    ``topk_ordered`` (a float ``topk``, then the rows with a tie selected
+    again), of the int64-key selection over every row (``_keyed_topk``,
+    which it replaced), and of a bare ``torch.topk``; with the rows that
+    were selected again and a check that both orders agree."""
+
+    users = torch.arange(0, TOP_BUCKET * 5, 5, device="cuda") % \
+        index.num_users
+    scores = torch.nn.functional.pad(index.u[users] @ index.w.T, (0, 1))
+    scores.scatter_(1, index.seen[users].long(), float("-inf"))
+    scores = scores[:, :index.num_items].contiguous()
+    vals = torch.topk(scores, 11).values            # topk_ordered's test
+    redo = ~(vals[:, 1:] < vals[:, :-1]).all(1)
+    same = torch.equal(topk_ordered(scores, 10)[1],
+                       _keyed_topk(scores, 10, None))
+    return {"shape": list(scores.shape), "rows_redone": int(redo.sum()),
+            "same_as_keyed": same,
+            "ordered_ms": eager_ms(lambda: topk_ordered(scores, 10)),
+            "keyed_ms": eager_ms(lambda: _keyed_topk(scores, 10, None)),
+            "torch_topk_ms": eager_ms(lambda: torch.topk(scores, 10))}
+
+
+def sharded_phase(ml_cfg, fitted, card) -> tuple[dict, list, list]:
+    """``[sharded]``: one 2x2 grid of four gloo processes on the card runs
+    parts a-d (``sharded_rank``); then, in this process, the segment
+    kernel on a Netflix-shape rank tile and the int8 score kernel at a
+    PRODUCTION shard's shape against their plain versions, and the tie
+    order's cost.  Returns the kernels' launches on the ranks and the two
+    kernels' rows for ``other_shapes``."""
+
+    t_phase = time.perf_counter()
+    m = fitted.to_recommend_index().num_users
+    rng = np.random.default_rng(11)                 # [serve]'s requests
+    before, after = serve_requests(rng, 200, m), serve_requests(rng, 50, m)
+    cfg4 = dataclasses.replace(ml_cfg, p=4, q=4)
+    jobs = {label: ServeJob(ML_4X4, cfg4, FULL_ROUNDS, SHARD_REFIT,
+                            tuple(before), tuple(after), quant=quant,
+                            quant_method=method)
+            for label, quant, method in (("int8", "int8", "fused"),
+                                         ("f32", None, None))}
+    marks: list = []
+    t0 = time.perf_counter()
+    try:
+        outs = run_on_grid(sharded_rank, GRID, ml_cfg, jobs, timeout=900,
+                           marks=marks)
+    finally:
+        shutdown_grids()        # the forkserver would outlive this phase
+    print(f"[sharded] 2x2 grid of 4 gloo processes: parts a-d in "
+          f"{time.perf_counter() - t0:.1f}s; slowest rank's seconds from "
+          f"spawn: {json.dumps({k: max(x[k] for x in marks) for k in marks[0]})}",
+          flush=True)
+
+    # a: ML-1M 4x4
+    a = [o["a"] for o in outs]
+    print(f"[sharded] a. ML-1M 4x4 owner-routed ingest, per rank: "
+          f"{json.dumps([{k: x[k] for k in ('ingest_routed_s', 'ingest_global_s', 'E', 'nnz', 'append_s')} for x in a])}",
+          flush=True)
+    print(f"[sharded] a. tiles bitwise the global store's "
+          f"{[x['tiles_bitwise'] for x in a]}; {GRID_ROUNDS} Gossip rounds "
+          f"on the routed store bitwise the sliced store's "
+          f"{[x['fit_bitwise'] for x in a]} (cost {a[0]['fit_cost']:.6e}); "
+          f"f_grads_sharded against the tile of the 1x1 gradients, max rel "
+          f"{[x['grads_rel'] for x in a]}; routed append of "
+          f"{SHARD_APPEND} ratings bitwise the tile of append_entries "
+          f"{[x['append_bitwise'] for x in a]}", flush=True)
+    for x in a:
+        if not (x["tiles_bitwise"] and x["fit_bitwise"]
+                and x["append_bitwise"] and x["grads_rel"] <= TOL):
+            fail(f"[sharded] a. rank check failed: {x}")
+    # b: Netflix shape
+    b = [o["b"] for o in outs]
+    print(f"[sharded] b. Netflix shape {NETFLIX['m']}x{NETFLIX['n']}, "
+          f"{NETFLIX['ratings']} ratings on {NETFLIX['p']}x{NETFLIX['q']} "
+          f"blocks, per rank: {json.dumps(b)}", flush=True)
+    if not all(x["tiles_bitwise"] for x in b):
+        fail("[sharded] b. a routed Netflix tile differs from the global "
+             "store's")
+    # c: serving from the grid fit
+    for label in ("int8", "f32"):
+        c = outs[0]["c"][label]
+        print(f"[sharded] c. {label} engine from the 2x2 ML-1M 4x4 Gossip "
+              f"fit ({FULL_ROUNDS} rounds, refreshed to {FULL_ROUNDS} + "
+              f"{SHARD_REFIT} fitted on the grid while it served, "
+              f"{c['refit_s']:.3f}s): {len(before)} + {len(after)} requests "
+              f"({c['users']} users) in {c['serve_s']:.3f}s; items equal "
+              f"the unsharded engine's: {c['items_equal']}, scores bitwise "
+              f"{c['scores_bitwise']}, max abs {c['scores_max_abs']:.3e} "
+              f"rel {c['scores_max_rel']:.3e}; startup {c['startup_s']:.3f}s"
+              f" compiles {c['compiles']}; shard widths "
+              f"{[o['c'][label]['shard_items'] for o in outs]}; "
+              f"dequant_score launches by rank "
+              f"{[o['c'][label]['launches'] for o in outs]}", flush=True)
+        for bk in DEFAULT_BUCKETS:
+            h, one = c["buckets"][bk], c["one_buckets"][bk]
+            print(f"[sharded] c. {label} bucket {bk}: sharded p50="
+                  f"{1e3 * h['p50']:.3f}ms p99={1e3 * h['p99']:.3f}ms "
+                  f"(count {h['count']}); unsharded engine in the same "
+                  f"process p50={1e3 * one['p50']:.3f}ms "
+                  f"p99={1e3 * one['p99']:.3f}ms ([serve]'s above)",
+                  flush=True)
+        ok = c["items_equal"] and (c["scores_bitwise"] if label == "int8"
+                                   else c["scores_max_rel"] <= TOL)
+        if not ok:
+            fail(f"[sharded] c. the {label} grid engine disagrees with the "
+                 f"unsharded engine: {c}")
+    print(f"[sharded] c. the grid engine's collectives alone, ms a call "
+          f"by rank (gloo, host tensors, top bucket): "
+          f"{json.dumps([o['floor'] for o in outs])}", flush=True)
+    # d: the PRODUCTION catalog
+    d = [o["d"] for o in outs]
+    print(f"[sharded] d. PRODUCTION catalog {PRODUCTION.m}x{PRODUCTION.n}, "
+          f"r={PRODUCTION.rank}, int8, k={PROD_K}: {d[0]['shard_items']} "
+          f"items a shard; per rank f32 factors before quantizing "
+          f"{d[0]['factor_f32_bytes'] / 2**30:.3f} GiB, int8 held "
+          f"{[x['held_int8_bytes'] / 2**30 for x in d]} GiB, seen table "
+          f"{d[0]['seen_bytes'] / 2**30:.3f} GiB, peak device memory "
+          f"{[round(x['peak_bytes'] / 2**30, 3) for x in d]} GiB (scores "
+          f"at bucket {TOP_BUCKET}: "
+          f"{TOP_BUCKET * d[0]['shard_items'] * 4 / 2**30:.3f} GiB a rank, "
+          f"{TOP_BUCKET * PRODUCTION.n * 4 / 2**30:.3f} unsharded); startup "
+          f"{d[0]['startup_s']:.3f}s; {PROD_COMPARE} users bitwise the "
+          f"unsharded int8 path: {d[0]['bitwise']}", flush=True)
+    for bk in DEFAULT_BUCKETS:
+        h = d[0]["buckets"][bk]
+        print(f"[sharded] d. bucket {bk}: p50={1e3 * h['p50']:.3f}ms "
+              f"p99={1e3 * h['p99']:.3f}ms (count {h['count']})", flush=True)
+    if not d[0]["bitwise"]:
+        fail("[sharded] d. the sharded PRODUCTION answers differ from the "
+             "unsharded int8 path")
+
+    total = dict.fromkeys(WRAPPERS, 0)
+    for o in outs:
+        total["sddmm_segment_grad"] += (o["a"]["fit_launches"]
+                                        + o["a"]["grads_launches"]
+                                        + o["c_fit_launches"])
+        total["dequant_score"] += (o["c"]["int8"]["launches"]
+                                   + o["d"]["launches"])
+    for name in ("sddmm_segment_grad", "dequant_score"):
+        if total[name] == 0:
+            fail(f"[sharded] {name} was never launched on the ranks")
+
+    # the kernels at the new shapes, in this process, against plain
+    rows, cols, vals = netflix_coo()
+    plan = MeshPlan.build(NETFLIX["p"], NETFLIX["q"], grid=GRID)
+    sh, _ = ShardedEntries.from_coo(rows, cols, vals, NETFLIX["m"],
+                                    NETFLIX["n"], plan, rank=0)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    lead = (plan.blocks_per_row_shard, plan.blocks_per_col_shard)
+    U = 0.3 * torch.randn((*lead, sh.sp.mb, RANK), generator=g,
+                          device="cuda")
+    W = 0.3 * torch.randn((*lead, sh.sp.nb, RANK), generator=g,
+                          device="cuda")
+    seg_row = segment_check("sharded Netflix-shape rank tile", sh.sp.entries,
+                            U, W, card)
+    del sh, U, W
+    gq = np.random.default_rng(43)
+    n_shard = PRODUCTION.n // (GRID[0] * GRID[1])
+    args = [torch.from_numpy(x).to("cuda") for x in (
+        gq.integers(-127, 128, (PROD_SCORE_B, PRODUCTION.rank)).astype(
+            np.int8),
+        gq.lognormal(-3.0, 1.0, PROD_SCORE_B).astype(np.float32),
+        gq.integers(-127, 128, (n_shard, PRODUCTION.rank)).astype(np.int8),
+        gq.lognormal(-3.0, 1.0, n_shard).astype(np.float32))]
+    q_row = {"phase": "sharded PRODUCTION item shard",
+             **score_timing(args, card)}
+    print(f"[sharded] dequant_score against its plain version, "
+          f"PRODUCTION item shard: {json.dumps(q_row)}", flush=True)
+    ties = topk_tie_timing(fitted.to_recommend_index())
+    print(f"[sharded] top-k in the reference's tie order at "
+          f"{ties['shape']} (masked scores of the fit): "
+          f"{ties['ordered_ms']:.4f} ms ({ties['rows_redone']} rows selected "
+          f"again), the int64-key selection of every row "
+          f"{ties['keyed_ms']:.4f} ms, a bare torch.topk "
+          f"{ties['torch_topk_ms']:.4f} ms (eager, CUDA events); the same "
+          f"positions as the int64-key selection: {ties['same_as_keyed']}",
+          flush=True)
+    if not ties["same_as_keyed"]:
+        fail("[sharded] topk_ordered differs from the int64-key selection")
+    print(f"[sharded] phase: {time.perf_counter() - t_phase:.1f}s of "
+          f"command; launches on the ranks {total}", flush=True)
+    return total, [seg_row], [q_row]
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -2387,6 +2817,13 @@ def main() -> None:
     # 5. the serving path: int8 engine, refresh, f32 engine
     total["dequant_score"] += serve_phase(results["FullGD sparse/segment"],
                                           results["FullGD dense"])
+    # owner-routed ingest and item-sharded serving on a 2x2 grid
+    got, seg_shapes, q_shapes = sharded_phase(
+        cfg, results["FullGD sparse/segment"], card)
+    for name, n in got.items():
+        total[name] += n
+    other_shapes["sddmm_segment_grad"] += seg_shapes
+    other_shapes["dequant_score"] = q_shapes
 
     for row in rows:
         row["launches"] = total[row["name"]]

@@ -109,12 +109,13 @@ class GossipCarry(NamedTuple):
     stats: FaultStats
 
 
-def host_collectives(device: torch.device) -> bool:
-    """True where this rank's collectives must move host tensors: a card
-    under a backend other than ``nccl`` (``gloo`` takes CPU tensors only,
-    and ranks that share one card cannot run ``nccl``)."""
+def host_collectives(device: torch.device, group=None) -> bool:
+    """True where this rank's collectives over ``group`` (default: the
+    default group) must move host tensors: a card under a backend other
+    than ``nccl`` (``gloo`` takes CPU tensors only, and ranks that share
+    one card cannot run ``nccl``)."""
 
-    return device.type == "cuda" and dist.get_backend() != "nccl"
+    return device.type == "cuda" and dist.get_backend(group) != "nccl"
 
 
 class HaloExchange:

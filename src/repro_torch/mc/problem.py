@@ -14,9 +14,12 @@ schedule::
 The constructors put the data on ``device="cuda"`` unless asked for the
 CPU; without a card that default raises.  ``plan=`` (a ``MeshPlan`` over a
 grid of ``torch.distributed`` ranks) keeps only this rank's tile of the
-blocks, cut from the global data; the ``Gossip`` schedule runs on it.
-``append`` splices new ratings in (the streaming ingestion path) and
-returns a new problem.
+blocks; the ``Gossip`` schedule runs on it.  ``from_entries(plan=)`` on the
+sparse layout ingests owner-routed (``sparse.ShardedEntries.from_coo``:
+each rank packs only its tile, the global store is never built); the
+dense constructors cut the tile from the global data.  ``append`` splices
+new ratings in (the streaming ingestion path, owner-routed under a plan)
+and returns a new problem.
 """
 
 from __future__ import annotations
@@ -27,14 +30,15 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core import gossip as core_gossip
 from repro_torch.core import grid as G
-from repro_torch.core import objective as core_obj
 from repro_torch.core import waves as core_waves
 from repro_torch.core.state import (Problem, State, make_problem,
                                     resolve_device)
 from repro_torch.data.synthetic import MCDataset
-from repro_torch.mesh.plan import MeshPlan, current_rank
+from repro_torch.mesh.plan import MeshPlan, plan_rank
 from repro_torch.sparse import store
+from repro_torch.sparse.sharded import ShardedEntries, owner_entries
 from repro_torch.sparse.store import SparseProblem
 
 
@@ -76,7 +80,20 @@ def _place(data, p: int, q: int, plan, device):
     if plan is None:
         return None, _to(data, device)
     plan = MeshPlan.build(p, q, plan)
-    return plan, _to(plan.local_slice(data), device)
+    return plan, _to(plan.local_slice(data, plan_rank(plan)), device)
+
+
+def _scatter_dense(data: Problem, rows, cols, vals, mb: int,
+                   nb: int) -> Problem:
+    """Fresh block tensors with the entries written in (tile frame)."""
+
+    dev = data.xb.device
+    bi, rr = (torch.from_numpy(a).to(dev) for a in divmod(rows, mb))
+    bj, cc = (torch.from_numpy(a).to(dev) for a in divmod(cols, nb))
+    xb, maskb = data.xb.clone(), data.maskb.clone()
+    xb[bi, bj, rr, cc] = torch.from_numpy(vals).to(dev)
+    maskb[bi, bj, rr, cc] = 1.0
+    return Problem(xb, maskb)
 
 
 def _to(data, device):
@@ -191,7 +208,9 @@ class CompletionProblem:
     ) -> "CompletionProblem":
         """From a global COO triplet list.  ``layout="sparse"`` (default)
         never materializes the dense matrix; ``layout="dense"`` scatters
-        into dense tensors first.  ``plan`` keeps this rank's tile only."""
+        into dense tensors first.  ``plan`` keeps this rank's tile only:
+        on the sparse layout the ingest is owner-routed, each rank packing
+        only the entries of its own blocks (``ShardedEntries.from_coo``)."""
 
         device = resolve_device(device)
         engine = engine or EngineOptions()
@@ -215,11 +234,16 @@ class CompletionProblem:
                 f"unknown layout {layout!r}; expected 'dense' or 'sparse'"
             )
         cvals = vals - mu if mu else vals
-        sp, (m, n) = store.from_entries(
-            rows, cols, cvals, m0, n0, p, q, engine.bucket, engine.headroom,
-            device="cpu",
-        )
-        plan, sp = _place(sp, p, q, plan, device)
+        if plan is not None:
+            plan = MeshPlan.build(p, q, plan)
+            sharded, (m, n) = ShardedEntries.from_coo(
+                rows, cols, cvals, m0, n0, plan, engine.bucket,
+                engine.headroom, device=device)
+            sp = sharded.sp
+        else:
+            sp, (m, n) = store.from_entries(
+                rows, cols, cvals, m0, n0, p, q, engine.bucket,
+                engine.headroom, device=device)
         spec = G.GridSpec(m, n, p, q, rank)
         order = np.argsort(rows, kind="stable")   # seen table wants user-sorted
         return cls(data=sp, spec=spec, engine=engine, num_users=m0,
@@ -278,6 +302,24 @@ class CompletionProblem:
             self, engine=dataclasses.replace(self.engine, **overrides)
         )
 
+    def with_plan(self, plan) -> "CompletionProblem":
+        """Copy holding only this rank's tile of the blocks under ``plan``
+        (a ``MeshPlan`` or an (R, C) rank grid; the twin of the
+        reference's ``with_mesh``), on the same device.  ``plan=None``
+        drops a 1×1 plan.  A problem that already holds one tile of a
+        larger grid cannot be re-cut: build it again with ``plan=``."""
+
+        if self.plan is not None and not self.plan.is_single_device:
+            raise ValueError(
+                f"this problem holds one tile of a {self.plan.row_size}x"
+                f"{self.plan.col_size} rank grid; build the global problem "
+                f"again with plan= instead of re-placing a tile")
+        if plan is None:
+            return dataclasses.replace(self, plan=None)
+        plan, data = _place(self.data, self.spec.p, self.spec.q, plan,
+                            self.device)
+        return dataclasses.replace(self, data=data, plan=plan)
+
     def with_layout(self, layout: str) -> "CompletionProblem":
         """Copy converted to the requested layout (no-op when it matches),
         on the same device."""
@@ -304,12 +346,22 @@ class CompletionProblem:
     # ------------------------------------------------------------------ #
 
     def total_cost(self, state: State, lam: float) -> float:
-        """Paper Table-2 cost at ``state`` (layout-dispatching).  A problem
-        placed on a rank grid holds one tile: its whole-grid cost is
-        ``core.gossip.distributed_cost``."""
+        """Paper Table-2 cost at ``state`` (layout-dispatching)."""
 
-        return float(core_obj.total_cost(self.data, state.U, state.W, lam,
-                                         method=self.engine.method))
+        return float(self.total_cost_device(state, lam))
+
+    def total_cost_device(self, state: State, lam: float) -> torch.Tensor:
+        """The same cost as a tensor on the problem's device (no host
+        sync).  Under a plan of more than one rank the problem holds one
+        tile, ``state`` is the global state or that tile, and the cost is
+        the whole grid's: the tile's, all-reduced over the ranks
+        (``core.gossip.distributed_cost``), so every rank must call it."""
+
+        plan = self.plan
+        if plan is not None:
+            state = plan.local_slice(state, plan_rank(plan))
+        return core_gossip.distributed_cost(self.data, state, lam, plan,
+                                            method=self.engine.method)
 
     # ------------------------------------------------------------------ #
     # streaming ingestion
@@ -325,9 +377,10 @@ class CompletionProblem:
         capacity (``store.append_entries``; pre-allocate slack with
         ``headroom=`` at ingest, a full bucket raises with the headroom
         that would have absorbed the append).  On the dense layout they
-        scatter into fresh copies of the block tensors.  Under a plan of
-        more than one rank, each rank splices only the entries of the
-        blocks its tile holds.  A (user, item) pair already rated updates
+        scatter into fresh copies of the block tensors.  Under a plan the
+        append is owner-routed: each rank keeps only the entries of the
+        blocks its tile holds (``ShardedEntries.append``;
+        ``sparse.owner_entries`` on the dense layout).  A (user, item) pair already rated updates
         its value; duplicate pairs within the batch resolve to the last
         occurrence; an empty append returns ``self``.
 
@@ -361,30 +414,23 @@ class CompletionProblem:
                                                    self.num_items)
         cvals = vals - self.mu if self.mu else vals
         mb, nb = self.spec.mb, self.spec.nb
-        trows, tcols, tvals, origin = rows, cols, cvals, (0, 0)
-        if self.plan is not None and not self.plan.is_single_device:
-            # this rank's tile: its blocks' entries, in the tile's frame
-            brows, bcols = self.plan.tile(current_rank())
-            keep = ((rows // mb >= brows.start) & (rows // mb < brows.stop)
-                    & (cols // nb >= bcols.start) & (cols // nb < bcols.stop))
-            origin = (brows.start, bcols.start)
-            trows = rows[keep] - origin[0] * mb
-            tcols = cols[keep] - origin[1] * nb
-            tvals = cvals[keep]
+        plan = self.plan
         data: Union[Problem, SparseProblem]
-        if len(trows) == 0:
-            data = self.data
-        elif isinstance(self.data, SparseProblem):
-            data = store.splice_entries(self.data, trows, tcols, tvals,
-                                        origin)
+        if isinstance(self.data, SparseProblem):
+            if plan is not None:
+                data = ShardedEntries(self.data, plan, plan_rank(plan)).append(
+                    rows, cols, cvals).sp
+            else:
+                data = store.append_entries(self.data, rows, cols, cvals)
         else:
-            dev = self.device
-            bi, rr = (torch.from_numpy(a).to(dev) for a in divmod(trows, mb))
-            bj, cc = (torch.from_numpy(a).to(dev) for a in divmod(tcols, nb))
-            xb, maskb = self.data.xb.clone(), self.data.maskb.clone()
-            xb[bi, bj, rr, cc] = torch.from_numpy(tvals).to(dev)
-            maskb[bi, bj, rr, cc] = 1.0
-            data = Problem(xb, maskb)
+            trows, tcols, tvals = rows, cols, cvals
+            if plan is not None:
+                keep, (oi, oj) = owner_entries(rows, cols, plan, mb, nb,
+                                               plan_rank(plan))
+                trows, tcols = rows[keep] - oi * mb, cols[keep] - oj * nb
+                tvals = cvals[keep]
+            data = self.data if len(trows) == 0 else _scatter_dense(
+                self.data, trows, tcols, tvals, mb, nb)
         if self.seen_coo is not None:
             ar = np.concatenate([np.asarray(self.seen_coo[0], np.int64), rows])
             ac = np.concatenate([np.asarray(self.seen_coo[1], np.int64), cols])

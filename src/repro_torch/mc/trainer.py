@@ -130,7 +130,9 @@ class FitResult:
     def to_recommend_index(self) -> RecommendIndex:
         """Assemble the factors, trim grid padding to the true
         (num_users, num_items) shape, and attach the seen-item exclusion
-        table from the problem's observed entries."""
+        table from the problem's observed entries.  A fit on a rank grid
+        holds the global state (``Gossip`` gathers it), so every rank
+        builds the same whole index, with no collective."""
 
         p = self.problem
         return build_index(
@@ -139,23 +141,41 @@ class FitResult:
             seen_coo=p.seen_coo,
         )
 
+    def _serving_plan(self, plan):
+        """``plan``, else the problem's own plan when it spans more than
+        one rank (the catalog is then sharded over the fit's ranks)."""
+
+        if plan is None:
+            pp = self.problem.plan
+            if pp is not None and not pp.is_single_device:
+                plan = pp
+        return plan
+
     def to_service(self, batch: int = 256, k: int = 10,
-                   exclude_seen: bool = True, quant=None,
+                   exclude_seen: bool = True, plan=None, quant=None,
                    quant_method=None) -> RecommendService:
         """Fixed-batch top-k serving front end over the trained factors.
-        ``quant="int8"`` serves the int8 factor cache; ``quant_method``
-        picks its scoring path."""
+
+        ``plan`` (a ``MeshPlan``; defaults to the problem's own plan when
+        it spans more than one rank) shards the catalog's item axis over
+        the plan's ranks with the two-stage top-k; every rank then calls
+        this and the service's methods alike.  ``quant="int8"`` serves the
+        int8 factor cache; ``quant_method`` picks its scoring path."""
 
         return RecommendService(self.to_recommend_index(), batch=batch, k=k,
-                                exclude_seen=exclude_seen, quant=quant,
+                                exclude_seen=exclude_seen,
+                                plan=self._serving_plan(plan), quant=quant,
                                 quant_method=quant_method)
 
     def to_engine(self, buckets=None, k: int = 10, exclude_seen: bool = True,
-                  refresh_policy=None, trainer=None, seen_headroom: int = 64,
-                  quant=None, quant_method=None):
+                  plan=None, refresh_policy=None, trainer=None,
+                  seen_headroom: int = 64, quant=None, quant_method=None):
         """Bucket-batched serving engine over the trained factors
         (``repro_torch.serving.ServingEngine``), every bucket readied here,
         so the first request is already hot.
+
+        ``plan`` defaults as in :meth:`to_service`; on a rank grid every
+        rank calls this, and requests go to rank 0's engine.
 
         Pass ``trainer`` (plus a ``refresh_policy``) and the engine is bound
         for policy-driven auto-refit: ``engine.note_append(n, problem)``
@@ -168,9 +188,9 @@ class FitResult:
         engine = ServingEngine(
             self.to_recommend_index(),
             buckets=buckets if buckets is not None else DEFAULT_BUCKETS,
-            k=k, exclude_seen=exclude_seen, seen_headroom=seen_headroom,
-            refresh_policy=refresh_policy, quant=quant,
-            quant_method=quant_method,
+            k=k, exclude_seen=exclude_seen, plan=self._serving_plan(plan),
+            seen_headroom=seen_headroom, refresh_policy=refresh_policy,
+            quant=quant, quant_method=quant_method,
         )
         engine._fit_result = self
         if trainer is not None:

@@ -12,8 +12,9 @@ sits at ``(k // C, k % C)``): rank row ``d`` owns block rows
 
 ``MeshPlan.build(p, q)`` with no grid is the 1×1 plan: one process, no
 process group, every block local.  The JAX package's PartitionSpecs and
-device placement have no torch meaning; ``local_slice`` takes their place.
-The serving half (``item_spec``) waits for the sharded-serving slice.
+device placement have no torch meaning; ``local_slice`` takes their place,
+and ``item_slice`` takes ``item_spec``'s: the serving catalog's item axis
+is cut into ``num_item_shards`` contiguous slices, shard s on rank s.
 """
 
 from __future__ import annotations
@@ -69,6 +70,14 @@ class MeshPlan:
         R, C = (1, 1) if grid is None else (int(grid[0]), int(grid[1]))
         return cls(p=p, q=q, grid=(R, C))
 
+    @classmethod
+    def for_world(cls, world: int) -> "MeshPlan":
+        """1×D plan over ``world`` ranks (the counterpart of the
+        reference's ``for_devices``): for consumers that only need the
+        flattened rank list, such as the serving catalog's item shards."""
+
+        return cls.build(1, int(world), grid=(1, int(world)))
+
     # ------------------------------------------------------------------ #
     # geometry
     # ------------------------------------------------------------------ #
@@ -88,6 +97,13 @@ class MeshPlan:
     @property
     def num_devices(self) -> int:
         return self.row_size * self.col_size
+
+    @property
+    def all_axes(self) -> Tuple[str, ...]:
+        """The row axes then the column axes: the rank order (row-major
+        over the grid) that the serving item shards follow."""
+
+        return self.row_axes + self.col_axes
 
     @property
     def is_single_device(self) -> bool:
@@ -220,6 +236,30 @@ class MeshPlan:
 
         return cut(data)
 
+    # ------------------------------------------------------------------ #
+    # serving: the catalog's item axis over every rank
+    # ------------------------------------------------------------------ #
+
+    @property
+    def num_item_shards(self) -> int:
+        """Shard count of the serving item axis (= rank count)."""
+
+        return self.num_devices
+
+    def item_slice(self, rank: int, n_pad: int) -> slice:
+        """Rank ``rank``'s contiguous slice of an item axis padded to
+        ``n_pad`` (a multiple of :attr:`num_item_shards`): shard s is rank
+        s = di·C + dj, so the shards hold the items in rank order."""
+
+        S = self.num_item_shards
+        if n_pad % S:
+            raise ValueError(
+                f"padded item count {n_pad} is not a multiple of the "
+                f"{S} item shards")
+        self.coords(rank)                    # range check
+        width = n_pad // S
+        return slice(rank * width, (rank + 1) * width)
+
 
 def current_rank() -> int:
     """This process's rank in the default process group, 0 without one."""
@@ -228,3 +268,10 @@ def current_rank() -> int:
     if dist.is_available() and dist.is_initialized():
         return dist.get_rank()
     return 0
+
+
+def plan_rank(plan: MeshPlan) -> int:
+    """This process's rank on ``plan``: 0 on a 1×1 plan (which every
+    process holds whole), else its rank in the process group."""
+
+    return 0 if plan.is_single_device else current_rank()

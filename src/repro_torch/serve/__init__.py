@@ -11,17 +11,22 @@ from repro_torch.serve.quant import (
 from repro_torch.serve.recommend import (
     RecommendIndex,
     RecommendService,
+    ShardedRecommendIndex,
     build_index,
     build_seen_table,
     build_seen_table_coo,
     recommend_topk,
+    recommend_topk_sharded,
     score_pairs,
+    shard_index,
+    topk_ordered,
 )
 
 __all__ = [
     "QuantizedRecommendIndex",
     "RecommendIndex",
     "RecommendService",
+    "ShardedRecommendIndex",
     "build_index",
     "build_seen_table",
     "build_seen_table_coo",
@@ -29,5 +34,8 @@ __all__ = [
     "quantize_index",
     "quantize_rows",
     "recommend_topk",
+    "recommend_topk_sharded",
     "score_pairs",
+    "shard_index",
+    "topk_ordered",
 ]

@@ -1,8 +1,8 @@
 """Top-k recommendation serving over completed gossip factors.
 
-Port of the unsharded half of ``repro.serve.recommend``.  After training,
-``assemble`` collapses the (p, q) block factors into global U (m×r) and
-W (n×r); a batch of users is answered as
+Port of ``repro.serve.recommend``.  After training, ``assemble``
+collapses the (p, q) block factors into global U (m×r) and W (n×r); a
+batch of users is answered as
 
     scores   = U[user_batch] @ Wᵀ                   (B×n, one matmul)
     masked   = scores with each user's seen items at −inf
@@ -10,7 +10,17 @@ W (n×r); a batch of users is answered as
 
 The seen-item table is a padded (m, S) int32 ragged list; padding slots
 hold ``n`` (one past the last item id) and land in a scratch column that
-is cut off before the top-k.
+is cut off before the top-k.  The top-k keeps ``jax.lax.top_k``'s order
+(:func:`topk_ordered`): score descending, ties to the lower item id.
+
+**Catalogs over a rank grid** (``shard_index`` + a ``MeshPlan``): each
+rank holds one contiguous slice of the item axis, padded to a multiple of
+the shard count, while ``u`` and the seen table stay whole.  The top-k
+runs in two stages: each rank selects k over its own items (seen items
+and padding masked on the global ids in its range), then one
+``all_gather`` brings every rank's k candidates and one more selection
+merges them.  The merge is exact: a global top-k item is in its own
+shard's top-k.
 
 **int8 serving**: every query here also takes a
 ``QuantizedRecommendIndex`` (serve/quant.py — int8 codes + per-row f32
@@ -22,16 +32,20 @@ hot refresh in front of ``recommend_topk``.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import obs
 from repro_torch.core.assemble import assemble
+from repro_torch.core.gossip import host_collectives
 from repro_torch.core.grid import GridSpec
 from repro_torch.kernels.quant import dequant_score
+from repro_torch.mesh.plan import MeshPlan, plan_rank
 from repro_torch.serve.quant import QuantizedRecommendIndex, quantize_index
 
 _SEEN_PAD_QUANTUM = 16
@@ -146,6 +160,51 @@ def _batch_scores(index, user_ids, method):
     return index.u[user_ids] @ index.w.T
 
 
+def _keyed_topk(scores: torch.Tensor, k: int, ids) -> torch.Tensor:
+    """Positions of :func:`topk_ordered` by one ``torch.topk`` over int64
+    keys: the high word is the score's bits made monotone as a signed
+    integer, the low word 2³² − 1 − id."""
+
+    bits = scores.view(torch.int32)
+    key32 = bits >> 31                     # -1 for negative floats, else 0
+    key32 &= 0x7FFFFFFF
+    key32 ^= bits                          # monotone in the float's order
+    key = key32.to(torch.int64)
+    del key32
+    key <<= 32
+    if ids is None:
+        ids = torch.arange(scores.shape[-1], device=scores.device)
+    key |= 0xFFFFFFFF - ids.to(torch.int64)
+    return torch.topk(key, k).indices
+
+
+def topk_ordered(scores: torch.Tensor, k: int, ids=None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(values, positions) of the k best entries of each row of the
+    (B, n) f32 ``scores``, in ``jax.lax.top_k``'s order: score descending
+    in the total order of f32 (NaN above +inf, +0 above −0), ties to the
+    lower id.  ``ids`` ((n,) or (B, n) int, below 2³²) are the tie keys,
+    the column positions by default; ``torch.topk`` alone breaks ties in
+    no fixed order.
+
+    One ``torch.topk`` of the floats, k + 1 wide (it ranks NaN above
+    everything), answers every row whose k + 1 best values strictly
+    decrease: the k are then distinct and above all others.  Only the
+    other rows (a tie inside the k or at its boundary, ±0 side by side, a
+    NaN) are selected again by :func:`_keyed_topk`."""
+
+    vals, pos = torch.topk(scores, min(k + 1, scores.shape[-1]))
+    # a tie, ±0 side by side or a NaN (no comparison holds) fails it
+    strict = vals[:, 1:] < vals[:, :-1]
+    vals, pos = vals[:, :k], pos[:, :k]
+    if not bool(strict.all()):          # one host sync, the rows only then
+        rows = (~strict.all(1)).nonzero().squeeze(1)
+        row_ids = ids[rows] if ids is not None and ids.dim() == 2 else ids
+        pos[rows] = _keyed_topk(scores[rows], k, row_ids)
+        vals = scores.gather(-1, pos)
+    return vals, pos
+
+
 def recommend_topk(index, user_ids, *, k: int, exclude_seen: bool = True,
                    method: str | None = None
                    ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -166,7 +225,7 @@ def recommend_topk(index, user_ids, *, k: int, exclude_seen: bool = True,
         scores = torch.nn.functional.pad(scores, (0, 1))
         scores.scatter_(1, index.seen[user_ids].long(), float("-inf"))
         scores = scores[:, :n_items]
-    scores, items = torch.topk(scores, k)
+    scores, items = topk_ordered(scores, k)
     return items, scores
 
 
@@ -194,10 +253,198 @@ def _w_shape(index) -> tuple:
                   else index.w).shape)
 
 
+# ---------------------------------------------------------------------- #
+# item-axis-sharded serving: per-shard k-select + exact merge
+# ---------------------------------------------------------------------- #
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedRecommendIndex:
+    """Rank ``rank``'s shard of a ``RecommendIndex`` over ``plan``.
+
+    ``index`` holds this rank's contiguous slice of the item axis, padded
+    with zero rows to ``shard_items`` (the catalog padded to a multiple of
+    the shard count, divided by it), and the whole ``u`` and seen table.
+    ``num_items`` is the true catalog size; padding rows are masked inside
+    the query.  ``index`` may be the int8 twin
+    (``QuantizedRecommendIndex``): the codes shard like W and the
+    per-item scales beside them, and per-row scales make each shard's
+    codes exactly the global ones."""
+
+    index: object                # RecommendIndex | QuantizedRecommendIndex
+    plan: MeshPlan
+    num_items: int
+    rank: int = 0
+
+    @property
+    def quantized(self) -> bool:
+        return isinstance(self.index, QuantizedRecommendIndex)
+
+    @property
+    def num_item_shards(self) -> int:
+        return self.plan.num_item_shards
+
+    @property
+    def shard_items(self) -> int:
+        """Items held by each rank (padded width / shard count)."""
+
+        return self.index.num_items
+
+    @property
+    def start(self) -> int:
+        """The global id of this shard's first item."""
+
+        return self.rank * self.shard_items
+
+    def refresh(self, fit_result) -> "ShardedRecommendIndex":
+        """This rank's shard of a (re)fit's index, in the same layout (an
+        int8 shard re-quantizes the fresh factors).  The refit must keep
+        the item-shard count and the factor shapes."""
+
+        fit_plan = getattr(getattr(fit_result, "problem", None), "plan", None)
+        if fit_plan is not None and \
+                fit_plan.num_item_shards != self.num_item_shards:
+            raise ValueError(
+                f"refresh changes the item-shard count: this index serves "
+                f"{self.num_items} items over {self.num_item_shards} shards "
+                f"({self.shard_items} items/shard), the refit's MeshPlan has "
+                f"{fit_plan.num_item_shards} shards; rebuild the serving "
+                f"side with shard_index(new_index, new_plan) / "
+                f"RecommendService(index, plan=new_plan) instead of refresh"
+            )
+        new = fit_result.to_recommend_index()
+        expected = (_u_shape(self.index), (self.num_items,
+                                           _w_shape(self.index)[1]))
+        got = (tuple(new.u.shape), tuple(new.w.shape))
+        if expected != got:
+            raise ValueError(
+                f"refresh changes the factor shapes: expected "
+                f"u{expected[0]} x w{expected[1]}"
+                f"{' (int8 layout)' if self.quantized else ''}, got "
+                f"u{got[0]} x w{got[1]}; a re-shaped problem needs a new "
+                f"shard_index, not a refresh"
+            )
+        if self.quantized:
+            new = quantize_index(new)
+        return shard_index(new, self.plan, self.rank)
+
+
+def _pad_items(a: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """Zero-pad an item-axis tensor (codes, factors or scales) to
+    ``n_pad`` rows; padded rows are masked at query time."""
+
+    pad = n_pad - a.shape[0]
+    if not pad:
+        return a
+    return torch.cat([a, a.new_zeros((pad, *a.shape[1:]))])
+
+
+def shard_index(index, plan: MeshPlan, rank: int | None = None
+                ) -> ShardedRecommendIndex:
+    """Rank ``rank``'s shard (default: this process's) of an index's item
+    axis over every rank of ``plan``: the axis zero-padded to
+    n_pad = ⌈n/S⌉·S and cut to the rank's contiguous
+    ``plan.item_slice``, as contiguous tensors (the score kernel takes no
+    others); ``u`` and the seen table stay whole.  A quantized index
+    shards the codes and the per-item scales the same way.  On a 1-rank
+    plan the shard is the whole index, and the two-stage query answers
+    bitwise as ``recommend_topk`` does."""
+
+    if not isinstance(plan, MeshPlan):
+        raise TypeError(f"plan must be a MeshPlan, got {type(plan).__name__}")
+    S = plan.num_item_shards
+    n = index.num_items
+    n_pad = -(-n // S) * S
+    rank = plan_rank(plan) if rank is None else rank
+    sl = plan.item_slice(rank, n_pad)
+
+    def cut(a):
+        return _pad_items(a[sl], sl.stop - sl.start).contiguous()
+
+    if isinstance(index, QuantizedRecommendIndex):
+        placed = index._replace(w_q=cut(index.w_q),
+                                w_scale=cut(index.w_scale))
+    else:
+        placed = index._replace(w=cut(index.w))
+    return ShardedRecommendIndex(placed, plan, n, rank)
+
+
+def _gather_candidates(scores: torch.Tensor, ids: torch.Tensor, S: int,
+                       group=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Every rank's (B, k) scores and ids side by side in rank order,
+    (B, S·k) each: one ``all_gather`` over ``group`` of both packed as
+    int64 (the scores' bits exactly), through host tensors where the
+    group's backend takes no card tensors."""
+
+    k = scores.shape[1]
+    packed = torch.cat([scores.view(torch.int32).to(torch.int64), ids], 1)
+    if host_collectives(packed.device, group):
+        packed = packed.cpu()
+    parts = [torch.empty_like(packed) for _ in range(S)]
+    dist.all_gather(parts, packed, group=group)
+    parts = [x.to(scores.device) for x in parts]
+    all_sc = torch.cat([x[:, :k] for x in parts], 1)
+    all_ids = torch.cat([x[:, k:] for x in parts], 1)
+    return all_sc.to(torch.int32).view(torch.float32), all_ids
+
+
+def recommend_topk_sharded(
+    sidx: ShardedRecommendIndex, user_ids, *, k: int,
+    exclude_seen: bool = True, method: str | None = None, group=None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(items, scores) of shape (B, k) from the sharded index, on every
+    rank of the plan (a collective over ``group``, the default group if
+    ``None``: every rank calls it with the same users).
+
+    Stage 1 on this rank's shard: scores ``u[ids] @ w_localᵀ`` (f32) or
+    through ``dequant_score`` (int8; the hand-written kernel on the card),
+    padding ids and the users' seen items in this shard's range at −inf,
+    then k best in the reference's order (:func:`topk_ordered`).  Stage 2:
+    one ``all_gather`` of every shard's k (scores, global ids), merged to
+    k, ties to the lower id (the reference's: ties go to the lower shard).
+    Exact: any global top-k item is in its own shard's top-k."""
+
+    if k > sidx.shard_items:
+        raise ValueError(
+            f"k={k} exceeds the per-shard catalog slice "
+            f"{sidx.shard_items} (= {sidx.shard_items * sidx.num_item_shards}"
+            f" padded items / {sidx.num_item_shards} shards); shrink k or "
+            f"use fewer shards"
+        )
+    index = sidx.index
+    ln, start = sidx.shard_items, sidx.start
+    user_ids = torch.as_tensor(user_ids, device=index.seen.device).long()
+    scores = _batch_scores(index, user_ids, method)          # (B, ln)
+    real = min(ln, max(0, sidx.num_items - start))
+    if real < ln:
+        scores[:, real:] = float("-inf")                     # padding ids
+    if exclude_seen:
+        # seen ids outside this shard's range go to one scratch column
+        seen = index.seen[user_ids].long() - start
+        seen = torch.where((seen >= 0) & (seen < ln), seen, ln)
+        scores = torch.nn.functional.pad(scores, (0, 1))
+        scores.scatter_(1, seen, float("-inf"))
+        scores = scores[:, :ln]
+    sc, pos = topk_ordered(scores, k)                        # stage 1
+    ids = pos + start
+    S = sidx.num_item_shards
+    if S > 1:
+        sc, ids = _gather_candidates(sc, ids, S, group)
+    msc, mix = topk_ordered(sc, k, ids)                      # stage 2
+    return ids.gather(1, mix), msc
+
+
 class RecommendService:
     """Fixed-batch front end: chunk arbitrary user lists into
     ``batch``-sized ``recommend_topk`` calls (tail padded with user 0), on
     the device the index lives on.
+
+    ``plan=`` (a ``MeshPlan``) shards the catalog's item axis over the
+    plan's ranks with the two-stage top-k (``recommend_topk_sharded``);
+    the front-end contract is unchanged, and the service keeps only its
+    rank's shard (``self.index`` is ``None``).  On a plan of more than one
+    rank it is collective: every rank calls ``recommend`` and ``refresh``
+    with the same arguments, in the same order.
 
     ``quant="int8"`` quantizes the index to the int8 serving layout
     (serve/quant.py) and ``refresh`` re-quantizes on every hot swap;
@@ -215,8 +462,8 @@ class RecommendService:
     ``metrics()`` summarizes it all into p50/p99 latency and QPS."""
 
     def __init__(self, index, batch: int = 256, k: int = 10,
-                 exclude_seen: bool = True, quant: str | None = None,
-                 quant_method: str | None = None):
+                 exclude_seen: bool = True, plan=None,
+                 quant: str | None = None, quant_method: str | None = None):
         if quant not in (None, "int8"):
             raise ValueError(
                 f"unknown quant mode {quant!r}; expected None or 'int8'"
@@ -228,9 +475,15 @@ class RecommendService:
         self.batch = batch
         self.k = k
         self.exclude_seen = exclude_seen
+        self.plan = plan
         self.quant = quant
         self.quant_method = quant_method
-        self.index = index
+        if plan is not None:
+            self._sharded = shard_index(index, plan)
+            self.index = None     # the catalog lives only as shards
+        else:
+            self._sharded = None
+            self.index = index
         # first/last answer stamps bound the QPS window
         self._t_first: float | None = None
         self._t_last: float | None = None
@@ -241,18 +494,33 @@ class RecommendService:
 
     @property
     def num_users(self) -> int:
+        if self._sharded is not None:
+            return self._sharded.index.num_users
         return self.index.num_users
 
     @property
     def num_items(self) -> int:
+        if self._sharded is not None:
+            return self._sharded.num_items
         return self.index.num_items
+
+    @property
+    def num_item_shards(self) -> int:
+        """Ranks the catalog is partitioned over (1 when unsharded)."""
+
+        return self._sharded.num_item_shards if self._sharded else 1
 
     def refresh(self, fit_result) -> "RecommendService":
         """Hot-swap the index from a (re)fit: same batch and k, new
-        factors + seen table (re-quantized on an int8 service).  A call
-        in flight keeps the index it started with.  Returns ``self``."""
+        factors + seen table (re-quantized on an int8 service; re-sharded,
+        with the shard count and factor shapes checked, on a sharded one).
+        A call in flight keeps the index it started with.  Returns
+        ``self``."""
 
-        self.index = self.index.refresh(fit_result)
+        if self._sharded is not None:
+            self._sharded = self._sharded.refresh(fit_result)
+        else:
+            self.index = self.index.refresh(fit_result)
         return self
 
     def recommend(self, user_ids) -> tuple[np.ndarray, np.ndarray]:
@@ -262,7 +530,8 @@ class RecommendService:
         n = len(user_ids)
         out_items = np.empty((n, self.k), np.int32)
         out_scores = np.empty((n, self.k), np.float32)
-        index = self.index    # one snapshot: a refresh never splits a call
+        # one snapshot: a refresh never splits a call
+        index, sharded = self.index, self._sharded
         lat_h = obs.histogram("serve_batch_seconds")
         t_enter = time.perf_counter()
         if self._t_first is None:
@@ -274,9 +543,11 @@ class RecommendService:
             pad = self.batch - len(chunk)
             if pad:
                 chunk = np.pad(chunk, (0, pad))
-            items, scores = recommend_topk(
-                index, chunk, k=self.k, exclude_seen=self.exclude_seen,
-                method=self.quant_method,
+            query = (recommend_topk if sharded is None
+                     else recommend_topk_sharded)
+            items, scores = query(
+                index if sharded is None else sharded, chunk, k=self.k,
+                exclude_seen=self.exclude_seen, method=self.quant_method,
             )
             take = min(self.batch, n - s)
             # the host copies wait for the card: a device-true stamp

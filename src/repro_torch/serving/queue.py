@@ -16,6 +16,11 @@ Shutdown semantics: ``close()`` rejects new submissions;
 ``shutdown(drain=True)`` does both and joins the thread.  A request
 still queued at a non-draining shutdown gets its future cancelled —
 nothing ever hangs silently.
+
+``call(fn)`` queues a function to run on the worker thread between
+requests, in queue order (the sharded engine's refresh, whose collectives
+must run on the one thread that owns the process group); ``shutdown``'s
+``last`` runs there after the backlog, before the thread stops.
 """
 
 from __future__ import annotations
@@ -40,6 +45,16 @@ class Request:
         self.user_ids = user_ids
         self.future: Future = Future()
         self.t_submit = time.perf_counter()
+
+
+class _Call:
+    """A function queued to run on the worker thread (``call``)."""
+
+    __slots__ = ("fn", "future")
+
+    def __init__(self, fn: Callable[[], object]):
+        self.fn = fn
+        self.future: Future = Future()
 
 
 _STOP = object()
@@ -78,6 +93,19 @@ class ServeWorker:
         self._depth.set(self._q.qsize())
         return req.future
 
+    def call(self, fn: Callable[[], object]) -> Future:
+        """Run ``fn()`` on the worker thread after everything queued so
+        far; the future resolves to its result."""
+
+        item = _Call(fn)
+        with self._lock:
+            if self._closed:
+                raise RuntimeError(
+                    "serving engine is shut down; no new work accepted"
+                )
+            self._q.put(item)
+        return item.future
+
     @property
     def depth(self) -> int:
         return self._q.qsize()
@@ -94,11 +122,15 @@ class ServeWorker:
                     return
                 if not item.future.set_running_or_notify_cancel():
                     continue          # cancelled while queued
-                obs.histogram("queue_wait_seconds").observe(
-                    time.perf_counter() - item.t_submit
-                )
+                if isinstance(item, _Call):
+                    run = item.fn
+                else:
+                    obs.histogram("queue_wait_seconds").observe(
+                        time.perf_counter() - item.t_submit
+                    )
+                    run = lambda req=item: self._execute(req)  # noqa: E731
                 try:
-                    item.future.set_result(self._execute(item))
+                    item.future.set_result(run())
                 except Exception as err:  # surface, never kill the worker
                     item.future.set_exception(err)
             finally:
@@ -119,10 +151,13 @@ class ServeWorker:
             self._closed = True
 
     def shutdown(self, drain: bool = True,
-                 timeout: Optional[float] = None) -> None:
+                 timeout: Optional[float] = None,
+                 last: Optional[Callable[[], object]] = None) -> None:
         """Stop accepting work, optionally finish the backlog, join the
         thread.  With ``drain=False`` still-queued requests are cancelled
-        (their futures raise ``CancelledError``)."""
+        (their futures raise ``CancelledError``).  ``last`` runs on the
+        worker thread after the backlog, before it stops; an error it
+        raises is raised here."""
 
         self.close()
         if drain:
@@ -136,5 +171,12 @@ class ServeWorker:
                 if item is not _STOP:
                     item.future.cancel()
                 self._q.task_done()
+        final = None
+        if last is not None and self._thread.is_alive():
+            final = _Call(last)
+            self._q.put(final)
         self._q.put(_STOP)
         self._thread.join(timeout=timeout)
+        if final is not None:
+            final.future.result(timeout=0 if self._thread.is_alive()
+                                else None)

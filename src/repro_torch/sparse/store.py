@@ -29,10 +29,10 @@ never written.  Minibatches come from :func:`sample_minibatch` and the
 restart-exact :class:`MinibatchStream` in two parts: drawing the positions
 from a ``torch.Generator`` (on the host, so one seed gives the same
 positions on every device and every rank grid), and assembling the
-sampled store from them with torch ops on the store's device.  The
-reference's ``plan=`` placement of the stream onto device shards
-(``sparse/sharded.py``) is not ported; ``MinibatchStream(plan=)`` here
-samples a rank's tile of the global draw.
+sampled store from them with torch ops on the store's device.
+``MinibatchStream(plan=)`` samples a rank's tile of the global draw, and
+``sparse/sharded.py`` holds the owner-routed ingest and appends of a
+rank's tile.
 """
 
 from __future__ import annotations
@@ -100,14 +100,24 @@ def bucketed_capacity(max_nnz: int, bucket: int = DEFAULT_BUCKET,
 
 
 def _pack_sorted(blk, rr, cc, vv, p, q, mb, nb, bucket, headroom: int = 0,
-                 *, device) -> SparseProblem:
+                 capacity: int | None = None, *, device) -> SparseProblem:
     """Shared packing tail: (block, row, col)-lexicographically sorted entry
     streams -> the padded, segment-sorted store on ``device``.  ``blk``
-    must be non-decreasing with (rr, cc) lexicographic within each block."""
+    must be non-decreasing with (rr, cc) lexicographic within each block.
+    ``capacity`` forces the per-block capacity E: the owner-routed ingest
+    (``sparse/sharded.py``) packs each rank's blocks alone but must agree
+    on the global store's E."""
 
     total = len(blk)
     nnz = np.bincount(blk, minlength=p * q).astype(np.int64)
-    E = bucketed_capacity(int(nnz.max()) if total else 0, bucket, headroom)
+    E = (capacity if capacity is not None
+         else bucketed_capacity(int(nnz.max()) if total else 0, bucket,
+                                headroom))
+    if int(nnz.max() if total else 0) > E:
+        raise ValueError(
+            f"forced capacity {E} below the largest block nnz "
+            f"{int(nnz.max())}"
+        )
     starts = np.zeros(p * q + 1, np.int64)
     np.cumsum(nnz, out=starts[1:])
     within = np.arange(total, dtype=np.int64) - starts[blk]
@@ -479,7 +489,7 @@ def _step_seed(seed: int, step: int) -> int:
 
 
 def sample_positions(generator: torch.Generator, nnz: torch.Tensor,
-                     batch: int, plan=None) -> torch.Tensor:
+                     batch: int, plan=None, rank=None) -> torch.Tensor:
     """Uniform with-replacement entry positions, ``batch`` per block: an
     int64 tensor of nnz's (p, q) shape plus ``(batch,)``, on nnz's device,
     each in [0, max(nnz, 1)).
@@ -490,13 +500,14 @@ def sample_positions(generator: torch.Generator, nnz: torch.Tensor,
     depend only on the generator and its count.  ``plan`` (a ``MeshPlan``):
     ``nnz`` is this rank's tile of the plan's grid; the draw covers the
     whole grid and the rank keeps its tile, so every rank grid sees the
-    1×1 stream's positions."""
+    1×1 stream's positions.  ``rank`` names the tile (default: this
+    process's rank)."""
 
     shape = tuple(nnz.shape) if plan is None else (plan.p, plan.q)
     u = torch.rand((*shape, batch), generator=generator,
                    device=generator.device, dtype=torch.float64)
     if plan is not None:
-        u = plan.local_slice(u)
+        u = plan.local_slice(u, rank)
     count = nnz.to(u.device, torch.int64).clamp(min=1).unsqueeze(-1)
     pos = (u * count).to(torch.int64).minimum(count - 1)
     return pos.to(nnz.device)

@@ -909,3 +909,168 @@ def test_trace_on_card_holds_the_span_and_kernel_events(cuda, tmp_path):
         events = json.load(f)["traceEvents"]
     assert any(e.get("name") == "fit.full" for e in events)
     assert any(e.get("cat") == "kernel" for e in events)
+
+
+# ---------------------------------------------------------------------- #
+# the sharded session on the card
+# ---------------------------------------------------------------------- #
+
+
+def _tie_oracle(x: np.ndarray, k: int) -> np.ndarray:
+    """``jax.lax.top_k``'s positions by numpy: f32 bits made monotone as
+    signed ints (NaN above +inf, +0 above -0), ties to the lower id."""
+
+    b = x.view(np.int32).astype(np.int64)
+    key = np.where(b < 0, b ^ 0x7FFFFFFF, b)
+    ids = np.broadcast_to(np.arange(x.shape[1]), x.shape)
+    return np.lexsort((ids, -key), axis=1)[:, :k]
+
+
+def test_topk_ordered_on_card_breaks_ties_as_jax(cuda):
+    from repro_torch.serve.recommend import recommend_topk, topk_ordered
+
+    rng = np.random.default_rng(21)
+    x = rng.integers(-3, 4, (1024, 3706)).astype(np.float32)
+    x[rng.random(x.shape) < 0.2] = -np.inf
+    x[rng.random(x.shape) < 0.1] = -0.0
+    for k in (1, 10, 100):
+        vals, pos = topk_ordered(torch.from_numpy(x).to(cuda), k)
+        want = _tie_oracle(x, k)
+        np.testing.assert_array_equal(pos.cpu().numpy(), want)
+        np.testing.assert_array_equal(vals.cpu().numpy(),
+                                      np.take_along_axis(x, want, 1))
+    _, pos = topk_ordered(torch.zeros(2, 100_000, device=cuda), 5)
+    assert pos.tolist() == [[0, 1, 2, 3, 4]] * 2
+    # identical item rows tie: the engine path returns the lower ids first
+    idx = index_from_numpy(np.ones((4, 3), np.float32),
+                           np.ones((50, 3), np.float32),
+                           np.full((4, 16), 50, np.int32), cuda)
+    items, _ = recommend_topk(idx, [0, 3], k=6)
+    assert items.tolist() == [list(range(6))] * 2
+
+
+def test_topk_ordered_on_card_selects_again_only_the_tied_rows(cuda,
+                                                               monkeypatch):
+    """Distinct scores go through the float ``topk`` alone; a NaN, a tie
+    at the k-th score and +0 beside -0 send only their rows through the
+    int64 keys; all rows in ``jax.lax.top_k``'s order."""
+
+    from repro_torch.serve import recommend as rec
+
+    rng = np.random.default_rng(25)
+    x = rng.normal(size=(1024, 3706)).astype(np.float32)
+    x[3, 17] = np.nan
+    top = -np.sort(-x[7])
+    x[7, 0] = top[9]                      # the 10th score once more
+    x[11] = -np.abs(x[11]) - 1.0
+    x[11, 100:109] = 1.0
+    x[11, 5], x[11, 6] = -0.0, 0.0
+    seen = []
+    keyed = rec._keyed_topk
+
+    def spy(scores, k, ids):
+        seen.append(scores.shape[0])
+        return keyed(scores, k, ids)
+
+    monkeypatch.setattr(rec, "_keyed_topk", spy)
+    vals, pos = rec.topk_ordered(torch.from_numpy(x).to(cuda), 10)
+    assert seen == [3]
+    want = _tie_oracle(x, 10)
+    np.testing.assert_array_equal(pos.cpu().numpy(), want)
+    np.testing.assert_array_equal(
+        vals.cpu().numpy().view(np.int32),
+        np.take_along_axis(x, want, 1).view(np.int32))
+
+
+def test_sharded_scores_on_card_are_slices_of_the_unsharded(cuda):
+    """int8 shards score bitwise as the columns of the unsharded scores
+    (per-row scales commute with slicing); a one-rank plan answers
+    bitwise as ``recommend_topk``."""
+
+    from repro_torch.mesh import MeshPlan
+    from repro_torch.serve.recommend import (_batch_scores, recommend_topk,
+                                            recommend_topk_sharded,
+                                            shard_index)
+
+    rng = np.random.default_rng(22)
+    n, r = 3706, 64
+    idx = index_from_numpy(
+        rng.normal(size=(600, r)).astype(np.float32),
+        rng.normal(size=(n, r)).astype(np.float32),
+        rng.integers(0, n + 1, (600, 32)).astype(np.int32), cuda)
+    q = quantize_index(idx)
+    users = torch.arange(0, 600, 3, device=cuda)
+    full = _batch_scores(q, users, "fused")
+    plan = MeshPlan.for_world(4)
+    for rank in range(4):
+        sidx = shard_index(q, plan, rank)
+        part = _batch_scores(sidx.index, users, "fused")
+        real = min(sidx.shard_items, n - sidx.start)
+        assert torch.equal(part[:, :real],
+                           full[:, sidx.start:sidx.start + real])
+    for index, method in ((idx, None), (q, "fused")):
+        one = shard_index(index, MeshPlan.build(1, 1))
+        got = recommend_topk_sharded(one, users, k=10, method=method)
+        want = recommend_topk(index, users, k=10, method=method)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def test_routed_ingest_on_card_is_the_global_tile(cuda):
+    from repro_torch.mesh import MeshPlan
+    from repro_torch.sparse.sharded import ShardedEntries, f_grads_sharded
+
+    rng = np.random.default_rng(23)
+    m, n, r = 900, 500, 15
+    lin = rng.choice(m * n, 40_000, replace=False)
+    rows, cols = lin // n, lin % n
+    vals = rng.normal(size=len(lin)).astype(np.float32)
+    plan = MeshPlan.build(4, 4, grid=(2, 2))
+    whole, _ = from_entries(rows, cols, vals, m, n, 4, 4, headroom=64,
+                            device=cuda)
+    U = torch.from_numpy(rng.normal(size=(4, 4, 225, r)).astype(
+        np.float32)).to(cuda)
+    W = torch.from_numpy(rng.normal(size=(4, 4, 125, r)).astype(
+        np.float32)).to(cuda)
+    for rank in range(4):
+        sh, _ = ShardedEntries.from_coo(rows, cols, vals, m, n, plan,
+                                        headroom=64, rank=rank, device=cuda)
+        want = plan.local_slice(whole, rank)
+        for a, b in zip((*sh.sp.entries, sh.sp.nnz),
+                        (*want.entries, want.nnz)):
+            assert a.is_cuda and torch.equal(a, b)
+        n0 = sddmm_ops.sddmm_segment_grad.launches
+        gu, gw = f_grads_sharded(sh, U, W)
+        assert sddmm_ops.sddmm_segment_grad.launches == n0 + 1
+        _, pu, pw = sddmm_segment_grad_ref(sh.sp.entries,
+                                           *plan.local_slice((U, W), rank))
+        _close((gu, gw), (pu, pw))
+
+
+def test_grid_fit_serves_on_card_as_the_unsharded_engine(cuda):
+    """Four ranks sharing the card (gloo, staged through the host): a
+    grid fit's int8 engine answers bitwise as the unsharded one."""
+
+    from repro_torch.launch.gossip import ProblemRecipe, run_on_grid
+    from repro_torch.launch.serve_recommend import ServeJob, serve_fit_rank
+
+    recipe = ProblemRecipe("lowrank_problem", dict(m=400, n=300, r=8,
+                                                   density=0.2, seed=2),
+                           p=4, q=4, rank=8, layout="sparse")
+    cfg = GossipMCConfig(m=400, n=300, p=4, q=4, rank=8, rho=1e3,
+                         lam=1e-6, a=5e-4, b=5e-7)
+    rng = np.random.default_rng(24)
+    reqs = tuple(rng.integers(0, 400, s).astype(np.int32)
+                 for s in (1, 16, 17, 300, 64))
+    for quant in ("int8", None):
+        job = ServeJob(recipe, cfg, 40, 20, reqs[:3], reqs[3:], quant=quant,
+                       buckets=(16, 64, 256), k=10)
+        outs = run_on_grid(serve_fit_rank, (2, 2), job, (2, 2),
+                           device="cuda", timeout=300)
+        top = outs[0]
+        assert top["items_equal"], top
+        if quant:
+            assert top["scores_bitwise"] and all(o["launches"] > 0
+                                                 for o in outs)
+        else:
+            assert top["scores_max_rel"] <= 1e-5
