@@ -110,6 +110,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and gives the same first token wherever the top-2 margin exceeds that.
    Prints prefill and decode times, tokens/s and peak device memory.
 
+``[train]`` (after ``[lm]``, whose model is freed first): gemma2-2b
+training on the card through ``make_train_step`` (``Ctx(attn_impl="ref",
+remat=True)``: the flash kernel has no backward, so this path launches no
+kernel, which the phase checks).  a. Full width and depth (26 layers,
+2.61 B seeded f32 parameters), ``train_4k``'s 4096 tokens a sequence,
+4 sequences a step as ``microbatch=4`` of one, AdamW from ``TrainConfig``'s
+defaults, three steps on ``LMTokenPipeline``'s batches (the first a
+warm-up, the last under ``torch.profiler``): s/step, tokens/s, peak device
+memory (gated below 80 GB), the device busy share and the top kernels, the
+operations a step against the f32 rate; every loss finite.  b. Full width,
+depth one unit (2 sublayers, 0.75 B parameters): remat on and off within
+``REMAT_TOL`` of each gradient leaf's max; ``microbatch=4`` against one
+pass over the same 4 sequences (loss, gradients and an SGD step within
+``MICRO_TOL``); <grad L, d> in float64 against the central difference
+along a seeded unit direction at 256 tokens (relative error below
+``F64_GRAD_TOL``); three AdamW steps on one repeated batch lower its loss.
+c. Gossip data-parallel training (``train/gossip_dp.py``) on a ring of
+four ``gloo`` ranks sharing the card, one unit at full width, 8 sequences
+of 512 tokens a step (2 a rank), SGD with momentum at lr 1e-2, 5 steps,
+against ``make_train_step`` on the global batch in this process (the
+reference's gate, ``tests/test_distributed.py``: consensus error below
+0.05, the final loss within 15%); staleness 2 and int8 messages too, each
+with its consensus error, ms per exchange and bytes per exchange.
+
 ``[stream]`` (after ``[gossip]``): the streaming loop at the Table 3
 cell through ``launch/streaming.py``: 85% of the training ratings
 ingested with the headroom of the stream's largest per-block count; the
@@ -187,7 +211,7 @@ The launch counts of the ``{"kernels": ...}`` line add up the main
 path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included),
 ``[stream]``, ``[faults]`` (the ranks' by stack shape in
 ``faults_launches_by_stack``), ``[serve]``, ``[sharded]`` (the ranks')
-and ``[lm]``.
+and ``[lm]``; ``[train]`` launches none.
 
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
 (``benchmarks/table3_rmse.py --full``): the 6040x3706 ``movielens_proxy``
@@ -197,7 +221,10 @@ rho=1e3, lam=1e-6, a=2e-4, b=5e-7; random initial factors from seed 0.
 The LM cell is gemma2-2b (``repro_torch/configs/gemma2_2b.py``) as
 ``examples/serve_lm.py`` serves it, at its published widths and depth;
 8000-token prompts leave room for the 32 new tokens in Gemma 2's context
-of 8192, exceed the local window and fit no tile exactly.
+of 8192, exceed the local window and fit no tile exactly.  Its training
+cell is ``launch/train.py``'s ``train_4k`` sequence length with 4
+sequences a step (the shape's global batch of 256 cut to what one card
+holds beside f32 AdamW state).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` summary, and the line before that the card's
@@ -208,6 +235,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import os
 import shutil
@@ -225,12 +253,20 @@ import torch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.config import GossipMCConfig, get_model_config  # noqa: E402
+from repro_torch.config import (  # noqa: E402
+    GossipMCConfig,
+    TrainConfig,
+    get_model_config,
+)
 from repro_torch.configs.gossip_mc import EXPERIMENTS, PRODUCTION  # noqa: E402
 from repro_torch.core import gossip as core_gossip  # noqa: E402
 from repro_torch.core import grid as G  # noqa: E402
 from repro_torch.core.state import State, build_tables, init_state  # noqa: E402
-from repro_torch.data import lowrank_problem, movielens_proxy  # noqa: E402
+from repro_torch.data import (  # noqa: E402
+    LMTokenPipeline,
+    lowrank_problem,
+    movielens_proxy,
+)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
@@ -291,6 +327,15 @@ from repro_torch.launch.serve_recommend import (  # noqa: E402
 )
 from repro_torch.mesh import MeshPlan  # noqa: E402
 from repro_torch.models import Ctx, build_model  # noqa: E402
+from repro_torch.optim import make_optimizer  # noqa: E402
+from repro_torch.optim.optimizers import tree_leaves, tree_map  # noqa: E402
+from repro_torch.train import (  # noqa: E402
+    make_eval_step,
+    make_gossip_dp_step,
+    make_train_step,
+    rank_consensus_error,
+)
+from repro_torch.train.step import loss_and_grads, split_batch  # noqa: E402
 from repro_torch.serve.quant import index_nbytes, quantize_index  # noqa: E402
 from repro_torch.serve.recommend import (  # noqa: E402
     RecommendIndex,
@@ -397,6 +442,19 @@ FLASH_RTOL, FLASH_ATOL, FLASH_BF16_ABS = 2e-4, 2e-5, 5e-2
 # version's + F64_SLACK, which one TF32 or bf16 pass would not
 TF32_PASSES, F64_FACTOR, F64_SLACK = 3, 4.0, 1e-7
 LOGIT_TOL = 1e-3    # kernel vs plain model: |diff| <= LOGIT_TOL * max|logit|
+# [train]: train_4k's seq_len, 4 sequences a step as microbatch=4 of one
+TRAIN_SEQ, TRAIN_SEQS, TRAIN_STEPS = 4096, 4, 3
+GATE_SEQ, F64_SEQ, F64_EPS = 512, 256, 1e-3
+REMAT_TOL = 1e-6      # remat on vs off: rel to each gradient leaf's max
+MICRO_TOL = 1e-5      # microbatch=4 vs one pass: loss and leaves, relative
+F64_GRAD_TOL = 1e-6   # float64 <grad L, d> vs central difference, relative
+DP_WORKERS, DP_SEQ, DP_BATCH, DP_STEPS = 4, 512, 8, 5
+DP_TRAIN = dict(optimizer="sgd", learning_rate=1e-2, warmup_steps=0,
+                total_steps=100, max_grad_norm=0.0)
+DP_CASES = {"staleness1": dict(staleness=1, compression="none"),
+            "staleness2": dict(staleness=2, compression="none"),
+            "int8": dict(staleness=1, compression="int8")}
+DP_CERR, DP_LOSS = 0.05, 0.15   # tests/test_distributed.py's gossip-DP gate
 
 
 def fail(msg: str) -> None:
@@ -1450,6 +1508,314 @@ def lm_phase(card):
                  "peak_gib": peak / 2**30, "logit_max_diff": diff}
     del params, lr, lk
     return row
+
+
+def _n_elems(tree) -> int:
+    return sum(x.numel() for x in tree_leaves(tree))
+
+
+def _free() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_flops(cfg, n_params: int, seqs: int, seq: int) -> float:
+    """Operations of one remat training step of the dense LM on ``seqs``
+    sequences of ``seq`` tokens: 2 x params x tokens for each matmul pass
+    of the units (the forward, the recompute, and the backward's two), 6 x
+    for the tied unembedding (forward and backward; the lookup is no
+    product), and the plain attention's full (L x L) QK and PV products
+    (4 L^2 H D a sequence and sublayer) in the same four passes."""
+
+    tokens = seqs * seq
+    embed = cfg.vocab_size * cfg.d_model
+    units = n_params - embed - cfg.d_model          # the final norm aside
+    attn = 4 * seq * seq * cfg.num_heads * cfg.resolved_head_dim
+    return (8.0 * units * tokens + 6.0 * embed * tokens
+            + 4.0 * attn * seqs * cfg.num_layers)
+
+
+def train_full(card, device) -> dict:
+    """a. Full-width, full-depth gemma2-2b training steps on the card."""
+
+    cfg = get_model_config(LM_ARCH)
+    tc = TrainConfig(microbatch=TRAIN_SEQS)
+    model = build_model(cfg, Ctx(attn_impl="ref", remat=True), device=device)
+    optimizer = make_optimizer(tc)
+    step = make_train_step(model, tc, optimizer)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    opt_state = optimizer.init(params)
+    torch.cuda.synchronize()
+    n = _n_elems(params)
+    gb = 4 * n / 1e9
+    logits_gb = TRAIN_SEQ * cfg.vocab_size * 4 / 1e9
+    print(f"[train] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {n} f32 parameters ({gb:.2f} GB), AdamW state "
+          f"init {time.perf_counter() - t0:.2f}s; {TRAIN_SEQS} sequences "
+          f"of {TRAIN_SEQ} tokens a step as microbatch={TRAIN_SEQS} of one, "
+          f"remat on.  Reckoning: params + grads + 2 moments {4 * gb:.1f} "
+          f"GB, one sequence's logits {logits_gb:.2f} GB x ~3, remat unit "
+          f"inputs {cfg.num_layers // 2} x "
+          f"{TRAIN_SEQ * cfg.d_model * 4 / 1e6:.0f} MB, plain attention "
+          f"scores (1, {cfg.num_heads}, {TRAIN_SEQ}, {TRAIN_SEQ}) "
+          f"{cfg.num_heads * TRAIN_SEQ ** 2 * 4 / 1e9:.2f} GB a copy: "
+          f"expected peak ~55-60 GB", flush=True)
+    pipe = LMTokenPipeline(cfg.vocab_size, TRAIN_SEQ, TRAIN_SEQS)
+    reset_counts()
+    secs, losses = [], []
+    for i in range(TRAIN_STEPS):
+        tok, tgt = pipe.batch_at(i)
+        batch = {"tokens": tok, "targets": tgt}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if i < TRAIN_STEPS - 1:     # the first is the warm-up
+            params, opt_state, metrics = step(params, opt_state, batch)
+        else:                       # the last runs under the profiler
+            (params, opt_state, metrics), s_prof, bd = profiled(
+                lambda: step(params, opt_state, batch))
+        losses.append(float(metrics["loss"]))
+        secs.append(time.perf_counter() - t0)
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    if any(got.values()):
+        fail(f"[train] the training path launched a kernel: {got} (it "
+             "trains through the plain attention)")
+    if not all(np.isfinite(losses)):
+        fail(f"[train] non-finite loss: {losses}")
+    s_step = statistics.mean(secs[1:-1])
+    busy = sum(bd.values()) / (1e3 * s_prof)
+    flops = train_flops(cfg, n, TRAIN_SEQS, TRAIN_SEQ)
+    bound_s = flops / peaks(card)[1]
+    row = {"arch": cfg.name, "layers": cfg.num_layers, "params": n,
+           "seq": TRAIN_SEQ, "seqs_per_step": TRAIN_SEQS,
+           "microbatch": TRAIN_SEQS, "remat": True, "steps": TRAIN_STEPS,
+           "step_s": secs, "s_per_step": s_step,  # without the profiler
+           "tokens_per_s": TRAIN_SEQS * TRAIN_SEQ / s_step,
+           "peak_gb": peak / 1e9, "losses": losses,
+           "profiled_step_s": s_prof, "device_busy": busy,
+           "flops_per_step": flops, "f32_bound_s": bound_s,
+           "f32_roofline_share": bound_s / s_step}
+    print(f"[train] full: {json.dumps(row)}", flush=True)
+    print(f"[train] one step under the profiler: wall {s_prof:.3f} s, "
+          f"device busy {100 * busy:.1f}%; by kernel: {top(bd)}", flush=True)
+    if peak >= 80e9:
+        fail(f"[train] peak device memory {peak / 1e9:.1f} GB >= 80 GB")
+    del params, opt_state, step, optimizer
+    _free()
+    return row
+
+
+def _rel_leaf_err(got, want) -> float:
+    """max over leaves of max|got - want| / max|want|."""
+
+    return max(float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def train_gates(card, device) -> dict:
+    """b. Remat, microbatch, float64 gradient and one-batch gates at full
+    width and depth one unit."""
+
+    cfg = dataclasses.replace(get_model_config(LM_ARCH), num_layers=2)
+    gen = torch.Generator(device=device).manual_seed(1)
+    plain = build_model(cfg, Ctx(attn_impl="ref"), device=device)
+    remat = build_model(cfg, Ctx(attn_impl="ref", remat=True), device=device)
+    params = plain.init(gen)
+    n = _n_elems(params)
+    tok, tgt = LMTokenPipeline(cfg.vocab_size, GATE_SEQ, 4).batch_at(0)
+    batch = {"tokens": tok, "targets": tgt}
+    out = {"params": n, "seq": GATE_SEQ}
+
+    l0, g0 = loss_and_grads(plain.loss, params, [batch])
+    l1, g1 = loss_and_grads(remat.loss, params, [batch])
+    out["remat_loss"] = [float(l0), float(l1)]
+    out["remat_rel_err"] = _rel_leaf_err(g1, g0)
+    if not (abs(float(l1) - float(l0)) <= REMAT_TOL * abs(float(l0))
+            and out["remat_rel_err"] <= REMAT_TOL):
+        fail(f"[train] remat on and off differ: {out}")
+    del g1
+    _free()
+
+    lm, gm = loss_and_grads(plain.loss, params, split_batch(batch, 4))
+    out["micro_loss"] = [float(l0), float(lm)]
+    out["micro_grad_rel_err"] = _rel_leaf_err(gm, g0)
+    del gm, g0
+    _free()
+    sgd_cfg = TrainConfig(**DP_TRAIN)
+    stepped = []
+    for mb in (0, 4):
+        tc = dataclasses.replace(sgd_cfg, microbatch=mb)
+        p = tree_map(torch.clone, params)
+        opt = make_optimizer(tc)
+        p, _, _ = make_train_step(plain, tc, opt)(p, opt.init(p), batch)
+        stepped.append(p)
+        _free()
+    out["micro_param_rel_err"] = _rel_leaf_err(stepped[1], stepped[0])
+    del stepped
+    _free()
+    if not (abs(float(lm) - float(l0)) <= MICRO_TOL * abs(float(l0))
+            and out["micro_grad_rel_err"] <= MICRO_TOL
+            and out["micro_param_rel_err"] <= MICRO_TOL):
+        fail(f"[train] microbatch=4 differs from one pass: {out}")
+
+    # <grad L, d> against the central difference, all in float64
+    p64 = tree_map(lambda p: p.double(), params)
+    dgen = torch.Generator(device=device).manual_seed(2)
+    d = tree_map(lambda p: torch.randn(p.shape, generator=dgen,
+                                       dtype=torch.float64, device=device),
+                 p64)
+    norm = torch.sqrt(sum(torch.sum(x * x) for x in tree_leaves(d)))
+    d = tree_map(lambda x: x / norm, d)
+    tok, tgt = LMTokenPipeline(cfg.vocab_size, F64_SEQ, 2).batch_at(1)
+    small = {"tokens": tok, "targets": tgt}
+    _, g64 = loss_and_grads(plain.loss, p64, [small])
+    dd = float(sum(torch.sum(g * x) for g, x in
+                   zip(tree_leaves(g64), tree_leaves(d))))
+    del g64
+    with torch.no_grad():
+        lp = float(plain.loss(tree_map(lambda p, x: p + F64_EPS * x, p64, d),
+                              small))
+        lq = float(plain.loss(tree_map(lambda p, x: p - F64_EPS * x, p64, d),
+                              small))
+    fd = (lp - lq) / (2 * F64_EPS)
+    out["f64_directional"] = {"grad_dot_d": dd, "central_difference": fd,
+                              "eps": F64_EPS,
+                              "rel_err": abs(dd - fd) / abs(dd)}
+    del p64, d
+    _free()
+    if not out["f64_directional"]["rel_err"] < F64_GRAD_TOL:
+        fail(f"[train] float64 gradient against the central difference: "
+             f"{out['f64_directional']}")
+
+    # three AdamW steps on one repeated batch lower its loss
+    tc = TrainConfig(learning_rate=1e-4, warmup_steps=0)
+    opt = make_optimizer(tc)
+    step = make_train_step(plain, tc, opt)
+    opt_state = opt.init(params)
+    losses = []
+    for _ in range(3):
+        params, opt_state, m = step(params, opt_state, batch)
+        losses.append(float(m["loss"]))
+    losses.append(float(make_eval_step(plain)(params, batch)))
+    out["one_batch_losses"] = losses
+    del params, opt_state
+    _free()
+    if not all(a > b for a, b in zip(losses, losses[1:])):
+        fail(f"[train] AdamW did not lower one batch's loss: {losses}")
+    print(f"[train] gates at full width, one unit: {json.dumps(out)}",
+          flush=True)
+    return out
+
+
+def gossip_dp_rank(rank, device, cases) -> dict:
+    """c. One worker of gossip data-parallel training: every case from the
+    same seeded one-unit full-width parameters."""
+
+    cfg = dataclasses.replace(get_model_config(LM_ARCH), num_layers=2)
+    model = build_model(cfg, Ctx(attn_impl="ref"), device=device)
+    optimizer = make_optimizer(TrainConfig(**DP_TRAIN))
+    pipe = LMTokenPipeline(cfg.vocab_size, DP_SEQ, DP_BATCH)
+    out = {}
+    for name, kw in cases.items():
+        params = model.init(torch.Generator(device=device).manual_seed(1))
+        opt_state = optimizer.init(params)
+        step = make_gossip_dp_step(model.loss, optimizer, **kw)
+        obs.reset()
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        losses = []
+        t0 = time.perf_counter()
+        for i in range(DP_STEPS):
+            tok, tgt = pipe.batch_at(i)
+            params, opt_state, loss = step(
+                params, opt_state, {"tokens": tok, "targets": tgt}, i)
+            losses.append(float(loss))
+        wall = time.perf_counter() - t0
+        snap = obs.snapshot()
+        ex = snap["histograms"]["train_gossip_dp_exchange_seconds"]
+        sent = snap["counters"]["train_gossip_dp_bytes_total"]
+        out[name] = {"losses": losses,
+                     "consensus_error": float(rank_consensus_error(params)),
+                     "exchanges": ex["count"],
+                     "ms_per_exchange": 1e3 * ex["sum"] / ex["count"],
+                     "bytes_per_exchange": sent / ex["count"],
+                     "s_per_step": wall / DP_STEPS,
+                     "peak_gb": torch.cuda.max_memory_allocated(device) / 1e9
+                     if device.type == "cuda" else None}
+        del params, opt_state, step
+        _free()
+    return out
+
+
+def train_gossip_dp(card, device) -> dict:
+    """c. Gossip DP on a ring of four gloo ranks on the card, against the
+    exact step on the global batch in this process."""
+
+    cfg = dataclasses.replace(get_model_config(LM_ARCH), num_layers=2)
+    model = build_model(cfg, Ctx(attn_impl="ref"), device=device)
+    tc = TrainConfig(**DP_TRAIN)
+    optimizer = make_optimizer(tc)
+    step = make_train_step(model, tc, optimizer)
+    params = model.init(torch.Generator(device=device).manual_seed(1))
+    opt_state = optimizer.init(params)
+    pipe = LMTokenPipeline(cfg.vocab_size, DP_SEQ, DP_BATCH)
+    t0 = time.perf_counter()
+    ref_losses = []
+    for i in range(DP_STEPS):
+        tok, tgt = pipe.batch_at(i)
+        params, opt_state, m = step(params, opt_state,
+                                    {"tokens": tok, "targets": tgt})
+        ref_losses.append(float(m["loss"]))
+    ref_s = (time.perf_counter() - t0) / DP_STEPS
+    del params, opt_state, step
+    _free()
+    marks: list = []
+    t0 = time.perf_counter()
+    try:
+        outs = run_on_grid(gossip_dp_rank, (DP_WORKERS, 1), DP_CASES,
+                           device=torch.device(device).type, timeout=600,
+                           marks=marks)
+    finally:
+        shutdown_grids()        # the forkserver would outlive this phase
+    grid_s = time.perf_counter() - t0
+    res = outs[0]
+    for name in DP_CASES:
+        if any(o[name]["losses"] != res[name]["losses"] for o in outs):
+            fail(f"[train] gossip DP {name}: the ranks report different "
+                 "mean losses")
+        if not all(np.isfinite(res[name]["losses"])):
+            fail(f"[train] gossip DP {name}: non-finite loss")
+    base = res["staleness1"]
+    cerr, final, want = (base["consensus_error"], base["losses"][-1],
+                         ref_losses[-1])
+    row = {"workers": DP_WORKERS, "seq": DP_SEQ, "batch": DP_BATCH,
+           "steps": DP_STEPS, "one_process_losses": ref_losses,
+           "one_process_s_per_step": ref_s, "grid_s": grid_s,
+           "startup_s": max(m["group_s"] for m in marks),
+           "rank_peak_gb": [o[k]["peak_gb"] for o in outs
+                            for k in DP_CASES], "cases": res}
+    print(f"[train] gossip DP: {json.dumps(row)}", flush=True)
+    if not cerr < DP_CERR:
+        fail(f"[train] gossip DP consensus error {cerr:.4g} >= {DP_CERR}")
+    if not abs(final - want) < DP_LOSS * abs(want):
+        fail(f"[train] gossip DP final loss {final:.5f} not within "
+             f"{DP_LOSS:.0%} of the one-process loss {want:.5f}")
+    return row
+
+
+def train_phase(card, device="cuda") -> dict:
+    """``[train]``: LM training of gemma2-2b on the card (no kernel on this
+    path: the flash kernel has no backward)."""
+
+    t_phase = time.perf_counter()
+    out = {"full": train_full(card, device),
+           "gates": train_gates(card, device),
+           "gossip_dp": train_gossip_dp(card, device)}
+    print(f"[train] phase: {time.perf_counter() - t_phase:.1f}s of command",
+          flush=True)
+    return out
 
 
 class StateAt(Callback):
@@ -2832,8 +3198,10 @@ def main() -> None:
         if row["name"] in faults_by_stack:
             row["faults_launches_by_stack"] = faults_by_stack[row["name"]]
 
-    # 6. gemma2-2b serving through the flash kernel
+    # 6. gemma2-2b serving through the flash kernel, then its training
     rows.append(lm_phase(card))
+    _free()
+    train_phase(card)
     print(f"[main] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{time.perf_counter() - started:.1f}s since start", flush=True)

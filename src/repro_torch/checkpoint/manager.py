@@ -12,7 +12,10 @@ either package writes of a (nested) dict of arrays loads in the other.
 * **Sharded leaves**: each array is cut into ≤ ``shard_bytes`` ``.npy``
   shards (``a<leaf>_s<shard>.npy``, flat and concatenated); the tree's
   structure is a JSON skeleton keyed by the flattened path string
-  (``['U']``, ``['b']['x'][0]``: dict keys sorted, as JAX flattens).
+  (``['U']``, ``['b']['x'][0]``, ``['o'].mu['w']``: dict keys sorted, a
+  NamedTuple's fields by name, as ``jax.tree_util.keystr`` writes them),
+  so an optimizer state (``AdamWState``/``SGDState``) either package saves
+  loads in the other, its type kept.
 * Leaves are saved as full arrays from the host (torch tensors, numpy
   arrays or Python scalars); ``load_pytree`` returns torch tensors on the
   device it is given.
@@ -34,11 +37,15 @@ _MANIFEST = "MANIFEST.json"
 
 def _flatten(tree, path: str = ""):
     """(path string, leaf) pairs in JAX's flattening order: dict keys
-    sorted, then list/tuple positions."""
+    sorted, NamedTuple fields in order (``.name``), then list/tuple
+    positions."""
 
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from _flatten(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for k, v in zip(tree._fields, tree):
+            yield from _flatten(v, f"{path}.{k}")
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _flatten(v, f"{path}[{i}]")
@@ -50,6 +57,9 @@ def _unflatten(like, leaves: dict, path: str = ""):
     if isinstance(like, dict):
         return {k: _unflatten(like[k], leaves, f"{path}[{k!r}]")
                 for k in like}
+    if isinstance(like, tuple) and hasattr(like, "_fields"):
+        return type(like)(*(_unflatten(v, leaves, f"{path}.{k}")
+                            for k, v in zip(like._fields, like)))
     if isinstance(like, (list, tuple)):
         out = [_unflatten(v, leaves, f"{path}[{i}]")
                for i, v in enumerate(like)]
@@ -123,8 +133,8 @@ def checkpoint_valid(directory: str) -> bool:
 
 def load_pytree(directory: str, like: Any, device=None) -> Any:
     """The checkpoint in ``directory`` as ``like``'s structure (nested
-    dicts, lists and tuples; its leaves only mark places) of torch
-    tensors on ``device`` (the CPU by default)."""
+    dicts, lists, tuples and NamedTuples; its leaves only mark places) of
+    torch tensors on ``device`` (the CPU by default)."""
 
     with open(os.path.join(directory, _SKELETON)) as f:
         skeleton = json.load(f)

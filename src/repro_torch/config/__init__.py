@@ -1,7 +1,7 @@
 """Configurations: the paper's workload (a copy of
 ``repro.config.GossipMCConfig``) and the LM harness's ``ModelConfig``,
-``ShapeConfig``/``SHAPES`` and the ``--arch`` registry (copies of
-``repro.config``).
+``ShapeConfig``/``SHAPES``/``get_shape``, ``TrainConfig`` and the
+``--arch`` registry (copies of ``repro.config``).
 
 Only the dense family is ported so far: ``get_model_config`` and
 ``get_smoke_config`` load ``repro_torch.configs.<arch>`` for the four dense
@@ -131,6 +131,23 @@ SHAPES: dict[str, ShapeConfig] = {
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
 
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    learning_rate: float = 3e-4
+    optimizer: str = "adamw"           # adamw | sgd | paper_sgd
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    microbatch: int = 0                # 0 = no gradient accumulation
+    seed: int = 0
+    checkpoint_every: int = 200
+    checkpoint_dir: str = "/tmp/repro_ckpt"
+    max_grad_norm: float = 1.0
+
 ARCHS: Sequence[str] = (
     "internlm2-20b",
     "granite-34b",
@@ -173,3 +190,7 @@ def get_smoke_config(arch: str) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests."""
 
     return _module(arch).smoke_config()
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.state import Problem, State
 from repro_torch.models.attention import KVCache
+from repro_torch.optim import AdamWState, SGDState
 from repro_torch.serve.quant import QuantizedRecommendIndex
 from repro_torch.serve.recommend import RecommendIndex
 from repro_torch.sparse.entries import BlockEntries
@@ -95,6 +96,21 @@ def lm_params_from_numpy(tree, device) -> dict:
     if isinstance(tree, dict):
         return {k: lm_params_from_numpy(v, device) for k, v in tree.items()}
     return _leaf(tree, device)
+
+
+def opt_state_from_numpy(state, device):
+    """The port's optimizer state (``AdamWState``/``SGDState``) from the
+    JAX one with its leaves as numpy arrays, field for field: the step an
+    int32 0-d tensor, the moments nested dicts of f32 tensors."""
+
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=device)
+    if hasattr(state, "mu"):
+        return AdamWState(step, lm_params_from_numpy(state.mu, device),
+                          lm_params_from_numpy(state.nu, device))
+    mom = state.momentum
+    return SGDState(step, lm_params_from_numpy(mom, device)
+                    if isinstance(mom, dict) else ())
 
 
 def kv_cache_from_numpy(tree, device) -> dict:

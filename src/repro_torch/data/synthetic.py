@@ -1,5 +1,5 @@
 """Deterministic synthetic datasets (the port's copy of
-``repro.data.synthetic``; the LM token pipeline is not ported yet).
+``repro.data.synthetic``).
 
 * ``lowrank_problem`` — the paper's synthetic setup: a rank-r matrix,
   majority of entries masked for training, a held-out test set drawn from
@@ -7,6 +7,9 @@
 * ``movielens_proxy`` — offline stand-in for the MovieLens/Netflix tables:
   low-rank user/item structure + noise + long-tail popularity sampling at a
   requested ratings count, 80/20 split, ratings clipped to [1,5].
+* ``LMTokenPipeline`` — seeded, stateless (step -> batch) token stream for
+  LM training; numpy only, so its batches are the JAX package's bit for
+  bit.
 
 Everything is numpy + explicit seeds; nothing touches the network.
 """
@@ -122,3 +125,33 @@ def load_movielens_csv(path: str, test_fraction: float = 0.2, seed: int = 0) -> 
     x[users[tr], items[tr]] = vals[tr]
     mask[users[tr], items[tr]] = 1.0
     return MCDataset(x, mask, users[te], items[te], vals[te])
+
+
+class LMTokenPipeline:
+    """Stateless synthetic token stream: ``batch_at(step) -> (tokens,
+    targets)``.
+
+    Tokens follow a power-law unigram distribution with short-range
+    structure (Markov-ish mixing) so losses move realistically.  Because
+    batches are a pure function of (seed, step), checkpoint restart resumes
+    the exact stream.
+    """
+
+    def __init__(self, vocab_size: int, seq_len: int, batch: int,
+                 seed: int = 0):
+        self.vocab_size = vocab_size
+        self.seq_len = seq_len
+        self.batch = batch
+        self.seed = seed
+        ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+        p = 1.0 / ranks**1.1
+        self._p = p / p.sum()
+
+    def batch_at(self, step: int) -> tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng((self.seed, step))
+        toks = rng.choice(
+            self.vocab_size, size=(self.batch, self.seq_len + 1), p=self._p
+        ).astype(np.int32)
+        # short-range structure: every 4th token repeats its predecessor
+        toks[:, 3::4] = toks[:, 2::4][:, : toks[:, 3::4].shape[1]]
+        return toks[:, :-1], toks[:, 1:]

@@ -13,6 +13,12 @@ the JAX wrapper (D to 128 lanes, L to the tile, q rescaled by √Dp/√D) is
 gone; V with its own head dim (MLA) goes in as it is.  It takes float32 or
 bfloat16 tensors, contiguous, all of one dtype.  Launches are counted in
 ``flash_attention.launches``.
+
+There is no backward: the JAX kernel defines no VJP, and neither does this
+one.  So the wrapper refuses, on either device, to run where autograd would
+record it (grad mode on and q, k or v requiring grad) instead of returning
+an output with no gradient; a model that trains builds with
+``Ctx(attn_impl="ref")``.
 """
 
 from __future__ import annotations
@@ -36,6 +42,12 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     Dv = v.shape[-1]
     if Hq % Hkv:
         raise ValueError(f"GQA needs Hkv|Hq, got Hq={Hq} Hkv={Hkv}")
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "flash_attention has no backward (the JAX kernel defines no "
+            "VJP): run it under torch.no_grad()/inference_mode, or train "
+            "with the plain attention, Ctx(attn_impl=\"ref\")")
     if not _build.on_card(q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, q_offset=q_offset)

@@ -1,10 +1,10 @@
 """Model API of the port (``repro.models.api`` for the dense family):
 ``build_model(cfg, ctx, device) -> Model``.
 
-A ``Model`` packages init / prefill / decode / init_cache behind one
-signature, as in the JAX package; batches are dicts ``{"tokens": (B, L)
-int}``.  ``loss`` (training) and the MoE, SSM, hybrid, enc-dec and VLM
-families are not ported yet.
+A ``Model`` packages init / loss / prefill / decode / init_cache behind
+one signature, as in the JAX package; batches are dicts ``{"tokens": (B,
+L) int}``, with ``"targets"`` (B, L) for ``loss``.  The MoE, SSM, hybrid,
+enc-dec and VLM families are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ class Model(NamedTuple):
     ctx: T.Ctx
     device: torch.device
     init: Callable[..., Any]          # (generator) -> params
+    loss: Callable[..., Any]          # (params, batch) -> scalar
     prefill: Callable[..., Any]       # (params, batch, max_len) -> (logits, cache)
     decode: Callable[..., Any]        # (params, cache, token, pos) -> (logits, cache)
     init_cache: Callable[..., Any]    # (batch, max_len) -> cache
@@ -35,8 +36,8 @@ def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
     """The dense LM on ``device`` (the card unless ``device="cpu"``).
 
     ``init`` takes a ``torch.Generator`` on that device; its draws cannot
-    match JAX's threefry, only the distributions do.  Tokens given to
-    ``prefill``/``decode`` are moved to the device.
+    match JAX's threefry, only the distributions do.  Tokens and targets
+    given to ``loss``/``prefill``/``decode`` are moved to the device.
     """
 
     ctx = ctx or T.Ctx()
@@ -52,6 +53,8 @@ def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
     return Model(
         cfg, ctx, device,
         init=lambda gen: T.init_lm(gen, cfg, ctx, device),
+        loss=lambda p, b: T.lm_loss(p, tokens(b["tokens"]),
+                                    tokens(b["targets"]), cfg, ctx),
         prefill=lambda p, b, ml: T.lm_prefill(p, tokens(b["tokens"]), ml,
                                               cfg, ctx),
         decode=lambda p, c, tok, pos: T.lm_decode_step(

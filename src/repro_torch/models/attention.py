@@ -1,5 +1,7 @@
 """GQA attention of the dense LM (port of ``repro.models.attention``): the
-prefill path (flash kernel or plain reference) and the cached decode path.
+training and prefill paths (flash kernel or plain reference) and the
+cached decode path.  Training runs the plain reference under autograd: the
+flash kernel, like the JAX one, has no backward.
 
 The decode path keeps a static-shape KV cache (B, Hkv, Lmax, D) and masks
 positions > pos; as in the JAX package it is plain tensor code (a
@@ -73,6 +75,33 @@ def _project_qkv(params, x, num_heads, num_kv_heads, head_dim):
     return q, k, v
 
 
+def _self_attention(params, x, *, num_heads, num_kv_heads, head_dim,
+                    causal, window, attn_softcap, rope_theta, impl):
+    """(output (B, L, d), roped k, v) of self-attention over x (B, L, d)
+    at positions 0..L-1."""
+
+    B, Lx, _ = x.shape
+    q, k, v = _project_qkv(params, x, num_heads, num_kv_heads, head_dim)
+    positions = torch.arange(Lx, device=x.device)
+    q = L.apply_rope(q, positions, rope_theta)
+    k = L.apply_rope(k, positions, rope_theta)
+    o = _attend(q, k, v, impl, causal=causal, window=window,
+                softcap=attn_softcap)
+    o = o.transpose(1, 2).reshape(B, Lx, num_heads * head_dim)
+    return L.linear(o, params["wo"]), k, v
+
+
+def attention(params, x, *, num_heads, num_kv_heads, head_dim, causal=True,
+              window=0, attn_softcap=0.0, rope_theta=10000.0, impl="ref"):
+    """Training self-attention.  x: (B, L, d)."""
+
+    out, _, _ = _self_attention(
+        params, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
+        head_dim=head_dim, causal=causal, window=window,
+        attn_softcap=attn_softcap, rope_theta=rope_theta, impl=impl)
+    return out
+
+
 def attention_prefill(params, x, max_len, *, num_heads, num_kv_heads,
                       head_dim, window=0, attn_softcap=0.0,
                       rope_theta=10000.0, impl="ref",
@@ -83,19 +112,16 @@ def attention_prefill(params, x, max_len, *, num_heads, num_kv_heads,
     place (the model's stacked cache); otherwise a new one is made."""
 
     B, Lx, _ = x.shape
-    q, k, v = _project_qkv(params, x, num_heads, num_kv_heads, head_dim)
-    positions = torch.arange(Lx, device=x.device)
-    q = L.apply_rope(q, positions, rope_theta)
-    k = L.apply_rope(k, positions, rope_theta)
-    o = _attend(q, k, v, impl, causal=True, window=window,
-                softcap=attn_softcap)
-    o = o.transpose(1, 2).reshape(B, Lx, num_heads * head_dim)
+    out, k, v = _self_attention(
+        params, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
+        head_dim=head_dim, causal=True, window=window,
+        attn_softcap=attn_softcap, rope_theta=rope_theta, impl=impl)
     if cache is None:
         cache = init_cache(B, num_kv_heads, max_len, head_dim, cache_dtype,
                            x.device)
     cache.k[..., :Lx, :] = k
     cache.v[..., :Lx, :] = v
-    return L.linear(o, params["wo"]), cache
+    return out, cache
 
 
 def init_cache(batch, num_kv_heads, max_len, head_dim, dtype=torch.bfloat16,

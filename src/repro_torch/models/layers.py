@@ -6,8 +6,8 @@ device and a ``lead`` shape: ``lead=(n,)`` draws ``n`` stacked copies at
 once, the layout of the JAX package's scanned unit params.  The values
 cannot match JAX's threefry draws; the distributions do.
 
-``mlp_gelu``, ``layer_norm``, ``embed_onehot`` and ``cross_entropy`` serve
-other families, sharding or training and are not ported yet.
+``mlp_gelu``, ``layer_norm`` and ``embed_onehot`` serve other families or
+sharding and are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,11 +22,19 @@ def _normal(gen, shape, std, dtype, device, lead=()):
     return x.mul_(std).to(dtype)
 
 
+def upcast(x):
+    """x in float32, as the JAX package computes norms, rotations, softmax
+    and the loss; float64 stays float64, so that a float64 evaluation (a
+    gradient check) is float64 throughout."""
+
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def rms_norm(x, w, eps: float = 1e-6):
-    xf = x.float()
+    xf = upcast(x)
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * (1.0 + w.float())).to(x.dtype)
+    return (out * (1.0 + upcast(w))).to(x.dtype)
 
 
 def linear(x, w, b=None):
@@ -62,7 +70,7 @@ def apply_rope(x, positions, theta: float = 10000.0):
     else:                                                  # (B, L, D/2)
         angles = angles[:, None]
     cos, sin = torch.cos(angles), torch.sin(angles)
-    x1, x2 = x.float().chunk(2, dim=-1)
+    x1, x2 = upcast(x).chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
 
@@ -103,3 +111,20 @@ def embed(emb, tokens):
 def unembed(x, emb_or_head, tied: bool, cap: float = 0.0):
     logits = x @ (emb_or_head.T if tied else emb_or_head)
     return softcap(logits, cap)
+
+
+def cross_entropy(logits, targets, n_valid=None):
+    """Mean next-token CE in f32; targets == -1 are padding.
+
+    The JAX package extracts the gold logit with an iota-compare masked
+    reduction, which only its GSPMD partitioning needs; a gather of the
+    gold logit computes the same function."""
+
+    logits = upcast(logits)
+    valid = targets >= 0
+    t = torch.where(valid, targets, 0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, t[..., None])[..., 0]
+    nll = torch.where(valid, logz - gold, 0.0)
+    denom = valid.sum().clamp(min=1) if n_valid is None else n_valid
+    return nll.sum() / denom

@@ -11,8 +11,11 @@ dropped.  The KV cache is stacked the same way and filled in place.
 Only what the dense family runs is ported: attention mixers and SwiGLU
 MLPs.  ``init_sublayer`` builds SwiGLU for every dense config, gemma2's
 included, exactly as the reference does (its ``mlp_act`` is not read).
-MoE, MLA and SSM sublayers, training (``lm_loss``) and the mesh fields of
-``Ctx`` (EP, remat, dp, one-hot embedding) wait for later slices.
+Training (``lm_loss``) runs under autograd through the plain attention;
+``Ctx(remat=True)`` recomputes each unit in the backward
+(``torch.utils.checkpoint``, as ``jax.checkpoint`` wraps the scanned
+unit).  MoE, MLA and SSM sublayers and the mesh fields of ``Ctx`` (EP, dp,
+one-hot embedding) wait for later slices.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as A
@@ -36,11 +40,13 @@ class SubLayer:
 
 @dataclasses.dataclass(frozen=True)
 class Ctx:
-    """Build-time execution context: the attention implementation of the
-    prefill (``"kernel"``: the flash kernel; ``"ref"``: the plain
-    reference) and the KV cache's dtype."""
+    """Build-time execution context: the attention implementation
+    (``"kernel"``: the flash kernel, serving only, since it has no
+    backward; ``"ref"``: the plain reference), whether training recomputes
+    each unit in the backward (``remat``) and the KV cache's dtype."""
 
     attn_impl: str = "ref"
+    remat: bool = False
     cache_dtype: torch.dtype = torch.bfloat16
 
     def __post_init__(self) -> None:
@@ -111,11 +117,36 @@ def init_sublayer(gen, cfg: ModelConfig, sl: SubLayer, device,
     return p
 
 
-def _ffn(p, x, cfg: ModelConfig, sl: SubLayer):
+def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer):
+    """The sublayer after its mixer: x + h (h post-normed in gemma2's
+    sandwich), then the pre-norm SwiGLU half."""
+
+    # the post-normed h is a temporary of the sum: the caller still holds
+    # the raw h, and one more (B, L, d) tensor would be alive in the MLP
+    x = x + (L.rms_norm(h, p["post_norm1"], cfg.norm_eps) if sl.post_norm
+             else h)
     h = L.mlp_swiglu(p["mlp"], L.rms_norm(x, p["norm2"], cfg.norm_eps))
     if sl.post_norm:
         h = L.rms_norm(h, p["post_norm2"], cfg.norm_eps)
     return x + h
+
+
+def _mixer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
+    return A.attention(
+        p["attn"], x, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+        causal=True, window=sl.window, attn_softcap=cfg.attn_softcap,
+        rope_theta=cfg.rope_theta, impl=ctx.attn_impl)
+
+
+def apply_sublayer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
+    """Pre-norm residual block; returns (x, aux).  ``aux`` is the MoE
+    load-balancing loss in the JAX package, 0 for a dense sublayer."""
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    h = _mixer_train(p, L.rms_norm(x, p["norm1"], cfg.norm_eps), cfg, sl,
+                     ctx)
+    return _residual(p, x, h, cfg, sl), aux
 
 
 def apply_sublayer_prefill(p, x, max_len, cfg: ModelConfig, sl: SubLayer,
@@ -128,9 +159,7 @@ def apply_sublayer_prefill(p, x, max_len, cfg: ModelConfig, sl: SubLayer,
         head_dim=cfg.resolved_head_dim, window=sl.window,
         attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
         impl=ctx.attn_impl, cache_dtype=ctx.cache_dtype, cache=cache)
-    if sl.post_norm:
-        h = L.rms_norm(h, p["post_norm1"], cfg.norm_eps)
-    return _ffn(p, x + h, cfg, sl), cache
+    return _residual(p, x, h, cfg, sl), cache
 
 
 def apply_sublayer_decode(p, cache, x, pos, cfg: ModelConfig, sl: SubLayer,
@@ -140,14 +169,20 @@ def apply_sublayer_decode(p, cache, x, pos, cfg: ModelConfig, sl: SubLayer,
         num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
         head_dim=cfg.resolved_head_dim, window=sl.window,
         attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta)
-    if sl.post_norm:
-        h = L.rms_norm(h, p["post_norm1"], cfg.norm_eps)
-    return _ffn(p, x + h, cfg, sl), cache
+    return _residual(p, x, h, cfg, sl), cache
 
 
 # ---------------------------------------------------------------------------
 # Unit = tuple of sublayers
 # ---------------------------------------------------------------------------
+
+
+def apply_unit_train(params, x, cfg, unit, ctx):
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i, sl in enumerate(unit):
+        x, a = apply_sublayer_train(params[f"s{i}"], x, cfg, sl, ctx)
+        aux = aux + a
+    return x, aux
 
 
 def apply_unit_prefill(params, x, max_len, cfg, unit, ctx, cache=None):
@@ -201,6 +236,36 @@ def embed_tokens(params, tokens, cfg: ModelConfig):
 def _unembed(params, x, cfg: ModelConfig):
     emb = params["embed"] if cfg.tie_embeddings else params["lm_head"]
     return L.unembed(x, emb, cfg.tie_embeddings, cfg.logit_softcap)
+
+
+def lm_hidden_train(params, x, cfg: ModelConfig, ctx: Ctx):
+    """Embedded input -> final hidden states (+ MoE aux).  x: (B, L, d).
+
+    With ``ctx.remat`` each unit keeps only its input for the backward and
+    recomputes the rest there (non-reentrant ``checkpoint``, which takes
+    the unit's parameter dict as it is)."""
+
+    unit, n_scan = unit_spec(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for n in range(n_scan):
+        unit_params = _index(params["units"], n)
+        if ctx.remat:
+            x, a = checkpoint(apply_unit_train, unit_params, x, cfg, unit,
+                              ctx, use_reentrant=False)
+        else:
+            x, a = apply_unit_train(unit_params, x, cfg, unit, ctx)
+        aux = aux + a
+    return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def lm_loss(params, tokens, targets, cfg: ModelConfig, ctx: Ctx):
+    """Mean next-token cross-entropy of ``tokens`` (B, L) against
+    ``targets`` (B, L; -1 is padding), as a 0-d f32 tensor."""
+
+    x = embed_tokens(params, tokens, cfg)
+    h, aux = lm_hidden_train(params, x, cfg, ctx)
+    logits = _unembed(params, h, cfg)
+    return L.cross_entropy(logits, targets) + aux
 
 
 def lm_init_cache(cfg: ModelConfig, ctx: Ctx, batch: int, max_len: int,

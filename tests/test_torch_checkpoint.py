@@ -2,7 +2,9 @@
 
 * One on-disk format: a nested dict of arrays saved by JAX
   ``save_pytree`` loads in the port's ``load_pytree`` and the reverse,
-  leaf for leaf (values, dtypes and shapes exactly).
+  leaf for leaf (values, dtypes and shapes exactly); so do optimizer
+  states (``AdamWState``/``SGDState`` NamedTuples under ``.field`` paths),
+  each side getting back its own NamedTuple type.
 * ``CheckpointManager``: a partial ``step_<n>.tmp``, a missing or
   incomplete manifest, a missing shard and a stale ``LATEST`` are
   skipped; ``keep`` garbage-collects old steps.
@@ -14,6 +16,7 @@
 import json
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,10 +25,12 @@ torch = pytest.importorskip("torch")
 
 from repro import checkpoint as jck  # noqa: E402
 from repro import mc as jmc  # noqa: E402
+from repro.optim import optimizers as jopt  # noqa: E402
 from repro_torch import checkpoint as tck  # noqa: E402
 from repro_torch import mc as tmc  # noqa: E402
 from repro_torch.config import GossipMCConfig as TConfig  # noqa: E402
 from repro_torch.data import lowrank_problem  # noqa: E402
+from repro_torch.optim import optimizers as topt  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -92,6 +97,51 @@ def test_port_save_loads_in_jax(tmp_path):
     with open(tmp_path / "c" / "skeleton.json") as f, \
             open(tmp_path / "j" / "skeleton.json") as g:
         assert json.load(f) == json.load(g)
+
+
+_OPTIMIZERS = {
+    "adamw": lambda m: m.adamw(m.cosine_warmup(1e-2, 0, 10)),
+    "sgd": lambda m: m.sgd(m.cosine_warmup(1e-2, 0, 10)),
+    "paper_sgd": lambda m: m.paper_sgd(1e-3, 0.1),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(_OPTIMIZERS))
+def test_optimizer_states_cross_both_ways(tmp_path, kind):
+    rng = np.random.default_rng(2)
+    params = {"w": rng.normal(size=(4, 3)).astype(np.float32),
+              "b": {"x": rng.normal(size=(5,)).astype(np.float32)}}
+    grads = {"w": rng.normal(size=(4, 3)).astype(np.float32),
+             "b": {"x": rng.normal(size=(5,)).astype(np.float32)}}
+    jo = _OPTIMIZERS[kind](jopt)
+    _, jstate = jo.update(grads, jo.init(params), params)
+    jtree = {"p": params, "o": jstate}
+    jck.save_pytree(jtree, str(tmp_path / "j"))
+    with open(tmp_path / "j" / "skeleton.json") as f:
+        paths = [e["path"] for e in json.load(f)]
+    assert "['o'].step" in paths
+    if kind == "adamw":
+        assert "['o'].mu['w']" in paths and "['o'].nu['b']['x']" in paths
+
+    tparams = {"w": torch.zeros(4, 3), "b": {"x": torch.zeros(5)}}
+    like = {"p": tparams, "o": _OPTIMIZERS[kind](topt).init(tparams)}
+    got = tck.load_pytree(str(tmp_path / "j"), like, device="cpu")
+    assert type(got["o"]) is type(like["o"])
+    assert got["o"].step.dtype == torch.int32 and int(got["o"].step) == 1
+    want = [np.asarray(x) for x in jax.tree.leaves(jtree)]
+    assert len(list(_leaves(got))) == len(want)
+    for g, w in zip(tck.manager._flatten(got), want):
+        _equal(g[1].numpy(), w)
+
+    # and back: the port's save of the same tree is JAX's, skeleton and all
+    tck.save_pytree(got, str(tmp_path / "t"))
+    with open(tmp_path / "t" / "skeleton.json") as f, \
+            open(tmp_path / "j" / "skeleton.json") as g:
+        assert json.load(f) == json.load(g)
+    back = jck.load_pytree(str(tmp_path / "t"), jtree)
+    assert type(back["o"]) is type(jstate)
+    for g, w in zip(jax.tree.leaves(back), want):
+        _equal(np.asarray(g), w)
 
 
 def _manager(tmp_path, steps=(1, 2, 3), keep=5):

@@ -808,6 +808,57 @@ def test_flash_kernel_rejects_bad_inputs(cuda):
     assert flash_ops.flash_attention.launches == n0
 
 
+def test_flash_kernel_refuses_autograd(cuda):
+    q, k, v = _qkv(1, 4, 2, 32, 32, 64)
+    n0 = flash_ops.flash_attention.launches
+    q.requires_grad_(True)
+    with pytest.raises(RuntimeError, match='no backward.*attn_impl="ref"'):
+        flash_ops.flash_attention(q, k, v)
+    assert flash_ops.flash_attention.launches == n0
+    with torch.no_grad():
+        flash_ops.flash_attention(q, k, v)
+    assert flash_ops.flash_attention.launches == n0 + 1
+
+
+def test_gemma2_smoke_training_on_card_matches_cpu(cuda):
+    """Loss, every gradient leaf (remat on) and one microbatched AdamW
+    step of the smoke gemma2 on the card against the CPU."""
+
+    from repro_torch.config import TrainConfig
+    from repro_torch.optim import make_optimizer
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import loss_and_grads
+
+    cfg = get_smoke_config("gemma2-2b")
+    card = build_model(cfg, Ctx(remat=True), device=cuda)
+    params = card.init(torch.Generator(device=cuda).manual_seed(0))
+    host = build_model(cfg, Ctx(remat=True), device="cpu")
+    host_params = _tree_to(params, "cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 40)),
+             "targets": rng.integers(0, cfg.vocab_size, (4, 40))}
+    lc, gc = loss_and_grads(card.loss, params, [batch])
+    lh, gh = loss_and_grads(host.loss, host_params, [batch])
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(gc), tree_leaves(gh)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+    tc = TrainConfig(learning_rate=1e-3, warmup_steps=0, optimizer="sgd",
+                     microbatch=2)
+    states = []
+    for model, p in ((card, params), (host, host_params)):
+        opt = make_optimizer(tc)
+        p, _, m = make_train_step(model, tc, opt)(p, opt.init(p), batch)
+        states.append((p, m["loss"]))
+    (pc, mc), (ph, mh) = states
+    torch.testing.assert_close(mc.cpu(), mh, rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(pc), tree_leaves(ph)):
+        assert a.is_cuda
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
+
+
 def test_gemma2_smoke_model_on_card_matches_cpu(cuda):
     cfg = get_smoke_config("gemma2-2b")
     ctx = Ctx(attn_impl="kernel")

@@ -40,7 +40,10 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.faults.plan", "repro_torch.faults.recovery",
             "repro_torch.checkpoint.manager", "repro_torch.obs.spans",
             "repro_torch.launch.gossip_faults",
-            "repro_torch.launch.gossip_async"} <= set(mods)
+            "repro_torch.launch.gossip_async",
+            "repro_torch.optim.optimizers", "repro_torch.train.step",
+            "repro_torch.train.gossip_dp",
+            "repro_torch.launch.train"} <= set(mods)
     code = (
         "import sys\n"
         f"for m in {mods!r}: __import__(m)\n"

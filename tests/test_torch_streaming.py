@@ -9,9 +9,11 @@
 * Gradients on an appended store against JAX, both layouts: rel 1e-5.
 * ``CompletionProblem.append`` against JAX on both layouts (μ-centring,
   ``seen_coo``, validation), and a rank's tile under a 2×2 plan.
-* ``Trainer.refit`` against JAX ``refit`` from the same injected state:
-  ``t`` carried over, states to rel 1e-5; ``reset_clock``; the spec check;
-  ``Incremental`` as the default.
+* ``Trainer.refit`` against JAX ``refit`` from the same injected state,
+  the ``"full"`` refit and the default ``Incremental`` one (40 Wave rounds,
+  JAX's wave orders injected into the port's draws): ``t`` carried over,
+  states to rel 1e-5; ``reset_clock``; the spec check; ``Incremental`` as
+  the default.
 * ``RefreshPolicy`` and ``ServingEngine.note_append`` on a CPU engine
   (every engine in a ``with`` block, every ``future.result`` with a
   timeout), and ``launch/streaming.py`` at a tiny size.
@@ -328,8 +330,19 @@ def _close_state(got, want):
                                    atol=RTOL * float(np.abs(b).max()))
 
 
+def _jax_wave_orders(seed, rounds, n_tables):
+    """The wave order of each round of JAX's wave ``_fit`` from
+    ``PRNGKey(seed)``: a split per round, a permutation of its subkey."""
+
+    key, orders = jax.random.PRNGKey(seed), []
+    for _ in range(rounds):
+        key, rk = jax.random.split(key)
+        orders.append(np.asarray(jax.random.permutation(rk, n_tables)))
+    return orders
+
+
 @pytest.mark.parametrize("reset_clock", [False, True])
-def test_refit_equals_jax_refit(fitted, reset_clock):
+def test_refit_equals_jax_refit(fitted, reset_clock, monkeypatch):
     (jtr, jres, jgrown), (ttr, tres, tgrown) = fitted
     want = jtr.refit(jres, jgrown, "full", num_rounds=20,
                      reset_clock=reset_clock)
@@ -343,6 +356,29 @@ def test_refit_equals_jax_refit(fitted, reset_clock):
     _close_state(got.state, want.state)
     np.testing.assert_allclose([c for _, c in got.history],
                                [c for _, c in want.history], rtol=1e-4)
+
+    # the default Incremental refit: 40 Wave rounds, each in a random wave
+    # order, which the port draws from a torch generator; JAX's orders
+    # (threefry, not reproducible in torch) are fed to its draws
+    rounds = tmc.Incremental().num_rounds
+    n_tables = len(twaves.wave_tables(P, Q, "cpu"))
+    orders = iter(_jax_wave_orders(0, rounds, n_tables))
+    real = torch.randperm
+
+    def replay(n, **kw):
+        assert n == n_tables
+        return torch.from_numpy(next(orders).copy())
+
+    want = jtr.refit(jres, jgrown, reset_clock=reset_clock)
+    monkeypatch.setattr(torch, "randperm", replay)
+    got = ttr.refit(tres, tgrown, reset_clock=reset_clock)
+    monkeypatch.setattr(torch, "randperm", real)
+    assert next(orders, None) is None          # every round drew once
+    assert got.schedule == want.schedule == "incremental"
+    assert got.t == want.t == (0 if reset_clock else tres.t) + rounds * \
+        n_struct
+    _close_state(got.state, want.state)
+    np.testing.assert_allclose(got.final_cost, want.final_cost, rtol=1e-4)
 
 
 def test_refit_defaults_and_spec_check(fitted):
