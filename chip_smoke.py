@@ -134,6 +134,34 @@ reference's gate, ``tests/test_distributed.py``: consensus error below
 0.05, the final loss within 15%); staleness 2 and int8 messages too, each
 with its consensus error, ms per exchange and bytes per exchange.
 
+``[moe]`` (after ``[train]``): the MoE family at full width and depth.
+First the flash kernel against its plain version at both archs' prefill
+shapes, causal with no window and no softcap: granite-moe's q (4, 24,
+4000, 64) with k/v (4, 8, 4000, 64) (GQA groups of 3) and MLA's q/k (4,
+16, 4000, 192) with v (4, 16, 4000, 128); each at rtol 2e-4 / atol 2e-5,
+one (b, h) slice against float64, a bf16 call at 5e-2, its CUDA-graph and
+eager times, the plain version's, the 3xTF32 and f32 bounds, and SDPA's
+time (here SDPA computes the same function).  Then granite-moe-3b-a800m
+(32 layers, 40 experts top-8, 3.3 B seeded f32 parameters) and
+deepseek-v2-lite-16b (27 layers, layer 0 dense, MLA with kv_lora 512, 64
+routed experts top-6 and 2 shared, 15.7 B parameters), each through
+``build_model`` -> ``init`` -> ``ServeLoop(max_len=4096).generate`` of 32
+greedy tokens after 4 prompts of 4000 tokens (numpy seed 13).  Checks:
+one flash launch a layer in the prefill and none in decode, finite
+logits, output (4, 32).  Prints prefill s, tokens/s, decode ms a step,
+the host reads of the expert run lengths a step, peak memory, the device
+busy share, launches and top kernels of one prefill and one decode step
+under the profiler, each expert's share of the prefill's slots, and the
+latent cache's bytes beside a (k, v) cache of the same heads.  Then the
+plain-attention model on the same prompts, with every router call
+recorded: routing flips against the kernel model counted (at each row's
+first flip the gap between the k-th and (k+1)-th probability at most
+``ROUTE_MARGIN``, at most ``FLIP_SHARE`` of all choices flipped), the
+last-position logits within 1e-3 x max|logit| on the rows whose routing
+agreed, and again for all rows with the plain model routed as the kernel
+model was (its own weights at those experts), with the same first token
+wherever the top-2 margin exceeds that; peak memory below the card's.
+
 ``[stream]`` (after ``[gossip]``): the streaming loop at the Table 3
 cell through ``launch/streaming.py``: 85% of the training ratings
 ingested with the headroom of the stream's largest per-block count; the
@@ -210,8 +238,9 @@ bare ``torch.topk``.
 The launch counts of the ``{"kernels": ...}`` line add up the main
 path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included),
 ``[stream]``, ``[faults]`` (the ranks' by stack shape in
-``faults_launches_by_stack``), ``[serve]``, ``[sharded]`` (the ranks')
-and ``[lm]``; ``[train]`` launches none.
+``faults_launches_by_stack``), ``[serve]``, ``[sharded]`` (the ranks'),
+``[lm]`` and ``[moe]`` (the flash row's ``moe`` key has that phase's
+numbers); ``[train]`` launches none.
 
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
 (``benchmarks/table3_rmse.py --full``): the 6040x3706 ``movielens_proxy``
@@ -224,7 +253,9 @@ The LM cell is gemma2-2b (``repro_torch/configs/gemma2_2b.py``) as
 of 8192, exceed the local window and fit no tile exactly.  Its training
 cell is ``launch/train.py``'s ``train_4k`` sequence length with 4
 sequences a step (the shape's global batch of 256 cut to what one card
-holds beside f32 AdamW state).
+holds beside f32 AdamW state).  The MoE cells are the two archs'
+published configs (``repro_torch/configs/``), 4000-token prompts with the
+32 new tokens inside Granite 3.0's context of 4096.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` summary, and the line before that the card's
@@ -327,6 +358,7 @@ from repro_torch.launch.serve_recommend import (  # noqa: E402
 )
 from repro_torch.mesh import MeshPlan  # noqa: E402
 from repro_torch.models import Ctx, build_model  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves, tree_map  # noqa: E402
 from repro_torch.train import (  # noqa: E402
@@ -455,6 +487,17 @@ DP_CASES = {"staleness1": dict(staleness=1, compression="none"),
             "staleness2": dict(staleness=2, compression="none"),
             "int8": dict(staleness=1, compression="int8")}
 DP_CERR, DP_LOSS = 0.05, 0.15   # tests/test_distributed.py's gossip-DP gate
+# [moe]: both MoE archs at full width and depth; 4 prompts of 4000 tokens
+# and 32 new tokens in Granite 3.0's context of 4096
+MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
+MOE_BATCH, MOE_PROMPT, MOE_NEW, MOE_MAX_LEN = 4, 4000, 32, 4096
+# routing, kernel model against plain-attention model: at a row's first
+# flip every flipped token's gap between the k-th and (k+1)-th router
+# probability must be at most ROUTE_MARGIN (the two attentions differ by
+# ~1e-6 a layer, compounded over up to 32 layers; the CPU tests hold 1e-5
+# at 3 layers), and at most FLIP_SHARE of the (layer, token) choices may
+# differ in all (a flipped token's later layers flip with it)
+ROUTE_MARGIN, FLIP_SHARE = 1e-4, 1e-2
 
 
 def fail(msg: str) -> None:
@@ -552,10 +595,10 @@ def _kernel_ms(prof, calls: int, seen=None) -> dict[str, float]:
     return out
 
 
-def profiled(fn):
+def profiled(fn, seen=None):
     """One ``fn()`` under ``torch.profiler`` (CUPTI): its result, the host
     seconds it took (ended by a synchronize) and the device ms of each CUDA
-    kernel it launched."""
+    kernel it launched (``seen``: see ``_kernel_ms``)."""
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -565,7 +608,7 @@ def profiled(fn):
         out = fn()
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-    return out, seconds, _kernel_ms(prof, 1)
+    return out, seconds, _kernel_ms(prof, 1, seen)
 
 
 def top(breakdown: dict[str, float], n: int = 8) -> str:
@@ -1273,17 +1316,19 @@ def live_pairs(L: int, window: int) -> int:
     return int((i - lo + 1).sum())
 
 
-def f64_check(q, k, v, got, want, softcap, b=LM_BATCH - 1, h=7):
+def f64_check(q, k, v, got, want, softcap, b=LM_BATCH - 1, h=7,
+              tag="[lm]"):
     """Max abs error of the kernel's and the plain version's (b, h) slice
-    of a causal, softcapped layer against the same attention in float64;
-    fails the run when the kernel's exceeds F64_FACTOR x the plain
-    version's + F64_SLACK."""
+    of a causal (softcapped when ``softcap``) layer against the same
+    attention in float64; fails the run when the kernel's exceeds
+    F64_FACTOR x the plain version's + F64_SLACK."""
 
     L, D = q.shape[2], q.shape[3]
     kvh = h // (q.shape[1] // k.shape[1])
     qd, kd, vd = q[b, h].double(), k[b, kvh].double(), v[b, kvh].double()
     logits = qd @ kd.T / D ** 0.5                        # 512 MB at L = 8000
-    logits = softcap * torch.tanh(logits / softcap)
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
     pos = torch.arange(L, device=q.device)
     logits.masked_fill_(pos[:, None] < pos[None, :], float("-inf"))
     ref = torch.softmax(logits, -1) @ vd
@@ -1291,7 +1336,7 @@ def f64_check(q, k, v, got, want, softcap, b=LM_BATCH - 1, h=7):
     err = float((got[b, h].double() - ref).abs().max())
     err_plain = float((want[b, h].double() - ref).abs().max())
     limit = F64_FACTOR * err_plain + F64_SLACK
-    print(f"[lm] flash f64 check, slice (b={b}, h={h}) of (L={L}, D={D}): "
+    print(f"{tag} flash f64 check, slice (b={b}, h={h}) of (L={L}, D={D}): "
           f"kernel max abs error {err:.3e}, plain {err_plain:.3e}, limit "
           f"{F64_FACTOR:g} x plain + {F64_SLACK:g} = {limit:.3e}", flush=True)
     if not err <= limit:
@@ -1814,6 +1859,376 @@ def train_phase(card, device="cuda") -> dict:
            "gates": train_gates(card, device),
            "gossip_dp": train_gossip_dp(card, device)}
     print(f"[train] phase: {time.perf_counter() - t_phase:.1f}s of command",
+          flush=True)
+    return out
+
+
+def moe_flash(card, label, Hq, Hkv, D, Dv) -> dict:
+    """The flash kernel against its plain version at one MoE arch's
+    prefill shapes (causal, no window, no softcap): f32 at rtol 2e-4 /
+    atol 2e-5, one (b, h) slice against float64, a bf16 call at 5e-2;
+    CUDA-graph and eager times, the plain version's, the bounds, and SDPA,
+    which computes the same function here (K/V repeated to Hq heads)."""
+
+    bw, flops, _, tf32 = peaks(card)
+    B, L = MOE_BATCH, MOE_PROMPT
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q = torch.randn((B, Hq, L, D), generator=g, device="cuda")
+    k = torch.randn((B, Hkv, L, D), generator=g, device="cuda")
+    v = torch.randn((B, Hkv, L, Dv), generator=g, device="cuda")
+    kern = lambda: flash_ops.flash_attention(q, k, v, causal=True)  # noqa: E731
+    plain = lambda: attention_ref(q, k, v, causal=True)             # noqa: E731
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    abs_err = float(err.max())
+    ok = bool((err <= FLASH_ATOL + FLASH_RTOL * want.abs()).all())
+    del err
+    f64 = f64_check(q, k, v, got, want, 0.0, b=B - 1, h=Hq - 1,
+                    tag=f"[moe] {label}")
+    del want
+    # yardstick only, never called by the port
+    kr, vr = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (k, v))
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
+        q, kr, vr, is_causal=True)
+    library_err = float((sdpa() - got).abs().max())
+    del got
+    library_ms = eager_ms(sdpa, reps=5)
+    del kr, vr
+    _free()
+    ops = 2 * (D + Dv) * live_pairs(L, 0) * B * Hq
+    nbytes = 4 * (q.numel() + k.numel() + v.numel() + B * Hq * L * Dv)
+    t_bytes = nbytes / bw * 1e3
+    t_f32, t_tc = ops / flops * 1e3, TF32_PASSES * ops / tf32 * 1e3
+    t_ops = min(t_f32, t_tc)
+    replays = graph_replays_ms(kern, calls=3, reps=9)
+    out = {
+        "ms": statistics.median(replays),
+        "ms_range": [min(replays), max(replays)],
+        "eager_ms": eager_ms(kern, reps=7),
+        "plain_ms": eager_ms(plain, reps=3),
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_f32_cuda_core_ms": max(t_bytes, t_f32),
+        "operations": ops, "bytes": nbytes, "max_abs_err": abs_err,
+        "library_ms": library_ms, "library_max_abs_err": library_err,
+        "library_call": "scaled_dot_product_attention f32, is_causal, K/V "
+                        "repeated to Hq (the same function)",
+        "timing": "ms: median of CUDA-graph replays of 3 calls; eager and "
+                  "plain: median of single calls between CUDA events",
+        "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "L": L, "D": D, "Dv": Dv},
+        **f64}
+    qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
+    bf16_err = float((flash_ops.flash_attention(qb, kb, vb, causal=True)
+                      .float() - attention_ref(qb, kb, vb, causal=True)
+                      .float()).abs().max())
+    out["bf16_max_abs_err"] = bf16_err
+    del q, k, v, qb, kb, vb
+    _free()
+    print(f"[moe] flash {label}: {json.dumps(out)}", flush=True)
+    if not ok:
+        fail(f"[moe] flash_attention at {label}'s shapes disagrees with its "
+             f"plain version beyond rtol {FLASH_RTOL} / atol {FLASH_ATOL} "
+             f"(max abs error {abs_err:.3e})")
+    if not bf16_err < FLASH_BF16_ABS:
+        fail(f"[moe] flash_attention bf16 at {label}'s shapes: max abs "
+             f"error {bf16_err:.3e} >= {FLASH_BF16_ABS}")
+    return out
+
+
+class RouteLog:
+    """Stands in for the port's router (``models.moe.route``, which
+    ``moe_ffn`` looks up at each call) while ``with``-ed: it records each
+    call's expert choices and the gap between the k-th and (k+1)-th
+    probability on the host.  Given ``force`` (an earlier log's choices) it
+    routes by those instead, weighted by this model's own probabilities and
+    renormalised as ``route`` does, so that two models can be compared
+    under the same routing."""
+
+    def __init__(self, force=None):
+        self.idx, self.gap, self.force = [], [], force
+        self._route = moe_mod.route
+
+    def __enter__(self):
+        moe_mod.route = self
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.route = self._route
+
+    def __call__(self, params, xt, cfg):
+        top_idx, top_w, aux = self._route(params, xt, cfg)
+        k = cfg.num_experts_per_tok
+        probs = torch.softmax(xt.float() @ params["router"], dim=-1)
+        if self.force is not None:
+            top_idx = torch.as_tensor(self.force[len(self.idx)],
+                                      device=xt.device)
+            top_w = probs.gather(-1, top_idx)
+            top_w = top_w / top_w.sum(dim=-1, keepdim=True)
+        top = probs.topk(k + 1, dim=-1).values
+        self.idx.append(top_idx.cpu().numpy())
+        self.gap.append((top[:, k - 1] - top[:, k]).cpu().numpy())
+        return top_idx, top_w, aux
+
+    def rows(self, n: int) -> None:
+        """Keep the first ``n`` prompts of every recorded prefill call."""
+
+        self.idx = [i.reshape(MOE_BATCH, -1, i.shape[-1])[:n]
+                    .reshape(-1, i.shape[-1]) for i in self.idx]
+        self.gap = [gp.reshape(MOE_BATCH, -1)[:n].reshape(-1)
+                    for gp in self.gap]
+
+
+def route_flips(ref: RouteLog, other: RouteLog, rows: int) -> dict:
+    """Routing of ``other`` against ``ref`` over the same prompts: the
+    (layer, token) choices whose expert sets differ, the rows with none,
+    and at each row's first flip the largest gap of ``ref`` among its
+    flipped tokens (a flip changes its token's state and, through
+    attention, its row's, so later flips in that row are consequences)."""
+
+    flips, total = 0, 0
+    alive = np.ones(rows, bool)
+    first_gap = [None] * rows
+    for a, b, gap in zip(ref.idx, other.idx, ref.gap):
+        same = (np.sort(a, -1) == np.sort(b, -1)).all(-1)
+        same, gap = same.reshape(rows, -1), gap.reshape(rows, -1)
+        for r in np.flatnonzero(alive & ~same.all(1)):
+            first_gap[r] = float(gap[r][~same[r]].max())
+        alive &= same.all(1)
+        flips += int((~same).sum())
+        total += same.size
+    return {"flips": flips, "choices": total, "share": flips / total,
+            "rows_agreed": alive.tolist(), "first_flip_gap": first_gap}
+
+
+def _flat_caches(cache):
+    """Every sublayer cache (a ``KVCache`` or ``MLACache``) of an LM cache
+    tree."""
+
+    for sub in cache.values():
+        if isinstance(sub, dict):
+            yield from _flat_caches(sub)
+        else:
+            yield sub
+
+
+def moe_model(card, arch, flash_shapes, device="cuda") -> dict:
+    """One MoE arch served at full width and depth through the flash
+    kernel, then against the plain-attention model on the same prompts."""
+
+    cfg = get_model_config(arch)
+    t0 = time.perf_counter()
+    model = build_model(cfg, Ctx(attn_impl="kernel"), device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    param_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    print(f"[moe] {cfg.name}: {cfg.num_layers} layers, d_model "
+          f"{cfg.d_model}, {cfg.moe.num_experts} experts top-"
+          f"{cfg.moe.num_experts_per_tok} (+{cfg.moe.num_shared_experts} "
+          f"shared), {n_params} parameters in {cfg.param_dtype} "
+          f"({param_bytes / 1e9:.2f} GB), init "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    prompts = np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (MOE_BATCH, MOE_PROMPT))
+    n_moe = cfg.num_layers - (1 if cfg.mla is not None else 0)
+
+    ServeLoop(model, params, 1, MOE_MAX_LEN).generate(
+        {"tokens": prompts[:1, :256]}, 2)                # warm-up
+    torch.cuda.synchronize()
+
+    pre, dec = [], []
+    spy = model._replace(prefill=timed(model.prefill, pre),
+                         decode=timed(model.decode, dec))
+    loop = ServeLoop(spy, params, MOE_BATCH, MOE_MAX_LEN)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = loop.generate({"tokens": prompts}, MOE_NEW)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    del loop, spy
+    if got["flash_attention"] != cfg.num_layers:
+        fail(f"[moe] {arch}: flash_attention launched "
+             f"{got['flash_attention']} times, expected {cfg.num_layers} "
+             "(one per prefill sublayer, none in decode)")
+    if any(n for name, n in got.items() if name != "flash_attention"):
+        fail(f"[moe] {arch}: an unexpected kernel launched: {got}")
+    if tuple(out.shape) != (MOE_BATCH, MOE_NEW):
+        fail(f"[moe] {arch}: generate gave shape {tuple(out.shape)}")
+    if not all(bool(torch.isfinite(lg).all()) for _, lg in pre + dec):
+        fail(f"[moe] {arch}: non-finite logits")
+    t_pre = pre[0][0]
+    t_dec = sum(s for s, _ in dec)
+    print(f"[moe] {arch} generate: prefill {t_pre:.3f}s "
+          f"({MOE_BATCH * MOE_PROMPT / t_pre:.0f} prompt tokens/s), decode "
+          f"{1e3 * t_dec / len(dec):.3f} ms/step over {len(dec)} steps "
+          f"({MOE_BATCH * len(dec) / t_dec:.1f} generated tokens/s), total "
+          f"{total:.3f}s ({MOE_BATCH * MOE_NEW / total:.1f} tokens/s); "
+          f"launches {got}; {n_moe} host reads of the expert run lengths a "
+          f"step (one a MoE layer); peak device memory {peak / 2**30:.2f} "
+          f"GiB", flush=True)
+    print(f"[moe] {arch} first row: {out[0].tolist()}", flush=True)
+
+    # where the device time of one prefill and one decode step goes; the
+    # prefill also records the kernel model's routing (a host copy of each
+    # layer's choices, inside the profiled wall)
+    batch = {"tokens": prompts}
+    seen_pre, seen_dec = {}, {}
+    with torch.inference_mode():
+        with RouteLog() as routes_k:
+            (lk, cache), s_pre, bd_pre = profiled(
+                lambda: model.prefill(params, batch, MOE_MAX_LEN), seen_pre)
+        tok = torch.zeros(MOE_BATCH, dtype=torch.int32, device=device)
+        _, s_dec, bd_dec = profiled(
+            lambda: model.decode(params, cache, tok, MOE_PROMPT), seen_dec)
+    cache_bytes = sum(x.numel() * x.element_size()
+                      for c in _flat_caches(cache) for x in c)
+    del cache
+    lk = lk.float()
+    same_prefill = bool(torch.equal(lk, pre[0][1].float()))
+    prof = {}
+    for label, secs, bd, seen in (("prefill", s_pre, bd_pre, seen_pre),
+                                  ("decode step", s_dec, bd_dec, seen_dec)):
+        busy = sum(bd.values()) / (1e3 * secs)
+        prof[label] = {"wall_ms": 1e3 * secs, "busy": busy,
+                       "launches": sum(seen.values())}
+        print(f"[moe] {arch} {label} under the profiler: wall "
+              f"{1e3 * secs:.3f} ms, device busy {100 * busy:.1f}%, "
+              f"{sum(seen.values())} kernel launches; by kernel: {top(bd)}",
+              flush=True)
+
+    # expert load: the share of the prefill's slots each expert took,
+    # summed over the MoE layers
+    E = cfg.moe.num_experts
+    load = sum(np.bincount(i.reshape(-1), minlength=E) for i in routes_k.idx)
+    share = load / load.sum()
+    print(f"[moe] {arch} expert load over {len(routes_k.idx)} layers: share "
+          f"of slots min {share.min():.4f} max {share.max():.4f} (uniform "
+          f"{1 / E:.4f}); by expert {[round(float(x), 4) for x in share]}",
+          flush=True)
+
+    # the latent cache beside a (k, v) cache of the same heads
+    if cfg.mla is not None:
+        dk = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+        kv_equiv = (2 * MOE_BATCH * MOE_MAX_LEN * cfg.num_heads
+                    * cfg.num_layers * (dk + cfg.mla.v_head_dim))
+        print(f"[moe] {arch} cache: latent (c_kv, k_rope) {cache_bytes} "
+              f"bytes in bf16 against {kv_equiv} for a (k, v) cache of the "
+              f"same heads (k {dk}, v {cfg.mla.v_head_dim}): "
+              f"{kv_equiv / cache_bytes:.2f}x", flush=True)
+    else:
+        kv_equiv = cache_bytes
+        print(f"[moe] {arch} cache: (k, v) {cache_bytes} bytes in bf16",
+              flush=True)
+
+    # the plain-attention model on the same prompts: free routing (flips
+    # counted, rows whose routing agreed held), then routed as the kernel
+    # model was (every row held)
+    ref = build_model(cfg, Ctx(attn_impl="ref"), device=device)
+    plain_bytes = 4 * MOE_BATCH * cfg.num_heads * MOE_PROMPT ** 2
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    rows = MOE_BATCH
+    if peak + plain_bytes > 0.95 * total_mem:
+        rows = 1
+        routes_k.rows(rows)
+        lk = lk[:rows]
+        print(f"[moe] {arch}: the plain comparison runs on the first prompt "
+              f"alone (the prefill's peak {peak / 1e9:.1f} GB and "
+              f"{plain_bytes / 1e9:.1f} GB of plain logits exceed 95% of "
+              "the card)", flush=True)
+    sub = {"tokens": prompts[:rows]}
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), RouteLog() as routes_p:
+        lr, _ = ref.prefill(params, sub, MOE_MAX_LEN)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    with torch.inference_mode(), RouteLog(force=routes_k.idx):
+        lf, _ = ref.prefill(params, sub, MOE_MAX_LEN)
+    torch.cuda.synchronize()
+    if counts()["flash_attention"] != 0:
+        fail(f"[moe] {arch}: the plain model launched the flash kernel")
+    peak_all = torch.cuda.max_memory_allocated()
+    flips = route_flips(routes_k, routes_p, rows)
+    lr, lf = lr.float(), lf.float()
+    bound = LOGIT_TOL * float(lf.abs().max())
+    agreed = torch.as_tensor(flips["rows_agreed"], device=device)
+    diff_agreed = (float((lk - lr).abs()[agreed].max()) if bool(agreed.any())
+                   else None)
+    diff_free = float((lk - lr).abs().max())
+    diff_forced = float((lk - lf).abs().max())
+    top2 = lf.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > bound
+    same_tok = bool(torch.equal(lk.argmax(-1)[sure], lf.argmax(-1)[sure]))
+    firsts = [g_ for g_ in flips["first_flip_gap"] if g_ is not None]
+    print(f"[moe] {arch} kernel vs plain model prefill ({t_ref:.3f}s, "
+          f"{rows} prompt(s)): routing flips {flips['flips']} of "
+          f"{flips['choices']} (layer, token) choices (share "
+          f"{flips['share']:.2e}, bound {FLIP_SHARE}); rows with no flip "
+          f"{flips['rows_agreed']}; gap at each row's first flip "
+          f"{flips['first_flip_gap']} (bound {ROUTE_MARGIN}); last-position "
+          f"logits max diff on those rows {diff_agreed}, on all rows "
+          f"{diff_free:.3e}; routed as the kernel model: {diff_forced:.3e}; "
+          f"bound {bound:.3e} (1e-3 x max|logit|); first token equal on "
+          f"{int(sure.sum())} of {rows} rows with margin > bound: "
+          f"{same_tok}; the profiled prefill's logits bitwise the "
+          f"generate's: {same_prefill}; peak device memory "
+          f"{peak_all / 2**30:.2f} GiB of {total_mem / 2**30:.2f}",
+          flush=True)
+    if flips["share"] > FLIP_SHARE:
+        fail(f"[moe] {arch}: {flips['share']:.2e} of the routing choices "
+             f"flipped, more than {FLIP_SHARE}")
+    if firsts and max(firsts) > ROUTE_MARGIN:
+        fail(f"[moe] {arch}: a row's first routing flip lies on a gap of "
+             f"{max(firsts):.3e} > {ROUTE_MARGIN}")
+    if diff_agreed is not None and not diff_agreed <= bound:
+        fail(f"[moe] {arch}: on rows whose routing agreed the kernel model's "
+             f"logits differ from the plain model's by {diff_agreed:.3e} > "
+             f"{bound:.3e}")
+    if not diff_forced <= bound:
+        fail(f"[moe] {arch}: routed alike, the kernel model's logits differ "
+             f"from the plain model's by {diff_forced:.3e} > {bound:.3e}")
+    if not same_tok:
+        fail(f"[moe] {arch}: first greedy token differs on a row with a "
+             "clear margin")
+    if not peak_all < total_mem:
+        fail(f"[moe] {arch}: peak device memory {peak_all / 2**30:.2f} GiB "
+             f">= the card's {total_mem / 2**30:.2f}")
+    del params, lk, lr, lf
+    _free()
+    return {"launches": got["flash_attention"], "prefill_s": t_pre,
+            "decode_ms_per_step": 1e3 * t_dec / len(dec),
+            "tokens_per_s": MOE_BATCH * MOE_NEW / total,
+            "plain_prefill_s": t_ref, "peak_gib": peak_all / 2**30,
+            "routing": {k_: flips[k_] for k_ in ("flips", "choices",
+                                                 "share")},
+            "logit_max_diff_routed_alike": diff_forced,
+            "logit_max_diff_agreed_rows": diff_agreed,
+            "profile": prof, "cache_bytes": cache_bytes,
+            "kv_cache_bytes_same_heads": kv_equiv,
+            "expert_share_min_max": [float(share.min()),
+                                     float(share.max())],
+            "flash": flash_shapes}
+
+
+def moe_phase(card, flash_row) -> dict:
+    """``[moe]``: the flash kernel at both MoE archs' prefill shapes, then
+    granite-moe-3b-a800m and deepseek-v2-lite-16b served at full width and
+    depth through it.  Adds the phase's flash launches to ``flash_row``."""
+
+    t_phase = time.perf_counter()
+    shapes = {"granite-moe-3b-a800m": moe_flash(card, "granite-moe", 24, 8,
+                                                64, 64),
+              "deepseek-v2-lite-16b": moe_flash(card, "mla", 16, 16, 192,
+                                                128)}
+    out = {arch: moe_model(card, arch, shapes[arch]) for arch in MOE_ARCHS}
+    flash_row["launches"] += sum(o["launches"] for o in out.values())
+    flash_row["moe"] = out
+    print(f"[moe] phase: {time.perf_counter() - t_phase:.1f}s of command",
           flush=True)
     return out
 
@@ -3202,6 +3617,9 @@ def main() -> None:
     rows.append(lm_phase(card))
     _free()
     train_phase(card)
+    _free()
+    # 7. the MoE family: granite-moe, then deepseek (MLA), full width
+    moe_phase(card, rows[-1])
     print(f"[main] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{time.perf_counter() - started:.1f}s since start", flush=True)

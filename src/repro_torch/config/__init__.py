@@ -3,9 +3,10 @@
 ``ShapeConfig``/``SHAPES``/``get_shape``, ``TrainConfig`` and the
 ``--arch`` registry (copies of ``repro.config``).
 
-Only the dense family is ported so far: ``get_model_config`` and
-``get_smoke_config`` load ``repro_torch.configs.<arch>`` for the four dense
-archs and raise ``NotImplementedError`` for the others.  The analytic
+``get_model_config`` and ``get_smoke_config`` load
+``repro_torch.configs.<arch>`` for the archs of the ported families (the
+four dense archs and the two MoE archs, ``MoEConfig`` and ``MLAConfig``
+included) and raise ``NotImplementedError`` for the others.  The analytic
 ``ModelConfig.param_count``/``active_param_count`` of the JAX package (an
 ``eval_shape`` of its init) are not ported.
 """
@@ -76,6 +77,26 @@ class GossipMCConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    num_experts: int = 0               # routed experts
+    num_experts_per_tok: int = 0       # top-k
+    num_shared_experts: int = 0        # DeepSeek-style always-on experts
+    expert_d_ff: int = 0               # per-expert hidden dim
+    router_aux_loss_coef: float = 0.001
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """DeepSeek multi-head latent attention."""
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0               # 0 = full-rank queries (v2-lite)
+    qk_rope_head_dim: int = 64
+    qk_nope_head_dim: int = 128
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                        # dense | moe | ssm | hybrid | encdec | vlm
@@ -98,9 +119,9 @@ class ModelConfig:
                                        # dense MLP is SwiGLU, as in repro
     norm_eps: float = 1e-6
     tie_embeddings: bool = False
-    # sub-configs of families the port does not run yet
-    moe: Optional[Any] = None
-    mla: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+    # sub-config of a family the port does not run yet
     ssm: Optional[Any] = None
     shared_attn_every: int = 0
     encoder_layers: int = 0
@@ -160,10 +181,11 @@ ARCHS: Sequence[str] = (
     "granite-moe-3b-a800m",
     "deepseek-v2-lite-16b",
 )
-# archs whose family (dense) the port runs; the others wait for their
+# archs whose family (dense, moe) the port runs; the others wait for their
 # families (ROADMAP queue 1, item 6)
 PORTED_ARCHS: Sequence[str] = (
-    "internlm2-20b", "granite-34b", "gemma2-2b", "qwen1.5-32b")
+    "internlm2-20b", "granite-34b", "gemma2-2b", "qwen1.5-32b",
+    "granite-moe-3b-a800m", "deepseek-v2-lite-16b")
 
 
 def _module(arch: str):

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.state import Problem, State
 from repro_torch.models.attention import KVCache
+from repro_torch.models.mla import MLACache
 from repro_torch.optim import AdamWState, SGDState
 from repro_torch.serve.quant import QuantizedRecommendIndex
 from repro_torch.serve.recommend import RecommendIndex
@@ -114,10 +115,14 @@ def opt_state_from_numpy(state, device):
 
 
 def kv_cache_from_numpy(tree, device) -> dict:
-    """The port's LM cache from the JAX cache tree (nested dicts whose
-    leaves are ``KVCache``-like (k, v) pairs of numpy arrays)."""
+    """The port's LM cache from the JAX cache tree: nested dicts whose
+    leaves are an attention sublayer's ``KVCache`` (k, v) or an MLA
+    sublayer's ``MLACache`` (c_kv, k_rope) of numpy arrays).  A pair whose
+    fields are named ``c_kv``/``k_rope`` becomes an ``MLACache``, any
+    other pair a ``KVCache``."""
 
     if isinstance(tree, dict):
         return {k: kv_cache_from_numpy(v, device) for k, v in tree.items()}
-    k, v = tree
-    return KVCache(_leaf(k, device), _leaf(v, device))
+    a, b = tree
+    mla = getattr(tree, "_fields", None) == MLACache._fields
+    return (MLACache if mla else KVCache)(_leaf(a, device), _leaf(b, device))

@@ -30,7 +30,12 @@ import time
 import torch
 
 from repro_torch.checkpoint import CheckpointManager
-from repro_torch.config import ARCHS, TrainConfig, get_model_config, get_shape
+from repro_torch.config import (
+    PORTED_ARCHS,
+    TrainConfig,
+    get_model_config,
+    get_shape,
+)
 from repro_torch.core.state import resolve_device
 from repro_torch.data import LMTokenPipeline
 from repro_torch.models import Ctx, build_model
@@ -40,7 +45,9 @@ from repro_torch.train.step import make_train_step
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", choices=list(ARCHS), required=True)
+    ap.add_argument("--arch", choices=list(PORTED_ARCHS), required=True,
+                    help="an arch of a ported family (the JAX launcher "
+                         "takes every arch)")
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--multi-pod", action="store_true",

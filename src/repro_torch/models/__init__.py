@@ -1,5 +1,5 @@
-"""The LM harness of the port (dense family): ``build_model(cfg, ctx)``
-gives a ``Model`` whose ``init``/``prefill``/``decode``/``init_cache`` keep
+"""The LM harness of the port (dense and MoE families):
+``build_model(cfg, ctx)`` gives a ``Model`` whose ``init``/``prefill``/``decode``/``init_cache`` keep
 the JAX package's parameter and cache trees (``repro.models``)."""
 
 from repro_torch.models.api import Model, build_model

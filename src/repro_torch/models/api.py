@@ -1,9 +1,9 @@
-"""Model API of the port (``repro.models.api`` for the dense family):
-``build_model(cfg, ctx, device) -> Model``.
+"""Model API of the port (``repro.models.api`` for the dense and MoE
+families): ``build_model(cfg, ctx, device) -> Model``.
 
 A ``Model`` packages init / loss / prefill / decode / init_cache behind
 one signature, as in the JAX package; batches are dicts ``{"tokens": (B,
-L) int}``, with ``"targets"`` (B, L) for ``loss``.  The MoE, SSM, hybrid,
+L) int}``, with ``"targets"`` (B, L) for ``loss``.  The SSM, hybrid,
 enc-dec and VLM families are not ported yet.
 """
 
@@ -33,7 +33,7 @@ class Model(NamedTuple):
 
 def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
                 device="cuda") -> Model:
-    """The dense LM on ``device`` (the card unless ``device="cpu"``).
+    """The dense or MoE LM on ``device`` (the card unless ``device="cpu"``).
 
     ``init`` takes a ``torch.Generator`` on that device; its draws cannot
     match JAX's threefry, only the distributions do.  Tokens and targets
@@ -42,7 +42,7 @@ def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
 
     ctx = ctx or T.Ctx()
     device = resolve_device(device)
-    if cfg.family != "dense":
+    if cfg.family not in T.PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
             "yet (ROADMAP.md queue 1, item 6)")

@@ -1,21 +1,26 @@
-"""Decoder-only LM of the dense family (port of ``repro.models.transformer``).
+"""Decoder-only LM of the dense and MoE families (port of
+``repro.models.transformer``).
 
-A model is ``embed -> n_scan x unit -> final_norm -> unembed``.  A *unit*
-is a tuple of sublayers (gemma2's local/global alternation is a
-2-sublayer unit repeated 13 times).  As in the JAX package the unit params
-are stacked with a leading (n_scan,) axis under ``units.s{i}.*``, so a JAX
-parameter tree carries over leaf for leaf; JAX's ``lax.scan`` over that
-axis becomes a Python loop, and its sharding constraints (``wsc``) are
-dropped.  The KV cache is stacked the same way and filled in place.
+A model is ``embed -> head sublayers -> n_scan x unit -> final_norm ->
+unembed``.  A *unit* is a tuple of sublayers (gemma2's local/global
+alternation is a 2-sublayer unit repeated 13 times; deepseek's is one
+MLA + MoE sublayer repeated 26 times after one MLA + dense head
+sublayer).  As in the JAX package the unit params are stacked with a
+leading (n_scan,) axis under ``units.s{i}.*`` and the head sublayers are
+not stacked (``head{i}.*``), so a JAX parameter tree carries over leaf
+for leaf; JAX's ``lax.scan`` over that axis becomes a Python loop, and its
+sharding constraints (``wsc``) are dropped.  The caches are stacked the
+same way (a ``KVCache`` or an ``MLACache`` per sublayer) and filled in
+place.
 
-Only what the dense family runs is ported: attention mixers and SwiGLU
-MLPs.  ``init_sublayer`` builds SwiGLU for every dense config, gemma2's
-included, exactly as the reference does (its ``mlp_act`` is not read).
-Training (``lm_loss``) runs under autograd through the plain attention;
-``Ctx(remat=True)`` recomputes each unit in the backward
+Ported: attention and MLA mixers, SwiGLU MLPs and MoE FFNs.
+``init_sublayer`` builds SwiGLU for every dense config, gemma2's included,
+exactly as the reference does (its ``mlp_act`` is not read).  Training
+(``lm_loss``) runs under autograd through the plain attention and adds the
+MoE aux losses; ``Ctx(remat=True)`` recomputes each unit in the backward
 (``torch.utils.checkpoint``, as ``jax.checkpoint`` wraps the scanned
-unit).  MoE, MLA and SSM sublayers and the mesh fields of ``Ctx`` (EP, dp,
-one-hot embedding) wait for later slices.
+unit).  SSM sublayers and the mesh fields of ``Ctx`` (EP, dp, one-hot
+embedding) wait for later slices.
 """
 
 from __future__ import annotations
@@ -28,12 +33,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.config import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models import mla as MLA
+from repro_torch.models import moe as MOE
+
+PORTED_FAMILIES = ("dense", "moe")
 
 
 @dataclasses.dataclass(frozen=True)
 class SubLayer:
-    mixer: str = "attn"        # attn (mla | ssm | none: not ported)
-    ffn: str = "dense"         # dense (moe | none: not ported)
+    mixer: str = "attn"        # attn | mla (ssm | none: not ported)
+    ffn: str = "dense"         # dense | moe (none: not ported)
     window: int = 0            # sliding window (0 = global)
     post_norm: bool = False    # gemma2 sandwich norms
 
@@ -57,22 +66,28 @@ class Ctx:
                 "serves HLO cost probes and has no twin here)")
 
 
-def unit_spec(cfg: ModelConfig) -> tuple[tuple[SubLayer, ...], int]:
-    """(unit sublayers, n_scan) of a dense model; the dense family has no
-    head sublayers."""
+def unit_spec(cfg: ModelConfig
+              ) -> tuple[tuple[SubLayer, ...], int, list[SubLayer]]:
+    """(scanned unit sublayers, n_scan, head sublayers)."""
 
-    if cfg.family != "dense":
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
             "yet (ROADMAP.md queue 1, item 6)")
+    if cfg.family == "moe" and cfg.mla is not None:
+        # deepseek: layer 0 dense, the rest MoE
+        head = [SubLayer(mixer="mla", ffn="dense")]
+        return (SubLayer(mixer="mla", ffn="moe"),), cfg.num_layers - 1, head
+    if cfg.family == "moe":
+        return (SubLayer(ffn="moe"),), cfg.num_layers, []
     if cfg.local_global_pattern:
         k = cfg.local_global_pattern
         unit = tuple(
             SubLayer(window=cfg.sliding_window if (i % k) != k - 1 else 0,
                      post_norm=True)
             for i in range(k))
-        return unit, cfg.num_layers // k
-    return (SubLayer(),), cfg.num_layers
+        return unit, cfg.num_layers // k, []
+    return (SubLayer(),), cfg.num_layers, []
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -80,12 +95,13 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _index(tree, i):
-    """Leaf ``[i]`` of every tensor in a nested dict / KVCache."""
+    """Leaf ``[i]`` of every tensor in a nested dict / KVCache /
+    MLACache."""
 
     if isinstance(tree, dict):
         return {key: _index(val, i) for key, val in tree.items()}
-    if isinstance(tree, A.KVCache):
-        return A.KVCache(tree.k[i], tree.v[i])
+    if isinstance(tree, (A.KVCache, MLA.MLACache)):
+        return type(tree)(*(x[i] for x in tree))
     return tree[i]
 
 
@@ -96,7 +112,7 @@ def _index(tree, i):
 
 def init_sublayer(gen, cfg: ModelConfig, sl: SubLayer, device,
                   lead=()) -> dict:
-    if sl.mixer != "attn" or sl.ffn != "dense":
+    if sl.mixer not in ("attn", "mla") or sl.ffn not in ("dense", "moe"):
         raise NotImplementedError(f"sublayer {sl} is not ported yet")
     dtype = _dtype(cfg)
 
@@ -105,12 +121,20 @@ def init_sublayer(gen, cfg: ModelConfig, sl: SubLayer, device,
                            device=device)
 
     p: dict = {"norm1": norm()}
-    p["attn"] = A.init_attention(
-        gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-        cfg.resolved_head_dim, cfg.qkv_bias, dtype, device, lead)
+    if sl.mixer == "attn":
+        p["attn"] = A.init_attention(
+            gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.resolved_head_dim, cfg.qkv_bias, dtype, device, lead)
+    else:
+        p["attn"] = MLA.init_mla(gen, cfg.d_model, cfg.num_heads, cfg.mla,
+                                 dtype, device, lead)
     p["norm2"] = norm()
-    p["mlp"] = L.init_mlp_swiglu(gen, cfg.d_model, cfg.d_ff, dtype, device,
-                                 lead)
+    if sl.ffn == "moe":
+        p["moe"] = MOE.init_moe(gen, cfg.d_model, cfg.moe, dtype, device,
+                                lead=lead)
+    else:
+        p["mlp"] = L.init_mlp_swiglu(gen, cfg.d_model, cfg.d_ff, dtype,
+                                     device, lead)
     if sl.post_norm:
         p["post_norm1"] = norm()
         p["post_norm2"] = norm()
@@ -119,19 +143,29 @@ def init_sublayer(gen, cfg: ModelConfig, sl: SubLayer, device,
 
 def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer):
     """The sublayer after its mixer: x + h (h post-normed in gemma2's
-    sandwich), then the pre-norm SwiGLU half."""
+    sandwich), then the pre-norm FFN half (SwiGLU or MoE).  Returns (x,
+    aux), aux the MoE's aux loss or None."""
 
     # the post-normed h is a temporary of the sum: the caller still holds
     # the raw h, and one more (B, L, d) tensor would be alive in the MLP
     x = x + (L.rms_norm(h, p["post_norm1"], cfg.norm_eps) if sl.post_norm
              else h)
-    h = L.mlp_swiglu(p["mlp"], L.rms_norm(x, p["norm2"], cfg.norm_eps))
+    hin = L.rms_norm(x, p["norm2"], cfg.norm_eps)
+    if sl.ffn == "moe":
+        h, aux = MOE.moe_ffn(p["moe"], hin, cfg.moe)
+    else:
+        h, aux = L.mlp_swiglu(p["mlp"], hin), None
+    del hin
     if sl.post_norm:
         h = L.rms_norm(h, p["post_norm2"], cfg.norm_eps)
-    return x + h
+    return x + h, aux
 
 
 def _mixer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
+    if sl.mixer == "mla":
+        return MLA.mla_attention(p["attn"], x, num_heads=cfg.num_heads,
+                                 cfg=cfg.mla, rope_theta=cfg.rope_theta,
+                                 impl=ctx.attn_impl)
     return A.attention(
         p["attn"], x, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
@@ -140,36 +174,53 @@ def _mixer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
 
 
 def apply_sublayer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
-    """Pre-norm residual block; returns (x, aux).  ``aux`` is the MoE
-    load-balancing loss in the JAX package, 0 for a dense sublayer."""
+    """Pre-norm residual block; returns (x, aux): the MoE's
+    load-balancing and z losses, 0 for a dense sublayer."""
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = _mixer_train(p, L.rms_norm(x, p["norm1"], cfg.norm_eps), cfg, sl,
                      ctx)
-    return _residual(p, x, h, cfg, sl), aux
+    x, aux = _residual(p, x, h, cfg, sl)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def apply_sublayer_prefill(p, x, max_len, cfg: ModelConfig, sl: SubLayer,
                            ctx: Ctx, cache=None):
-    """Causal forward + cache for decode continuation; returns (x, cache)."""
+    """Causal forward + cache for decode continuation; returns (x, cache).
+    The MoE aux is dropped, as in the JAX package."""
 
-    h, cache = A.attention_prefill(
-        p["attn"], L.rms_norm(x, p["norm1"], cfg.norm_eps), max_len,
-        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-        head_dim=cfg.resolved_head_dim, window=sl.window,
-        attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta,
-        impl=ctx.attn_impl, cache_dtype=ctx.cache_dtype, cache=cache)
-    return _residual(p, x, h, cfg, sl), cache
+    h_in = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    if sl.mixer == "mla":
+        h, cache = MLA.mla_prefill(
+            p["attn"], h_in, max_len, num_heads=cfg.num_heads, cfg=cfg.mla,
+            rope_theta=cfg.rope_theta, cache_dtype=ctx.cache_dtype,
+            impl=ctx.attn_impl, cache=cache)
+    else:
+        h, cache = A.attention_prefill(
+            p["attn"], h_in, max_len, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+            window=sl.window, attn_softcap=cfg.attn_softcap,
+            rope_theta=cfg.rope_theta, impl=ctx.attn_impl,
+            cache_dtype=ctx.cache_dtype, cache=cache)
+    del h_in
+    return _residual(p, x, h, cfg, sl)[0], cache
 
 
 def apply_sublayer_decode(p, cache, x, pos, cfg: ModelConfig, sl: SubLayer,
                           ctx: Ctx):
-    h, cache = A.decode_attention(
-        p["attn"], L.rms_norm(x, p["norm1"], cfg.norm_eps), cache, pos,
-        num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-        head_dim=cfg.resolved_head_dim, window=sl.window,
-        attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta)
-    return _residual(p, x, h, cfg, sl), cache
+    h_in = L.rms_norm(x, p["norm1"], cfg.norm_eps)
+    if sl.mixer == "mla":
+        h, cache = MLA.mla_decode(p["attn"], h_in, cache, pos,
+                                  num_heads=cfg.num_heads, cfg=cfg.mla,
+                                  rope_theta=cfg.rope_theta)
+    else:
+        h, cache = A.decode_attention(
+            p["attn"], h_in, cache, pos, num_heads=cfg.num_heads,
+            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+            window=sl.window, attn_softcap=cfg.attn_softcap,
+            rope_theta=cfg.rope_theta)
+    return _residual(p, x, h, cfg, sl)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +259,7 @@ def apply_unit_decode(params, cache, x, pos, cfg, unit, ctx):
 
 
 def init_lm(gen, cfg: ModelConfig, ctx: Ctx, device) -> dict:
-    unit, n_scan = unit_spec(cfg)
+    unit, n_scan, head = unit_spec(cfg)
     dtype = _dtype(cfg)
     params: dict = {
         "embed": L.init_embedding(gen, cfg.vocab_size, cfg.d_model, dtype,
@@ -218,6 +269,8 @@ def init_lm(gen, cfg: ModelConfig, ctx: Ctx, device) -> dict:
         "units": {f"s{i}": init_sublayer(gen, cfg, sl, device, (n_scan,))
                   for i, sl in enumerate(unit)},
     }
+    for i, sl in enumerate(head):
+        params[f"head{i}"] = init_sublayer(gen, cfg, sl, device)
     if not cfg.tie_embeddings:
         params["lm_head"] = L._normal(gen, (cfg.d_model, cfg.vocab_size),
                                       cfg.d_model ** -0.5, dtype, device)
@@ -245,7 +298,11 @@ def lm_hidden_train(params, x, cfg: ModelConfig, ctx: Ctx):
     recomputes the rest there (non-reentrant ``checkpoint``, which takes
     the unit's parameter dict as it is)."""
 
-    unit, n_scan = unit_spec(cfg)
+    unit, n_scan, head = unit_spec(cfg)
+    # the head sublayers' aux is dropped, as in the JAX package (their FFN
+    # is dense in every config)
+    for i, sl in enumerate(head):
+        x, _ = apply_sublayer_train(params[f"head{i}"], x, cfg, sl, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for n in range(n_scan):
         unit_params = _index(params["units"], n)
@@ -268,22 +325,37 @@ def lm_loss(params, tokens, targets, cfg: ModelConfig, ctx: Ctx):
     return L.cross_entropy(logits, targets) + aux
 
 
+def _sublayer_cache(cfg: ModelConfig, sl: SubLayer, ctx: Ctx, batch: int,
+                    max_len: int, device, lead=()):
+    if sl.mixer == "mla":
+        return MLA.init_mla_cache(batch, max_len, cfg.mla, ctx.cache_dtype,
+                                  device, lead)
+    return A.init_cache(batch, cfg.num_kv_heads, max_len,
+                        cfg.resolved_head_dim, ctx.cache_dtype, device, lead)
+
+
 def lm_init_cache(cfg: ModelConfig, ctx: Ctx, batch: int, max_len: int,
                   device) -> dict:
-    unit, n_scan = unit_spec(cfg)
-    return {"units": {
-        f"s{i}": A.init_cache(batch, cfg.num_kv_heads, max_len,
-                              cfg.resolved_head_dim, ctx.cache_dtype, device,
-                              lead=(n_scan,))
-        for i in range(len(unit))}}
+    unit, n_scan, head = unit_spec(cfg)
+    cache = {f"head{i}": _sublayer_cache(cfg, sl, ctx, batch, max_len,
+                                         device)
+             for i, sl in enumerate(head)}
+    cache["units"] = {
+        f"s{i}": _sublayer_cache(cfg, sl, ctx, batch, max_len, device,
+                                 (n_scan,))
+        for i, sl in enumerate(unit)}
+    return cache
 
 
 def lm_prefill(params, tokens, max_len, cfg: ModelConfig, ctx: Ctx):
     """tokens (B, L) -> (last-position logits (B, V), cache for decode)."""
 
-    unit, n_scan = unit_spec(cfg)
+    unit, n_scan, head = unit_spec(cfg)
     x = embed_tokens(params, tokens, cfg)
     cache = lm_init_cache(cfg, ctx, tokens.shape[0], max_len, x.device)
+    for i, sl in enumerate(head):
+        x, _ = apply_sublayer_prefill(params[f"head{i}"], x, max_len, cfg,
+                                      sl, ctx, cache[f"head{i}"])
     for n in range(n_scan):
         x, _ = apply_unit_prefill(_index(params["units"], n), x, max_len,
                                   cfg, unit, ctx, _index(cache["units"], n))
@@ -295,8 +367,11 @@ def lm_decode_step(params, cache, token, pos, cfg: ModelConfig, ctx: Ctx):
     """token: (B,) int; pos: int.  Writes position ``pos`` of ``cache`` in
     place; returns (logits (B, V), cache)."""
 
-    unit, n_scan = unit_spec(cfg)
+    unit, n_scan, head = unit_spec(cfg)
     x = embed_tokens(params, token[:, None], cfg)
+    for i, sl in enumerate(head):
+        x, _ = apply_sublayer_decode(params[f"head{i}"], cache[f"head{i}"],
+                                     x, pos, cfg, sl, ctx)
     for n in range(n_scan):
         x, _ = apply_unit_decode(_index(params["units"], n),
                                  _index(cache["units"], n), x, pos, cfg,

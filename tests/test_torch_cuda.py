@@ -737,7 +737,16 @@ def _qkv(B, Hq, Hkv, Lq, Lk, D, Dv=None, seed=0, device="cuda"):
     return q, k, v
 
 
-@pytest.mark.parametrize("case", FLASH_CASES)
+# the MoE family's prefill shapes: granite-moe (D = 64, GQA groups of 3:
+# 24 q heads on 8 KV heads; the Dv <= 64 instantiation) and MLA (q.k over
+# nope 128 + rope 64, V of 128; the Dv <= 128 instantiation), L off the tile
+MOE_FLASH_CASES = [
+    dict(B=2, Hq=24, Hkv=8, Lq=333, Lk=333, D=64, causal=True),
+    dict(B=2, Hq=16, Hkv=16, Lq=301, Lk=301, D=192, Dv=128, causal=True),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + MOE_FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, case):
     case = dict(case)
     dims = [case.pop(n) for n in ("B", "Hq", "Hkv", "Lq", "Lk", "D")]
@@ -790,6 +799,17 @@ def test_flash_kernel_bf16(cuda):
     got = flash_ops.flash_attention(q, k, v, causal=True)
     assert got.dtype == torch.bfloat16
     want = attention_ref(q, k, v, causal=True)
+    assert float((got.float() - want.float()).abs().max()) < 5e-2
+
+
+@pytest.mark.parametrize("case", MOE_FLASH_CASES)
+def test_flash_kernel_bf16_at_the_moe_shapes(cuda, case):
+    case = dict(case)
+    dims = [case.pop(n) for n in ("B", "Hq", "Hkv", "Lq", "Lk", "D")]
+    q, k, v = (x.to(torch.bfloat16)
+               for x in _qkv(*dims, Dv=case.pop("Dv", None)))
+    got = flash_ops.flash_attention(q, k, v, **case)
+    want = attention_ref(q, k, v, **case)
     assert float((got.float() - want.float()).abs().max()) < 5e-2
 
 
@@ -1125,3 +1145,57 @@ def test_grid_fit_serves_on_card_as_the_unsharded_engine(cuda):
                                                  for o in outs)
         else:
             assert top["scores_max_rel"] <= 1e-5
+
+
+@pytest.mark.parametrize("E,k,shared", [(40, 8, 0), (64, 6, 2)])
+def test_moe_ffn_on_card_matches_cpu(cuda, E, k, shared):
+    """The MoE FFN at small width on the card against the CPU: the same
+    routing on every token, outputs within 1e-5 of their scale."""
+
+    from repro_torch.config import MoEConfig
+    from repro_torch.models import moe as MOE
+
+    cfg = MoEConfig(num_experts=E, num_experts_per_tok=k, expert_d_ff=64,
+                    num_shared_experts=shared)
+    params = MOE.init_moe(torch.Generator(device=cuda).manual_seed(0), 96,
+                          cfg, torch.float32, cuda)
+    x = torch.randn(3, 200, 96, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    host = _tree_to(params, "cpu")
+    idx_c, w_c, aux_c = MOE.route(params, x.reshape(-1, 96), cfg)
+    idx_h, w_h, aux_h = MOE.route(host, x.cpu().reshape(-1, 96), cfg)
+    assert torch.equal(idx_c.cpu(), idx_h)
+    torch.testing.assert_close(w_c.cpu(), w_h, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(aux_c.cpu(), aux_h, rtol=1e-5, atol=0)
+    y_c, _ = MOE.moe_ffn(params, x, cfg)
+    y_h, _ = MOE.moe_ffn(host, x.cpu(), cfg)
+    assert y_c.is_cuda
+    torch.testing.assert_close(y_c.cpu(), y_h, rtol=0,
+                               atol=1e-5 * float(y_h.abs().max()))
+    ref, _ = MOE.moe_ffn_reference(params, x, cfg)
+    torch.testing.assert_close(y_c, ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
+def test_moe_smoke_model_on_card_matches_cpu(cuda, arch):
+    cfg = get_smoke_config(arch)
+    ctx = Ctx(attn_impl="kernel")
+    card = build_model(cfg, ctx, device=cuda)
+    params = card.init(torch.Generator(device=cuda).manual_seed(0))
+    host = build_model(cfg, ctx, device="cpu")
+    host_params = _tree_to(params, "cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 40))
+    n0 = flash_ops.flash_attention.launches
+    lc, _ = card.prefill(params, {"tokens": tokens}, 48)
+    assert flash_ops.flash_attention.launches == n0 + cfg.num_layers
+    lh, _ = host.prefill(host_params, {"tokens": tokens}, 48)
+    scale = float(lh.abs().max())
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-5 * scale)
+    out_c = ServeLoop(card, params, 2, 48).generate({"tokens": tokens}, 6)
+    out_h = ServeLoop(host, host_params, 2, 48).generate({"tokens": tokens},
+                                                          6)
+    top2 = lh.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 1e-3
+    assert torch.equal(out_c.cpu()[sure, 0], out_h[sure, 0])
