@@ -162,6 +162,35 @@ agreed, and again for all rows with the plain model routed as the kernel
 model was (its own weights at those experts), with the same first token
 wherever the top-2 margin exceeds that; peak memory below the card's.
 
+``[ssm]`` (after ``[moe]``, whose models are freed first): the SSM family
+and the hybrid at full width and depth.  First the flash kernel against
+its plain version at zamba2-2.7b's prefill shape, q/k/v (4, 32, 3840,
+80), causal, no window, no softcap (the Dv <= 128 instantiation at a head
+dim that is not a power of two), with the same gates, times, bounds and
+SDPA yardstick as ``[moe]``'s.  Then one mamba2 layer's scan at full
+width, ``ssd_chunked`` against the sequential ``ssd_reference`` at (1,
+1024, 48, 64), d_state 128, chunk 256, at ``tests/test_moe_ssm.py``'s
+rtol/atol 1e-4.  Then mamba2-780m (48 layers, d_model 1536, 48 SSM heads
+of 64, d_state 128; 0.86 B seeded f32 parameters) and zamba2-2.7b (54
+Mamba2 layers, d_model 2560, one shared attention block of 32 heads of 80
+invoked 9 times; 2.54 B parameters, ``lora_b`` drawn N(0, 0.1^2) from the
+seed, since its zero init would leave the LoRA deltas unexercised), each
+through ``build_model`` -> ``init`` -> ``ServeLoop(max_len=4096)
+.generate`` of 32 greedy tokens after 4 prompts of 3840 tokens (numpy
+seed 13).  Checks: mamba2 launches no kernel at all (its path has no TPU
+kernel), zamba2 9 flash launches in the prefill and none in decode;
+finite logits, output (4, 32); continuation: a prefill of 3584 tokens and
+256 decode steps over the rest of the prompt give last-position logits
+within 1e-3 x max|logit| of the generate's prefill of 3840 (with a float32
+cache, as ``tests/test_models_consistency.py`` holds JAX's); for zamba2
+the plain-attention model on the same parameters agrees within 1e-3 x
+max|logit| and gives the same first token wherever the top-2 margin
+exceeds that; peak memory below the card's.  Prints prefill s, tokens/s,
+decode ms a step, the launches, busy share and top kernels of one prefill
+and one decode step under the profiler, peak memory, and the cache's
+bytes beside a bf16 (k, v) cache of as many layers of the same width at
+3840 tokens.
+
 ``[stream]`` (after ``[gossip]``): the streaming loop at the Table 3
 cell through ``launch/streaming.py``: 85% of the training ratings
 ingested with the headroom of the stream's largest per-block count; the
@@ -239,8 +268,8 @@ The launch counts of the ``{"kernels": ...}`` line add up the main
 path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included),
 ``[stream]``, ``[faults]`` (the ranks' by stack shape in
 ``faults_launches_by_stack``), ``[serve]``, ``[sharded]`` (the ranks'),
-``[lm]`` and ``[moe]`` (the flash row's ``moe`` key has that phase's
-numbers); ``[train]`` launches none.
+``[lm]``, ``[moe]`` and ``[ssm]`` (the flash row's ``moe`` and ``ssm``
+keys have those phases' numbers); ``[train]`` launches none.
 
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
 (``benchmarks/table3_rmse.py --full``): the 6040x3706 ``movielens_proxy``
@@ -255,7 +284,12 @@ cell is ``launch/train.py``'s ``train_4k`` sequence length with 4
 sequences a step (the shape's global batch of 256 cut to what one card
 holds beside f32 AdamW state).  The MoE cells are the two archs'
 published configs (``repro_torch/configs/``), 4000-token prompts with the
-32 new tokens inside Granite 3.0's context of 4096.
+32 new tokens inside Granite 3.0's context of 4096.  The SSM cells are
+mamba2-780m's and zamba2-2.7b's configs with 3840-token prompts: the
+largest multiple of the 256-token chunk that leaves room for 32 new tokens
+in a max_len of 4096, so that every prefill takes the chunked scan, as the
+reference would (a length off the chunk grid runs the sequential scan, one
+Python step a token and a layer).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` summary, and the line before that the card's
@@ -359,6 +393,9 @@ from repro_torch.launch.serve_recommend import (  # noqa: E402
 from repro_torch.mesh import MeshPlan  # noqa: E402
 from repro_torch.models import Ctx, build_model  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
+from repro_torch.models.layers import rms_norm  # noqa: E402
+from repro_torch.models.transformer import _index  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.optim.optimizers import tree_leaves, tree_map  # noqa: E402
 from repro_torch.train import (  # noqa: E402
@@ -498,6 +535,19 @@ MOE_BATCH, MOE_PROMPT, MOE_NEW, MOE_MAX_LEN = 4, 4000, 32, 4096
 # at 3 layers), and at most FLIP_SHARE of the (layer, token) choices may
 # differ in all (a flipped token's later layers flip with it)
 ROUTE_MARGIN, FLIP_SHARE = 1e-4, 1e-2
+# [ssm]: mamba2-780m and zamba2-2.7b at full width and depth; 4 prompts of
+# 3840 tokens, the largest multiple of the 256-token chunk that leaves room
+# for the 32 new tokens in max_len 4096 (a prompt off the chunk grid runs
+# the sequential scan, a Python step a token and a layer)
+SSM_ARCHS = ("mamba2-780m", "zamba2-2.7b")
+SSM_BATCH, SSM_PROMPT, SSM_NEW, SSM_MAX_LEN = 4, 3840, 32, 4096
+SSM_SPLIT = 3584      # continuation: a prefill of 14 chunks + 256 decodes
+SSM_WARM = 512        # warm-up prompt: 2 chunks, the chunked scan
+# one mamba2 layer's scan: (b, L, h, p, n, chunk)
+SSD_SHAPE = (1, 1024, 48, 64, 128, 256)
+SSD_TOL = 1e-4        # tests/test_moe_ssm.py's rtol/atol
+SSD_F64_TOL = 1e-9    # chunked vs sequential in float64, x max|y|
+LORA_B_STD = 0.1      # zamba2's lora_b, zero at init, drawn N(0, 0.1^2)
 
 
 def fail(msg: str) -> None:
@@ -1863,15 +1913,14 @@ def train_phase(card, device="cuda") -> dict:
     return out
 
 
-def moe_flash(card, label, Hq, Hkv, D, Dv) -> dict:
-    """The flash kernel against its plain version at one MoE arch's
-    prefill shapes (causal, no window, no softcap): f32 at rtol 2e-4 /
-    atol 2e-5, one (b, h) slice against float64, a bf16 call at 5e-2;
-    CUDA-graph and eager times, the plain version's, the bounds, and SDPA,
-    which computes the same function here (K/V repeated to Hq heads)."""
+def prefill_flash(card, tag, label, B, L, Hq, Hkv, D, Dv) -> dict:
+    """The flash kernel against its plain version at one arch's prefill
+    shapes (causal, no window, no softcap): f32 at rtol 2e-4 / atol 2e-5,
+    one (b, h) slice against float64, a bf16 call at 5e-2; CUDA-graph and
+    eager times, the plain version's, the bounds, and SDPA, which computes
+    the same function here (K/V repeated to Hq heads)."""
 
     bw, flops, _, tf32 = peaks(card)
-    B, L = MOE_BATCH, MOE_PROMPT
     g = torch.Generator(device="cuda").manual_seed(13)
     q = torch.randn((B, Hq, L, D), generator=g, device="cuda")
     k = torch.randn((B, Hkv, L, D), generator=g, device="cuda")
@@ -1885,7 +1934,7 @@ def moe_flash(card, label, Hq, Hkv, D, Dv) -> dict:
     ok = bool((err <= FLASH_ATOL + FLASH_RTOL * want.abs()).all())
     del err
     f64 = f64_check(q, k, v, got, want, 0.0, b=B - 1, h=Hq - 1,
-                    tag=f"[moe] {label}")
+                    tag=f"{tag} {label}")
     del want
     # yardstick only, never called by the port
     kr, vr = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (k, v))
@@ -1925,13 +1974,13 @@ def moe_flash(card, label, Hq, Hkv, D, Dv) -> dict:
     out["bf16_max_abs_err"] = bf16_err
     del q, k, v, qb, kb, vb
     _free()
-    print(f"[moe] flash {label}: {json.dumps(out)}", flush=True)
+    print(f"{tag} flash {label}: {json.dumps(out)}", flush=True)
     if not ok:
-        fail(f"[moe] flash_attention at {label}'s shapes disagrees with its "
+        fail(f"{tag} flash_attention at {label}'s shapes disagrees with its "
              f"plain version beyond rtol {FLASH_RTOL} / atol {FLASH_ATOL} "
              f"(max abs error {abs_err:.3e})")
     if not bf16_err < FLASH_BF16_ABS:
-        fail(f"[moe] flash_attention bf16 at {label}'s shapes: max abs "
+        fail(f"{tag} flash_attention bf16 at {label}'s shapes: max abs "
              f"error {bf16_err:.3e} >= {FLASH_BF16_ABS}")
     return out
 
@@ -2221,14 +2270,313 @@ def moe_phase(card, flash_row) -> dict:
     depth through it.  Adds the phase's flash launches to ``flash_row``."""
 
     t_phase = time.perf_counter()
-    shapes = {"granite-moe-3b-a800m": moe_flash(card, "granite-moe", 24, 8,
-                                                64, 64),
-              "deepseek-v2-lite-16b": moe_flash(card, "mla", 16, 16, 192,
-                                                128)}
+    shapes = {
+        "granite-moe-3b-a800m": prefill_flash(
+            card, "[moe]", "granite-moe", MOE_BATCH, MOE_PROMPT, 24, 8, 64,
+            64),
+        "deepseek-v2-lite-16b": prefill_flash(
+            card, "[moe]", "mla", MOE_BATCH, MOE_PROMPT, 16, 16, 192, 128)}
     out = {arch: moe_model(card, arch, shapes[arch]) for arch in MOE_ARCHS}
     flash_row["launches"] += sum(o["launches"] for o in out.values())
     flash_row["moe"] = out
     print(f"[moe] phase: {time.perf_counter() - t_phase:.1f}s of command",
+          flush=True)
+    return out
+
+
+def ssd_check(cfg, params, prompts, device="cuda") -> dict:
+    """One mamba2 layer's scan at full width on the card (``SSD_SHAPE``),
+    ``ssd_chunked`` against the sequential ``ssd_reference``.
+
+    a. The first layer's own inputs (``scan_inputs`` of the first prompt's
+    first L tokens), float32, at ``tests/test_moe_ssm.py``'s rtol/atol.
+    b. Seeded draws shaped and distributed as that test draws them, in
+    float64 (the two forms within ``SSD_F64_TOL`` of max|y|); each float32
+    form's error against float64 is printed.  Those draws' decays sum to
+    thousands within a 256-token chunk, where the chunked form's decay
+    matrix (differences of within-chunk cumsums) loses float32 precision,
+    in the JAX package's ``ssd_chunked`` as here.  The time of each form."""
+
+    b, L, h, p, n, chunk = SSD_SHAPE
+    if (h, p, n, chunk) != (cfg.ssm.n_heads(cfg.d_model), cfg.ssm.head_dim,
+                            cfg.ssm.d_state, cfg.ssm.chunk_size):
+        fail(f"[ssm] SSD_SHAPE {SSD_SHAPE} is not {cfg.name}'s layer")
+    g = torch.Generator(device=device).manual_seed(13)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=g, device=device,
+                           dtype=torch.float64)
+
+    def both(args):
+        y1, f1 = ssm_mod.ssd_chunked(*args, chunk)
+        y2, f2 = ssm_mod.ssd_reference(*args)
+        return (y1, f1), (y2, f2)
+
+    out = {"shape": dict(zip("bLhpn", (b, L, h, p, n)), chunk=chunk)}
+    with torch.inference_mode():
+        lp = _index(params["units"], 0)["s0"]
+        x = rms_norm(params["embed"][torch.as_tensor(prompts[:b, :L],
+                                                     device=device)],
+                     lp["norm1"], cfg.norm_eps)
+        layer = ssm_mod.scan_inputs(lp["ssm"], x, cfg.ssm, cfg.d_model)
+        (y1, f1), (y2, f2) = both(layer)
+        ok = all(bool(torch.allclose(a, r, rtol=SSD_TOL, atol=SSD_TOL))
+                 for a, r in ((y1, y2), (f1, f2)))
+        out["layer"] = {"max_abs_err_y": float((y1 - y2).abs().max()),
+                        "max_abs_err_state": float((f1 - f2).abs().max()),
+                        "max_abs_y": float(y2.abs().max())}
+        x, dt = draw(b, L, h, p), torch.nn.functional.softplus(draw(b, L, h))
+        drawn = (x, dt, -torch.exp(draw(h)), draw(b, L, n), draw(b, L, n))
+        (z1, _), (z2, _) = both(drawn)
+        f64_err = float((z1 - z2).abs().max())
+        (y1, _), (y2, _) = both([a.float() for a in drawn])
+        scale = float(z2.abs().max())
+        out["drawn"] = {
+            "f64_max_abs_err": f64_err, "max_abs_y": scale,
+            "f32_chunked_vs_f64": float((y1.double() - z2).abs().max()),
+            "f32_sequential_vs_f64": float((y2.double() - z2).abs().max()),
+            "f32_chunked_vs_sequential": float((y1 - y2).abs().max()),
+            "min_chunk_decay_sum": float(torch.cumsum(
+                (dt * drawn[2]).reshape(b, L // chunk, chunk, h), 2).min())}
+        f32 = [a.float() for a in layer]
+        out["chunked_ms"] = eager_ms(
+            lambda: ssm_mod.ssd_chunked(*f32, chunk), reps=5)
+        out["sequential_ms"] = eager_ms(
+            lambda: ssm_mod.ssd_reference(*f32), reps=1)
+    print(f"[ssm] ssd_chunked against ssd_reference on the card: "
+          f"{json.dumps(out)} (layer: rtol/atol {SSD_TOL}; drawn: float64 "
+          f"within {SSD_F64_TOL} x max|y|)", flush=True)
+    if not ok:
+        fail(f"[ssm] on the first layer's inputs ssd_chunked disagrees with "
+             f"ssd_reference beyond rtol/atol {SSD_TOL}: {out['layer']}")
+    if not f64_err <= SSD_F64_TOL * scale:
+        fail(f"[ssm] in float64 ssd_chunked disagrees with ssd_reference by "
+             f"{f64_err:.3e} > {SSD_F64_TOL} x {scale:.3e}")
+    return out
+
+
+def ssm_model(card, arch, device="cuda") -> dict:
+    """One SSM-family arch served at full width and depth: ``generate``,
+    the profiled prefill and decode step, the continuation check, and for
+    the hybrid the plain-attention model on the same prompts."""
+
+    cfg = get_model_config(arch)
+    hybrid = cfg.family == "hybrid"
+    n_units = cfg.num_layers // cfg.shared_attn_every if hybrid else 0
+    t0 = time.perf_counter()
+    model = build_model(cfg, Ctx(attn_impl="kernel"), device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    lora = None
+    if hybrid:
+        # lora_b is zero at init, as in Zamba2, which would leave the LoRA
+        # deltas unexercised: draw it from the seed
+        units = params["units"]
+        units["lora_b"].normal_(generator=torch.Generator(
+            device=device).manual_seed(1)).mul_(LORA_B_STD)
+        delta = units["lora_a"][:, 0] @ units["lora_b"][:, 0]
+        wq = params["shared"]["attn"]["wq"]
+        lora = {"lora_b_std": LORA_B_STD,
+                "rms_delta_q": float(delta.square().mean().sqrt()),
+                "rms_wq": float(wq.square().mean().sqrt())}
+        del delta
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    param_bytes = sum(x.numel() * x.element_size() for x in _leaves(params))
+    print(f"[ssm] {cfg.name}: {cfg.num_layers} Mamba2 layers"
+          + (f" + {n_units} invocations of one shared attention block "
+             f"({cfg.num_heads} heads of {cfg.resolved_head_dim})"
+             if hybrid else "")
+          + f", d_model {cfg.d_model}, {cfg.ssm.n_heads(cfg.d_model)} SSM "
+          f"heads of {cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}; "
+          f"{n_params} parameters in {cfg.param_dtype} "
+          f"({param_bytes / 1e9:.2f} GB), init "
+          f"{time.perf_counter() - t0:.2f}s"
+          + (f"; lora_b drawn N(0, {LORA_B_STD}^2): rms of wq's delta "
+             f"{lora['rms_delta_q']:.3e} against rms(wq) {lora['rms_wq']:.3e}"
+             if hybrid else ""), flush=True)
+    prompts = np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (SSM_BATCH, SSM_PROMPT))
+
+    ServeLoop(model, params, 1, SSM_MAX_LEN).generate(
+        {"tokens": prompts[:1, :SSM_WARM]}, 2)           # warm-up
+    torch.cuda.synchronize()
+
+    pre, dec = [], []
+    spy = model._replace(prefill=timed(model.prefill, pre),
+                         decode=timed(model.decode, dec))
+    loop = ServeLoop(spy, params, SSM_BATCH, SSM_MAX_LEN)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = loop.generate({"tokens": prompts}, SSM_NEW)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    del loop, spy
+    if got["flash_attention"] != n_units:
+        fail(f"[ssm] {arch}: flash_attention launched "
+             f"{got['flash_attention']} times, expected {n_units} (one per "
+             "shared-block invocation of the prefill, none in decode)")
+    if any(n for name, n in got.items() if name != "flash_attention"):
+        fail(f"[ssm] {arch}: an unexpected kernel launched: {got}")
+    if tuple(out.shape) != (SSM_BATCH, SSM_NEW):
+        fail(f"[ssm] {arch}: generate gave shape {tuple(out.shape)}")
+    if not all(bool(torch.isfinite(lg).all()) for _, lg in pre + dec):
+        fail(f"[ssm] {arch}: non-finite logits")
+    t_pre = pre[0][0]
+    t_dec = sum(s for s, _ in dec)
+    print(f"[ssm] {arch} generate: prefill {t_pre:.3f}s "
+          f"({SSM_BATCH * SSM_PROMPT / t_pre:.0f} prompt tokens/s), decode "
+          f"{1e3 * t_dec / len(dec):.3f} ms/step over {len(dec)} steps "
+          f"({SSM_BATCH * len(dec) / t_dec:.1f} generated tokens/s), total "
+          f"{total:.3f}s ({SSM_BATCH * SSM_NEW / total:.1f} tokens/s); "
+          f"launches {got}; peak device memory {peak / 2**30:.2f} GiB",
+          flush=True)
+    print(f"[ssm] {arch} first row: {out[0].tolist()}", flush=True)
+    ssd = None if hybrid else ssd_check(cfg, params, prompts, device)
+
+    # where the device time of one prefill and one decode step goes
+    batch = {"tokens": prompts}
+    seen_pre, seen_dec = {}, {}
+    with torch.inference_mode():
+        (_, cache), s_pre, bd_pre = profiled(
+            lambda: model.prefill(params, batch, SSM_MAX_LEN), seen_pre)
+        tok = torch.zeros(SSM_BATCH, dtype=torch.int32, device=device)
+        _, s_dec, bd_dec = profiled(
+            lambda: model.decode(params, cache, tok, SSM_PROMPT), seen_dec)
+    prof = {}
+    for label, secs, bd, seen in (("prefill", s_pre, bd_pre, seen_pre),
+                                  ("decode step", s_dec, bd_dec, seen_dec)):
+        busy = sum(bd.values()) / (1e3 * secs)
+        prof[label] = {"wall_ms": 1e3 * secs, "busy": busy,
+                       "launches": sum(seen.values())}
+        print(f"[ssm] {arch} {label} under the profiler: wall "
+              f"{1e3 * secs:.3f} ms, device busy {100 * busy:.1f}%, "
+              f"{sum(seen.values())} kernel launches; by kernel: {top(bd)}",
+              flush=True)
+
+    # the cache: SSM states (+ the hybrid's (k, v)) beside a (k, v) cache
+    # of as many layers of the same width at the prompt's length
+    nbytes = {}
+    for sub in _flat_caches(cache):
+        name = type(sub).__name__
+        nbytes[name] = nbytes.get(name, 0) + sum(
+            x.numel() * x.element_size() for x in sub)
+    kv_equiv = 2 * SSM_BATCH * SSM_PROMPT * cfg.num_layers * cfg.d_model * 2
+    print(f"[ssm] {arch} cache after the prefill: {nbytes} bytes (the SSM "
+          f"states' conv registers in the activations' float32, h float32"
+          + (", (k, v) bf16 at max_len" if hybrid else "") + f"); a bf16 "
+          f"(k, v) cache of {cfg.num_layers} layers of width {cfg.d_model} "
+          f"at {SSM_PROMPT} tokens: {kv_equiv} bytes "
+          f"({kv_equiv / sum(nbytes.values()):.2f}x)", flush=True)
+    del cache
+
+    # continuation: a prefill of SSM_SPLIT tokens, then the rest of the
+    # prompt one decode step at a time, against the prefill of all of it;
+    # with a float32 cache, as tests/test_models_consistency.py holds JAX's
+    # (a bf16 (k, v) cache rounds zamba2's attention inputs; the SSM
+    # registers after a prefill are float32 either way)
+    full = pre[0][1].float()
+    toks = torch.as_tensor(prompts, device=device)
+    f32 = build_model(cfg, Ctx(attn_impl="kernel", cache_dtype=torch.float32),
+                      device=device)
+    with torch.inference_mode():
+        _, cache = f32.prefill(params, {"tokens": prompts[:, :SSM_SPLIT]},
+                               SSM_MAX_LEN)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(SSM_SPLIT, SSM_PROMPT):
+            cont, cache = f32.decode(params, cache, toks[:, pos], pos)
+        torch.cuda.synchronize()
+    t_cont = time.perf_counter() - t0
+    del cache
+    cont = cont.float()
+    bound = LOGIT_TOL * float(full.abs().max())
+    cont_diff = float((cont - full).abs().max())
+    steps = SSM_PROMPT - SSM_SPLIT
+    print(f"[ssm] {arch} continuation, float32 cache: prefill {SSM_SPLIT} "
+          f"+ {steps} decode steps ({1e3 * t_cont / steps:.3f} ms/step) "
+          f"against the "
+          f"prefill of {SSM_PROMPT}: last-position "
+          f"logits max diff {cont_diff:.3e}, bound {bound:.3e} (1e-3 x "
+          f"max|logit|)", flush=True)
+    if not cont_diff <= bound:
+        fail(f"[ssm] {arch}: prefill + decode differs from the full prefill "
+             f"by {cont_diff:.3e} > {bound:.3e}")
+
+    res = {"launches": got["flash_attention"], "prefill_s": t_pre,
+           "decode_ms_per_step": 1e3 * t_dec / len(dec),
+           "continuation_decode_ms_per_step": 1e3 * t_cont / steps,
+           "tokens_per_s": SSM_BATCH * SSM_NEW / total,
+           "peak_gib": peak / 2**30, "profile": prof, "cache_bytes": nbytes,
+           "kv_cache_bytes_same_layers": kv_equiv,
+           "continuation_max_diff": cont_diff, "logit_bound": bound,
+           "ssd": ssd}
+    if hybrid:
+        res.update(lora=lora, **plain_model(cfg, params, prompts, full,
+                                            device))
+    del params
+    _free()
+    return res
+
+
+def plain_model(cfg, params, prompts, lk, device) -> dict:
+    """The hybrid's plain-attention model (same parameters) on the same
+    prompts against the kernel model's last-position logits ``lk``."""
+
+    ref = build_model(cfg, Ctx(attn_impl="ref"), device=device)
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lr, _ = ref.prefill(params, {"tokens": prompts}, SSM_MAX_LEN)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if counts()["flash_attention"] != 0:
+        fail(f"[ssm] {cfg.name}: the plain model launched the flash kernel")
+    lr = lr.float()
+    bound = LOGIT_TOL * float(lr.abs().max())
+    diff = float((lk - lr).abs().max())
+    top2 = lr.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > bound
+    same_tok = bool(torch.equal(lk.argmax(-1)[sure], lr.argmax(-1)[sure]))
+    print(f"[ssm] {cfg.name} kernel vs plain model prefill ({t_ref:.3f}s): "
+          f"last-position logits max diff {diff:.3e}, bound {bound:.3e} "
+          f"(1e-3 x max|logit|); first token equal on {int(sure.sum())} of "
+          f"{SSM_BATCH} rows with margin > bound: {same_tok}; peak device "
+          f"memory {peak / 2**30:.2f} GiB of {total_mem / 2**30:.2f}",
+          flush=True)
+    if not diff <= bound:
+        fail(f"[ssm] {cfg.name}: the kernel model's logits differ from the "
+             f"plain model's by {diff:.3e} > {bound:.3e}")
+    if not same_tok:
+        fail(f"[ssm] {cfg.name}: first greedy token differs on a row with a "
+             "clear margin")
+    if not peak < total_mem:
+        fail(f"[ssm] {cfg.name}: peak device memory {peak / 2**30:.2f} GiB "
+             f">= the card's {total_mem / 2**30:.2f}")
+    return {"plain_prefill_s": t_ref, "plain_logit_max_diff": diff,
+            "plain_peak_gib": peak / 2**30}
+
+
+def ssm_phase(card, flash_row) -> dict:
+    """``[ssm]``: the flash kernel at zamba2's prefill shape, then
+    mamba2-780m (with one layer's scan at full width) and zamba2-2.7b
+    served at full width and depth.  Adds the phase's flash launches to
+    ``flash_row``."""
+
+    t_phase = time.perf_counter()
+    flash = prefill_flash(card, "[ssm]", "zamba2", SSM_BATCH, SSM_PROMPT,
+                          32, 32, 80, 80)
+    out = {arch: ssm_model(card, arch) for arch in SSM_ARCHS}
+    out["zamba2-2.7b"]["flash"] = flash
+    flash_row["launches"] += sum(out[arch]["launches"] for arch in SSM_ARCHS)
+    flash_row["ssm"] = out
+    print(f"[ssm] phase: {time.perf_counter() - t_phase:.1f}s of command",
           flush=True)
     return out
 
@@ -3620,6 +3968,9 @@ def main() -> None:
     _free()
     # 7. the MoE family: granite-moe, then deepseek (MLA), full width
     moe_phase(card, rows[-1])
+    _free()
+    # 8. the SSM family and the hybrid: mamba2, then zamba2, full width
+    ssm_phase(card, rows[-1])
     print(f"[main] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{time.perf_counter() - started:.1f}s since start", flush=True)

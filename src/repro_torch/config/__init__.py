@@ -5,8 +5,9 @@
 
 ``get_model_config`` and ``get_smoke_config`` load
 ``repro_torch.configs.<arch>`` for the archs of the ported families (the
-four dense archs and the two MoE archs, ``MoEConfig`` and ``MLAConfig``
-included) and raise ``NotImplementedError`` for the others.  The analytic
+four dense archs, the two MoE archs with ``MoEConfig`` and ``MLAConfig``,
+and mamba2-780m and zamba2-2.7b with ``SSMConfig``) and raise
+``NotImplementedError`` for the others.  The analytic
 ``ModelConfig.param_count``/``active_param_count`` of the JAX package (an
 ``eval_shape`` of its init) are not ported.
 """
@@ -97,6 +98,23 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD block parameters."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk_size: int = 256
+
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str
     family: str                        # dense | moe | ssm | hybrid | encdec | vlm
@@ -121,9 +139,9 @@ class ModelConfig:
     tie_embeddings: bool = False
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
-    # sub-config of a family the port does not run yet
-    ssm: Optional[Any] = None
-    shared_attn_every: int = 0
+    ssm: Optional[SSMConfig] = None
+    shared_attn_every: int = 0         # hybrid: one shared block per k SSMs
+    # fields of the families the port does not run yet
     encoder_layers: int = 0
     encoder_seq_len: int = 1500
     num_patch_tokens: int = 0
@@ -181,11 +199,12 @@ ARCHS: Sequence[str] = (
     "granite-moe-3b-a800m",
     "deepseek-v2-lite-16b",
 )
-# archs whose family (dense, moe) the port runs; the others wait for their
-# families (ROADMAP queue 1, item 6)
+# archs whose family (dense, moe, ssm, hybrid) the port runs; the others
+# wait for their families (ROADMAP queue 1, item 6)
 PORTED_ARCHS: Sequence[str] = (
     "internlm2-20b", "granite-34b", "gemma2-2b", "qwen1.5-32b",
-    "granite-moe-3b-a800m", "deepseek-v2-lite-16b")
+    "granite-moe-3b-a800m", "deepseek-v2-lite-16b", "mamba2-780m",
+    "zamba2-2.7b")
 
 
 def _module(arch: str):

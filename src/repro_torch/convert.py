@@ -15,6 +15,7 @@ import torch
 from repro_torch.core.state import Problem, State
 from repro_torch.models.attention import KVCache
 from repro_torch.models.mla import MLACache
+from repro_torch.models.ssm import SSMState
 from repro_torch.optim import AdamWState, SGDState
 from repro_torch.serve.quant import QuantizedRecommendIndex
 from repro_torch.serve.recommend import RecommendIndex
@@ -114,15 +115,18 @@ def opt_state_from_numpy(state, device):
                     if isinstance(mom, dict) else ())
 
 
+_CACHES = {cls._fields: cls for cls in (KVCache, MLACache, SSMState)}
+
+
 def kv_cache_from_numpy(tree, device) -> dict:
     """The port's LM cache from the JAX cache tree: nested dicts whose
-    leaves are an attention sublayer's ``KVCache`` (k, v) or an MLA
-    sublayer's ``MLACache`` (c_kv, k_rope) of numpy arrays).  A pair whose
-    fields are named ``c_kv``/``k_rope`` becomes an ``MLACache``, any
-    other pair a ``KVCache``."""
+    leaves are NamedTuples of numpy arrays (an attention sublayer's
+    ``KVCache`` (k, v), an MLA sublayer's ``MLACache`` (c_kv, k_rope), an
+    SSM sublayer's ``SSMState`` (h, conv_x, conv_B, conv_C)), each mapped
+    by its field names to the port's class of the same fields (a pair
+    with other names to a ``KVCache``); every leaf keeps its dtype."""
 
     if isinstance(tree, dict):
         return {k: kv_cache_from_numpy(v, device) for k, v in tree.items()}
-    a, b = tree
-    mla = getattr(tree, "_fields", None) == MLACache._fields
-    return (MLACache if mla else KVCache)(_leaf(a, device), _leaf(b, device))
+    cls = _CACHES.get(getattr(tree, "_fields", None), KVCache)
+    return cls(*(_leaf(a, device) for a in tree))

@@ -20,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.core.state import resolve_device
+
 
 class CompressState(NamedTuple):
     """Error-feedback memory, the same shape as the message."""
@@ -27,8 +29,12 @@ class CompressState(NamedTuple):
     residual: torch.Tensor
 
 
-def init_state(msg_shape, dtype=torch.float32, device="cpu") -> CompressState:
-    return CompressState(torch.zeros(msg_shape, dtype=dtype, device=device))
+def init_state(msg_shape, dtype=torch.float32, device="cuda") -> CompressState:
+    """Zero error-feedback memory on ``device`` (the card unless
+    ``device="cpu"``)."""
+
+    return CompressState(torch.zeros(msg_shape, dtype=dtype,
+                                     device=resolve_device(device)))
 
 
 def int8_compress(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -1,26 +1,31 @@
-"""Decoder-only LM of the dense and MoE families (port of
+"""Decoder-only LM of the dense, MoE and SSM families (port of
 ``repro.models.transformer``).
 
 A model is ``embed -> head sublayers -> n_scan x unit -> final_norm ->
 unembed``.  A *unit* is a tuple of sublayers (gemma2's local/global
 alternation is a 2-sublayer unit repeated 13 times; deepseek's is one
 MLA + MoE sublayer repeated 26 times after one MLA + dense head
-sublayer).  As in the JAX package the unit params are stacked with a
+sublayer; mamba2's is one SSM sublayer with no FFN, repeated 48 times).
+As in the JAX package the unit params are stacked with a
 leading (n_scan,) axis under ``units.s{i}.*`` and the head sublayers are
 not stacked (``head{i}.*``), so a JAX parameter tree carries over leaf
 for leaf; JAX's ``lax.scan`` over that axis becomes a Python loop, and its
 sharding constraints (``wsc``) are dropped.  The caches are stacked the
-same way (a ``KVCache`` or an ``MLACache`` per sublayer) and filled in
-place.
+same way (a ``KVCache``, an ``MLACache`` or an ``SSMState`` per sublayer)
+and written in place by decode.  A prefill fills its attention caches in
+place and returns its SSM sublayers' own states, stacked, in the dtypes
+the reference gives them (its conv registers in the activations' dtype,
+where ``lm_init_cache`` makes them the cache dtype).
 
-Ported: attention and MLA mixers, SwiGLU MLPs and MoE FFNs.
+Ported: attention, MLA and SSM mixers, SwiGLU MLPs and MoE FFNs.
 ``init_sublayer`` builds SwiGLU for every dense config, gemma2's included,
 exactly as the reference does (its ``mlp_act`` is not read).  Training
 (``lm_loss``) runs under autograd through the plain attention and adds the
 MoE aux losses; ``Ctx(remat=True)`` recomputes each unit in the backward
 (``torch.utils.checkpoint``, as ``jax.checkpoint`` wraps the scanned
-unit).  SSM sublayers and the mesh fields of ``Ctx`` (EP, dp, one-hot
-embedding) wait for later slices.
+unit).  The hybrid family (zamba2) lives in ``models/hybrid.py``.  The
+mesh fields of ``Ctx`` (EP, dp, one-hot embedding) wait for later
+slices.
 """
 
 from __future__ import annotations
@@ -35,14 +40,15 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models import ssm as SSM
 
-PORTED_FAMILIES = ("dense", "moe")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
 class SubLayer:
-    mixer: str = "attn"        # attn | mla (ssm | none: not ported)
-    ffn: str = "dense"         # dense | moe (none: not ported)
+    mixer: str = "attn"        # attn | mla | ssm
+    ffn: str = "dense"         # dense | moe | none
     window: int = 0            # sliding window (0 = global)
     post_norm: bool = False    # gemma2 sandwich norms
 
@@ -74,6 +80,8 @@ def unit_spec(cfg: ModelConfig
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
             "yet (ROADMAP.md queue 1, item 6)")
+    if cfg.family == "ssm":
+        return (SubLayer(mixer="ssm", ffn="none"),), cfg.num_layers, []
     if cfg.family == "moe" and cfg.mla is not None:
         # deepseek: layer 0 dense, the rest MoE
         head = [SubLayer(mixer="mla", ffn="dense")]
@@ -96,11 +104,11 @@ def _dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _index(tree, i):
     """Leaf ``[i]`` of every tensor in a nested dict / KVCache /
-    MLACache."""
+    MLACache / SSMState."""
 
     if isinstance(tree, dict):
         return {key: _index(val, i) for key, val in tree.items()}
-    if isinstance(tree, (A.KVCache, MLA.MLACache)):
+    if isinstance(tree, (A.KVCache, MLA.MLACache, SSM.SSMState)):
         return type(tree)(*(x[i] for x in tree))
     return tree[i]
 
@@ -112,7 +120,8 @@ def _index(tree, i):
 
 def init_sublayer(gen, cfg: ModelConfig, sl: SubLayer, device,
                   lead=()) -> dict:
-    if sl.mixer not in ("attn", "mla") or sl.ffn not in ("dense", "moe"):
+    if (sl.mixer not in ("attn", "mla", "ssm")
+            or sl.ffn not in ("dense", "moe", "none")):
         raise NotImplementedError(f"sublayer {sl} is not ported yet")
     dtype = _dtype(cfg)
 
@@ -125,31 +134,38 @@ def init_sublayer(gen, cfg: ModelConfig, sl: SubLayer, device,
         p["attn"] = A.init_attention(
             gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
             cfg.resolved_head_dim, cfg.qkv_bias, dtype, device, lead)
-    else:
+    elif sl.mixer == "mla":
         p["attn"] = MLA.init_mla(gen, cfg.d_model, cfg.num_heads, cfg.mla,
                                  dtype, device, lead)
-    p["norm2"] = norm()
+    else:
+        p["ssm"] = SSM.init_ssm(gen, cfg.d_model, cfg.ssm, dtype, device,
+                                lead)
+    if sl.ffn != "none":
+        p["norm2"] = norm()
     if sl.ffn == "moe":
         p["moe"] = MOE.init_moe(gen, cfg.d_model, cfg.moe, dtype, device,
                                 lead=lead)
-    else:
+    elif sl.ffn == "dense":
         p["mlp"] = L.init_mlp_swiglu(gen, cfg.d_model, cfg.d_ff, dtype,
                                      device, lead)
     if sl.post_norm:
         p["post_norm1"] = norm()
-        p["post_norm2"] = norm()
+        if sl.ffn != "none":
+            p["post_norm2"] = norm()
     return p
 
 
 def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer):
     """The sublayer after its mixer: x + h (h post-normed in gemma2's
-    sandwich), then the pre-norm FFN half (SwiGLU or MoE).  Returns (x,
-    aux), aux the MoE's aux loss or None."""
+    sandwich), then the pre-norm FFN half (SwiGLU or MoE; none in an SSM
+    sublayer).  Returns (x, aux), aux the MoE's aux loss or None."""
 
     # the post-normed h is a temporary of the sum: the caller still holds
     # the raw h, and one more (B, L, d) tensor would be alive in the MLP
     x = x + (L.rms_norm(h, p["post_norm1"], cfg.norm_eps) if sl.post_norm
              else h)
+    if sl.ffn == "none":
+        return x, None
     hin = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     if sl.ffn == "moe":
         h, aux = MOE.moe_ffn(p["moe"], hin, cfg.moe)
@@ -162,6 +178,8 @@ def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer):
 
 
 def _mixer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
+    if sl.mixer == "ssm":
+        return SSM.ssm_block(p["ssm"], x, cfg.ssm, cfg.d_model)
     if sl.mixer == "mla":
         return MLA.mla_attention(p["attn"], x, num_heads=cfg.num_heads,
                                  cfg=cfg.mla, rope_theta=cfg.rope_theta,
@@ -188,10 +206,14 @@ def apply_sublayer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
 def apply_sublayer_prefill(p, x, max_len, cfg: ModelConfig, sl: SubLayer,
                            ctx: Ctx, cache=None):
     """Causal forward + cache for decode continuation; returns (x, cache).
-    The MoE aux is dropped, as in the JAX package."""
+    An attention or MLA cache is filled in place when given; an SSM
+    sublayer returns its own state.  The MoE aux is dropped, as in the
+    JAX package."""
 
     h_in = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    if sl.mixer == "mla":
+    if sl.mixer == "ssm":
+        h, cache = SSM.ssm_prefill(p["ssm"], h_in, cfg.ssm, cfg.d_model)
+    elif sl.mixer == "mla":
         h, cache = MLA.mla_prefill(
             p["attn"], h_in, max_len, num_heads=cfg.num_heads, cfg=cfg.mla,
             rope_theta=cfg.rope_theta, cache_dtype=ctx.cache_dtype,
@@ -210,7 +232,10 @@ def apply_sublayer_prefill(p, x, max_len, cfg: ModelConfig, sl: SubLayer,
 def apply_sublayer_decode(p, cache, x, pos, cfg: ModelConfig, sl: SubLayer,
                           ctx: Ctx):
     h_in = L.rms_norm(x, p["norm1"], cfg.norm_eps)
-    if sl.mixer == "mla":
+    if sl.mixer == "ssm":
+        h, cache = SSM.ssm_decode(p["ssm"], h_in, cache, cfg.ssm,
+                                  cfg.d_model)
+    elif sl.mixer == "mla":
         h, cache = MLA.mla_decode(p["attn"], h_in, cache, pos,
                                   num_heads=cfg.num_heads, cfg=cfg.mla,
                                   rope_theta=cfg.rope_theta)
@@ -241,7 +266,7 @@ def apply_unit_prefill(params, x, max_len, cfg, unit, ctx, cache=None):
     for i, sl in enumerate(unit):
         x, out[f"s{i}"] = apply_sublayer_prefill(
             params[f"s{i}"], x, max_len, cfg, sl, ctx,
-            None if cache is None else cache[f"s{i}"])
+            None if cache is None else cache.get(f"s{i}"))
     return x, out
 
 
@@ -327,6 +352,9 @@ def lm_loss(params, tokens, targets, cfg: ModelConfig, ctx: Ctx):
 
 def _sublayer_cache(cfg: ModelConfig, sl: SubLayer, ctx: Ctx, batch: int,
                     max_len: int, device, lead=()):
+    if sl.mixer == "ssm":
+        return SSM.init_ssm_state(batch, cfg.d_model, cfg.ssm,
+                                  ctx.cache_dtype, device, lead)
     if sl.mixer == "mla":
         return MLA.init_mla_cache(batch, max_len, cfg.mla, ctx.cache_dtype,
                                   device, lead)
@@ -348,17 +376,29 @@ def lm_init_cache(cfg: ModelConfig, ctx: Ctx, batch: int, max_len: int,
 
 
 def lm_prefill(params, tokens, max_len, cfg: ModelConfig, ctx: Ctx):
-    """tokens (B, L) -> (last-position logits (B, V), cache for decode)."""
+    """tokens (B, L) -> (last-position logits (B, V), cache for decode).
+    The attention caches are allocated at ``max_len`` and filled in place;
+    the SSM sublayers' caches are the prefill's own states."""
 
     unit, n_scan, head = unit_spec(cfg)
     x = embed_tokens(params, tokens, cfg)
-    cache = lm_init_cache(cfg, ctx, tokens.shape[0], max_len, x.device)
+    B = tokens.shape[0]
+    cache = {f"head{i}": _sublayer_cache(cfg, sl, ctx, B, max_len, x.device)
+             for i, sl in enumerate(head)}
     for i, sl in enumerate(head):
         x, _ = apply_sublayer_prefill(params[f"head{i}"], x, max_len, cfg,
                                       sl, ctx, cache[f"head{i}"])
+    filled = {f"s{i}": _sublayer_cache(cfg, sl, ctx, B, max_len, x.device,
+                                       (n_scan,))
+              for i, sl in enumerate(unit) if sl.mixer != "ssm"}
+    states = {f"s{i}": [] for i, sl in enumerate(unit) if sl.mixer == "ssm"}
     for n in range(n_scan):
-        x, _ = apply_unit_prefill(_index(params["units"], n), x, max_len,
-                                  cfg, unit, ctx, _index(cache["units"], n))
+        x, out = apply_unit_prefill(_index(params["units"], n), x, max_len,
+                                    cfg, unit, ctx, _index(filled, n))
+        for key, st in states.items():
+            st.append(out[key])
+    cache["units"] = {**filled, **{key: SSM.stack_states(st)
+                                   for key, st in states.items()}}
     h = L.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
     return _unembed(params, h, cfg), cache
 

@@ -32,6 +32,7 @@ from repro_torch.kernels.sddmm.segment import (  # noqa: E402
 )
 from repro_torch.mc import CompletionProblem, FullGD, Trainer  # noqa: E402
 from repro_torch.models import Ctx, build_model  # noqa: E402
+from repro_torch.models import ssm as SSM  # noqa: E402
 from repro_torch.serve.quant import quantize_index, quantize_rows  # noqa: E402
 from repro_torch.serving import ServingEngine  # noqa: E402
 from repro_torch.sparse.entries import BlockEntries  # noqa: E402
@@ -746,7 +747,16 @@ MOE_FLASH_CASES = [
 ]
 
 
-@pytest.mark.parametrize("case", FLASH_CASES + MOE_FLASH_CASES)
+# zamba2-2.7b's shared attention block: 32 heads of 80, no GQA, no window
+# or softcap (the Dv <= 128 instantiation at a head dim that is not a power
+# of two), L off the tile
+SSM_FLASH_CASES = [
+    dict(B=2, Hq=32, Hkv=32, Lq=301, Lk=301, D=80, causal=True),
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES + MOE_FLASH_CASES
+                         + SSM_FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, case):
     case = dict(case)
     dims = [case.pop(n) for n in ("B", "Hq", "Hkv", "Lq", "Lk", "D")]
@@ -808,6 +818,16 @@ def test_flash_kernel_bf16_at_the_moe_shapes(cuda, case):
     dims = [case.pop(n) for n in ("B", "Hq", "Hkv", "Lq", "Lk", "D")]
     q, k, v = (x.to(torch.bfloat16)
                for x in _qkv(*dims, Dv=case.pop("Dv", None)))
+    got = flash_ops.flash_attention(q, k, v, **case)
+    want = attention_ref(q, k, v, **case)
+    assert float((got.float() - want.float()).abs().max()) < 5e-2
+
+
+@pytest.mark.parametrize("case", SSM_FLASH_CASES)
+def test_flash_kernel_bf16_at_the_zamba2_shape(cuda, case):
+    case = dict(case)
+    dims = [case.pop(n) for n in ("B", "Hq", "Hkv", "Lq", "Lk", "D")]
+    q, k, v = (x.to(torch.bfloat16) for x in _qkv(*dims))
     got = flash_ops.flash_attention(q, k, v, **case)
     want = attention_ref(q, k, v, **case)
     assert float((got.float() - want.float()).abs().max()) < 5e-2
@@ -1195,6 +1215,91 @@ def test_moe_smoke_model_on_card_matches_cpu(cuda, arch):
     torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-5 * scale)
     out_c = ServeLoop(card, params, 2, 48).generate({"tokens": tokens}, 6)
     out_h = ServeLoop(host, host_params, 2, 48).generate({"tokens": tokens},
+                                                          6)
+    top2 = lh.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 1e-3
+    assert torch.equal(out_c.cpu()[sure, 0], out_h[sure, 0])
+
+
+def _ssm_case(cuda, d_model=64):
+    cfg = get_smoke_config("mamba2-780m").ssm
+    params = SSM.init_ssm(torch.Generator(device=cuda).manual_seed(0),
+                          d_model, cfg, torch.float32, cuda)
+    return cfg, params, _tree_to(params, "cpu")
+
+
+@pytest.mark.parametrize("L", [48, 40])
+def test_ssm_block_on_card_matches_cpu(cuda, L):
+    """The Mamba2 block at the smoke size on the card against the CPU, on
+    both dispatch branches (48 = 3 chunks of 16; 40 the sequential
+    oracle): within 1e-5 of the output's scale."""
+
+    cfg, params, host = _ssm_case(cuda)
+    x = torch.randn(2, L, 64, generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    y_c = SSM.ssm_block(params, x, cfg, 64)
+    y_h = SSM.ssm_block(host, x.cpu(), cfg, 64)
+    assert y_c.is_cuda
+    torch.testing.assert_close(y_c.cpu(), y_h, rtol=0,
+                               atol=1e-5 * float(y_h.abs().max()))
+    y_s = SSM.ssm_block(params, x, cfg, 64, use_chunked=False)
+    torch.testing.assert_close(y_c, y_s, rtol=0,
+                               atol=1e-4 * float(y_s.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssm_decode_on_card_matches_cpu(cuda, dtype):
+    """Six decode steps after a 32-token prefill (float32 registers) and
+    from ``init_ssm_state`` in ``dtype``: outputs within 1e-5 of scale,
+    the state written in place in its dtypes."""
+
+    cfg, params, host = _ssm_case(cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    x0 = torch.randn(2, 32, 64, generator=g, device=cuda)
+    xs = torch.randn(2, 6, 64, generator=g, device=cuda)
+    _, st_c = SSM.ssm_prefill(params, x0, cfg, 64)
+    _, st_h = SSM.ssm_prefill(host, x0.cpu(), cfg, 64)
+    for a, b in ((st_c, st_h),
+                 (SSM.init_ssm_state(2, 64, cfg, dtype, cuda),
+                  SSM.init_ssm_state(2, 64, cfg, dtype, "cpu"))):
+        for i in range(6):
+            y_c, out = SSM.ssm_decode(params, xs[:, i:i + 1], a, cfg, 64)
+            y_h, _ = SSM.ssm_decode(host, xs[:, i:i + 1].cpu(), b, cfg, 64)
+            assert out is a
+            torch.testing.assert_close(y_c.cpu(), y_h, rtol=0,
+                                       atol=1e-5 * float(y_h.abs().max()))
+        for f_c, f_h in zip(a, b):
+            # a bf16 register: one ulp where a last-bit f32 difference
+            # flips its rounding
+            assert f_c.dtype == f_h.dtype
+            tol = 2.0 ** -7 if f_h.dtype == torch.bfloat16 else 1e-5
+            torch.testing.assert_close(f_c.cpu().float(), f_h.float(), rtol=0,
+                                       atol=tol * float(f_h.abs().max()))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b"])
+def test_ssm_smoke_model_on_card_matches_cpu(cuda, arch):
+    """The smoke model on the card against the CPU: one flash launch a
+    shared-block invocation in zamba2's prefill (none in mamba2's), the
+    logits within 1e-5 of scale, the first greedy token where clear."""
+
+    cfg = get_smoke_config(arch)
+    ctx = Ctx(attn_impl="kernel")
+    card = build_model(cfg, ctx, device=cuda)
+    params = card.init(torch.Generator(device=cuda).manual_seed(0))
+    host = build_model(cfg, ctx, device="cpu")
+    host_params = _tree_to(params, "cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 48))
+    n0 = flash_ops.flash_attention.launches
+    lc, _ = card.prefill(params, {"tokens": tokens}, 64)
+    units = (cfg.num_layers // cfg.shared_attn_every
+             if cfg.family == "hybrid" else 0)
+    assert flash_ops.flash_attention.launches == n0 + units
+    lh, _ = host.prefill(host_params, {"tokens": tokens}, 64)
+    scale = float(lh.abs().max())
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-5 * scale)
+    out_c = ServeLoop(card, params, 2, 64).generate({"tokens": tokens}, 6)
+    out_h = ServeLoop(host, host_params, 2, 64).generate({"tokens": tokens},
                                                           6)
     top2 = lh.topk(2, dim=-1).values
     sure = (top2[:, 0] - top2[:, 1]) > 1e-3

@@ -257,7 +257,7 @@ def test_topk_mask_equals_jax(fraction):
 @pytest.mark.parametrize("method", ["none", "int8", "topk"])
 def test_compress_message_with_error_feedback_equals_jax(method):
     shape = (2, 11, 4)
-    t_st = tcompress.init_state(shape)
+    t_st = tcompress.init_state(shape, device="cpu")
     j_st = jcompress.init_state(shape)
     for rnd in range(5):
         x = _msg(100 + rnd, shape, distinct=(method == "topk"))

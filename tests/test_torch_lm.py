@@ -211,7 +211,7 @@ def test_entry_points_reject_unported():
     from repro_torch.config import get_model_config
 
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model_config("mamba2-780m")
+        get_model_config("whisper-large-v3")
     with pytest.raises(ValueError, match="flashref"):
         Ctx(attn_impl="flashref")
     loop = ServeLoop(build_model(get_smoke_config("gemma2-2b"),

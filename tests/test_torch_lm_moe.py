@@ -308,4 +308,4 @@ def test_moe_archs_are_ported_and_others_raise():
     assert get_model_config("deepseek-v2-lite-16b").mla.kv_lora_rank == 512
     assert get_model_config("granite-moe-3b-a800m").moe.num_experts == 40
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model_config("mamba2-780m")
+        get_model_config("whisper-large-v3")
