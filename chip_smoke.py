@@ -191,6 +191,47 @@ and one decode step under the profiler, peak memory, and the cache's
 bytes beside a bf16 (k, v) cache of as many layers of the same width at
 3840 tokens.
 
+``[encdec]`` (after ``[ssm]``, whose models are freed first): the
+encoder-decoder family.  First the flash kernel against its plain version
+at whisper-large-v3's two new attention shapes, both non-causal with no
+window and no softcap: the encoder's q/k/v (8, 20, 1500, 64) (the last
+32-key tile partial) and the cross-attention's q (8, 20, 224, 64) against
+k/v (8, 20, 1500, 64); each with ``[moe]``'s gates, times, bounds and SDPA
+yardstick.  Then whisper-large-v3 at full width and depth (32 encoder and
+32 decoder layers, d_model 1280, 20 heads of 64, 1.60 B seeded f32
+parameters, bf16 cache) through ``build_model`` -> ``init`` ->
+``ServeLoop(max_len=448).generate`` of 32 greedy tokens: 8 clips of stub
+frames (8, 1500, 1280) (numpy seed 13), which stand for 30 s of audio each
+after the conv front end the JAX package stubs, and prompts of 224 tokens,
+which stand for Whisper's previous-text conditioning within its 448-token
+decoder context.  Checks: 96 flash launches in the prefill (32 encoder, 32
+decoder-self, 32 cross) and none in decode, finite logits, output (8, 32);
+continuation: a prefill of the first 192 tokens and 32 decode steps give
+last-position logits within 1e-3 x max|logit| of the generate's prefill
+(float32 cache); the plain-attention model agrees within 1e-3 x
+max|logit| with the same first token wherever the top-2 margin exceeds
+that; peak memory below the card's.  Prints the encoder's and the
+prefill's seconds, decoder tokens/s, decode ms a step, the launches, busy
+share and top kernels of one prefill and one decode step, peak memory and
+the cache's bytes, self and cross.
+
+``[vlm]`` (after ``[encdec]``): the VLM family.  First the flash kernel at
+internvl2-76b's prefill shape, q (4, 64, 2048, 128) and k/v (4, 8, 2048,
+128), causal, GQA groups of 8, as above.  Then internvl2-76b at full width
+(d_model 8192, 64 heads of 128 over 8 KV heads, d_ff 28672, vocab
+128,256) and **8 of its 80 layers**: its 70.6 B f32 parameters (282.5 GB)
+do not fit one card, the 8 layers with the embedding, ``lm_head`` and
+projector are 36.1 GB, and full depth waits for sharded serving.  4
+requests, each of 256 stub patch tokens (4, 256, 1024) (numpy seed 13),
+which stand for one 448-px image tile after InternViT (stubbed in the JAX
+package), and 1792 text tokens: 2048 fused positions;
+``ServeLoop(max_len=2080).generate`` of 32 greedy tokens at absolute
+positions after the patches.  Checks as ``[encdec]``'s (8 flash launches
+in the prefill; the continuation from patches + 1760 tokens).  Also
+prints fused tokens/s and the decode's HBM bound: the bytes of the
+weights a step multiplies by (~31.6 GB in f32) and of the live (k, v),
+over the card's rate, against the measured step.
+
 ``[stream]`` (after ``[gossip]``): the streaming loop at the Table 3
 cell through ``launch/streaming.py``: 85% of the training ratings
 ingested with the headroom of the stream's largest per-block count; the
@@ -268,8 +309,9 @@ The launch counts of the ``{"kernels": ...}`` line add up the main
 path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included),
 ``[stream]``, ``[faults]`` (the ranks' by stack shape in
 ``faults_launches_by_stack``), ``[serve]``, ``[sharded]`` (the ranks'),
-``[lm]``, ``[moe]`` and ``[ssm]`` (the flash row's ``moe`` and ``ssm``
-keys have those phases' numbers); ``[train]`` launches none.
+``[lm]``, ``[moe]``, ``[ssm]``, ``[encdec]`` and ``[vlm]`` (the flash
+row's ``moe``, ``ssm``, ``encdec`` and ``vlm`` keys have those phases'
+numbers); ``[train]`` launches none.
 
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
 (``benchmarks/table3_rmse.py --full``): the 6040x3706 ``movielens_proxy``
@@ -289,7 +331,11 @@ mamba2-780m's and zamba2-2.7b's configs with 3840-token prompts: the
 largest multiple of the 256-token chunk that leaves room for 32 new tokens
 in a max_len of 4096, so that every prefill takes the chunked scan, as the
 reference would (a length off the chunk grid runs the sequential scan, one
-Python step a token and a layer).
+Python step a token and a layer).  The encoder-decoder cell is
+whisper-large-v3's config (``repro_torch/configs/whisper_large_v3.py``)
+at its published widths and depth, 8 clips a batch; the VLM cell is
+internvl2-76b's config at its published widths, its depth cut to 8 of 80
+layers by one card's memory.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 the ``{"kernels": [...]}`` summary, and the line before that the card's
@@ -392,6 +438,7 @@ from repro_torch.launch.serve_recommend import (  # noqa: E402
 )
 from repro_torch.mesh import MeshPlan  # noqa: E402
 from repro_torch.models import Ctx, build_model  # noqa: E402
+from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
@@ -548,6 +595,20 @@ SSD_SHAPE = (1, 1024, 48, 64, 128, 256)
 SSD_TOL = 1e-4        # tests/test_moe_ssm.py's rtol/atol
 SSD_F64_TOL = 1e-9    # chunked vs sequential in float64, x max|y|
 LORA_B_STD = 0.1      # zamba2's lora_b, zero at init, drawn N(0, 0.1^2)
+# [encdec]: whisper-large-v3 at full width and depth; 8 clips of 1500 stub
+# frames (30 s of audio each after the conv front end), prompts of 224
+# tokens (previous-text conditioning) and 32 new ones within Whisper's
+# 448-token decoder context
+ENCDEC_ARCH = "whisper-large-v3"
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_NEW, ENCDEC_MAX_LEN = 8, 224, 32, 448
+ENCDEC_SPLIT = 192    # continuation: a prefill of 192 tokens + 32 decodes
+# [vlm]: internvl2-76b at full width and 8 of its 80 layers (70.6 B f32
+# parameters, 282.5 GB, are more than one card holds: full depth needs
+# sharded serving); 4 requests of one 448-px image tile (256 stub patch
+# tokens) and 1792 text tokens, 2048 fused positions, 32 new tokens
+VLM_ARCH, VLM_LAYERS = "internvl2-76b", 8
+VLM_BATCH, VLM_PROMPT, VLM_NEW, VLM_MAX_LEN = 4, 1792, 32, 2080
+VLM_SPLIT = 1760      # continuation: patches + 1760 tokens + 32 decodes
 
 
 def fail(msg: str) -> None:
@@ -1367,11 +1428,11 @@ def live_pairs(L: int, window: int) -> int:
 
 
 def f64_check(q, k, v, got, want, softcap, b=LM_BATCH - 1, h=7,
-              tag="[lm]"):
+              tag="[lm]", causal=True):
     """Max abs error of the kernel's and the plain version's (b, h) slice
-    of a causal (softcapped when ``softcap``) layer against the same
-    attention in float64; fails the run when the kernel's exceeds
-    F64_FACTOR x the plain version's + F64_SLACK."""
+    of a layer (causal unless ``causal`` is false, softcapped when
+    ``softcap``) against the same attention in float64; fails the run when
+    the kernel's exceeds F64_FACTOR x the plain version's + F64_SLACK."""
 
     L, D = q.shape[2], q.shape[3]
     kvh = h // (q.shape[1] // k.shape[1])
@@ -1379,8 +1440,9 @@ def f64_check(q, k, v, got, want, softcap, b=LM_BATCH - 1, h=7,
     logits = qd @ kd.T / D ** 0.5                        # 512 MB at L = 8000
     if softcap:
         logits = softcap * torch.tanh(logits / softcap)
-    pos = torch.arange(L, device=q.device)
-    logits.masked_fill_(pos[:, None] < pos[None, :], float("-inf"))
+    if causal:
+        pos = torch.arange(L, device=q.device)
+        logits.masked_fill_(pos[:, None] < pos[None, :], float("-inf"))
     ref = torch.softmax(logits, -1) @ vd
     del logits
     err = float((got[b, h].double() - ref).abs().max())
@@ -1913,20 +1975,23 @@ def train_phase(card, device="cuda") -> dict:
     return out
 
 
-def prefill_flash(card, tag, label, B, L, Hq, Hkv, D, Dv) -> dict:
+def prefill_flash(card, tag, label, B, L, Hq, Hkv, D, Dv, Lk=None,
+                  causal=True) -> dict:
     """The flash kernel against its plain version at one arch's prefill
-    shapes (causal, no window, no softcap): f32 at rtol 2e-4 / atol 2e-5,
-    one (b, h) slice against float64, a bf16 call at 5e-2; CUDA-graph and
-    eager times, the plain version's, the bounds, and SDPA, which computes
-    the same function here (K/V repeated to Hq heads)."""
+    shapes (q of length L, k/v of length ``Lk``, L by default; causal
+    unless ``causal`` is false; no window, no softcap): f32 at rtol 2e-4 /
+    atol 2e-5, one (b, h) slice against float64, a bf16 call at 5e-2;
+    CUDA-graph and eager times, the plain version's, the bounds, and SDPA,
+    which computes the same function here (K/V repeated to Hq heads)."""
 
+    Lk = Lk or L
     bw, flops, _, tf32 = peaks(card)
     g = torch.Generator(device="cuda").manual_seed(13)
     q = torch.randn((B, Hq, L, D), generator=g, device="cuda")
-    k = torch.randn((B, Hkv, L, D), generator=g, device="cuda")
-    v = torch.randn((B, Hkv, L, Dv), generator=g, device="cuda")
-    kern = lambda: flash_ops.flash_attention(q, k, v, causal=True)  # noqa: E731
-    plain = lambda: attention_ref(q, k, v, causal=True)             # noqa: E731
+    k = torch.randn((B, Hkv, Lk, D), generator=g, device="cuda")
+    v = torch.randn((B, Hkv, Lk, Dv), generator=g, device="cuda")
+    kern = lambda: flash_ops.flash_attention(q, k, v, causal=causal)  # noqa: E731
+    plain = lambda: attention_ref(q, k, v, causal=causal)             # noqa: E731
     got, want = kern(), plain()
     torch.cuda.synchronize()
     err = (got - want).abs()
@@ -1934,18 +1999,19 @@ def prefill_flash(card, tag, label, B, L, Hq, Hkv, D, Dv) -> dict:
     ok = bool((err <= FLASH_ATOL + FLASH_RTOL * want.abs()).all())
     del err
     f64 = f64_check(q, k, v, got, want, 0.0, b=B - 1, h=Hq - 1,
-                    tag=f"{tag} {label}")
+                    tag=f"{tag} {label}", causal=causal)
     del want
     # yardstick only, never called by the port
     kr, vr = (x.repeat_interleave(Hq // Hkv, dim=1) for x in (k, v))
     sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(  # noqa: E731
-        q, kr, vr, is_causal=True)
+        q, kr, vr, is_causal=causal)
     library_err = float((sdpa() - got).abs().max())
     del got
     library_ms = eager_ms(sdpa, reps=5)
     del kr, vr
     _free()
-    ops = 2 * (D + Dv) * live_pairs(L, 0) * B * Hq
+    pairs = live_pairs(L, 0) if causal else L * Lk
+    ops = 2 * (D + Dv) * pairs * B * Hq
     nbytes = 4 * (q.numel() + k.numel() + v.numel() + B * Hq * L * Dv)
     t_bytes = nbytes / bw * 1e3
     t_f32, t_tc = ops / flops * 1e3, TF32_PASSES * ops / tf32 * 1e3
@@ -1961,15 +2027,16 @@ def prefill_flash(card, tag, label, B, L, Hq, Hkv, D, Dv) -> dict:
         "bound_f32_cuda_core_ms": max(t_bytes, t_f32),
         "operations": ops, "bytes": nbytes, "max_abs_err": abs_err,
         "library_ms": library_ms, "library_max_abs_err": library_err,
-        "library_call": "scaled_dot_product_attention f32, is_causal, K/V "
-                        "repeated to Hq (the same function)",
+        "library_call": f"scaled_dot_product_attention f32, is_causal="
+                        f"{causal}, K/V repeated to Hq (the same function)",
         "timing": "ms: median of CUDA-graph replays of 3 calls; eager and "
                   "plain: median of single calls between CUDA events",
-        "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "L": L, "D": D, "Dv": Dv},
+        "shape": {"B": B, "Hq": Hq, "Hkv": Hkv, "L": L, "Lk": Lk, "D": D,
+                  "Dv": Dv, "causal": causal},
         **f64}
     qb, kb, vb = (x.to(torch.bfloat16) for x in (q, k, v))
-    bf16_err = float((flash_ops.flash_attention(qb, kb, vb, causal=True)
-                      .float() - attention_ref(qb, kb, vb, causal=True)
+    bf16_err = float((flash_ops.flash_attention(qb, kb, vb, causal=causal)
+                      .float() - attention_ref(qb, kb, vb, causal=causal)
                       .float()).abs().max())
     out["bf16_max_abs_err"] = bf16_err
     del q, k, v, qb, kb, vb
@@ -2577,6 +2644,281 @@ def ssm_phase(card, flash_row) -> dict:
     flash_row["launches"] += sum(out[arch]["launches"] for arch in SSM_ARCHS)
     flash_row["ssm"] = out
     print(f"[ssm] phase: {time.perf_counter() - t_phase:.1f}s of command",
+          flush=True)
+    return out
+
+
+def _nbytes(tensors) -> int:
+    return sum(x.numel() * x.element_size() for x in tensors)
+
+
+def served_family(tag, cfg, inputs, prompts, max_len, new, split,
+                  expect, device="cuda") -> dict:
+    """One encoder-decoder or VLM arch served through the flash kernel:
+    ``build_model`` -> ``init`` -> ``ServeLoop(max_len).generate`` of
+    ``new`` greedy tokens after ``prompts`` with the float ``inputs``
+    (frames or patches); ``expect`` flash launches in the prefill and none
+    in decode; the profiled prefill and decode step; the continuation
+    check (a float32 cache: a prefill of ``split`` tokens, then decode
+    steps over the rest of the prompt, against the generate's prefill);
+    the plain-attention model on the same inputs."""
+
+    vlm = cfg.family == "vlm"
+    offset = cfg.num_patch_tokens if vlm else 0
+    B, L = prompts.shape
+    t0 = time.perf_counter()
+    model = build_model(cfg, Ctx(attn_impl="kernel"), device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in _leaves(params))
+    param_bytes = _nbytes(_leaves(params))
+    print(f"{tag} {cfg.name}: "
+          + (f"{cfg.num_layers} of 80 LM layers" if vlm else
+             f"{cfg.encoder_layers} encoder + {cfg.num_layers} decoder "
+             "layers")
+          + f", d_model {cfg.d_model}, {cfg.num_heads} heads of "
+          f"{cfg.resolved_head_dim} over {cfg.num_kv_heads} KV heads, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}; {n_params} parameters in "
+          f"{cfg.param_dtype} ({param_bytes / 1e9:.2f} GB), init "
+          f"{time.perf_counter() - t0:.2f}s", flush=True)
+    batch = {**inputs, "tokens": prompts}
+
+    ServeLoop(model, params, 1, max_len).generate(
+        {**{k: x[:1] for k, x in inputs.items()},
+         "tokens": prompts[:1, :64]}, 2)                 # warm-up
+    torch.cuda.synchronize()
+
+    pre, dec = [], []
+    spy = model._replace(prefill=timed(model.prefill, pre),
+                         decode=timed(model.decode, dec))
+    loop = ServeLoop(spy, params, B, max_len)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = loop.generate(batch, new)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    got = counts()
+    peak = torch.cuda.max_memory_allocated()
+    del loop, spy
+    if got["flash_attention"] != expect:
+        fail(f"{tag} {cfg.name}: flash_attention launched "
+             f"{got['flash_attention']} times, expected {expect} (the "
+             "prefill's, none in decode)")
+    if any(n for name, n in got.items() if name != "flash_attention"):
+        fail(f"{tag} {cfg.name}: an unexpected kernel launched: {got}")
+    if tuple(out.shape) != (B, new):
+        fail(f"{tag} {cfg.name}: generate gave shape {tuple(out.shape)}")
+    if not all(bool(torch.isfinite(lg).all()) for _, lg in pre + dec):
+        fail(f"{tag} {cfg.name}: non-finite logits")
+    t_pre = pre[0][0]
+    t_dec = sum(s_ for s_, _ in dec)
+    res = {"launches": got["flash_attention"], "prefill_s": t_pre,
+           "decode_ms_per_step": 1e3 * t_dec / len(dec),
+           "decode_tokens_per_s": B * len(dec) / t_dec,
+           "tokens_per_s": B * new / total, "peak_gib": peak / 2**30,
+           "parameters": n_params, "parameter_bytes": param_bytes}
+    if vlm:
+        res["fused_tokens_per_s"] = B * (offset + L) / t_pre
+    else:
+        # the encoder alone, on the same frames already on the card
+        frames = torch.as_tensor(inputs["frames"], device=device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            encdec_mod.encode(params, frames, cfg, model.ctx)
+        torch.cuda.synchronize()
+        res["encoder_s"] = time.perf_counter() - t0
+        del frames
+    print(f"{tag} {cfg.name} generate: prefill {t_pre:.3f}s ("
+          + (f"{res['fused_tokens_per_s']:.0f} fused tokens/s"
+             if vlm else f"encoder alone {res['encoder_s']:.3f}s")
+          + f"), decode {res['decode_ms_per_step']:.3f} ms/step over "
+          f"{len(dec)} steps ({res['decode_tokens_per_s']:.1f} decoder "
+          f"tokens/s), total {total:.3f}s ({res['tokens_per_s']:.1f} "
+          f"tokens/s); launches {got}; peak device memory "
+          f"{peak / 2**30:.2f} GiB", flush=True)
+    print(f"{tag} {cfg.name} first row: {out[0].tolist()}", flush=True)
+
+    # where the device time of one prefill and one decode step goes
+    seen_pre, seen_dec = {}, {}
+    with torch.inference_mode():
+        (_, cache), s_pre, bd_pre = profiled(
+            lambda: model.prefill(params, batch, max_len), seen_pre)
+        tok = torch.zeros(B, dtype=torch.int32, device=device)
+        _, s_dec, bd_dec = profiled(
+            lambda: model.decode(params, cache, tok, offset + L), seen_dec)
+    prof = {}
+    for label, secs, bd, seen in (("prefill", s_pre, bd_pre, seen_pre),
+                                  ("decode step", s_dec, bd_dec, seen_dec)):
+        busy = sum(bd.values()) / (1e3 * secs)
+        prof[label] = {"wall_ms": 1e3 * secs, "busy": busy,
+                       "launches": sum(seen.values())}
+        print(f"{tag} {cfg.name} {label} under the profiler: wall "
+              f"{1e3 * secs:.3f} ms, device busy {100 * busy:.1f}%, "
+              f"{sum(seen.values())} kernel launches; by kernel: {top(bd)}",
+              flush=True)
+    res["profile"] = prof
+    if vlm:
+        kv = [x for c in _flat_caches(cache) for x in c]
+        res["cache_bytes"] = {"kv": _nbytes(kv)}
+        # the least time of a decode step: every weight it multiplies by
+        # (the units, the final norm and lm_head; the embedding is
+        # gathered a row a token, the projector not used) read once from
+        # HBM, and the (k, v) of the live positions
+        weights = _nbytes(list(_leaves(params["units"]))
+                          + [params["final_norm"], params["lm_head"]])
+        live = _nbytes(kv) * (offset + L + 1) // max_len
+        bw = peaks(torch.cuda.get_device_name(0))[0]
+        res["decode_hbm_bound"] = {
+            "weight_bytes": weights, "live_cache_bytes": live,
+            "weights_ms": weights / bw * 1e3,
+            "ms": (weights + live) / bw * 1e3,
+            "share_of_decode_step": (weights + live) / bw
+            / (res["decode_ms_per_step"] / 1e3)}
+        print(f"{tag} {cfg.name} decode HBM bound: {weights} bytes of "
+              f"weights a step ({weights / bw * 1e3:.3f} ms at "
+              f"{bw / 1e12:.2f} TB/s) + {live} bytes of live (k, v) = "
+              f"{res['decode_hbm_bound']['ms']:.3f} ms against "
+              f"{res['decode_ms_per_step']:.3f} ms measured (the bound is "
+              f"{100 * res['decode_hbm_bound']['share_of_decode_step']:.1f}"
+              "% of the step)", flush=True)
+    else:
+        res["cache_bytes"] = {"self": _nbytes(cache.self_kv),
+                              "cross": _nbytes((cache.cross_k,
+                                                cache.cross_v))}
+    print(f"{tag} {cfg.name} cache ({str(model.ctx.cache_dtype)[6:]}, "
+          f"max_len {max_len}): {res['cache_bytes']} bytes", flush=True)
+    del cache
+
+    # continuation: a prefill of the first ``split`` tokens, then the rest
+    # of the prompt one decode step at a time (at absolute positions after
+    # a VLM's patches), against the generate's prefill of all of it; with a
+    # float32 cache, as tests/test_models_consistency.py holds JAX's
+    full = pre[0][1].float()
+    toks = torch.as_tensor(prompts, device=device)
+    f32 = build_model(cfg, Ctx(attn_impl="kernel", cache_dtype=torch.float32),
+                      device=device)
+    with torch.inference_mode():
+        _, cache = f32.prefill(params, {**inputs, "tokens": prompts[:, :split]},
+                               max_len)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for pos in range(split, L):
+            cont, cache = f32.decode(params, cache, toks[:, pos],
+                                     offset + pos)
+        torch.cuda.synchronize()
+    t_cont = time.perf_counter() - t0
+    del cache
+    cont = cont.float()
+    bound = LOGIT_TOL * float(full.abs().max())
+    cont_diff = float((cont - full).abs().max())
+    print(f"{tag} {cfg.name} continuation, float32 cache: prefill "
+          f"{offset} patch + {split} tokens + {L - split} decode steps "
+          f"({1e3 * t_cont / (L - split):.3f} ms/step) against the prefill "
+          f"of {offset} + {L}: last-position logits max diff "
+          f"{cont_diff:.3e}, bound {bound:.3e} (1e-3 x max|logit|)",
+          flush=True)
+    if not cont_diff <= bound:
+        fail(f"{tag} {cfg.name}: prefill + decode differs from the full "
+             f"prefill by {cont_diff:.3e} > {bound:.3e}")
+    res.update(continuation_max_diff=cont_diff, logit_bound=bound)
+
+    # the plain-attention model (same parameters) on the same inputs
+    ref = build_model(cfg, Ctx(attn_impl="ref"), device=device)
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        lr, _ = ref.prefill(params, batch, max_len)
+    torch.cuda.synchronize()
+    t_ref = time.perf_counter() - t0
+    peak_ref = torch.cuda.max_memory_allocated()
+    if counts()["flash_attention"] != 0:
+        fail(f"{tag} {cfg.name}: the plain model launched the flash kernel")
+    lr = lr.float()
+    bound = LOGIT_TOL * float(lr.abs().max())
+    diff = float((full - lr).abs().max())
+    top2 = lr.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > bound
+    same_tok = bool(torch.equal(full.argmax(-1)[sure], lr.argmax(-1)[sure]))
+    print(f"{tag} {cfg.name} kernel vs plain model prefill ({t_ref:.3f}s): "
+          f"last-position logits max diff {diff:.3e}, bound {bound:.3e} "
+          f"(1e-3 x max|logit|); first token equal on {int(sure.sum())} of "
+          f"{B} rows with margin > bound: {same_tok}; peak device memory "
+          f"{peak_ref / 2**30:.2f} GiB of {total_mem / 2**30:.2f}",
+          flush=True)
+    if not diff <= bound:
+        fail(f"{tag} {cfg.name}: the kernel model's logits differ from the "
+             f"plain model's by {diff:.3e} > {bound:.3e}")
+    if not same_tok:
+        fail(f"{tag} {cfg.name}: first greedy token differs on a row with a "
+             "clear margin")
+    if not max(peak, peak_ref) < total_mem:
+        fail(f"{tag} {cfg.name}: peak device memory "
+             f"{max(peak, peak_ref) / 2**30:.2f} GiB >= the card's "
+             f"{total_mem / 2**30:.2f}")
+    res.update(plain_prefill_s=t_ref, plain_logit_max_diff=diff,
+               plain_peak_gib=peak_ref / 2**30)
+    del params, full, lr
+    _free()
+    return res
+
+
+def encdec_phase(card, flash_row) -> dict:
+    """``[encdec]``: the flash kernel at whisper's encoder and
+    cross-attention shapes, then whisper-large-v3 served at full width and
+    depth.  Adds the phase's flash launches to ``flash_row``."""
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config(ENCDEC_ARCH)
+    H, hd = cfg.num_heads, cfg.resolved_head_dim
+    flash = {
+        "encoder": prefill_flash(card, "[encdec]", "whisper encoder",
+                                 ENCDEC_BATCH, cfg.encoder_seq_len, H, H, hd,
+                                 hd, causal=False),
+        "cross": prefill_flash(card, "[encdec]", "whisper cross",
+                               ENCDEC_BATCH, ENCDEC_PROMPT, H, H, hd, hd,
+                               Lk=cfg.encoder_seq_len, causal=False)}
+    rng = np.random.default_rng(13)
+    frames = rng.standard_normal(
+        (ENCDEC_BATCH, cfg.encoder_seq_len, cfg.d_model), dtype=np.float32)
+    prompts = rng.integers(0, cfg.vocab_size, (ENCDEC_BATCH, ENCDEC_PROMPT))
+    out = served_family("[encdec]", cfg, {"frames": frames}, prompts,
+                        ENCDEC_MAX_LEN, ENCDEC_NEW, ENCDEC_SPLIT,
+                        cfg.encoder_layers + 2 * cfg.num_layers)
+    out["flash"] = flash
+    flash_row["launches"] += out["launches"]
+    flash_row["encdec"] = out
+    print(f"[encdec] phase: {time.perf_counter() - t_phase:.1f}s of command",
+          flush=True)
+    return out
+
+
+def vlm_phase(card, flash_row) -> dict:
+    """``[vlm]``: the flash kernel at internvl2's prefill shape, then
+    internvl2-76b served at full width and 8 of its 80 layers.  Adds the
+    phase's flash launches to ``flash_row``."""
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(get_model_config(VLM_ARCH),
+                              num_layers=VLM_LAYERS)
+    flash = prefill_flash(card, "[vlm]", "internvl2", VLM_BATCH,
+                          cfg.num_patch_tokens + VLM_PROMPT, cfg.num_heads,
+                          cfg.num_kv_heads, cfg.resolved_head_dim,
+                          cfg.resolved_head_dim)
+    rng = np.random.default_rng(13)
+    patches = rng.standard_normal((VLM_BATCH, cfg.num_patch_tokens, 1024),
+                                  dtype=np.float32)
+    prompts = rng.integers(0, cfg.vocab_size, (VLM_BATCH, VLM_PROMPT))
+    out = served_family("[vlm]", cfg, {"patches": patches}, prompts,
+                        VLM_MAX_LEN, VLM_NEW, VLM_SPLIT, cfg.num_layers)
+    out["flash"] = flash
+    flash_row["launches"] += out["launches"]
+    flash_row["vlm"] = out
+    print(f"[vlm] phase: {time.perf_counter() - t_phase:.1f}s of command",
           flush=True)
     return out
 
@@ -3971,6 +4313,11 @@ def main() -> None:
     _free()
     # 8. the SSM family and the hybrid: mamba2, then zamba2, full width
     ssm_phase(card, rows[-1])
+    _free()
+    # 9. the encoder-decoder (whisper), then the VLM (internvl2, 8 layers)
+    encdec_phase(card, rows[-1])
+    _free()
+    vlm_phase(card, rows[-1])
     print(f"[main] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{time.perf_counter() - started:.1f}s since start", flush=True)

@@ -4,10 +4,10 @@
 ``--arch`` registry (copies of ``repro.config``).
 
 ``get_model_config`` and ``get_smoke_config`` load
-``repro_torch.configs.<arch>`` for the archs of the ported families (the
-four dense archs, the two MoE archs with ``MoEConfig`` and ``MLAConfig``,
-and mamba2-780m and zamba2-2.7b with ``SSMConfig``) and raise
-``NotImplementedError`` for the others.  The analytic
+``repro_torch.configs.<arch>`` for every arch of ``ARCHS``: the four
+dense archs, the two MoE archs with ``MoEConfig`` and ``MLAConfig``,
+mamba2-780m and zamba2-2.7b with ``SSMConfig``, whisper-large-v3 and
+internvl2-76b.  The analytic
 ``ModelConfig.param_count``/``active_param_count`` of the JAX package (an
 ``eval_shape`` of its init) are not ported.
 """
@@ -141,7 +141,7 @@ class ModelConfig:
     mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     shared_attn_every: int = 0         # hybrid: one shared block per k SSMs
-    # fields of the families the port does not run yet
+    # encoder-decoder (whisper) and VLM (internvl2)
     encoder_layers: int = 0
     encoder_seq_len: int = 1500
     num_patch_tokens: int = 0
@@ -199,21 +199,11 @@ ARCHS: Sequence[str] = (
     "granite-moe-3b-a800m",
     "deepseek-v2-lite-16b",
 )
-# archs whose family (dense, moe, ssm, hybrid) the port runs; the others
-# wait for their families (ROADMAP queue 1, item 6)
-PORTED_ARCHS: Sequence[str] = (
-    "internlm2-20b", "granite-34b", "gemma2-2b", "qwen1.5-32b",
-    "granite-moe-3b-a800m", "deepseek-v2-lite-16b", "mamba2-780m",
-    "zamba2-2.7b")
 
 
 def _module(arch: str):
     if arch not in ARCHS:
         raise ValueError(f"unknown arch {arch!r}; expected one of {ARCHS}")
-    if arch not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"{arch}: its model family is not ported to repro_torch yet "
-            f"(ROADMAP.md queue 1, item 6); ported: {PORTED_ARCHS}")
     return importlib.import_module(
         "repro_torch.configs." + arch.replace("-", "_").replace(".", "_"))
 

@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core.state import Problem, State
 from repro_torch.models.attention import KVCache
+from repro_torch.models.encdec import DecCache
 from repro_torch.models.mla import MLACache
 from repro_torch.models.ssm import SSMState
 from repro_torch.optim import AdamWState, SGDState
@@ -115,18 +116,24 @@ def opt_state_from_numpy(state, device):
                     if isinstance(mom, dict) else ())
 
 
-_CACHES = {cls._fields: cls for cls in (KVCache, MLACache, SSMState)}
+_CACHES = {cls._fields: cls for cls in (KVCache, MLACache, SSMState,
+                                         DecCache)}
 
 
-def kv_cache_from_numpy(tree, device) -> dict:
-    """The port's LM cache from the JAX cache tree: nested dicts whose
-    leaves are NamedTuples of numpy arrays (an attention sublayer's
+def kv_cache_from_numpy(tree, device):
+    """The port's LM cache from the JAX cache tree: nested dicts and
+    NamedTuples whose leaves are numpy arrays (an attention sublayer's
     ``KVCache`` (k, v), an MLA sublayer's ``MLACache`` (c_kv, k_rope), an
-    SSM sublayer's ``SSMState`` (h, conv_x, conv_B, conv_C)), each mapped
-    by its field names to the port's class of the same fields (a pair
-    with other names to a ``KVCache``); every leaf keeps its dtype."""
+    SSM sublayer's ``SSMState`` (h, conv_x, conv_B, conv_C), the
+    encoder-decoder's ``DecCache`` (self_kv, cross_k, cross_v) with a
+    ``KVCache`` inside), each NamedTuple mapped by its field names to the
+    port's class of the same fields (a pair with other names to a
+    ``KVCache``); every leaf keeps its dtype."""
 
     if isinstance(tree, dict):
         return {k: kv_cache_from_numpy(v, device) for k, v in tree.items()}
-    cls = _CACHES.get(getattr(tree, "_fields", None), KVCache)
-    return cls(*(_leaf(a, device) for a in tree))
+    fields = getattr(tree, "_fields", None)
+    if fields is None:
+        return _leaf(tree, device)
+    cls = _CACHES.get(fields, KVCache)
+    return cls(*(kv_cache_from_numpy(a, device) for a in tree))

@@ -26,21 +26,25 @@ class ServeLoop:
 
     def generate(self, batch: dict[str, Any], num_tokens: int):
         """(B, num_tokens) int32 greedy tokens after the prompt
-        ``batch["tokens"]`` (B, L)."""
+        ``batch["tokens"]`` (B, L).  A VLM's decode positions are absolute
+        in its fused sequence: they start after its patch tokens."""
 
         prompt_len = batch["tokens"].shape[1]
-        if prompt_len + num_tokens - 1 > self.max_len:
+        cfg = self.model.cfg
+        extra = cfg.num_patch_tokens if cfg.family == "vlm" else 0
+        if extra + prompt_len + num_tokens - 1 > self.max_len:
             raise ValueError(
-                f"prompt of {prompt_len} + {num_tokens} tokens does not fit "
-                f"max_len={self.max_len}")
+                f"{extra + prompt_len} prompt positions + {num_tokens} "
+                f"tokens do not fit max_len={self.max_len}")
         with torch.inference_mode():
             logits, cache = self.model.prefill(self.params, batch,
                                                self.max_len)
             tok = torch.argmax(logits, -1).to(torch.int32)
             out = [tok]
+            start = extra + prompt_len - 1
             for i in range(1, num_tokens):
                 logits, cache = self.model.decode(self.params, cache, tok,
-                                                  prompt_len + i - 1)
+                                                  start + i)
                 tok = torch.argmax(logits, -1).to(torch.int32)
                 out.append(tok)
         return torch.stack(out, dim=1)

@@ -18,6 +18,11 @@ The reference's mesh and multi-host flags have no counterpart here:
 ``train/gossip_dp.py``).  The reference parses ``--sync`` and never reads
 it; the port accepts only ``allreduce`` (one card: the exact gradient),
 rather than silently ignoring ``gossip``.
+
+``--arch`` takes the token-only archs: the JAX launcher builds
+``{"tokens", "targets"}`` batches only, so whisper-large-v3 (frames) and
+internvl2-76b (patches) fail there at the batch's missing key; the port
+adds no frame or patch pipeline that the reference lacks.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.config import (
-    PORTED_ARCHS,
+    ARCHS,
     TrainConfig,
     get_model_config,
     get_shape,
@@ -43,11 +48,16 @@ from repro_torch.optim import make_optimizer
 from repro_torch.train.step import make_train_step
 
 
+# the archs whose batches are tokens and targets alone
+TOKEN_ARCHS = [a for a in ARCHS
+               if get_model_config(a).family not in ("encdec", "vlm")]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", choices=list(PORTED_ARCHS), required=True,
-                    help="an arch of a ported family (the JAX launcher "
-                         "takes every arch)")
+    ap.add_argument("--arch", choices=TOKEN_ARCHS, required=True,
+                    help="a token-only arch (the launcher's batches hold "
+                         "no frames or patches)")
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--multi-pod", action="store_true",

@@ -1,4 +1,5 @@
-"""The LM harness of the port (dense, MoE, SSM and hybrid families):
+"""The LM harness of the port (dense, MoE, SSM, hybrid, encoder-decoder
+and VLM families):
 ``build_model(cfg, ctx)`` gives a ``Model`` whose ``init``/``prefill``/``decode``/``init_cache`` keep
 the JAX package's parameter and cache trees (``repro.models``)."""
 

@@ -6,8 +6,10 @@ device and a ``lead`` shape: ``lead=(n,)`` draws ``n`` stacked copies at
 once, the layout of the JAX package's scanned unit params.  The values
 cannot match JAX's threefry draws; the distributions do.
 
-``mlp_gelu``, ``layer_norm`` and ``embed_onehot`` serve other families or
-sharding and are not ported yet.
+``layer_norm`` and ``mlp_gelu`` (the tanh GELU, as ``jax.nn.gelu``
+computes it by default) serve the encoder-decoder.  ``embed_onehot``, the
+JAX package's lookup for vocab-sharded tables, waits for mesh-sharded
+serving (ROADMAP.md queue 1, item 6.8).
 """
 
 from __future__ import annotations
@@ -35,6 +37,17 @@ def rms_norm(x, w, eps: float = 1e-6):
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + upcast(w))).to(x.dtype)
+
+
+def layer_norm(x, w, b, eps: float = 1e-5):
+    """LayerNorm over the last axis in float32 (population variance),
+    returned in x's dtype."""
+
+    xf = upcast(x)
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    out = (xf - mu) * torch.rsqrt(var + eps) * upcast(w) + upcast(b)
+    return out.to(x.dtype)
 
 
 def linear(x, w, b=None):
@@ -85,6 +98,11 @@ def mlp_swiglu(params, x):
     return (g * (x @ params["wi_up"])) @ params["wo"]
 
 
+def mlp_gelu(params, x):
+    h = F.gelu(x @ params["wi"] + params["bi"], approximate="tanh")
+    return h @ params["wo"] + params["bo"]
+
+
 def init_mlp_swiglu(gen, d_model: int, d_ff: int, dtype, device,
                     lead=()) -> dict:
     s_in, s_ff = d_model ** -0.5, d_ff ** -0.5
@@ -92,6 +110,19 @@ def init_mlp_swiglu(gen, d_model: int, d_ff: int, dtype, device,
         "wi_gate": _normal(gen, (d_model, d_ff), s_in, dtype, device, lead),
         "wi_up": _normal(gen, (d_model, d_ff), s_in, dtype, device, lead),
         "wo": _normal(gen, (d_ff, d_model), s_ff, dtype, device, lead),
+    }
+
+
+def init_mlp_gelu(gen, d_model: int, d_ff: int, dtype, device,
+                  lead=()) -> dict:
+    lead = tuple(lead)
+    return {
+        "wi": _normal(gen, (d_model, d_ff), d_model ** -0.5, dtype, device,
+                      lead),
+        "bi": torch.zeros(lead + (d_ff,), dtype=dtype, device=device),
+        "wo": _normal(gen, (d_ff, d_model), d_ff ** -0.5, dtype, device,
+                      lead),
+        "bo": torch.zeros(lead + (d_model,), dtype=dtype, device=device),
     }
 
 

@@ -1,5 +1,5 @@
-"""Decoder-only LM of the dense, MoE and SSM families (port of
-``repro.models.transformer``).
+"""Decoder-only LM of the dense, MoE and SSM families and the VLM's
+backbone (port of ``repro.models.transformer``).
 
 A model is ``embed -> head sublayers -> n_scan x unit -> final_norm ->
 unembed``.  A *unit* is a tuple of sublayers (gemma2's local/global
@@ -23,9 +23,11 @@ exactly as the reference does (its ``mlp_act`` is not read).  Training
 (``lm_loss``) runs under autograd through the plain attention and adds the
 MoE aux losses; ``Ctx(remat=True)`` recomputes each unit in the backward
 (``torch.utils.checkpoint``, as ``jax.checkpoint`` wraps the scanned
-unit).  The hybrid family (zamba2) lives in ``models/hybrid.py``.  The
-mesh fields of ``Ctx`` (EP, dp, one-hot embedding) wait for later
-slices.
+unit).  The hybrid family (zamba2) lives in ``models/hybrid.py``, the
+encoder-decoder (whisper) in ``models/encdec.py``; the VLM (internvl2) is
+this dense LM over patch embeddings put before the tokens
+(``models/vlm.py``).  The mesh fields of ``Ctx`` (EP, dp, one-hot
+embedding) wait for later slices.
 """
 
 from __future__ import annotations
@@ -41,8 +43,6 @@ from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
-
-PORTED_FAMILIES = ("dense", "moe", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,12 +74,9 @@ class Ctx:
 
 def unit_spec(cfg: ModelConfig
               ) -> tuple[tuple[SubLayer, ...], int, list[SubLayer]]:
-    """(scanned unit sublayers, n_scan, head sublayers)."""
+    """(scanned unit sublayers, n_scan, head sublayers); the dense unit for
+    the dense and VLM families."""
 
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported to repro_torch "
-            "yet (ROADMAP.md queue 1, item 6)")
     if cfg.family == "ssm":
         return (SubLayer(mixer="ssm", ffn="none"),), cfg.num_layers, []
     if cfg.family == "moe" and cfg.mla is not None:
@@ -380,9 +377,16 @@ def lm_prefill(params, tokens, max_len, cfg: ModelConfig, ctx: Ctx):
     The attention caches are allocated at ``max_len`` and filled in place;
     the SSM sublayers' caches are the prefill's own states."""
 
+    return prefill_embedded(params, embed_tokens(params, tokens, cfg),
+                            max_len, cfg, ctx)
+
+
+def prefill_embedded(params, x, max_len, cfg: ModelConfig, ctx: Ctx):
+    """``lm_prefill`` from the embedded input x (B, L, d): the tokens'
+    embeddings, or the VLM's patches and tokens fused."""
+
     unit, n_scan, head = unit_spec(cfg)
-    x = embed_tokens(params, tokens, cfg)
-    B = tokens.shape[0]
+    B = x.shape[0]
     cache = {f"head{i}": _sublayer_cache(cfg, sl, ctx, B, max_len, x.device)
              for i, sl in enumerate(head)}
     for i, sl in enumerate(head):

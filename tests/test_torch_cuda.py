@@ -755,8 +755,19 @@ SSM_FLASH_CASES = [
 ]
 
 
+# whisper-large-v3's encoder (non-causal, Lq = Lk = 1500: the last 32-key
+# tile partial) and cross-attention (non-causal, 224 queries against 1500
+# keys), 20 heads of 64 at B = 1; internvl2-76b's prefill (causal, GQA
+# groups of 8: 64 q heads on 8 KV heads of 128), L off the tile
+ENCDEC_VLM_FLASH_CASES = [
+    dict(B=1, Hq=20, Hkv=20, Lq=1500, Lk=1500, D=64, causal=False),
+    dict(B=1, Hq=20, Hkv=20, Lq=224, Lk=1500, D=64, causal=False),
+    dict(B=1, Hq=64, Hkv=8, Lq=301, Lk=301, D=128, causal=True),
+]
+
+
 @pytest.mark.parametrize("case", FLASH_CASES + MOE_FLASH_CASES
-                         + SSM_FLASH_CASES)
+                         + SSM_FLASH_CASES + ENCDEC_VLM_FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, case):
     case = dict(case)
     dims = [case.pop(n) for n in ("B", "Hq", "Hkv", "Lq", "Lk", "D")]
@@ -825,6 +836,16 @@ def test_flash_kernel_bf16_at_the_moe_shapes(cuda, case):
 
 @pytest.mark.parametrize("case", SSM_FLASH_CASES)
 def test_flash_kernel_bf16_at_the_zamba2_shape(cuda, case):
+    case = dict(case)
+    dims = [case.pop(n) for n in ("B", "Hq", "Hkv", "Lq", "Lk", "D")]
+    q, k, v = (x.to(torch.bfloat16) for x in _qkv(*dims))
+    got = flash_ops.flash_attention(q, k, v, **case)
+    want = attention_ref(q, k, v, **case)
+    assert float((got.float() - want.float()).abs().max()) < 5e-2
+
+
+@pytest.mark.parametrize("case", ENCDEC_VLM_FLASH_CASES)
+def test_flash_kernel_bf16_at_the_encdec_and_vlm_shapes(cuda, case):
     case = dict(case)
     dims = [case.pop(n) for n in ("B", "Hq", "Hkv", "Lq", "Lk", "D")]
     q, k, v = (x.to(torch.bfloat16) for x in _qkv(*dims))
@@ -1301,6 +1322,50 @@ def test_ssm_smoke_model_on_card_matches_cpu(cuda, arch):
     out_c = ServeLoop(card, params, 2, 64).generate({"tokens": tokens}, 6)
     out_h = ServeLoop(host, host_params, 2, 64).generate({"tokens": tokens},
                                                           6)
+    top2 = lh.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1]) > 1e-3
+    assert torch.equal(out_c.cpu()[sure, 0], out_h[sure, 0])
+
+
+@pytest.mark.parametrize("arch", ["whisper-large-v3", "internvl2-76b"])
+def test_encdec_and_vlm_smoke_models_on_card_match_cpu(cuda, arch):
+    """The smoke model's prefill on the card against the CPU: one flash
+    launch a whisper encoder layer and two a decoder layer (self and
+    cross), one a VLM layer; the logits within 1e-5 of scale, then a
+    decode step from each side's cache, and the first greedy token where
+    clear."""
+
+    cfg = get_smoke_config(arch)
+    ctx = Ctx(attn_impl="kernel", cache_dtype=torch.float32)
+    card = build_model(cfg, ctx, device=cuda)
+    params = card.init(torch.Generator(device=cuda).manual_seed(0))
+    host = build_model(cfg, ctx, device="cpu")
+    host_params = _tree_to(params, "cpu")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (2, 20))}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.normal(size=(2, cfg.encoder_seq_len,
+                                           cfg.d_model)).astype(np.float32)
+        launches, pos = cfg.encoder_layers + 2 * cfg.num_layers, 20
+    else:
+        batch["patches"] = rng.normal(size=(2, cfg.num_patch_tokens,
+                                            1024)).astype(np.float32)
+        launches, pos = cfg.num_layers, cfg.num_patch_tokens + 20
+    max_len = pos + 8
+    n0 = flash_ops.flash_attention.launches
+    lc, cc = card.prefill(params, batch, max_len)
+    assert flash_ops.flash_attention.launches == n0 + launches
+    lh, ch = host.prefill(host_params, batch, max_len)
+    scale = float(lh.abs().max())
+    torch.testing.assert_close(lc.cpu(), lh, rtol=1e-4, atol=1e-5 * scale)
+    tok = lh.argmax(-1).to(torch.int32)
+    dc, _ = card.decode(params, cc, tok.to(cuda), pos)
+    dh, _ = host.decode(host_params, ch, tok, pos)
+    assert flash_ops.flash_attention.launches == n0 + launches
+    torch.testing.assert_close(dc.cpu(), dh, rtol=1e-4,
+                               atol=1e-5 * float(dh.abs().max()))
+    out_c = ServeLoop(card, params, 2, max_len).generate(batch, 6)
+    out_h = ServeLoop(host, host_params, 2, max_len).generate(batch, 6)
     top2 = lh.topk(2, dim=-1).values
     sure = (top2[:, 0] - top2[:, 1]) > 1e-3
     assert torch.equal(out_c.cpu()[sure, 0], out_h[sure, 0])

@@ -208,10 +208,24 @@ def test_serve_loop_tokens(arch):
 
 
 def test_entry_points_reject_unported():
+    """Every arch of ``ARCHS`` loads and builds on the CPU at its smoke
+    config; an unknown arch or family, an unported attention and a prompt
+    past ``max_len`` raise."""
+
+    import dataclasses
+
+    from repro_torch.config import ARCHS as ALL_ARCHS
     from repro_torch.config import get_model_config
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model_config("whisper-large-v3")
+    for arch in ALL_ARCHS:
+        assert get_model_config(arch).name == arch
+        model = build_model(get_smoke_config(arch), device="cpu")
+        assert model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_model_config("whisper-tiny")
+    with pytest.raises(ValueError, match="unknown family"):
+        build_model(dataclasses.replace(get_smoke_config("gemma2-2b"),
+                                        family="diffusion"), device="cpu")
     with pytest.raises(ValueError, match="flashref"):
         Ctx(attn_impl="flashref")
     loop = ServeLoop(build_model(get_smoke_config("gemma2-2b"),

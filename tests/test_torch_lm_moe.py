@@ -307,5 +307,8 @@ def test_moe_archs_are_ported_and_others_raise():
         assert cfg.family == "moe" and cfg.moe is not None
     assert get_model_config("deepseek-v2-lite-16b").mla.kv_lora_rank == 512
     assert get_model_config("granite-moe-3b-a800m").moe.num_experts == 40
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model_config("whisper-large-v3")
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_model_config("mixtral-8x7b")
+    for arch in ("whisper-large-v3", "internvl2-76b"):
+        assert build_model(get_smoke_config(arch), device="cpu").init(
+            torch.Generator().manual_seed(0))

@@ -39,7 +39,8 @@ from repro.config import get_smoke_config as j_smoke  # noqa: E402
 from repro.launch.lm_engine import ServeLoop as JServeLoop  # noqa: E402
 from repro.models import build_model as j_build  # noqa: E402
 from repro.models.api import Ctx as JCtx  # noqa: E402
-from repro_torch.config import PORTED_ARCHS, ShapeConfig  # noqa: E402
+from repro_torch.config import ARCHS as ALL_ARCHS  # noqa: E402
+from repro_torch.config import ShapeConfig  # noqa: E402
 from repro_torch.config import get_model_config  # noqa: E402
 from repro_torch.config import get_smoke_config  # noqa: E402
 from repro_torch.convert import (  # noqa: E402
@@ -327,7 +328,7 @@ def test_zamba2_lora_deltas_are_live():
 
 
 def test_ssm_archs_are_ported_and_default_to_the_card():
-    assert {"mamba2-780m", "zamba2-2.7b"} <= set(PORTED_ARCHS)
+    assert {"mamba2-780m", "zamba2-2.7b"} <= set(ALL_ARCHS)
     mamba, zamba = (get_model_config(a) for a in ARCHS)
     assert mamba.family == "ssm" and mamba.ssm.d_state == 128
     assert mamba.ssm.n_heads(mamba.d_model) == 48
@@ -338,5 +339,7 @@ def test_ssm_archs_are_ported_and_default_to_the_card():
             with pytest.raises(RuntimeError, match="CUDA"):
                 build_model(cfg)
     for arch in ("whisper-large-v3", "internvl2-76b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_model_config(arch)
+        assert get_model_config(arch).family in ("encdec", "vlm")
+        if not torch.cuda.is_available():
+            with pytest.raises(RuntimeError, match="CUDA"):
+                build_model(get_model_config(arch))
