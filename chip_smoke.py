@@ -232,6 +232,28 @@ prints fused tokens/s and the decode's HBM bound: the bytes of the
 weights a step multiplies by (~31.6 GB in f32) and of the live (k, v),
 over the card's rate, against the measured step.
 
+``[tp]`` (last): tensor-parallel serving of the same VLM cell.  The flash
+kernel at a rank's shape (row 5h: q (4, 16, 2048, 128), k/v (4, 2, 2048,
+128), causal, GQA 8) against its plain version, float64 and SDPA.  Then
+the reference run in this process: internvl2-76b at 8 of 80 layers from
+``train/shard.py::init_shard`` at ``model = 1`` through
+``launch/lm_engine.py``'s ``make_prefill_step``/``make_serve_step``: a
+prefill of 4 x (256 patches + 1792 tokens) into ``max_len`` 2080, then
+32 greedy tokens (8 flash launches).  Then the same on 4 ranks of
+``run_on_grid`` (``gloo`` on one card, the collectives staged through
+the host; ``nccl`` with a card a rank), each from its own
+``init_shard`` at ``model = 4``, fed the reference's tokens: every
+step's logits within 1e-3 x max|logit| of the reference's, the greedy
+tokens equal wherever its top-2 margin exceeds that bound, 8 flash
+launches a rank.  Prints prefill s and decode ms a step of both runs,
+the all-reduce and all-gather share of the prefill and of a decode step
+(the prefill and 8 decode steps run again, rank 0 synchronising the card
+around each collective; the times reported are the untimed run's), each
+rank's peak memory and bytes of shards and
+cache, and the per-rank bytes of the four-rank full-depth model
+reckoned from its specs (``train/shard.py::shard_nbytes``) beside
+``param_count``.
+
 ``[stream]`` (after ``[gossip]``): the streaming loop at the Table 3
 cell through ``launch/streaming.py``: 85% of the training ratings
 ingested with the headroom of the stream's largest per-block count; the
@@ -309,9 +331,10 @@ The launch counts of the ``{"kernels": ...}`` line add up the main
 path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included),
 ``[stream]``, ``[faults]`` (the ranks' by stack shape in
 ``faults_launches_by_stack``), ``[serve]``, ``[sharded]`` (the ranks'),
-``[lm]``, ``[moe]``, ``[ssm]``, ``[encdec]`` and ``[vlm]`` (the flash
-row's ``moe``, ``ssm``, ``encdec`` and ``vlm`` keys have those phases'
-numbers); ``[train]`` launches none.
+``[lm]``, ``[moe]``, ``[ssm]``, ``[encdec]``, ``[vlm]`` and ``[tp]`` (the
+flash row's ``moe``, ``ssm``, ``encdec``, ``vlm`` and ``tp`` keys have
+those phases' numbers; ``[tp]``'s are the reference run's and every
+rank's); ``[train]`` launches none.
 
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
 (``benchmarks/table3_rmse.py --full``): the 6040x3706 ``movielens_proxy``
@@ -366,6 +389,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 
 from repro_torch.config import (  # noqa: E402
     GossipMCConfig,
+    MeshConfig,
+    ShapeConfig,
     TrainConfig,
     get_model_config,
 )
@@ -423,13 +448,18 @@ from repro_torch.launch.gossip import (  # noqa: E402
     ProblemRecipe,
     StopAt,
     fit_on_grid,
+    pick_backend,
     run_on_grid,
 )
 from repro_torch.launch.gossip_async import check_skips  # noqa: E402
 from repro_torch.launch.gossip_faults import expected_drops  # noqa: E402
 from repro_torch.launch.gossip import shutdown as shutdown_grids  # noqa: E402
 from repro_torch.launch import streaming  # noqa: E402
-from repro_torch.launch.lm_engine import ServeLoop  # noqa: E402
+from repro_torch.launch.lm_engine import (  # noqa: E402
+    ServeLoop,
+    make_prefill_step,
+    make_serve_step,
+)
 from repro_torch.launch.serve_recommend import (  # noqa: E402
     ServeJob,
     collective_floor,
@@ -438,6 +468,7 @@ from repro_torch.launch.serve_recommend import (  # noqa: E402
 )
 from repro_torch.mesh import MeshPlan  # noqa: E402
 from repro_torch.models import Ctx, build_model  # noqa: E402
+from repro_torch.models import api as model_api  # noqa: E402
 from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
@@ -451,6 +482,8 @@ from repro_torch.train import (  # noqa: E402
     make_train_step,
     rank_consensus_error,
 )
+from repro_torch.train import sharding as shard_rules  # noqa: E402
+from repro_torch.train.shard import init_shard, shard_nbytes  # noqa: E402
 from repro_torch.train.step import loss_and_grads, split_batch  # noqa: E402
 from repro_torch.serve.quant import index_nbytes, quantize_index  # noqa: E402
 from repro_torch.serve.recommend import (  # noqa: E402
@@ -609,6 +642,10 @@ ENCDEC_SPLIT = 192    # continuation: a prefill of 192 tokens + 32 decodes
 VLM_ARCH, VLM_LAYERS = "internvl2-76b", 8
 VLM_BATCH, VLM_PROMPT, VLM_NEW, VLM_MAX_LEN = 4, 1792, 32, 2080
 VLM_SPLIT = 1760      # continuation: patches + 1760 tokens + 32 decodes
+# [tp]: the [vlm] cell on 4 tensor-parallel ranks (the model axis of the
+# JAX package's mesh), each holding 16 query and 2 KV heads; decode steps
+# timed with the collectives synchronised on rank 0
+TP_RANKS, TP_SEED, TP_TIMED_STEPS = 4, 0, 8
 
 
 def fail(msg: str) -> None:
@@ -629,6 +666,7 @@ def reset_counts() -> None:
     for fn in STACKED:
         fn.by_stack.clear()
     quant_ops.dequant_score.by_batch.clear()
+    quant_ops.dequant_score.by_kernel.clear()
 
 
 def counts() -> dict[str, int]:
@@ -2923,6 +2961,286 @@ def vlm_phase(card, flash_row) -> dict:
     return out
 
 
+def _sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _decode_steps(decode, params, cache, fed, start, device):
+    """A decode step for each token of ``fed`` (steps, B) at ``start``,
+    ``start + 1``, ...: (logits of every step on the host, seconds of
+    every step, the cache)."""
+
+    out, secs = [], []
+    for i, tok in enumerate(fed):
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, tok.to(device), start + i)
+        _sync(device)
+        secs.append(time.perf_counter() - t0)
+        out.append(logits.float().cpu())
+    return out, secs, cache
+
+
+def _tp_steps(prefill, decode, params, batch, fed, start, device):
+    """A prefill, then ``_decode_steps``: (logits of every step on the
+    host, prefill s, decode s of every step, the cache)."""
+
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    _sync(device)
+    t_pre = time.perf_counter() - t0
+    out, t_dec, cache = _decode_steps(decode, params, cache, fed, start,
+                                      device)
+    return [logits.float().cpu()] + out, t_pre, t_dec, cache
+
+
+def tp_rank(rank, device, cfg, patches, prompts, fed, max_len, ranks):
+    """``[tp]``'s rank: its ``init_shard`` shards, a warm-up, the prefill
+    and decode steps fed the reference's tokens (its logits returned from
+    rank 0, its times the ones reported), then the prefill and
+    ``TP_TIMED_STEPS`` decode steps again with rank 0 timing their
+    collectives (their shares; the card synchronised around each)."""
+
+    import torch.distributed as dist
+
+    mesh_cfg = MeshConfig(data=1, model=ranks, fsdp=False)
+    model = build_model(cfg, Ctx(attn_impl="kernel"), device=device)
+    B, L = prompts.shape
+    P = cfg.num_patch_tokens
+    prefill, info = make_prefill_step(
+        model, dist.group.WORLD, mesh_cfg, ShapeConfig("tp", L, B, "prefill"),
+        max_len)
+    decode, dinfo = make_serve_step(
+        model, dist.group.WORLD, mesh_cfg,
+        ShapeConfig("tp", max_len - P, B, "decode"))
+    t0 = time.perf_counter()
+    params = init_shard(TP_SEED, cfg, None, mesh_cfg, rank, device)
+    cuda = device.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(device)
+    t_init = time.perf_counter() - t0
+    batch = {"patches": patches, "tokens": prompts}
+    # warm-up: one short request through both steps on every rank
+    _tp_steps(prefill, decode, params,
+              {"patches": patches[:1], "tokens": prompts[:1, :64]},
+              fed[:1, :1], P + 64, device)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(device)
+    n0 = flash_ops.flash_attention.launches
+    logits, t_pre, t_dec, cache = _tp_steps(prefill, decode, params, batch,
+                                            fed, P + L, device)
+    out = {"launches": flash_ops.flash_attention.launches - n0,
+           "prefill_s": t_pre, "decode_s": t_dec, "init_s": t_init,
+           "param_bytes": _nbytes(_leaves(params)),
+           "cache_bytes": _nbytes(x for c in _flat_caches(cache) for x in c),
+           "peak_bytes": torch.cuda.max_memory_allocated(device)
+           if cuda else 0}
+    # the same prefill and decode steps again, rank 0 timing the
+    # collectives: it synchronises the card around each (the staged gloo
+    # path waits for the card before each one anyway)
+    del cache
+    tp, dtp = info["model"].ctx.tp, dinfo["model"].ctx.tp
+    tp.timed = dtp.timed = rank == 0
+    _, t_pre2, t_dec2, cache = _tp_steps(prefill, decode, params, batch,
+                                         fed[:TP_TIMED_STEPS], P + L, device)
+    tp.timed = dtp.timed = False
+    if rank == 0:
+        out["timed"] = {"prefill_s": t_pre2, "prefill": tp.stats,
+                        "decode_s": t_dec2, "decode": dtp.stats}
+        # numpy: a tensor would cross the queue as shared storage that
+        # this process takes with it when it exits
+        out["logits"] = [x.numpy() for x in logits]
+    del params, cache
+    return out
+
+
+def _shares(stats: dict, seconds: float, steps: int = 1) -> dict:
+    """{op: calls, seconds and bytes a step, share of the step} of a
+    ``TP.stats`` record over ``steps`` steps of ``seconds`` in all."""
+
+    return {op: {"calls": n / steps, "seconds": sec / steps,
+                 "bytes": nb / steps, "share": sec / seconds}
+            for op, (n, sec, nb) in stats.items()}
+
+
+def tp_reckoning(cfg, ranks: int, batch: int, max_len: int) -> dict:
+    """A rank's bytes of parameters and cache of ``cfg`` at ``ranks``
+    tensor-parallel ranks, from its specs on ``meta`` (nothing is
+    allocated), beside ``param_count``."""
+
+    mesh_cfg = MeshConfig(data=1, model=ranks, fsdp=False)
+    meta = build_model(cfg, device="meta")
+    shapes = model_api.param_specs(meta)
+    specs = shard_rules.param_pspecs(cfg, shapes, mesh_cfg)
+    shape = ShapeConfig("tp", max_len - cfg.num_patch_tokens, batch,
+                        "decode")
+    cshapes = model_api.cache_specs(meta, batch, max_len)
+    cspecs = shard_rules.cache_pspecs_tree(cfg, shape, mesh_cfg, cshapes)
+    n = model_api.param_count(cfg)
+    return {"layers": cfg.num_layers, "parameters": n,
+            "parameter_bytes_all": 4 * n,
+            "parameter_bytes_per_rank": shard_nbytes(shapes, specs, mesh_cfg),
+            "cache_bytes_per_rank": shard_nbytes(cshapes, cspecs, mesh_cfg)}
+
+
+def tp_phase(card, flash_row, device="cuda") -> dict:
+    """``[tp]``: the flash kernel at a rank's shape (row 5h), then the
+    ``[vlm]`` cell served by one process and by ``TP_RANKS`` tensor-parallel
+    ranks; see the module docstring.  Adds the phase's flash launches to
+    ``flash_row``."""
+
+    t_phase = time.perf_counter()
+    full = get_model_config(VLM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=VLM_LAYERS)
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    P = cfg.num_patch_tokens
+    flash = prefill_flash(card, "[tp]", "internvl2 rank", VLM_BATCH,
+                          P + VLM_PROMPT, H // TP_RANKS, Hkv // TP_RANKS, hd,
+                          hd)
+    rng = np.random.default_rng(13)
+    patches = rng.standard_normal((VLM_BATCH, P, 1024), dtype=np.float32)
+    prompts = rng.integers(0, cfg.vocab_size, (VLM_BATCH, VLM_PROMPT))
+    batch = {"patches": patches, "tokens": prompts}
+    dev = torch.device(device)
+    cuda = dev.type == "cuda"
+
+    # the reference: one process, the whole model from init_shard(model=1)
+    one = MeshConfig(data=1, model=1, fsdp=False)
+    model = build_model(cfg, Ctx(attn_impl="kernel"), device=dev)
+    prefill, _ = make_prefill_step(
+        model, None, one, ShapeConfig("tp", VLM_PROMPT, VLM_BATCH, "prefill"),
+        VLM_MAX_LEN)
+    decode, _ = make_serve_step(
+        model, None, one, ShapeConfig("tp", VLM_MAX_LEN - P, VLM_BATCH,
+                                      "decode"))
+    t0 = time.perf_counter()
+    params = init_shard(TP_SEED, cfg, None, one, 0, dev)
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t_init = time.perf_counter() - t0
+    reset_counts()
+    # greedy: each decode step is fed the previous step's argmax
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    sync()
+    ref_pre = time.perf_counter() - t0
+    ref, fed, ref_dec = [logits.float().cpu()], [], []
+    for i in range(VLM_NEW - 1):
+        tok = logits.argmax(-1).to(torch.int32)
+        fed.append(tok.cpu())
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, tok, P + VLM_PROMPT + i)
+        sync()
+        ref_dec.append(time.perf_counter() - t0)
+        ref.append(logits.float().cpu())
+    ref_launches = counts()["flash_attention"]
+    ref_peak = torch.cuda.max_memory_allocated() if cuda else 0
+    ref_bytes = _nbytes(_leaves(params))
+    del model, params, cache, logits, prefill, decode
+    _free() if cuda else None
+    if ref_launches != cfg.num_layers:
+        fail(f"[tp] the reference run launched flash_attention "
+             f"{ref_launches} times, expected {cfg.num_layers}")
+    fed = torch.stack(fed)                                   # (steps, B)
+    ref_ms = 1e3 * statistics.median(ref_dec)
+    print(f"[tp] reference, 1 process: {cfg.name} {cfg.num_layers} of 80 "
+          f"layers at full width ({ref_bytes / 1e9:.2f} GB of f32 "
+          f"parameters, init_shard {t_init:.2f}s); prefill {ref_pre:.3f}s "
+          f"of {VLM_BATCH} x ({P} + {VLM_PROMPT}), decode {ref_ms:.3f} "
+          f"ms/step (median of {len(ref_dec)}); {ref_launches} flash "
+          f"launches; peak {ref_peak / 2**30:.2f} GiB", flush=True)
+
+    marks: list = []
+    t0 = time.perf_counter()
+    ranks = run_on_grid(tp_rank, (1, TP_RANKS), cfg, patches, prompts, fed,
+                        VLM_MAX_LEN, TP_RANKS, device=device, timeout=900,
+                        marks=marks)
+    t_grid = time.perf_counter() - t0
+    backend = pick_backend(device, TP_RANKS)
+    launches = [r["launches"] for r in ranks]
+    if launches != [cfg.num_layers] * TP_RANKS:
+        fail(f"[tp] flash_attention launches by rank {launches}, expected "
+             f"{cfg.num_layers} on each of {TP_RANKS}")
+    got = ranks[0]["logits"]
+    if len(got) != len(ref):
+        fail(f"[tp] {len(got)} steps of logits, expected {len(ref)}")
+    worst, checked, agree = 0.0, 0, True
+    for step, (g, w) in enumerate(zip(got, ref)):
+        g = torch.from_numpy(g)
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            fail(f"[tp] step {step}: logits {tuple(g.shape)} not finite or "
+                 f"not the reference's {tuple(w.shape)}")
+        bound = LOGIT_TOL * float(w.abs().max())
+        diff = float((g - w).abs().max())
+        worst = max(worst, diff / bound)
+        if not diff <= bound:
+            fail(f"[tp] step {step}: logits differ from the reference's by "
+                 f"{diff:.3e} > {bound:.3e} (1e-3 x max|logit|)")
+        top2 = w.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > bound
+        checked += int(sure.sum())
+        agree &= bool(torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure]))
+    if not agree:
+        fail("[tp] a greedy token differs from the reference's where its "
+             "top-2 margin exceeds the bound")
+    r0 = ranks[0]
+    tp_ms = 1e3 * statistics.median(r0["decode_s"])
+    timed = r0["timed"]
+    shares = {"prefill": _shares(timed["prefill"], timed["prefill_s"]),
+              "decode_step": _shares(timed["decode"], sum(timed["decode_s"]),
+                                     len(timed["decode_s"]))}
+    print(f"[tp] {TP_RANKS} ranks ({backend}, "
+          f"{'one card' if backend == 'gloo' else 'a card a rank'}; grid "
+          f"{t_grid:.1f}s with start-up {max(m['group_s'] for m in marks):.1f}"
+          f"s): prefill {r0['prefill_s']:.3f}s, decode {tp_ms:.3f} ms/step "
+          f"(median of {len(r0['decode_s'])}); flash launches by rank "
+          f"{launches}; logits' max diff {worst:.3f} x the bound (1e-3 x "
+          f"max|logit|) over all {len(ref)} steps, greedy tokens "
+          f"equal on all {checked} (row, step) with a margin", flush=True)
+    for r, res in enumerate(ranks):
+        print(f"[tp] rank {r}: shards {res['param_bytes'] / 1e9:.3f} GB, "
+              f"cache {res['cache_bytes'] / 1e9:.3f} GB, peak "
+              f"{res['peak_bytes'] / 2**30:.2f} GiB, init_shard "
+              f"{res['init_s']:.2f}s", flush=True)
+    print(f"[tp] collectives on rank 0, the card synchronised around each "
+          f"(the prefill and {len(timed['decode_s'])} decode steps run "
+          f"again): prefill {timed['prefill_s']:.3f}s "
+          f"{json.dumps(shares['prefill'])}; decode step "
+          f"{1e3 * statistics.median(timed['decode_s']):.3f} ms "
+          f"{json.dumps(shares['decode_step'])}", flush=True)
+    reckon = tp_reckoning(full, TP_RANKS, VLM_BATCH, VLM_MAX_LEN)
+    total_mem = (torch.cuda.get_device_properties(0).total_memory
+                 if cuda else 0)
+    reckon["fits_one_card_a_rank"] = (
+        reckon["parameter_bytes_per_rank"] + reckon["cache_bytes_per_rank"]
+        < total_mem)
+    print(f"[tp] full depth ({full.num_layers} layers) on {TP_RANKS} ranks, "
+          f"reckoned from the specs: {reckon['parameters']} parameters "
+          f"({reckon['parameter_bytes_all'] / 1e9:.1f} GB of f32); a rank "
+          f"holds {reckon['parameter_bytes_per_rank'] / 1e9:.2f} GB of "
+          f"weights + {reckon['cache_bytes_per_rank'] / 1e9:.2f} GB of bf16 "
+          f"cache at B = {VLM_BATCH}, max_len {VLM_MAX_LEN}, against the "
+          f"card's {total_mem / 1e9:.1f} GB", flush=True)
+    out = {"launches": ref_launches + sum(launches), "backend": backend,
+           "reference": {"prefill_s": ref_pre, "decode_ms_per_step": ref_ms,
+                         "peak_gib": ref_peak / 2**30,
+                         "parameter_bytes": ref_bytes},
+           "ranks": [{k: v for k, v in r.items() if k not in
+                      ("logits", "timed")} for r in ranks],
+           "prefill_s": r0["prefill_s"], "decode_ms_per_step": tp_ms,
+           "collectives": shares, "logit_err_over_bound": worst,
+           "greedy_checked": checked, "full_depth": reckon, "flash": flash}
+    flash_row["launches"] += out["launches"]
+    flash_row["tp"] = out
+    print(f"[tp] phase: {time.perf_counter() - t_phase:.1f}s of command",
+          flush=True)
+    return out
+
+
 class StateAt(Callback):
     """Keeps a copy of the fit's state at one eval boundary."""
 
@@ -4318,6 +4636,9 @@ def main() -> None:
     encdec_phase(card, rows[-1])
     _free()
     vlm_phase(card, rows[-1])
+    _free()
+    # 10. the VLM cell on tensor-parallel ranks
+    tp_phase(card, rows[-1])
     print(f"[main] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{time.perf_counter() - started:.1f}s since start", flush=True)

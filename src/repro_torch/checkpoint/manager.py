@@ -31,26 +31,11 @@ from typing import Any
 import numpy as np
 import torch
 
+# (path, leaf) pairs in JAX's flattening order, paths as keystr spells them
+from repro_torch.optim.optimizers import tree_flatten_with_path as _flatten
+
 _SKELETON = "skeleton.json"
 _MANIFEST = "MANIFEST.json"
-
-
-def _flatten(tree, path: str = ""):
-    """(path string, leaf) pairs in JAX's flattening order: dict keys
-    sorted, NamedTuple fields in order (``.name``), then list/tuple
-    positions."""
-
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _flatten(tree[k], f"{path}[{k!r}]")
-    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        for k, v in zip(tree._fields, tree):
-            yield from _flatten(v, f"{path}.{k}")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _flatten(v, f"{path}[{i}]")
-    else:
-        yield path, tree
 
 
 def _unflatten(like, leaves: dict, path: str = ""):

@@ -1,15 +1,18 @@
 """Configurations: the paper's workload (a copy of
 ``repro.config.GossipMCConfig``) and the LM harness's ``ModelConfig``,
 ``ShapeConfig``/``SHAPES``/``get_shape``, ``TrainConfig`` and the
-``--arch`` registry (copies of ``repro.config``).
+``--arch`` registry (copies of ``repro.config``), and ``MeshConfig``, the
+JAX package's axis fields without its gradient-sync, compression and
+remat knobs, which nothing in the port reads.
 
 ``get_model_config`` and ``get_smoke_config`` load
 ``repro_torch.configs.<arch>`` for every arch of ``ARCHS``: the four
 dense archs, the two MoE archs with ``MoEConfig`` and ``MLAConfig``,
 mamba2-780m and zamba2-2.7b with ``SSMConfig``, whisper-large-v3 and
-internvl2-76b.  The analytic
-``ModelConfig.param_count``/``active_param_count`` of the JAX package (an
-``eval_shape`` of its init) are not ported.
+internvl2-76b.  The analytic parameter counts (``param_count``,
+``matmul_param_count``, ``active_param_count``) live in
+``repro_torch.models.api``, as in the JAX package; they count the
+``init`` of a model built on the ``meta`` device.
 """
 
 from __future__ import annotations
@@ -169,6 +172,29 @@ SHAPES: dict[str, ShapeConfig] = {
     "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
     "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
 }
+
+
+# ---------------------------------------------------------------------------
+# Mesh / distribution
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The rank grid's axes, as the JAX package's mesh names them: ``pod``
+    and ``data`` (data parallel, ``data`` also FSDP when ``fsdp``) and
+    ``model`` (tensor parallel).  The port serves on ``model`` ranks only
+    (``repro_torch.train.shard``)."""
+
+    multi_pod: bool = False
+    pod: int = 1
+    data: int = 16
+    model: int = 16
+    fsdp: bool = True                  # shard params over the data axis too
+
+    @property
+    def num_devices(self) -> int:
+        return self.pod * self.data * self.model
 
 
 @dataclasses.dataclass(frozen=True)

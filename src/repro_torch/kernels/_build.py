@@ -55,6 +55,8 @@ SIGNATURES = {
         "dequant_score": ((_P,) * 5 + (_I,) * 3 + (_P,), _I),
         # the first kernel at any rank: the same arguments
         "dequant_score_first": ((_P,) * 5 + (_I,) * 3 + (_P,), _I),
+        # the calling thread's last launch: BM << 16 | BN, -1 first
+        "dequant_score_last_kernel": ((), _I),
     },
     "flash_attention": {
         # q k v | o | B Hq Hkv Lq Lk D Dv causal window | softcap | q_offset

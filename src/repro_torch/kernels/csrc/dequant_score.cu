@@ -365,6 +365,13 @@ struct DeviceState {
 constexpr int kMaxDevices = 16;
 DeviceState g_dev[kMaxDevices];
 
+// The kernel the calling thread's last launch ran: its tile shape as
+// BM << 16 | BN, read from the kTiles entry that instantiated it (kKernels[k]
+// is staged_score_kernel<kTiles[k]...>), -1 for the first kernel, 0 before
+// any launch.  The wrapper reads it after each launch to count launches by
+// kernel.
+thread_local int g_last_kernel = 0;
+
 long long tile_count(int k, int B, int n) {
   const int bm = kTY * kTiles[k].rm, bn = kTX * kTiles[k].rn;
   return (long long)((B + bm - 1) / bm) * ((n + bn - 1) / bn);
@@ -386,6 +393,7 @@ int launch_first(const void* uq, const float* us, const void* wq,
   dequant_score_kernel<<<grid, dim3(kTX, kTY), 0, stream>>>(
       static_cast<const int8_t*>(uq), us, static_cast<const int8_t*>(wq), ws,
       out, B, n, r);
+  g_last_kernel = -1;
   return (int)cudaGetLastError();
 }
 
@@ -416,6 +424,7 @@ int launch_staged(const void* uq, const float* us, const void* wq,
   kKernels[k]<<<(unsigned)tiles, kThreads, Layout(bm, bn, r).total,
                 stream>>>(static_cast<const int8_t*>(uq), us,
                           static_cast<const int8_t*>(wq), ws, out, B, n, r);
+  g_last_kernel = bm << 16 | bn;
   return (int)cudaGetLastError();
 }
 
@@ -440,3 +449,7 @@ extern "C" int dequant_score_first(const void* uq, const float* us,
   return launch_first(uq, us, wq, ws, out, B, n, r,
                       static_cast<cudaStream_t>(stream));
 }
+
+// The kernel this thread's last launch of either entry ran (see
+// g_last_kernel).
+extern "C" int dequant_score_last_kernel() { return g_last_kernel; }

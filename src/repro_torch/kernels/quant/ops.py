@@ -14,8 +14,10 @@
 
 The kernel takes any shape, so the TPU padding of the JAX wrapper (rank to
 128 lanes, batch to 32 sublanes, catalog to the item tile) and its VMEM
-back-off are gone.  Launches are counted in ``dequant_score.launches``
-and, by batch size B, in ``dequant_score.by_batch``.
+back-off are gone.  Launches are counted in ``dequant_score.launches``,
+by batch size B in ``dequant_score.by_batch``, and by the kernel that ran
+in ``dequant_score.by_kernel``: a staged kernel by its (BM, BN) tile,
+``"first"`` for the first kernel, as the C entry reports its last launch.
 """
 
 from __future__ import annotations
@@ -68,11 +70,15 @@ def dequant_score(u_q, u_scale, w_q, w_scale, *, method: str | None = None):
             w_scale.data_ptr(), out.data_ptr(), B, n, r,
             torch.cuda.current_stream(u_q.device).cuda_stream)
     _build.check("dequant_score", rc)
+    last = lib.dequant_score_last_kernel()
     dequant_score.launches += 1
-    by_batch = dequant_score.by_batch
+    by_batch, by_kernel = dequant_score.by_batch, dequant_score.by_kernel
     by_batch[B] = by_batch.get(B, 0) + 1
+    kernel = divmod(last, 1 << 16) if last > 0 else "first"
+    by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
     return out
 
 
 dequant_score.launches = 0
 dequant_score.by_batch = {}
+dequant_score.by_kernel = {}

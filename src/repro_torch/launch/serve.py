@@ -1,0 +1,153 @@
+"""Serving launcher: tensor-parallel decode on a grid of ranks (port of
+``repro.launch.serve``).
+
+    python -m repro_torch.launch.serve --arch internvl2-76b --tp 4 \\
+        --batch 4 --seq-len 2048 --steps 32 [--device cpu]
+
+As the reference does, it runs ``--steps`` decode steps of
+``make_serve_step`` from a zero cache at position ``seq_len - 1``,
+feeding each step's greedy token back, and prints ``[serve] ... tok/s``.
+The parameters are seeded shards (``train/shard.py::init_shard``, seed 0),
+so ``--tp 1`` and ``--tp N`` serve the same weights and print the same
+greedy tokens.
+
+``--tp N`` sets the ``model`` axis: N ranks of ``launch/gossip.py``'s
+``run_on_grid``, one card a rank (``nccl``) where the machine has N
+cards, else sharing one card (``gloo``, collectives staged through the
+host).  ``--seq-len`` and ``--batch`` cut the named ``--shape``
+(``decode_32k``'s batch of 128 at 32k positions is sized for the
+reference's 256-chip pod); every cut is printed.  ``--multi-pod`` is refused: the port serves on ``model`` ranks
+only.  ``--device cpu`` is the only way onto the CPU.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.config import (
+    ARCHS,
+    MeshConfig,
+    ShapeConfig,
+    get_model_config,
+    get_shape,
+)
+from repro_torch.core.state import resolve_device
+from repro_torch.launch.gossip import pick_backend, run_on_grid
+from repro_torch.launch.lm_engine import make_serve_step
+from repro_torch.models import Ctx, build_model
+from repro_torch.models.api import tp_refusal
+from repro_torch.train.shard import INIT_FAMILIES, init_shard
+
+SEED = 0
+
+
+def _nbytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_nbytes(v) for v in tree.values())
+    if isinstance(tree, tuple):
+        return sum(_nbytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
+
+
+def serve_rank(rank, device, cfg, shape: ShapeConfig, mesh_cfg: MeshConfig,
+               steps: int) -> dict:
+    """One rank's decode loop: its shards, a zero cache shard, ``steps``
+    greedy steps.  Returns the tokens (steps, B), the loop's seconds, each
+    step's seconds (the card synchronised after it) and the rank's bytes
+    of shards and cache and its peak device memory."""
+
+    group = dist.group.WORLD if dist.is_initialized() else None
+    model = build_model(cfg, Ctx(attn_impl="kernel"), device=device)
+    step, info = make_serve_step(model, group, mesh_cfg, shape)
+    if cfg.family in INIT_FAMILIES:
+        params = init_shard(SEED, cfg, None, mesh_cfg, rank, device)
+    else:
+        params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    cache = info["model"].init_cache(shape.global_batch, info["max_len"])
+    tok = torch.zeros(shape.global_batch, dtype=torch.int32, device=device)
+    cuda = device.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
+    sync()
+    out, step_s = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        logits, cache = step(params, cache, tok, shape.seq_len - 1)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        out.append(tok)
+        sync()
+        step_s.append(time.perf_counter() - t0)
+    return {"tokens": torch.stack(out).cpu().tolist(),
+            "seconds": sum(step_s), "step_seconds": step_s,
+            "param_bytes": _nbytes(params), "cache_bytes": _nbytes(cache),
+            "peak_bytes": torch.cuda.max_memory_allocated(device)
+            if cuda else None}
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", choices=list(ARCHS), required=True)
+    ap.add_argument("--shape", default="decode_32k")
+    ap.add_argument("--steps", type=int, default=8)
+    ap.add_argument("--tp", type=int, default=1,
+                    help="ranks on the model axis")
+    ap.add_argument("--batch", type=int, help="cut the shape's batch")
+    ap.add_argument("--seq-len", type=int, help="cut the shape's length")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="not ported: the JAX package's multi-pod mesh")
+    ap.add_argument("--device", default="cuda",
+                    help="the card unless 'cpu' is asked for")
+    args = ap.parse_args(argv)
+    if args.multi_pod:
+        ap.error("--multi-pod: the JAX package's pod x data x model mesh; "
+                 "the port serves on the ranks of the model axis only "
+                 "(--tp), and data-parallel or FSDP serving is not ported "
+                 "(ROADMAP.md queue 1, item 6.8)")
+
+    device = resolve_device(args.device)
+    cfg = get_model_config(args.arch)
+    shape = get_shape(args.shape)
+    cuts = []
+    batch = args.batch or shape.global_batch
+    seq_len = args.seq_len or shape.seq_len
+    if batch != shape.global_batch:
+        cuts.append(f"batch {shape.global_batch} -> {batch}")
+    if seq_len != shape.seq_len:
+        cuts.append(f"seq_len {shape.seq_len} -> {seq_len}")
+    if cuts:
+        shape = ShapeConfig(f"{shape.name}-cut", seq_len, batch, shape.kind)
+    reason = tp_refusal(cfg, args.tp)
+    if reason:
+        raise NotImplementedError(reason)
+    mesh_cfg = MeshConfig(data=1, model=args.tp, fsdp=False)
+    backend = (pick_backend(device.type, args.tp) if args.tp > 1
+               else "none")
+    print(f"[serve] {cfg.name} on {args.tp} rank(s) ({backend}, "
+          f"{device.type}); cuts: {', '.join(cuts) or 'none'}", flush=True)
+
+    if args.tp == 1:
+        ranks = [serve_rank(0, device, cfg, shape, mesh_cfg, args.steps)]
+    else:
+        ranks = run_on_grid(serve_rank, (1, args.tp), cfg, shape, mesh_cfg,
+                            args.steps, device=device.type)
+    for r, res in enumerate(ranks):
+        peak = ("n/a" if res["peak_bytes"] is None
+                else f"{res['peak_bytes'] / 2**30:.2f} GiB")
+        print(f"[serve] rank {r}: parameters {res['param_bytes'] / 1e9:.3f} "
+              f"GB, cache {res['cache_bytes'] / 1e9:.3f} GB, peak {peak}",
+              flush=True)
+    dt, step_s = ranks[0]["seconds"], sorted(ranks[0]["step_seconds"])
+    print(f"[serve] greedy tokens (step x batch): {ranks[0]['tokens']}",
+          flush=True)
+    print(f"[serve] {args.steps} decode steps x batch {shape.global_batch}: "
+          f"{args.steps * shape.global_batch / dt:.1f} tok/s; a step "
+          f"{1e3 * step_s[len(step_s) // 2]:.3f} ms median, the first "
+          f"{1e3 * ranks[0]['step_seconds'][0]:.3f} ms (rank 0)", flush=True)
+    return {"ranks": ranks, "shape": shape, "cuts": cuts, "backend": backend}
+
+
+if __name__ == "__main__":
+    main()

@@ -275,3 +275,29 @@ def plan_rank(plan: MeshPlan) -> int:
     process holds whole), else its rank in the process group."""
 
     return 0 if plan.is_single_device else current_rank()
+
+
+# ---------------------------------------------------------------------- #
+# axis utilities of the LM sharding rules (``train/sharding.py`` reads
+# them here, as the JAX package's rules read ``repro.mesh.plan``'s)
+# ---------------------------------------------------------------------- #
+
+
+def divides(dim: int, by: int) -> bool:
+    """True when a dim can legally shard ``by`` ways (the degrade-to-
+    replication rule every placement decision uses)."""
+
+    return by > 0 and dim % by == 0
+
+
+def axis_if_divisible(dim: int, axis, size: int):
+    """``axis`` when ``dim`` splits evenly over it, else ``None``
+    (replicate) — the single definition of spec degradation."""
+
+    return axis if divides(dim, size) else None
+
+
+def dp_axes(mesh_cfg) -> tuple[str, ...]:
+    """Data-parallel axes of an LM ``MeshConfig`` (pod folds into data)."""
+
+    return ("pod", "data") if mesh_cfg.multi_pod else ("data",)

@@ -12,22 +12,39 @@ one signature, as in the JAX package.  Batches are dicts::
 from ``models/transformer.py``, the hybrid (zamba2) from
 ``models/hybrid.py``, the encoder-decoder (whisper) from
 ``models/encdec.py`` and the VLM (internvl2) from ``models/vlm.py``.
+
+Shapes without allocation, as the JAX package takes them from
+``jax.eval_shape``: ``param_specs``, ``cache_specs`` and ``input_specs``
+give trees of tensors on the ``meta`` device, and the parameter counts
+(``param_count``, ``matmul_param_count``, ``active_param_count``) count
+them.  Leaf paths are spelled as ``jax.tree_util.keystr`` spells them.
+
+A ``Ctx`` with a tensor-parallel group (``ctx.tp``, more than one rank)
+builds the rank's serving model over its shards.  The families and
+shapes it does not cover raise ``NotImplementedError`` here, naming their
+ROADMAP item: there is no replicated fallback.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
 from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.core.state import resolve_device
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import transformer as T
 from repro_torch.models import vlm as V
+from repro_torch.models.moe import EP_REASON
+from repro_torch.optim.optimizers import tree_flatten_with_path
 
 Ctx = T.Ctx
+
+TP_ITEM = "ROADMAP.md queue 1, item 6.8"
 
 
 class Model(NamedTuple):
@@ -56,6 +73,40 @@ _FAMILIES = {
 }
 
 
+def tp_refusal(cfg: ModelConfig, size: int) -> str | None:
+    """Why ``cfg`` cannot be served on ``size`` tensor-parallel ranks by
+    the port's explicit collectives, or ``None`` where it can: the dense
+    and VLM families whose query and KV heads both split into whole heads
+    a rank."""
+
+    if size <= 1:
+        return None
+    if cfg.family == "moe" and cfg.mla is not None:
+        return ("tensor-parallel MLA (its latent cache c_kv/k_rope and its "
+                f"absorbed decode) is not ported ({TP_ITEM})")
+    if cfg.family == "moe":
+        return EP_REASON
+    if cfg.family in ("ssm", "hybrid"):
+        return ("tensor-parallel SSM sublayers (Mamba2 heads sharded over "
+                f"'model', the conv and state caches by head) are not "
+                f"ported ({TP_ITEM})")
+    if cfg.family == "encdec":
+        return ("the tensor-parallel encoder-decoder (encoder, cross "
+                f"attention and DecCache by head) is not ported ({TP_ITEM})")
+    if cfg.num_heads % size:
+        return (f"{cfg.num_heads} query heads do not split over {size} "
+                "ranks: the sharding rules cut the flat q width into parts "
+                "of a head, or replicate it, and the port's collectives need "
+                f"whole heads a rank ({TP_ITEM})")
+    if cfg.num_kv_heads % size:
+        return (f"{cfg.num_kv_heads} KV heads do not split over {size} "
+                "ranks: the rules cut the k/v width into parts of a head "
+                "and shard the KV cache on its sequence (a masked partial "
+                "softmax), which the port's collectives do not cover "
+                f"({TP_ITEM})")
+    return None
+
+
 def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
                 device="cuda") -> Model:
     """The model of ``cfg.family`` on ``device`` (the card unless
@@ -65,7 +116,8 @@ def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
     match JAX's threefry, only the distributions do.  The batch's tensors
     given to ``loss``/``prefill``/``decode`` are moved to the device:
     tokens and targets as ``long``, frames and patches in their own float
-    dtype.
+    dtype.  Under ``ctx.tp`` the model serves a rank's shards; its
+    ``loss`` raises (tensor-parallel training is not ported).
     """
 
     fam = cfg.family
@@ -74,6 +126,14 @@ def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
     init, loss, prefill, decode, init_cache, extra = _FAMILIES[fam]
     ctx = ctx or T.Ctx()
     device = resolve_device(device)
+    reason = tp_refusal(cfg, ctx.tp_size)
+    if reason:
+        raise NotImplementedError(reason)
+    if ctx.tp_size > 1:
+        def loss(*_):
+            raise NotImplementedError(
+                "tensor-parallel training is not ported: the port trains on "
+                "one card or by gossip data parallelism (train/gossip_dp.py)")
 
     def tokens(x):
         return torch.as_tensor(x, device=device).long()
@@ -94,3 +154,93 @@ def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
                                              cfg, ctx),
         init_cache=lambda bs, ml: init_cache(cfg, ctx, bs, ml, device),
     )
+
+
+# ---------------------------------------------------------------------------
+# Shapes without allocation (the ``meta`` device) and parameter counts
+# ---------------------------------------------------------------------------
+
+
+def _on_meta(model: Model) -> Model:
+    """``model`` built on the ``meta`` device without its TP group, so its
+    trees have their global shapes and allocate nothing."""
+
+    return build_model(model.cfg, dataclasses.replace(model.ctx, tp=None),
+                       device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The batch of ``loss`` (train) or ``prefill`` as ``meta`` tensors
+    of its shapes and dtypes (the JAX package's ShapeDtypeStructs)."""
+
+    B, Lx = shape.global_batch, shape.seq_len
+
+    def sds(shp, dtype):
+        return torch.empty(shp, dtype=dtype, device="meta")
+
+    batch: dict = {}
+    if cfg.family == "encdec":
+        batch["frames"] = sds((B, cfg.encoder_seq_len, cfg.d_model),
+                              torch.bfloat16)
+    if cfg.family == "vlm":
+        batch["patches"] = sds((B, cfg.num_patch_tokens, V._VISION_DIM),
+                               torch.bfloat16)
+    batch["tokens"] = sds((B, Lx), torch.int32)
+    if shape.kind == "train":
+        batch["targets"] = sds((B, Lx), torch.int32)
+    return batch
+
+
+def cache_specs(model: Model, batch_size: int, max_len: int):
+    """The global cache tree of ``model.init_cache`` on ``meta``."""
+
+    return _on_meta(model).init_cache(batch_size, max_len)
+
+
+def param_specs(model: Model, seed: int = 0):
+    """The global parameter tree of ``model.init`` on ``meta``."""
+
+    return _on_meta(model).init(torch.Generator().manual_seed(seed))
+
+
+def _count(tree, skip_embed: bool) -> int:
+    total = 0
+    for name, leaf in tree_flatten_with_path(tree):
+        if skip_embed and ("embed" in name or "dec_pos" in name):
+            continue
+        total += math.prod(leaf.shape)
+    return total
+
+
+def param_count(cfg: ModelConfig) -> int:
+    shapes = param_specs(build_model(cfg, device="meta"))
+    return _count(shapes, skip_embed=False)
+
+
+def matmul_param_count(cfg: ModelConfig) -> int:
+    """Params that participate in matmuls per token (6·N·D convention):
+    excludes embedding lookups, *includes* the unembedding projection
+    (for tied embeddings the matmul still happens)."""
+
+    shapes = param_specs(build_model(cfg, device="meta"))
+    n = _count(shapes, skip_embed=True)
+    n += cfg.vocab_size * cfg.d_model          # unembed matmul
+    return n
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """matmul params with routed experts rescaled by k/E."""
+
+    shapes = param_specs(build_model(cfg, device="meta"))
+    if cfg.moe is None:
+        return matmul_param_count(cfg)
+    total = 0
+    frac = cfg.moe.num_experts_per_tok / cfg.moe.num_experts
+    for name, leaf in tree_flatten_with_path(shapes):
+        if "embed" in name or "dec_pos" in name:
+            continue
+        size = math.prod(leaf.shape)
+        if "moe" in name and name.split("'")[-2] in ("wi_gate", "wi_up", "wo"):
+            size = int(size * frac)
+        total += size
+    return total + cfg.vocab_size * cfg.d_model

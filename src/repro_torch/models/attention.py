@@ -9,6 +9,13 @@ memory-bound gather), not a kernel.  Unlike JAX's functional
 ``dynamic_update_slice``, the port writes the new position into the cache
 in place and returns the same tensors, so a decode step allocates no
 second cache.
+
+Head counts are read from the weights: ``wq``'s width over ``head_dim``
+query heads and ``wk``'s over ``head_dim`` KV heads.  Under tensor
+parallelism a rank holds whole heads of each (``train/sharding.py``), so
+the same code runs its local heads, the GQA group unchanged, and returns
+its partial sum of the row-parallel ``wo`` product, which the caller
+all-reduces.
 """
 
 from __future__ import annotations
@@ -62,10 +69,13 @@ def init_attention(gen, d_model, num_heads, num_kv_heads, head_dim,
     return p
 
 
-def _project_qkv(params, x, num_heads, num_kv_heads, head_dim):
-    """(B, H, Lx, D) q, k, v, each contiguous (the kernel's layout)."""
+def _project_qkv(params, x, head_dim):
+    """(B, H, Lx, D) q, k, v, each contiguous (the kernel's layout), at
+    the head counts of the weights ``params`` holds."""
 
     B, Lx, _ = x.shape
+    num_heads = params["wq"].shape[-1] // head_dim
+    num_kv_heads = params["wk"].shape[-1] // head_dim
     q = L.linear(x, params["wq"], params.get("bq"))
     k = L.linear(x, params["wk"], params.get("bk"))
     v = L.linear(x, params["wv"], params.get("bv"))
@@ -75,35 +85,34 @@ def _project_qkv(params, x, num_heads, num_kv_heads, head_dim):
     return q, k, v
 
 
-def _self_attention(params, x, *, num_heads, num_kv_heads, head_dim,
-                    causal, window, attn_softcap, rope_theta, impl):
+def _self_attention(params, x, *, head_dim, causal, window, attn_softcap,
+                    rope_theta, impl):
     """(output (B, L, d), roped k, v) of self-attention over x (B, L, d)
     at positions 0..L-1."""
 
     B, Lx, _ = x.shape
-    q, k, v = _project_qkv(params, x, num_heads, num_kv_heads, head_dim)
+    q, k, v = _project_qkv(params, x, head_dim)
     positions = torch.arange(Lx, device=x.device)
     q = L.apply_rope(q, positions, rope_theta)
     k = L.apply_rope(k, positions, rope_theta)
     o = _attend(q, k, v, impl, causal=causal, window=window,
                 softcap=attn_softcap)
-    o = o.transpose(1, 2).reshape(B, Lx, num_heads * head_dim)
+    o = o.transpose(1, 2).reshape(B, Lx, q.shape[1] * head_dim)
     return L.linear(o, params["wo"]), k, v
 
 
-def attention(params, x, *, num_heads, num_kv_heads, head_dim, causal=True,
-              window=0, attn_softcap=0.0, rope_theta=10000.0, impl="ref"):
+def attention(params, x, *, head_dim, causal=True, window=0,
+              attn_softcap=0.0, rope_theta=10000.0, impl="ref"):
     """Training self-attention.  x: (B, L, d)."""
 
     out, _, _ = _self_attention(
-        params, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
-        head_dim=head_dim, causal=causal, window=window,
+        params, x, head_dim=head_dim, causal=causal, window=window,
         attn_softcap=attn_softcap, rope_theta=rope_theta, impl=impl)
     return out
 
 
-def attention_prefill(params, x, max_len, *, num_heads, num_kv_heads,
-                      head_dim, window=0, attn_softcap=0.0,
+def attention_prefill(params, x, max_len, *, head_dim, window=0,
+                      attn_softcap=0.0,
                       rope_theta=10000.0, impl="ref",
                       cache_dtype=torch.bfloat16, cache=None):
     """Causal forward over L prompt tokens + the KV cache (padded to
@@ -113,11 +122,10 @@ def attention_prefill(params, x, max_len, *, num_heads, num_kv_heads,
 
     B, Lx, _ = x.shape
     out, k, v = _self_attention(
-        params, x, num_heads=num_heads, num_kv_heads=num_kv_heads,
-        head_dim=head_dim, causal=True, window=window,
+        params, x, head_dim=head_dim, causal=True, window=window,
         attn_softcap=attn_softcap, rope_theta=rope_theta, impl=impl)
     if cache is None:
-        cache = init_cache(B, num_kv_heads, max_len, head_dim, cache_dtype,
+        cache = init_cache(B, k.shape[1], max_len, head_dim, cache_dtype,
                            x.device)
     cache.k[..., :Lx, :] = k
     cache.v[..., :Lx, :] = v
@@ -131,15 +139,15 @@ def init_cache(batch, num_kv_heads, max_len, head_dim, dtype=torch.bfloat16,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
-def decode_attention(params, x, cache: KVCache, pos, *, num_heads,
-                     num_kv_heads, head_dim, window=0, attn_softcap=0.0,
-                     rope_theta=10000.0):
+def decode_attention(params, x, cache: KVCache, pos, *, head_dim, window=0,
+                     attn_softcap=0.0, rope_theta=10000.0):
     """One-token cached decode.  x: (B, 1, d); pos: int (aligned batch
     decoding).  Writes position ``pos`` of ``cache`` in place; returns
     (out (B, 1, d), cache)."""
 
     B = x.shape[0]
-    q, k, v = _project_qkv(params, x, num_heads, num_kv_heads, head_dim)
+    q, k, v = _project_qkv(params, x, head_dim)
+    num_heads, num_kv_heads = q.shape[1], k.shape[1]
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = L.apply_rope(q, posv, rope_theta)
     k = L.apply_rope(k, posv, rope_theta)

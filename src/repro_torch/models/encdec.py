@@ -236,7 +236,7 @@ def encdec_prefill(params, frames, tokens, max_len, cfg: ModelConfig,
         lp = _index(params["dec_layers"], n)
         sa, ca = lp["self_attn"], lp["cross_attn"]
         h_in = _ln(x, lp["ln1"])
-        q, k, v = A._project_qkv(sa, h_in, H, H, cfg.d_model // H)
+        q, k, v = A._project_qkv(sa, h_in, cfg.d_model // H)
         del h_in
         o = A._attend(q, k, v, ctx.attn_impl, causal=True)
         x = x + L.linear(_merge(o), sa["wo"])
@@ -285,7 +285,7 @@ def encdec_decode_step(params, cache: DecCache, token, pos,
         c = _layer_cache(cache, n)
         sa, ca = lp["self_attn"], lp["cross_attn"]
         ck, cv = c.self_kv
-        q, k, v = A._project_qkv(sa, _ln(x, lp["ln1"]), H, H, hd)
+        q, k, v = A._project_qkv(sa, _ln(x, lp["ln1"]), hd)
         ck[:, :, pos:pos + 1] = k
         cv[:, :, pos:pos + 1] = v
         q = (q / q.new_tensor(scale)).to(ck.dtype)

@@ -101,8 +101,7 @@ def _lora_attn_params(shared_attn, unit, num_heads, num_kv_heads, head_dim):
 
 
 def _attn_kw(cfg: ModelConfig) -> dict:
-    return dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-                head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
+    return dict(head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
 
 
 def _shared_in(shared, unit, x, x0, cfg: ModelConfig):

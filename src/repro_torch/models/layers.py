@@ -7,15 +7,114 @@ once, the layout of the JAX package's scanned unit params.  The values
 cannot match JAX's threefry draws; the distributions do.
 
 ``layer_norm`` and ``mlp_gelu`` (the tanh GELU, as ``jax.nn.gelu``
-computes it by default) serve the encoder-decoder.  ``embed_onehot``, the
-JAX package's lookup for vocab-sharded tables, waits for mesh-sharded
-serving (ROADMAP.md queue 1, item 6.8).
+computes it by default) serve the encoder-decoder.
+
+Tensor parallelism (Megatron-style, with explicit collectives where the
+JAX package lets GSPMD insert them): a rank's ``TP`` names its group and
+the leaves the sharding rules split on ``"model"`` (``TP.split``); the
+layers learn whether a product is split from ``sharded`` and from nothing
+else.  ``embed`` looks up a vocab-sharded table (the rows of this rank's vocab
+range, zeros for the others, then an all-reduce: the JAX package's
+``embed_onehot`` computes the same sum), ``unembed`` all-gathers the
+vocab slices of the logits before the softcap, and ``all_reduce`` sums a
+row-parallel product's partial sums.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import time
+from typing import Any
+
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel group and its collectives
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(eq=False)
+class TP:
+    """One rank's tensor-parallel group: its ``torch.distributed`` process
+    group, its rank and size in it, and whether its collectives move host
+    copies of the card's tensors (``gloo``, the backend of ranks that share
+    a card, takes CPU tensors only), and the leaves the rules split on
+    ``"model"``, named by their last two path keys (``"attn.wo"``,
+    ``"mlp.wo"``, ``"projector.w2"``, ``"embed"``, ``"lm_head"``; see
+    ``train/shard.py::model_split``).  With ``timed`` set, each collective
+    synchronizes the card before and after it and adds its host seconds
+    and bytes to ``stats`` (``{"all_reduce": [calls, seconds, bytes],
+    "all_gather": ...}``)."""
+
+    group: Any
+    rank: int
+    size: int
+    staged: bool
+    split: frozenset = frozenset()
+    timed: bool = False
+    stats: dict = dataclasses.field(default_factory=dict)
+
+    @classmethod
+    def of(cls, group, device, split=frozenset()) -> "TP":
+        return cls(group, dist.get_rank(group), dist.get_world_size(group),
+                   torch.device(device).type == "cuda"
+                   and dist.get_backend(group) != "nccl", frozenset(split))
+
+    @contextlib.contextmanager
+    def _timing(self, op: str, x: torch.Tensor):
+        if not self.timed:
+            yield
+            return
+        cuda = x.device.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(x.device)
+        t0 = time.perf_counter()
+        yield
+        if cuda:
+            torch.cuda.synchronize(x.device)
+        row = self.stats.setdefault(op, [0, 0.0, 0])
+        row[0] += 1
+        row[1] += time.perf_counter() - t0
+        row[2] += x.numel() * x.element_size()
+
+
+def sharded(tp: TP | None, leaf: str) -> TP | None:
+    """``tp`` where the rules split ``leaf`` on ``"model"``, else ``None``
+    (the product is whole on every rank and needs no collective)."""
+
+    return tp if tp is not None and leaf in tp.split else None
+
+
+def all_reduce(x, tp: TP | None):
+    """The sum of ``x`` over the ranks of ``tp`` (``x`` itself without a
+    group): the partial sums of a row-parallel product."""
+
+    if tp is None or tp.size == 1:
+        return x
+    with tp._timing("all_reduce", x):
+        if tp.staged:
+            host = x.cpu()
+            dist.all_reduce(host, group=tp.group)
+            return host.to(x.device)
+        x = x.contiguous()
+        dist.all_reduce(x, group=tp.group)
+        return x
+
+
+def all_gather_last(x, tp: TP | None):
+    """The ranks' ``x`` concatenated in rank order along the last dim."""
+
+    if tp is None or tp.size == 1:
+        return x
+    with tp._timing("all_gather", x):
+        src = x.cpu() if tp.staged else x.contiguous()
+        parts = [torch.empty_like(src) for _ in range(tp.size)]
+        dist.all_gather(parts, src, group=tp.group)
+        return torch.cat(parts, dim=-1).to(x.device)
 
 
 def _normal(gen, shape, std, dtype, device, lead=()):
@@ -135,12 +234,29 @@ def init_embedding(gen, vocab: int, d_model: int, dtype, device):
     return _normal(gen, (vocab, d_model), d_model ** -0.5, dtype, device)
 
 
-def embed(emb, tokens):
-    return emb[tokens]
+def embed(emb, tokens, tp: TP | None = None):
+    """Rows ``tokens`` of the table.  Under ``tp`` the table holds this
+    rank's range of ``tp.size`` contiguous vocab ranges: each rank writes
+    the rows of its range and zeros for the rest, and the ranks
+    all-reduce: every sum has one nonzero term, so the rows are exact."""
+
+    if tp is None:
+        return emb[tokens]
+    lo = tp.rank * emb.shape[0]
+    local = tokens - lo
+    inside = (local >= 0) & (local < emb.shape[0])
+    x = emb[local.clamp(0, emb.shape[0] - 1)]
+    return all_reduce(torch.where(inside[..., None], x, 0.0), tp)
 
 
-def unembed(x, emb_or_head, tied: bool, cap: float = 0.0):
-    logits = x @ (emb_or_head.T if tied else emb_or_head)
+def unembed(x, emb_or_head, tied: bool, cap: float = 0.0,
+            tp: TP | None = None):
+    """Logits over the vocab, softcapped.  Under ``tp`` the table or head
+    is vocab-sharded: each rank's vocab range of logits is all-gathered
+    into the full (..., vocab) logits on every rank before the softcap."""
+
+    logits = all_gather_last(x @ (emb_or_head.T if tied else emb_or_head),
+                             tp)
     return softcap(logits, cap)
 
 

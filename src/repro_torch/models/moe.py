@@ -31,8 +31,9 @@ from repro_torch.config import MoEConfig
 from repro_torch.models import layers as L
 
 EP_REASON = (
-    "expert parallelism (ep_axis/mesh: the JAX package's shard_map psum and "
-    "all-to-all forms) is not ported; it waits for mesh-sharded LM serving "
+    "expert parallelism (ep_axis/mesh, or a MoE model on tensor-parallel "
+    "ranks: the JAX package's shard_map psum and all-to-all forms) is not "
+    "ported; it is the first of what stays of mesh-sharded LM serving "
     "(ROADMAP.md queue 1, item 6.8)")
 
 

@@ -26,13 +26,22 @@ MoE aux losses; ``Ctx(remat=True)`` recomputes each unit in the backward
 unit).  The hybrid family (zamba2) lives in ``models/hybrid.py``, the
 encoder-decoder (whisper) in ``models/encdec.py``; the VLM (internvl2) is
 this dense LM over patch embeddings put before the tokens
-(``models/vlm.py``).  The mesh fields of ``Ctx`` (EP, dp, one-hot
-embedding) wait for later slices.
+(``models/vlm.py``).
+
+Tensor-parallel serving: ``Ctx(tp=TP.of(group, device))`` runs a rank's
+shards (``train/sharding.py``, ``train/shard.py``) of the dense and VLM
+families' prefill and decode: the vocab-parallel embedding and logits,
+attention on the rank's whole heads (its KV cache holds its KV heads),
+and one all-reduce after each row-parallel product (attention's and the
+MLP's ``wo``).  The JAX package's other mesh fields of ``Ctx`` (EP, dp,
+one-hot embedding) have no twin: ``models/api.py`` refuses the families
+and specs this does not cover.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -58,11 +67,18 @@ class Ctx:
     """Build-time execution context: the attention implementation
     (``"kernel"``: the flash kernel, serving only, since it has no
     backward; ``"ref"``: the plain reference), whether training recomputes
-    each unit in the backward (``remat``) and the KV cache's dtype."""
+    each unit in the backward (``remat``), the KV cache's dtype and the
+    rank's tensor-parallel group (``tp``; ``None``: one process holds the
+    whole model)."""
 
     attn_impl: str = "ref"
     remat: bool = False
     cache_dtype: torch.dtype = torch.bfloat16
+    tp: Optional[L.TP] = dataclasses.field(default=None, compare=False)
+
+    @property
+    def tp_size(self) -> int:
+        return 1 if self.tp is None else self.tp.size
 
     def __post_init__(self) -> None:
         if self.attn_impl not in A.ATTN_IMPLS:
@@ -152,10 +168,11 @@ def init_sublayer(gen, cfg: ModelConfig, sl: SubLayer, device,
     return p
 
 
-def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer):
+def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer, tp=None):
     """The sublayer after its mixer: x + h (h post-normed in gemma2's
     sandwich), then the pre-norm FFN half (SwiGLU or MoE; none in an SSM
-    sublayer).  Returns (x, aux), aux the MoE's aux loss or None."""
+    sublayer).  Returns (x, aux), aux the MoE's aux loss or None.  Under
+    ``tp`` a SwiGLU split on its hidden width is all-reduced."""
 
     # the post-normed h is a temporary of the sum: the caller still holds
     # the raw h, and one more (B, L, d) tensor would be alive in the MLP
@@ -168,6 +185,7 @@ def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer):
         h, aux = MOE.moe_ffn(p["moe"], hin, cfg.moe)
     else:
         h, aux = L.mlp_swiglu(p["mlp"], hin), None
+        h = L.all_reduce(h, L.sharded(tp, "mlp.wo"))
     del hin
     if sl.post_norm:
         h = L.rms_norm(h, p["post_norm2"], cfg.norm_eps)
@@ -182,9 +200,8 @@ def _mixer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
                                  cfg=cfg.mla, rope_theta=cfg.rope_theta,
                                  impl=ctx.attn_impl)
     return A.attention(
-        p["attn"], x, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-        causal=True, window=sl.window, attn_softcap=cfg.attn_softcap,
+        p["attn"], x, head_dim=cfg.resolved_head_dim, causal=True,
+        window=sl.window, attn_softcap=cfg.attn_softcap,
         rope_theta=cfg.rope_theta, impl=ctx.attn_impl)
 
 
@@ -217,13 +234,13 @@ def apply_sublayer_prefill(p, x, max_len, cfg: ModelConfig, sl: SubLayer,
             impl=ctx.attn_impl, cache=cache)
     else:
         h, cache = A.attention_prefill(
-            p["attn"], h_in, max_len, num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+            p["attn"], h_in, max_len, head_dim=cfg.resolved_head_dim,
             window=sl.window, attn_softcap=cfg.attn_softcap,
             rope_theta=cfg.rope_theta, impl=ctx.attn_impl,
             cache_dtype=ctx.cache_dtype, cache=cache)
+        h = L.all_reduce(h, L.sharded(ctx.tp, "attn.wo"))
     del h_in
-    return _residual(p, x, h, cfg, sl)[0], cache
+    return _residual(p, x, h, cfg, sl, ctx.tp)[0], cache
 
 
 def apply_sublayer_decode(p, cache, x, pos, cfg: ModelConfig, sl: SubLayer,
@@ -238,11 +255,11 @@ def apply_sublayer_decode(p, cache, x, pos, cfg: ModelConfig, sl: SubLayer,
                                   rope_theta=cfg.rope_theta)
     else:
         h, cache = A.decode_attention(
-            p["attn"], h_in, cache, pos, num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+            p["attn"], h_in, cache, pos, head_dim=cfg.resolved_head_dim,
             window=sl.window, attn_softcap=cfg.attn_softcap,
             rope_theta=cfg.rope_theta)
-    return _residual(p, x, h, cfg, sl)[0], cache
+        h = L.all_reduce(h, L.sharded(ctx.tp, "attn.wo"))
+    return _residual(p, x, h, cfg, sl, ctx.tp)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -304,13 +321,15 @@ def _embed_scale(cfg: ModelConfig) -> float:
     return cfg.d_model ** 0.5 if cfg.logit_softcap else 1.0
 
 
-def embed_tokens(params, tokens, cfg: ModelConfig):
-    return L.embed(params["embed"], tokens) * _embed_scale(cfg)
+def embed_tokens(params, tokens, cfg: ModelConfig, tp=None):
+    return (L.embed(params["embed"], tokens, L.sharded(tp, "embed"))
+            * _embed_scale(cfg))
 
 
-def _unembed(params, x, cfg: ModelConfig):
-    emb = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    return L.unembed(x, emb, cfg.tie_embeddings, cfg.logit_softcap)
+def _unembed(params, x, cfg: ModelConfig, tp=None):
+    leaf = "embed" if cfg.tie_embeddings else "lm_head"
+    return L.unembed(x, params[leaf], cfg.tie_embeddings, cfg.logit_softcap,
+                     L.sharded(tp, leaf))
 
 
 def lm_hidden_train(params, x, cfg: ModelConfig, ctx: Ctx):
@@ -355,8 +374,10 @@ def _sublayer_cache(cfg: ModelConfig, sl: SubLayer, ctx: Ctx, batch: int,
     if sl.mixer == "mla":
         return MLA.init_mla_cache(batch, max_len, cfg.mla, ctx.cache_dtype,
                                   device, lead)
-    return A.init_cache(batch, cfg.num_kv_heads, max_len,
-                        cfg.resolved_head_dim, ctx.cache_dtype, device, lead)
+    kv_tp = L.sharded(ctx.tp, "attn.wk")
+    kv_heads = cfg.num_kv_heads // (kv_tp.size if kv_tp else 1)
+    return A.init_cache(batch, kv_heads, max_len, cfg.resolved_head_dim,
+                        ctx.cache_dtype, device, lead)
 
 
 def lm_init_cache(cfg: ModelConfig, ctx: Ctx, batch: int, max_len: int,
@@ -377,7 +398,7 @@ def lm_prefill(params, tokens, max_len, cfg: ModelConfig, ctx: Ctx):
     The attention caches are allocated at ``max_len`` and filled in place;
     the SSM sublayers' caches are the prefill's own states."""
 
-    return prefill_embedded(params, embed_tokens(params, tokens, cfg),
+    return prefill_embedded(params, embed_tokens(params, tokens, cfg, ctx.tp),
                             max_len, cfg, ctx)
 
 
@@ -404,7 +425,7 @@ def prefill_embedded(params, x, max_len, cfg: ModelConfig, ctx: Ctx):
     cache["units"] = {**filled, **{key: SSM.stack_states(st)
                                    for key, st in states.items()}}
     h = L.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
-    return _unembed(params, h, cfg), cache
+    return _unembed(params, h, cfg, ctx.tp), cache
 
 
 def lm_decode_step(params, cache, token, pos, cfg: ModelConfig, ctx: Ctx):
@@ -412,7 +433,7 @@ def lm_decode_step(params, cache, token, pos, cfg: ModelConfig, ctx: Ctx):
     place; returns (logits (B, V), cache)."""
 
     unit, n_scan, head = unit_spec(cfg)
-    x = embed_tokens(params, token[:, None], cfg)
+    x = embed_tokens(params, token[:, None], cfg, ctx.tp)
     for i, sl in enumerate(head):
         x, _ = apply_sublayer_decode(params[f"head{i}"], cache[f"head{i}"],
                                      x, pos, cfg, sl, ctx)
@@ -421,4 +442,4 @@ def lm_decode_step(params, cache, token, pos, cfg: ModelConfig, ctx: Ctx):
                                  _index(cache["units"], n), x, pos, cfg,
                                  unit, ctx)
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _unembed(params, h[:, 0], cfg), cache
+    return _unembed(params, h[:, 0], cfg, ctx.tp), cache

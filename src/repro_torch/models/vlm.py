@@ -6,7 +6,10 @@ hand in patch embeddings (B, P, 1024).  A two-layer MLP projector
 (InternVL's glue, the tanh GELU between its layers) maps them to d_model,
 and they go before the token embeddings: the sequence is [patch tokens]
 [text tokens], causal over the whole of it, its positions absolute in
-that fused sequence.  The loss covers the text positions only.
+that fused sequence.  The loss covers the text positions only.  Under
+tensor parallelism the projector's ``w1`` is replicated and its ``w2``
+row-parallel: each rank multiplies its slice of the GELU's output by its
+rows of ``w2``, and the ranks all-reduce before the first layer.
 """
 
 from __future__ import annotations
@@ -33,12 +36,16 @@ def init_vlm(gen, cfg: ModelConfig, ctx: T.Ctx, device) -> dict:
     return params
 
 
-def _fuse(params, patches, tokens, cfg: ModelConfig):
+def _fuse(params, patches, tokens, cfg: ModelConfig, tp=None):
     """(B, P + L, d): the projected patches, then the token embeddings."""
 
     pe = F.gelu(patches @ params["projector"]["w1"], approximate="tanh")
-    pe = pe @ params["projector"]["w2"]
-    te = T.embed_tokens(params, tokens, cfg)
+    w2, w2_tp = params["projector"]["w2"], L.sharded(tp, "projector.w2")
+    if w2_tp is not None:              # row-parallel: this rank's rows
+        n = w2.shape[0]
+        pe = pe[..., w2_tp.rank * n:(w2_tp.rank + 1) * n]
+    pe = L.all_reduce(pe @ w2, w2_tp)
+    te = T.embed_tokens(params, tokens, cfg, tp)
     return torch.cat([pe.to(te.dtype), te], dim=1)
 
 
@@ -58,8 +65,9 @@ def vlm_prefill(params, patches, tokens, max_len, cfg: ModelConfig,
     """(last-position logits (B, V), ``lm_init_cache``-shaped cache over
     [patches][prompt]); ``max_len`` must hold P + L."""
 
-    return T.prefill_embedded(params, _fuse(params, patches, tokens, cfg),
-                              max_len, cfg, ctx)
+    return T.prefill_embedded(
+        params, _fuse(params, patches, tokens, cfg, ctx.tp), max_len, cfg,
+        ctx)
 
 
 def vlm_decode_step(params, cache, token, pos, cfg: ModelConfig,

@@ -41,6 +41,47 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_map_with_path(fn, tree, *rest, path: str = ""):
+    """``tree_map`` whose ``fn(path, leaf, *rest_leaves)`` also gets each
+    leaf's path as ``jax.tree_util.keystr`` spells it: ``['units']['s0']
+    ['attn']['wq']`` (no spaces), a NamedTuple's field as ``.k``, a list
+    or tuple position as ``[0]``.  ``rest`` trees are indexed by the first
+    tree's structure, so a leaf of ``tree`` may face a subtree there (a
+    spec tree's tuples)."""
+
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest),
+                                      path=f"{path}[{k!r}]")
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(
+            tree_map_with_path(fn, v, *(r[i] for r in rest),
+                               path=f"{path}.{name}")
+            for i, (name, v) in enumerate(zip(tree._fields, tree))))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(
+            tree_map_with_path(fn, v, *(r[i] for r in rest),
+                               path=f"{path}[{i}]")
+            for i, v in enumerate(tree))
+    return fn(path, tree, *rest)
+
+
+def tree_flatten_with_path(tree) -> list:
+    """(path, leaf) pairs in ``jax.tree_util.tree_flatten_with_path``'s
+    order (dict keys sorted), paths as ``tree_map_with_path`` spells them."""
+
+    if isinstance(tree, dict):
+        items = [(f"[{k!r}]", tree[k]) for k in sorted(tree)]
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = [(f".{k}", v) for k, v in zip(tree._fields, tree)]
+    elif isinstance(tree, (list, tuple)):
+        items = [(f"[{i}]", v) for i, v in enumerate(tree)]
+    else:
+        return [("", tree)]
+    return [(key + path, leaf) for key, sub in items
+            for path, leaf in tree_flatten_with_path(sub)]
+
+
 def tree_map(fn, tree, *rest):
     """``fn`` over the leaves of trees of the same structure (nested dicts,
     tuples and NamedTuples such as the optimizer states)."""

@@ -1,0 +1,205 @@
+"""A rank's shards of the parameter and cache trees, by the specs of
+``train/sharding.py``, and sharded initialisation.
+
+The port serves on a ``1 x model`` grid: rank r of the tensor-parallel
+group holds the r-th of ``model`` equal contiguous slices of every dim
+that a spec puts on ``"model"``, and the whole of every other dim.  A
+mesh with more than one ``data`` or ``pod`` rank (data parallelism, or
+FSDP across data ranks) is refused: its batch and weight slices would
+need collectives the serving path does not make.
+
+``init_shard(seed, cfg, ctx, mesh_cfg, rank, device)`` draws a rank's
+slices of the dense and VLM parameter trees without the whole tree ever
+existing: each leaf is drawn one stacked layer at a time from a
+generator keyed by (seed, leaf path, layer), cut to the rank's slice,
+and dropped, so at most one full layer of one leaf is on the device at a
+time (internvl2-76b's ``embed``, 4.2 GB, is the largest).  The draws
+follow ``init``'s distributions (normal with std 1/sqrt(fan-in), the
+embedding 1/sqrt(d_model); norms and biases zero) but not its values.
+The shards at ``model = n`` concatenate to the tree at ``model = 1``,
+bit for bit.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import itertools
+import math
+import re
+
+import torch
+
+from repro_torch.config import MeshConfig, ModelConfig
+from repro_torch.models import api
+from repro_torch.models.transformer import Ctx
+from repro_torch.optim.optimizers import tree_map_with_path
+from repro_torch.train import sharding as S
+
+MESH_REASON = (
+    "the port shards on the 'model' axis only: data > 1 or pod > 1 "
+    "(data parallel serving, or FSDP across data ranks) is not ported "
+    "(ROADMAP.md queue 1, item 6.8)")
+
+# the families whose init ``init_shard`` draws
+INIT_FAMILIES = ("dense", "vlm")
+
+
+def check_mesh(mesh_cfg: MeshConfig) -> None:
+    if mesh_cfg.multi_pod or mesh_cfg.pod > 1 or mesh_cfg.data > 1:
+        raise NotImplementedError(MESH_REASON)
+
+
+def _axes(entry) -> tuple:
+    return () if entry is None else (
+        (entry,) if isinstance(entry, str) else tuple(entry))
+
+
+def _parts(entry, mesh_cfg: MeshConfig) -> int:
+    """How many ways a spec entry cuts its dim (``"data"`` is 1 here)."""
+
+    return math.prod({"model": mesh_cfg.model, "data": mesh_cfg.data,
+                      "pod": mesh_cfg.pod}[a] for a in _axes(entry))
+
+
+def local_shape(shape, spec, mesh_cfg: MeshConfig) -> tuple[int, ...]:
+    """A rank's shape of a leaf of global ``shape`` under ``spec``."""
+
+    check_mesh(mesh_cfg)
+    out = []
+    for n, entry in zip(shape, spec):
+        parts = _parts(entry, mesh_cfg)
+        if n % parts:
+            raise ValueError(f"dim {n} does not split {parts} ways ({spec})")
+        out.append(n // parts)
+    return tuple(out)
+
+
+def _slice(x: torch.Tensor, spec, mesh_cfg: MeshConfig,
+           rank: int) -> torch.Tensor:
+    if not 0 <= rank < mesh_cfg.model:
+        raise ValueError(f"rank {rank} is not on a {mesh_cfg.model}-rank "
+                         "model axis")
+    index = []
+    for n, m in zip(x.shape, local_shape(x.shape, spec, mesh_cfg)):
+        index.append(slice(None) if n == m
+                     else slice(rank * m, (rank + 1) * m))
+    return x[tuple(index)]
+
+
+def shard_leaf(x: torch.Tensor, spec, mesh_cfg: MeshConfig,
+               rank: int) -> torch.Tensor:
+    """Rank ``rank``'s slice of ``x`` under ``spec`` (a copy)."""
+
+    return _slice(x, spec, mesh_cfg, rank).clone()
+
+
+def shard_params(params, pspecs, mesh_cfg: MeshConfig, rank: int):
+    """Rank ``rank``'s slices of a parameter tree (``param_pspecs``)."""
+
+    return tree_map_with_path(
+        lambda _, x, spec: shard_leaf(x, spec, mesh_cfg, rank), params,
+        pspecs)
+
+
+def shard_cache(cache, cspecs, mesh_cfg: MeshConfig, rank: int):
+    """Rank ``rank``'s slices of a cache tree (``cache_pspecs_tree``)."""
+
+    return shard_params(cache, cspecs, mesh_cfg, rank)
+
+
+def shard_nbytes(shapes, specs, mesh_cfg: MeshConfig) -> int:
+    """Bytes of a rank's shards of a tree of (``meta``) shapes."""
+
+    total = []
+    tree_map_with_path(
+        lambda _, x, spec: total.append(
+            math.prod(local_shape(x.shape, spec, mesh_cfg))
+            * x.element_size()), shapes, specs)
+    return sum(total)
+
+
+# a row-parallel leaf -> the column-parallel leaves whose output it takes
+_ROW_PARALLEL = {"attn.wo": ("attn.wq", "attn.wk", "attn.wv"),
+                 "mlp.wo": ("mlp.wi_gate", "mlp.wi_up"),
+                 "projector.w2": ()}
+
+
+def model_split(shapes, pspecs) -> frozenset:
+    """The leaves ``pspecs`` split on ``"model"``, each named by the last
+    two keys of its path (``"attn.wo"``, ``"mlp.wo"``; ``"embed"``): the
+    ``split`` of a rank's ``models.layers.TP``, from which the layers
+    decide every collective.  Refuses a split the explicit collectives do
+    not follow: a leaf split in one layer and whole in another, a
+    row-parallel leaf split otherwise than its column-parallel inputs, or
+    the VLM projector's ``w1`` split (the port runs it whole)."""
+
+    seen: dict[str, set] = {}
+
+    def visit(path, _, spec):
+        leaf = ".".join(re.findall(r"\['([^']+)'\]", path)[-2:])
+        seen.setdefault(leaf, set()).add(
+            any("model" in _axes(e) for e in spec))
+
+    tree_map_with_path(visit, shapes, pspecs)
+    split = frozenset(k for k, v in seen.items() if True in v)
+    bad = sorted(k for k, v in seen.items() if len(v) > 1)
+    bad += [row for row, cols in _ROW_PARALLEL.items() if any(
+        c in seen and (c in split) != (row in split) for c in cols)]
+    bad += ["projector.w1"] if "projector.w1" in split else []
+    if bad:
+        raise NotImplementedError(
+            f"the sharding rules split {bad} in a way the port's explicit "
+            "collectives do not follow: a whole leaf on every rank, or "
+            "row-parallel after column-parallel; GSPMD reshards such a "
+            "layout, the port does not (ROADMAP.md queue 1, item 6.8)")
+    return split
+
+
+def _key(seed: int, path: str, layer: tuple[int, ...]) -> int:
+    digest = hashlib.sha256(f"{seed}|{path}|{layer}".encode()).digest()
+    return int.from_bytes(digest[:8], "little") & (2 ** 63 - 1)
+
+
+def _std(cfg: ModelConfig, name: str, shape) -> float | None:
+    """The std of ``init``'s normal draw of a dense/VLM leaf of this
+    per-layer shape, or ``None`` for a leaf it fills with zeros."""
+
+    if len(shape) == 1:             # norms (stored as offsets) and biases
+        return None
+    return (cfg.d_model if name == "embed" else shape[0]) ** -0.5
+
+
+def init_shard(seed: int, cfg: ModelConfig, ctx: Ctx | None,
+               mesh_cfg: MeshConfig, rank: int, device="cuda") -> dict:
+    """Rank ``rank``'s slices of a seeded dense or VLM parameter tree, on
+    ``device``; see the module docstring."""
+
+    if cfg.family not in INIT_FAMILIES:
+        raise NotImplementedError(
+            f"init_shard draws the {INIT_FAMILIES} trees; the "
+            f"{cfg.family!r} family initialises through its model's init")
+    check_mesh(mesh_cfg)
+    device = torch.device(device)
+    shapes = api.param_specs(api.build_model(cfg, ctx, device="meta"))
+    specs = S.param_pspecs(cfg, shapes, mesh_cfg)
+
+    def leaf(path, meta, spec):
+        name = S.leaf_name(path)
+        k = min(S.rule_ndim(name, path), meta.ndim)
+        lead, trail = tuple(meta.shape[:-k]), tuple(meta.shape[-k:])
+        out = torch.empty(local_shape(meta.shape, spec, mesh_cfg),
+                          dtype=meta.dtype, device=device)
+        std = _std(cfg, name, trail)
+        if std is None:
+            return out.zero_()
+        for layer in itertools.product(*(range(n) for n in lead)):
+            gen = torch.Generator(device=device)
+            gen.manual_seed(_key(seed, path, layer))
+            full = torch.randn(trail, generator=gen, dtype=torch.float32,
+                               device=device)
+            out[layer] = _slice(full.mul_(std).to(meta.dtype),
+                                spec[len(lead):], mesh_cfg, rank)
+            del full
+        return out
+
+    return tree_map_with_path(leaf, shapes, specs)

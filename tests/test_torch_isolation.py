@@ -43,7 +43,9 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.launch.gossip_async",
             "repro_torch.optim.optimizers", "repro_torch.train.step",
             "repro_torch.train.gossip_dp",
-            "repro_torch.launch.train"} <= set(mods)
+            "repro_torch.launch.train", "repro_torch.launch.serve",
+            "repro_torch.train.sharding",
+            "repro_torch.train.shard"} <= set(mods)
     code = (
         "import sys\n"
         f"for m in {mods!r}: __import__(m)\n"

@@ -116,9 +116,10 @@ def test_attention_prefill_and_decode(arch, cache_dtype):
     attn = sublayer0(jax_params(arch)[1])["attn"]
     tattn = lm_params_from_numpy(attn, "cpu")
     window = cfg.sliding_window
-    kw = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-              head_dim=cfg.resolved_head_dim, window=window,
+    kw = dict(head_dim=cfg.resolved_head_dim, window=window,
               attn_softcap=cfg.attn_softcap, rope_theta=cfg.rope_theta)
+    # the port reads its head counts from the weights
+    jkw = dict(kw, num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads)
     rng = np.random.default_rng(2)
     x = rng.normal(size=(B, PROMPT, cfg.d_model)).astype(np.float32)
     x1 = rng.normal(size=(B, 1, cfg.d_model)).astype(np.float32)
@@ -126,7 +127,7 @@ def test_attention_prefill_and_decode(arch, cache_dtype):
     bf16_atol = 2.0 ** -7 if cache_dtype == "bfloat16" else 1e-5
 
     jo, jc = JA.attention_prefill(attn, x, MAX_LEN, impl="ref",
-                                  cache_dtype=jdt, **kw)
+                                  cache_dtype=jdt, **jkw)
     to, tc = TA.attention_prefill(tattn, t(x), MAX_LEN, impl="kernel",
                                   cache_dtype=tdt, **kw)
     close(to, jo)
@@ -136,7 +137,7 @@ def test_attention_prefill_and_decode(arch, cache_dtype):
 
     # decode from the JAX cache handed across, so both start equal
     tc = kv_cache_from_numpy({"c": jax.tree.map(np.asarray, jc)}, "cpu")["c"]
-    jo1, jc1 = JA.decode_attention(attn, x1, jc, PROMPT, **kw)
+    jo1, jc1 = JA.decode_attention(attn, x1, jc, PROMPT, **jkw)
     to1, tc1 = TA.decode_attention(tattn, t(x1), tc, PROMPT, **kw)
     close(to1, jo1, atol_scale=bf16_atol)
     close(tc1.k, jc1.k, atol_scale=bf16_atol)
