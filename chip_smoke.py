@@ -3,11 +3,16 @@
 
 Run from the repository root on a machine with one NVIDIA H100::
 
-    python3 chip_smoke.py [--paper]
+    python3 chip_smoke.py [--paper] [--phases NAME[,NAME...]]
 
 ``--paper`` runs ``[table2]`` at every checkpoint of exp1-exp6 (the
 paper's full trajectories, as ``benchmarks/table2_synthetic.py --full``);
-by default exp1-exp5 stop at their first checkpoint.
+by default exp1-exp5 stop at their first checkpoint.  ``--phases`` runs
+the build, the data and the named phases only (``PHASES``, in their
+order), with what they need from earlier ones: ``[serve]``,
+``[sharded]`` and ``[measure]`` take ``[main]``'s fits, and an LM phase
+run without ``[lm]`` takes the flash row from the kernel alone at
+``[lm]``'s shape.  The default is every phase.
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -327,11 +332,26 @@ ordered top-k on the fit's masked scores at (1024, 3706) against the
 int64-key selection of every row it replaced (the same positions) and a
 bare ``torch.topk``.
 
+``[measure]`` (after ``[sharded]``): the paper workload's instruments on
+the card.  ``launch/serving_traffic.py``'s replay of one seeded Poisson
+tape (200 requests at 200/s) through an f32 and an int8 ``ServingEngine``
+on ``[main]``'s index (buckets 16-1024, k = 100), failing below
+overlap@100 0.99, and its method sweep (median and spread of 50 CUDA-event
+timed full queries a method at B = 1024), beside the method ``method=None``
+resolves from the committed ``kernels/quant/method_sweep.json``;
+``launch/sparse_vs_dense.py``'s density sweep at the Table 3 shape (6040 x
+3706, 5x5, r = 15; densities 0.01, 0.02, 0.0357, 0.1, 0.2), failing where
+a sparse engine's ∇L or cost differs from the dense one's by more than
+1e-5 relative; ``launch/gossip_comm.py --measure`` on a 2x2 grid of gloo
+ranks on the card; and ``launch/roofline_bench.py``'s records, printed
+beside ``[main]``'s and ``[gossip]``'s ms a round and, after ``[tp]``,
+beside its prefill and decode times.
+
 The launch counts of the ``{"kernels": ...}`` line add up the main
 path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included),
 ``[stream]``, ``[faults]`` (the ranks' by stack shape in
 ``faults_launches_by_stack``), ``[serve]``, ``[sharded]`` (the ranks'),
-``[lm]``, ``[moe]``, ``[ssm]``, ``[encdec]``, ``[vlm]`` and ``[tp]`` (the
+``[measure]`` (the ranks' included), ``[lm]``, ``[moe]``, ``[ssm]``, ``[encdec]``, ``[vlm]`` and ``[tp]`` (the
 flash row's ``moe``, ``ssm``, ``encdec``, ``vlm`` and ``tp`` keys have
 those phases' numbers; ``[tp]``'s are the reference run's and every
 rank's); ``[train]`` launches none.
@@ -455,6 +475,12 @@ from repro_torch.launch.gossip_async import check_skips  # noqa: E402
 from repro_torch.launch.gossip_faults import expected_drops  # noqa: E402
 from repro_torch.launch.gossip import shutdown as shutdown_grids  # noqa: E402
 from repro_torch.launch import streaming  # noqa: E402
+from repro_torch.launch import gossip_comm  # noqa: E402
+from repro_torch.launch import roofline_bench  # noqa: E402
+from repro_torch.launch import serving_traffic  # noqa: E402
+from repro_torch.launch import sparse_vs_dense  # noqa: E402
+from repro_torch.kernels.quant import autotune as quant_autotune  # noqa: E402
+from repro_torch.roofline import analyze_record  # noqa: E402
 from repro_torch.launch.lm_engine import (  # noqa: E402
     ServeLoop,
     make_prefill_step,
@@ -509,6 +535,11 @@ from repro_torch.sparse.store import MinibatchStream  # noqa: E402
 
 P = Q = 5
 RANK = 15
+PHASES = ("kernels", "main", "table2", "gossip", "stream", "faults",
+          "serve", "sharded", "measure", "lm", "train", "moe", "ssm",
+          "encdec", "vlm", "tp")
+NEEDS = {"serve": ("main",), "sharded": ("main",), "measure": ("main",)}
+LM_PHASES = ("lm", "moe", "ssm", "encdec", "vlm", "tp")
 CFG = dict(rho=1e3, lam=1e-6, a=2.0e-4, b=5.0e-7)
 FULL_ROUNDS = 800   # the Table 3 cell's rounds (benchmarks/table3_rmse.py)
 COMPARE_ROUNDS = 40  # sparse and dense FullGD are compared at this round
@@ -646,6 +677,14 @@ VLM_SPLIT = 1760      # continuation: patches + 1760 tokens + 32 decodes
 # JAX package's mesh), each holding 16 query and 2 KV heads; decode steps
 # timed with the collectives synchronised on rank 0
 TP_RANKS, TP_SEED, TP_TIMED_STEPS = 4, 0, 8
+# [measure]: the traffic tape, the density sweep, the gossip_comm grid
+MEASURE_REQUESTS, MEASURE_RATE, MEASURE_K = 200, 200.0, 100
+MEASURE_SHAPE = (6040, 3706)         # the Table 3 cell's matrix
+MEASURE_DENSITIES = (0.01, 0.02, 0.0357, 0.1, 0.2)
+MEASURE_ITERS, MEASURE_ROUNDS = 10, 30
+MEASURE_RTOL = 1e-5   # sparse engines' ∇L and cost against the dense one's
+# ms a round and step times the roofline lines stand beside
+MEASURED: dict = {}
 
 
 def fail(msg: str) -> None:
@@ -1217,7 +1256,8 @@ def first_kernel_and_host(args, want):
             rc = fn(uq.data_ptr(), us.data_ptr(), wq.data_ptr(),
                     ws.data_ptr(), out.data_ptr(), B, n, r,
                     torch.cuda.current_stream().cuda_stream)
-            _build.check(name, rc)
+            if rc < quant_ops.FIRST_KERNEL:     # else the kernel that ran
+                _build.check(name, rc)
             return out
         return run
 
@@ -1336,7 +1376,9 @@ def serve_engine(label, index, refresh_from, before, after, k, expect_q):
     obs.reset()
     reset_counts()
     t0 = time.perf_counter()
-    eng = ServingEngine(index, buckets=DEFAULT_BUCKETS, k=k)
+    # the kernel, whatever the committed method sweep picks for method=None
+    eng = ServingEngine(index, buckets=DEFAULT_BUCKETS, k=k,
+                        quant_method="fused")
     startup = time.perf_counter() - t0
     with eng:
         if eng.quant != expect_q:
@@ -3473,6 +3515,7 @@ def gossip_phase(sparse, scatter, state0, ml_cfg, card) -> tuple[dict, list]:
             and all(b < a for a, b in zip(costs, costs[1:]))):
         fail(f"gossip staleness=2 int8: cost did not fall: {c1} -> {costs}")
     check_grid("ML-1M 4x4 sparse/segment", recml, outs[2], oneml, cml)
+    MEASURED["gossip_2x2_ms"] = outs[2]["ms_per_round"]
 
     plan1 = MeshPlan.build(rec1.p, rec1.q, grid=GRID)
     planml = MeshPlan.build(recml.p, recml.q, grid=GRID)
@@ -3550,8 +3593,8 @@ def stream_engine(out, coo, stream, seen_headroom) -> dict:
     policy = RefreshPolicy(max_appends=POLICY_APPENDS)
     obs.reset()
     reset_counts()
-    engine = result.to_engine(quant="int8", trainer=trainer,
-                              refresh_policy=policy,
+    engine = result.to_engine(quant="int8", quant_method="fused",
+                              trainer=trainer, refresh_policy=policy,
                               seen_headroom=seen_headroom)
     compiles0 = obs.counter("serve_compiles_total").value
     m = result.problem.num_users
@@ -4451,6 +4494,119 @@ def sharded_phase(ml_cfg, fitted, card) -> tuple[dict, list, list]:
     return total, [seg_row], [q_row]
 
 
+def prefixed(tag: str):
+    """A ``log`` that prints each line of its text after ``tag``."""
+
+    def log(text) -> None:
+        for line in str(text).strip("\n").splitlines():
+            print(f"{tag} {line}", flush=True)
+    return log
+
+
+def measure_phase(fitted, device="cuda") -> tuple[dict, list]:
+    """``[measure]``: the instruments of the module docstring.  Returns
+    the kernels' launches (the gossip_comm grid's ranks included) and the
+    ``[tp]`` cell's roofline analyses, which are printed after ``[tp]``."""
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(WRAPPERS, 0)
+    reset_counts()
+    index = fitted.to_recommend_index()
+    gaps, reqs = serving_traffic.make_schedule(
+        MEASURE_REQUESTS, MEASURE_RATE, index.num_users, 0, DEFAULT_BUCKETS)
+    t0 = time.perf_counter()
+    try:
+        payload, extra = serving_traffic.replay(
+            index, gaps, reqs, buckets=DEFAULT_BUCKETS, k=MEASURE_K,
+            quant=True, log=prefixed("[measure] traffic"))
+    except AssertionError as err:
+        fail(f"[measure] serving_traffic: {err}")
+    sweep, spread = payload["method_sweep_ms"], extra["method_sweep_spread_ms"]
+    fused, deq = spread["fused"], spread["dequant"]
+    overlapping = fused["p10"] <= deq["p90"] and deq["p10"] <= fused["p90"]
+    committed = quant_autotune._committed_sweep().get("cuda")
+    print(f"[measure] serving_traffic on [main]'s index ({index.num_users} x "
+          f"{index.num_items}, r = {index.u.shape[1]}; {MEASURE_REQUESTS} "
+          f"requests at {MEASURE_RATE:.0f}/s, k = {MEASURE_K}) in "
+          f"{time.perf_counter() - t0:.1f}s: " + json.dumps({
+              key: payload[key] for key in ("engine", "quant", "overlap_at_k",
+                                            "index_bytes",
+                                            "method_sweep_ms")})
+          + f"; method sweep spread {json.dumps(spread)}; the medians lie "
+          f"within each other's p10-p90: {overlapping}; method=None "
+          f"resolves to {quant_autotune.resolve_method(None, device)!r} "
+          f"(committed sweep's winner {committed!r})", flush=True)
+
+    t0 = time.perf_counter()
+    rows = sparse_vs_dense.sweep(*MEASURE_SHAPE, (P, Q), RANK,
+                                 MEASURE_DENSITIES, iters=MEASURE_ITERS,
+                                 device=device)
+    for row in rows:
+        print(f"[measure] sparse_vs_dense {json.dumps(row)}", flush=True)
+        for key in ("grad_reldiff_sorted_vs_dense",
+                    "grad_reldiff_scatter_vs_dense",
+                    "cost_reldiff_sorted_vs_dense",
+                    "cost_reldiff_scatter_vs_dense"):
+            if not row[key] <= MEASURE_RTOL:
+                fail(f"[measure] sparse_vs_dense at density "
+                     f"{row['density']}: {key} {row[key]:.3e} > "
+                     f"{MEASURE_RTOL:.0e}")
+    sparse_vs_dense.report(rows, (), device, log=prefixed("[measure]"))
+    for key in ("ms", "device_ms")[:2 if device == "cuda" else 1]:
+        wins = [r["density"] for r in rows
+                if r[f"grad_sorted_{key}"] < r[f"grad_dense_{key}"]]
+        print(f"[measure] density sweep: by {key} the sorted sparse ∇L is "
+              f"faster than the dense one at densities {wins} of "
+              f"{list(MEASURE_DENSITIES)}", flush=True)
+    print(f"[measure] density sweep {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    total = {k: total[k] + n for k, n in counts().items()}
+
+    t0 = time.perf_counter()
+    try:
+        measured = gossip_comm.measured_row(MEASURE_ROUNDS, device=device)
+    finally:
+        shutdown_grids()
+    for name, n in measured["launches"].items():
+        total[name] += n
+    print(f"[measure] gossip_comm --measure ({time.perf_counter() - t0:.1f}"
+          f"s): {json.dumps(measured)}", flush=True)
+    MEASURED["gossip_comm_2x2_ms"] = measured["ms_per_round"]
+
+    t0 = time.perf_counter()
+    fit_records = roofline_bench.gossip_records()
+    lm_analyses = [analyze_record(r) for r in roofline_bench.lm_records()]
+    print(f"[measure] roofline records counted in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    beside = {"1x1": ("[main] FullGD sparse/segment ms/round",
+                      MEASURED.get("main_ms")),
+              "2x2": ("[gossip] 2x2 ML-1M 4x4 ms/round",
+                      MEASURED.get("gossip_2x2_ms"))}
+    for rec in fit_records:
+        label, ms = beside[rec["mesh"]]
+        print(f"[measure] {roofline_bench.roofline_line(analyze_record(rec))}"
+              f" | {label}: {ms if ms is not None else 'not run'}",
+              flush=True)
+    print(f"[measure] phase: {time.perf_counter() - t_phase:.1f}s of "
+          f"command; launches {total}", flush=True)
+    return total, lm_analyses
+
+
+def roofline_after_tp(lm_analyses, tp_out) -> None:
+    """The ``[tp]`` cell's roofline lines beside its measured times (the
+    one-process reference at ``model`` = 1, rank 0 at 4)."""
+
+    for a in lm_analyses:
+        if tp_out is None:
+            seen = "not run"
+        else:
+            run = tp_out["reference"] if a["chips"] == 1 else tp_out
+            seen = (f"{run['prefill_s']:.4f} s" if a["shape_cfg"]["kind"]
+                    == "prefill" else f"{run['decode_ms_per_step']:.4f} ms")
+        print(f"[measure] {roofline_bench.roofline_line(a)} | [tp] "
+              f"measured: {seen}", flush=True)
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -4459,21 +4615,44 @@ def _leaves(tree):
         yield tree
 
 
+def selected_phases(names: str | None) -> set:
+    """The phases ``--phases`` names, with what they need (``NEEDS``);
+    every phase when it is not given."""
+
+    if names is None:
+        return set(PHASES)
+    picked = {x.strip() for x in names.split(",") if x.strip()}
+    unknown = sorted(picked - set(PHASES))
+    if unknown or not picked:
+        fail(f"--phases: unknown {unknown or names!r}; the phases are "
+             f"{','.join(PHASES)}")
+    for name in list(picked):
+        picked.update(NEEDS.get(name, ()))
+    return picked
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--paper", action="store_true",
                     help="[table2] at every checkpoint of exp1-exp6")
-    paper = ap.parse_args().paper
+    ap.add_argument("--phases", default=None,
+                    help="run only these phases, comma-separated (with "
+                         "what they need): " + ",".join(PHASES))
+    args = ap.parse_args()
+    paper = args.paper
     started = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an "
              "NVIDIA GPU")
+    phases = selected_phases(args.phases)
+    want = phases.__contains__
     card = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(f"card: {smi}", flush=True)
+    print(f"[phases] {','.join(p for p in PHASES if want(p))}", flush=True)
 
     # 1. build
     t0 = time.perf_counter()
@@ -4497,148 +4676,180 @@ def main() -> None:
           f"setup {time.perf_counter() - t0:.2f}s", flush=True)
 
     # 2. kernels against their plain versions
-    rows = kernel_phase(sparse, dense, state0, card)
+    rows = kernel_phase(sparse, dense, state0, card) if want("kernels") else []
+
+    total = dict.fromkeys(WRAPPERS, 0)
+
+    def add(got):
+        for name, n in got.items():
+            total[name] += n
 
     # 3. main path; a two-round warm-up per problem first, so that the
     # timed phases do not pay PyTorch's one-time CUDA module loading
-    total = dict.fromkeys(WRAPPERS, 0)
-    trainer = Trainer(cfg)
-    for problem in (sparse, scatter, dense):
-        trainer.fit(problem, FullGD(num_rounds=2), state=state0)
-        trainer.fit(problem, Wave(num_rounds=1), seed=0)
-    at_compare = StateAt(COMPARE_ROUNDS)
-    trace_dir = tempfile.mkdtemp(prefix="chip-smoke-trace-")
-
-    def traced_fit():
-        # the Table 3 fit under Telemetry, inside a profiler trace
-        obs.reset()
-        with obs.trace(trace_dir):
-            return Trainer(cfg, callbacks=[at_compare, Telemetry()]).fit(
-                sparse, FullGD(num_rounds=FULL_ROUNDS,
-                               eval_every=COMPARE_ROUNDS), state=state0)
-
-    runs = [
-        ("FullGD sparse/segment", ["sddmm_segment_grad"], traced_fit),
-        ("FullGD sparse/scatter", ["sddmm_factor_grad"], lambda: trainer.fit(
-            scatter, FullGD(num_rounds=10, eval_every=5), state=state0)),
-        ("FullGD dense", ["masked_factor_grad"], lambda: trainer.fit(
-            dense, FullGD(num_rounds=COMPARE_ROUNDS, eval_every=10),
-            state=state0)),
-        ("Wave sparse", ["sddmm_segment_grad"], lambda: trainer.fit(
-            sparse, Wave(num_rounds=1), seed=1)),
-        ("Wave dense", ["masked_factor_grad"], lambda: trainer.fit(
-            dense, Wave(num_rounds=1), seed=1)),
-        ("Sequential sparse", ["sddmm_segment_grad"], lambda: trainer.fit(
-            sparse, Sequential(num_iters=300, eval_every=100), seed=2)),
-        ("Sequential dense", ["masked_factor_grad"], lambda: trainer.fit(
-            dense, Sequential(num_iters=100, eval_every=50), seed=2)),
-    ]
     results = {}
-    for label, expect, fit in runs:
-        results[label], got = run_phase(label, expect, fit)
-        for name, n in got.items():
-            total[name] += n
-    for label in ("FullGD sparse/segment", "FullGD sparse/scatter",
-                  "FullGD dense"):
-        res = results[label]
-        costs = [c for _, c in res.history]
-        if not costs[-1] < costs[0]:
-            fail(f"{label}: cost did not fall: {costs}")
-        rounds = res.t // (2 * (P - 1) * (Q - 1))
-        print(f"[main] {label}: {1e3 * res.wall_time / rounds:.3f} ms/round "
-              f"over {rounds} rounds (cost evals included), held-out RMSE "
-              f"{res.rmse():.4f}", flush=True)
+    if want("main"):
+        trainer = Trainer(cfg)
+        for problem in (sparse, scatter, dense):
+            trainer.fit(problem, FullGD(num_rounds=2), state=state0)
+            trainer.fit(problem, Wave(num_rounds=1), seed=0)
+        at_compare = StateAt(COMPARE_ROUNDS)
+        trace_dir = tempfile.mkdtemp(prefix="chip-smoke-trace-")
 
-    trace_check(trace_dir)
-    res = results["FullGD sparse/segment"]
-    print(f"[main] Table 3 cell (ML-1M proxy, grid {P}x{Q}, r={RANK}) after "
-          f"{FULL_ROUNDS} FullGD rounds: held-out RMSE {res.rmse():.6f}, "
-          f"cost {res.final_cost:.6e}", flush=True)
-    a = at_compare.state
-    b = results["FullGD dense"].state
-    for x, y, nm in ((a.U, b.U, "U"), (a.W, b.W, "W")):
-        scale = float(y.abs().max())
-        if not torch.allclose(x, y, rtol=STATE_RTOL, atol=1e-5 * scale):
-            fail(f"sparse and dense FullGD {nm} disagree: max diff "
-                 f"{float((x - y).abs().max()):.3e} (max |{nm}| {scale:.3e})")
-    print(f"[main] sparse and dense FullGD states agree after "
-          f"{COMPARE_ROUNDS} rounds (rtol {STATE_RTOL:.0e})", flush=True)
+        def traced_fit():
+            # the Table 3 fit under Telemetry, inside a profiler trace
+            obs.reset()
+            with obs.trace(trace_dir):
+                return Trainer(cfg, callbacks=[at_compare, Telemetry()]).fit(
+                    sparse, FullGD(num_rounds=FULL_ROUNDS,
+                                   eval_every=COMPARE_ROUNDS), state=state0)
 
-    reset_counts()
-    index = results["FullGD sparse/segment"].to_recommend_index()
-    users = torch.arange(0, 256 * 23, 23, device="cuda")
-    recommend_topk(index, users, k=10)            # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    items, scores = recommend_topk(index, users, k=10)
-    torch.cuda.synchronize()
-    ms = 1e3 * (time.perf_counter() - t0)
-    if items.shape != (256, 10) or not torch.isfinite(scores).all():
-        fail(f"recommend_topk gave {tuple(items.shape)} / non-finite scores")
-    n_checked = check_topk(index, users.cpu().numpy(), items, scores, 10)
-    print(f"[main] recommend_topk: 256 users, k=10, {ms:.3f} ms, "
-          f"{n_checked} tie-free users equal to the host reference",
-          flush=True)
+        runs = [
+            ("FullGD sparse/segment", ["sddmm_segment_grad"], traced_fit),
+            ("FullGD sparse/scatter", ["sddmm_factor_grad"],
+             lambda: trainer.fit(scatter, FullGD(num_rounds=10, eval_every=5),
+                                 state=state0)),
+            ("FullGD dense", ["masked_factor_grad"], lambda: trainer.fit(
+                dense, FullGD(num_rounds=COMPARE_ROUNDS, eval_every=10),
+                state=state0)),
+            ("Wave sparse", ["sddmm_segment_grad"], lambda: trainer.fit(
+                sparse, Wave(num_rounds=1), seed=1)),
+            ("Wave dense", ["masked_factor_grad"], lambda: trainer.fit(
+                dense, Wave(num_rounds=1), seed=1)),
+            ("Sequential sparse", ["sddmm_segment_grad"], lambda: trainer.fit(
+                sparse, Sequential(num_iters=300, eval_every=100), seed=2)),
+            ("Sequential dense", ["masked_factor_grad"], lambda: trainer.fit(
+                dense, Sequential(num_iters=100, eval_every=50), seed=2)),
+        ]
+        for label, expect, fit in runs:
+            results[label], got = run_phase(label, expect, fit)
+            add(got)
+        for label in ("FullGD sparse/segment", "FullGD sparse/scatter",
+                      "FullGD dense"):
+            res = results[label]
+            costs = [c for _, c in res.history]
+            if not costs[-1] < costs[0]:
+                fail(f"{label}: cost did not fall: {costs}")
+            rounds = res.t // (2 * (P - 1) * (Q - 1))
+            ms = 1e3 * res.wall_time / rounds
+            if label == "FullGD sparse/segment":
+                MEASURED["main_ms"] = ms
+            print(f"[main] {label}: {ms:.3f} ms/round over {rounds} rounds "
+                  f"(cost evals included), held-out RMSE {res.rmse():.4f}",
+                  flush=True)
+
+        trace_check(trace_dir)
+        res = results["FullGD sparse/segment"]
+        print(f"[main] Table 3 cell (ML-1M proxy, grid {P}x{Q}, r={RANK}) "
+              f"after {FULL_ROUNDS} FullGD rounds: held-out RMSE "
+              f"{res.rmse():.6f}, cost {res.final_cost:.6e}", flush=True)
+        a = at_compare.state
+        b = results["FullGD dense"].state
+        for x, y, nm in ((a.U, b.U, "U"), (a.W, b.W, "W")):
+            scale = float(y.abs().max())
+            if not torch.allclose(x, y, rtol=STATE_RTOL, atol=1e-5 * scale):
+                fail(f"sparse and dense FullGD {nm} disagree: max diff "
+                     f"{float((x - y).abs().max()):.3e} (max |{nm}| "
+                     f"{scale:.3e})")
+        print(f"[main] sparse and dense FullGD states agree after "
+              f"{COMPARE_ROUNDS} rounds (rtol {STATE_RTOL:.0e})", flush=True)
+
+        reset_counts()
+        index = results["FullGD sparse/segment"].to_recommend_index()
+        users = torch.arange(0, 256 * 23, 23, device="cuda")
+        recommend_topk(index, users, k=10)            # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        items, scores = recommend_topk(index, users, k=10)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        if items.shape != (256, 10) or not torch.isfinite(scores).all():
+            fail(f"recommend_topk gave {tuple(items.shape)} / non-finite "
+                 f"scores")
+        n_checked = check_topk(index, users.cpu().numpy(), items, scores, 10)
+        print(f"[main] recommend_topk: 256 users, k=10, {ms:.3f} ms, "
+              f"{n_checked} tie-free users equal to the host reference",
+              flush=True)
 
     # the paper's Table 2 cells, then the Gossip schedule
-    got, t2_checks = table2_phase(paper, card)
-    total["masked_factor_grad"] += got
-    got, g_checks = gossip_phase(sparse, scatter, state0, cfg, card)
-    for name, n in got.items():
-        total[name] += n
+    t2_checks, g_checks, s_checks, faults_by_stack = [], [], [], {}
+    if want("table2"):
+        got, t2_checks = table2_phase(paper, card)
+        total["masked_factor_grad"] += got
+    if want("gossip"):
+        got, g_checks = gossip_phase(sparse, scatter, state0, cfg, card)
+        add(got)
     # the streaming loop: append, refit, policy-driven refresh, minibatches
-    got, s_checks = stream_phase(ds, sparse, state0, cfg, card)
-    for name, n in got.items():
-        total[name] += n
+    if want("stream"):
+        got, s_checks = stream_phase(ds, sparse, state0, cfg, card)
+        add(got)
     # fault injection, async rounds, self-healing and resume on a 2x2 grid
-    got, faults_by_stack = faults_phase(sparse, cfg, card)
-    for name, n in got.items():
-        total[name] += n
-    other_shapes = {"masked_factor_grad": t2_checks + [g_checks[0]],
+    if want("faults"):
+        got, faults_by_stack = faults_phase(sparse, cfg, card)
+        add(got)
+    other_shapes = {"masked_factor_grad": t2_checks + g_checks[:1],
                     "sddmm_segment_grad": g_checks[1:] + s_checks}
 
-    # 4. the int8 score kernel at the top bucket of the fitted index
-    qidx = quantize_index(index)
-    top_users = torch.as_tensor(np.random.default_rng(5).choice(
-        qidx.num_users, TOP_BUCKET, replace=False), device="cuda")
-    rows.append(quant_kernel_row(qidx, top_users, card))
+    if want("serve"):
+        # 4. the int8 score kernel at the top bucket of the fitted index
+        qidx = quantize_index(index)
+        top_users = torch.as_tensor(np.random.default_rng(5).choice(
+            qidx.num_users, TOP_BUCKET, replace=False), device="cuda")
+        rows.append(quant_kernel_row(qidx, top_users, card))
 
-    # 5. the serving path: int8 engine, refresh, f32 engine
-    total["dequant_score"] += serve_phase(results["FullGD sparse/segment"],
-                                          results["FullGD dense"])
+        # 5. the serving path: int8 engine, refresh, f32 engine
+        total["dequant_score"] += serve_phase(results["FullGD sparse/segment"],
+                                              results["FullGD dense"])
     # owner-routed ingest and item-sharded serving on a 2x2 grid
-    got, seg_shapes, q_shapes = sharded_phase(
-        cfg, results["FullGD sparse/segment"], card)
-    for name, n in got.items():
-        total[name] += n
-    other_shapes["sddmm_segment_grad"] += seg_shapes
-    other_shapes["dequant_score"] = q_shapes
+    if want("sharded"):
+        got, seg_shapes, q_shapes = sharded_phase(
+            cfg, results["FullGD sparse/segment"], card)
+        add(got)
+        other_shapes["sddmm_segment_grad"] += seg_shapes
+        other_shapes["dequant_score"] = q_shapes
+    # the paper workload's instruments: traffic, method and density sweeps,
+    # gossip_comm, the roofline records
+    lm_analyses = None
+    if want("measure"):
+        got, lm_analyses = measure_phase(results["FullGD sparse/segment"])
+        add(got)
 
     for row in rows:
         row["launches"] = total[row["name"]]
-        if row["name"] in other_shapes:
+        if other_shapes.get(row["name"]):
             row["other_shapes"] = other_shapes[row["name"]]
         if row["name"] in faults_by_stack:
             row["faults_launches_by_stack"] = faults_by_stack[row["name"]]
 
-    # 6. gemma2-2b serving through the flash kernel, then its training
-    rows.append(lm_phase(card))
-    _free()
-    train_phase(card)
-    _free()
+    # 6. gemma2-2b serving through the flash kernel, then its training; an
+    # LM phase run without [lm] adds its launches to the kernel-only row
+    if want("lm"):
+        rows.append(lm_phase(card))
+        _free()
+    elif any(want(name) for name in LM_PHASES):
+        rows.append(flash_row(card))
+        _free()
+    if want("train"):
+        train_phase(card)
+        _free()
     # 7. the MoE family: granite-moe, then deepseek (MLA), full width
-    moe_phase(card, rows[-1])
-    _free()
+    if want("moe"):
+        moe_phase(card, rows[-1])
+        _free()
     # 8. the SSM family and the hybrid: mamba2, then zamba2, full width
-    ssm_phase(card, rows[-1])
-    _free()
+    if want("ssm"):
+        ssm_phase(card, rows[-1])
+        _free()
     # 9. the encoder-decoder (whisper), then the VLM (internvl2, 8 layers)
-    encdec_phase(card, rows[-1])
-    _free()
-    vlm_phase(card, rows[-1])
-    _free()
+    if want("encdec"):
+        encdec_phase(card, rows[-1])
+        _free()
+    if want("vlm"):
+        vlm_phase(card, rows[-1])
+        _free()
     # 10. the VLM cell on tensor-parallel ranks
-    tp_phase(card, rows[-1])
+    tp_out = tp_phase(card, rows[-1]) if want("tp") else None
+    if lm_analyses is not None:
+        roofline_after_tp(lm_analyses, tp_out)
     print(f"[main] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{time.perf_counter() - started:.1f}s since start", flush=True)

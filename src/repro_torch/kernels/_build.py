@@ -51,12 +51,11 @@ SIGNATURES = {
         "masked_factor_grad": ((_P,) * 8 + (_I,) * 4 + (_P,), _I),
     },
     "dequant_score": {
-        # Q_u s_u Q_w s_w | out | B n r | stream
+        # Q_u s_u Q_w s_w | out | B n r | stream; returns an error below
+        # 1 << 16, else the kernel run: BM << 16 | BN, 1 << 16 the first
         "dequant_score": ((_P,) * 5 + (_I,) * 3 + (_P,), _I),
         # the first kernel at any rank: the same arguments
         "dequant_score_first": ((_P,) * 5 + (_I,) * 3 + (_P,), _I),
-        # the calling thread's last launch: BM << 16 | BN, -1 first
-        "dequant_score_last_kernel": ((), _I),
     },
     "flash_attention": {
         # q k v | o | B Hq Hkv Lq Lk D Dv causal window | softcap | q_offset

@@ -365,12 +365,13 @@ struct DeviceState {
 constexpr int kMaxDevices = 16;
 DeviceState g_dev[kMaxDevices];
 
-// The kernel the calling thread's last launch ran: its tile shape as
-// BM << 16 | BN, read from the kTiles entry that instantiated it (kKernels[k]
-// is staged_score_kernel<kTiles[k]...>), -1 for the first kernel, 0 before
-// any launch.  The wrapper reads it after each launch to count launches by
-// kernel.
-thread_local int g_last_kernel = 0;
+// What dequant_score returns after a launch that went through: the kernel
+// it ran, as its tile shape BM << 16 | BN (read from the kTiles entry that
+// instantiated it: kKernels[k] is staged_score_kernel<kTiles[k]...>), or
+// kFirstKernel for the first kernel.  Both lie at or above 1 << 16, above
+// every cudaError_t, so one return value carries the error or the kernel
+// and the wrapper makes one call a launch.
+constexpr int kFirstKernel = 1 << 16;
 
 long long tile_count(int k, int B, int n) {
   const int bm = kTY * kTiles[k].rm, bn = kTX * kTiles[k].rn;
@@ -387,20 +388,20 @@ int pick_tile(int B, int n, int sms) {
 
 int launch_first(const void* uq, const float* us, const void* wq,
                  const float* ws, float* out, int B, int n, int r,
-                 cudaStream_t stream) {
+                 cudaStream_t stream, int* kernel) {
   const dim3 grid((n + kBN - 1) / kBN, (B + kBM - 1) / kBM);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   dequant_score_kernel<<<grid, dim3(kTX, kTY), 0, stream>>>(
       static_cast<const int8_t*>(uq), us, static_cast<const int8_t*>(wq), ws,
       out, B, n, r);
-  g_last_kernel = -1;
+  *kernel = kFirstKernel;
   return (int)cudaGetLastError();
 }
 
 // One CTA for each tile of the shape pick_tile gives.
 int launch_staged(const void* uq, const float* us, const void* wq,
                   const float* ws, float* out, int B, int n, int r,
-                  cudaStream_t stream) {
+                  cudaStream_t stream, int* kernel) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
@@ -424,32 +425,36 @@ int launch_staged(const void* uq, const float* us, const void* wq,
   kKernels[k]<<<(unsigned)tiles, kThreads, Layout(bm, bn, r).total,
                 stream>>>(static_cast<const int8_t*>(uq), us,
                           static_cast<const int8_t*>(wq), ws, out, B, n, r);
-  g_last_kernel = bm << 16 | bn;
+  *kernel = bm << 16 | bn;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
+// A cudaError_t (below 1 << 16) if the launch failed, else the kernel it
+// ran (kFirstKernel's comment).
 extern "C" int dequant_score(const void* uq, const float* us, const void* wq,
                              const float* ws, float* out, int B, int n, int r,
                              void* stream) {
   if (B <= 0 || n <= 0 || r < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return r > kStagedMaxRank ? launch_first(uq, us, wq, ws, out, B, n, r, s)
-                            : launch_staged(uq, us, wq, ws, out, B, n, r, s);
+  int kernel = 0;
+  const int err =
+      r > kStagedMaxRank
+          ? launch_first(uq, us, wq, ws, out, B, n, r, s, &kernel)
+          : launch_staged(uq, us, wq, ws, out, B, n, r, s, &kernel);
+  return err != cudaSuccess ? err : kernel;
 }
 
 // The first kernel at any rank, with dequant_score's arguments: the old
 // kernel that chip_smoke.py times beside the staged one on the same inputs.
+// Returns cudaGetLastError().
 extern "C" int dequant_score_first(const void* uq, const float* us,
                                    const void* wq, const float* ws,
                                    float* out, int B, int n, int r,
                                    void* stream) {
   if (B <= 0 || n <= 0 || r < 1) return (int)cudaErrorInvalidValue;
+  int kernel = 0;
   return launch_first(uq, us, wq, ws, out, B, n, r,
-                      static_cast<cudaStream_t>(stream));
+                      static_cast<cudaStream_t>(stream), &kernel);
 }
-
-// The kernel this thread's last launch of either entry ran (see
-// g_last_kernel).
-extern "C" int dequant_score_last_kernel() { return g_last_kernel; }

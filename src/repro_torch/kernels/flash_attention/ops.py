@@ -12,7 +12,10 @@ The kernel takes any D, Dv <= 256 and any Lq, Lk, so the TPU padding of
 the JAX wrapper (D to 128 lanes, L to the tile, q rescaled by √Dp/√D) is
 gone; V with its own head dim (MLA) goes in as it is.  It takes float32 or
 bfloat16 tensors, contiguous, all of one dtype.  Launches are counted in
-``flash_attention.launches``.
+``flash_attention.launches``.  On ``meta`` tensors nothing runs: the call
+returns an empty output of the right shape and appends its geometry to
+``flash_attention.meta_calls``, from which ``launch/roofline_bench.py``
+counts the kernel's work.
 
 There is no backward: the JAX kernel defines no VJP, and neither does this
 one.  So the wrapper refuses, on either device, to run where autograd would
@@ -48,6 +51,11 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
             "flash_attention has no backward (the JAX kernel defines no "
             "VJP): run it under torch.no_grad()/inference_mode, or train "
             "with the plain attention, Ctx(attn_impl=\"ref\")")
+    if q.device.type == "meta":          # shapes only: a work count
+        flash_attention.meta_calls.append(dict(
+            B=B, Hq=Hq, Hkv=Hkv, Lq=Lq, Lk=Lk, D=D, Dv=Dv,
+            causal=bool(causal), window=int(window), q_offset=int(q_offset)))
+        return q.new_empty((B, Hq, Lq, Dv))
     if not _build.on_card(q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, q_offset=q_offset)
@@ -82,3 +90,4 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
 
 
 flash_attention.launches = 0
+flash_attention.meta_calls = []

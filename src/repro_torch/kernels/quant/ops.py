@@ -17,7 +17,8 @@ The kernel takes any shape, so the TPU padding of the JAX wrapper (rank to
 back-off are gone.  Launches are counted in ``dequant_score.launches``,
 by batch size B in ``dequant_score.by_batch``, and by the kernel that ran
 in ``dequant_score.by_kernel``: a staged kernel by its (BM, BN) tile,
-``"first"`` for the first kernel, as the C entry reports its last launch.
+``"first"`` for the first kernel, as the C entry's return value reports
+it (one ctypes call a launch).
 """
 
 from __future__ import annotations
@@ -30,6 +31,9 @@ from repro_torch.kernels.quant.ref import dequant_score_ref, fused_score_ref
 
 # the int32 accumulator holds r products of at most 127² each
 MAX_RANK = (2**31 - 1) // 127**2
+# the C entry's return for the first kernel; a staged kernel's is its tile
+# BM << 16 | BN, an error a cudaError_t below it
+FIRST_KERNEL = 1 << 16
 
 
 def dequant_score(u_q, u_scale, w_q, w_scale, *, method: str | None = None):
@@ -65,16 +69,16 @@ def dequant_score(u_q, u_scale, w_q, w_scale, *, method: str | None = None):
     # a ctypes launch goes to the calling thread's current device: make it
     # the tensors' device (the serving worker is a thread of its own)
     with torch.cuda.device(u_q.device):
-        rc = lib.dequant_score(
+        ran = lib.dequant_score(
             u_q.data_ptr(), u_scale.data_ptr(), w_q.data_ptr(),
             w_scale.data_ptr(), out.data_ptr(), B, n, r,
             torch.cuda.current_stream(u_q.device).cuda_stream)
-    _build.check("dequant_score", rc)
-    last = lib.dequant_score_last_kernel()
+    if ran < FIRST_KERNEL:                  # a cudaError_t
+        _build.check("dequant_score", ran)
     dequant_score.launches += 1
     by_batch, by_kernel = dequant_score.by_batch, dequant_score.by_kernel
     by_batch[B] = by_batch.get(B, 0) + 1
-    kernel = divmod(last, 1 << 16) if last > 0 else "first"
+    kernel = "first" if ran == FIRST_KERNEL else divmod(ran, FIRST_KERNEL)
     by_kernel[kernel] = by_kernel.get(kernel, 0) + 1
     return out
 

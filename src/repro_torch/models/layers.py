@@ -64,6 +64,24 @@ class TP:
                    torch.device(device).type == "cuda"
                    and dist.get_backend(group) != "nccl", frozenset(split))
 
+    @classmethod
+    def dry(cls, size: int, split=frozenset(), rank: int = 0) -> "TP":
+        """Rank ``rank`` of ``size`` with no process group, for counting on
+        ``meta`` tensors (``launch/roofline_bench.py``): each collective
+        moves nothing and adds its call and the bytes of its input to
+        ``stats`` (``{op: [calls, 0.0, bytes]}``); its output has the
+        shape the real collective's would."""
+
+        return cls(None, rank, size, False, frozenset(split))
+
+    def _dry(self, op: str, x: torch.Tensor) -> None:
+        if x.device.type != "meta":
+            raise RuntimeError("a TP without a process group counts "
+                               "collectives on meta tensors only")
+        row = self.stats.setdefault(op, [0, 0.0, 0])
+        row[0] += 1
+        row[2] += x.numel() * x.element_size()
+
     @contextlib.contextmanager
     def _timing(self, op: str, x: torch.Tensor):
         if not self.timed:
@@ -95,6 +113,9 @@ def all_reduce(x, tp: TP | None):
 
     if tp is None or tp.size == 1:
         return x
+    if tp.group is None:
+        tp._dry("all_reduce", x)
+        return x
     with tp._timing("all_reduce", x):
         if tp.staged:
             host = x.cpu()
@@ -110,6 +131,9 @@ def all_gather_last(x, tp: TP | None):
 
     if tp is None or tp.size == 1:
         return x
+    if tp.group is None:
+        tp._dry("all_gather", x)
+        return torch.cat([x] * tp.size, dim=-1)
     with tp._timing("all_gather", x):
         src = x.cpu() if tp.staged else x.contiguous()
         parts = [torch.empty_like(src) for _ in range(tp.size)]

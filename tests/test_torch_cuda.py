@@ -1464,3 +1464,36 @@ def test_tp_serving_on_one_card_runs_the_flash_kernel_on_each_rank(cuda):
             top2 = ref.topk(2, dim=-1).values
             sure = (top2[:, 0] - top2[:, 1]) > bound
             assert torch.equal(got.argmax(-1)[sure], ref.argmax(-1)[sure])
+
+
+def test_committed_method_sweep_is_the_cards(cuda):
+    """The sweep ``resolve_method(None, cuda)`` reads was written on a card
+    by ``launch/serving_traffic.py --quant --json`` at the Table 3 cell."""
+
+    import json
+    import pathlib
+
+    from repro_torch.kernels.quant import autotune
+
+    data = json.loads(pathlib.Path(autotune.SWEEP_PATH).read_text())
+    assert data["backend"] == "cuda"
+    assert set(data["method_sweep_ms"]) == set(autotune.METHODS)
+    assert set(data["method_sweep_spread_ms"]) == set(autotune.METHODS)
+    assert data["machine"]["card"]["power_limit"]
+    assert autotune.resolve_method(None, cuda) == min(
+        data["method_sweep_ms"], key=data["method_sweep_ms"].get)
+
+
+def test_serving_traffic_quant_gate_holds_on_the_card(cuda):
+    from repro_torch.launch import serving_traffic
+
+    quant_ops.dequant_score.launches = 0
+    payload = serving_traffic.main([
+        "--users", "600", "--items", "400", "--rank", "16", "--requests",
+        "30", "--rate", "1000", "--buckets", "8,32", "--quant",
+        "--quant-method", "fused"])
+    assert payload["overlap_at_k"] >= serving_traffic.OVERLAP_GATE
+    assert payload["quant"]["method"] == "fused"
+    assert payload["quant"]["compiles"] == 2
+    assert quant_ops.dequant_score.launches > 0
+    assert all(ms > 0 for ms in payload["method_sweep_ms"].values())
