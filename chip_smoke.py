@@ -259,6 +259,39 @@ cache, and the per-rank bytes of the four-rank full-depth model
 reckoned from its specs (``train/shard.py::shard_nbytes``) beside
 ``param_count``.
 
+``[ep]`` (after ``[tp]``): the MoE family on 4 expert-parallel ranks of
+the model axis (``ep_pad_to`` = 4, the psum form: the rank runs its own
+experts, one all-reduce a MoE layer; MLA's heads split 4 ways, its latent
+cache whole on every rank).  a. The flash kernel at a rank's prefill
+shapes, as ``[moe]``'s rows: granite-moe's q (4, 6, 4000, 64) with k/v
+(4, 2, 4000, 64) (row 5i) and MLA's q/k (4, 4, 4000, 192) with v (4, 4,
+4000, 128) (row 5j).  b. granite-moe-3b-a800m at full width and depth
+(32 layers, 40 experts, 10 a rank) and c. deepseek-v2-lite-16b at full
+width (full depth on four cards; on one card shared by the ranks cut,
+layer 0's dense MLP kept, to the depth whose parameters and caches, as
+``tp_reckoning`` counts them, take at most half the card), each first in
+this process from ``init_shard`` at ``model = 1``: a prefill of 4 x 4000
+tokens, then 7 greedy decode steps, its routing recorded (``RouteLog``).
+Then one grid of 4 ranks (``gloo`` on one card, ``nccl`` with a card a
+rank) serves both, each rank from its own ``init_shard`` at ``model = 4``,
+fed the reference's tokens and routed as the reference was (a rank's own
+top-k choice is recorded beside: it may differ only where the
+reference's gap between the k-th and (k+1)-th probability is at most
+``ROUTE_MARGIN``, on at most ``FLIP_SHARE`` of the choices): every
+step's logits within 1e-3 x max|logit| of the reference's, the greedy
+tokens equal wherever the top-2 margin exceeds that, one flash launch a
+layer on every rank.  Rank 0 times its collectives (the card
+synchronised around each) and profiles one more decode step.  Prints
+prefill s and the median decode step of both runs, the device busy
+share, the collectives' calls, bytes and share, each rank's bytes of
+shards, cache and peak beside the reckoning, and the latent cache's
+bytes.  d. One granite-moe MoE layer (layer 0's experts) at b's prefill
+shape on the same ranks: the a2a form (1000 positions of each prompt a
+rank, capacity 2.0) against the psum form on seeded hidden states: the
+tokens with no dropped slot within 1e-5 x max|y|, the dropped slots
+counted as JAX's bucket rule counts them from the same routing on the
+host, both forms' ms and bytes a rank.
+
 ``[stream]`` (after ``[gossip]``): the streaming loop at the Table 3
 cell through ``launch/streaming.py``: 85% of the training ratings
 ingested with the headroom of the stream's largest per-block count; the
@@ -537,9 +570,9 @@ P = Q = 5
 RANK = 15
 PHASES = ("kernels", "main", "table2", "gossip", "stream", "faults",
           "serve", "sharded", "measure", "lm", "train", "moe", "ssm",
-          "encdec", "vlm", "tp")
+          "encdec", "vlm", "tp", "ep")
 NEEDS = {"serve": ("main",), "sharded": ("main",), "measure": ("main",)}
-LM_PHASES = ("lm", "moe", "ssm", "encdec", "vlm", "tp")
+LM_PHASES = ("lm", "moe", "ssm", "encdec", "vlm", "tp", "ep")
 CFG = dict(rho=1e3, lam=1e-6, a=2.0e-4, b=5.0e-7)
 FULL_ROUNDS = 800   # the Table 3 cell's rounds (benchmarks/table3_rmse.py)
 COMPARE_ROUNDS = 40  # sparse and dense FullGD are compared at this round
@@ -677,6 +710,14 @@ VLM_SPLIT = 1760      # continuation: patches + 1760 tokens + 32 decodes
 # JAX package's mesh), each holding 16 query and 2 KV heads; decode steps
 # timed with the collectives synchronised on rank 0
 TP_RANKS, TP_SEED, TP_TIMED_STEPS = 4, 0, 8
+# [ep]: the [moe] cell on 4 expert-parallel ranks (granite-moe's 40
+# experts 10 a rank, deepseek's 64 16 a rank), a prefill and 7 decode
+# steps (8 logits) fed the one-process run's tokens; on one card shared by
+# the ranks, deepseek's depth is cut so that the ranks' parameters and
+# caches take at most EP_CARD_SHARE of it; the a2a form's capacity and
+# its tolerance against the psum form on tokens with no dropped slot
+EP_RANKS, EP_SEED, EP_NEW, EP_CARD_SHARE = 4, 0, 8, 0.5
+EP_CAPACITY, A2A_TOL = 2.0, 1e-5
 # [measure]: the traffic tape, the density sweep, the gossip_comm grid
 MEASURE_REQUESTS, MEASURE_RATE, MEASURE_K = 200, 200.0, 100
 MEASURE_SHAPE = (6040, 3706)         # the Table 3 cell's matrix
@@ -2139,10 +2180,10 @@ class RouteLog:
     probability on the host.  Given ``force`` (an earlier log's choices) it
     routes by those instead, weighted by this model's own probabilities and
     renormalised as ``route`` does, so that two models can be compared
-    under the same routing."""
+    under the same routing; its own choices go to ``own``."""
 
     def __init__(self, force=None):
-        self.idx, self.gap, self.force = [], [], force
+        self.idx, self.gap, self.own, self.force = [], [], [], force
         self._route = moe_mod.route
 
     def __enter__(self):
@@ -2157,6 +2198,7 @@ class RouteLog:
         k = cfg.num_experts_per_tok
         probs = torch.softmax(xt.float() @ params["router"], dim=-1)
         if self.force is not None:
+            self.own.append(top_idx.cpu().numpy())
             top_idx = torch.as_tensor(self.force[len(self.idx)],
                                       device=xt.device)
             top_w = probs.gather(-1, top_idx)
@@ -3108,11 +3150,13 @@ def _shares(stats: dict, seconds: float, steps: int = 1) -> dict:
 
 def tp_reckoning(cfg, ranks: int, batch: int, max_len: int) -> dict:
     """A rank's bytes of parameters and cache of ``cfg`` at ``ranks``
-    tensor-parallel ranks, from its specs on ``meta`` (nothing is
-    allocated), beside ``param_count``."""
+    tensor-parallel ranks (a MoE model's experts padded to them and split
+    by expert), from its specs on ``meta`` (nothing is allocated), beside
+    ``param_count``."""
 
     mesh_cfg = MeshConfig(data=1, model=ranks, fsdp=False)
-    meta = build_model(cfg, device="meta")
+    ep = ranks if cfg.moe is not None else 0
+    meta = build_model(cfg, Ctx(ep_pad_to=ep), device="meta")
     shapes = model_api.param_specs(meta)
     specs = shard_rules.param_pspecs(cfg, shapes, mesh_cfg)
     shape = ShapeConfig("tp", max_len - cfg.num_patch_tokens, batch,
@@ -3279,6 +3323,402 @@ def tp_phase(card, flash_row, device="cuda") -> dict:
     flash_row["launches"] += out["launches"]
     flash_row["tp"] = out
     print(f"[tp] phase: {time.perf_counter() - t_phase:.1f}s of command",
+          flush=True)
+    return out
+
+
+def ep_depth(full, one_card: bool, batch: int, max_len: int):
+    """``full`` on a card a rank; on one card shared by the ``EP_RANKS``
+    ranks, its deepest cut (layer 0 kept: deepseek's dense MLP) whose
+    ranks' parameters and caches, as ``tp_reckoning`` counts them, take at
+    most ``EP_CARD_SHARE`` of the card."""
+
+    if not one_card:
+        return full
+    room = EP_CARD_SHARE * torch.cuda.get_device_properties(0).total_memory
+    for n in range(full.num_layers, 1, -1):
+        cfg = dataclasses.replace(full, num_layers=n)
+        r = tp_reckoning(cfg, EP_RANKS, batch, max_len)
+        if EP_RANKS * (r["parameter_bytes_per_rank"]
+                       + r["cache_bytes_per_rank"]) <= room:
+            return full if n == full.num_layers else cfg
+    fail(f"[ep] {full.name}: not even 2 layers fit {EP_CARD_SHARE} of the "
+         "card on its ranks")
+
+
+def ep_reference(cfg, prompts, device) -> dict:
+    """``[ep]``'s one-process run of ``cfg`` from ``init_shard`` at
+    ``model = 1``: a prefill, then ``EP_NEW - 1`` greedy decode steps, its
+    routing recorded; the logits of every step on the host, the tokens it
+    fed, the routing, times, flash launches and bytes."""
+
+    one = MeshConfig(data=1, model=1, fsdp=False)
+    ctx = Ctx(attn_impl="kernel", ep_pad_to=EP_RANKS)
+    model = build_model(cfg, ctx, device=device)
+    B, L = prompts.shape
+    prefill, _ = make_prefill_step(
+        model, None, one, ShapeConfig("ep", L, B, "prefill"), MOE_MAX_LEN)
+    decode, _ = make_serve_step(
+        model, None, one, ShapeConfig("ep", MOE_MAX_LEN, B, "decode"))
+    t0 = time.perf_counter()
+    params = init_shard(EP_SEED, cfg, ctx, one, 0, device)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    _tp_steps(prefill, decode, params, {"tokens": prompts[:1, :64]},
+              torch.zeros((1, 1), dtype=torch.int32), 64, device)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with RouteLog() as log:
+        _sync(device)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": prompts})
+        _sync(device)
+        t_pre = time.perf_counter() - t0
+        ref, fed, t_dec = [logits.float().cpu()], [], []
+        for i in range(EP_NEW - 1):
+            tok = logits.argmax(-1).to(torch.int32)
+            fed.append(tok.cpu())
+            t0 = time.perf_counter()
+            logits, cache = decode(params, cache, tok, L + i)
+            _sync(device)
+            t_dec.append(time.perf_counter() - t0)
+            ref.append(logits.float().cpu())
+    out = {"logits": ref, "fed": torch.stack(fed), "idx": log.idx,
+           "gap": log.gap, "prefill_s": t_pre, "decode_s": t_dec,
+           "init_s": t_init, "launches": counts()["flash_attention"],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "param_bytes": _nbytes(_leaves(params)),
+           "cache_bytes": _nbytes(x for c in _flat_caches(cache)
+                                  for x in c)}
+    del model, params, cache, logits, prefill, decode
+    _free()
+    return out
+
+
+def a2a_against_psum(rank, device, tp, p_moe, moe_cfg, B, L) -> dict:
+    """``[ep]`` d on one rank: one MoE layer's psum and a2a forms on the
+    same seeded hidden states (B, L, d), whole on every rank.  The tokens
+    of the rank's sequence part with no dropped slot are held; the
+    dropped slots are counted from the rank's routing by the port's
+    buckets and, on the host, by JAX's rule (a bucket keeps its first C
+    slots in a stable sort by owner rank)."""
+
+    d = p_moe["wi_gate"].shape[1]
+    g = torch.Generator(device=device).manual_seed(17)
+    x = torch.randn((B, L, d), generator=g, device=device)
+    forms = {"psum": lambda: moe_mod.moe_ffn(p_moe, x, moe_cfg, tp=tp),
+             "a2a": lambda: moe_mod.moe_ffn(p_moe, x, moe_cfg, tp=tp,
+                                            impl="a2a",
+                                            capacity_factor=EP_CAPACITY)}
+    with torch.inference_mode():
+        ys = {name: fn()[0] for name, fn in forms.items()}     # warm-up
+        secs = {name: [] for name in forms}
+        for _ in range(3):
+            for name, fn in forms.items():
+                _sync(device)
+                t0 = time.perf_counter()
+                fn()
+                _sync(device)
+                secs[name].append(time.perf_counter() - t0)
+        bytes_ = {}
+        for name, fn in forms.items():
+            tp.stats.clear()
+            tp.timed = True
+            fn()
+            tp.timed = False
+            bytes_[name] = {op: {"calls": c, "bytes": b, "seconds": t}
+                            for op, (c, t, b) in tp.stats.items()}
+        tp.stats.clear()
+        n, Lr = tp.size, L // tp.size
+        part = x[:, rank * Lr:(rank + 1) * Lr].reshape(-1, d)
+        top_idx, _, _ = moe_mod.route(p_moe, part, moe_cfg)
+        n_local = p_moe["wi_gate"].shape[0]
+        k = moe_cfg.num_experts_per_tok
+        C = moe_mod.a2a_capacity(part.shape[0], k, n, EP_CAPACITY)
+        order, place = moe_mod.a2a_buckets(top_idx, n_local, n, C)
+        dropped = torch.zeros(place.numel(), dtype=torch.bool,
+                              device=device)
+        dropped[order] = place == n * C
+        dst = top_idx.reshape(-1).cpu().numpy() // n_local
+        host = int(np.maximum(np.bincount(dst, minlength=n) - C, 0).sum())
+        clean = ~dropped.reshape(-1, k).any(-1)              # (B * Lr,)
+        ya = ys["a2a"][:, rank * Lr:(rank + 1) * Lr].reshape(-1, d)
+        yp = ys["psum"][:, rank * Lr:(rank + 1) * Lr].reshape(-1, d)
+        err = float((ya - yp)[clean].abs().max()) if bool(clean.any()) \
+            else 0.0
+        scale = float(ys["psum"].abs().max())
+    return {"ms": {name: 1e3 * statistics.median(v)
+                   for name, v in secs.items()},
+            "collectives": bytes_, "C": C, "t": part.shape[0],
+            "dropped": int(dropped.sum()), "dropped_host": host,
+            "tokens_held": int(clean.sum()), "err": err, "scale": scale}
+
+
+def ep_serve(rank, device, cfg, prompts, fed, ref_idx, ref_gap,
+             layer_check: bool) -> dict:
+    """``[ep]``'s rank: its ``init_shard`` shards at ``model = EP_RANKS``,
+    a warm-up, the prefill and decode steps fed the reference's tokens
+    and routed as it was (its own choices compared with the reference's),
+    rank 0 timing its collectives; one more decode step, profiled on rank
+    0; with ``layer_check``, ``a2a_against_psum`` on layer 0's experts."""
+
+    import torch.distributed as dist
+
+    mesh_cfg = MeshConfig(data=1, model=EP_RANKS, fsdp=False)
+    ctx = Ctx(attn_impl="kernel", ep_pad_to=EP_RANKS)
+    model = build_model(cfg, ctx, device=device)
+    B, L = prompts.shape
+    prefill, info = make_prefill_step(
+        model, dist.group.WORLD, mesh_cfg, ShapeConfig("ep", L, B, "prefill"),
+        MOE_MAX_LEN)
+    decode, dinfo = make_serve_step(
+        model, dist.group.WORLD, mesh_cfg,
+        ShapeConfig("ep", MOE_MAX_LEN, B, "decode"))
+    t0 = time.perf_counter()
+    params = init_shard(EP_SEED, cfg, ctx, mesh_cfg, rank, device)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    _tp_steps(prefill, decode, params, {"tokens": prompts[:1, :64]},
+              fed[:1, :1], 64, device)
+    torch.cuda.reset_peak_memory_stats(device)
+    tp, dtp = info["model"].ctx.tp, dinfo["model"].ctx.tp
+    tp.timed = dtp.timed = rank == 0
+    n0 = flash_ops.flash_attention.launches
+    with RouteLog(force=ref_idx) as log:
+        logits, t_pre, t_dec, cache = _tp_steps(
+            prefill, decode, params, {"tokens": prompts}, fed, L, device)
+    tp.timed = dtp.timed = False
+    flips, choices, gaps = 0, 0, []
+    for own, used, gap in zip(log.own, ref_idx, ref_gap):
+        same = (np.sort(own, -1) == np.sort(used, -1)).all(-1)
+        flips += int((~same).sum())
+        choices += same.size
+        gaps += gap[~same].tolist()
+    out = {"launches": flash_ops.flash_attention.launches - n0,
+           "prefill_s": t_pre, "decode_s": t_dec, "init_s": t_init,
+           "param_bytes": _nbytes(_leaves(params)),
+           "cache_bytes": _nbytes(x for c in _flat_caches(cache) for x in c),
+           "peak_bytes": torch.cuda.max_memory_allocated(device),
+           "flips": flips, "choices": choices,
+           "flip_gap_max": max(gaps) if gaps else None,
+           "routing_calls": len(log.own)}
+    # one more step on every rank (its collectives), profiled on rank 0
+    tok = logits[-1].argmax(-1).to(torch.int32).to(device)
+    with torch.inference_mode():
+        if rank == 0:
+            _, secs, bd = profiled(
+                lambda: decode(params, cache, tok, L + len(fed)))
+            out["profile"] = {"wall_ms": 1e3 * secs,
+                              "busy": sum(bd.values()) / (1e3 * secs),
+                              "top": top(bd)}
+        else:
+            decode(params, cache, tok, L + len(fed))
+            _sync(device)
+    if rank == 0:
+        out["logits"] = [x.numpy() for x in logits]
+        out["timed"] = {"prefill": dict(tp.stats), "decode": dict(dtp.stats)}
+    if layer_check:
+        out["layer"] = a2a_against_psum(
+            rank, device, tp, _index(params["units"], 0)["s0"]["moe"],
+            cfg.moe, B, L)
+    del params, cache
+    _free()
+    return out
+
+
+def ep_rank(rank, device, jobs) -> list:
+    """``[ep]``'s rank over every arch of ``jobs`` in turn."""
+
+    return [ep_serve(rank, device, *job) for job in jobs]
+
+
+def ep_report(cfg, full, ref, ranks, backend, card_total) -> dict:
+    """``[ep]``'s gates and lines for one arch (b or c)."""
+
+    tag = f"[ep] {cfg.name}"
+    launches = [r["launches"] for r in ranks]
+    if min(launches) < 1 or launches != [cfg.num_layers] * EP_RANKS:
+        fail(f"{tag}: flash_attention launches by rank {launches}, expected "
+             f"{cfg.num_layers} on each of {EP_RANKS}")
+    if ref["launches"] != cfg.num_layers:
+        fail(f"{tag}: the reference launched flash_attention "
+             f"{ref['launches']} times, expected {cfg.num_layers}")
+    got, want = ranks[0]["logits"], ref["logits"]
+    if len(got) != len(want):
+        fail(f"{tag}: {len(got)} steps of logits, expected {len(want)}")
+    worst, checked, agree = 0.0, 0, True
+    for step, (g, w) in enumerate(zip(got, want)):
+        g = torch.from_numpy(g)
+        if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+            fail(f"{tag} step {step}: logits {tuple(g.shape)} not finite or "
+                 f"not the reference's {tuple(w.shape)}")
+        bound = LOGIT_TOL * float(w.abs().max())
+        diff = float((g - w).abs().max())
+        worst = max(worst, diff / bound)
+        if not diff <= bound:
+            fail(f"{tag} step {step}: routed alike, the logits differ from "
+                 f"the reference's by {diff:.3e} > {bound:.3e}")
+        top2 = w.topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > bound
+        checked += int(sure.sum())
+        agree &= bool(torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure]))
+    if not agree:
+        fail(f"{tag}: a greedy token differs from the reference's where its "
+             "top-2 margin exceeds the bound")
+    flips = sum(r["flips"] for r in ranks)
+    choices = sum(r["choices"] for r in ranks)
+    gaps = [r["flip_gap_max"] for r in ranks if r["flip_gap_max"] is not None]
+    if flips / choices > FLIP_SHARE:
+        fail(f"{tag}: the ranks' own routing differs from the reference's "
+             f"on {flips / choices:.2e} of the choices, more than "
+             f"{FLIP_SHARE}")
+    if gaps and max(gaps) > ROUTE_MARGIN:
+        fail(f"{tag}: a rank's own routing differs from the reference's on "
+             f"a gap of {max(gaps):.3e} > {ROUTE_MARGIN}")
+    r0 = ranks[0]
+    ep_ms = 1e3 * statistics.median(r0["decode_s"])
+    ref_ms = 1e3 * statistics.median(ref["decode_s"])
+    shares = {"prefill": _shares(r0["timed"]["prefill"], r0["prefill_s"]),
+              "decode_step": _shares(r0["timed"]["decode"],
+                                     sum(r0["decode_s"]),
+                                     len(r0["decode_s"]))}
+    reckon = tp_reckoning(cfg, EP_RANKS, MOE_BATCH, MOE_MAX_LEN)
+    reckon_full = tp_reckoning(full, EP_RANKS, MOE_BATCH, MOE_MAX_LEN)
+    depth = (f"{cfg.num_layers} of {full.num_layers} layers (cut: one card "
+             f"holds the {EP_RANKS} ranks)" if cfg.num_layers
+             != full.num_layers else f"all {full.num_layers} layers")
+    print(f"{tag}: {depth} at full width; reference, 1 process "
+          f"({ref['param_bytes'] / 1e9:.2f} GB of f32 parameters, "
+          f"init_shard {ref['init_s']:.2f}s): prefill {ref['prefill_s']:.3f}s"
+          f" of {MOE_BATCH} x {MOE_PROMPT}, decode {ref_ms:.3f} ms/step "
+          f"(median of {len(ref['decode_s'])}), {ref['launches']} flash "
+          f"launches, peak {ref['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"{tag}: {EP_RANKS} EP ranks ({backend}, "
+          f"{'one card' if backend == 'gloo' else 'a card a rank'}): prefill "
+          f"{r0['prefill_s']:.3f}s, decode {ep_ms:.3f} ms/step (median of "
+          f"{len(r0['decode_s'])}; rank 0 timing its collectives, routing "
+          f"recorded); flash launches by rank {launches}; routed as the "
+          f"reference, logits' max diff {worst:.3f} x the bound (1e-3 x "
+          f"max|logit|) over all {len(want)} steps, greedy tokens equal on "
+          f"all {checked} (row, step) with a margin; the ranks' own routing "
+          f"differs on {flips} of {choices} (layer, token) choices (share "
+          f"{flips / choices:.2e}, bound {FLIP_SHARE}), largest reference gap"
+          f" there {max(gaps) if gaps else None} (bound {ROUTE_MARGIN})",
+          flush=True)
+    prof = r0["profile"]
+    print(f"{tag} rank 0 decode step under the profiler: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {100 * prof['busy']:.1f}%;"
+          f" by kernel: {prof['top']}", flush=True)
+    print(f"{tag} collectives on rank 0, the card synchronised around each: "
+          f"prefill {json.dumps(shares['prefill'])}; decode step "
+          f"{json.dumps(shares['decode_step'])}", flush=True)
+    for r, res in enumerate(ranks):
+        print(f"{tag} rank {r}: shards {res['param_bytes'] / 1e9:.3f} GB, "
+              f"cache {res['cache_bytes'] / 1e9:.3f} GB, peak "
+              f"{res['peak_bytes'] / 2**30:.2f} GiB, init_shard "
+              f"{res['init_s']:.2f}s", flush=True)
+    print(f"{tag} reckoned from the specs: a rank holds "
+          f"{reckon['parameter_bytes_per_rank'] / 1e9:.3f} GB of weights + "
+          f"{reckon['cache_bytes_per_rank'] / 1e9:.3f} GB of bf16 cache at "
+          f"B = {MOE_BATCH}, max_len {MOE_MAX_LEN}; at full depth "
+          f"({full.num_layers} layers, {reckon_full['parameters']} "
+          f"parameters, {reckon_full['parameter_bytes_all'] / 1e9:.1f} GB "
+          f"of f32) {reckon_full['parameter_bytes_per_rank'] / 1e9:.2f} + "
+          f"{reckon_full['cache_bytes_per_rank'] / 1e9:.2f} GB, against the "
+          f"card's {card_total / 1e9:.1f} GB", flush=True)
+    if cfg.mla is not None:
+        print(f"{tag} latent cache (c_kv, k_rope), whole on every rank: "
+              f"{r0['cache_bytes']} bytes a rank in bf16", flush=True)
+    return {"layers": cfg.num_layers, "backend": backend,
+            "reference": {"prefill_s": ref["prefill_s"],
+                          "decode_ms_per_step": ref_ms,
+                          "peak_gib": ref["peak_bytes"] / 2**30,
+                          "parameter_bytes": ref["param_bytes"]},
+            "ranks": [{k: v for k, v in r.items()
+                       if k not in ("logits", "timed", "layer")}
+                      for r in ranks],
+            "prefill_s": r0["prefill_s"], "decode_ms_per_step": ep_ms,
+            "busy": prof["busy"], "collectives": shares,
+            "logit_err_over_bound": worst, "greedy_checked": checked,
+            "routing": {"flips": flips, "choices": choices},
+            "reckoning": reckon, "full_depth": reckon_full}
+
+
+def ep_layer_report(ranks) -> dict:
+    """``[ep]`` d's gates and line."""
+
+    layer = [r["layer"] for r in ranks]
+    for r, res in enumerate(layer):
+        if res["dropped"] != res["dropped_host"]:
+            fail(f"[ep] a2a rank {r}: {res['dropped']} slots dropped, JAX's "
+                 f"bucket rule on the host counts {res['dropped_host']}")
+        if not res["err"] <= A2A_TOL * res["scale"]:
+            fail(f"[ep] a2a rank {r}: on the tokens with no dropped slot the "
+                 f"a2a form differs from the psum form by {res['err']:.3e} > "
+                 f"{A2A_TOL} x {res['scale']:.3e}")
+    print(f"[ep] one granite-moe MoE layer (layer 0's experts) at {MOE_BATCH}"
+          f" x {MOE_PROMPT} on {EP_RANKS} ranks, capacity {EP_CAPACITY}: "
+          + json.dumps([{k: res[k] for k in ("ms", "t", "C", "dropped",
+                                              "dropped_host", "tokens_held",
+                                              "err", "scale", "collectives")}
+                        for res in layer]), flush=True)
+    return {"ms": layer[0]["ms"], "collectives": layer[0]["collectives"],
+            "dropped": [res["dropped"] for res in layer],
+            "max_err_over_scale": max(res["err"] / res["scale"]
+                                      for res in layer)}
+
+
+def ep_phase(card, flash_row, device="cuda") -> dict:
+    """``[ep]``: rows 5i and 5j, then both MoE archs on ``EP_RANKS``
+    expert-parallel ranks against one process, then one MoE layer's a2a
+    form against its psum form; see the module docstring.  Adds the
+    phase's flash launches to ``flash_row``."""
+
+    t_phase = time.perf_counter()
+    n = EP_RANKS
+    flash = {"granite-moe-3b-a800m": prefill_flash(
+                 card, "[ep]", "granite-moe rank", MOE_BATCH, MOE_PROMPT,
+                 24 // n, 8 // n, 64, 64),
+             "deepseek-v2-lite-16b": prefill_flash(
+                 card, "[ep]", "mla rank", MOE_BATCH, MOE_PROMPT, 16 // n,
+                 16 // n, 192, 128)}
+    backend = pick_backend(device, n)
+    card_total = torch.cuda.get_device_properties(0).total_memory
+    dev = torch.device(device)
+    cfgs, refs, jobs = {}, {}, []
+    for arch in MOE_ARCHS:
+        full = get_model_config(arch)
+        prompts = np.random.default_rng(13).integers(
+            0, full.vocab_size, (MOE_BATCH, MOE_PROMPT))
+        cfg = ep_depth(full, backend == "gloo", MOE_BATCH, MOE_MAX_LEN)
+        if arch == "granite-moe-3b-a800m" and cfg is not full:
+            fail(f"[ep] {arch} must run at full depth, the reckoning cut it "
+                 f"to {cfg.num_layers} layers")
+        cfgs[arch] = (cfg, full)
+        ref = ep_reference(cfg, prompts, dev)
+        refs[arch] = ref
+        jobs.append((cfg, prompts, ref["fed"], ref.pop("idx"),
+                     ref.pop("gap"), arch == "granite-moe-3b-a800m"))
+    marks: list = []
+    t0 = time.perf_counter()
+    ranks = run_on_grid(ep_rank, (1, n), jobs, device=device, timeout=900,
+                        marks=marks)
+    t_grid = time.perf_counter() - t0
+    print(f"[ep] one grid of {n} ranks ({backend}) served both archs in "
+          f"{t_grid:.1f}s (start-up {max(m['group_s'] for m in marks):.1f}s)",
+          flush=True)
+    out = {"backend": backend, "flash": flash}
+    for i, arch in enumerate(MOE_ARCHS):
+        cfg, full = cfgs[arch]
+        out[arch] = ep_report(cfg, full, refs[arch], [r[i] for r in ranks],
+                              backend, card_total)
+    out["a2a_layer"] = ep_layer_report([r[0] for r in ranks])
+    out["launches"] = sum(refs[a]["launches"] for a in MOE_ARCHS) + sum(
+        r[i]["launches"] for r in ranks for i in range(len(MOE_ARCHS)))
+    flash_row["launches"] += out["launches"]
+    flash_row["ep"] = out
+    MEASURED["ep"] = {arch: out[arch] for arch in MOE_ARCHS}
+    print(f"[ep] phase: {time.perf_counter() - t_phase:.1f}s of command",
           flush=True)
     return out
 
@@ -4506,7 +4946,8 @@ def prefixed(tag: str):
 def measure_phase(fitted, device="cuda") -> tuple[dict, list]:
     """``[measure]``: the instruments of the module docstring.  Returns
     the kernels' launches (the gossip_comm grid's ranks included) and the
-    ``[tp]`` cell's roofline analyses, which are printed after ``[tp]``."""
+    ``[tp]`` and ``[ep]`` cells' roofline analyses (``{"tp": [...], "ep":
+    [...]}``), which are printed after ``[ep]``."""
 
     t_phase = time.perf_counter()
     total = dict.fromkeys(WRAPPERS, 0)
@@ -4575,7 +5016,9 @@ def measure_phase(fitted, device="cuda") -> tuple[dict, list]:
 
     t0 = time.perf_counter()
     fit_records = roofline_bench.gossip_records()
-    lm_analyses = [analyze_record(r) for r in roofline_bench.lm_records()]
+    lm_analyses = {
+        "tp": [analyze_record(r) for r in roofline_bench.lm_records()],
+        "ep": [analyze_record(r) for r in roofline_bench.moe_records()]}
     print(f"[measure] roofline records counted in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     beside = {"1x1": ("[main] FullGD sparse/segment ms/round",
@@ -4592,19 +5035,38 @@ def measure_phase(fitted, device="cuda") -> tuple[dict, list]:
     return total, lm_analyses
 
 
-def roofline_after_tp(lm_analyses, tp_out) -> None:
-    """The ``[tp]`` cell's roofline lines beside its measured times (the
-    one-process reference at ``model`` = 1, rank 0 at 4)."""
+def roofline_after_tp(lm_analyses, tp_out, ep_out) -> None:
+    """The ``[tp]`` and ``[ep]`` cells' roofline lines beside their
+    measured times (``[tp]``: the one-process reference at ``model`` = 1,
+    rank 0 at 4; ``[ep]``: rank 0 at 4, its depth named where one card cut
+    it; an a2a prefill record beside ``[ep]`` d's one layer, both forms)."""
 
-    for a in lm_analyses:
-        if tp_out is None:
-            seen = "not run"
-        else:
-            run = tp_out["reference"] if a["chips"] == 1 else tp_out
-            seen = (f"{run['prefill_s']:.4f} s" if a["shape_cfg"]["kind"]
-                    == "prefill" else f"{run['decode_ms_per_step']:.4f} ms")
+    def seen(a, run):
+        return (f"{run['prefill_s']:.4f} s" if a["shape_cfg"]["kind"]
+                == "prefill" else f"{run['decode_ms_per_step']:.4f} ms")
+
+    for a in lm_analyses["tp"]:
+        run = None if tp_out is None else (
+            tp_out["reference"] if a["chips"] == 1 else tp_out)
         print(f"[measure] {roofline_bench.roofline_line(a)} | [tp] "
-              f"measured: {seen}", flush=True)
+              f"measured: {'not run' if run is None else seen(a, run)}",
+              flush=True)
+    for a in lm_analyses["ep"]:
+        run = None if ep_out is None else ep_out[a["arch"]]
+        layer = None if ep_out is None else ep_out["a2a_layer"]["ms"]
+        if run is None:
+            text = "not run"
+        elif a["shape"].endswith("_a2a"):
+            text = (f"one MoE layer a2a {layer['a2a']:.4f} ms against psum "
+                    f"{layer['psum']:.4f} ms (d)" if a["arch"]
+                    == "granite-moe-3b-a800m" else
+                    "not measured (d runs granite-moe's layer)")
+        else:
+            full = get_model_config(a["arch"]).num_layers
+            text = seen(a, run) + (f" at {run['layers']} of {full} layers"
+                                   if run["layers"] != full else "")
+        print(f"[measure] {roofline_bench.roofline_line(a)} | [ep] "
+              f"measured: {text}", flush=True)
 
 
 def _leaves(tree):
@@ -4846,10 +5308,13 @@ def main() -> None:
     if want("vlm"):
         vlm_phase(card, rows[-1])
         _free()
-    # 10. the VLM cell on tensor-parallel ranks
+    # 10. the VLM cell on tensor-parallel ranks, then the MoE family on
+    # expert-parallel ranks
     tp_out = tp_phase(card, rows[-1]) if want("tp") else None
+    _free()
+    ep_out = ep_phase(card, rows[-1]) if want("ep") else None
     if lm_analyses is not None:
-        roofline_after_tp(lm_analyses, tp_out)
+        roofline_after_tp(lm_analyses, tp_out, ep_out)
     print(f"[main] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{time.perf_counter() - started:.1f}s since start", flush=True)

@@ -9,9 +9,11 @@ program over the mesh, the port's runs on one rank of a ``torch.distributed``
 group of ``mesh_cfg.model`` ranks: it takes that rank's parameter shards
 (``train/shard.py``) and cache shard and returns the full (B, V) logits,
 which every rank holds (the JAX step replicates them), and its cache
-shard.  Decode writes the cache shard in place: the port's form of
-``donate_argnums=(1,)``.  Without a group (``mesh_cfg.model == 1``) the
-step is the model's own.
+shard.  A MoE model's experts are padded to the model axis
+(``with_ep``) and split by expert over its ranks; MLA's latent cache is
+whole on every rank.  Decode writes the cache shard in place: the
+port's form of ``donate_argnums=(1,)``.  Without a group
+(``mesh_cfg.model == 1``) the step is the model's own.
 
 ``ServeLoop`` runs one prefill, then one cached decode step per generated
 token, every slot of the batch at the same position.
@@ -31,6 +33,19 @@ from repro_torch.models.layers import TP
 from repro_torch.optim.optimizers import tree_map_with_path
 from repro_torch.train import sharding as S
 from repro_torch.train.shard import check_mesh, local_shape, model_split
+
+
+def with_ep(model: Model, mesh_cfg: MeshConfig) -> Model:
+    """``model`` with its experts padded to a multiple of the model axis
+    where it is a MoE model on more than one rank and pads nothing yet, as
+    the JAX launcher builds it (``ep_pad_to=mesh_cfg.model``); else
+    itself."""
+
+    if (model.cfg.moe is None or mesh_cfg.model == 1
+            or model.ctx.ep_pad_to):
+        return model
+    return build_model(model.cfg, dataclasses.replace(
+        model.ctx, ep_pad_to=mesh_cfg.model), device=model.device)
 
 
 def _rank_model(model: Model, group, mesh_cfg: MeshConfig, shapes,
@@ -94,6 +109,7 @@ def make_serve_step(model: Model, group, mesh_cfg: MeshConfig,
     its patch tokens): ``step(params, cache, token, pos) -> (logits,
     cache)`` on this rank's shards."""
 
+    model = with_ep(model, mesh_cfg)
     cfg = model.cfg
     B = shape_cfg.global_batch
     max_len = _max_len(model, shape_cfg)
@@ -118,6 +134,7 @@ def make_prefill_step(model: Model, group, mesh_cfg: MeshConfig,
     """``step(params, batch) -> (last-position logits (B, V), cache
     shard)`` on this rank's shards, the cache ``max_len`` deep."""
 
+    model = with_ep(model, mesh_cfg)
     cfg = model.cfg
     B = shape_cfg.global_batch
     max_len = max_len or _max_len(model, shape_cfg)

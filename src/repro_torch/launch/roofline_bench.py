@@ -35,7 +35,17 @@ counted from shapes, never measured.
   through the sharding rules).  Collective bytes: the rank's
   ``models.layers.TP`` collectives, counted by a group-less ``TP.dry``,
   with the JAX package's ring formulas (all-reduce 2·b·(n−1)/n,
-  all-gather of a result b: b·(n−1)/n).  ::
+  all-gather of a result b: b·(n−1)/n; all-to-all of b: b·(n−1)/n, the
+  rank's own chunk staying).
+* **The expert-parallel cell** (:func:`moe_records`): ``[ep]``'s
+  granite-moe-3b-a800m and deepseek-v2-lite-16b at published widths and
+  full depth on 4 EP ranks (experts padded to the axis, as the launcher
+  pads them), a prefill of 4 × 4000 tokens in the psum form and in the
+  a2a form (capacity 2.0), and a psum decode step against a 4096-deep
+  cache (the a2a form cannot split one token).  Meta tensors hold no
+  routing: the expert run lengths are counted as an even split of the
+  slots (``models/moe.py``), and the a2a buffers are counted at their
+  capacity, as the form sends them.  ::
 
     python -m repro_torch.launch.roofline_bench [--write PATH] [--path GLOB]
 """
@@ -61,6 +71,9 @@ FIT_CELLS = (((5, 5), (1, 1)), ((4, 4), (2, 2)))
 LM_ARCH, LM_LAYERS = "internvl2-76b", 8
 LM_BATCH, LM_PROMPT, LM_MAX_LEN = 4, 1792, 2080
 LM_MODEL_AXES = (1, 4)
+# the [ep] cell (chip_smoke.py's MOE_* and EP_RANKS)
+MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
+MOE_BATCH, MOE_PROMPT, MOE_MAX_LEN, EP_RANKS = 4, 4000, 4096, 4
 
 
 def load_records(path=DEFAULT_PATH):
@@ -178,13 +191,14 @@ def flash_flops(calls) -> float:
 def ring_bytes(stats: dict, size: int) -> float:
     """Wire bytes a rank receives for ``TP.dry``'s ``stats`` on a ring of
     ``size``: all-reduce 2·b·(n−1)/n; all-gather b·(n−1)/n of its result
-    b, n times the input counted."""
+    b, n times the input counted; all-to-all b·(n−1)/n."""
 
     if size == 1:
         return 0.0
     ar = stats.get("all_reduce", [0, 0.0, 0])[2]
     ag = stats.get("all_gather", [0, 0.0, 0])[2] * size
-    return 2.0 * ar * (size - 1) / size + ag * (size - 1) / size
+    a2a = stats.get("all_to_all", [0, 0.0, 0])[2]
+    return (2.0 * ar + ag + a2a) * (size - 1) / size
 
 
 def _tree_bytes(tree) -> int:
@@ -198,11 +212,14 @@ def _tree_bytes(tree) -> int:
 
 def lm_record(cfg, kind: str, batch: int, prompt: int, max_len: int,
               model_axis: int, arch: str | None = None,
-              overrides: dict | None = None) -> dict:
+              overrides: dict | None = None,
+              moe_impl: str = "psum") -> dict:
     """The record of one ``kind`` step ("prefill" of ``prompt`` tokens, a
     VLM's patches before them, or one "decode" step at the position after
     them, against a ``max_len``-deep cache) on rank 0 of ``model_axis``
-    tensor-parallel ranks, counted on ``meta``."""
+    tensor-parallel ranks, counted on ``meta``; a MoE model's experts
+    padded to the axis and combined by ``moe_impl`` (an ``"a2a"`` record's
+    shape ends in ``_a2a``)."""
 
     import torch
     from torch.utils.flop_counter import FlopCounterMode
@@ -216,11 +233,13 @@ def lm_record(cfg, kind: str, batch: int, prompt: int, max_len: int,
     from repro_torch.train.shard import model_split, shard_params
 
     mesh_cfg = MeshConfig(data=1, model=model_axis, fsdp=False)
-    shapes = param_specs(build_model(cfg, device="meta"))
+    ctx = Ctx(attn_impl="kernel", moe_impl=moe_impl,
+              ep_pad_to=model_axis if cfg.moe is not None else 0)
+    shapes = param_specs(build_model(cfg, ctx, device="meta"))
     pspecs = S.param_pspecs(cfg, shapes, mesh_cfg)
     tp = (TP.dry(model_axis, model_split(shapes, pspecs))
           if model_axis > 1 else None)
-    model = build_model(cfg, Ctx(attn_impl="kernel", tp=tp), device="meta")
+    model = build_model(cfg, dataclasses.replace(ctx, tp=tp), device="meta")
     params = shard_params(shapes, pspecs, mesh_cfg, 0)
     cache = model.init_cache(batch, max_len)
     patches = cfg.num_patch_tokens if cfg.family == "vlm" else 0
@@ -250,6 +269,7 @@ def lm_record(cfg, kind: str, batch: int, prompt: int, max_len: int,
     # cache's depth in tokens
     seq = positions if kind == "prefill" else max_len - patches
     shape = f"{kind}_{batch}x{positions if kind == 'prefill' else max_len}"
+    shape += "_a2a" if moe_impl == "a2a" else ""
     return {"arch": arch or cfg.name, "shape": shape,
             "mesh": f"1x{model_axis}", "chips": model_axis,
             "flops_per_device": torch_flops + kernel_flops,
@@ -278,8 +298,23 @@ def lm_records() -> list[dict]:
             for tp in LM_MODEL_AXES for kind in ("prefill", "decode")]
 
 
+def moe_records() -> list[dict]:
+    """The ``[ep]`` cell's records (module docstring)."""
+
+    from repro_torch.config import get_model_config
+
+    out = []
+    for arch in MOE_ARCHS:
+        cfg = get_model_config(arch)
+        for kind, impl in (("prefill", "psum"), ("prefill", "a2a"),
+                           ("decode", "psum")):
+            out.append(lm_record(cfg, kind, MOE_BATCH, MOE_PROMPT,
+                                 MOE_MAX_LEN, EP_RANKS, moe_impl=impl))
+    return out
+
+
 def write_records(path: str) -> list[dict]:
-    records = gossip_records() + lm_records()
+    records = gossip_records() + lm_records() + moe_records()
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "a") as f:
         for r in records:

@@ -3,6 +3,8 @@
 
     python -m repro_torch.launch.serve --arch internvl2-76b --tp 4 \\
         --batch 4 --seq-len 2048 --steps 32 [--device cpu]
+    python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \\
+        --tp 4 --batch 4 --seq-len 4096 --steps 8 [--device cpu]
 
 As the reference does, it runs ``--steps`` decode steps of
 ``make_serve_step`` from a zero cache at position ``seq_len - 1``,
@@ -14,7 +16,12 @@ greedy tokens.
 ``--tp N`` sets the ``model`` axis: N ranks of ``launch/gossip.py``'s
 ``run_on_grid``, one card a rank (``nccl``) where the machine has N
 cards, else sharing one card (``gloo``, collectives staged through the
-host).  ``--seq-len`` and ``--batch`` cut the named ``--shape``
+host).  A MoE arch (granite-moe-3b-a800m, deepseek-v2-lite-16b) is
+served expert parallel on those ranks, its experts padded to a multiple
+of N (``ep_pad_to``) and combined by the psum form, as the reference's
+launcher serves it.  Rank 0 times its collectives (the card
+synchronised around each) and the printout gives their calls, bytes and
+seconds a step.  ``--seq-len`` and ``--batch`` cut the named ``--shape``
 (``decode_32k``'s batch of 128 at 32k positions is sized for the
 reference's 256-chip pod); every cut is printed.  ``--multi-pod`` is refused: the port serves on ``model`` ranks
 only.  ``--device cpu`` is the only way onto the CPU.
@@ -57,16 +64,23 @@ def serve_rank(rank, device, cfg, shape: ShapeConfig, mesh_cfg: MeshConfig,
                steps: int) -> dict:
     """One rank's decode loop: its shards, a zero cache shard, ``steps``
     greedy steps.  Returns the tokens (steps, B), the loop's seconds, each
-    step's seconds (the card synchronised after it) and the rank's bytes
-    of shards and cache and its peak device memory."""
+    step's seconds (the card synchronised after it), rank 0's collectives
+    (``TP.stats``: calls, host seconds with the card synchronised around
+    each, bytes) and the rank's bytes of shards and cache and its peak
+    device memory."""
 
     group = dist.group.WORLD if dist.is_initialized() else None
-    model = build_model(cfg, Ctx(attn_impl="kernel"), device=device)
+    ep = cfg.moe is not None and mesh_cfg.model > 1
+    ctx = Ctx(attn_impl="kernel", ep_pad_to=mesh_cfg.model if ep else 0)
+    model = build_model(cfg, ctx, device=device)
     step, info = make_serve_step(model, group, mesh_cfg, shape)
     if cfg.family in INIT_FAMILIES:
-        params = init_shard(SEED, cfg, None, mesh_cfg, rank, device)
+        params = init_shard(SEED, cfg, ctx, mesh_cfg, rank, device)
     else:
         params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    tp = info["model"].ctx.tp
+    if tp is not None:
+        tp.timed = rank == 0
     cache = info["model"].init_cache(shape.global_batch, info["max_len"])
     tok = torch.zeros(shape.global_batch, dtype=torch.int32, device=device)
     cuda = device.type == "cuda"
@@ -82,6 +96,7 @@ def serve_rank(rank, device, cfg, shape: ShapeConfig, mesh_cfg: MeshConfig,
         step_s.append(time.perf_counter() - t0)
     return {"tokens": torch.stack(out).cpu().tolist(),
             "seconds": sum(step_s), "step_seconds": step_s,
+            "collectives": {} if tp is None else tp.stats,
             "param_bytes": _nbytes(params), "cache_bytes": _nbytes(cache),
             "peak_bytes": torch.cuda.max_memory_allocated(device)
             if cuda else None}
@@ -146,6 +161,11 @@ def main(argv=None) -> dict:
           f"{args.steps * shape.global_batch / dt:.1f} tok/s; a step "
           f"{1e3 * step_s[len(step_s) // 2]:.3f} ms median, the first "
           f"{1e3 * ranks[0]['step_seconds'][0]:.3f} ms (rank 0)", flush=True)
+    for op, (calls, secs, nbytes) in sorted(ranks[0]["collectives"].items()):
+        print(f"[serve] rank 0 {op}: {calls / args.steps:g} calls, "
+              f"{nbytes / args.steps:.0f} bytes, {1e3 * secs / args.steps:.3f}"
+              f" ms a step ({100 * secs / dt:.1f}% of the steps; the card "
+              "synchronised around each)", flush=True)
     return {"ranks": ranks, "shape": shape, "cuts": cuts, "backend": backend}
 
 

@@ -39,7 +39,6 @@ from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import transformer as T
 from repro_torch.models import vlm as V
-from repro_torch.models.moe import EP_REASON
 from repro_torch.optim.optimizers import tree_flatten_with_path
 
 Ctx = T.Ctx
@@ -75,17 +74,15 @@ _FAMILIES = {
 
 def tp_refusal(cfg: ModelConfig, size: int) -> str | None:
     """Why ``cfg`` cannot be served on ``size`` tensor-parallel ranks by
-    the port's explicit collectives, or ``None`` where it can: the dense
-    and VLM families whose query and KV heads both split into whole heads
-    a rank."""
+    the port's explicit collectives, or ``None`` where it can: the dense,
+    VLM and MoE families (MLA's included, its latent cache whole on every
+    rank) whose query and KV heads both split into whole heads a rank.
+    The MoE family's experts are split by expert (``Ctx.ep_pad_to``
+    pads them to the axis; ``train/shard.py::model_split`` refuses them
+    split otherwise)."""
 
     if size <= 1:
         return None
-    if cfg.family == "moe" and cfg.mla is not None:
-        return ("tensor-parallel MLA (its latent cache c_kv/k_rope and its "
-                f"absorbed decode) is not ported ({TP_ITEM})")
-    if cfg.family == "moe":
-        return EP_REASON
     if cfg.family in ("ssm", "hybrid"):
         return ("tensor-parallel SSM sublayers (Mamba2 heads sharded over "
                 f"'model', the conv and state caches by head) are not "

@@ -16,8 +16,10 @@ layers learn whether a product is split from ``sharded`` and from nothing
 else.  ``embed`` looks up a vocab-sharded table (the rows of this rank's vocab
 range, zeros for the others, then an all-reduce: the JAX package's
 ``embed_onehot`` computes the same sum), ``unembed`` all-gathers the
-vocab slices of the logits before the softcap, and ``all_reduce`` sums a
-row-parallel product's partial sums.
+vocab slices of the logits before the softcap, ``all_reduce`` sums a
+row-parallel product's partial sums, and ``all_to_all`` carries the
+expert-parallel MoE's token slots to the ranks that hold their experts
+and back (``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -44,11 +46,13 @@ class TP:
     copies of the card's tensors (``gloo``, the backend of ranks that share
     a card, takes CPU tensors only), and the leaves the rules split on
     ``"model"``, named by their last two path keys (``"attn.wo"``,
-    ``"mlp.wo"``, ``"projector.w2"``, ``"embed"``, ``"lm_head"``; see
+    ``"mlp.wo"``, ``"projector.w2"``, ``"embed"``, ``"lm_head"``; the
+    experts' ``"moe.wi_gate"``, ``"moe.wi_up"``, ``"moe.wo"`` where the
+    rules split them on the expert dim; see
     ``train/shard.py::model_split``).  With ``timed`` set, each collective
     synchronizes the card before and after it and adds its host seconds
     and bytes to ``stats`` (``{"all_reduce": [calls, seconds, bytes],
-    "all_gather": ...}``)."""
+    "all_gather": ..., "all_to_all": ...}``)."""
 
     group: Any
     rank: int
@@ -126,19 +130,39 @@ def all_reduce(x, tp: TP | None):
         return x
 
 
-def all_gather_last(x, tp: TP | None):
-    """The ranks' ``x`` concatenated in rank order along the last dim."""
+def all_gather(x, tp: TP | None, dim: int):
+    """The ranks' ``x`` concatenated in rank order along ``dim``."""
 
     if tp is None or tp.size == 1:
         return x
     if tp.group is None:
         tp._dry("all_gather", x)
-        return torch.cat([x] * tp.size, dim=-1)
+        return torch.cat([x] * tp.size, dim=dim)
     with tp._timing("all_gather", x):
         src = x.cpu() if tp.staged else x.contiguous()
         parts = [torch.empty_like(src) for _ in range(tp.size)]
         dist.all_gather(parts, src, group=tp.group)
-        return torch.cat(parts, dim=-1).to(x.device)
+        return torch.cat(parts, dim=dim).to(x.device)
+
+
+def all_to_all(x, tp: TP | None):
+    """Chunk ``j`` of ``x``'s leading dim (``tp.size`` long) sent to rank
+    ``j``; chunk ``j`` of the result is what rank ``j`` sent here (JAX's
+    ``all_to_all(x, axis, 0, 0, tiled=False)``)."""
+
+    if tp is None or tp.size == 1:
+        return x
+    if x.shape[0] != tp.size:
+        raise ValueError(f"all_to_all takes a leading dim of {tp.size} "
+                         f"chunks, got {tuple(x.shape)}")
+    if tp.group is None:
+        tp._dry("all_to_all", x)
+        return torch.empty_like(x)
+    with tp._timing("all_to_all", x):
+        src = x.cpu() if tp.staged else x.contiguous()
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=tp.group)
+        return out.to(x.device)
 
 
 def _normal(gen, shape, std, dtype, device, lead=()):
@@ -279,8 +303,8 @@ def unembed(x, emb_or_head, tied: bool, cap: float = 0.0,
     is vocab-sharded: each rank's vocab range of logits is all-gathered
     into the full (..., vocab) logits on every rank before the softcap."""
 
-    logits = all_gather_last(x @ (emb_or_head.T if tied else emb_or_head),
-                             tp)
+    logits = all_gather(x @ (emb_or_head.T if tied else emb_or_head), tp,
+                        -1)
     return softcap(logits, cap)
 
 

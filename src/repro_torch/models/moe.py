@@ -1,6 +1,6 @@
 """Mixture-of-Experts FFN (port of ``repro.models.moe``): top-k router,
 sort-based dropless dispatch, a grouped product over the experts, shared
-experts, and the router's aux losses.
+experts, the router's aux losses, and the two expert-parallel forms.
 
 Dispatch is the JAX package's, with no capacity and no drops: the T·k
 token slots are sorted by expert with a stable sort (``jnp.argsort`` is
@@ -18,8 +18,31 @@ where the JAX package scatter-adds (``.at[slot_token].add``).
 
 Parameters keep the JAX tree: ``Ep = wi_gate.shape[0]`` may exceed the
 router's E outputs (experts padded for an EP axis); padded experts are
-never picked.  The expert-parallel forms (``ep_axis``/``mesh``, the psum
-and all-to-all ``shard_map`` bodies) wait for the mesh item and raise.
+never picked.
+
+Expert parallelism (EP) runs on the ranks of a ``models.layers.TP``, the
+``model`` axis (the JAX launcher's ``ep_axis="model"``), whose expert
+leaves the sharding rules split on the expert dim (``"moe.wi_gate"`` in
+``tp.split``): a rank holds ``Ep / n`` consecutive experts.
+
+* ``impl="psum"`` (``_moe_local`` with an axis): activations whole on
+  every rank; the rank sorts its slots by ``(e - e0) mod Ep`` so that its
+  own experts come first, runs its experts only, and one all-reduce sums
+  the ranks' partial outputs.  The shared experts, split by width like a
+  dense MLP, add their partial sum before that one all-reduce.  aux is
+  every rank's own, the global aux, as the ranks route the same tokens.
+* ``impl="a2a"`` (``_moe_a2a``): the rank takes its ``L / n`` positions
+  of the sequence, puts its slots into capacity buckets by owner rank
+  (JAX's rule: a stable sort by owner, a slot kept while its place in
+  its bucket is below ``C = max(1, int(t·k/n · capacity_factor))``), two
+  all-to-alls carry the rows and expert ids, the owner runs its experts,
+  and a third carries the outputs back; the rank weights and sums its
+  slots, and the ranks' sequence parts are all-gathered so that the
+  output is whole, as the port's model holds its activations.  aux is
+  the mean of the ranks'.  The JAX body also writes every dropped slot
+  into bucket (0, 0) and, where XLA applies duplicate scatter writes in
+  order (the CPU), so drops the slot kept there; the port keeps it
+  (ROADMAP.md §3).
 """
 
 from __future__ import annotations
@@ -31,10 +54,11 @@ from repro_torch.config import MoEConfig
 from repro_torch.models import layers as L
 
 EP_REASON = (
-    "expert parallelism (ep_axis/mesh, or a MoE model on tensor-parallel "
-    "ranks: the JAX package's shard_map psum and all-to-all forms) is not "
-    "ported; it is the first of what stays of mesh-sharded LM serving "
-    "(ROADMAP.md queue 1, item 6.8)")
+    "expert parallelism on the 'model' ranks is ported (tp=, the psum and "
+    "a2a forms); the JAX package's data-parallel axes (dp, data > 1) and "
+    "experts that neither divide the model axis nor are padded to it "
+    "(Ctx.ep_pad_to) are not (ROADMAP.md queue 1, item 6.8)")
+MOE_IMPLS = ("psum", "a2a")
 
 
 def padded_experts(cfg: MoEConfig, pad_to: int) -> int:
@@ -85,11 +109,26 @@ def route(params, xt, cfg: MoEConfig):
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
     E = cfg.num_experts
     me = probs.mean(dim=0)
-    fe = torch.bincount(top_idx.reshape(-1), minlength=E).to(
-        probs.dtype) / xt.shape[0]
+    # the slots each expert took: exact in f32, and a fixed shape, which
+    # the meta device counts (bincount's size is read from its data)
+    slots = top_idx.reshape(-1)
+    fe = probs.new_zeros(E).index_add_(
+        0, slots, probs.new_ones(slots.shape)) / xt.shape[0]
     aux = E * (me * fe).sum() * cfg.router_aux_loss_coef
     aux = aux + 1e-4 * torch.logsumexp(logits, dim=-1).square().mean()
     return top_idx, top_w, aux
+
+
+def _run_lengths(keys, first: int, minlength: int, expected: float):
+    """The counts of keys ``0 .. first - 1`` among ``keys``: the lengths
+    of the first ``first`` runs of the sorted keys, read on the host.  On
+    ``meta`` tensors, which hold no keys (``launch/roofline_bench.py``
+    counts a step on them), ``expected`` slots split evenly."""
+
+    if keys.device.type == "meta":
+        n = int(round(expected))
+        return [n // first + (i < n % first) for i in range(first)]
+    return torch.bincount(keys, minlength=minlength)[:first].tolist()
 
 
 def _grouped_swiglu(params, xs, sizes):
@@ -106,38 +145,149 @@ def _grouped_swiglu(params, xs, sizes):
         (0, params["wo"].shape[-1]))
 
 
-def _routed(params, xt, top_idx, top_w):
-    """(T, d) combined output of the routed experts."""
+def _routed(params, xt, top_idx, top_w, e0: int = 0, n_total: int = 0):
+    """(T, d) combined output of the ``Ep_local = wi_gate.shape[0]``
+    experts from ``e0`` (all of them by default) out of ``n_total``; the
+    slots of other experts contribute 0, as ``ragged_dot`` zero-fills the
+    rows past its groups."""
 
     T, d = xt.shape
     k = top_idx.shape[1]
-    Ep = params["wi_gate"].shape[0]
-    slot_expert = top_idx.reshape(-1)                      # (T*k,)
-    order = torch.argsort(slot_expert, stable=True)
-    xs = xt[order // k]                                    # slot s: token s//k
-    sizes = torch.bincount(slot_expert, minlength=Ep).tolist()   # host read
-    ys = _grouped_swiglu(params, xs, sizes)
-    ys = ys * top_w.reshape(-1)[order][:, None].to(ys.dtype)
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(order.numel(), device=order.device)
-    return ys[inv].reshape(T, k, -1).sum(dim=1)
+    n_local = params["wi_gate"].shape[0]
+    n_total = n_total or n_local
+    key = (top_idx.reshape(-1) - e0) % n_total             # local first
+    order = torch.argsort(key, stable=True)
+    E = params["router"].shape[-1]                          # unpadded
+    sizes = _run_lengths(key, n_local, n_total,              # host read
+                         T * k * max(0, min(n_local, E - e0)) / E)
+    mine = order[:sum(sizes)]
+    ys = _grouped_swiglu(params, xt[mine // k], sizes)  # slot s: token s//k
+    ys = ys * top_w.reshape(-1)[mine][:, None].to(ys.dtype)
+    out = ys.new_zeros((T * k, ys.shape[-1]))
+    out[mine] = ys
+    return out.reshape(T, k, -1).sum(dim=1)
 
 
-def moe_ffn(params, x, cfg: MoEConfig, *, ep_axis=None, mesh=None,
-            impl: str = "psum"):
-    """MoE FFN, single program.  x: (B, L, d) -> (y, aux_loss).  With
-    ``ep_axis`` or ``mesh`` (the JAX package's expert-parallel forms, whose
-    combine ``impl`` picks) it raises."""
+def _shared(params, xt):
+    """The shared experts' output, or ``None``; a partial sum where the
+    rules split their width (``"shared.wo"``)."""
 
-    if ep_axis is not None or mesh is not None:
+    return L.mlp_swiglu(params["shared"], xt) if "shared" in params else None
+
+
+def _moe_psum(params, xt, cfg: MoEConfig, tp):
+    top_idx, top_w, aux = route(params, xt, cfg)
+    n_local = params["wi_gate"].shape[0]
+    y = _routed(params, xt, top_idx, top_w, tp.rank * n_local,
+                n_local * tp.size)
+    sh = _shared(params, xt)
+    split = L.sharded(tp, "shared.wo") is not None
+    if sh is not None and split:
+        y = y + sh                          # partial: joins the one sum
+    y = L.all_reduce(y, tp)
+    if sh is not None and not split:
+        y = y + sh
+    return y, aux
+
+
+def a2a_capacity(t: int, k: int, n: int, capacity_factor: float) -> int:
+    """Slots a rank sends each rank: JAX's ``max(1, int(t·k/n · cf))``."""
+
+    return max(1, int(t * k / n * capacity_factor))
+
+
+def a2a_buckets(top_idx, n_local: int, n: int, C: int):
+    """JAX's buckets of a rank's slots: (``order``, the stable sort of the
+    slots by owner rank ``e // n_local``; ``place``, each sorted slot's
+    row of the flat (n·C) send buffer, ``n·C`` where it is dropped (its
+    place in its bucket is C or more))."""
+
+    dst = top_idx.reshape(-1) // n_local
+    order = torch.argsort(dst, stable=True)
+    dst_s = dst[order]
+    pos = (torch.arange(dst_s.numel(), device=dst_s.device)
+           - torch.searchsorted(dst_s, dst_s, side="left"))
+    return order, torch.where(pos < C, dst_s * C + pos, n * C)
+
+
+def _moe_a2a(params, xt, cfg: MoEConfig, tp, capacity_factor: float):
+    """(y (t, d), aux, place) of a rank's t tokens: see the module
+    docstring.  ``place`` is ``a2a_buckets``'s (``n·C`` marks a drop)."""
+
+    t, d = xt.shape
+    k = cfg.num_experts_per_tok
+    n = tp.size
+    n_local = params["wi_gate"].shape[0]
+    C = a2a_capacity(t, k, n, capacity_factor)
+    top_idx, top_w, aux = route(params, xt, cfg)
+    aux = L.all_reduce(aux, tp) / n
+    order, place = a2a_buckets(top_idx, n_local, n, C)
+    # a spare last row takes the dropped slots' writes
+    send_x = xt.new_zeros((n * C + 1, d))
+    send_x[place] = xt[order // k]
+    send_e = torch.full((n * C + 1,), n_local, dtype=torch.int32,
+                        device=xt.device)               # n_local: empty
+    send_e[place] = (top_idx.reshape(-1)[order] % n_local).to(torch.int32)
+    recv_x = L.all_to_all(send_x[:-1].view(n, C, d), tp).reshape(n * C, d)
+    recv_e = L.all_to_all(send_e[:-1].view(n, C), tp).reshape(n * C)
+    o2 = torch.argsort(recv_e, stable=True)             # empty rows last
+    sizes = _run_lengths(recv_e, n_local, n_local + 1,   # host read
+                         min(n * C, n * t * k * n_local / cfg.num_experts))
+    mine = o2[:sum(sizes)]
+    ys = _grouped_swiglu(params, recv_x[mine], sizes)
+    back = recv_x.new_zeros((n * C + 1, ys.shape[-1]))
+    back[mine] = ys.to(back.dtype)
+    ret = L.all_to_all(back[:-1].view(n, C, -1), tp).reshape(n * C, -1)
+    ret = torch.cat([ret, ret.new_zeros((1, ret.shape[-1]))])
+    contrib = ret[place] * top_w.reshape(-1)[order][:, None].to(ret.dtype)
+    out = contrib.new_empty((t * k, contrib.shape[-1]))
+    out[order] = contrib
+    return out.reshape(t, k, -1).sum(dim=1), aux, place
+
+
+def moe_ffn(params, x, cfg: MoEConfig, *, tp: L.TP | None = None,
+            impl: str = "psum", capacity_factor: float = 2.0, dp=None):
+    """MoE FFN.  x: (B, L, d) -> (y, aux_loss).
+
+    Single program without ``tp`` (or on one rank).  On the ranks of
+    ``tp``, whose expert leaves are the rank's slice of the experts, the
+    expert-parallel form ``impl`` picks (module docstring); x and y are
+    whole on every rank in both.  The a2a form splits the sequence over
+    the ranks and raises ``ValueError`` where L does not split (decode's
+    L = 1), as the JAX package's ``shard_map`` fails there.  ``dp`` (the
+    JAX package's data-parallel axes) raises."""
+
+    if impl not in MOE_IMPLS:
+        raise ValueError(f"impl {impl!r}: one of {MOE_IMPLS}")
+    if dp is not None:
         raise NotImplementedError(EP_REASON)
     B, Lx, d = x.shape
-    xt = x.reshape(-1, d)
-    top_idx, top_w, aux = route(params, xt, cfg)
-    y = _routed(params, xt, top_idx, top_w)
-    if "shared" in params:
-        y = y + L.mlp_swiglu(params["shared"], xt)
-    return y.reshape(B, Lx, d).to(x.dtype), aux
+    if tp is None or tp.size == 1:
+        xt = x.reshape(-1, d)
+        top_idx, top_w, aux = route(params, xt, cfg)
+        y = _routed(params, xt, top_idx, top_w)
+        sh = _shared(params, xt)
+        y = y if sh is None else y + sh
+        return y.reshape(B, Lx, d).to(x.dtype), aux
+    if L.sharded(tp, "moe.wi_gate") is None:
+        raise NotImplementedError(EP_REASON)
+    if impl == "psum":
+        y, aux = _moe_psum(params, x.reshape(-1, d), cfg, tp)
+        return y.reshape(B, Lx, d).to(x.dtype), aux
+    n = tp.size
+    if Lx % n:
+        raise ValueError(
+            f"the a2a form splits the sequence over the {n} ranks: L = {Lx} "
+            "does not split (the JAX package's shard_map fails there too)")
+    part = x[:, tp.rank * (Lx // n):(tp.rank + 1) * (Lx // n)]
+    xt = part.reshape(-1, d)
+    y, aux, _ = _moe_a2a(params, xt, cfg, tp, capacity_factor)
+    sh = _shared(params, x.reshape(-1, d))
+    y = L.all_gather(y.reshape(B, Lx // n, d), tp, 1)
+    if sh is not None:
+        y = y + L.all_reduce(sh, L.sharded(tp, "shared.wo")).reshape(
+            B, Lx, d)
+    return y.to(x.dtype), aux
 
 
 def moe_ffn_reference(params, x, cfg: MoEConfig):

@@ -29,13 +29,17 @@ this dense LM over patch embeddings put before the tokens
 (``models/vlm.py``).
 
 Tensor-parallel serving: ``Ctx(tp=TP.of(group, device))`` runs a rank's
-shards (``train/sharding.py``, ``train/shard.py``) of the dense and VLM
-families' prefill and decode: the vocab-parallel embedding and logits,
-attention on the rank's whole heads (its KV cache holds its KV heads),
-and one all-reduce after each row-parallel product (attention's and the
-MLP's ``wo``).  The JAX package's other mesh fields of ``Ctx`` (EP, dp,
-one-hot embedding) have no twin: ``models/api.py`` refuses the families
-and specs this does not cover.
+shards (``train/sharding.py``, ``train/shard.py``) of the dense, VLM and
+MoE families' prefill and decode: the vocab-parallel embedding and
+logits, attention on the rank's whole heads (its KV cache holds its KV
+heads; MLA's latent cache is whole on every rank, computed redundantly
+from the whole ``wkv_a``), one all-reduce after each row-parallel product
+(attention's, the MLP's and the shared experts' ``wo``), and the
+expert-parallel MoE (``Ctx.ep_pad_to``, ``Ctx.moe_impl``; the EP axis is
+the ``model`` axis, as the JAX launcher's ``ep_axis="model"``).  The JAX
+package's other mesh fields of ``Ctx`` (dp, one-hot embedding) have no
+twin: ``models/api.py`` refuses the families and specs this does not
+cover.
 """
 
 from __future__ import annotations
@@ -69,12 +73,16 @@ class Ctx:
     backward; ``"ref"``: the plain reference), whether training recomputes
     each unit in the backward (``remat``), the KV cache's dtype and the
     rank's tensor-parallel group (``tp``; ``None``: one process holds the
-    whole model)."""
+    whole model); and the JAX package's expert-parallel fields: the
+    expert count padded to a multiple of ``ep_pad_to`` (the EP ranks) and
+    the EP combine ``moe_impl`` (``models/moe.py``)."""
 
     attn_impl: str = "ref"
     remat: bool = False
     cache_dtype: torch.dtype = torch.bfloat16
     tp: Optional[L.TP] = dataclasses.field(default=None, compare=False)
+    ep_pad_to: int = 0                 # pad experts to a multiple (EP ranks)
+    moe_impl: str = "psum"             # psum | a2a (EP combine strategy)
 
     @property
     def tp_size(self) -> int:
@@ -86,6 +94,9 @@ class Ctx:
                 f"attn_impl {self.attn_impl!r} is not ported; expected one "
                 f"of {A.ATTN_IMPLS} (the JAX package's 'flashref' XLA scan "
                 "serves HLO cost probes and has no twin here)")
+        if self.moe_impl not in MOE.MOE_IMPLS:
+            raise ValueError(f"moe_impl {self.moe_impl!r}: one of "
+                             f"{MOE.MOE_IMPLS}")
 
 
 def unit_spec(cfg: ModelConfig
@@ -132,7 +143,7 @@ def _index(tree, i):
 
 
 def init_sublayer(gen, cfg: ModelConfig, sl: SubLayer, device,
-                  lead=()) -> dict:
+                  lead=(), ep_pad_to: int = 0) -> dict:
     if (sl.mixer not in ("attn", "mla", "ssm")
             or sl.ffn not in ("dense", "moe", "none")):
         raise NotImplementedError(f"sublayer {sl} is not ported yet")
@@ -157,7 +168,7 @@ def init_sublayer(gen, cfg: ModelConfig, sl: SubLayer, device,
         p["norm2"] = norm()
     if sl.ffn == "moe":
         p["moe"] = MOE.init_moe(gen, cfg.d_model, cfg.moe, dtype, device,
-                                lead=lead)
+                                pad_to=ep_pad_to, lead=lead)
     elif sl.ffn == "dense":
         p["mlp"] = L.init_mlp_swiglu(gen, cfg.d_model, cfg.d_ff, dtype,
                                      device, lead)
@@ -168,11 +179,13 @@ def init_sublayer(gen, cfg: ModelConfig, sl: SubLayer, device,
     return p
 
 
-def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer, tp=None):
+def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
     """The sublayer after its mixer: x + h (h post-normed in gemma2's
     sandwich), then the pre-norm FFN half (SwiGLU or MoE; none in an SSM
     sublayer).  Returns (x, aux), aux the MoE's aux loss or None.  Under
-    ``tp`` a SwiGLU split on its hidden width is all-reduced."""
+    ``ctx.tp`` a SwiGLU split on its hidden width is all-reduced, and a
+    MoE whose experts are split runs the expert-parallel ``ctx.moe_impl``
+    form."""
 
     # the post-normed h is a temporary of the sum: the caller still holds
     # the raw h, and one more (B, L, d) tensor would be alive in the MLP
@@ -182,21 +195,31 @@ def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer, tp=None):
         return x, None
     hin = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     if sl.ffn == "moe":
-        h, aux = MOE.moe_ffn(p["moe"], hin, cfg.moe)
+        h, aux = MOE.moe_ffn(p["moe"], hin, cfg.moe, tp=ctx.tp,
+                             impl=ctx.moe_impl)
     else:
         h, aux = L.mlp_swiglu(p["mlp"], hin), None
-        h = L.all_reduce(h, L.sharded(tp, "mlp.wo"))
+        h = L.all_reduce(h, L.sharded(ctx.tp, "mlp.wo"))
     del hin
     if sl.post_norm:
         h = L.rms_norm(h, p["post_norm2"], cfg.norm_eps)
     return x + h, aux
 
 
+def _heads(cfg: ModelConfig, ctx: Ctx) -> int:
+    """Query heads of this rank: ``H / n`` where the rules split the
+    query projection by whole heads (``tp_refusal`` holds that they
+    split), else all ``H``."""
+
+    tp = L.sharded(ctx.tp, "attn.wq")
+    return cfg.num_heads // (tp.size if tp else 1)
+
+
 def _mixer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
     if sl.mixer == "ssm":
         return SSM.ssm_block(p["ssm"], x, cfg.ssm, cfg.d_model)
     if sl.mixer == "mla":
-        return MLA.mla_attention(p["attn"], x, num_heads=cfg.num_heads,
+        return MLA.mla_attention(p["attn"], x, num_heads=_heads(cfg, ctx),
                                  cfg=cfg.mla, rope_theta=cfg.rope_theta,
                                  impl=ctx.attn_impl)
     return A.attention(
@@ -211,7 +234,7 @@ def apply_sublayer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
 
     h = _mixer_train(p, L.rms_norm(x, p["norm1"], cfg.norm_eps), cfg, sl,
                      ctx)
-    x, aux = _residual(p, x, h, cfg, sl)
+    x, aux = _residual(p, x, h, cfg, sl, ctx)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x, aux
@@ -229,18 +252,19 @@ def apply_sublayer_prefill(p, x, max_len, cfg: ModelConfig, sl: SubLayer,
         h, cache = SSM.ssm_prefill(p["ssm"], h_in, cfg.ssm, cfg.d_model)
     elif sl.mixer == "mla":
         h, cache = MLA.mla_prefill(
-            p["attn"], h_in, max_len, num_heads=cfg.num_heads, cfg=cfg.mla,
-            rope_theta=cfg.rope_theta, cache_dtype=ctx.cache_dtype,
-            impl=ctx.attn_impl, cache=cache)
+            p["attn"], h_in, max_len, num_heads=_heads(cfg, ctx),
+            cfg=cfg.mla, rope_theta=cfg.rope_theta,
+            cache_dtype=ctx.cache_dtype, impl=ctx.attn_impl, cache=cache)
     else:
         h, cache = A.attention_prefill(
             p["attn"], h_in, max_len, head_dim=cfg.resolved_head_dim,
             window=sl.window, attn_softcap=cfg.attn_softcap,
             rope_theta=cfg.rope_theta, impl=ctx.attn_impl,
             cache_dtype=ctx.cache_dtype, cache=cache)
+    if sl.mixer != "ssm":
         h = L.all_reduce(h, L.sharded(ctx.tp, "attn.wo"))
     del h_in
-    return _residual(p, x, h, cfg, sl, ctx.tp)[0], cache
+    return _residual(p, x, h, cfg, sl, ctx)[0], cache
 
 
 def apply_sublayer_decode(p, cache, x, pos, cfg: ModelConfig, sl: SubLayer,
@@ -251,15 +275,16 @@ def apply_sublayer_decode(p, cache, x, pos, cfg: ModelConfig, sl: SubLayer,
                                   cfg.d_model)
     elif sl.mixer == "mla":
         h, cache = MLA.mla_decode(p["attn"], h_in, cache, pos,
-                                  num_heads=cfg.num_heads, cfg=cfg.mla,
+                                  num_heads=_heads(cfg, ctx), cfg=cfg.mla,
                                   rope_theta=cfg.rope_theta)
     else:
         h, cache = A.decode_attention(
             p["attn"], h_in, cache, pos, head_dim=cfg.resolved_head_dim,
             window=sl.window, attn_softcap=cfg.attn_softcap,
             rope_theta=cfg.rope_theta)
+    if sl.mixer != "ssm":
         h = L.all_reduce(h, L.sharded(ctx.tp, "attn.wo"))
-    return _residual(p, x, h, cfg, sl, ctx.tp)[0], cache
+    return _residual(p, x, h, cfg, sl, ctx)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -305,11 +330,13 @@ def init_lm(gen, cfg: ModelConfig, ctx: Ctx, device) -> dict:
                                   device),
         "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,
                                   device=device),
-        "units": {f"s{i}": init_sublayer(gen, cfg, sl, device, (n_scan,))
+        "units": {f"s{i}": init_sublayer(gen, cfg, sl, device, (n_scan,),
+                                         ctx.ep_pad_to)
                   for i, sl in enumerate(unit)},
     }
     for i, sl in enumerate(head):
-        params[f"head{i}"] = init_sublayer(gen, cfg, sl, device)
+        params[f"head{i}"] = init_sublayer(gen, cfg, sl, device,
+                                           ep_pad_to=ctx.ep_pad_to)
     if not cfg.tie_embeddings:
         params["lm_head"] = L._normal(gen, (cfg.d_model, cfg.vocab_size),
                                       cfg.d_model ** -0.5, dtype, device)

@@ -9,15 +9,17 @@ FSDP across data ranks) is refused: its batch and weight slices would
 need collectives the serving path does not make.
 
 ``init_shard(seed, cfg, ctx, mesh_cfg, rank, device)`` draws a rank's
-slices of the dense and VLM parameter trees without the whole tree ever
-existing: each leaf is drawn one stacked layer at a time from a
-generator keyed by (seed, leaf path, layer), cut to the rank's slice,
+slices of the dense, VLM and MoE parameter trees without the whole tree
+ever existing: each leaf is drawn one stacked layer at a time (an expert
+leaf one expert at a time, the rank's experts only) from a generator
+keyed by (seed, leaf path, layer[, expert]), cut to the rank's slice,
 and dropped, so at most one full layer of one leaf is on the device at a
 time (internvl2-76b's ``embed``, 4.2 GB, is the largest).  The draws
 follow ``init``'s distributions (normal with std 1/sqrt(fan-in), the
-embedding 1/sqrt(d_model); norms and biases zero) but not its values.
-The shards at ``model = n`` concatenate to the tree at ``model = 1``,
-bit for bit.
+embedding 1/sqrt(d_model); norms and biases zero; the router float32)
+but not its values.  The shards at ``model = n`` concatenate to the tree
+at ``model = 1``, bit for bit; experts padded for the axis
+(``Ctx.ep_pad_to``) are drawn like the others, after them.
 """
 
 from __future__ import annotations
@@ -41,7 +43,7 @@ MESH_REASON = (
     "(ROADMAP.md queue 1, item 6.8)")
 
 # the families whose init ``init_shard`` draws
-INIT_FAMILIES = ("dense", "vlm")
+INIT_FAMILIES = ("dense", "vlm", "moe")
 
 
 def check_mesh(mesh_cfg: MeshConfig) -> None:
@@ -119,28 +121,48 @@ def shard_nbytes(shapes, specs, mesh_cfg: MeshConfig) -> int:
 
 
 # a row-parallel leaf -> the column-parallel leaves whose output it takes
-_ROW_PARALLEL = {"attn.wo": ("attn.wq", "attn.wk", "attn.wv"),
+# (MLA's heads: wq and wkv_b); the experts' three leaves split together
+_ROW_PARALLEL = {"attn.wo": ("attn.wq", "attn.wk", "attn.wv", "attn.wkv_b"),
                  "mlp.wo": ("mlp.wi_gate", "mlp.wi_up"),
+                 "shared.wo": ("shared.wi_gate", "shared.wi_up"),
+                 "moe.wo": ("moe.wi_gate", "moe.wi_up"),
                  "projector.w2": ()}
+_EXPERTS = ("moe.wi_gate", "moe.wi_up", "moe.wo")
 
 
 def model_split(shapes, pspecs) -> frozenset:
     """The leaves ``pspecs`` split on ``"model"``, each named by the last
     two keys of its path (``"attn.wo"``, ``"mlp.wo"``; ``"embed"``): the
     ``split`` of a rank's ``models.layers.TP``, from which the layers
-    decide every collective.  Refuses a split the explicit collectives do
-    not follow: a leaf split in one layer and whole in another, a
-    row-parallel leaf split otherwise than its column-parallel inputs, or
-    the VLM projector's ``w1`` split (the port runs it whole)."""
+    decide every collective.  The experts' leaves (``"moe.wi_gate"``,
+    ``"moe.wi_up"``, ``"moe.wo"``) are split only on their expert dim:
+    their presence means expert parallelism.  Refuses a split the
+    explicit collectives do not follow: a leaf split in one layer and
+    whole in another, a row-parallel leaf split otherwise than its
+    column-parallel inputs, experts split on their width (the rules'
+    TP-within-expert branch, where the experts neither divide the axis
+    nor are padded to it), or the VLM projector's ``w1`` split (the port
+    runs it whole)."""
 
     seen: dict[str, set] = {}
+    width_split_experts = []
 
     def visit(path, _, spec):
         leaf = ".".join(re.findall(r"\['([^']+)'\]", path)[-2:])
-        seen.setdefault(leaf, set()).add(
-            any("model" in _axes(e) for e in spec))
+        on = ["model" in _axes(e) for e in spec]
+        seen.setdefault(leaf, set()).add(any(on))
+        if leaf in _EXPERTS and any(on[-2:]):
+            width_split_experts.append(leaf)
 
     tree_map_with_path(visit, shapes, pspecs)
+    if width_split_experts:
+        raise NotImplementedError(
+            "the sharding rules split the experts "
+            f"{sorted(set(width_split_experts))} "
+            "on their width (TP within an expert): their count neither "
+            "divides the model axis nor is padded to it; build the model "
+            "with Ctx(ep_pad_to=<model axis>), as the JAX launcher does "
+            "(ROADMAP.md queue 1, item 6.8)")
     split = frozenset(k for k, v in seen.items() if True in v)
     bad = sorted(k for k, v in seen.items() if len(v) > 1)
     bad += [row for row, cols in _ROW_PARALLEL.items() if any(
@@ -161,18 +183,24 @@ def _key(seed: int, path: str, layer: tuple[int, ...]) -> int:
 
 
 def _std(cfg: ModelConfig, name: str, shape) -> float | None:
-    """The std of ``init``'s normal draw of a dense/VLM leaf of this
-    per-layer shape, or ``None`` for a leaf it fills with zeros."""
+    """The std of ``init``'s normal draw of a leaf of this per-layer shape
+    (its rule's dims), or ``None`` for a leaf it fills with zeros: 1 over
+    the square root of its fan-in, dim 1 of an expert leaf (E, in, out),
+    dim 0 of a matrix (the router, MLA's projections), d_model for the
+    embedding."""
 
     if len(shape) == 1:             # norms (stored as offsets) and biases
         return None
-    return (cfg.d_model if name == "embed" else shape[0]) ** -0.5
+    fan_in = {1: cfg.d_model, 2: shape[0], 3: shape[1]}[
+        1 if name == "embed" else len(shape)]
+    return fan_in ** -0.5
 
 
 def init_shard(seed: int, cfg: ModelConfig, ctx: Ctx | None,
                mesh_cfg: MeshConfig, rank: int, device="cuda") -> dict:
-    """Rank ``rank``'s slices of a seeded dense or VLM parameter tree, on
-    ``device``; see the module docstring."""
+    """Rank ``rank``'s slices of a seeded dense, VLM or MoE parameter
+    tree, on ``device``; see the module docstring.  ``ctx`` carries the
+    expert padding (``Ctx.ep_pad_to``); ``None`` pads nothing."""
 
     if cfg.family not in INIT_FAMILIES:
         raise NotImplementedError(
@@ -186,19 +214,24 @@ def init_shard(seed: int, cfg: ModelConfig, ctx: Ctx | None,
     def leaf(path, meta, spec):
         name = S.leaf_name(path)
         k = min(S.rule_ndim(name, path), meta.ndim)
-        lead, trail = tuple(meta.shape[:-k]), tuple(meta.shape[-k:])
         out = torch.empty(local_shape(meta.shape, spec, mesh_cfg),
                           dtype=meta.dtype, device=device)
-        std = _std(cfg, name, trail)
+        std = _std(cfg, name, tuple(meta.shape[-k:]))
         if std is None:
             return out.zero_()
-        for layer in itertools.product(*(range(n) for n in lead)):
+        # one draw a matrix: an expert leaf's expert dim is drawn expert
+        # by expert like a stacking dim, and only the rank's experts are
+        n_lead = meta.ndim - min(k, 2)
+        ranges = [range(n) if n == m else range(rank * m, (rank + 1) * m)
+                  for n, m in zip(meta.shape[:n_lead], out.shape)]
+        for layer in itertools.product(*ranges):
             gen = torch.Generator(device=device)
             gen.manual_seed(_key(seed, path, layer))
-            full = torch.randn(trail, generator=gen, dtype=torch.float32,
-                               device=device)
-            out[layer] = _slice(full.mul_(std).to(meta.dtype),
-                                spec[len(lead):], mesh_cfg, rank)
+            full = torch.randn(meta.shape[n_lead:], generator=gen,
+                               dtype=torch.float32, device=device)
+            at = tuple(i - r.start for i, r in zip(layer, ranges))
+            out[at] = _slice(full.mul_(std).to(meta.dtype), spec[n_lead:],
+                             mesh_cfg, rank)
             del full
         return out
 

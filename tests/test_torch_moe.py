@@ -205,8 +205,22 @@ def test_load_balance_loss_matches_jax_on_a_collapsed_router():
 
 
 def test_expert_parallel_forms_raise_with_the_reason():
+    """What stays of the expert-parallel forms refuses: the JAX package's
+    data-parallel axes, and ranks whose experts are not split by expert
+    (unpadded experts that do not divide the axis: the rules split them
+    on their width)."""
+
+    from repro_torch.models.layers import TP
+
     _, tcfg, _, tp, x = setup(8, 2, 0, 0)
-    for kw in (dict(ep_axis="model"), dict(mesh=object(), ep_axis="model"),
-               dict(mesh=object(), ep_axis="model", impl="a2a")):
+    tx = torch.from_numpy(x)
+    for kw in (dict(dp="data"), dict(dp=("pod", "data"), impl="a2a")):
         with pytest.raises(NotImplementedError, match="6.8"):
-            TMOE.moe_ffn(tp, torch.from_numpy(x), tcfg, **kw)
+            TMOE.moe_ffn(tp, tx, tcfg, **kw)
+    _, tcfg6, _, tp6, _ = setup(6, 2, 0, 0)
+    width = TP.dry(4, frozenset({"mlp.wo"}))
+    for impl in ("psum", "a2a"):
+        with pytest.raises(NotImplementedError, match="ep_pad_to"):
+            TMOE.moe_ffn(tp6, tx, tcfg6, tp=width, impl=impl)
+    with pytest.raises(ValueError, match="impl"):
+        TMOE.moe_ffn(tp, tx, tcfg, impl="ring")

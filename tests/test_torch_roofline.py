@@ -207,6 +207,57 @@ def test_lm_record_on_two_ranks_counts_its_collectives():
     assert two["chips"] == 2 and two["mesh"] == "1x2"
 
 
+def test_tp_dry_counts_all_to_all():
+    from repro_torch.models.layers import TP, all_to_all
+
+    tp = TP.dry(4)
+    x = torch.empty((4, 6, 8), device="meta")
+    y = all_to_all(x, tp)
+    assert y.shape == x.shape and y.device.type == "meta"
+    all_to_all(torch.empty((4, 6), dtype=torch.int32, device="meta"), tp)
+    assert tp.stats == {"all_to_all": [2, 0.0, 4 * 6 * 8 * 4 + 4 * 6 * 4]}
+    # the rank keeps its own chunk: (n - 1) / n of the bytes cross
+    assert RB.ring_bytes(tp.stats, 4) == tp.stats["all_to_all"][2] * 3 / 4
+    with pytest.raises(ValueError, match="leading dim"):
+        all_to_all(torch.empty((3, 6), device="meta"), tp)
+    with pytest.raises(RuntimeError, match="meta"):
+        all_to_all(torch.empty((4, 6)), tp)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b"])
+def test_moe_records_count_both_expert_parallel_forms(arch):
+    """Four EP ranks: the psum form all-reduces each MoE layer's (T, d)
+    output; the a2a form sends each rank's (n, C, d) rows and (n, C) ids
+    and takes its rows back, then all-gathers its (T/n, d) part."""
+
+    from repro_torch.models.moe import a2a_capacity
+
+    cfg = get_smoke_config(arch)
+    cfg = dataclasses.replace(cfg, num_kv_heads=4)
+    B, L, n = 2, 16, 4
+    psum = RB.lm_record(cfg, "prefill", B, L, L, n)
+    a2a = RB.lm_record(cfg, "prefill", B, L, L, n, moe_impl="a2a")
+    assert a2a["shape"] == psum["shape"] + "_a2a"
+    n_moe = cfg.num_layers - (1 if cfg.mla is not None else 0)
+    d, k = cfg.d_model, cfg.moe.num_experts_per_tok
+    act = B * L * d * 4
+    p_ar, a_ar = (r["collectives"]["all_reduce"] for r in (psum, a2a))
+    assert "all_to_all" not in psum["collectives"]
+    C = a2a_capacity(B * L // n, k, n, 2.0)
+    assert a2a["collectives"]["all_to_all"] == {
+        "calls": 3 * n_moe, "bytes": n_moe * (2 * n * C * d * 4 + n * C * 4)}
+    assert a2a["collectives"]["all_gather"]["calls"] >= n_moe
+    # the a2a form drops the MoE layers' all-reduces of the activations
+    # (an aux scalar a layer stays; a shared expert keeps its own)
+    shared = cfg.moe.num_shared_experts > 0
+    assert p_ar["calls"] - a_ar["calls"] == (-n_moe if shared else 0)
+    assert p_ar["bytes"] - a_ar["bytes"] == (n_moe * act * (0 if shared
+                                                             else 1)
+                                             - 4 * n_moe)
+    assert psum["flash_calls"] == a2a["flash_calls"] == cfg.num_layers
+
+
 def test_gossip_record_counts_by_hand():
     rng = np.random.default_rng(3)
     m, n, r = 40, 30, 5
@@ -279,7 +330,11 @@ def test_roofline_bench_writes_the_fit_records(tmp_path):
     got = RB.main(["--write", str(path)], out=out.append)
     assert [(a["arch"], a["mesh"]) for a in got] == [
         ("gossip-mc", "1x1"), ("gossip-mc", "2x2")] + [
-        ("internvl2-76b", m) for m in ("1x1", "1x1", "1x4", "1x4")]
+        ("internvl2-76b", m) for m in ("1x1", "1x1", "1x4", "1x4")] + [
+        (arch, "1x4") for arch in RB.MOE_ARCHS for _ in range(3)]
+    # the expert-parallel cell: psum and a2a prefills, a psum decode step
+    assert [a["shape"] for a in got[-3:]] == [
+        "prefill_4x4000", "prefill_4x4000_a2a", "decode_4x4096"]
     assert all(json.loads(x)["counted"] == "computed"
                for x in path.read_text().splitlines())
     assert out[0].startswith("roofline_gossip-mc_6040x3706_r15_grid5x5_1x1,")

@@ -379,8 +379,11 @@ def test_model_split_refuses_what_the_collectives_do_not_follow(
 
 
 @pytest.mark.parametrize("arch,tp,words", [
-    ("granite-moe-3b-a800m", 2, "expert parallelism"),
-    ("deepseek-v2-lite-16b", 2, "MLA"),
+    # the MoE family serves on the rank grid (tests/test_torch_ep_serve.py):
+    # its heads must still split, 4 (smoke) and 24 (full) query heads over
+    # 3 ranks into whole heads, and 8 KV heads (full)
+    ("granite-moe-3b-a800m", 3, "heads do not split"),
+    ("deepseek-v2-lite-16b", 3, "query heads"),
     ("mamba2-780m", 2, "SSM"),
     ("zamba2-2.7b", 2, "SSM"),
     ("whisper-large-v3", 2, "encoder-decoder"),
