@@ -292,6 +292,34 @@ tokens with no dropped slot within 1e-5 x max|y|, the dropped slots
 counted as JAX's bucket rule counts them from the same routing on the
 host, both forms' ms and bytes a rank.
 
+``[tp_ssm_encdec]`` (after ``[ep]``): the SSM, hybrid and
+encoder-decoder families on the same 4 tensor-parallel ranks.  The flash
+kernel at a rank's shapes against its plain version, float64 and SDPA:
+zamba2's shared block q/k/v (4, 8, 512, 80) causal (row 5k), whisper's
+encoder (4, 5, 1500, 64) non-causal (5l), decoder self-attention (4, 5,
+224, 64) causal (5m) and cross-attention, 224 queries against 1500 keys
+(5n).  Then mamba2-780m (8 of 48 layers: 48 Mamba2 heads, 12 a rank),
+zamba2-2.7b (2 of 9 units: 12 Mamba2 layers of 80 heads, 20 a rank, and
+2 shared-block invocations of 32 heads, 8 a rank) and whisper-large-v3
+(8 of 32 encoder and 8 of 32 decoder layers, 20 heads, 5 a rank; its
+``tok_embed`` whole, since 51,866 rows do not split 4 ways) at full
+width, the depth cut for the run's time and printed, each first in this
+process from ``init_shard`` at ``model = 1``: a prefill of 4 x 512
+tokens (two 256-token chunks: the chunked SSD) or of 4 x (1500 stub
+frames + 224 tokens), then 4 greedy decode steps, with a float32 cache.
+Then one grid of 4 ranks (``gloo`` on one card, ``nccl`` with a card a
+rank) serves the three, each rank from its own ``init_shard`` at
+``model = 4``, fed the reference's tokens: every rank's logits of every
+step within 1e-5 x max|logit| of the reference's, its greedy tokens
+equal wherever the top-2 margin exceeds twice that, one flash launch a
+zamba2 invocation and three a whisper layer pair on every rank (none for
+mamba2).  Rank 0 times its collectives (the card synchronised around
+each) and profiles one more decode step.  Prints prefill s and the
+median decode step of both runs, the device busy share, the collectives'
+calls, bytes and share, and each rank's bytes of shards and cache, which
+must equal ``shard_nbytes`` of the specs the steps cut them by
+(``conv_B``/``conv_C`` whole), beside the full-depth reckoning.
+
 ``[stream]`` (after ``[gossip]``): the streaming loop at the Table 3
 cell through ``launch/streaming.py``: 85% of the training ratings
 ingested with the headroom of the stream's largest per-block count; the
@@ -384,10 +412,11 @@ The launch counts of the ``{"kernels": ...}`` line add up the main
 path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included),
 ``[stream]``, ``[faults]`` (the ranks' by stack shape in
 ``faults_launches_by_stack``), ``[serve]``, ``[sharded]`` (the ranks'),
-``[measure]`` (the ranks' included), ``[lm]``, ``[moe]``, ``[ssm]``, ``[encdec]``, ``[vlm]`` and ``[tp]`` (the
-flash row's ``moe``, ``ssm``, ``encdec``, ``vlm`` and ``tp`` keys have
-those phases' numbers; ``[tp]``'s are the reference run's and every
-rank's); ``[train]`` launches none.
+``[measure]`` (the ranks' included), ``[lm]``, ``[moe]``, ``[ssm]``,
+``[encdec]``, ``[vlm]``, ``[tp]``, ``[ep]`` and ``[tp_ssm_encdec]`` (the
+flash row's ``moe``, ``ssm``, ``encdec``, ``vlm``, ``tp``, ``ep`` and
+``tp_ssm_encdec`` keys have those phases' numbers; the rank phases' are
+the reference runs' and every rank's); ``[train]`` launches none.
 
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
 (``benchmarks/table3_rmse.py --full``): the 6040x3706 ``movielens_proxy``
@@ -542,7 +571,11 @@ from repro_torch.train import (  # noqa: E402
     rank_consensus_error,
 )
 from repro_torch.train import sharding as shard_rules  # noqa: E402
-from repro_torch.train.shard import init_shard, shard_nbytes  # noqa: E402
+from repro_torch.train.shard import (  # noqa: E402
+    init_shard,
+    rank_cache_pspecs,
+    shard_nbytes,
+)
 from repro_torch.train.step import loss_and_grads, split_batch  # noqa: E402
 from repro_torch.serve.quant import index_nbytes, quantize_index  # noqa: E402
 from repro_torch.serve.recommend import (  # noqa: E402
@@ -570,9 +603,10 @@ P = Q = 5
 RANK = 15
 PHASES = ("kernels", "main", "table2", "gossip", "stream", "faults",
           "serve", "sharded", "measure", "lm", "train", "moe", "ssm",
-          "encdec", "vlm", "tp", "ep")
+          "encdec", "vlm", "tp", "ep", "tp_ssm_encdec")
 NEEDS = {"serve": ("main",), "sharded": ("main",), "measure": ("main",)}
-LM_PHASES = ("lm", "moe", "ssm", "encdec", "vlm", "tp", "ep")
+LM_PHASES = ("lm", "moe", "ssm", "encdec", "vlm", "tp", "ep",
+             "tp_ssm_encdec")
 CFG = dict(rho=1e3, lam=1e-6, a=2.0e-4, b=5.0e-7)
 FULL_ROUNDS = 800   # the Table 3 cell's rounds (benchmarks/table3_rmse.py)
 COMPARE_ROUNDS = 40  # sparse and dense FullGD are compared at this round
@@ -718,6 +752,24 @@ TP_RANKS, TP_SEED, TP_TIMED_STEPS = 4, 0, 8
 # its tolerance against the psum form on tokens with no dropped slot
 EP_RANKS, EP_SEED, EP_NEW, EP_CARD_SHARE = 4, 0, 8, 0.5
 EP_CAPACITY, A2A_TOL = 2.0, 1e-5
+# [tp_ssm_encdec]: the SSM, hybrid and encoder-decoder families at full
+# width on TP_RANKS tensor-parallel ranks (mamba2's 48 Mamba2 heads 12 a
+# rank; zamba2's 80 Mamba2 heads 20 and its shared block's 32 heads 8;
+# whisper's 20 heads 5), their depth cut for the run's time; SSM prompts
+# of two 256-token chunks (the chunked SSD), whisper's 224 tokens after
+# 1500 frames; a float32 cache, so that every step is held at the f32 pin
+TSE_ARCHS = ("mamba2-780m", "zamba2-2.7b", "whisper-large-v3")
+TSE_DEPTH = {"mamba2-780m": {"num_layers": 8},
+             "zamba2-2.7b": {"num_layers": 12},
+             "whisper-large-v3": {"num_layers": 8, "encoder_layers": 8}}
+TSE_PROMPT = {"mamba2-780m": 512, "zamba2-2.7b": 512,
+              "whisper-large-v3": 224}
+TSE_BATCH, TSE_NEW, TSE_SEED = 4, 5, 0
+TSE_TOL = 1e-5        # x max|logit| of the one-process model: the f32 pin
+# a step whose logits differ by more is held to a float64 evaluation of
+# the same model: the rank's distance from it at most this many times the
+# one process's (the flash rows' float64 rule)
+TSE_F64_FACTOR = 4.0
 # [measure]: the traffic tape, the density sweep, the gossip_comm grid
 MEASURE_REQUESTS, MEASURE_RATE, MEASURE_K = 200, 200.0, 100
 MEASURE_SHAPE = (6040, 3706)         # the Table 3 cell's matrix
@@ -3148,21 +3200,24 @@ def _shares(stats: dict, seconds: float, steps: int = 1) -> dict:
             for op, (n, sec, nb) in stats.items()}
 
 
-def tp_reckoning(cfg, ranks: int, batch: int, max_len: int) -> dict:
+def tp_reckoning(cfg, ranks: int, batch: int, max_len: int,
+                 cache_dtype=torch.bfloat16) -> dict:
     """A rank's bytes of parameters and cache of ``cfg`` at ``ranks``
     tensor-parallel ranks (a MoE model's experts padded to them and split
-    by expert), from its specs on ``meta`` (nothing is allocated), beside
-    ``param_count``."""
+    by expert; Mamba2's B/C conv registers whole), from its specs on
+    ``meta`` (nothing is allocated), beside ``param_count``."""
 
     mesh_cfg = MeshConfig(data=1, model=ranks, fsdp=False)
     ep = ranks if cfg.moe is not None else 0
-    meta = build_model(cfg, Ctx(ep_pad_to=ep), device="meta")
+    meta = build_model(cfg, Ctx(ep_pad_to=ep, cache_dtype=cache_dtype),
+                       device="meta")
     shapes = model_api.param_specs(meta)
     specs = shard_rules.param_pspecs(cfg, shapes, mesh_cfg)
     shape = ShapeConfig("tp", max_len - cfg.num_patch_tokens, batch,
                         "decode")
     cshapes = model_api.cache_specs(meta, batch, max_len)
-    cspecs = shard_rules.cache_pspecs_tree(cfg, shape, mesh_cfg, cshapes)
+    cspecs = rank_cache_pspecs(cshapes, shard_rules.cache_pspecs_tree(
+        cfg, shape, mesh_cfg, cshapes))
     n = model_api.param_count(cfg)
     return {"layers": cfg.num_layers, "parameters": n,
             "parameter_bytes_all": 4 * n,
@@ -3719,6 +3774,380 @@ def ep_phase(card, flash_row, device="cuda") -> dict:
     flash_row["ep"] = out
     MEASURED["ep"] = {arch: out[arch] for arch in MOE_ARCHS}
     print(f"[ep] phase: {time.perf_counter() - t_phase:.1f}s of command",
+          flush=True)
+    return out
+
+
+def tse_batch(cfg) -> dict:
+    """``[tp_ssm_encdec]``'s requests of ``cfg`` (numpy seed 13): the
+    prompts, and whisper's stub frames."""
+
+    rng = np.random.default_rng(13)
+    batch = {}
+    if cfg.family == "encdec":
+        batch["frames"] = rng.standard_normal(
+            (TSE_BATCH, cfg.encoder_seq_len, cfg.d_model), dtype=np.float32)
+    batch["tokens"] = rng.integers(0, cfg.vocab_size,
+                                   (TSE_BATCH, TSE_PROMPT[cfg.name]))
+    return batch
+
+
+def tse_steps(cfg, group, ranks, batch, device,
+              ctx=Ctx(attn_impl="kernel", cache_dtype=torch.float32)):
+    """The rank's (or the one process's) mesh, its prefill and decode
+    steps of ``cfg`` under ``ctx`` (the flash kernel and a float32 cache)
+    with a cache ``TSE_NEW`` deeper than the prompt, and the steps'
+    infos."""
+
+    mesh_cfg = MeshConfig(data=1, model=ranks, fsdp=False)
+    model = build_model(cfg, ctx, device=device)
+    B, L = batch["tokens"].shape
+    prefill, info = make_prefill_step(
+        model, group, mesh_cfg, ShapeConfig("tse", L, B, "prefill"),
+        L + TSE_NEW)
+    decode, dinfo = make_serve_step(
+        model, group, mesh_cfg, ShapeConfig("tse", L + TSE_NEW, B, "decode"))
+    return mesh_cfg, prefill, decode, info, dinfo
+
+
+def _tse_warm(batch) -> dict:
+    return {k: v[:1] for k, v in batch.items()}
+
+
+def tse_reference(cfg, batch, device) -> dict:
+    """``[tp_ssm_encdec]``'s one-process run of ``cfg`` from ``init_shard``
+    at ``model = 1``: a prefill, then ``TSE_NEW - 1`` greedy decode steps;
+    the logits of every step on the host, the tokens it fed, times, flash
+    launches and bytes."""
+
+    mesh_cfg, prefill, decode, _, _ = tse_steps(cfg, None, 1, batch, device)
+    L = batch["tokens"].shape[1]
+    t0 = time.perf_counter()
+    params = init_shard(TSE_SEED, cfg, None, mesh_cfg, 0, device)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    _tp_steps(prefill, decode, params, _tse_warm(batch),
+              torch.zeros((1, 1), dtype=torch.int32), L, device)
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    _sync(device)
+    t_pre = time.perf_counter() - t0
+    ref, fed, t_dec = [logits.float().cpu()], [], []
+    for i in range(TSE_NEW - 1):
+        tok = logits.argmax(-1).to(torch.int32)
+        fed.append(tok.cpu())
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, tok, L + i)
+        _sync(device)
+        t_dec.append(time.perf_counter() - t0)
+        ref.append(logits.float().cpu())
+    out = {"logits": ref, "fed": torch.stack(fed), "prefill_s": t_pre,
+           "decode_s": t_dec, "init_s": t_init,
+           "launches": counts()["flash_attention"],
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "param_bytes": _nbytes(tree_leaves(params)),
+           "cache_bytes": _nbytes(tree_leaves(cache))}
+    del params, cache, logits, prefill, decode
+    _free()
+    out["logits64"] = tse_float64(cfg, batch, out["fed"], device)
+    return out
+
+
+def tse_float64(cfg, batch, fed, device) -> list:
+    """The logits of ``tse_reference``'s steps in a float64 evaluation of
+    the same model: ``init_shard``'s draws widened to float64 (Mamba2's
+    float32 ``A_log``, ``D``, ``dt_bias`` as they are), the plain
+    attention, a float64 cache, fed the same tokens; on the host."""
+
+    cfg64 = dataclasses.replace(cfg, param_dtype="float64")
+    mesh_cfg, prefill, decode, _, _ = tse_steps(
+        cfg64, None, 1, batch, device,
+        Ctx(attn_impl="ref", cache_dtype=torch.float64))
+    L = batch["tokens"].shape[1]
+    params = init_shard(TSE_SEED, cfg64, None, mesh_cfg, 0, device)
+    wide = {k: v.astype(np.float64) if v.dtype == np.float32 else v
+            for k, v in batch.items()}
+    logits, cache = prefill(params, wide)
+    out = [logits.cpu()]
+    for i, tok in enumerate(fed):
+        logits, cache = decode(params, cache, tok, L + i)
+        out.append(logits.cpu())
+    del params, cache, logits, prefill, decode
+    _free()
+    return out
+
+
+def tse_serve(rank, device, cfg, batch, fed) -> dict:
+    """``[tp_ssm_encdec]``'s rank for one arch: its ``init_shard`` shards
+    at ``model = TP_RANKS``, a warm-up, the prefill and decode steps fed
+    the reference's tokens (its logits returned from every rank), then
+    the same again with rank 0 timing its collectives, and one more decode
+    step, profiled on rank 0."""
+
+    import torch.distributed as dist
+
+    mesh_cfg, prefill, decode, info, dinfo = tse_steps(
+        cfg, dist.group.WORLD, TP_RANKS, batch, device)
+    L = batch["tokens"].shape[1]
+    t0 = time.perf_counter()
+    params = init_shard(TSE_SEED, cfg, None, mesh_cfg, rank, device)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    _tp_steps(prefill, decode, params, _tse_warm(batch), fed[:1, :1], L,
+              device)
+    torch.cuda.reset_peak_memory_stats(device)
+    n0 = flash_ops.flash_attention.launches
+    logits, t_pre, t_dec, cache = _tp_steps(prefill, decode, params, batch,
+                                            fed, L, device)
+    out = {"launches": flash_ops.flash_attention.launches - n0,
+           "prefill_s": t_pre, "decode_s": t_dec, "init_s": t_init,
+           "param_bytes": _nbytes(tree_leaves(params)),
+           "cache_bytes": _nbytes(tree_leaves(cache)),
+           "peak_bytes": torch.cuda.max_memory_allocated(device),
+           # numpy: a tensor would cross the queue as shared storage that
+           # this process takes with it when it exits
+           "logits": [x.numpy() for x in logits]}
+    del cache
+    tp, dtp = info["model"].ctx.tp, dinfo["model"].ctx.tp
+    tp.timed = dtp.timed = rank == 0
+    _, t_pre2, t_dec2, cache = _tp_steps(prefill, decode, params, batch, fed,
+                                         L, device)
+    tp.timed = dtp.timed = False
+    tok = torch.from_numpy(out["logits"][-1]).argmax(-1).to(
+        torch.int32).to(device)
+    step = lambda: decode(params, cache, tok, L + len(fed))  # noqa: E731
+    if rank == 0:
+        out["timed"] = {"prefill_s": t_pre2, "prefill": dict(tp.stats),
+                        "decode_s": t_dec2, "decode": dict(dtp.stats)}
+        _, secs, bd = profiled(step)
+        out["profile"] = {"wall_ms": 1e3 * secs,
+                          "busy": sum(bd.values()) / (1e3 * secs),
+                          "top": top(bd)}
+    else:
+        step()
+        _sync(device)
+    del params, cache
+    _free()
+    return out
+
+
+def tse_rank(rank, device, jobs) -> list:
+    """``[tp_ssm_encdec]``'s rank over every arch of ``jobs`` in turn."""
+
+    return [tse_serve(rank, device, *job) for job in jobs]
+
+
+def tse_flash_launches(cfg) -> int:
+    """Flash launches of one prefill of ``cfg``: one a zamba2 shared-block
+    invocation, three a whisper layer pair (encoder, decoder self, cross),
+    none for mamba2."""
+
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * cfg.num_layers
+    return 0
+
+
+def tse_report(cfg, full, ref, ranks, backend, card_total) -> dict:
+    """``[tp_ssm_encdec]``'s gates and lines for one arch."""
+
+    tag = f"[tp_ssm_encdec] {cfg.name}"
+    want_launches = tse_flash_launches(cfg)
+    launches = [r["launches"] for r in ranks]
+    if launches != [want_launches] * TP_RANKS \
+            or ref["launches"] != want_launches:
+        fail(f"{tag}: flash_attention launches {ref['launches']} in the "
+             f"reference and {launches} by rank, expected {want_launches} "
+             "on each")
+    want, want64 = ref["logits"], ref["logits64"]
+    # the one process's float32 logits against the float64 evaluation
+    one64 = [float((w.double() - w64).abs().max() / w64.abs().max())
+             for w, w64 in zip(want, want64)]
+    worst = {"prefill": 0.0, "decode": 0.0}
+    checked, refereed = 0, []
+    for r, res in enumerate(ranks):
+        if len(res["logits"]) != len(want):
+            fail(f"{tag} rank {r}: {len(res['logits'])} steps of logits, "
+                 f"expected {len(want)}")
+        for step, (g, w, w64) in enumerate(zip(res["logits"], want,
+                                               want64)):
+            g = torch.from_numpy(g)
+            if g.shape != w.shape or not bool(torch.isfinite(g).all()):
+                fail(f"{tag} rank {r} step {step}: logits {tuple(g.shape)} "
+                     f"not finite or not the reference's {tuple(w.shape)}")
+            bound = TSE_TOL * float(w.abs().max())
+            diff = float((g - w).abs().max())
+            kind = "prefill" if step == 0 else "decode"
+            worst[kind] = max(worst[kind], diff / bound)
+            if not diff <= bound:
+                # past the f32 pin: both float32 runs against float64
+                e_rank = float((g.double() - w64).abs().max())
+                e_one = float((w.double() - w64).abs().max())
+                refereed.append({"rank": r, "step": step,
+                                 "diff_over_bound": diff / bound,
+                                 "rank_f64_err": e_rank,
+                                 "one_f64_err": e_one})
+                if not e_rank <= TSE_F64_FACTOR * e_one:
+                    fail(f"{tag} rank {r} step {step}: logits differ from "
+                         f"the one-process model's by {diff:.3e} > "
+                         f"{bound:.3e} ({TSE_TOL} x max|logit|), and from "
+                         f"the float64 evaluation's by {e_rank:.3e} > "
+                         f"{TSE_F64_FACTOR} x the one process's "
+                         f"{e_one:.3e}")
+            top2 = w.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * bound
+            checked += int(sure.sum())
+            if not torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure]):
+                fail(f"{tag} rank {r} step {step}: a greedy token differs "
+                     "from the one-process model's")
+    r0 = ranks[0]
+    ms = 1e3 * statistics.median(r0["decode_s"])
+    ref_ms = 1e3 * statistics.median(ref["decode_s"])
+    timed = r0["timed"]
+    shares = {"prefill": _shares(timed["prefill"], timed["prefill_s"]),
+              "decode_step": _shares(timed["decode"], sum(timed["decode_s"]),
+                                     len(timed["decode_s"]))}
+    B, L = TSE_BATCH, TSE_PROMPT[cfg.name]
+    reckon = tp_reckoning(cfg, TP_RANKS, B, L + TSE_NEW, torch.float32)
+    reckon_full = tp_reckoning(full, TP_RANKS, B, L + TSE_NEW, torch.float32)
+    for r, res in enumerate(ranks):
+        if (res["param_bytes"], res["cache_bytes"]) != (
+                reckon["parameter_bytes_per_rank"],
+                reckon["cache_bytes_per_rank"]):
+            fail(f"{tag} rank {r}: {res['param_bytes']} bytes of shards and "
+                 f"{res['cache_bytes']} of cache, the specs reckon "
+                 f"{reckon['parameter_bytes_per_rank']} and "
+                 f"{reckon['cache_bytes_per_rank']}")
+    inputs = (f"{B} x ({cfg.encoder_seq_len} frames + {L} tokens)"
+              if cfg.family == "encdec" else f"{B} x {L} tokens")
+    print(f"{tag}: reference, 1 process ({ref['param_bytes'] / 1e9:.3f} GB "
+          f"of f32 parameters, init_shard {ref['init_s']:.2f}s): prefill "
+          f"{ref['prefill_s']:.3f}s of {inputs}, decode {ref_ms:.3f} ms/step "
+          f"(median of {len(ref['decode_s'])}), {ref['launches']} flash "
+          f"launches, peak {ref['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"{tag}: {TP_RANKS} ranks ({backend}, "
+          f"{'one card' if backend == 'gloo' else 'a card a rank'}): prefill "
+          f"{r0['prefill_s']:.3f}s, decode {ms:.3f} ms/step (median of "
+          f"{len(r0['decode_s'])}); flash launches by rank {launches}; every "
+          f"rank's logits within {worst['prefill']:.3f} (prefill) and "
+          f"{worst['decode']:.3f} (decode, float32 cache) x the bound "
+          f"({TSE_TOL} x max|logit|) of the one process's; greedy tokens "
+          f"equal on all {checked} (rank, row, step) with a margin over "
+          f"twice the bound", flush=True)
+    ratio = max((x["rank_f64_err"] / x["one_f64_err"] for x in refereed),
+                default=None)
+    print(f"{tag}: against a float64 evaluation of the same model, the one "
+          f"process's float32 logits err by {max(one64):.3e} x max|logit| "
+          f"(prefill {one64[0]:.3e}); {len(refereed)} of "
+          f"{len(want) * len(ranks)} (rank, step) past the bound, held to "
+          f"float64: the rank's error at most "
+          f"{'-' if ratio is None else f'{ratio:.3f}'} x the one process's "
+          f"(limit {TSE_F64_FACTOR})", flush=True)
+    prof = r0["profile"]
+    print(f"{tag} rank 0 decode step under the profiler: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {100 * prof['busy']:.1f}%;"
+          f" by kernel: {prof['top']}", flush=True)
+    print(f"{tag} collectives on rank 0, the card synchronised around each "
+          f"(the prefill and {len(timed['decode_s'])} decode steps run "
+          f"again): prefill {timed['prefill_s']:.3f}s "
+          f"{json.dumps(shares['prefill'])}; decode step "
+          f"{1e3 * statistics.median(timed['decode_s']):.3f} ms "
+          f"{json.dumps(shares['decode_step'])}", flush=True)
+    for r, res in enumerate(ranks):
+        print(f"{tag} rank {r}: shards {res['param_bytes']} bytes, cache "
+              f"{res['cache_bytes']} bytes (float32; both equal to "
+              f"shard_nbytes of the specs), peak "
+              f"{res['peak_bytes'] / 2**30:.2f} GiB, init_shard "
+              f"{res['init_s']:.2f}s", flush=True)
+    print(f"{tag} at full depth, reckoned from the specs: "
+          f"{reckon_full['parameters']} parameters "
+          f"({reckon_full['parameter_bytes_all'] / 1e9:.2f} GB of f32); a "
+          f"rank holds {reckon_full['parameter_bytes_per_rank'] / 1e9:.3f} "
+          f"GB of weights + {reckon_full['cache_bytes_per_rank'] / 1e9:.3f} "
+          f"GB of float32 cache at B = {B}, max_len {L + TSE_NEW}, against "
+          f"the card's {card_total / 1e9:.1f} GB", flush=True)
+    return {"backend": backend,
+            "depth": {k: getattr(cfg, k) for k in TSE_DEPTH[cfg.name]},
+            "reference": {"prefill_s": ref["prefill_s"],
+                          "decode_ms_per_step": ref_ms,
+                          "peak_gib": ref["peak_bytes"] / 2**30,
+                          "parameter_bytes": ref["param_bytes"]},
+            "ranks": [{k: v for k, v in r.items()
+                       if k not in ("logits", "timed", "profile")}
+                      for r in ranks],
+            "prefill_s": r0["prefill_s"], "decode_ms_per_step": ms,
+            "busy": prof["busy"], "collectives": shares,
+            "logit_err_over_bound": worst, "greedy_checked": checked,
+            "one_process_f64_err": one64, "refereed": refereed,
+            "reckoning": reckon, "full_depth": reckon_full,
+            "launches": ref["launches"] + sum(launches)}
+
+
+def tse_phase(card, flash_row, device="cuda") -> dict:
+    """``[tp_ssm_encdec]``: rows 5k-5n, then mamba2-780m, zamba2-2.7b and
+    whisper-large-v3 at full width (depth cut, ``TSE_DEPTH``), each served
+    by one process and by one grid of ``TP_RANKS`` tensor-parallel ranks;
+    see the module docstring.  Adds the phase's flash launches to
+    ``flash_row``."""
+
+    t_phase = time.perf_counter()
+    tag, n = "[tp_ssm_encdec]", TP_RANKS
+    zamba, whisper = (get_model_config(a) for a in TSE_ARCHS[1:])
+    hz, hw = zamba.resolved_head_dim, whisper.d_model // whisper.num_heads
+    Lz, Lw, T = (TSE_PROMPT[zamba.name], TSE_PROMPT[whisper.name],
+                 whisper.encoder_seq_len)
+    flash = {
+        "zamba2 rank": prefill_flash(
+            card, tag, "zamba2 rank", TSE_BATCH, Lz, zamba.num_heads // n,
+            zamba.num_kv_heads // n, hz, hz),
+        "whisper rank encoder": prefill_flash(
+            card, tag, "whisper rank encoder", TSE_BATCH, T,
+            whisper.num_heads // n, whisper.num_heads // n, hw, hw,
+            causal=False),
+        "whisper rank decoder-self": prefill_flash(
+            card, tag, "whisper rank decoder-self", TSE_BATCH, Lw,
+            whisper.num_heads // n, whisper.num_heads // n, hw, hw),
+        "whisper rank cross": prefill_flash(
+            card, tag, "whisper rank cross", TSE_BATCH, Lw,
+            whisper.num_heads // n, whisper.num_heads // n, hw, hw, Lk=T,
+            causal=False)}
+    backend = pick_backend(device, n)
+    card_total = (torch.cuda.get_device_properties(0).total_memory
+                  if device == "cuda" else 0)
+    dev = torch.device(device)
+    cfgs, refs, jobs = {}, {}, []
+    for arch in TSE_ARCHS:
+        full = get_model_config(arch)
+        cfg = dataclasses.replace(full, **TSE_DEPTH[arch])
+        cfgs[arch] = (cfg, full)
+        batch = tse_batch(cfg)
+        refs[arch] = tse_reference(cfg, batch, dev)
+        jobs.append((cfg, batch, refs[arch]["fed"]))
+    print(f"{tag} depth cut for the run's time, widths whole: "
+          + "; ".join(f"{arch} " + ", ".join(
+              f"{k} {getattr(cfgs[arch][0], k)} of "
+              f"{getattr(cfgs[arch][1], k)}" for k in TSE_DEPTH[arch])
+              for arch in TSE_ARCHS), flush=True)
+    marks: list = []
+    t0 = time.perf_counter()
+    ranks = run_on_grid(tse_rank, (1, n), jobs, device=device, timeout=900,
+                        marks=marks)
+    print(f"{tag} one grid of {n} ranks ({backend}) served the three archs "
+          f"in {time.perf_counter() - t0:.1f}s (start-up "
+          f"{max(m['group_s'] for m in marks):.1f}s)", flush=True)
+    out = {"backend": backend, "flash": flash}
+    for i, arch in enumerate(TSE_ARCHS):
+        cfg, full = cfgs[arch]
+        out[arch] = tse_report(cfg, full, refs[arch], [r[i] for r in ranks],
+                               backend, card_total)
+    out["launches"] = sum(out[arch]["launches"] for arch in TSE_ARCHS)
+    flash_row["launches"] += out["launches"]
+    flash_row["tp_ssm_encdec"] = out
+    print(f"{tag} phase: {time.perf_counter() - t_phase:.1f}s of command",
           flush=True)
     return out
 
@@ -5313,6 +5742,11 @@ def main() -> None:
     tp_out = tp_phase(card, rows[-1]) if want("tp") else None
     _free()
     ep_out = ep_phase(card, rows[-1]) if want("ep") else None
+    _free()
+    # 11. the SSM, hybrid and encoder-decoder families on the same ranks
+    if want("tp_ssm_encdec"):
+        tse_phase(card, rows[-1])
+        _free()
     if lm_analyses is not None:
         roofline_after_tp(lm_analyses, tp_out, ep_out)
     print(f"[main] peak device memory "

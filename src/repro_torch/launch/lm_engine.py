@@ -11,8 +11,11 @@ group of ``mesh_cfg.model`` ranks: it takes that rank's parameter shards
 which every rank holds (the JAX step replicates them), and its cache
 shard.  A MoE model's experts are padded to the model axis
 (``with_ep``) and split by expert over its ranks; MLA's latent cache is
-whole on every rank.  Decode writes the cache shard in place: the
-port's form of ``donate_argnums=(1,)``.  Without a group
+whole on every rank, and so are Mamba2's ``conv_B``/``conv_C``
+registers, which the rules split on ``d_state`` (``info["cspecs"]`` is
+the layout the rank holds: ``train/shard.py::rank_cache_pspecs``).
+Decode writes the cache shard in place: the port's form of
+``donate_argnums=(1,)``.  Without a group
 (``mesh_cfg.model == 1``) the step is the model's own.
 
 ``ServeLoop`` runs one prefill, then one cached decode step per generated
@@ -32,7 +35,8 @@ from repro_torch.models.api import (Model, build_model, cache_specs,
 from repro_torch.models.layers import TP
 from repro_torch.optim.optimizers import tree_map_with_path
 from repro_torch.train import sharding as S
-from repro_torch.train.shard import check_mesh, local_shape, model_split
+from repro_torch.train.shard import (check_mesh, local_shape, model_split,
+                                     rank_cache_pspecs)
 
 
 def with_ep(model: Model, mesh_cfg: MeshConfig) -> Model:
@@ -73,8 +77,9 @@ def _rank_model(model: Model, group, mesh_cfg: MeshConfig, shapes,
 
 def _check_cache(rank_model: Model, cshapes, cspecs, mesh_cfg: MeshConfig,
                  batch: int, max_len: int) -> None:
-    """Refuse a cache whose specs do not cut it as the rank's model holds
-    it (its KV heads).  The rules find the batch dim as the first dim
+    """Refuse a cache whose specs (``rank_cache_pspecs``) do not cut it as
+    the rank's model holds it (its KV and Mamba heads).  The rules find
+    the batch dim as the first dim
     equal to the batch size, so a stacking dim of that size takes the
     batch's place and the heads' ``"model"`` lands on the batch: GSPMD
     reshards such a layout, the port's ranks do not."""
@@ -88,7 +93,7 @@ def _check_cache(rank_model: Model, cshapes, cspecs, mesh_cfg: MeshConfig,
         if local_shape(x.shape, spec, mesh_cfg) != tuple(local.shape):
             raise NotImplementedError(
                 f"the sharding rules cut the cache leaf {path} "
-                f"{tuple(x.shape)} as {spec}, not by its KV heads as a rank "
+                f"{tuple(x.shape)} as {spec}, not by its heads as a rank "
                 f"holds it ({tuple(local.shape)}): the batch size equals a "
                 "stacking dim's, which the rules take for the batch; GSPMD "
                 "reshards this layout, the port does not (ROADMAP.md queue "
@@ -116,7 +121,8 @@ def make_serve_step(model: Model, group, mesh_cfg: MeshConfig,
     shapes = param_specs(model)
     pspecs = S.param_pspecs(cfg, shapes, mesh_cfg)
     cshapes = cache_specs(model, B, max_len)
-    cspecs = S.cache_pspecs_tree(cfg, shape_cfg, mesh_cfg, cshapes)
+    cspecs = rank_cache_pspecs(
+        cshapes, S.cache_pspecs_tree(cfg, shape_cfg, mesh_cfg, cshapes))
     rank_model = _rank_model(model, group, mesh_cfg, shapes, pspecs)
     _check_cache(rank_model, cshapes, cspecs, mesh_cfg, B, max_len)
 
@@ -143,7 +149,8 @@ def make_prefill_step(model: Model, group, mesh_cfg: MeshConfig,
     batch_tree = input_specs(cfg, shape_cfg)
     bspecs = S.batch_pspecs(cfg, shape_cfg, mesh_cfg, batch_tree)
     cshapes = cache_specs(model, B, max_len)
-    cspecs = S.cache_pspecs_tree(cfg, shape_cfg, mesh_cfg, cshapes)
+    cspecs = rank_cache_pspecs(
+        cshapes, S.cache_pspecs_tree(cfg, shape_cfg, mesh_cfg, cshapes))
     rank_model = _rank_model(model, group, mesh_cfg, shapes, pspecs)
     _check_cache(rank_model, cshapes, cspecs, mesh_cfg, B, max_len)
 

@@ -5,13 +5,20 @@
         --batch 4 --seq-len 2048 --steps 32 [--device cpu]
     python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \\
         --tp 4 --batch 4 --seq-len 4096 --steps 8 [--device cpu]
+    python -m repro_torch.launch.serve --arch whisper-large-v3 --tp 2 \\
+        --batch 4 --seq-len 448 --steps 8 [--device cpu]
 
 As the reference does, it runs ``--steps`` decode steps of
 ``make_serve_step`` from a zero cache at position ``seq_len - 1``,
 feeding each step's greedy token back, and prints ``[serve] ... tok/s``.
+There is no prefill, so no prompt, frames or patches: mamba2 and zamba2
+decode from a zero SSM state, whisper from a zero cross-attention cache.
 The parameters are seeded shards (``train/shard.py::init_shard``, seed 0),
 so ``--tp 1`` and ``--tp N`` serve the same weights and print the same
-greedy tokens.
+greedy tokens.  Every arch serves on ``--tp`` ranks where its heads split
+(``models/api.py::tp_refusal``); a batch equal to a stacking dim of its
+cache (zamba2's 9 units, whisper's 32 decoder layers) is refused by the
+step (``lm_engine._check_cache``).
 
 ``--tp N`` sets the ``model`` axis: N ranks of ``launch/gossip.py``'s
 ``run_on_grid``, one card a rank (``nccl``) where the machine has N
@@ -47,7 +54,7 @@ from repro_torch.launch.gossip import pick_backend, run_on_grid
 from repro_torch.launch.lm_engine import make_serve_step
 from repro_torch.models import Ctx, build_model
 from repro_torch.models.api import tp_refusal
-from repro_torch.train.shard import INIT_FAMILIES, init_shard
+from repro_torch.train.shard import init_shard
 
 SEED = 0
 
@@ -74,10 +81,7 @@ def serve_rank(rank, device, cfg, shape: ShapeConfig, mesh_cfg: MeshConfig,
     ctx = Ctx(attn_impl="kernel", ep_pad_to=mesh_cfg.model if ep else 0)
     model = build_model(cfg, ctx, device=device)
     step, info = make_serve_step(model, group, mesh_cfg, shape)
-    if cfg.family in INIT_FAMILIES:
-        params = init_shard(SEED, cfg, ctx, mesh_cfg, rank, device)
-    else:
-        params = model.init(torch.Generator(device=device).manual_seed(SEED))
+    params = init_shard(SEED, cfg, ctx, mesh_cfg, rank, device)
     tp = info["model"].ctx.tp
     if tp is not None:
         tp.timed = rank == 0

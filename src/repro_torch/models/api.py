@@ -20,9 +20,11 @@ give trees of tensors on the ``meta`` device, and the parameter counts
 them.  Leaf paths are spelled as ``jax.tree_util.keystr`` spells them.
 
 A ``Ctx`` with a tensor-parallel group (``ctx.tp``, more than one rank)
-builds the rank's serving model over its shards.  The families and
-shapes it does not cover raise ``NotImplementedError`` here, naming their
-ROADMAP item: there is no replicated fallback.
+builds the rank's serving model over its shards, for every family.  The
+shapes it does not cover (heads that do not split into whole heads a
+rank, the hybrid's unequal query and KV heads) raise
+``NotImplementedError`` here, naming their ROADMAP item: there is no
+replicated fallback.
 """
 
 from __future__ import annotations
@@ -74,22 +76,34 @@ _FAMILIES = {
 
 def tp_refusal(cfg: ModelConfig, size: int) -> str | None:
     """Why ``cfg`` cannot be served on ``size`` tensor-parallel ranks by
-    the port's explicit collectives, or ``None`` where it can: the dense,
-    VLM and MoE families (MLA's included, its latent cache whole on every
-    rank) whose query and KV heads both split into whole heads a rank.
-    The MoE family's experts are split by expert (``Ctx.ep_pad_to``
-    pads them to the axis; ``train/shard.py::model_split`` refuses them
-    split otherwise)."""
+    the port's explicit collectives, or ``None`` where it can: every
+    family whose heads split into whole heads a rank.  That is the query
+    and KV heads of the dense, VLM, MoE (MLA's included, its latent cache
+    whole on every rank), hybrid and encoder-decoder families, and the
+    Mamba2 heads of the SSM and hybrid families (their state by head,
+    ``conv_B``/``conv_C`` whole on every rank).  The hybrid's ``lora_b``
+    is split on its width, which lines up with a rank's q/k/v columns only
+    where the query and KV head counts are equal.  The MoE family's
+    experts are split by expert (``Ctx.ep_pad_to`` pads them to the axis;
+    ``train/shard.py::model_split`` refuses them split otherwise)."""
 
     if size <= 1:
         return None
     if cfg.family in ("ssm", "hybrid"):
-        return ("tensor-parallel SSM sublayers (Mamba2 heads sharded over "
-                f"'model', the conv and state caches by head) are not "
-                f"ported ({TP_ITEM})")
-    if cfg.family == "encdec":
-        return ("the tensor-parallel encoder-decoder (encoder, cross "
-                f"attention and DecCache by head) is not ported ({TP_ITEM})")
+        nheads = cfg.ssm.n_heads(cfg.d_model)
+        if nheads % size:
+            return (f"{nheads} Mamba2 heads do not split over {size} ranks: "
+                    "the rules cut d_inner into parts of a head, or keep "
+                    "the heads whole, and the port's SSD runs whole heads a "
+                    f"rank ({TP_ITEM})")
+        if cfg.family == "ssm":
+            return None
+    if cfg.family == "hybrid" and cfg.num_heads != cfg.num_kv_heads:
+        return (f"{cfg.num_heads} query heads over {cfg.num_kv_heads} KV "
+                "heads: the rules split the shared block's lora_b on its "
+                "max(H, Hkv) * head_dim width, whose rank slice is not the "
+                "rank's k/v columns where H != Hkv; the port adds each "
+                f"rank's lora_b columns to its heads' ({TP_ITEM})")
     if cfg.num_heads % size:
         return (f"{cfg.num_heads} query heads do not split over {size} "
                 "ranks: the sharding rules cut the flat q width into parts "
@@ -113,8 +127,9 @@ def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
     match JAX's threefry, only the distributions do.  The batch's tensors
     given to ``loss``/``prefill``/``decode`` are moved to the device:
     tokens and targets as ``long``, frames and patches in their own float
-    dtype.  Under ``ctx.tp`` the model serves a rank's shards; its
-    ``loss`` raises (tensor-parallel training is not ported).
+    dtype.  Under ``ctx.tp`` the model serves a rank's shards (any family;
+    ``tp_refusal`` names the head counts it refuses); its ``loss`` raises
+    (tensor-parallel training is not ported).
     """
 
     fam = cfg.family

@@ -160,7 +160,7 @@ def decode_attention(params, x, cache: KVCache, pos, *, head_dim, window=0,
     # its dtype, p rounded to the cache dtype, P.V accumulated in f32
     qg = q.reshape(B, num_kv_heads, group, head_dim)
     qg = qg / qg.new_tensor(math.sqrt(head_dim))
-    logits = qg.float() @ ck.float().transpose(-1, -2)     # (B, Hkv, g, Lmax)
+    logits = L.upcast(qg) @ L.upcast(ck).transpose(-1, -2)  # (B, Hkv, g, Lmax)
     logits = L.softcap(logits, attn_softcap)
     kpos = torch.arange(Lmax, device=x.device)
     mask = kpos <= pos
@@ -168,6 +168,6 @@ def decode_attention(params, x, cache: KVCache, pos, *, head_dim, window=0,
         mask &= kpos > pos - window
     logits = logits.masked_fill(~mask, -1e30)
     p = torch.softmax(logits, dim=-1)
-    o = p.to(cv.dtype).float() @ cv.float()                # (B, Hkv, g, D)
+    o = L.upcast(p.to(cv.dtype)) @ L.upcast(cv)            # (B, Hkv, g, D)
     o = o.to(x.dtype).reshape(B, 1, num_heads * head_dim)
     return L.linear(o, params["wo"]), cache

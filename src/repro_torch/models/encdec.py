@@ -23,6 +23,18 @@ and the cross-attention K/V, computed once from the encoder output at
 prefill.  Decode is plain tensor code with the reference's rounding: the
 scaled query is cast to the cache dtype before both products (the LM's
 decode keeps it in float32), the logits and P.V accumulate in float32.
+
+Tensor parallelism (``ctx.tp``): the encoder's self-attention, the
+decoder's self- and cross-attention and both MLPs run on the rank's heads
+and hidden columns (``bq``/``bk``/``bv``/``bi`` split with them), one
+all-reduce after each row-parallel product, the whole ``bo`` added once
+after it; the LayerNorms and ``dec_pos`` are whole.  Every rank holds
+the whole encoder output and projects the cross K/V of its heads from
+it; the ``DecCache`` holds its heads.  ``tok_embed`` is vocab-parallel
+where its rows split over the ranks (51,866 = 2 x 25,933: at 2 ranks,
+not at 4, where the rules keep it whole), and the tied logits follow it:
+all-gathered where it is split, computed whole where it is not.  Head
+counts are read from the weights.
 """
 
 from __future__ import annotations
@@ -108,10 +120,10 @@ def init_encdec(gen, cfg: ModelConfig, ctx: Ctx, device) -> dict:
     }
 
 
-def _embed(params, tokens):
-    # the JAX package's one-hot lookup (ctx.embed_impl) serves
-    # vocab-sharded tables and waits for the mesh item (ROADMAP 6.8)
-    return L.embed(params["tok_embed"], tokens)
+def _embed(params, tokens, tp=None):
+    # the JAX package's one-hot lookup (ctx.embed_impl) computes the same
+    # rows; a vocab-parallel table is looked up by L.embed's masked sum
+    return L.embed(params["tok_embed"], tokens, L.sharded(tp, "tok_embed"))
 
 
 def _ln(x, p):
@@ -130,21 +142,38 @@ def _merge(o):
     return o.transpose(1, 2).reshape(B, n, H * hd)
 
 
-def _mha(params, x, kv_x, *, heads, causal, impl):
-    """LayerNorm-external multi-head attention (no rope)."""
+def _head_dim(cfg: ModelConfig) -> int:
+    return cfg.d_model // cfg.num_heads
 
+
+def _n_heads(w, cfg: ModelConfig) -> int:
+    """The heads a projection's weight holds (a rank's, under tp)."""
+
+    return w.shape[-1] // _head_dim(cfg)
+
+
+def _mha(params, x, kv_x, cfg: ModelConfig, *, causal, impl, tp=None):
+    """LayerNorm-external multi-head attention (no rope) on the heads the
+    weights hold; ``tp`` all-reduces the row-parallel ``wo`` product."""
+
+    heads = _n_heads(params["wq"], cfg)
     q = _heads(L.linear(x, params["wq"], params.get("bq")), heads)
     k = _heads(L.linear(kv_x, params["wk"], params.get("bk")), heads)
     v = _heads(L.linear(kv_x, params["wv"], params.get("bv")), heads)
     o = A._attend(q, k, v, impl, causal=causal)
-    return L.linear(_merge(o), params["wo"])
+    return L.all_reduce(L.linear(_merge(o), params["wo"]), tp)
+
+
+def _mlp(lp, x, ctx: Ctx):
+    return L.mlp_gelu(lp["mlp"], _ln(x, lp["ln2"]),
+                      L.sharded(ctx.tp, "mlp.wo"))
 
 
 def _enc_layer(lp, x, cfg: ModelConfig, ctx: Ctx):
     h = _ln(x, lp["ln1"])
-    x = x + _mha(lp["attn"], h, h, heads=cfg.num_heads, causal=False,
-                 impl=ctx.attn_impl)
-    return x + L.mlp_gelu(lp["mlp"], _ln(x, lp["ln2"]))
+    x = x + _mha(lp["attn"], h, h, cfg, causal=False, impl=ctx.attn_impl,
+                 tp=L.sharded(ctx.tp, "attn.wo"))
+    return x + _mlp(lp, x, ctx)
 
 
 def encode(params, frames, cfg: ModelConfig, ctx: Ctx):
@@ -163,20 +192,22 @@ def encode(params, frames, cfg: ModelConfig, ctx: Ctx):
 
 def _dec_layer_train(lp, x, memory, cfg: ModelConfig, ctx: Ctx):
     h = _ln(x, lp["ln1"])
-    x = x + _mha(lp["self_attn"], h, h, heads=cfg.num_heads, causal=True,
+    x = x + _mha(lp["self_attn"], h, h, cfg, causal=True,
                  impl=ctx.attn_impl)
-    x = x + _mha(lp["cross_attn"], _ln(x, lp["ln_x"]), memory,
-                 heads=cfg.num_heads, causal=False, impl=ctx.attn_impl)
-    return x + L.mlp_gelu(lp["mlp"], _ln(x, lp["ln2"]))
+    x = x + _mha(lp["cross_attn"], _ln(x, lp["ln_x"]), memory, cfg,
+                 causal=False, impl=ctx.attn_impl)
+    return x + _mlp(lp, x, ctx)
 
 
-def _decoder_in(params, tokens, start: int):
-    x = _embed(params, tokens)
+def _decoder_in(params, tokens, start: int, tp=None):
+    x = _embed(params, tokens, tp)
     return x + params["dec_pos"][start:start + tokens.shape[1]].to(x.dtype)
 
 
-def _unembed(params, x):
-    return x @ params["tok_embed"].T          # whisper ties embeddings
+def _unembed(params, x, tp=None):
+    # whisper ties embeddings; the logits all-gathered where vocab-parallel
+    return L.unembed(x, params["tok_embed"], True, 0.0,
+                     L.sharded(tp, "tok_embed"))
 
 
 def encdec_loss(params, frames, tokens, targets, cfg: ModelConfig,
@@ -197,14 +228,21 @@ def encdec_loss(params, frames, tokens, targets, cfg: ModelConfig,
     return L.cross_entropy(_unembed(params, x), targets)
 
 
+def _cache_heads(cfg: ModelConfig, ctx: Ctx, attn: str) -> int:
+    """``attn``'s heads (``"self_attn"``, ``"cross_attn"``) of this rank."""
+
+    tp = L.sharded(ctx.tp, f"{attn}.wk")
+    return cfg.num_heads // (tp.size if tp else 1)
+
+
 def _new_cache(cfg: ModelConfig, ctx: Ctx, batch: int, max_len: int,
                frames: int, device) -> DecCache:
-    hd = cfg.d_model // cfg.num_heads
+    hd = _head_dim(cfg)
     lead = (cfg.num_layers,)
-    shape = lead + (batch, cfg.num_heads, frames, hd)
+    shape = lead + (batch, _cache_heads(cfg, ctx, "cross_attn"), frames, hd)
     return DecCache(
-        A.init_cache(batch, cfg.num_heads, max_len, hd, ctx.cache_dtype,
-                     device, lead),
+        A.init_cache(batch, _cache_heads(cfg, ctx, "self_attn"), max_len, hd,
+                     ctx.cache_dtype, device, lead),
         torch.zeros(shape, dtype=ctx.cache_dtype, device=device),
         torch.zeros(shape, dtype=ctx.cache_dtype, device=device))
 
@@ -229,44 +267,47 @@ def encdec_prefill(params, frames, tokens, max_len, cfg: ModelConfig,
 
     memory = encode(params, frames, cfg, ctx)
     B, Lx = tokens.shape
-    H = cfg.num_heads
+    tp_self = L.sharded(ctx.tp, "self_attn.wo")
+    tp_cross = L.sharded(ctx.tp, "cross_attn.wo")
     cache = _new_cache(cfg, ctx, B, max_len, memory.shape[1], memory.device)
-    x = _decoder_in(params, tokens, 0)
+    x = _decoder_in(params, tokens, 0, ctx.tp)
     for n in range(cfg.num_layers):
         lp = _index(params["dec_layers"], n)
         sa, ca = lp["self_attn"], lp["cross_attn"]
         h_in = _ln(x, lp["ln1"])
-        q, k, v = A._project_qkv(sa, h_in, cfg.d_model // H)
+        q, k, v = A._project_qkv(sa, h_in, _head_dim(cfg))
         del h_in
         o = A._attend(q, k, v, ctx.attn_impl, causal=True)
-        x = x + L.linear(_merge(o), sa["wo"])
+        x = x + L.all_reduce(L.linear(_merge(o), sa["wo"]), tp_self)
         cache.self_kv.k[n, :, :, :Lx] = k
         cache.self_kv.v[n, :, :, :Lx] = v
         del q, k, v, o
+        H = _n_heads(ca["wq"], cfg)
         ck = _heads(L.linear(memory, ca["wk"], ca.get("bk")), H)
         cv = _heads(L.linear(memory, ca["wv"], ca.get("bv")), H)
         q = _heads(L.linear(_ln(x, lp["ln_x"]), ca["wq"], ca.get("bq")), H)
         o = A._attend(q, ck, cv, ctx.attn_impl, causal=False)
-        x = x + L.linear(_merge(o), ca["wo"])
+        x = x + L.all_reduce(L.linear(_merge(o), ca["wo"]), tp_cross)
         cache.cross_k[n] = ck
         cache.cross_v[n] = cv
         del q, ck, cv, o
-        x = x + L.mlp_gelu(lp["mlp"], _ln(x, lp["ln2"]))
+        x = x + _mlp(lp, x, ctx)
     h = _ln(x[:, -1], params["dec_ln"])
-    return _unembed(params, h), cache
+    return _unembed(params, h, ctx.tp), cache
 
 
 def _cached_attention(q, k, v, mask=None):
     """One query position against a cache (B, H, T, hd) in its dtype: q
     (B, H, 1, hd), already scaled and cast to the cache dtype; logits and
-    P.V in float32, p rounded to the cache dtype, as the reference's
-    ``preferred_element_type`` products do."""
+    P.V in float32 (float64 in a float64 evaluation), p rounded to the
+    cache dtype, as the reference's ``preferred_element_type`` products
+    do."""
 
-    logits = q.float() @ k.float().transpose(-1, -2)
+    logits = L.upcast(q) @ L.upcast(k).transpose(-1, -2)
     if mask is not None:
         logits = logits.masked_fill(~mask, -1e30)
     p = torch.softmax(logits, dim=-1)
-    return p.to(v.dtype).float() @ v.float()
+    return L.upcast(p.to(v.dtype)) @ L.upcast(v)
 
 
 def encdec_decode_step(params, cache: DecCache, token, pos,
@@ -274,9 +315,10 @@ def encdec_decode_step(params, cache: DecCache, token, pos,
     """token: (B,) int; pos: int.  Writes position ``pos`` of the self
     caches in place; returns (logits (B, V), cache)."""
 
-    H = cfg.num_heads
-    hd = cfg.d_model // H
-    x = _decoder_in(params, token[:, None], pos)
+    hd = _head_dim(cfg)
+    tp_self = L.sharded(ctx.tp, "self_attn.wo")
+    tp_cross = L.sharded(ctx.tp, "cross_attn.wo")
+    x = _decoder_in(params, token[:, None], pos, ctx.tp)
     scale = math.sqrt(hd)
     kpos = torch.arange(cache.self_kv.k.shape[3], device=x.device)
     mask = kpos <= pos
@@ -290,12 +332,13 @@ def encdec_decode_step(params, cache: DecCache, token, pos,
         cv[:, :, pos:pos + 1] = v
         q = (q / q.new_tensor(scale)).to(ck.dtype)
         o = _cached_attention(q, ck, cv, mask).to(x.dtype)
-        x = x + L.linear(_merge(o), sa["wo"])
+        x = x + L.all_reduce(L.linear(_merge(o), sa["wo"]), tp_self)
         # cross attention against the prefill's encoder K/V
-        q = _heads(L.linear(_ln(x, lp["ln_x"]), ca["wq"], ca.get("bq")), H)
+        q = _heads(L.linear(_ln(x, lp["ln_x"]), ca["wq"], ca.get("bq")),
+                   _n_heads(ca["wq"], cfg))
         q = (q / q.new_tensor(scale)).to(c.cross_k.dtype)
         o = _cached_attention(q, c.cross_k, c.cross_v).to(x.dtype)
-        x = x + L.linear(_merge(o), ca["wo"])
-        x = x + L.mlp_gelu(lp["mlp"], _ln(x, lp["ln2"]))
+        x = x + L.all_reduce(L.linear(_merge(o), ca["wo"]), tp_cross)
+        x = x + _mlp(lp, x, ctx)
     h = _ln(x[:, 0], params["dec_ln"])
-    return _unembed(params, h), cache
+    return _unembed(params, h, ctx.tp), cache

@@ -21,6 +21,19 @@ The cache is ``{"ssm": SSMState (n_units, k, ...), "kv": KVCache
 (n_units, ...)}``.  A prefill fills the KV caches in place (through the
 flash kernel with ``Ctx(attn_impl="kernel")``, once per unit) and returns
 the Mamba layers' own states; decode writes both in place.
+
+Tensor parallelism (``ctx.tp``; the leaves the rules split are named in
+``TP.split``): the vocab-parallel embedding and ``lm_head``; the Mamba
+layers on the rank's heads (``models/ssm.py``); the shared attention and
+SwiGLU MLP by head and by column with one all-reduce after each, each
+invocation's KV cache holding the rank's heads.  The rules split
+``w_cat`` on its output ``d_model``: the concat projection is
+column-parallel, then all-gathered on its last dim, once an invocation.
+They split ``lora_b`` on its width, which lines up with the rank's q/k/v
+columns only where the query and KV head counts are equal
+(``models/api.py::tp_refusal`` refuses the others), and the Mamba layers'
+pre-norm weights (``mamba.norm``) on ``d_model``: a unit's are
+all-gathered once, since every rank normalises the whole hidden state.
 """
 
 from __future__ import annotations
@@ -90,12 +103,14 @@ def init_hybrid(gen, cfg: ModelConfig, ctx: Ctx, device) -> dict:
     }
 
 
-def _lora_attn_params(shared_attn, unit, num_heads, num_kv_heads, head_dim):
-    """Shared attention weights + this invocation's LoRA deltas."""
+def _lora_attn_params(shared_attn, unit):
+    """Shared attention weights + this invocation's LoRA deltas.  Each
+    delta takes the first columns of ``lora_b``, as many as its weight has
+    (on a rank, its heads' columns: H = Hkv there)."""
 
     p = dict(shared_attn)
     for i, name in enumerate(("wq", "wk", "wv")):
-        width = (num_heads if name == "wq" else num_kv_heads) * head_dim
+        width = p[name].shape[-1]
         p[name] = p[name] + unit["lora_a"][i] @ unit["lora_b"][i][:, :width]
     return p
 
@@ -104,23 +119,35 @@ def _attn_kw(cfg: ModelConfig) -> dict:
     return dict(head_dim=cfg.resolved_head_dim, rope_theta=cfg.rope_theta)
 
 
-def _shared_in(shared, unit, x, x0, cfg: ModelConfig):
+def _shared_in(shared, unit, x, x0, cfg: ModelConfig, tp=None):
     """(the block's input h, the normed attention input, the invocation's
-    attention weights)."""
+    attention weights).  A rank's ``w_cat`` columns give its slice of h,
+    all-gathered into the whole."""
 
-    h = torch.cat([x, x0], dim=-1) @ unit["w_cat"]
-    attn_p = _lora_attn_params(shared["attn"], unit, cfg.num_heads,
-                               cfg.num_kv_heads, cfg.resolved_head_dim)
+    h = L.all_gather(torch.cat([x, x0], dim=-1) @ unit["w_cat"],
+                     L.sharded(tp, "units.w_cat"), -1)
+    attn_p = _lora_attn_params(shared["attn"], unit)
     return h, L.rms_norm(h, shared["norm1"], cfg.norm_eps), attn_p
 
 
-def _shared_out(shared, x, h, h1, cfg: ModelConfig):
-    """x + the block's output, after its attention output h1."""
+def _shared_out(shared, x, h, h1, cfg: ModelConfig, tp=None):
+    """x + the block's output, after its attention output h1 (a rank's
+    partial sum, all-reduced here, as the MLP's)."""
 
-    h = h + h1
-    h = h + L.mlp_swiglu(shared["mlp"], L.rms_norm(h, shared["norm2"],
-                                                   cfg.norm_eps))
+    h = h + L.all_reduce(h1, L.sharded(tp, "attn.wo"))
+    h = h + L.all_reduce(
+        L.mlp_swiglu(shared["mlp"], L.rms_norm(h, shared["norm2"],
+                                               cfg.norm_eps)),
+        L.sharded(tp, "mlp.wo"))
     return x + h
+
+
+def _mamba_norms(unit, tp=None):
+    """The unit's k Mamba pre-norm weights (k, d_model), whole: one
+    all-gather where the rules split them."""
+
+    return L.all_gather(unit["mamba"]["norm"], L.sharded(tp, "mamba.norm"),
+                        -1)
 
 
 def _mamba(lp, x, cfg: ModelConfig):
@@ -158,14 +185,32 @@ def hybrid_loss(params, tokens, targets, cfg: ModelConfig, ctx: Ctx):
     return L.cross_entropy(h @ params["lm_head"], targets)
 
 
+def _kv_heads(cfg: ModelConfig, ctx: Ctx) -> int:
+    """The shared block's KV heads of this rank."""
+
+    tp = L.sharded(ctx.tp, "attn.wk")
+    return cfg.num_kv_heads // (tp.size if tp else 1)
+
+
+def _embed(params, tokens, tp=None):
+    return L.embed(params["embed"], tokens, L.sharded(tp, "embed"))
+
+
+def _logits(params, h, tp=None):
+    """``h @ lm_head`` (no softcap), all-gathered where vocab-parallel."""
+
+    return L.unembed(h, params["lm_head"], False, 0.0,
+                     L.sharded(tp, "lm_head"))
+
+
 def hybrid_init_cache(cfg: ModelConfig, ctx: Ctx, batch: int, max_len: int,
                       device) -> dict:
     n = _n_units(cfg)
     return {
         "ssm": SSM.init_ssm_state(batch, cfg.d_model, cfg.ssm,
                                   ctx.cache_dtype, device,
-                                  (n, cfg.shared_attn_every)),
-        "kv": A.init_cache(batch, cfg.num_kv_heads, max_len,
+                                  (n, cfg.shared_attn_every), ctx.tp),
+        "kv": A.init_cache(batch, _kv_heads(cfg, ctx), max_len,
                            cfg.resolved_head_dim, ctx.cache_dtype, device,
                            (n,)),
     }
@@ -176,53 +221,58 @@ def hybrid_decode_step(params, cache, token, pos, cfg: ModelConfig,
     """token: (B,) int; pos: int.  Writes position ``pos`` of the KV caches
     and the SSM states in place; returns (logits (B, V), cache)."""
 
-    x = L.embed(params["embed"], token[:, None])
+    tp = ctx.tp
+    x = _embed(params, token[:, None], tp)
     x0 = x
     for n in range(_n_units(cfg)):
         unit = _index(params["units"], n)
-        h, h_in, attn_p = _shared_in(params["shared"], unit, x, x0, cfg)
+        h, h_in, attn_p = _shared_in(params["shared"], unit, x, x0, cfg, tp)
         h1, _ = A.decode_attention(attn_p, h_in, _index(cache["kv"], n), pos,
                                    **_attn_kw(cfg))
-        x = _shared_out(params["shared"], x, h, h1, cfg)
+        x = _shared_out(params["shared"], x, h, h1, cfg, tp)
         states = _index(cache["ssm"], n)
+        norms = _mamba_norms(unit, tp)
         for j in range(cfg.shared_attn_every):
             lp = _index(unit["mamba"], j)
             h, _ = SSM.ssm_decode(
-                lp["ssm"], L.rms_norm(x, lp["norm"], cfg.norm_eps),
-                _index(states, j), cfg.ssm, cfg.d_model)
+                lp["ssm"], L.rms_norm(x, norms[j], cfg.norm_eps),
+                _index(states, j), cfg.ssm, cfg.d_model, tp)
             x = x + h
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (h @ params["lm_head"])[:, 0], cache
+    return _logits(params, h[:, 0], tp), cache
 
 
 def hybrid_prefill(params, tokens, max_len, cfg: ModelConfig, ctx: Ctx):
     """tokens (B, L) -> (last-position logits (B, V), cache for decode)."""
 
-    x = L.embed(params["embed"], tokens)
+    tp = ctx.tp
+    x = _embed(params, tokens, tp)
     x0 = x
     n_units = _n_units(cfg)
-    kv = A.init_cache(tokens.shape[0], cfg.num_kv_heads, max_len,
+    kv = A.init_cache(tokens.shape[0], _kv_heads(cfg, ctx), max_len,
                       cfg.resolved_head_dim, ctx.cache_dtype, x.device,
                       (n_units,))
     states = []
     for n in range(n_units):
         unit = _index(params["units"], n)
-        h, h_in, attn_p = _shared_in(params["shared"], unit, x, x0, cfg)
+        h, h_in, attn_p = _shared_in(params["shared"], unit, x, x0, cfg, tp)
         h1, _ = A.attention_prefill(
             attn_p, h_in, max_len, impl=ctx.attn_impl,
             cache_dtype=ctx.cache_dtype, cache=_index(kv, n),
             **_attn_kw(cfg))
         del h_in
-        x = _shared_out(params["shared"], x, h, h1, cfg)
+        x = _shared_out(params["shared"], x, h, h1, cfg, tp)
         del h, h1
         unit_states = []
+        norms = _mamba_norms(unit, tp)
         for j in range(cfg.shared_attn_every):
             lp = _index(unit["mamba"], j)
             hm, st = SSM.ssm_prefill(
-                lp["ssm"], L.rms_norm(x, lp["norm"], cfg.norm_eps), cfg.ssm,
-                cfg.d_model)
+                lp["ssm"], L.rms_norm(x, norms[j], cfg.norm_eps), cfg.ssm,
+                cfg.d_model, tp)
             x = x + hm
             unit_states.append(st)
         states.append(SSM.stack_states(unit_states))
     h = L.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
-    return h @ params["lm_head"], {"ssm": SSM.stack_states(states), "kv": kv}
+    return _logits(params, h, tp), {"ssm": SSM.stack_states(states),
+                                    "kv": kv}

@@ -17,9 +17,12 @@ else.  ``embed`` looks up a vocab-sharded table (the rows of this rank's vocab
 range, zeros for the others, then an all-reduce: the JAX package's
 ``embed_onehot`` computes the same sum), ``unembed`` all-gathers the
 vocab slices of the logits before the softcap, ``all_reduce`` sums a
-row-parallel product's partial sums, and ``all_to_all`` carries the
-expert-parallel MoE's token slots to the ranks that hold their experts
-and back (``models/moe.py``).
+row-parallel product's partial sums (``mlp_gelu`` adds its whole bias
+once, after it), ``rms_norm`` normalises a width split over the ranks
+by the all-reduced sum of squares, ``all_gather`` joins a column-parallel
+product's slices, and ``all_to_all`` carries the expert-parallel MoE's
+token slots to the ranks that hold their experts and back
+(``models/moe.py``).
 """
 
 from __future__ import annotations
@@ -48,8 +51,9 @@ class TP:
     ``"model"``, named by their last two path keys (``"attn.wo"``,
     ``"mlp.wo"``, ``"projector.w2"``, ``"embed"``, ``"lm_head"``; the
     experts' ``"moe.wi_gate"``, ``"moe.wi_up"``, ``"moe.wo"`` where the
-    rules split them on the expert dim; see
-    ``train/shard.py::model_split``).  With ``timed`` set, each collective
+    rules split them on the expert dim; Mamba2's ``"ssm.out_proj"``,
+    zamba2's ``"units.w_cat"``, whisper's ``"cross_attn.wo"``,
+    ``"tok_embed"``; see ``train/shard.py::model_split``).  With ``timed`` set, each collective
     synchronizes the card before and after it and adds its host seconds
     and bytes to ``stats`` (``{"all_reduce": [calls, seconds, bytes],
     "all_gather": ..., "all_to_all": ...}``)."""
@@ -179,9 +183,19 @@ def upcast(x):
     return x if x.dtype == torch.float64 else x.float()
 
 
-def rms_norm(x, w, eps: float = 1e-6):
+def rms_norm(x, w, eps: float = 1e-6, tp: TP | None = None):
+    """RMSNorm over the last axis in float32, scaled by ``1 + w``.  Under
+    ``tp`` x and w hold this rank's slice of the normalised width (Mamba2's
+    gated norm over a rank's heads of ``d_inner``): the mean of squares is
+    the all-reduced sum of squares over the whole width, ``tp.size`` times
+    x's, never the rank's own mean."""
+
     xf = upcast(x)
-    var = xf.square().mean(dim=-1, keepdim=True)
+    if tp is None:
+        var = xf.square().mean(dim=-1, keepdim=True)
+    else:
+        var = all_reduce(xf.square().sum(dim=-1, keepdim=True), tp) / (
+            xf.shape[-1] * tp.size)
     out = xf * torch.rsqrt(var + eps)
     return (out * (1.0 + upcast(w))).to(x.dtype)
 
@@ -245,9 +259,13 @@ def mlp_swiglu(params, x):
     return (g * (x @ params["wi_up"])) @ params["wo"]
 
 
-def mlp_gelu(params, x):
+def mlp_gelu(params, x, tp: TP | None = None):
+    """The tanh-GELU MLP.  Under ``tp`` (``wi``, ``bi`` split on the hidden
+    width, ``wo`` row-parallel) the partial sums are all-reduced and the
+    whole ``bo`` is added once, after the reduction."""
+
     h = F.gelu(x @ params["wi"] + params["bi"], approximate="tanh")
-    return h @ params["wo"] + params["bo"]
+    return all_reduce(h @ params["wo"], tp) + params["bo"]
 
 
 def init_mlp_swiglu(gen, d_model: int, d_ff: int, dtype, device,

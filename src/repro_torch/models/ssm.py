@@ -13,6 +13,8 @@ The JAX module's SSD is ``jnp`` einsums and a ``lax.scan``, not a Pallas
 kernel, and so is this one: plain PyTorch, the three-operand einsums as
 pairwise batched matmuls (none of whose intermediates is larger than the
 (b, c, h, t, t) decay matrix), the scan over chunks a Python loop.
+Its float32 casts are ``layers.upcast``: a float64 evaluation (float64
+parameters and input) stays float64 throughout.
 Dispatch is the reference's: the chunked form runs only when the length
 is a multiple of the chunk and longer than one chunk, the sequential
 oracle otherwise.
@@ -27,6 +29,20 @@ conv registers in the activations' dtype); ``init_ssm_state`` makes them
 the cache dtype.  ``ssm_decode`` writes the new state into the given one
 in place, in that state's dtypes, and returns it, as the port's attention
 decode writes its KV cache.
+
+Tensor parallelism (``tp``, the rank's ``models.layers.TP``): the rules
+split the head-aligned leaves on ``"model"`` (``w_z``, ``w_x``,
+``conv_x``, ``conv_x_b``, ``A_log``, ``D``, ``dt_bias``, ``norm``) and
+``out_proj``'s rows, and keep ``w_B``, ``w_C``, ``w_dt`` and the B/C
+convs whole.  A rank computes B and C whole (redundantly), takes its
+heads' columns of ``x @ w_dt`` before adding its ``dt_bias``, runs the
+scan unchanged on its heads (heads are independent in SSD), normalises
+``y * silu(z)`` by the mean of squares over the whole ``d_inner`` (one
+all-reduce of a (B, L, 1) sum) and all-reduces ``out_proj``'s partial
+sums.  The widths are read from the parameters, so the same code runs
+whole and on a rank.  Its state holds its heads of ``h`` and its
+channels of ``conv_x``, and ``conv_B``/``conv_C`` whole
+(``train/shard.py::WHOLE_CACHE``).
 """
 
 from __future__ import annotations
@@ -50,6 +66,13 @@ class SSMState(NamedTuple):
 
 def _dims(d_model: int, cfg: SSMConfig):
     return cfg.d_inner(d_model), cfg.n_heads(d_model)
+
+
+def _local_dims(params):
+    """(d_inner, heads) of the parameters given: the whole block's, or a
+    tensor-parallel rank's share."""
+
+    return params["w_x"].shape[-1], params["A_log"].shape[-1]
 
 
 def init_ssm(gen, d_model: int, cfg: SSMConfig, dtype, device,
@@ -181,14 +204,21 @@ def ssd_reference(x, dt, A, Bm, Cm):
     return torch.stack(ys, dim=1), hstate
 
 
-def _proj(params, x):
+def _proj(params, x, tp=None):
     """z, the pre-conv x/B/C projections and dt (float32, softplus'd).
+    Under ``tp`` with the heads split, ``x @ w_dt`` (whole) gives every
+    head's dt and the rank takes its heads' columns.
 
     ``F.softplus`` returns its input above 20 where ``jax.nn.softplus``
     computes log(1 + e^x); they differ there by less than 2e-9 relative,
     and dt's pre-activations lie far below 20."""
 
-    dt = F.softplus(L.linear(x, params["w_dt"]).float() + params["dt_bias"])
+    dt = L.upcast(L.linear(x, params["w_dt"]))
+    head_tp = L.sharded(tp, "ssm.dt_bias")
+    if head_tp is not None:
+        n = params["dt_bias"].shape[-1]
+        dt = dt[..., head_tp.rank * n:(head_tp.rank + 1) * n]
+    dt = F.softplus(dt + params["dt_bias"])
     return (L.linear(x, params["w_z"]), L.linear(x, params["w_x"]),
             L.linear(x, params["w_B"]), L.linear(x, params["w_C"]), dt)
 
@@ -201,8 +231,8 @@ def _convs(params, ux, uB, uC):
 
 def _scan_inputs(params, xs, Bm, Cm, dt, cfg: SSMConfig, nheads):
     B_, Lx, _ = xs.shape
-    xh = xs.reshape(B_, Lx, nheads, cfg.head_dim).float()
-    return xh, dt, -torch.exp(params["A_log"]), Bm.float(), Cm.float()
+    xh = L.upcast(xs.reshape(B_, Lx, nheads, cfg.head_dim))
+    return xh, dt, -torch.exp(params["A_log"]), L.upcast(Bm), L.upcast(Cm)
 
 
 def scan_inputs(params, x, cfg: SSMConfig, d_model: int):
@@ -228,33 +258,37 @@ def _scan(params, xs, Bm, Cm, dt, cfg: SSMConfig, nheads, use_chunked):
     return y + params["D"][:, None] * xh, h
 
 
-def _finish(params, y, z, B_, Lx, d_inner, x_dtype):
+def _finish(params, y, z, B_, Lx, d_inner, x_dtype, tp=None):
     y = y.reshape(B_, Lx, d_inner).to(x_dtype)
-    # the gated norm at rms_norm's default eps, as the reference has it
-    y = L.rms_norm(y * F.silu(z), params["norm"])
-    return L.linear(y, params["out_proj"])
+    # the gated norm at rms_norm's default eps, as the reference has it,
+    # over the whole d_inner where a rank holds a slice of it
+    y = L.rms_norm(y * F.silu(z), params["norm"],
+                   tp=L.sharded(tp, "ssm.norm"))
+    return L.all_reduce(L.linear(y, params["out_proj"]),
+                        L.sharded(tp, "ssm.out_proj"))
 
 
-def ssm_block(params, x, cfg: SSMConfig, d_model: int, use_chunked=True):
+def ssm_block(params, x, cfg: SSMConfig, d_model: int, use_chunked=True,
+              tp=None):
     """Full Mamba2 block, training path.  x: (B, L, d_model)."""
 
-    d_inner, nheads = _dims(d_model, cfg)
+    d_inner, nheads = _local_dims(params)
     B_, Lx, _ = x.shape
-    z, ux, uB, uC, dt = _proj(params, x)
+    z, ux, uB, uC, dt = _proj(params, x, tp)
     xs, Bm, Cm = _convs(params, ux, uB, uC)
     del ux, uB, uC
     y, _ = _scan(params, xs, Bm, Cm, dt, cfg, nheads, use_chunked)
-    return _finish(params, y, z, B_, Lx, d_inner, x.dtype)
+    return _finish(params, y, z, B_, Lx, d_inner, x.dtype, tp)
 
 
-def ssm_prefill(params, x, cfg: SSMConfig, d_model: int):
+def ssm_prefill(params, x, cfg: SSMConfig, d_model: int, tp=None):
     """Training-path forward + the ``SSMState`` to continue decoding at L:
     the scan's final state and the last d_conv - 1 pre-conv activations
     (zeros in front of a prompt shorter than that), in x's dtype."""
 
-    d_inner, nheads = _dims(d_model, cfg)
+    d_inner, nheads = _local_dims(params)
     B_, Lx, _ = x.shape
-    z, ux, uB, uC, dt = _proj(params, x)
+    z, ux, uB, uC, dt = _proj(params, x, tp)
 
     def tail(u):
         # a copy, so that the state holds no view of the (B, L, C) input
@@ -266,13 +300,22 @@ def ssm_prefill(params, x, cfg: SSMConfig, d_model: int):
     xs, Bm, Cm = _convs(params, ux, uB, uC)
     del ux, uB, uC
     y, h = _scan(params, xs, Bm, Cm, dt, cfg, nheads, True)
-    return (_finish(params, y, z, B_, Lx, d_inner, x.dtype),
+    return (_finish(params, y, z, B_, Lx, d_inner, x.dtype, tp),
             SSMState(h, *regs))
 
 
 def init_ssm_state(batch, d_model: int, cfg: SSMConfig,
-                   dtype=torch.float32, device=None, lead=()) -> SSMState:
+                   dtype=torch.float32, device=None, lead=(),
+                   tp=None) -> SSMState:
+    """A zero state; under ``tp`` a rank's: its heads of ``h`` and its
+    channels of ``conv_x`` where the rules split them, ``conv_B`` and
+    ``conv_C`` whole."""
+
     d_inner, nheads = _dims(d_model, cfg)
+    head_tp = L.sharded(tp, "ssm.A_log")
+    nheads //= head_tp.size if head_tp else 1
+    chan_tp = L.sharded(tp, "ssm.conv_x")
+    d_inner //= chan_tp.size if chan_tp else 1
     lead = tuple(lead) + (batch,)
 
     def zeros(*shape, dt=dtype):
@@ -303,13 +346,14 @@ def _conv_step(u_new, buf, w, b):
     return F.silu(out + b), window[:, 1:]
 
 
-def ssm_decode(params, x, state: SSMState, cfg: SSMConfig, d_model: int):
+def ssm_decode(params, x, state: SSMState, cfg: SSMConfig, d_model: int,
+               tp=None):
     """One-token recurrent decode.  x: (B, 1, d).  Writes the new state
     into ``state`` in place; returns (out (B, 1, d), state)."""
 
-    d_inner, nheads = _dims(d_model, cfg)
+    d_inner, nheads = _local_dims(params)
     B_ = x.shape[0]
-    z, ux, uB, uC, dt = _proj(params, x[:, 0])
+    z, ux, uB, uC, dt = _proj(params, x[:, 0], tp)
     xs, reg_x = _conv_step(ux, state.conv_x, params["conv_x"],
                            params["conv_x_b"])
     Bm, reg_B = _conv_step(uB, state.conv_B, params["conv_B"],
@@ -317,13 +361,14 @@ def ssm_decode(params, x, state: SSMState, cfg: SSMConfig, d_model: int):
     Cm, reg_C = _conv_step(uC, state.conv_C, params["conv_C"],
                            params["conv_C_b"])
     A = -torch.exp(params["A_log"])
-    xh = xs.reshape(B_, nheads, cfg.head_dim).float()
+    xh = L.upcast(xs.reshape(B_, nheads, cfg.head_dim))
     dA = torch.exp(dt * A)                               # (B, h)
     h_new = (state.h * dA[..., None, None]
-             + (xh * dt[..., None])[..., None] * Bm.float()[:, None, None])
-    y = (h_new @ Cm.float()[:, None, :, None])[..., 0]
+             + (xh * dt[..., None])[..., None] * L.upcast(Bm)[:, None, None])
+    y = (h_new @ L.upcast(Cm)[:, None, :, None])[..., 0]
     y = y + params["D"][:, None] * xh
-    out = _finish(params, y[:, None], z[:, None], B_, 1, d_inner, x.dtype)
+    out = _finish(params, y[:, None], z[:, None], B_, 1, d_inner, x.dtype,
+                  tp)
     for reg, new in zip(state, (h_new, reg_x, reg_B, reg_C)):
         reg.copy_(new)
     return out, state

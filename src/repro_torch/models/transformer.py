@@ -29,13 +29,14 @@ this dense LM over patch embeddings put before the tokens
 (``models/vlm.py``).
 
 Tensor-parallel serving: ``Ctx(tp=TP.of(group, device))`` runs a rank's
-shards (``train/sharding.py``, ``train/shard.py``) of the dense, VLM and
-MoE families' prefill and decode: the vocab-parallel embedding and
+shards (``train/sharding.py``, ``train/shard.py``) of the dense, VLM,
+MoE and SSM families' prefill and decode: the vocab-parallel embedding and
 logits, attention on the rank's whole heads (its KV cache holds its KV
 heads; MLA's latent cache is whole on every rank, computed redundantly
-from the whole ``wkv_a``), one all-reduce after each row-parallel product
-(attention's, the MLP's and the shared experts' ``wo``), and the
-expert-parallel MoE (``Ctx.ep_pad_to``, ``Ctx.moe_impl``; the EP axis is
+from the whole ``wkv_a``), Mamba2 on the rank's whole heads
+(``models/ssm.py``: its state holds its heads), one all-reduce after each
+row-parallel product (attention's, the MLP's, the shared experts' and
+Mamba2's ``out_proj``), and the expert-parallel MoE (``Ctx.ep_pad_to``, ``Ctx.moe_impl``; the EP axis is
 the ``model`` axis, as the JAX launcher's ``ep_axis="model"``).  The JAX
 package's other mesh fields of ``Ctx`` (dp, one-hot embedding) have no
 twin: ``models/api.py`` refuses the families and specs this does not
@@ -249,7 +250,8 @@ def apply_sublayer_prefill(p, x, max_len, cfg: ModelConfig, sl: SubLayer,
 
     h_in = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if sl.mixer == "ssm":
-        h, cache = SSM.ssm_prefill(p["ssm"], h_in, cfg.ssm, cfg.d_model)
+        h, cache = SSM.ssm_prefill(p["ssm"], h_in, cfg.ssm, cfg.d_model,
+                                   tp=ctx.tp)
     elif sl.mixer == "mla":
         h, cache = MLA.mla_prefill(
             p["attn"], h_in, max_len, num_heads=_heads(cfg, ctx),
@@ -272,7 +274,7 @@ def apply_sublayer_decode(p, cache, x, pos, cfg: ModelConfig, sl: SubLayer,
     h_in = L.rms_norm(x, p["norm1"], cfg.norm_eps)
     if sl.mixer == "ssm":
         h, cache = SSM.ssm_decode(p["ssm"], h_in, cache, cfg.ssm,
-                                  cfg.d_model)
+                                  cfg.d_model, tp=ctx.tp)
     elif sl.mixer == "mla":
         h, cache = MLA.mla_decode(p["attn"], h_in, cache, pos,
                                   num_heads=_heads(cfg, ctx), cfg=cfg.mla,
@@ -397,7 +399,7 @@ def _sublayer_cache(cfg: ModelConfig, sl: SubLayer, ctx: Ctx, batch: int,
                     max_len: int, device, lead=()):
     if sl.mixer == "ssm":
         return SSM.init_ssm_state(batch, cfg.d_model, cfg.ssm,
-                                  ctx.cache_dtype, device, lead)
+                                  ctx.cache_dtype, device, lead, ctx.tp)
     if sl.mixer == "mla":
         return MLA.init_mla_cache(batch, max_len, cfg.mla, ctx.cache_dtype,
                                   device, lead)

@@ -9,17 +9,24 @@ FSDP across data ranks) is refused: its batch and weight slices would
 need collectives the serving path does not make.
 
 ``init_shard(seed, cfg, ctx, mesh_cfg, rank, device)`` draws a rank's
-slices of the dense, VLM and MoE parameter trees without the whole tree
-ever existing: each leaf is drawn one stacked layer at a time (an expert
-leaf one expert at a time, the rank's experts only) from a generator
-keyed by (seed, leaf path, layer[, expert]), cut to the rank's slice,
-and dropped, so at most one full layer of one leaf is on the device at a
+slices of any family's parameter tree without the whole tree ever
+existing: each leaf is drawn one stacked layer at a time (an expert leaf
+one expert at a time, the rank's experts only) from a generator keyed by
+(seed, leaf path, layer[, expert]), cut to the rank's slice, and
+dropped, so at most one full layer of one leaf is on the device at a
 time (internvl2-76b's ``embed``, 4.2 GB, is the largest).  The draws
-follow ``init``'s distributions (normal with std 1/sqrt(fan-in), the
-embedding 1/sqrt(d_model); norms and biases zero; the router float32)
-but not its values.  The shards at ``model = n`` concatenate to the tree
-at ``model = 1``, bit for bit; experts padded for the axis
-(``Ctx.ep_pad_to``) are drawn like the others, after them.
+follow ``init``'s distributions but not its values: normal with std
+1/sqrt(fan-in) (the embeddings 1/sqrt(d_model); zamba2's ``lora_a`` and
+whisper's ``dec_pos`` 0.01), RMSNorm offsets, biases and ``lora_b``
+zero, LayerNorm scales one; Mamba2's ``A_log`` is log(linspace(1, 16,
+heads)), its ``D`` one, its ``dt_bias`` the inverse softplus of a
+log-uniform dt in [1e-3, 1e-1], one draw a head.  The shards at
+``model = n`` concatenate to the tree at ``model = 1``, bit for bit;
+experts padded for the axis (``Ctx.ep_pad_to``) are drawn like the
+others, after them.
+
+A rank's cache is cut by the rules' cache specs, except for the leaves of
+``WHOLE_CACHE`` (``rank_cache_pspecs``).
 """
 
 from __future__ import annotations
@@ -42,8 +49,12 @@ MESH_REASON = (
     "(data parallel serving, or FSDP across data ranks) is not ported "
     "(ROADMAP.md queue 1, item 6.8)")
 
-# the families whose init ``init_shard`` draws
-INIT_FAMILIES = ("dense", "vlm", "moe")
+# cache leaves a rank holds whole where the rules split them: Mamba2's B
+# and C conv registers, which the rules split on d_state.  A rank's
+# w_B/w_C and B/C convs are whole (the rules keep them so), so it computes
+# the whole B and C and needs their whole windows: the port holds the
+# registers whole on every rank and updates them redundantly
+WHOLE_CACHE = ("conv_B", "conv_C")
 
 
 def check_mesh(mesh_cfg: MeshConfig) -> None:
@@ -103,8 +114,18 @@ def shard_params(params, pspecs, mesh_cfg: MeshConfig, rank: int):
         pspecs)
 
 
+def rank_cache_pspecs(cshapes, cspecs):
+    """The specs a rank holds its cache of ``cshapes`` by: the rules'
+    (``cache_pspecs_tree``), with the leaves of ``WHOLE_CACHE`` whole."""
+
+    return tree_map_with_path(
+        lambda path, _, spec: S.P(*[None] * len(spec))
+        if S.leaf_name(path) in WHOLE_CACHE else spec, cshapes, cspecs)
+
+
 def shard_cache(cache, cspecs, mesh_cfg: MeshConfig, rank: int):
-    """Rank ``rank``'s slices of a cache tree (``cache_pspecs_tree``)."""
+    """Rank ``rank``'s slices of a cache tree (by ``rank_cache_pspecs``
+    of the rules' specs)."""
 
     return shard_params(cache, cspecs, mesh_cfg, rank)
 
@@ -121,19 +142,31 @@ def shard_nbytes(shapes, specs, mesh_cfg: MeshConfig) -> int:
 
 
 # a row-parallel leaf -> the column-parallel leaves whose output it takes
-# (MLA's heads: wq and wkv_b); the experts' three leaves split together
-_ROW_PARALLEL = {"attn.wo": ("attn.wq", "attn.wk", "attn.wv", "attn.wkv_b"),
-                 "mlp.wo": ("mlp.wi_gate", "mlp.wi_up"),
+# (MLA's heads: wq and wkv_b; the q/k/v biases and whisper's MLP bias
+# with their weights; Mamba2's head-aligned leaves before its out_proj;
+# zamba2's lora_b, cut with the shared block's q/k/v columns); the
+# experts' three leaves split together.  w_cat and the hybrid's Mamba
+# pre-norm (mamba.norm) are gathered where split, whichever way.
+_QKV = ("wq", "wk", "wv", "bq", "bk", "bv")
+_ROW_PARALLEL = {"attn.wo": tuple(f"attn.{w}" for w in _QKV + ("wkv_b",))
+                 + ("units.lora_b",),
+                 "self_attn.wo": tuple(f"self_attn.{w}" for w in _QKV),
+                 "cross_attn.wo": tuple(f"cross_attn.{w}" for w in _QKV),
+                 "mlp.wo": ("mlp.wi_gate", "mlp.wi_up", "mlp.wi", "mlp.bi"),
                  "shared.wo": ("shared.wi_gate", "shared.wi_up"),
                  "moe.wo": ("moe.wi_gate", "moe.wi_up"),
+                 "ssm.out_proj": tuple(f"ssm.{w}" for w in (
+                     "w_z", "w_x", "conv_x", "conv_x_b", "A_log", "D",
+                     "dt_bias", "norm")),
                  "projector.w2": ()}
 _EXPERTS = ("moe.wi_gate", "moe.wi_up", "moe.wo")
 
 
 def model_split(shapes, pspecs) -> frozenset:
     """The leaves ``pspecs`` split on ``"model"``, each named by the last
-    two keys of its path (``"attn.wo"``, ``"mlp.wo"``; ``"embed"``): the
-    ``split`` of a rank's ``models.layers.TP``, from which the layers
+    two keys of its path (``"attn.wo"``, ``"mlp.wo"``, ``"ssm.out_proj"``,
+    ``"units.w_cat"``, ``"cross_attn.wo"``; ``"embed"``, ``"tok_embed"``):
+    the ``split`` of a rank's ``models.layers.TP``, from which the layers
     decide every collective.  The experts' leaves (``"moe.wi_gate"``,
     ``"moe.wi_up"``, ``"moe.wo"``) are split only on their expert dim:
     their presence means expert parallelism.  Refuses a split the
@@ -184,28 +217,48 @@ def _key(seed: int, path: str, layer: tuple[int, ...]) -> int:
 
 def _std(cfg: ModelConfig, name: str, shape) -> float | None:
     """The std of ``init``'s normal draw of a leaf of this per-layer shape
-    (its rule's dims), or ``None`` for a leaf it fills with zeros: 1 over
-    the square root of its fan-in, dim 1 of an expert leaf (E, in, out),
-    dim 0 of a matrix (the router, MLA's projections), d_model for the
-    embedding."""
+    (its rule's dims), or ``None`` for a leaf it does not draw from a
+    normal (``_fill``, ``_dt_bias``): 1 over the square root of its
+    fan-in, dim 1 of an expert leaf (E, in, out), dim 0 of a matrix (the
+    router, MLA's projections, the Mamba projections and convs), d_model
+    for the embeddings; 0.01 for zamba2's ``lora_a`` and whisper's
+    ``dec_pos``."""
 
-    if len(shape) == 1:             # norms (stored as offsets) and biases
+    if name in ("lora_a", "dec_pos"):
+        return 0.01
+    if len(shape) == 1 or name == "lora_b":   # norms, biases, Mamba's heads
         return None
     fan_in = {1: cfg.d_model, 2: shape[0], 3: shape[1]}[
-        1 if name == "embed" else len(shape)]
+        1 if name in ("embed", "tok_embed") else len(shape)]
     return fan_in ** -0.5
+
+
+def _fill(name: str, shape) -> torch.Tensor | float:
+    """A leaf ``init`` fills without a draw, one layer of it: Mamba2's
+    ``A_log`` (float32), ones for its ``D`` and whisper's LayerNorm scales
+    ``w``, zeros for the rest (RMSNorm offsets, biases, ``lora_b``)."""
+
+    if name == "A_log":
+        return torch.log(torch.linspace(1.0, 16.0, shape[-1]))
+    return 1.0 if name in ("D", "w") else 0.0
+
+
+def _dt_bias(gen, nheads: int, device) -> torch.Tensor:
+    """Mamba2's ``dt_bias`` of one layer: the inverse softplus of a
+    log-uniform dt in [1e-3, 1e-1], one draw a head (``ssm.init_ssm``)."""
+
+    u = torch.rand((nheads,), generator=gen, dtype=torch.float32,
+                   device=device)
+    dt = torch.exp(math.log(1e-3) + u * (math.log(1e-1) - math.log(1e-3)))
+    return torch.log(torch.expm1(dt))
 
 
 def init_shard(seed: int, cfg: ModelConfig, ctx: Ctx | None,
                mesh_cfg: MeshConfig, rank: int, device="cuda") -> dict:
-    """Rank ``rank``'s slices of a seeded dense, VLM or MoE parameter
-    tree, on ``device``; see the module docstring.  ``ctx`` carries the
-    expert padding (``Ctx.ep_pad_to``); ``None`` pads nothing."""
+    """Rank ``rank``'s slices of a seeded parameter tree of any family, on
+    ``device``; see the module docstring.  ``ctx`` carries the expert
+    padding (``Ctx.ep_pad_to``); ``None`` pads nothing."""
 
-    if cfg.family not in INIT_FAMILIES:
-        raise NotImplementedError(
-            f"init_shard draws the {INIT_FAMILIES} trees; the "
-            f"{cfg.family!r} family initialises through its model's init")
     check_mesh(mesh_cfg)
     device = torch.device(device)
     shapes = api.param_specs(api.build_model(cfg, ctx, device="meta"))
@@ -217,21 +270,29 @@ def init_shard(seed: int, cfg: ModelConfig, ctx: Ctx | None,
         out = torch.empty(local_shape(meta.shape, spec, mesh_cfg),
                           dtype=meta.dtype, device=device)
         std = _std(cfg, name, tuple(meta.shape[-k:]))
-        if std is None:
-            return out.zero_()
-        # one draw a matrix: an expert leaf's expert dim is drawn expert
-        # by expert like a stacking dim, and only the rank's experts are
+        if std is None and name != "dt_bias":
+            fill = _fill(name, meta.shape)
+            if isinstance(fill, float):
+                return out.fill_(fill)
+            return out.copy_(_slice(fill, spec[-1:], mesh_cfg, rank))
+        # one draw a matrix (a row for dt_bias): an expert leaf's expert
+        # dim is drawn expert by expert like a stacking dim, and only the
+        # rank's experts are
         n_lead = meta.ndim - min(k, 2)
         ranges = [range(n) if n == m else range(rank * m, (rank + 1) * m)
                   for n, m in zip(meta.shape[:n_lead], out.shape)]
         for layer in itertools.product(*ranges):
             gen = torch.Generator(device=device)
             gen.manual_seed(_key(seed, path, layer))
-            full = torch.randn(meta.shape[n_lead:], generator=gen,
-                               dtype=torch.float32, device=device)
+            if std is None:
+                full = _dt_bias(gen, meta.shape[-1], device)
+            else:
+                full = torch.randn(meta.shape[n_lead:], generator=gen,
+                                   dtype=torch.float32,
+                                   device=device).mul_(std)
             at = tuple(i - r.start for i, r in zip(layer, ranges))
-            out[at] = _slice(full.mul_(std).to(meta.dtype), spec[n_lead:],
-                             mesh_cfg, rank)
+            out[at] = _slice(full.to(meta.dtype), spec[n_lead:], mesh_cfg,
+                             rank)
             del full
         return out
 

@@ -1386,9 +1386,9 @@ def test_dequant_score_counts_launches_by_kernel(cuda):
 
 
 def _tp_card_rank(rank, device, cfg, batch, fed, max_len, tp):
-    """A tensor-parallel rank of the VLM smoke model on the card: its
-    seeded shards, the prefill and decode steps fed ``fed``; the logits
-    on the host and the flash launches of the rank."""
+    """A tensor-parallel rank of a smoke model on the card: its seeded
+    shards, the prefill and decode steps fed ``fed`` (a float32 cache);
+    the logits on the host and the flash launches of the rank."""
 
     import torch.distributed as dist
 
@@ -1463,6 +1463,59 @@ def test_tp_serving_on_one_card_runs_the_flash_kernel_on_each_rank(cuda):
             assert float((got - ref).abs().max()) <= bound
             top2 = ref.topk(2, dim=-1).values
             sure = (top2[:, 0] - top2[:, 1]) > bound
+            assert torch.equal(got.argmax(-1)[sure], ref.argmax(-1)[sure])
+
+
+@pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b",
+                                  "whisper-large-v3"])
+def test_tp_serving_of_ssm_hybrid_encdec_on_one_card(cuda, arch):
+    """tp = 2 ranks of the SSM, hybrid and encoder-decoder smoke models
+    sharing the card against the one-process model on the same seeded
+    weights, both through the flash kernel with a float32 cache (an SSM
+    prompt of two 16-token chunks: the chunked scan): every rank's logits
+    within 1e-5 x max|logit|, greedy tokens equal where the top-2 margin
+    exceeds twice that, the flash launches of a prefill on each rank (one
+    a zamba2 invocation, three a whisper layer pair, none for mamba2)."""
+
+    from repro_torch.config import MeshConfig
+    from repro_torch.launch.gossip import run_on_grid
+    from repro_torch.train.shard import init_shard
+
+    cfg = get_smoke_config(arch)
+    rng = np.random.default_rng(0)
+    B, L, steps = 4, 32, 3
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, L))}
+    if cfg.family == "encdec":
+        batch = {"frames": rng.normal(size=(
+            B, cfg.encoder_seq_len, cfg.d_model)).astype(np.float32),
+            **batch}
+    max_len = L + steps
+    one = build_model(cfg, Ctx(attn_impl="kernel", cache_dtype=torch.float32),
+                      device=cuda)
+    params = init_shard(0, cfg, None, MeshConfig(data=1, model=1, fsdp=False),
+                        0, cuda)
+    with torch.inference_mode():
+        want, cache = one.prefill(params, batch, max_len)
+        wants, fed = [want.cpu()], []
+        for i in range(steps):
+            tok = want.argmax(-1).to(torch.int32)
+            fed.append(tok.cpu())
+            want, cache = one.decode(params, cache, tok, L + i)
+            wants.append(want.cpu())
+    del params, cache
+    ranks = run_on_grid(_tp_card_rank, (1, 2), cfg, batch, fed, max_len, 2,
+                        device="cuda", timeout=300)
+    launches = (cfg.num_layers // cfg.shared_attn_every
+                if cfg.family == "hybrid" else 0 if cfg.family == "ssm"
+                else cfg.encoder_layers + 2 * cfg.num_layers)
+    for res in ranks:
+        assert res["launches"] == launches
+        for got, ref in zip(res["logits"], wants):
+            got = torch.from_numpy(got)
+            bound = 1e-5 * float(ref.abs().max())
+            assert float((got - ref).abs().max()) <= bound
+            top2 = ref.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * bound
             assert torch.equal(got.argmax(-1)[sure], ref.argmax(-1)[sure])
 
 

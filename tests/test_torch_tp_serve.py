@@ -57,6 +57,7 @@ from repro.launch.mesh import make_mesh_from_config  # noqa: E402
 from repro.models import build_model as j_build  # noqa: E402
 from repro.models.api import Ctx as JCtx  # noqa: E402
 from repro_torch.config import MeshConfig, ShapeConfig  # noqa: E402
+from repro_torch.config import get_model_config  # noqa: E402
 from repro_torch.config import get_smoke_config  # noqa: E402
 from repro_torch.convert import lm_params_from_numpy  # noqa: E402
 from repro_torch.launch import gossip as tlaunch  # noqa: E402
@@ -378,23 +379,38 @@ def test_model_split_refuses_what_the_collectives_do_not_follow(
     assert "item 6.8" in str(err.value)
 
 
+# a refused case's config changes: zamba2 with 2 KV heads under its 4
+# query heads (lora_b's width is cut by max(H, Hkv) heads)
+REFUSAL_OVERRIDES = {("zamba2-2.7b", 2): {"num_kv_heads": 2}}
+
+
 @pytest.mark.parametrize("arch,tp,words", [
     # the MoE family serves on the rank grid (tests/test_torch_ep_serve.py):
     # its heads must still split, 4 (smoke) and 24 (full) query heads over
     # 3 ranks into whole heads, and 8 KV heads (full)
     ("granite-moe-3b-a800m", 3, "heads do not split"),
     ("deepseek-v2-lite-16b", 3, "query heads"),
-    ("mamba2-780m", 2, "SSM"),
-    ("zamba2-2.7b", 2, "SSM"),
-    ("whisper-large-v3", 2, "encoder-decoder"),
+    # the SSM, hybrid and encoder-decoder families serve on the rank grid
+    # (tests/test_torch_ssm_encdec_tp_serve.py): their smoke configs' 8
+    # Mamba2 heads and whisper's 4 heads do not split over 3 ranks
+    ("mamba2-780m", 3, "Mamba2 heads"),
+    ("zamba2-2.7b", 3, "Mamba2 heads"),
+    ("whisper-large-v3", 3, "query heads"),
+    # the hybrid with H != Hkv: lora_b's rank slice is not its k/v columns
+    ("zamba2-2.7b", 2, "lora_b"),
     ("granite-34b", 2, "KV heads"),
     ("qwen1.5-32b", 3, "query heads"),
 ])
-def test_refusals_name_their_item(arch, tp, words):
-    cfg = get_smoke_config(arch)
+def test_refusals_name_their_item(arch, tp, words, monkeypatch):
+    cfg = dataclasses.replace(get_smoke_config(arch),
+                              **REFUSAL_OVERRIDES.get((arch, tp), {}))
     with pytest.raises(NotImplementedError, match=words) as err:
         build_model(cfg, Ctx(tp=_fake_tp(tp)), device="cpu")
     assert "item 6.8" in str(err.value)
+    if api.tp_refusal(get_model_config(arch), tp) is None:
+        # the full config serves here (mamba2's 48 heads over 3 ranks,
+        # zamba2's 32 over 32 KV heads): the launcher gets the case's
+        monkeypatch.setattr(serve, "get_model_config", lambda _: cfg)
     with pytest.raises(NotImplementedError, match=words):
         serve.main(["--arch", arch, "--tp", str(tp), "--device", "cpu"])
 
@@ -435,9 +451,21 @@ def test_refusals_of_the_mesh_and_of_training():
         tp_model.loss({}, {"tokens": np.zeros((1, 2)),
                            "targets": np.zeros((1, 2)),
                            "patches": np.zeros((1, 8, 1024), np.float32)})
-    with pytest.raises(NotImplementedError, match="init_shard"):
-        init_shard(0, get_smoke_config("mamba2-780m"), None,
-                   MeshConfig(data=1, model=1, fsdp=False), 0, "cpu")
+    # init_shard draws every family: the SSM, hybrid and encoder-decoder
+    # trees at tp = 2 are the slices of tp = 1
+    one_rank = MeshConfig(data=1, model=1, fsdp=False)
+    two = MeshConfig(data=1, model=2, fsdp=False)
+    for arch in ("mamba2-780m", "zamba2-2.7b", "whisper-large-v3"):
+        smoke = get_smoke_config(arch)
+        full = init_shard(0, smoke, None, one_rank, 0, "cpu")
+        specs = S.param_pspecs(smoke, api.param_specs(
+            build_model(smoke, device="meta")), two)
+        for r in range(2):
+            pairs = []
+            tree_map_with_path(lambda p, g, w: pairs.append((p, g, w)),
+                               init_shard(0, smoke, None, two, r, "cpu"),
+                               shard_params(full, specs, two, r))
+            assert pairs and all(torch.equal(g, w) for _, g, w in pairs)
     with pytest.raises(ValueError, match="process group"):
         lm_engine.make_serve_step(model, None,
                                   MeshConfig(data=1, model=2, fsdp=False),
