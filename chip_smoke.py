@@ -269,7 +269,8 @@ shapes, as ``[moe]``'s rows: granite-moe's q (4, 6, 4000, 64) with k/v
 (32 layers, 40 experts, 10 a rank) and c. deepseek-v2-lite-16b at full
 width (full depth on four cards; on one card shared by the ranks cut,
 layer 0's dense MLP kept, to the depth whose parameters and caches, as
-``tp_reckoning`` counts them, take at most half the card), each first in
+``tp_reckoning`` counts them, take at most a quarter of the card: 8 of
+27 layers since ``[tp_mqa]`` joined the run, 17 at half), each first in
 this process from ``init_shard`` at ``model = 1``: a prefill of 4 x 4000
 tokens, then 7 greedy decode steps, its routing recorded (``RouteLog``).
 Then one grid of 4 ranks (``gloo`` on one card, ``nccl`` with a card a
@@ -319,6 +320,32 @@ median decode step of both runs, the device busy share, the collectives'
 calls, bytes and share, and each rank's bytes of shards and cache, which
 must equal ``shard_nbytes`` of the specs the steps cut them by
 (``conv_B``/``conv_C`` whole), beside the full-depth reckoning.
+
+``[tp_mqa]`` (after ``[tp_ssm_encdec]``): granite-34b, whose one KV head
+does not divide the 4 tensor-parallel ranks: each rank computes its
+quarter of the k/v columns and all-gathers k and v whole, holds the one
+KV head over its quarter of the cache's positions (the rules cut the
+cache on its sequence), and decodes by a masked partial softmax (its
+maxima, then its sums all-reduced, p rounded as the reference rounds it,
+the partial P·V summed).  The flash kernel against its plain version,
+float64 and SDPA at the one process's prefill (4, 48, 1024, 128) against
+one KV head (row 5o) and a rank's (4, 12, 1024, 128) (5p).  Then the
+model at full width and 5 of 88 layers (13 GB of f32 parameters; 4
+layers would equal the batch of 4, which the cache rule takes for the
+batch dim) in this process from ``init_shard`` at ``model = 1``: a
+prefill of 4 x 1024 tokens and 16 greedy decode steps against a
+1376-deep float32 cache, so that the steps write positions 1024-1039
+across the boundary between rank 2's and rank 3's slices (344 positions
+a rank); then one grid of 4 ranks serving it from ``init_shard`` at
+``model = 4``, fed the reference's tokens, held as ``[tp_ssm_encdec]``
+holds its ranks (1e-5 x max|logit|, the float64 referee past it, greedy
+tokens), one flash launch a layer on every rank.  Rank 0 times its
+collectives on the prefill and 4 decode steps run again and profiles one
+more step.  Prints prefill s and the median decode step of both runs,
+the collectives' calls, seconds and bytes by kind, each rank's bytes of
+shards and cache (equal to ``shard_nbytes`` of the specs), and the full
+depth at ``decode_32k``'s length, B = 32, reckoned from the specs: a
+rank's weights and sequence-cut bf16 cache against the card.
 
 ``[stream]`` (after ``[gossip]``): the streaming loop at the Table 3
 cell through ``launch/streaming.py``: 85% of the training ratings
@@ -413,9 +440,10 @@ path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included),
 ``[stream]``, ``[faults]`` (the ranks' by stack shape in
 ``faults_launches_by_stack``), ``[serve]``, ``[sharded]`` (the ranks'),
 ``[measure]`` (the ranks' included), ``[lm]``, ``[moe]``, ``[ssm]``,
-``[encdec]``, ``[vlm]``, ``[tp]``, ``[ep]`` and ``[tp_ssm_encdec]`` (the
-flash row's ``moe``, ``ssm``, ``encdec``, ``vlm``, ``tp``, ``ep`` and
-``tp_ssm_encdec`` keys have those phases' numbers; the rank phases' are
+``[encdec]``, ``[vlm]``, ``[tp]``, ``[ep]``, ``[tp_ssm_encdec]`` and
+``[tp_mqa]`` (the flash row's ``moe``, ``ssm``, ``encdec``, ``vlm``,
+``tp``, ``ep``, ``tp_ssm_encdec`` and ``tp_mqa`` keys have those phases'
+numbers; the rank phases' are
 the reference runs' and every rank's); ``[train]`` launches none.
 
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
@@ -603,10 +631,10 @@ P = Q = 5
 RANK = 15
 PHASES = ("kernels", "main", "table2", "gossip", "stream", "faults",
           "serve", "sharded", "measure", "lm", "train", "moe", "ssm",
-          "encdec", "vlm", "tp", "ep", "tp_ssm_encdec")
+          "encdec", "vlm", "tp", "ep", "tp_ssm_encdec", "tp_mqa")
 NEEDS = {"serve": ("main",), "sharded": ("main",), "measure": ("main",)}
 LM_PHASES = ("lm", "moe", "ssm", "encdec", "vlm", "tp", "ep",
-             "tp_ssm_encdec")
+             "tp_ssm_encdec", "tp_mqa")
 CFG = dict(rho=1e3, lam=1e-6, a=2.0e-4, b=5.0e-7)
 FULL_ROUNDS = 800   # the Table 3 cell's rounds (benchmarks/table3_rmse.py)
 COMPARE_ROUNDS = 40  # sparse and dense FullGD are compared at this round
@@ -748,9 +776,10 @@ TP_RANKS, TP_SEED, TP_TIMED_STEPS = 4, 0, 8
 # experts 10 a rank, deepseek's 64 16 a rank), a prefill and 7 decode
 # steps (8 logits) fed the one-process run's tokens; on one card shared by
 # the ranks, deepseek's depth is cut so that the ranks' parameters and
-# caches take at most EP_CARD_SHARE of it; the a2a form's capacity and
-# its tolerance against the psum form on tokens with no dropped slot
-EP_RANKS, EP_SEED, EP_NEW, EP_CARD_SHARE = 4, 0, 8, 0.5
+# caches take at most EP_CARD_SHARE of it (a quarter, for the run's time
+# since [tp_mqa] joined it); the a2a form's capacity and its tolerance
+# against the psum form on tokens with no dropped slot
+EP_RANKS, EP_SEED, EP_NEW, EP_CARD_SHARE = 4, 0, 8, 0.25
 EP_CAPACITY, A2A_TOL = 2.0, 1e-5
 # [tp_ssm_encdec]: the SSM, hybrid and encoder-decoder families at full
 # width on TP_RANKS tensor-parallel ranks (mamba2's 48 Mamba2 heads 12 a
@@ -770,6 +799,18 @@ TSE_TOL = 1e-5        # x max|logit| of the one-process model: the f32 pin
 # the same model: the rank's distance from it at most this many times the
 # one process's (the flash rows' float64 rule)
 TSE_F64_FACTOR = 4.0
+# [tp_mqa]: granite-34b (48 query heads, 12 a rank, over one KV head) at
+# full width on TP_RANKS ranks, its depth cut for the run's time (4
+# layers would equal the batch, which the rules' cache spec takes for the
+# batch dim); a prefill of 4 x 1024 tokens, 16 greedy decode steps, a
+# float32 cache 1376 deep (344 positions a rank: the steps write 1024-1039,
+# across the boundary at 1032); rank 0 times its collectives on 4 steps;
+# the ranks warm up on one request of 64 tokens
+MQA_ARCH, MQA_LAYERS = "granite-34b", 5
+MQA_BATCH, MQA_PROMPT, MQA_NEW, MQA_MAX_LEN = 4, 1024, 16, 1376
+MQA_TIMED_STEPS, MQA_WARM = 4, 64
+# the four-card cell it stands for: decode_32k's length at B = 32
+MQA_FULL_BATCH, MQA_FULL_LEN = 32, 32768
 # [measure]: the traffic tape, the density sweep, the gossip_comm grid
 MEASURE_REQUESTS, MEASURE_RATE, MEASURE_K = 200, 200.0, 100
 MEASURE_SHAPE = (6040, 3706)         # the Table 3 cell's matrix
@@ -3793,34 +3834,41 @@ def tse_batch(cfg) -> dict:
 
 
 def tse_steps(cfg, group, ranks, batch, device,
-              ctx=Ctx(attn_impl="kernel", cache_dtype=torch.float32)):
+              ctx=Ctx(attn_impl="kernel", cache_dtype=torch.float32),
+              max_len=None):
     """The rank's (or the one process's) mesh, its prefill and decode
     steps of ``cfg`` under ``ctx`` (the flash kernel and a float32 cache)
-    with a cache ``TSE_NEW`` deeper than the prompt, and the steps'
-    infos."""
+    with a cache ``max_len`` deep (``TSE_NEW`` deeper than the prompt by
+    default), and the steps' infos."""
 
     mesh_cfg = MeshConfig(data=1, model=ranks, fsdp=False)
     model = build_model(cfg, ctx, device=device)
     B, L = batch["tokens"].shape
+    max_len = max_len or L + TSE_NEW
     prefill, info = make_prefill_step(
         model, group, mesh_cfg, ShapeConfig("tse", L, B, "prefill"),
-        L + TSE_NEW)
+        max_len)
     decode, dinfo = make_serve_step(
-        model, group, mesh_cfg, ShapeConfig("tse", L + TSE_NEW, B, "decode"))
+        model, group, mesh_cfg, ShapeConfig("tse", max_len, B, "decode"))
     return mesh_cfg, prefill, decode, info, dinfo
 
 
-def _tse_warm(batch) -> dict:
-    return {k: v[:1] for k, v in batch.items()}
+def _tse_warm(batch, length=None) -> dict:
+    """The first request of ``batch``, its prompt cut to ``length``."""
+
+    return {k: v[:1, :length] if k == "tokens" else v[:1]
+            for k, v in batch.items()}
 
 
-def tse_reference(cfg, batch, device) -> dict:
-    """``[tp_ssm_encdec]``'s one-process run of ``cfg`` from ``init_shard``
-    at ``model = 1``: a prefill, then ``TSE_NEW - 1`` greedy decode steps;
-    the logits of every step on the host, the tokens it fed, times, flash
+def tse_reference(cfg, batch, device, new=TSE_NEW, max_len=None) -> dict:
+    """``[tp_ssm_encdec]``'s (and ``[tp_mqa]``'s) one-process run of
+    ``cfg`` from ``init_shard`` at ``model = 1``: a prefill, then ``new -
+    1`` greedy decode steps (a cache ``max_len`` deep, ``tse_steps``); the
+    logits of every step on the host, the tokens it fed, times, flash
     launches and bytes."""
 
-    mesh_cfg, prefill, decode, _, _ = tse_steps(cfg, None, 1, batch, device)
+    mesh_cfg, prefill, decode, _, _ = tse_steps(cfg, None, 1, batch, device,
+                                                max_len=max_len)
     L = batch["tokens"].shape[1]
     t0 = time.perf_counter()
     params = init_shard(TSE_SEED, cfg, None, mesh_cfg, 0, device)
@@ -3836,7 +3884,7 @@ def tse_reference(cfg, batch, device) -> dict:
     _sync(device)
     t_pre = time.perf_counter() - t0
     ref, fed, t_dec = [logits.float().cpu()], [], []
-    for i in range(TSE_NEW - 1):
+    for i in range(new - 1):
         tok = logits.argmax(-1).to(torch.int32)
         fed.append(tok.cpu())
         t0 = time.perf_counter()
@@ -3852,11 +3900,11 @@ def tse_reference(cfg, batch, device) -> dict:
            "cache_bytes": _nbytes(tree_leaves(cache))}
     del params, cache, logits, prefill, decode
     _free()
-    out["logits64"] = tse_float64(cfg, batch, out["fed"], device)
+    out["logits64"] = tse_float64(cfg, batch, out["fed"], device, max_len)
     return out
 
 
-def tse_float64(cfg, batch, fed, device) -> list:
+def tse_float64(cfg, batch, fed, device, max_len=None) -> list:
     """The logits of ``tse_reference``'s steps in a float64 evaluation of
     the same model: ``init_shard``'s draws widened to float64 (Mamba2's
     float32 ``A_log``, ``D``, ``dt_bias`` as they are), the plain
@@ -3865,7 +3913,7 @@ def tse_float64(cfg, batch, fed, device) -> list:
     cfg64 = dataclasses.replace(cfg, param_dtype="float64")
     mesh_cfg, prefill, decode, _, _ = tse_steps(
         cfg64, None, 1, batch, device,
-        Ctx(attn_impl="ref", cache_dtype=torch.float64))
+        Ctx(attn_impl="ref", cache_dtype=torch.float64), max_len)
     L = batch["tokens"].shape[1]
     params = init_shard(TSE_SEED, cfg64, None, mesh_cfg, 0, device)
     wide = {k: v.astype(np.float64) if v.dtype == np.float32 else v
@@ -3880,24 +3928,28 @@ def tse_float64(cfg, batch, fed, device) -> list:
     return out
 
 
-def tse_serve(rank, device, cfg, batch, fed) -> dict:
-    """``[tp_ssm_encdec]``'s rank for one arch: its ``init_shard`` shards
-    at ``model = TP_RANKS``, a warm-up, the prefill and decode steps fed
-    the reference's tokens (its logits returned from every rank), then
-    the same again with rank 0 timing its collectives, and one more decode
-    step, profiled on rank 0."""
+def tse_serve(rank, device, cfg, batch, fed, max_len=None,
+              timed_steps=None, warm_len=None) -> dict:
+    """``[tp_ssm_encdec]``'s (and ``[tp_mqa]``'s) rank for one arch: its
+    ``init_shard`` shards at ``model = TP_RANKS``, a warm-up (one request,
+    its prompt cut to ``warm_len`` where given), the prefill
+    and decode steps fed the reference's tokens (its logits returned from
+    every rank), then the prefill and the first ``timed_steps`` decode
+    steps (all by default) again with rank 0 timing its collectives, and
+    one more decode step, profiled on rank 0."""
 
     import torch.distributed as dist
 
     mesh_cfg, prefill, decode, info, dinfo = tse_steps(
-        cfg, dist.group.WORLD, TP_RANKS, batch, device)
+        cfg, dist.group.WORLD, TP_RANKS, batch, device, max_len=max_len)
     L = batch["tokens"].shape[1]
     t0 = time.perf_counter()
     params = init_shard(TSE_SEED, cfg, None, mesh_cfg, rank, device)
     _sync(device)
     t_init = time.perf_counter() - t0
-    _tp_steps(prefill, decode, params, _tse_warm(batch), fed[:1, :1], L,
-              device)
+    warm = _tse_warm(batch, warm_len)
+    _tp_steps(prefill, decode, params, warm, fed[:1, :1],
+              warm["tokens"].shape[1], device)
     torch.cuda.reset_peak_memory_stats(device)
     n0 = flash_ops.flash_attention.launches
     logits, t_pre, t_dec, cache = _tp_steps(prefill, decode, params, batch,
@@ -3913,15 +3965,17 @@ def tse_serve(rank, device, cfg, batch, fed) -> dict:
     del cache
     tp, dtp = info["model"].ctx.tp, dinfo["model"].ctx.tp
     tp.timed = dtp.timed = rank == 0
-    _, t_pre2, t_dec2, cache = _tp_steps(prefill, decode, params, batch, fed,
-                                         L, device)
+    _, t_pre2, t_dec2, cache = _tp_steps(prefill, decode, params, batch,
+                                         fed[:timed_steps], L, device)
     tp.timed = dtp.timed = False
     tok = torch.from_numpy(out["logits"][-1]).argmax(-1).to(
         torch.int32).to(device)
-    step = lambda: decode(params, cache, tok, L + len(fed))  # noqa: E731
+    step = lambda: decode(params, cache, tok,  # noqa: E731
+                          L + len(fed[:timed_steps]))
     if rank == 0:
         out["timed"] = {"prefill_s": t_pre2, "prefill": dict(tp.stats),
-                        "decode_s": t_dec2, "decode": dict(dtp.stats)}
+                        "decode_s": t_dec2, "decode": dict(dtp.stats),
+                        "kv_cache": dtp.kv_cache}
         _, secs, bd = profiled(step)
         out["profile"] = {"wall_ms": 1e3 * secs,
                           "busy": sum(bd.values()) / (1e3 * secs),
@@ -3935,7 +3989,8 @@ def tse_serve(rank, device, cfg, batch, fed) -> dict:
 
 
 def tse_rank(rank, device, jobs) -> list:
-    """``[tp_ssm_encdec]``'s rank over every arch of ``jobs`` in turn."""
+    """``[tp_ssm_encdec]``'s (and ``[tp_mqa]``'s) rank over every arch of
+    ``jobs`` in turn."""
 
     return [tse_serve(rank, device, *job) for job in jobs]
 
@@ -3952,17 +4007,15 @@ def tse_flash_launches(cfg) -> int:
     return 0
 
 
-def tse_report(cfg, full, ref, ranks, backend, card_total) -> dict:
-    """``[tp_ssm_encdec]``'s gates and lines for one arch."""
+def hold_logits(tag, ranks, ref):
+    """Every rank's logits of every step against the one process's
+    (``ref``: ``tse_reference``'s), at ``TSE_TOL`` x max|logit|; a step
+    past it is held to the float64 evaluation (the rank's error at most
+    ``TSE_F64_FACTOR`` x the one process's); greedy tokens equal wherever
+    the top-2 margin exceeds twice the bound.  Returns the worst diff over
+    the bound (prefill, decode), the (rank, row, step) checked, the
+    refereed steps and the one process's float64 error a step."""
 
-    tag = f"[tp_ssm_encdec] {cfg.name}"
-    want_launches = tse_flash_launches(cfg)
-    launches = [r["launches"] for r in ranks]
-    if launches != [want_launches] * TP_RANKS \
-            or ref["launches"] != want_launches:
-        fail(f"{tag}: flash_attention launches {ref['launches']} in the "
-             f"reference and {launches} by rank, expected {want_launches} "
-             "on each")
     want, want64 = ref["logits"], ref["logits64"]
     # the one process's float32 logits against the float64 evaluation
     one64 = [float((w.double() - w64).abs().max() / w64.abs().max())
@@ -4004,6 +4057,21 @@ def tse_report(cfg, full, ref, ranks, backend, card_total) -> dict:
             if not torch.equal(g.argmax(-1)[sure], w.argmax(-1)[sure]):
                 fail(f"{tag} rank {r} step {step}: a greedy token differs "
                      "from the one-process model's")
+    return worst, checked, refereed, one64
+
+
+def tse_report(cfg, full, ref, ranks, backend, card_total) -> dict:
+    """``[tp_ssm_encdec]``'s gates and lines for one arch."""
+
+    tag = f"[tp_ssm_encdec] {cfg.name}"
+    want_launches = tse_flash_launches(cfg)
+    launches = [r["launches"] for r in ranks]
+    if launches != [want_launches] * TP_RANKS \
+            or ref["launches"] != want_launches:
+        fail(f"{tag}: flash_attention launches {ref['launches']} in the "
+             f"reference and {launches} by rank, expected {want_launches} "
+             "on each")
+    worst, checked, refereed, one64 = hold_logits(tag, ranks, ref)
     r0 = ranks[0]
     ms = 1e3 * statistics.median(r0["decode_s"])
     ref_ms = 1e3 * statistics.median(ref["decode_s"])
@@ -4043,7 +4111,8 @@ def tse_report(cfg, full, ref, ranks, backend, card_total) -> dict:
     print(f"{tag}: against a float64 evaluation of the same model, the one "
           f"process's float32 logits err by {max(one64):.3e} x max|logit| "
           f"(prefill {one64[0]:.3e}); {len(refereed)} of "
-          f"{len(want) * len(ranks)} (rank, step) past the bound, held to "
+          f"{len(ref['logits']) * len(ranks)} (rank, step) past the bound, "
+          "held to "
           f"float64: the rank's error at most "
           f"{'-' if ratio is None else f'{ratio:.3f}'} x the one process's "
           f"(limit {TSE_F64_FACTOR})", flush=True)
@@ -4147,6 +4216,160 @@ def tse_phase(card, flash_row, device="cuda") -> dict:
     out["launches"] = sum(out[arch]["launches"] for arch in TSE_ARCHS)
     flash_row["launches"] += out["launches"]
     flash_row["tp_ssm_encdec"] = out
+    print(f"{tag} phase: {time.perf_counter() - t_phase:.1f}s of command",
+          flush=True)
+    return out
+
+
+def mqa_phase(card, flash_row, device="cuda") -> dict:
+    """``[tp_mqa]``: rows 5o and 5p, then granite-34b at full width (depth
+    cut, ``MQA_LAYERS``) served by one process and by one grid of
+    ``TP_RANKS`` tensor-parallel ranks whose KV cache the rules cut on its
+    sequence; see the module docstring.  Adds the phase's flash launches
+    to ``flash_row``."""
+
+    t_phase = time.perf_counter()
+    tag, n = "[tp_mqa]", TP_RANKS
+    full = get_model_config(MQA_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MQA_LAYERS)
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    B, L = MQA_BATCH, MQA_PROMPT
+    flash = {"5o one process": prefill_flash(
+                 card, tag, "granite-34b one process (5o)", B, L, H, Hkv,
+                 hd, hd),
+             "5p rank": prefill_flash(
+                 card, tag, "granite-34b rank (5p)", B, L, H // n, Hkv, hd,
+                 hd)}
+    slice_len = MQA_MAX_LEN // n
+    owners = sorted({pos // slice_len for pos in range(L, L + MQA_NEW)})
+    if MQA_MAX_LEN % n or len(owners) != 2:
+        fail(f"{tag} the decode steps write positions {L}-{L + MQA_NEW - 1}"
+             f" of ranks {owners}' slices of {MQA_MAX_LEN} / {n}: the cell "
+             "must cross a boundary between two ranks' slices")
+    dev = torch.device(device)
+    card_total = (torch.cuda.get_device_properties(0).total_memory
+                  if dev.type == "cuda" else 0)
+    batch = {"tokens": np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (B, L))}
+    ref = tse_reference(cfg, batch, dev, new=MQA_NEW + 1,
+                        max_len=MQA_MAX_LEN)
+    backend = pick_backend(device, n)
+    marks: list = []
+    t0 = time.perf_counter()
+    ranks = [r[0] for r in run_on_grid(
+        tse_rank, (1, n), [(cfg, batch, ref["fed"], MQA_MAX_LEN,
+                            MQA_TIMED_STEPS, MQA_WARM)],
+        device=device, timeout=900, marks=marks)]
+    t_grid = time.perf_counter() - t0
+    launches = [r["launches"] for r in ranks]
+    if launches != [cfg.num_layers] * n or ref["launches"] != cfg.num_layers:
+        fail(f"{tag} flash_attention launches {ref['launches']} in the "
+             f"reference and {launches} by rank, expected {cfg.num_layers} "
+             "on each")
+    layouts = {r["timed"]["kv_cache"] for r in ranks if "timed" in r}
+    if layouts != {"sequence"}:
+        fail(f"{tag} rank 0 holds its KV cache as {layouts}, not cut on its "
+             "sequence as the rules cut it")
+    worst, checked, refereed, one64 = hold_logits(tag, ranks, ref)
+    reckon = tp_reckoning(cfg, n, B, MQA_MAX_LEN, torch.float32)
+    for r, res in enumerate(ranks):
+        if (res["param_bytes"], res["cache_bytes"]) != (
+                reckon["parameter_bytes_per_rank"],
+                reckon["cache_bytes_per_rank"]):
+            fail(f"{tag} rank {r}: {res['param_bytes']} bytes of shards and "
+                 f"{res['cache_bytes']} of cache, the specs reckon "
+                 f"{reckon['parameter_bytes_per_rank']} and "
+                 f"{reckon['cache_bytes_per_rank']}")
+    r0 = ranks[0]
+    ms = 1e3 * statistics.median(r0["decode_s"])
+    ref_ms = 1e3 * statistics.median(ref["decode_s"])
+    timed = r0["timed"]
+    shares = {"prefill": _shares(timed["prefill"], timed["prefill_s"]),
+              "decode_step": _shares(timed["decode"], sum(timed["decode_s"]),
+                                     len(timed["decode_s"]))}
+    for key, row in flash.items():
+        print(f"{tag} row {key}: {row['ms']:.4f} ms (plain "
+              f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}; bound "
+              f"{row['bound_ms']:.4f} 3xTF32, "
+              f"{row['bound_f32_cuda_core_ms']:.4f} f32), max abs err "
+              f"{row['max_abs_err']:.3e} against plain", flush=True)
+    print(f"{tag} depth cut for the run's time, widths whole: "
+          f"num_layers {cfg.num_layers} of {full.num_layers}; the decode "
+          f"steps write positions {L}-{L + MQA_NEW - 1}, in the slices of "
+          f"ranks {owners} ({slice_len} positions a rank)", flush=True)
+    print(f"{tag}: reference, 1 process ({ref['param_bytes'] / 1e9:.3f} GB "
+          f"of f32 parameters, init_shard {ref['init_s']:.2f}s): prefill "
+          f"{ref['prefill_s']:.3f}s of {B} x {L} tokens, decode "
+          f"{ref_ms:.3f} ms/step (median of {len(ref['decode_s'])}), "
+          f"{ref['launches']} flash launches, peak "
+          f"{ref['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"{tag}: {n} ranks ({backend}, "
+          f"{'one card' if backend == 'gloo' else 'a card a rank'}; grid "
+          f"{t_grid:.1f}s with start-up "
+          f"{max(m['group_s'] for m in marks):.1f}s): prefill "
+          f"{r0['prefill_s']:.3f}s, decode {ms:.3f} ms/step (median of "
+          f"{len(r0['decode_s'])}); flash launches by rank {launches}; every "
+          f"rank's logits within {worst['prefill']:.3f} (prefill) and "
+          f"{worst['decode']:.3f} (decode, float32 cache) x the bound "
+          f"({TSE_TOL} x max|logit|) of the one process's; greedy tokens "
+          f"equal on all {checked} (rank, row, step) with a margin over "
+          f"twice the bound", flush=True)
+    ratio = max((x["rank_f64_err"] / x["one_f64_err"] for x in refereed),
+                default=None)
+    print(f"{tag}: against a float64 evaluation of the same model, the one "
+          f"process's float32 logits err by {max(one64):.3e} x max|logit| "
+          f"(prefill {one64[0]:.3e}); {len(refereed)} of "
+          f"{len(ref['logits']) * n} (rank, step) past the bound, held to "
+          f"float64: the rank's error at most "
+          f"{'-' if ratio is None else f'{ratio:.3f}'} x the one process's "
+          f"(limit {TSE_F64_FACTOR})", flush=True)
+    prof = r0["profile"]
+    print(f"{tag} rank 0 decode step under the profiler: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {100 * prof['busy']:.1f}%;"
+          f" by kernel: {prof['top']}", flush=True)
+    print(f"{tag} collectives on rank 0, the card synchronised around each "
+          f"(the prefill and {len(timed['decode_s'])} decode steps run "
+          f"again): prefill {timed['prefill_s']:.3f}s "
+          f"{json.dumps(shares['prefill'])}; decode step "
+          f"{1e3 * statistics.median(timed['decode_s']):.3f} ms "
+          f"{json.dumps(shares['decode_step'])}", flush=True)
+    for r, res in enumerate(ranks):
+        print(f"{tag} rank {r}: shards {res['param_bytes']} bytes, cache "
+              f"{res['cache_bytes']} bytes (float32, one KV head over "
+              f"{slice_len} of {MQA_MAX_LEN} positions, against the one "
+              f"process's {ref['cache_bytes']}; shards and cache equal to "
+              f"shard_nbytes of the specs), peak "
+              f"{res['peak_bytes'] / 2**30:.2f} GiB, "
+              f"init_shard {res['init_s']:.2f}s", flush=True)
+    reckon_full = tp_reckoning(full, n, MQA_FULL_BATCH, MQA_FULL_LEN)
+    one_full = tp_reckoning(full, 1, MQA_FULL_BATCH, MQA_FULL_LEN)
+    reckon_full["cache_bytes_one_process"] = one_full["cache_bytes_per_rank"]
+    print(f"{tag} at full depth ({full.num_layers} layers) and decode_32k's "
+          f"length at B = {MQA_FULL_BATCH}, reckoned from the specs: "
+          f"{reckon_full['parameters']} parameters "
+          f"({reckon_full['parameter_bytes_all'] / 1e9:.2f} GB of f32); a "
+          f"rank holds {reckon_full['parameter_bytes_per_rank'] / 1e9:.3f} "
+          f"GB of weights + {reckon_full['cache_bytes_per_rank'] / 1e9:.3f} "
+          f"GB of bf16 cache cut on its sequence (whole on every rank it "
+          f"would be {one_full['cache_bytes_per_rank'] / 1e9:.3f} GB), "
+          f"against the card's {card_total / 1e9:.1f} GB", flush=True)
+    out = {"backend": backend, "flash": flash, "layers": cfg.num_layers,
+           "reference": {"prefill_s": ref["prefill_s"],
+                         "decode_ms_per_step": ref_ms,
+                         "peak_gib": ref["peak_bytes"] / 2**30,
+                         "parameter_bytes": ref["param_bytes"],
+                         "cache_bytes": ref["cache_bytes"]},
+           "ranks": [{k: v for k, v in r.items()
+                      if k not in ("logits", "timed", "profile")}
+                     for r in ranks],
+           "prefill_s": r0["prefill_s"], "decode_ms_per_step": ms,
+           "busy": prof["busy"], "collectives": shares,
+           "logit_err_over_bound": worst, "greedy_checked": checked,
+           "one_process_f64_err": one64, "refereed": refereed,
+           "reckoning": reckon, "full_depth": reckon_full,
+           "launches": ref["launches"] + sum(launches)}
+    flash_row["launches"] += out["launches"]
+    flash_row["tp_mqa"] = out
     print(f"{tag} phase: {time.perf_counter() - t_phase:.1f}s of command",
           flush=True)
     return out
@@ -5447,7 +5670,9 @@ def measure_phase(fitted, device="cuda") -> tuple[dict, list]:
     fit_records = roofline_bench.gossip_records()
     lm_analyses = {
         "tp": [analyze_record(r) for r in roofline_bench.lm_records()],
-        "ep": [analyze_record(r) for r in roofline_bench.moe_records()]}
+        "ep": [analyze_record(r) for r in roofline_bench.moe_records()],
+        "tp_mqa": [analyze_record(r)
+                   for r in roofline_bench.mqa_records()]}
     print(f"[measure] roofline records counted in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     beside = {"1x1": ("[main] FullGD sparse/segment ms/round",
@@ -5464,11 +5689,12 @@ def measure_phase(fitted, device="cuda") -> tuple[dict, list]:
     return total, lm_analyses
 
 
-def roofline_after_tp(lm_analyses, tp_out, ep_out) -> None:
-    """The ``[tp]`` and ``[ep]`` cells' roofline lines beside their
-    measured times (``[tp]``: the one-process reference at ``model`` = 1,
-    rank 0 at 4; ``[ep]``: rank 0 at 4, its depth named where one card cut
-    it; an a2a prefill record beside ``[ep]`` d's one layer, both forms)."""
+def roofline_after_tp(lm_analyses, tp_out, ep_out, mqa_out=None) -> None:
+    """The ``[tp]``, ``[ep]`` and ``[tp_mqa]`` cells' roofline lines beside
+    their measured times (``[tp]`` and ``[tp_mqa]``: the one-process
+    reference at ``model`` = 1, rank 0 at 4; ``[ep]``: rank 0 at 4, its
+    depth named where one card cut it; an a2a prefill record beside
+    ``[ep]`` d's one layer, both forms)."""
 
     def seen(a, run):
         return (f"{run['prefill_s']:.4f} s" if a["shape_cfg"]["kind"]
@@ -5496,6 +5722,12 @@ def roofline_after_tp(lm_analyses, tp_out, ep_out) -> None:
                                    if run["layers"] != full else "")
         print(f"[measure] {roofline_bench.roofline_line(a)} | [ep] "
               f"measured: {text}", flush=True)
+    for a in lm_analyses["tp_mqa"]:
+        run = None if mqa_out is None else (
+            mqa_out["reference"] if a["chips"] == 1 else mqa_out)
+        print(f"[measure] {roofline_bench.roofline_line(a)} | [tp_mqa] "
+              f"measured: {'not run' if run is None else seen(a, run)}",
+              flush=True)
 
 
 def _leaves(tree):
@@ -5747,8 +5979,11 @@ def main() -> None:
     if want("tp_ssm_encdec"):
         tse_phase(card, rows[-1])
         _free()
+    # 12. granite-34b's one KV head: the cache cut on its sequence
+    mqa_out = mqa_phase(card, rows[-1]) if want("tp_mqa") else None
+    _free()
     if lm_analyses is not None:
-        roofline_after_tp(lm_analyses, tp_out, ep_out)
+        roofline_after_tp(lm_analyses, tp_out, ep_out, mqa_out)
     print(f"[main] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{time.perf_counter() - started:.1f}s since start", flush=True)

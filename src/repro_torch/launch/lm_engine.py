@@ -13,7 +13,11 @@ shard.  A MoE model's experts are padded to the model axis
 (``with_ep``) and split by expert over its ranks; MLA's latent cache is
 whole on every rank, and so are Mamba2's ``conv_B``/``conv_C``
 registers, which the rules split on ``d_state`` (``info["cspecs"]`` is
-the layout the rank holds: ``train/shard.py::rank_cache_pspecs``).
+the layout the rank holds: ``train/shard.py::rank_cache_pspecs``).  Where
+the KV heads do not divide the ranks the rules cut the attention caches
+on their sequence, or keep them whole: the rank's model takes that
+layout from the specs (``train/shard.py::kv_cache_layout``, its
+``TP.kv_cache``).
 Decode writes the cache shard in place: the port's form of
 ``donate_argnums=(1,)``.  Without a group
 (``mesh_cfg.model == 1``) the step is the model's own.
@@ -35,7 +39,8 @@ from repro_torch.models.api import (Model, build_model, cache_specs,
 from repro_torch.models.layers import TP
 from repro_torch.optim.optimizers import tree_map_with_path
 from repro_torch.train import sharding as S
-from repro_torch.train.shard import (check_mesh, local_shape, model_split,
+from repro_torch.train.shard import (check_mesh, kv_cache_layout,
+                                     local_shape, model_split,
                                      rank_cache_pspecs)
 
 
@@ -53,10 +58,11 @@ def with_ep(model: Model, mesh_cfg: MeshConfig) -> Model:
 
 
 def _rank_model(model: Model, group, mesh_cfg: MeshConfig, shapes,
-                pspecs) -> Model:
-    """``model`` on this rank's shards: rebuilt with the group's ``TP``
-    and the leaves ``pspecs`` split (``model_split``), refusing what the
-    port does not shard; or itself on one rank."""
+                pspecs, cshapes, cspecs) -> Model:
+    """``model`` on this rank's shards: rebuilt with the group's ``TP``,
+    the leaves ``pspecs`` split (``model_split``) and the KV cache layout
+    of ``cspecs`` (``kv_cache_layout``), refusing what the port does not
+    shard; or itself on one rank."""
 
     check_mesh(mesh_cfg)
     if mesh_cfg.model == 1:
@@ -67,7 +73,8 @@ def _rank_model(model: Model, group, mesh_cfg: MeshConfig, shapes,
     if group is None:
         raise ValueError(f"a {mesh_cfg.model}-rank model axis needs its "
                          "process group")
-    tp = TP.of(group, model.device, model_split(shapes, pspecs))
+    tp = TP.of(group, model.device, model_split(shapes, pspecs),
+               kv_cache_layout(cshapes, cspecs))
     if tp.size != mesh_cfg.model:
         raise ValueError(f"the group has {tp.size} ranks, the model axis "
                          f"{mesh_cfg.model}")
@@ -78,7 +85,8 @@ def _rank_model(model: Model, group, mesh_cfg: MeshConfig, shapes,
 def _check_cache(rank_model: Model, cshapes, cspecs, mesh_cfg: MeshConfig,
                  batch: int, max_len: int) -> None:
     """Refuse a cache whose specs (``rank_cache_pspecs``) do not cut it as
-    the rank's model holds it (its KV and Mamba heads).  The rules find
+    the rank's model holds it (its KV heads or its slice of the positions,
+    its Mamba heads).  The rules find
     the batch dim as the first dim
     equal to the batch size, so a stacking dim of that size takes the
     batch's place and the heads' ``"model"`` lands on the batch: GSPMD
@@ -93,8 +101,8 @@ def _check_cache(rank_model: Model, cshapes, cspecs, mesh_cfg: MeshConfig,
         if local_shape(x.shape, spec, mesh_cfg) != tuple(local.shape):
             raise NotImplementedError(
                 f"the sharding rules cut the cache leaf {path} "
-                f"{tuple(x.shape)} as {spec}, not by its heads as a rank "
-                f"holds it ({tuple(local.shape)}): the batch size equals a "
+                f"{tuple(x.shape)} as {spec}, not as a rank holds it "
+                f"({tuple(local.shape)}): the batch size equals a "
                 "stacking dim's, which the rules take for the batch; GSPMD "
                 "reshards this layout, the port does not (ROADMAP.md queue "
                 "1, item 6.8)")
@@ -123,7 +131,8 @@ def make_serve_step(model: Model, group, mesh_cfg: MeshConfig,
     cshapes = cache_specs(model, B, max_len)
     cspecs = rank_cache_pspecs(
         cshapes, S.cache_pspecs_tree(cfg, shape_cfg, mesh_cfg, cshapes))
-    rank_model = _rank_model(model, group, mesh_cfg, shapes, pspecs)
+    rank_model = _rank_model(model, group, mesh_cfg, shapes, pspecs,
+                             cshapes, cspecs)
     _check_cache(rank_model, cshapes, cspecs, mesh_cfg, B, max_len)
 
     def serve_step(params, cache, token, pos):
@@ -151,7 +160,8 @@ def make_prefill_step(model: Model, group, mesh_cfg: MeshConfig,
     cshapes = cache_specs(model, B, max_len)
     cspecs = rank_cache_pspecs(
         cshapes, S.cache_pspecs_tree(cfg, shape_cfg, mesh_cfg, cshapes))
-    rank_model = _rank_model(model, group, mesh_cfg, shapes, pspecs)
+    rank_model = _rank_model(model, group, mesh_cfg, shapes, pspecs,
+                             cshapes, cspecs)
     _check_cache(rank_model, cshapes, cspecs, mesh_cfg, B, max_len)
 
     def prefill_step(params, batch):

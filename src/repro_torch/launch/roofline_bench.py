@@ -45,7 +45,14 @@ counted from shapes, never measured.
   cache (the a2a form cannot split one token).  Meta tensors hold no
   routing: the expert run lengths are counted as an even split of the
   slots (``models/moe.py``), and the a2a buffers are counted at their
-  capacity, as the form sends them.  ::
+  capacity, as the form sends them.
+* **The sequence-sharded KV cell** (:func:`mqa_records`): ``[tp_mqa]``'s
+  granite-34b at its published widths and 5 of 88 layers (one KV head:
+  k and v gathered whole, the cache cut on its sequence over the ranks),
+  a prefill of 4 × 1024 tokens and one decode step against a 1376-deep
+  cache, at ``model`` = 1 and 4; the decode's masked partial softmax
+  counts its all-gather of q, its all-reduces of the maxima
+  (``all_reduce_max``) and of the sums and partial outputs.  ::
 
     python -m repro_torch.launch.roofline_bench [--write PATH] [--path GLOB]
 """
@@ -74,6 +81,9 @@ LM_MODEL_AXES = (1, 4)
 # the [ep] cell (chip_smoke.py's MOE_* and EP_RANKS)
 MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
 MOE_BATCH, MOE_PROMPT, MOE_MAX_LEN, EP_RANKS = 4, 4000, 4096, 4
+# the [tp_mqa] cell (chip_smoke.py's MQA_* and TP_RANKS)
+MQA_ARCH, MQA_LAYERS = "granite-34b", 5
+MQA_BATCH, MQA_PROMPT, MQA_MAX_LEN = 4, 1024, 1376
 
 
 def load_records(path=DEFAULT_PATH):
@@ -190,12 +200,14 @@ def flash_flops(calls) -> float:
 
 def ring_bytes(stats: dict, size: int) -> float:
     """Wire bytes a rank receives for ``TP.dry``'s ``stats`` on a ring of
-    ``size``: all-reduce 2·b·(n−1)/n; all-gather b·(n−1)/n of its result
-    b, n times the input counted; all-to-all b·(n−1)/n."""
+    ``size``: all-reduce (a sum or a max) 2·b·(n−1)/n; all-gather
+    b·(n−1)/n of its result b, n times the input counted; all-to-all
+    b·(n−1)/n."""
 
     if size == 1:
         return 0.0
-    ar = stats.get("all_reduce", [0, 0.0, 0])[2]
+    ar = (stats.get("all_reduce", [0, 0.0, 0])[2]
+          + stats.get("all_reduce_max", [0, 0.0, 0])[2])
     ag = stats.get("all_gather", [0, 0.0, 0])[2] * size
     a2a = stats.get("all_to_all", [0, 0.0, 0])[2]
     return (2.0 * ar + ag + a2a) * (size - 1) / size
@@ -230,19 +242,29 @@ def lm_record(cfg, kind: str, batch: int, prompt: int, max_len: int,
     from repro_torch.models.layers import TP
     from repro_torch.models.transformer import Ctx
     from repro_torch.train import sharding as S
-    from repro_torch.train.shard import model_split, shard_params
+    from repro_torch.config import ShapeConfig
+    from repro_torch.models.api import cache_specs
+    from repro_torch.train.shard import (kv_cache_layout, model_split,
+                                         rank_cache_pspecs, shard_params)
 
     mesh_cfg = MeshConfig(data=1, model=model_axis, fsdp=False)
     ctx = Ctx(attn_impl="kernel", moe_impl=moe_impl,
               ep_pad_to=model_axis if cfg.moe is not None else 0)
-    shapes = param_specs(build_model(cfg, ctx, device="meta"))
+    meta_model = build_model(cfg, ctx, device="meta")
+    shapes = param_specs(meta_model)
     pspecs = S.param_pspecs(cfg, shapes, mesh_cfg)
-    tp = (TP.dry(model_axis, model_split(shapes, pspecs))
+    patches = cfg.num_patch_tokens if cfg.family == "vlm" else 0
+    # the cache layout the decode step's specs give (lm_engine's)
+    cshapes = cache_specs(meta_model, batch, max_len)
+    cspecs = rank_cache_pspecs(cshapes, S.cache_pspecs_tree(
+        cfg, ShapeConfig("decode", max_len - patches, batch, "decode"),
+        mesh_cfg, cshapes))
+    tp = (TP.dry(model_axis, model_split(shapes, pspecs),
+                 kv_cache=kv_cache_layout(cshapes, cspecs))
           if model_axis > 1 else None)
     model = build_model(cfg, dataclasses.replace(ctx, tp=tp), device="meta")
     params = shard_params(shapes, pspecs, mesh_cfg, 0)
     cache = model.init_cache(batch, max_len)
-    patches = cfg.num_patch_tokens if cfg.family == "vlm" else 0
     positions = patches + prompt
     meta = dict(device="meta")
     flash_ops.flash_attention.meta_calls.clear()
@@ -313,8 +335,21 @@ def moe_records() -> list[dict]:
     return out
 
 
+def mqa_records() -> list[dict]:
+    """The ``[tp_mqa]`` cell's records (module docstring)."""
+
+    from repro_torch.config import get_model_config
+
+    overrides = {"num_layers": MQA_LAYERS}
+    cfg = dataclasses.replace(get_model_config(MQA_ARCH), **overrides)
+    return [lm_record(cfg, kind, MQA_BATCH, MQA_PROMPT, MQA_MAX_LEN, tp,
+                      arch=MQA_ARCH, overrides=overrides)
+            for tp in LM_MODEL_AXES for kind in ("prefill", "decode")]
+
+
 def write_records(path: str) -> list[dict]:
-    records = gossip_records() + lm_records() + moe_records()
+    records = (gossip_records() + lm_records() + moe_records()
+               + mqa_records())
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "a") as f:
         for r in records:

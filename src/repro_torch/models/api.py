@@ -20,11 +20,13 @@ give trees of tensors on the ``meta`` device, and the parameter counts
 them.  Leaf paths are spelled as ``jax.tree_util.keystr`` spells them.
 
 A ``Ctx`` with a tensor-parallel group (``ctx.tp``, more than one rank)
-builds the rank's serving model over its shards, for every family.  The
-shapes it does not cover (heads that do not split into whole heads a
-rank, the hybrid's unequal query and KV heads) raise
-``NotImplementedError`` here, naming their ROADMAP item: there is no
-replicated fallback.
+builds the rank's serving model over its shards, for every family; KV
+heads that do not divide the ranks (MQA/GQA) are served with k and v
+gathered whole and the KV cache cut on its sequence where the rules cut
+it (``TP.kv_cache``).  The shapes it does not cover (query or Mamba2
+heads that do not split into whole heads a rank, the hybrid's unequal
+query and KV heads) raise ``NotImplementedError`` here, naming their
+ROADMAP item: there is no replicated fallback.
 """
 
 from __future__ import annotations
@@ -77,11 +79,15 @@ _FAMILIES = {
 def tp_refusal(cfg: ModelConfig, size: int) -> str | None:
     """Why ``cfg`` cannot be served on ``size`` tensor-parallel ranks by
     the port's explicit collectives, or ``None`` where it can: every
-    family whose heads split into whole heads a rank.  That is the query
-    and KV heads of the dense, VLM, MoE (MLA's included, its latent cache
+    family whose query heads split into whole heads a rank.  That is the
+    query heads of the dense, VLM, MoE (MLA's included, its latent cache
     whole on every rank), hybrid and encoder-decoder families, and the
     Mamba2 heads of the SSM and hybrid families (their state by head,
-    ``conv_B``/``conv_C`` whole on every rank).  The hybrid's ``lora_b``
+    ``conv_B``/``conv_C`` whole on every rank).  KV heads need not split:
+    where they do not divide the ranks, each rank gathers k and v whole
+    and holds every KV head, its cache cut on its sequence where the rules
+    cut it (a masked partial softmax decodes it) and whole where they keep
+    it whole (``models/attention.py``).  The hybrid's ``lora_b``
     is split on its width, which lines up with a rank's q/k/v columns only
     where the query and KV head counts are equal.  The MoE family's
     experts are split by expert (``Ctx.ep_pad_to`` pads them to the axis;
@@ -109,12 +115,6 @@ def tp_refusal(cfg: ModelConfig, size: int) -> str | None:
                 "ranks: the sharding rules cut the flat q width into parts "
                 "of a head, or replicate it, and the port's collectives need "
                 f"whole heads a rank ({TP_ITEM})")
-    if cfg.num_kv_heads % size:
-        return (f"{cfg.num_kv_heads} KV heads do not split over {size} "
-                "ranks: the rules cut the k/v width into parts of a head "
-                "and shard the KV cache on its sequence (a masked partial "
-                "softmax), which the port's collectives do not cover "
-                f"({TP_ITEM})")
     return None
 
 

@@ -12,10 +12,29 @@ second cache.
 
 Head counts are read from the weights: ``wq``'s width over ``head_dim``
 query heads and ``wk``'s over ``head_dim`` KV heads.  Under tensor
-parallelism a rank holds whole heads of each (``train/sharding.py``), so
-the same code runs its local heads, the GQA group unchanged, and returns
-its partial sum of the row-parallel ``wo`` product, which the caller
-all-reduces.
+parallelism a rank holds whole query heads (``train/sharding.py``) and
+returns its partial sum of the row-parallel ``wo`` product, which the
+caller all-reduces.  Where its KV heads are its own too (the rules cut
+the cache on its heads), the same code runs its local heads, the GQA
+group unchanged.  Where they are not (MQA/GQA whose KV heads do not
+divide the ranks), the caller passes a ``KVShard``:
+
+* a rank whose ``wk``/``wv`` hold a part of the k/v columns (the rules cut
+  them in parts of a head) all-gathers k and v whole before the rotation,
+  which pairs column i with column i + D/2; a rank with ``wk`` whole
+  computes them whole;
+* the prefill runs the rank's query heads against the KV heads they read
+  (``_rank_kv``) and writes the positions of its cache: all of them where
+  the cache is whole, ``[rank·Lr, (rank+1)·Lr)`` where the rules cut it on
+  its sequence (``Lr`` the rank's length);
+* a decode step over a sequence-cut cache is a masked partial softmax:
+  only the rank that owns ``pos`` writes it; q is all-gathered (every
+  head against the rank's keys), the logits' maxima are all-reduced, then
+  the sums of ``exp(l - m)``; ``p = exp(l - m) / s`` is rounded to the
+  cache dtype as the reference rounds its normalised softmax, and the
+  partial P·V products are summed over the ranks (``softmax_pv``).  A
+  slice wholly masked gives ``exp(-1e30 - m) = 0``: the rank that owns
+  ``pos`` always holds a live key, so ``m`` is a real logit.
 """
 
 from __future__ import annotations
@@ -34,6 +53,19 @@ ATTN_IMPLS = ("kernel", "ref")
 class KVCache(NamedTuple):
     k: torch.Tensor    # (..., B, Hkv, Lmax, D)
     v: torch.Tensor
+
+
+class KVShard(NamedTuple):
+    """A rank's view of K/V where its KV heads are not its own (the rules'
+    cache layout ``"sequence"`` or ``"whole"``,
+    ``train/shard.py::kv_cache_layout``): its group, whether its
+    ``wk``/``wv`` hold a part of the k/v columns (then k and v are
+    all-gathered), and whether its cache holds the rank's slice of the
+    positions.  The rank's query heads are its own ``H / tp.size``."""
+
+    tp: L.TP
+    gather: bool
+    seq: bool
 
 
 def _attend(q, k, v, impl, *, causal, window=0, softcap=0.0, q_offset=0):
@@ -69,34 +101,79 @@ def init_attention(gen, d_model, num_heads, num_kv_heads, head_dim,
     return p
 
 
-def _project_qkv(params, x, head_dim):
+def _gather_columns(parts, tp: L.TP):
+    """Each of ``parts`` (B, Lx, w) whole: the ranks' column slices
+    concatenated in rank order, all of them in one all-gather."""
+
+    widths = [p.shape[-1] for p in parts]
+    got = L.all_gather(torch.cat(parts, dim=-1)[None], tp, 0)  # (n, B, Lx, W)
+    n, B, Lx, _ = got.shape
+    return [g.permute(1, 2, 0, 3).reshape(B, Lx, n * w)
+            for g, w in zip(got.split(widths, dim=-1), widths)]
+
+
+def _project_qkv(params, x, head_dim, kv: KVShard | None = None,
+                 gather_q: bool = False):
     """(B, H, Lx, D) q, k, v, each contiguous (the kernel's layout), at
-    the head counts of the weights ``params`` holds."""
+    the head counts of the weights ``params`` holds; under ``kv`` k and v
+    whole (gathered where ``kv.gather``), and with ``gather_q`` every
+    rank's query heads."""
 
     B, Lx, _ = x.shape
-    num_heads = params["wq"].shape[-1] // head_dim
-    num_kv_heads = params["wk"].shape[-1] // head_dim
     q = L.linear(x, params["wq"], params.get("bq"))
     k = L.linear(x, params["wk"], params.get("bk"))
     v = L.linear(x, params["wv"], params.get("bv"))
+    if kv is not None and (kv.gather or gather_q):
+        whole = _gather_columns(([q] if gather_q else [])
+                                + ([k, v] if kv.gather else []), kv.tp)
+        q = whole.pop(0) if gather_q else q
+        k, v = whole if kv.gather else (k, v)
+    if q.shape[-1] % head_dim or k.shape[-1] % head_dim:
+        raise ValueError(
+            f"q width {q.shape[-1]} / k width {k.shape[-1]} hold a part of "
+            f"a head of {head_dim}: a rank whose k/v projection is cut in "
+            "parts of a head gathers them (KVShard)")
+    num_heads = q.shape[-1] // head_dim
+    num_kv_heads = k.shape[-1] // head_dim
     q = q.reshape(B, Lx, num_heads, head_dim).transpose(1, 2).contiguous()
     k = k.reshape(B, Lx, num_kv_heads, head_dim).transpose(1, 2).contiguous()
     v = v.reshape(B, Lx, num_kv_heads, head_dim).transpose(1, 2).contiguous()
     return q, k, v
 
 
+def _rank_kv(k, v, kv: KVShard, heads: int):
+    """The KV heads that the rank's ``heads`` query heads read, out of all
+    of k and v (B, Hkv, ..., D), laid out so that query head i reads KV
+    head ``i // (heads / Hsel)``: a run of whole GQA groups, the one KV
+    head of a part of a group, or (where the rank's heads straddle a
+    group's edge) a KV head for each query head."""
+
+    hkv = k.shape[1]
+    group = heads * kv.tp.size // hkv
+    lo = kv.tp.rank * heads
+    if heads % group == 0 or group % heads == 0:
+        n = max(heads // group, 1)
+        return k.narrow(1, lo // group, n), v.narrow(1, lo // group, n)
+    idx = torch.arange(lo, lo + heads, device=k.device) // group
+    return k.index_select(1, idx), v.index_select(1, idx)
+
+
 def _self_attention(params, x, *, head_dim, causal, window, attn_softcap,
-                    rope_theta, impl):
+                    rope_theta, impl, kv: KVShard | None = None):
     """(output (B, L, d), roped k, v) of self-attention over x (B, L, d)
-    at positions 0..L-1."""
+    at positions 0..L-1; under ``kv`` k and v whole, the rank's query
+    heads against the KV heads they read."""
 
     B, Lx, _ = x.shape
-    q, k, v = _project_qkv(params, x, head_dim)
+    q, k, v = _project_qkv(params, x, head_dim, kv)
     positions = torch.arange(Lx, device=x.device)
     q = L.apply_rope(q, positions, rope_theta)
     k = L.apply_rope(k, positions, rope_theta)
-    o = _attend(q, k, v, impl, causal=causal, window=window,
+    kr, vr = (k, v) if kv is None else (
+        t.contiguous() for t in _rank_kv(k, v, kv, q.shape[1]))
+    o = _attend(q, kr, vr, impl, causal=causal, window=window,
                 softcap=attn_softcap)
+    del kr, vr
     o = o.transpose(1, 2).reshape(B, Lx, q.shape[1] * head_dim)
     return L.linear(o, params["wo"]), k, v
 
@@ -114,22 +191,51 @@ def attention(params, x, *, head_dim, causal=True, window=0,
 def attention_prefill(params, x, max_len, *, head_dim, window=0,
                       attn_softcap=0.0,
                       rope_theta=10000.0, impl="ref",
-                      cache_dtype=torch.bfloat16, cache=None):
+                      cache_dtype=torch.bfloat16, cache=None,
+                      kv: KVShard | None = None):
     """Causal forward over L prompt tokens + the KV cache (padded to
     ``max_len``) needed to continue decoding at position L.  ``cache``, if
     given, is a ``KVCache`` of (B, Hkv, max_len, D) tensors to fill in
-    place (the model's stacked cache); otherwise a new one is made."""
+    place (the model's stacked cache); otherwise a new one is made.  Under
+    a sequence-cut ``kv`` the cache holds the rank's ``max_len / n``
+    positions, and the rank writes the prompt's positions among them (a
+    prompt may end before them: it writes none)."""
 
     B, Lx, _ = x.shape
     out, k, v = _self_attention(
         params, x, head_dim=head_dim, causal=True, window=window,
-        attn_softcap=attn_softcap, rope_theta=rope_theta, impl=impl)
+        attn_softcap=attn_softcap, rope_theta=rope_theta, impl=impl, kv=kv)
+    seq = kv is not None and kv.seq
     if cache is None:
-        cache = init_cache(B, k.shape[1], max_len, head_dim, cache_dtype,
-                           x.device)
-    cache.k[..., :Lx, :] = k
-    cache.v[..., :Lx, :] = v
+        cache = init_cache(B, k.shape[1], seq_len_of_rank(max_len, kv),
+                           head_dim, cache_dtype, x.device)
+    if not seq:
+        cache.k[..., :Lx, :] = k
+        cache.v[..., :Lx, :] = v
+        return out, cache
+    n = cache.k.shape[-2]
+    if Lx > n * kv.tp.size:
+        raise ValueError(f"a prompt of {Lx} does not fit {kv.tp.size} "
+                         f"slices of {n} positions")
+    lo = kv.tp.rank * n
+    hi = min(Lx, lo + n)
+    if hi > lo:
+        cache.k[..., :hi - lo, :] = k[:, :, lo:hi]
+        cache.v[..., :hi - lo, :] = v[:, :, lo:hi]
     return out, cache
+
+
+def seq_len_of_rank(max_len: int, kv: KVShard | None) -> int:
+    """The positions a rank's KV cache holds: ``max_len``, or its slice of
+    them where the cache is cut on its sequence."""
+
+    if kv is None or not kv.seq:
+        return max_len
+    if max_len % kv.tp.size:
+        raise ValueError(f"the rules cut the KV cache on its sequence, but "
+                         f"max_len {max_len} does not split over "
+                         f"{kv.tp.size} ranks")
+    return max_len // kv.tp.size
 
 
 def init_cache(batch, num_kv_heads, max_len, head_dim, dtype=torch.bfloat16,
@@ -139,35 +245,83 @@ def init_cache(batch, num_kv_heads, max_len, head_dim, dtype=torch.bfloat16,
                    torch.zeros(shape, dtype=dtype, device=device))
 
 
+def decode_logits(q, ck, kpos, pos: int, *, head_dim, window=0,
+                  attn_softcap=0.0):
+    """The float32 logits (..., B, Hkv, g, Lk) of one decode step's q (B,
+    H, 1, D) against the keys ck (..., B, Hkv, Lk, D) at the global
+    positions ``kpos`` (Lk, or broadcast against the logits), softcapped,
+    then those past ``pos`` or before the ``window`` filled with -1e30:
+    the JAX reference's rounding (logits in f32 from q and the cache in
+    its dtype)."""
+
+    B, H = q.shape[:2]
+    hkv = ck.shape[-3]
+    qg = q.reshape(B, hkv, H // hkv, head_dim)
+    qg = qg / qg.new_tensor(math.sqrt(head_dim))
+    logits = L.upcast(qg) @ L.upcast(ck).transpose(-1, -2)
+    logits = L.softcap(logits, attn_softcap)
+    mask = kpos <= pos
+    if window:
+        mask = mask & (kpos > pos - window)
+    return logits.masked_fill(~mask, -1e30)
+
+
+def softmax_pv(logits, cv, reduce=None):
+    """The softmax of ``logits`` over keys times the values cv (..., B,
+    Hkv, Lk, D), in float32: p rounded to the cache dtype, P·V accumulated
+    in f32 (the reference's rounding).  With ``reduce(x, op)`` (``op`` in
+    ``"max"``, ``"sum"``) the keys are one slice of the positions and
+    ``reduce`` combines over the slices: the maxima, then the sums of
+    ``exp(l - m)``, then the partial P·V products, so that p is the
+    normalised softmax over all the positions, rounded as the reference
+    rounds it."""
+
+    if reduce is None:
+        p = torch.softmax(logits, dim=-1)
+        return L.upcast(p.to(cv.dtype)) @ L.upcast(cv)
+    m = reduce(logits.amax(dim=-1, keepdim=True), "max")
+    e = torch.exp(logits - m)
+    s = reduce(e.sum(dim=-1, keepdim=True), "sum")
+    p = (e / s).to(cv.dtype)
+    del e
+    return reduce(L.upcast(p) @ L.upcast(cv), "sum")
+
+
+def tp_reduce(tp: L.TP):
+    """``softmax_pv``'s ``reduce`` over the ranks of ``tp``."""
+
+    return lambda x, op: L.all_reduce(x, tp, op)
+
+
 def decode_attention(params, x, cache: KVCache, pos, *, head_dim, window=0,
-                     attn_softcap=0.0, rope_theta=10000.0):
+                     attn_softcap=0.0, rope_theta=10000.0,
+                     kv: KVShard | None = None):
     """One-token cached decode.  x: (B, 1, d); pos: int (aligned batch
-    decoding).  Writes position ``pos`` of ``cache`` in place; returns
+    decoding).  Writes position ``pos`` of ``cache`` in place (under a
+    sequence-cut ``kv``, only on the rank whose slice holds it); returns
     (out (B, 1, d), cache)."""
 
     B = x.shape[0]
-    q, k, v = _project_qkv(params, x, head_dim)
-    num_heads, num_kv_heads = q.shape[1], k.shape[1]
+    seq = kv is not None and kv.seq
+    q, k, v = _project_qkv(params, x, head_dim, kv, gather_q=seq)
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = L.apply_rope(q, posv, rope_theta)
     k = L.apply_rope(k, posv, rope_theta)
     ck, cv = cache
-    ck[:, :, pos:pos + 1] = k
-    cv[:, :, pos:pos + 1] = v
-    Lmax = ck.shape[2]
-    group = num_heads // num_kv_heads
-    # the JAX reference's rounding: logits in f32 from q and the cache in
-    # its dtype, p rounded to the cache dtype, P.V accumulated in f32
-    qg = q.reshape(B, num_kv_heads, group, head_dim)
-    qg = qg / qg.new_tensor(math.sqrt(head_dim))
-    logits = L.upcast(qg) @ L.upcast(ck).transpose(-1, -2)  # (B, Hkv, g, Lmax)
-    logits = L.softcap(logits, attn_softcap)
-    kpos = torch.arange(Lmax, device=x.device)
-    mask = kpos <= pos
-    if window:
-        mask &= kpos > pos - window
-    logits = logits.masked_fill(~mask, -1e30)
-    p = torch.softmax(logits, dim=-1)
-    o = L.upcast(p.to(cv.dtype)) @ L.upcast(cv)            # (B, Hkv, g, D)
-    o = o.to(x.dtype).reshape(B, 1, num_heads * head_dim)
-    return L.linear(o, params["wo"]), cache
+    n = ck.shape[2]
+    lo = kv.tp.rank * n if seq else 0
+    if lo <= pos < lo + n:
+        ck[:, :, pos - lo:pos - lo + 1] = k
+        cv[:, :, pos - lo:pos - lo + 1] = v
+    heads = q.shape[1] // (kv.tp.size if seq else 1)
+    if kv is not None and not seq:
+        ck, cv = _rank_kv(ck, cv, kv, heads)
+    logits = decode_logits(q, ck, lo + torch.arange(n, device=x.device), pos,
+                           head_dim=head_dim, window=window,
+                           attn_softcap=attn_softcap)
+    o = softmax_pv(logits, cv, tp_reduce(kv.tp) if seq else None)
+    o = o.to(x.dtype).reshape(B, q.shape[1], head_dim)
+    if seq:
+        # the rank's own heads, for its rows of the row-parallel wo
+        o = o[:, kv.tp.rank * heads:(kv.tp.rank + 1) * heads]
+    return L.linear(o.reshape(B, 1, heads * head_dim), params["wo"]), cache

@@ -18,7 +18,9 @@ range, zeros for the others, then an all-reduce: the JAX package's
 ``embed_onehot`` computes the same sum), ``unembed`` all-gathers the
 vocab slices of the logits before the softcap, ``all_reduce`` sums a
 row-parallel product's partial sums (``mlp_gelu`` adds its whole bias
-once, after it), ``rms_norm`` normalises a width split over the ranks
+once, after it) and takes the maxima of the masked partial softmax over
+a sequence-cut KV cache (``op="max"``, ``models/attention.py``),
+``rms_norm`` normalises a width split over the ranks
 by the all-reduced sum of squares, ``all_gather`` joins a column-parallel
 product's slices, and ``all_to_all`` carries the expert-parallel MoE's
 token slots to the ranks that hold their experts and back
@@ -53,10 +55,16 @@ class TP:
     experts' ``"moe.wi_gate"``, ``"moe.wi_up"``, ``"moe.wo"`` where the
     rules split them on the expert dim; Mamba2's ``"ssm.out_proj"``,
     zamba2's ``"units.w_cat"``, whisper's ``"cross_attn.wo"``,
-    ``"tok_embed"``; see ``train/shard.py::model_split``).  With ``timed`` set, each collective
-    synchronizes the card before and after it and adds its host seconds
-    and bytes to ``stats`` (``{"all_reduce": [calls, seconds, bytes],
-    "all_gather": ..., "all_to_all": ...}``)."""
+    ``"tok_embed"``; see ``train/shard.py::model_split``).  ``kv_cache``
+    is how the rank holds its attention KV caches, as the rules' cache
+    specs cut them (``train/shard.py::kv_cache_layout``, the one place
+    that decides it): ``"heads"`` (its KV heads, which are its own),
+    ``"sequence"`` (every KV head, positions ``[rank·Lmax/size,
+    (rank+1)·Lmax/size)``) or ``"whole"``.  With ``timed`` set, each
+    collective synchronizes the card before and after it and adds its
+    host seconds and bytes to ``stats`` (``{"all_reduce": [calls,
+    seconds, bytes], "all_reduce_max": ..., "all_gather": ...,
+    "all_to_all": ...}``)."""
 
     group: Any
     rank: int
@@ -65,22 +73,34 @@ class TP:
     split: frozenset = frozenset()
     timed: bool = False
     stats: dict = dataclasses.field(default_factory=dict)
+    kv_cache: str = "heads"
+
+    KV_CACHES = ("heads", "sequence", "whole")
+
+    def __post_init__(self) -> None:
+        if self.kv_cache not in self.KV_CACHES:
+            raise ValueError(f"kv_cache {self.kv_cache!r}: one of "
+                             f"{self.KV_CACHES}")
 
     @classmethod
-    def of(cls, group, device, split=frozenset()) -> "TP":
+    def of(cls, group, device, split=frozenset(),
+           kv_cache: str = "heads") -> "TP":
         return cls(group, dist.get_rank(group), dist.get_world_size(group),
                    torch.device(device).type == "cuda"
-                   and dist.get_backend(group) != "nccl", frozenset(split))
+                   and dist.get_backend(group) != "nccl", frozenset(split),
+                   kv_cache=kv_cache)
 
     @classmethod
-    def dry(cls, size: int, split=frozenset(), rank: int = 0) -> "TP":
+    def dry(cls, size: int, split=frozenset(), rank: int = 0,
+            kv_cache: str = "heads") -> "TP":
         """Rank ``rank`` of ``size`` with no process group, for counting on
         ``meta`` tensors (``launch/roofline_bench.py``): each collective
         moves nothing and adds its call and the bytes of its input to
         ``stats`` (``{op: [calls, 0.0, bytes]}``); its output has the
         shape the real collective's would."""
 
-        return cls(None, rank, size, False, frozenset(split))
+        return cls(None, rank, size, False, frozenset(split),
+                   kv_cache=kv_cache)
 
     def _dry(self, op: str, x: torch.Tensor) -> None:
         if x.device.type != "meta":
@@ -115,22 +135,29 @@ def sharded(tp: TP | None, leaf: str) -> TP | None:
     return tp if tp is not None and leaf in tp.split else None
 
 
-def all_reduce(x, tp: TP | None):
-    """The sum of ``x`` over the ranks of ``tp`` (``x`` itself without a
-    group): the partial sums of a row-parallel product."""
+_REDUCE_OPS = {"sum": ("all_reduce", dist.ReduceOp.SUM),
+               "max": ("all_reduce_max", dist.ReduceOp.MAX)}
+
+
+def all_reduce(x, tp: TP | None, op: str = "sum"):
+    """The sum (``op="max"``: the maximum) of ``x`` over the ranks of
+    ``tp`` (``x`` itself without a group): the partial sums of a
+    row-parallel product, the maxima of a partial softmax.  ``stats``
+    counts the two ops apart (``"all_reduce"``, ``"all_reduce_max"``)."""
 
     if tp is None or tp.size == 1:
         return x
+    name, reduce_op = _REDUCE_OPS[op]
     if tp.group is None:
-        tp._dry("all_reduce", x)
+        tp._dry(name, x)
         return x
-    with tp._timing("all_reduce", x):
+    with tp._timing(name, x):
         if tp.staged:
             host = x.cpu()
-            dist.all_reduce(host, group=tp.group)
+            dist.all_reduce(host, op=reduce_op, group=tp.group)
             return host.to(x.device)
         x = x.contiguous()
-        dist.all_reduce(x, group=tp.group)
+        dist.all_reduce(x, op=reduce_op, group=tp.group)
         return x
 
 

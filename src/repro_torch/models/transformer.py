@@ -31,13 +31,17 @@ this dense LM over patch embeddings put before the tokens
 Tensor-parallel serving: ``Ctx(tp=TP.of(group, device))`` runs a rank's
 shards (``train/sharding.py``, ``train/shard.py``) of the dense, VLM,
 MoE and SSM families' prefill and decode: the vocab-parallel embedding and
-logits, attention on the rank's whole heads (its KV cache holds its KV
-heads; MLA's latent cache is whole on every rank, computed redundantly
-from the whole ``wkv_a``), Mamba2 on the rank's whole heads
-(``models/ssm.py``: its state holds its heads), one all-reduce after each
-row-parallel product (attention's, the MLP's, the shared experts' and
-Mamba2's ``out_proj``), and the expert-parallel MoE (``Ctx.ep_pad_to``, ``Ctx.moe_impl``; the EP axis is
-the ``model`` axis, as the JAX launcher's ``ep_axis="model"``).  The JAX
+logits, attention on the rank's whole query heads (its KV cache holds its
+KV heads where they divide the ranks; where they do not, every KV head,
+k and v gathered whole, the cache cut on its sequence or whole as the
+rules' cache specs say, ``TP.kv_cache``, and decode a masked partial
+softmax: ``models/attention.py``; MLA's latent cache is whole on every
+rank, computed redundantly from the whole ``wkv_a``), Mamba2 on the
+rank's whole heads (``models/ssm.py``: its state holds its heads), one
+all-reduce after each row-parallel product (attention's, the MLP's, the
+shared experts' and Mamba2's ``out_proj``), and the expert-parallel MoE
+(``Ctx.ep_pad_to``, ``Ctx.moe_impl``; the EP axis is the ``model`` axis,
+as the JAX launcher's ``ep_axis="model"``).  The JAX
 package's other mesh fields of ``Ctx`` (dp, one-hot embedding) have no
 twin: ``models/api.py`` refuses the families and specs this does not
 cover.
@@ -207,6 +211,27 @@ def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
     return x + h, aux
 
 
+def _kv_shard(cfg: ModelConfig, ctx: Ctx) -> A.KVShard | None:
+    """The attention's view of K/V on this rank where its KV heads are not
+    its own (``ctx.tp.kv_cache`` ``"sequence"`` or ``"whole"``), else
+    ``None``.  A rank told its KV heads are its own whose KV heads do not
+    divide the ranks is refused: its cache layout must come from the
+    specs (``launch/lm_engine.py``), never be guessed."""
+
+    tp = ctx.tp
+    if tp is None or tp.size == 1:
+        return None
+    if tp.kv_cache == "heads":
+        if cfg.num_kv_heads % tp.size:
+            raise ValueError(
+                f"{cfg.num_kv_heads} KV heads do not split over {tp.size} "
+                "ranks, but the rank's TP holds its KV cache by heads: "
+                "build it with the layout of the rules' cache specs "
+                "(train/shard.py::kv_cache_layout)")
+        return None
+    return A.KVShard(tp, "attn.wk" in tp.split, tp.kv_cache == "sequence")
+
+
 def _heads(cfg: ModelConfig, ctx: Ctx) -> int:
     """Query heads of this rank: ``H / n`` where the rules split the
     query projection by whole heads (``tp_refusal`` holds that they
@@ -262,7 +287,8 @@ def apply_sublayer_prefill(p, x, max_len, cfg: ModelConfig, sl: SubLayer,
             p["attn"], h_in, max_len, head_dim=cfg.resolved_head_dim,
             window=sl.window, attn_softcap=cfg.attn_softcap,
             rope_theta=cfg.rope_theta, impl=ctx.attn_impl,
-            cache_dtype=ctx.cache_dtype, cache=cache)
+            cache_dtype=ctx.cache_dtype, cache=cache,
+            kv=_kv_shard(cfg, ctx))
     if sl.mixer != "ssm":
         h = L.all_reduce(h, L.sharded(ctx.tp, "attn.wo"))
     del h_in
@@ -283,7 +309,7 @@ def apply_sublayer_decode(p, cache, x, pos, cfg: ModelConfig, sl: SubLayer,
         h, cache = A.decode_attention(
             p["attn"], h_in, cache, pos, head_dim=cfg.resolved_head_dim,
             window=sl.window, attn_softcap=cfg.attn_softcap,
-            rope_theta=cfg.rope_theta)
+            rope_theta=cfg.rope_theta, kv=_kv_shard(cfg, ctx))
     if sl.mixer != "ssm":
         h = L.all_reduce(h, L.sharded(ctx.tp, "attn.wo"))
     return _residual(p, x, h, cfg, sl, ctx)[0], cache
@@ -403,10 +429,13 @@ def _sublayer_cache(cfg: ModelConfig, sl: SubLayer, ctx: Ctx, batch: int,
     if sl.mixer == "mla":
         return MLA.init_mla_cache(batch, max_len, cfg.mla, ctx.cache_dtype,
                                   device, lead)
-    kv_tp = L.sharded(ctx.tp, "attn.wk")
+    # a rank's KV heads where they are its own (``"heads"``); else every
+    # KV head, over its slice of the positions where the rules cut them
+    kv = _kv_shard(cfg, ctx)
+    kv_tp = L.sharded(ctx.tp, "attn.wk") if kv is None else None
     kv_heads = cfg.num_kv_heads // (kv_tp.size if kv_tp else 1)
-    return A.init_cache(batch, kv_heads, max_len, cfg.resolved_head_dim,
-                        ctx.cache_dtype, device, lead)
+    return A.init_cache(batch, kv_heads, A.seq_len_of_rank(max_len, kv),
+                        cfg.resolved_head_dim, ctx.cache_dtype, device, lead)
 
 
 def lm_init_cache(cfg: ModelConfig, ctx: Ctx, batch: int, max_len: int,

@@ -26,7 +26,11 @@ experts padded for the axis (``Ctx.ep_pad_to``) are drawn like the
 others, after them.
 
 A rank's cache is cut by the rules' cache specs, except for the leaves of
-``WHOLE_CACHE`` (``rank_cache_pspecs``).
+``WHOLE_CACHE`` (``rank_cache_pspecs``).  Where the KV heads do not
+divide the model axis the rules cut the attention caches on their
+sequence (or keep them whole where the length does not divide either):
+``kv_cache_layout`` reads which from the specs, the one place the port
+decides it, and the rank's model takes it as ``TP.kv_cache``.
 """
 
 from __future__ import annotations
@@ -123,6 +127,34 @@ def rank_cache_pspecs(cshapes, cspecs):
         if S.leaf_name(path) in WHOLE_CACHE else spec, cshapes, cspecs)
 
 
+# the attention caches' leaves (``KVCache`` fields: (..., B, Hkv, L, D))
+KV_LEAVES = ("k", "v")
+
+
+def kv_cache_layout(cshapes, cspecs) -> str:
+    """How a rank holds its attention KV caches under ``cspecs`` (the
+    steps' ``info["cspecs"]``): ``"heads"`` where the specs put
+    ``"model"`` on their KV heads, ``"sequence"`` where on their positions
+    (the KV heads do not divide the axis: ``cache_pspecs_tree`` cuts the
+    sequence instead), ``"whole"`` where on neither; ``"heads"`` for a
+    tree without KV caches.  Refuses caches laid out two ways."""
+
+    seen = set()
+
+    def visit(path, _, spec):
+        if S.leaf_name(path) in KV_LEAVES:
+            on = ["model" in _axes(e) for e in spec]
+            seen.add("heads" if on[-3] else
+                     "sequence" if on[-2] else "whole")
+
+    tree_map_with_path(visit, cshapes, cspecs)
+    if len(seen) > 1:
+        raise NotImplementedError(
+            f"the sharding rules cut the KV caches {sorted(seen)} ways; the "
+            "port holds one layout a model (ROADMAP.md queue 1, item 6.8)")
+    return seen.pop() if seen else "heads"
+
+
 def shard_cache(cache, cspecs, mesh_cfg: MeshConfig, rank: int):
     """Rank ``rank``'s slices of a cache tree (by ``rank_cache_pspecs``
     of the rules' specs)."""
@@ -146,8 +178,12 @@ def shard_nbytes(shapes, specs, mesh_cfg: MeshConfig) -> int:
 # with their weights; Mamba2's head-aligned leaves before its out_proj;
 # zamba2's lora_b, cut with the shared block's q/k/v columns); the
 # experts' three leaves split together.  w_cat and the hybrid's Mamba
-# pre-norm (mamba.norm) are gathered where split, whichever way.
+# pre-norm (mamba.norm) are gathered where split, whichever way, and so
+# are the LM attention's k/v leaves (_GATHERED) under a split wo: a rank
+# whose KV heads are not its own gathers k and v whole, or computes them
+# whole from whole leaves (models/attention.py).
 _QKV = ("wq", "wk", "wv", "bq", "bk", "bv")
+_GATHERED = {"attn.wo": ("attn.wk", "attn.wv", "attn.bk", "attn.bv")}
 _ROW_PARALLEL = {"attn.wo": tuple(f"attn.{w}" for w in _QKV + ("wkv_b",))
                  + ("units.lora_b",),
                  "self_attn.wo": tuple(f"self_attn.{w}" for w in _QKV),
@@ -172,10 +208,11 @@ def model_split(shapes, pspecs) -> frozenset:
     their presence means expert parallelism.  Refuses a split the
     explicit collectives do not follow: a leaf split in one layer and
     whole in another, a row-parallel leaf split otherwise than its
-    column-parallel inputs, experts split on their width (the rules'
-    TP-within-expert branch, where the experts neither divide the axis
-    nor are padded to it), or the VLM projector's ``w1`` split (the port
-    runs it whole)."""
+    column-parallel inputs (the attention's k/v leaves excepted: whole
+    or split under a split ``wo``, they are gathered), experts split on
+    their width (the rules' TP-within-expert branch, where the experts
+    neither divide the axis nor are padded to it), or the VLM projector's
+    ``w1`` split (the port runs it whole)."""
 
     seen: dict[str, set] = {}
     width_split_experts = []
@@ -199,7 +236,9 @@ def model_split(shapes, pspecs) -> frozenset:
     split = frozenset(k for k, v in seen.items() if True in v)
     bad = sorted(k for k, v in seen.items() if len(v) > 1)
     bad += [row for row, cols in _ROW_PARALLEL.items() if any(
-        c in seen and (c in split) != (row in split) for c in cols)]
+        c in seen and (c in split) != (row in split)
+        and not (row in split and c in _GATHERED.get(row, ()))
+        for c in cols)]
     bad += ["projector.w1"] if "projector.w1" in split else []
     if bad:
         raise NotImplementedError(

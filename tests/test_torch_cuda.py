@@ -765,8 +765,17 @@ ENCDEC_VLM_FLASH_CASES = [
 ]
 
 
+# granite-34b's prefill, rows 5o and 5p cut in length (L off the tile):
+# MQA, 48 q heads on one KV head of 128 in one process and a rank's 12
+MQA_FLASH_CASES = [
+    dict(B=2, Hq=48, Hkv=1, Lq=301, Lk=301, D=128, causal=True),
+    dict(B=2, Hq=12, Hkv=1, Lq=301, Lk=301, D=128, causal=True),
+]
+
+
 @pytest.mark.parametrize("case", FLASH_CASES + MOE_FLASH_CASES
-                         + SSM_FLASH_CASES + ENCDEC_VLM_FLASH_CASES)
+                         + SSM_FLASH_CASES + ENCDEC_VLM_FLASH_CASES
+                         + MQA_FLASH_CASES)
 def test_flash_kernel_matches_plain(cuda, case):
     case = dict(case)
     dims = [case.pop(n) for n in ("B", "Hq", "Hkv", "Lq", "Lk", "D")]
@@ -851,6 +860,72 @@ def test_flash_kernel_bf16_at_the_encdec_and_vlm_shapes(cuda, case):
     got = flash_ops.flash_attention(q, k, v, **case)
     want = attention_ref(q, k, v, **case)
     assert float((got.float() - want.float()).abs().max()) < 5e-2
+
+
+@pytest.mark.parametrize("case", MQA_FLASH_CASES)
+def test_flash_kernel_bf16_at_the_mqa_shapes(cuda, case):
+    case = dict(case)
+    dims = [case.pop(n) for n in ("B", "Hq", "Hkv", "Lq", "Lk", "D")]
+    q, k, v = (x.to(torch.bfloat16) for x in _qkv(*dims))
+    got = flash_ops.flash_attention(q, k, v, **case)
+    want = attention_ref(q, k, v, **case)
+    assert float((got.float() - want.float()).abs().max()) < 5e-2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos,window", [(700, 0), (1000, 256)])
+def test_masked_partial_softmax_on_card_matches_whole_cache_decode(
+        cuda, dtype, pos, window):
+    """One decode step of attention at granite-34b's heads (48 query heads
+    on one KV head of 128) against a 1024-deep cache on the card: the
+    cache cut into 4 sequence slices, stacked, and combined by the ranks'
+    own code (``softmax_pv`` with a reduce over the slices' dim) against
+    the whole-cache ``decode_attention`` on the same inputs (its ``wo``
+    the identity, so the attention output is compared).  At 1e-5 x
+    max|o| (float32 sums in another order); with a bfloat16 cache each p
+    may round to the neighbouring bfloat16, so 2^-8 x sum p |v| is added.
+    The first slices lie wholly past the window at pos 1000, the last
+    wholly past pos at 700."""
+
+    from repro_torch.models import attention as A
+    from repro_torch.models import layers as L
+
+    g = torch.Generator(device=cuda).manual_seed(pos)
+    B, H, Hkv, D, Lmax, n, cap = 4, 48, 1, 128, 1024, 4, 30.0
+    d = H * D
+    p = A.init_attention(g, d, H, Hkv, D, False, torch.float32, cuda)
+    p["wo"] = torch.eye(d, device=cuda)
+    x = torch.randn((B, 1, d), generator=g, device=cuda)
+    ck = torch.randn((B, Hkv, Lmax, D), generator=g, device=cuda).to(dtype)
+    cv = torch.randn((B, Hkv, Lmax, D), generator=g, device=cuda).to(dtype)
+    kw = dict(head_dim=D, window=window, attn_softcap=cap)
+    want, _ = A.decode_attention(p, x, A.KVCache(ck.clone(), cv.clone()),
+                                 pos, **kw)
+    # the same step: q and the new k, v written as decode writes them
+    q, k, v = A._project_qkv(p, x, D)
+    posv = torch.full((1,), pos, dtype=torch.int32, device=cuda)
+    q, k = L.apply_rope(q, posv), L.apply_rope(k, posv)
+    ck[:, :, pos:pos + 1], cv[:, :, pos:pos + 1] = k, v
+    m = Lmax // n
+
+    def slices(t):
+        return torch.stack(t.split(m, dim=2))
+
+    def reduce(t, op):
+        return (t.amax if op == "max" else t.sum)(dim=0, keepdim=True)
+
+    kpos = torch.arange(Lmax, device=cuda).reshape(n, 1, 1, 1, m)
+    got = A.softmax_pv(A.decode_logits(q, slices(ck), kpos, pos, **kw),
+                       slices(cv), reduce)[0].reshape(B, 1, d)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    tol = 1e-5 * float(want.abs().max())
+    if dtype == torch.bfloat16:
+        logits = A.decode_logits(q, ck, torch.arange(Lmax, device=cuda), pos,
+                                 **kw)
+        tol = tol + 2.0 ** -8 * (torch.softmax(logits, dim=-1)
+                                 @ cv.float().abs()).reshape(B, 1, d)
+    assert torch.all((got - want).abs() <= tol)
 
 
 def test_flash_kernel_rejects_bad_inputs(cuda):
@@ -1510,6 +1585,49 @@ def test_tp_serving_of_ssm_hybrid_encdec_on_one_card(cuda, arch):
                 else cfg.encoder_layers + 2 * cfg.num_layers)
     for res in ranks:
         assert res["launches"] == launches
+        for got, ref in zip(res["logits"], wants):
+            got = torch.from_numpy(got)
+            bound = 1e-5 * float(ref.abs().max())
+            assert float((got - ref).abs().max()) <= bound
+            top2 = ref.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * bound
+            assert torch.equal(got.argmax(-1)[sure], ref.argmax(-1)[sure])
+
+
+def test_tp_serving_of_mqa_on_one_card(cuda):
+    """granite-34b's smoke model (8 query heads over one KV head) on tp = 2
+    ranks sharing the card, its KV cache cut on its sequence (36 positions,
+    18 a rank: the decode steps write 16-19, across the boundary), against
+    the one-process model on the same seeded weights, both through the
+    flash kernel with a float32 cache: every rank's logits within 1e-5 x
+    max|logit|, greedy tokens equal where the top-2 margin exceeds twice
+    that, one flash launch a layer on each rank."""
+
+    from repro_torch.config import MeshConfig
+    from repro_torch.launch.gossip import run_on_grid
+    from repro_torch.train.shard import init_shard
+
+    cfg = get_smoke_config("granite-34b")
+    rng = np.random.default_rng(0)
+    B, L, steps, max_len = 4, 16, 4, 36
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, L))}
+    one = build_model(cfg, Ctx(attn_impl="kernel", cache_dtype=torch.float32),
+                      device=cuda)
+    params = init_shard(0, cfg, None, MeshConfig(data=1, model=1, fsdp=False),
+                        0, cuda)
+    with torch.inference_mode():
+        want, cache = one.prefill(params, batch, max_len)
+        wants, fed = [want.cpu()], []
+        for i in range(steps):
+            tok = want.argmax(-1).to(torch.int32)
+            fed.append(tok.cpu())
+            want, cache = one.decode(params, cache, tok, L + i)
+            wants.append(want.cpu())
+    del params, cache
+    ranks = run_on_grid(_tp_card_rank, (1, 2), cfg, batch, fed, max_len, 2,
+                        device="cuda", timeout=300)
+    for res in ranks:
+        assert res["launches"] == cfg.num_layers
         for got, ref in zip(res["logits"], wants):
             got = torch.from_numpy(got)
             bound = 1e-5 * float(ref.abs().max())

@@ -3,8 +3,9 @@ CPU: ranks of ``gloo`` processes (``launch/gossip.py::run_on_grid(...,
 device="cpu")``), at smoke sizes.
 
 Cases: internvl2-76b's smoke config (8 query heads over 2 KV heads, 8
-stub patch tokens) at tp = 2, and with 4 KV heads (its 2 do not split 4
-ways) at tp = 4; qwen1.5-32b's (QKV biases, 8 KV heads) at tp = 2 and 4;
+stub patch tokens) at tp = 2, and with 4 KV heads (a rank's KV heads its
+own; its 2 over 4 ranks, gathered whole and the cache cut on its
+sequence, are ``tests/test_torch_mqa_tp_serve.py``'s) at tp = 4; qwen1.5-32b's (QKV biases, 8 KV heads) at tp = 2 and 4;
 gemma2-2b's (tied embeddings, logit and attention softcaps, a sliding
 window) at tp = 2; qwen's with a vocab and an FFN width that do not
 split at tp = 2 (the rules keep those leaves whole).  Parameters come from JAX ``init`` through
@@ -379,6 +380,28 @@ def test_model_split_refuses_what_the_collectives_do_not_follow(
     assert "item 6.8" in str(err.value)
 
 
+@pytest.mark.parametrize("arch,tp,over,keys", [
+    # the rules keep granite-34b's 16 k/v columns whole over 3 ranks
+    ("granite-34b", 3, {"num_heads": 6}, None),
+    # the attention's wk whole under its split wo, by hand
+    ("internvl2-76b", 2, {}, ("units", "s0", "attn", "wk")),
+])
+def test_model_split_accepts_whole_kv_under_a_split_wo(arch, tp, over,
+                                                       keys):
+    """A rank whose k/v leaves are whole computes k and v whole: whole
+    ``attn.wk``/``attn.wv`` under a split ``attn.wo`` are accepted."""
+
+    cfg = dataclasses.replace(get_smoke_config(arch), **over)
+    shapes = api.param_specs(build_model(cfg, device="meta"))
+    pspecs = S.param_pspecs(cfg, shapes,
+                            MeshConfig(data=1, model=tp, fsdp=False))
+    if keys is not None:
+        pspecs = _respec(pspecs, keys, S.P(None, None, None))
+    split = model_split(shapes, pspecs)
+    assert {"attn.wq", "attn.wo"} <= split
+    assert "attn.wk" not in split
+
+
 # a refused case's config changes: zamba2 with 2 KV heads under its 4
 # query heads (lora_b's width is cut by max(H, Hkv) heads)
 REFUSAL_OVERRIDES = {("zamba2-2.7b", 2): {"num_kv_heads": 2}}
@@ -386,8 +409,9 @@ REFUSAL_OVERRIDES = {("zamba2-2.7b", 2): {"num_kv_heads": 2}}
 
 @pytest.mark.parametrize("arch,tp,words", [
     # the MoE family serves on the rank grid (tests/test_torch_ep_serve.py):
-    # its heads must still split, 4 (smoke) and 24 (full) query heads over
-    # 3 ranks into whole heads, and 8 KV heads (full)
+    # its query heads must still split into whole heads a rank: the smoke
+    # config's 4 over 3 ranks do not (the full config's 24 do, its 8 KV
+    # heads gathered whole on each rank)
     ("granite-moe-3b-a800m", 3, "heads do not split"),
     ("deepseek-v2-lite-16b", 3, "query heads"),
     # the SSM, hybrid and encoder-decoder families serve on the rank grid
@@ -398,7 +422,10 @@ REFUSAL_OVERRIDES = {("zamba2-2.7b", 2): {"num_kv_heads": 2}}
     ("whisper-large-v3", 3, "query heads"),
     # the hybrid with H != Hkv: lora_b's rank slice is not its k/v columns
     ("zamba2-2.7b", 2, "lora_b"),
-    ("granite-34b", 2, "KV heads"),
+    # granite-34b's one KV head serves on the rank grid
+    # (tests/test_torch_mqa_tp_serve.py); its smoke config's 8 query heads
+    # do not split over 3 ranks
+    ("granite-34b", 3, "query heads"),
     ("qwen1.5-32b", 3, "query heads"),
 ])
 def test_refusals_name_their_item(arch, tp, words, monkeypatch):
