@@ -133,7 +133,9 @@ along a seeded unit direction at 256 tokens (relative error below
 ``F64_GRAD_TOL``); three AdamW steps on one repeated batch lower its loss.
 c. Gossip data-parallel training (``train/gossip_dp.py``) on a ring of
 four ``gloo`` ranks sharing the card, one unit at full width, 8 sequences
-of 512 tokens a step (2 a rank), SGD with momentum at lr 1e-2, 5 steps,
+of 512 tokens a step (2 a rank), SGD with momentum at lr 1e-2, 2 steps
+(every exchange moves the 3 GB unit through the host: they set the
+grid's time),
 against ``make_train_step`` on the global batch in this process (the
 reference's gate, ``tests/test_distributed.py``: consensus error below
 0.05, the final loss within 15%); staleness 2 and int8 messages too, each
@@ -269,8 +271,9 @@ shapes, as ``[moe]``'s rows: granite-moe's q (4, 6, 4000, 64) with k/v
 (32 layers, 40 experts, 10 a rank) and c. deepseek-v2-lite-16b at full
 width (full depth on four cards; on one card shared by the ranks cut,
 layer 0's dense MLP kept, to the depth whose parameters and caches, as
-``tp_reckoning`` counts them, take at most a quarter of the card: 8 of
-27 layers since ``[tp_mqa]`` joined the run, 17 at half), each first in
+``tp_reckoning`` counts them, take at most 0.18 of the card: 6 of 27
+layers since ``[fsdp]`` joined the run, 8 at a quarter, 17 at half), each
+first in
 this process from ``init_shard`` at ``model = 1``: a prefill of 4 x 4000
 tokens, then 7 greedy decode steps, its routing recorded (``RouteLog``).
 Then one grid of 4 ranks (``gloo`` on one card, ``nccl`` with a card a
@@ -347,6 +350,35 @@ shards and cache (equal to ``shard_nbytes`` of the specs), and the full
 depth at ``decode_32k``'s length, B = 32, reckoned from the specs: a
 rank's weights and sequence-cut bf16 cache against the card.
 
+``[fsdp]`` (after ``[tp_mqa]``): data-parallel and FSDP serving on the
+reference launcher's grid cut to data 2 x model 2: a rank is (data,
+model) = (rank // 2, rank % 2), takes 2 of the 4 prompts, holds a
+quarter of every matrix the rules split on both axes (FSDP on, the
+reference's default), gathers a unit's quarters over its FSDP group in
+one all-gather just before the unit, and all-gathers the logits over its
+batch group.  The flash kernel against its plain version, float64 and
+SDPA at a rank's qwen prefill, q/k/v (2, 20, 1024, 128) causal (row 5q).
+Then qwen1.5-32b at full width and 6 of 64 layers (18.8 GB of f32
+parameters; 4 layers would equal the batch of 4, which the cache rule
+takes for the batch dim) in this process from ``init_shard`` at 1 x 1: a
+prefill of 4 x 1024 tokens and 8 greedy decode steps against a float32
+cache 1032 deep; then one grid of 2 x 2 ranks (``gloo`` on one card:
+the gathers staged through the host) serving it from ``init_shard`` on
+the grid, fed the reference's tokens, after a warm-up on the prompts'
+first 64 tokens, every rank timing its collectives (the card
+synchronised around each), held as ``[tp_ssm_encdec]`` holds its ranks
+(1e-5 x max|logit|, the float64 referee past it, greedy tokens), one
+flash launch a layer on every rank, one FSDP all-gather a unit and
+decode step on every rank.  Prints, per rank, its bytes of shards and
+cache (equal to ``shard_nbytes`` of the specs, beside the one process's
+and the grid's without FSDP), its peak, prefill s, median decode step,
+and its FSDP gathers' calls, bytes and share of a decode step; rank 0's
+collectives by kind and its device busy share on one more decode step
+under the profiler; and the full depth (64 layers) at ``decode_32k`` cut
+to B = 8 at 4096 positions, reckoned from the specs: a rank's weights
+with and without FSDP, its bf16 cache and the bytes a decode step
+gathers, against the card.
+
 ``[stream]`` (after ``[gossip]``): the streaming loop at the Table 3
 cell through ``launch/streaming.py``: 85% of the training ratings
 ingested with the headroom of the stream's largest per-block count; the
@@ -400,7 +432,7 @@ pack-and-slice, per-rank seconds of both, the tiles bitwise; 300
 ``f_grads_sharded`` against the tile of the 1x1 gradients (1e-5); the
 held-back ratings appended owner-routed, bitwise the tile of
 ``append_entries``.  b. The Netflix Prize shape (480,189 x 17,770) with
-10,000,000 seeded distinct ratings in 1-5 on 8x8 blocks (the public
+5,000,000 seeded distinct ratings in 1-5 on 8x8 blocks (the public
 set's 100,480,507 cut to the run's time): routed against global ingest,
 per-rank seconds, the tiles bitwise.  c. ``FitResult.to_engine()`` on
 every rank of an 800-round ML-1M 4x4 ``Gossip`` fit, int8 and f32,
@@ -440,10 +472,10 @@ path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included),
 ``[stream]``, ``[faults]`` (the ranks' by stack shape in
 ``faults_launches_by_stack``), ``[serve]``, ``[sharded]`` (the ranks'),
 ``[measure]`` (the ranks' included), ``[lm]``, ``[moe]``, ``[ssm]``,
-``[encdec]``, ``[vlm]``, ``[tp]``, ``[ep]``, ``[tp_ssm_encdec]`` and
-``[tp_mqa]`` (the flash row's ``moe``, ``ssm``, ``encdec``, ``vlm``,
-``tp``, ``ep``, ``tp_ssm_encdec`` and ``tp_mqa`` keys have those phases'
-numbers; the rank phases' are
+``[encdec]``, ``[vlm]``, ``[tp]``, ``[ep]``, ``[tp_ssm_encdec]``,
+``[tp_mqa]`` and ``[fsdp]`` (the flash row's ``moe``, ``ssm``,
+``encdec``, ``vlm``, ``tp``, ``ep``, ``tp_ssm_encdec``, ``tp_mqa`` and
+``fsdp`` keys have those phases' numbers; the rank phases' are
 the reference runs' and every rank's); ``[train]`` launches none.
 
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
@@ -567,6 +599,7 @@ from repro_torch.launch.gossip import shutdown as shutdown_grids  # noqa: E402
 from repro_torch.launch import streaming  # noqa: E402
 from repro_torch.launch import gossip_comm  # noqa: E402
 from repro_torch.launch import roofline_bench  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.launch import serving_traffic  # noqa: E402
 from repro_torch.launch import sparse_vs_dense  # noqa: E402
 from repro_torch.kernels.quant import autotune as quant_autotune  # noqa: E402
@@ -591,7 +624,11 @@ from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.models.transformer import _index  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
-from repro_torch.optim.optimizers import tree_leaves, tree_map  # noqa: E402
+from repro_torch.optim.optimizers import (  # noqa: E402
+    tree_leaves,
+    tree_map,
+    tree_map_with_path,
+)
 from repro_torch.train import (  # noqa: E402
     make_eval_step,
     make_gossip_dp_step,
@@ -631,10 +668,10 @@ P = Q = 5
 RANK = 15
 PHASES = ("kernels", "main", "table2", "gossip", "stream", "faults",
           "serve", "sharded", "measure", "lm", "train", "moe", "ssm",
-          "encdec", "vlm", "tp", "ep", "tp_ssm_encdec", "tp_mqa")
+          "encdec", "vlm", "tp", "ep", "tp_ssm_encdec", "tp_mqa", "fsdp")
 NEEDS = {"serve": ("main",), "sharded": ("main",), "measure": ("main",)}
 LM_PHASES = ("lm", "moe", "ssm", "encdec", "vlm", "tp", "ep",
-             "tp_ssm_encdec", "tp_mqa")
+             "tp_ssm_encdec", "tp_mqa", "fsdp")
 CFG = dict(rho=1e3, lam=1e-6, a=2.0e-4, b=5.0e-7)
 FULL_ROUNDS = 800   # the Table 3 cell's rounds (benchmarks/table3_rmse.py)
 COMPARE_ROUNDS = 40  # sparse and dense FullGD are compared at this round
@@ -668,13 +705,13 @@ ASYNC_EVERY = (1, 2, 4)
 NAN_AT, NAN_EVAL = 150, 50
 WAVE_ROUNDS, WAVE_EVAL = 30, 10
 # [sharded]: the ratings appended owner-routed at the ML-1M 4x4 cell; the
-# Netflix Prize shape with its 100,480,507 ratings cut to 10M (the run's
+# Netflix Prize shape with its 100,480,507 ratings cut to 5M (the run's
 # time limit) on 8x8 blocks; the grid engine's refresh fit (rounds past
 # FULL_ROUNDS); the PRODUCTION catalog's seen items a user, requests a
 # bucket, users compared with the unsharded path, k, and the score
 # kernel's timed batch
 SHARD_APPEND = 10_000
-NETFLIX = dict(m=480_189, n=17_770, ratings=10_000_000, p=8, q=8)
+NETFLIX = dict(m=480_189, n=17_770, ratings=5_000_000, p=8, q=8)
 SHARD_REFIT = 100
 PROD_SEEN, PROD_REQUESTS, PROD_COMPARE, PROD_K = 100, 20, 512, 10
 PROD_SCORE_B = 256
@@ -723,7 +760,7 @@ GATE_SEQ, F64_SEQ, F64_EPS = 512, 256, 1e-3
 REMAT_TOL = 1e-6      # remat on vs off: rel to each gradient leaf's max
 MICRO_TOL = 1e-5      # microbatch=4 vs one pass: loss and leaves, relative
 F64_GRAD_TOL = 1e-6   # float64 <grad L, d> vs central difference, relative
-DP_WORKERS, DP_SEQ, DP_BATCH, DP_STEPS = 4, 512, 8, 5
+DP_WORKERS, DP_SEQ, DP_BATCH, DP_STEPS = 4, 512, 8, 2
 DP_TRAIN = dict(optimizer="sgd", learning_rate=1e-2, warmup_steps=0,
                 total_steps=100, max_grad_norm=0.0)
 DP_CASES = {"staleness1": dict(staleness=1, compression="none"),
@@ -776,10 +813,11 @@ TP_RANKS, TP_SEED, TP_TIMED_STEPS = 4, 0, 8
 # experts 10 a rank, deepseek's 64 16 a rank), a prefill and 7 decode
 # steps (8 logits) fed the one-process run's tokens; on one card shared by
 # the ranks, deepseek's depth is cut so that the ranks' parameters and
-# caches take at most EP_CARD_SHARE of it (a quarter, for the run's time
-# since [tp_mqa] joined it); the a2a form's capacity and its tolerance
-# against the psum form on tokens with no dropped slot
-EP_RANKS, EP_SEED, EP_NEW, EP_CARD_SHARE = 4, 0, 8, 0.25
+# caches take at most EP_CARD_SHARE of it (0.18, for the run's time: 6 of
+# 27 layers, whose 5 stacked units do not equal the batch of 4, which the
+# cache rule would take for the batch); the a2a form's capacity and its
+# tolerance against the psum form on tokens with no dropped slot
+EP_RANKS, EP_SEED, EP_NEW, EP_CARD_SHARE = 4, 0, 8, 0.18
 EP_CAPACITY, A2A_TOL = 2.0, 1e-5
 # [tp_ssm_encdec]: the SSM, hybrid and encoder-decoder families at full
 # width on TP_RANKS tensor-parallel ranks (mamba2's 48 Mamba2 heads 12 a
@@ -811,6 +849,21 @@ MQA_BATCH, MQA_PROMPT, MQA_NEW, MQA_MAX_LEN = 4, 1024, 16, 1376
 MQA_TIMED_STEPS, MQA_WARM = 4, 64
 # the four-card cell it stands for: decode_32k's length at B = 32
 MQA_FULL_BATCH, MQA_FULL_LEN = 32, 32768
+# [fsdp]: qwen1.5-32b (40 query and 40 KV heads of 128, d_model 5120) at
+# full width on the reference launcher's grid cut to 2 x 2 (data 2 x
+# model 2, FSDP on: a rank holds a quarter of every matrix the rules split
+# both ways and gathers a unit's quarters once a unit), its depth cut to
+# 6 of 64 layers for one card (4 would equal the batch, which the rules'
+# cache spec takes for the batch dim); a prefill of 4 x 1024 tokens (2
+# prompts a data rank), 8 greedy decode steps, a float32 cache 1032 deep;
+# the ranks warm up on the prompts' first 64 tokens
+FSDP_ARCH, FSDP_LAYERS = "qwen1.5-32b", 6
+FSDP_BATCH, FSDP_PROMPT, FSDP_NEW, FSDP_MAX_LEN = 4, 1024, 8, 1032
+FSDP_MESH = dict(pod=1, data=2, model=2, fsdp=True)
+FSDP_WARM = 64
+# the four-card cell it stands for: decode_32k cut to B = 8 at 4096
+# positions, all 64 layers
+FSDP_FULL_BATCH, FSDP_FULL_LEN = 8, 4096
 # [measure]: the traffic tape, the density sweep, the gossip_comm grid
 MEASURE_REQUESTS, MEASURE_RATE, MEASURE_K = 200, 200.0, 100
 MEASURE_SHAPE = (6040, 3706)         # the Table 3 cell's matrix
@@ -4375,6 +4428,243 @@ def mqa_phase(card, flash_row, device="cuda") -> dict:
     return out
 
 
+def fsdp_rank(rank, device, cfg, batch, fed) -> dict:
+    """``[fsdp]``'s rank: its ``init_shard`` shards on the 2 x 2 grid, a
+    warm-up on the prompts' first ``FSDP_WARM`` tokens, then the prefill
+    and decode steps fed the reference's tokens, every rank timing its
+    collectives (the card synchronised around each; the staged ``gloo``
+    path waits for the card anyway); its logits, times, bytes and
+    collectives, and on rank 0 one more decode step under the profiler."""
+
+    import torch.distributed as dist
+
+    mesh_cfg = MeshConfig(**FSDP_MESH)
+    model = build_model(cfg, Ctx(attn_impl="kernel",
+                                 cache_dtype=torch.float32), device=device)
+    B, L = batch["tokens"].shape
+    prefill, info = make_prefill_step(
+        model, dist.group.WORLD, mesh_cfg,
+        ShapeConfig("fsdp", L, B, "prefill"), FSDP_MAX_LEN)
+    decode, dinfo = make_serve_step(
+        model, dist.group.WORLD, mesh_cfg,
+        ShapeConfig("fsdp", FSDP_MAX_LEN, B, "decode"))
+    t0 = time.perf_counter()
+    params = init_shard(TSE_SEED, cfg, None, mesh_cfg, rank, device)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    warm = {"tokens": batch["tokens"][:, :FSDP_WARM]}
+    _tp_steps(prefill, decode, params, warm, fed[:1], FSDP_WARM, device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    serve_launcher.set_timed(info, True)
+    serve_launcher.set_timed(dinfo, True)
+    n0 = flash_ops.flash_attention.launches
+    logits, t_pre, t_dec, cache = _tp_steps(prefill, decode, params, batch,
+                                            fed, L, device)
+    serve_launcher.set_timed(info, False)
+    serve_launcher.set_timed(dinfo, False)
+    out = {"launches": flash_ops.flash_attention.launches - n0,
+           "prefill_s": t_pre, "decode_s": t_dec, "init_s": t_init,
+           "param_bytes": _nbytes(tree_leaves(params)),
+           "cache_bytes": _nbytes(tree_leaves(cache)),
+           "peak_bytes": torch.cuda.max_memory_allocated(device)
+           if device.type == "cuda" else 0,
+           "prefill_collectives": serve_launcher.collectives(info),
+           "decode_collectives": serve_launcher.collectives(dinfo),
+           # numpy: a tensor would cross the queue as shared storage that
+           # this process takes with it when it exits
+           "logits": [x.numpy() for x in logits]}
+    tok = torch.from_numpy(out["logits"][-1]).argmax(-1).to(
+        torch.int32).to(device)
+    # the last position again: the cache holds no room past it
+    step = lambda: decode(params, cache, tok, L + len(fed) - 1)  # noqa: E731
+    if rank == 0:
+        _, secs, bd = profiled(step)
+        out["profile"] = {"wall_ms": 1e3 * secs,
+                          "busy": sum(bd.values()) / (1e3 * secs),
+                          "top": top(bd)}
+    else:
+        step()
+        _sync(device)
+    del params, cache
+    _free()
+    return out
+
+
+def fsdp_gathered_bytes(cfg, mesh_cfg) -> int:
+    """Bytes a rank's FSDP gathers make whole in one pass over the model:
+    its model shard (the specs without FSDP) of every leaf the grid's
+    specs split on ``"data"``."""
+
+    meta = build_model(cfg, device="meta")
+    shapes = model_api.param_specs(meta)
+    grid = shard_rules.param_pspecs(cfg, shapes, mesh_cfg)
+    plain_cfg = dataclasses.replace(mesh_cfg, fsdp=False)
+    plain = shard_rules.param_pspecs(cfg, shapes, plain_cfg)
+    total = []
+
+    def visit(_, x, spec, spec_plain):
+        if "data" in spec:
+            total.append(shard_nbytes(x, spec_plain, plain_cfg))
+
+    tree_map_with_path(visit, shapes, grid, plain)
+    return sum(total)
+
+
+def fsdp_phase(card, flash_row, device="cuda") -> dict:
+    """``[fsdp]``: row 5q, then qwen1.5-32b at full width (depth cut,
+    ``FSDP_LAYERS``) served by one process and by one grid of 2 x 2 ranks
+    (data x model, FSDP on); see the module docstring.  Adds the phase's
+    flash launches to ``flash_row``."""
+
+    t_phase = time.perf_counter()
+    tag = "[fsdp]"
+    mesh_cfg = MeshConfig(**FSDP_MESH)
+    n, D, M = mesh_cfg.num_devices, mesh_cfg.data, mesh_cfg.model
+    full = get_model_config(FSDP_ARCH)
+    cfg = dataclasses.replace(full, num_layers=FSDP_LAYERS)
+    H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    B, L = FSDP_BATCH, FSDP_PROMPT
+    flash = {"5q rank": prefill_flash(
+        card, tag, "qwen1.5-32b rank (5q)", B // D, L, H // M, Hkv // M, hd,
+        hd)}
+    dev = torch.device(device)
+    card_total = (torch.cuda.get_device_properties(0).total_memory
+                  if dev.type == "cuda" else 0)
+    batch = {"tokens": np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (B, L))}
+    ref = tse_reference(cfg, batch, dev, new=FSDP_NEW + 1,
+                        max_len=FSDP_MAX_LEN)
+    backend = pick_backend(device, n)
+    marks: list = []
+    t0 = time.perf_counter()
+    ranks = run_on_grid(fsdp_rank, (D, M), cfg, batch, ref["fed"],
+                        device=device, timeout=900, marks=marks)
+    t_grid = time.perf_counter() - t0
+    launches = [r["launches"] for r in ranks]
+    if launches != [cfg.num_layers] * n or ref["launches"] != cfg.num_layers:
+        fail(f"{tag} flash_attention launches {ref['launches']} in the "
+             f"reference and {launches} by rank, expected {cfg.num_layers} "
+             "on each")
+    worst, checked, refereed, one64 = hold_logits(tag, ranks, ref)
+    shape = ShapeConfig("fsdp", FSDP_MAX_LEN, B, "decode")
+    reckon = serve_launcher.rank_bytes(cfg, shape, mesh_cfg, torch.float32)
+    for r, res in enumerate(ranks):
+        if (res["param_bytes"], res["cache_bytes"]) != reckon["grid"]:
+            fail(f"{tag} rank {r}: {res['param_bytes']} bytes of shards and "
+                 f"{res['cache_bytes']} of cache, the specs reckon "
+                 f"{reckon['grid']}")
+        calls = res["decode_collectives"].get("fsdp_all_gather", [0])[0]
+        if calls != FSDP_NEW * cfg.num_layers:
+            fail(f"{tag} rank {r}: {calls} FSDP all-gathers in "
+                 f"{FSDP_NEW} decode steps, expected one a unit "
+                 f"({FSDP_NEW * cfg.num_layers})")
+    gathered = fsdp_gathered_bytes(cfg, mesh_cfg)
+    r0 = ranks[0]
+    ms = 1e3 * statistics.median(r0["decode_s"])
+    ref_ms = 1e3 * statistics.median(ref["decode_s"])
+    print(f"{tag} row 5q rank: {flash['5q rank']['ms']:.4f} ms (plain "
+          f"{flash['5q rank']['plain_ms']:.4f}, SDPA "
+          f"{flash['5q rank']['library_ms']:.4f}; bound "
+          f"{flash['5q rank']['bound_ms']:.4f} 3xTF32, "
+          f"{flash['5q rank']['bound_f32_cuda_core_ms']:.4f} f32), max abs "
+          f"err {flash['5q rank']['max_abs_err']:.3e} against plain",
+          flush=True)
+    print(f"{tag} depth cut for the run's time, widths whole: num_layers "
+          f"{cfg.num_layers} of {full.num_layers}; grid data {D} x model "
+          f"{M}, FSDP on, {B // D} prompts a data rank", flush=True)
+    print(f"{tag}: reference, 1 process ({ref['param_bytes'] / 1e9:.3f} GB "
+          f"of f32 parameters, init_shard {ref['init_s']:.2f}s): prefill "
+          f"{ref['prefill_s']:.3f}s of {B} x {L} tokens, decode "
+          f"{ref_ms:.3f} ms/step (median of {len(ref['decode_s'])}), "
+          f"{ref['launches']} flash launches, peak "
+          f"{ref['peak_bytes'] / 2**30:.2f} GiB", flush=True)
+    print(f"{tag}: {n} ranks ({backend}, "
+          f"{'one card' if backend == 'gloo' else 'a card a rank'}; grid "
+          f"{t_grid:.1f}s with start-up "
+          f"{max(m['group_s'] for m in marks):.1f}s): flash launches by "
+          f"rank {launches}; every rank's logits within "
+          f"{worst['prefill']:.3f} (prefill) and {worst['decode']:.3f} "
+          f"(decode, float32 cache) x the bound ({TSE_TOL} x max|logit|) "
+          f"of the one process's; greedy tokens equal on all {checked} "
+          f"(rank, row, step) with a margin over twice the bound",
+          flush=True)
+    ratio = max((x["rank_f64_err"] / x["one_f64_err"] for x in refereed),
+                default=None)
+    print(f"{tag}: against a float64 evaluation of the same model, the one "
+          f"process's float32 logits err by {max(one64):.3e} x max|logit| "
+          f"(prefill {one64[0]:.3e}); {len(refereed)} of "
+          f"{len(ref['logits']) * n} (rank, step) past the bound, held to "
+          f"float64: the rank's error at most "
+          f"{'-' if ratio is None else f'{ratio:.3f}'} x the one process's "
+          f"(limit {TSE_F64_FACTOR})", flush=True)
+    (one_p, one_c), (nf_p, nf_c) = reckon["one"], reckon["no_fsdp"]
+    for r, res in enumerate(ranks):
+        steps = len(res["decode_s"])
+        dec_s = sum(res["decode_s"])
+        g_calls, g_secs, g_bytes = res["decode_collectives"][
+            "fsdp_all_gather"]
+        print(f"{tag} rank {r}: shards {res['param_bytes']} bytes (one "
+              f"process {one_p}, without FSDP {nf_p}), cache "
+              f"{res['cache_bytes']} bytes (one process {one_c}); equal to "
+              f"shard_nbytes of the specs; peak "
+              f"{res['peak_bytes'] / 2**30:.2f} GiB; init_shard "
+              f"{res['init_s']:.2f}s; prefill {res['prefill_s']:.3f}s, "
+              f"decode {1e3 * statistics.median(res['decode_s']):.3f} "
+              f"ms/step (median of {steps}); FSDP all-gathers a decode step: "
+              f"{g_calls / steps:g} calls, {g_bytes / steps:.0f} bytes sent "
+              f"({D * g_bytes / steps:.0f} gathered), "
+              f"{1e3 * g_secs / steps:.3f} ms ({100 * g_secs / dec_s:.1f}% "
+              f"of the step)", flush=True)
+    prof = r0["profile"]
+    print(f"{tag} rank 0 decode step under the profiler: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {100 * prof['busy']:.1f}%;"
+          f" by kernel: {prof['top']}", flush=True)
+    shares = {"prefill": _shares(r0["prefill_collectives"],
+                                 r0["prefill_s"]),
+              "decode_step": _shares(r0["decode_collectives"],
+                                     sum(r0["decode_s"]),
+                                     len(r0["decode_s"]))}
+    print(f"{tag} collectives on rank 0, the card synchronised around each: "
+          f"prefill {json.dumps(shares['prefill'])}; decode step "
+          f"{json.dumps(shares['decode_step'])}", flush=True)
+    full_shape = ShapeConfig("fsdp", FSDP_FULL_LEN, FSDP_FULL_BATCH,
+                             "decode")
+    reckon_full = serve_launcher.rank_bytes(full, full_shape, mesh_cfg)
+    gathered_full = fsdp_gathered_bytes(full, mesh_cfg)
+    print(f"{tag} at full depth ({full.num_layers} layers), decode_32k cut "
+          f"to B = {FSDP_FULL_BATCH} at {FSDP_FULL_LEN} positions, reckoned "
+          f"from the specs: {model_api.param_count(full)} parameters; a rank "
+          f"of the 2 x 2 grid holds {reckon_full['grid'][0] / 1e9:.3f} GB of "
+          f"f32 weights (without FSDP {reckon_full['no_fsdp'][0] / 1e9:.3f} "
+          f"GB, one process {reckon_full['one'][0] / 1e9:.3f} GB) + "
+          f"{reckon_full['grid'][1] / 1e9:.3f} GB of bf16 cache, against the "
+          f"card's {card_total / 1e9:.1f} GB; a decode step gathers "
+          f"{gathered_full / 1e9:.3f} GB a rank ({gathered / 1e9:.3f} GB at "
+          f"{cfg.num_layers} layers)", flush=True)
+    out = {"backend": backend, "flash": flash, "layers": cfg.num_layers,
+           "reference": {"prefill_s": ref["prefill_s"],
+                         "decode_ms_per_step": ref_ms,
+                         "peak_gib": ref["peak_bytes"] / 2**30,
+                         "parameter_bytes": ref["param_bytes"],
+                         "cache_bytes": ref["cache_bytes"]},
+           "ranks": [{k: v for k, v in r.items()
+                      if k not in ("logits", "profile")} for r in ranks],
+           "prefill_s": r0["prefill_s"], "decode_ms_per_step": ms,
+           "busy": prof["busy"], "collectives": shares,
+           "logit_err_over_bound": worst, "greedy_checked": checked,
+           "one_process_f64_err": one64, "refereed": refereed,
+           "reckoning": reckon, "full_depth": reckon_full,
+           "gathered_bytes_per_pass": gathered,
+           "gathered_bytes_per_pass_full_depth": gathered_full,
+           "launches": ref["launches"] + sum(launches)}
+    flash_row["launches"] += out["launches"]
+    flash_row["fsdp"] = out
+    print(f"{tag} phase: {time.perf_counter() - t_phase:.1f}s of command",
+          flush=True)
+    return out
+
+
 class StateAt(Callback):
     """Keeps a copy of the fit's state at one eval boundary."""
 
@@ -5672,7 +5962,8 @@ def measure_phase(fitted, device="cuda") -> tuple[dict, list]:
         "tp": [analyze_record(r) for r in roofline_bench.lm_records()],
         "ep": [analyze_record(r) for r in roofline_bench.moe_records()],
         "tp_mqa": [analyze_record(r)
-                   for r in roofline_bench.mqa_records()]}
+                   for r in roofline_bench.mqa_records()],
+        "fsdp": [analyze_record(r) for r in roofline_bench.fsdp_records()]}
     print(f"[measure] roofline records counted in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     beside = {"1x1": ("[main] FullGD sparse/segment ms/round",
@@ -5689,12 +5980,13 @@ def measure_phase(fitted, device="cuda") -> tuple[dict, list]:
     return total, lm_analyses
 
 
-def roofline_after_tp(lm_analyses, tp_out, ep_out, mqa_out=None) -> None:
-    """The ``[tp]``, ``[ep]`` and ``[tp_mqa]`` cells' roofline lines beside
-    their measured times (``[tp]`` and ``[tp_mqa]``: the one-process
-    reference at ``model`` = 1, rank 0 at 4; ``[ep]``: rank 0 at 4, its
-    depth named where one card cut it; an a2a prefill record beside
-    ``[ep]`` d's one layer, both forms)."""
+def roofline_after_tp(lm_analyses, tp_out, ep_out, mqa_out=None,
+                      fsdp_out=None) -> None:
+    """The ``[tp]``, ``[ep]``, ``[tp_mqa]`` and ``[fsdp]`` cells' roofline
+    lines beside their measured times (``[tp]``, ``[tp_mqa]`` and
+    ``[fsdp]``: the one-process reference on one chip, rank 0 on the
+    grid; ``[ep]``: rank 0 at 4, its depth named where one card cut it;
+    an a2a prefill record beside ``[ep]`` d's one layer, both forms)."""
 
     def seen(a, run):
         return (f"{run['prefill_s']:.4f} s" if a["shape_cfg"]["kind"]
@@ -5722,12 +6014,13 @@ def roofline_after_tp(lm_analyses, tp_out, ep_out, mqa_out=None) -> None:
                                    if run["layers"] != full else "")
         print(f"[measure] {roofline_bench.roofline_line(a)} | [ep] "
               f"measured: {text}", flush=True)
-    for a in lm_analyses["tp_mqa"]:
-        run = None if mqa_out is None else (
-            mqa_out["reference"] if a["chips"] == 1 else mqa_out)
-        print(f"[measure] {roofline_bench.roofline_line(a)} | [tp_mqa] "
-              f"measured: {'not run' if run is None else seen(a, run)}",
-              flush=True)
+    for key, out in (("tp_mqa", mqa_out), ("fsdp", fsdp_out)):
+        for a in lm_analyses[key]:
+            run = None if out is None else (
+                out["reference"] if a["chips"] == 1 else out)
+            print(f"[measure] {roofline_bench.roofline_line(a)} | [{key}] "
+                  f"measured: {'not run' if run is None else seen(a, run)}",
+                  flush=True)
 
 
 def _leaves(tree):
@@ -5982,8 +6275,11 @@ def main() -> None:
     # 12. granite-34b's one KV head: the cache cut on its sequence
     mqa_out = mqa_phase(card, rows[-1]) if want("tp_mqa") else None
     _free()
+    # 13. qwen1.5-32b data parallel and FSDP on a 2 x 2 grid
+    fsdp_out = fsdp_phase(card, rows[-1]) if want("fsdp") else None
+    _free()
     if lm_analyses is not None:
-        roofline_after_tp(lm_analyses, tp_out, ep_out, mqa_out)
+        roofline_after_tp(lm_analyses, tp_out, ep_out, mqa_out, fsdp_out)
     print(f"[main] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{time.perf_counter() - started:.1f}s since start", flush=True)

@@ -183,8 +183,9 @@ SHAPES: dict[str, ShapeConfig] = {
 class MeshConfig:
     """The rank grid's axes, as the JAX package's mesh names them: ``pod``
     and ``data`` (data parallel, ``data`` also FSDP when ``fsdp``) and
-    ``model`` (tensor parallel).  The port serves on ``model`` ranks only
-    (``repro_torch.train.shard``)."""
+    ``model`` (tensor parallel); ``pod`` only on a multi-pod mesh.  The
+    port serves on ``pod x data x model`` ranks (``repro_torch.train.
+    shard``, ``launch/lm_engine.py``)."""
 
     multi_pod: bool = False
     pod: int = 1

@@ -52,7 +52,14 @@ counted from shapes, never measured.
   a prefill of 4 × 1024 tokens and one decode step against a 1376-deep
   cache, at ``model`` = 1 and 4; the decode's masked partial softmax
   counts its all-gather of q, its all-reduces of the maxima
-  (``all_reduce_max``) and of the sums and partial outputs.  ::
+  (``all_reduce_max``) and of the sums and partial outputs.
+* **The FSDP cell** (:func:`fsdp_records`): ``[fsdp]``'s qwen1.5-32b at
+  its published widths and 6 of 64 layers, a prefill of 4 × 1024 tokens
+  and one decode step against a 1032-deep cache, in one process and on
+  rank 0 of ``data`` 2 × ``model`` 2 (FSDP on, a rank's batch of 2): the
+  collectives add the FSDP gathers, one a unit (``FSDP.dry``), counted
+  with the all-gather formula, and the logits' all-gather over the batch;
+  the bytes add the gathered leaves, written once and read once.  ::
 
     python -m repro_torch.launch.roofline_bench [--write PATH] [--path GLOB]
 """
@@ -84,6 +91,10 @@ MOE_BATCH, MOE_PROMPT, MOE_MAX_LEN, EP_RANKS = 4, 4000, 4096, 4
 # the [tp_mqa] cell (chip_smoke.py's MQA_* and TP_RANKS)
 MQA_ARCH, MQA_LAYERS = "granite-34b", 5
 MQA_BATCH, MQA_PROMPT, MQA_MAX_LEN = 4, 1024, 1376
+# the [fsdp] cell (chip_smoke.py's FSDP_*): one process, then 2 x 2 ranks
+FSDP_ARCH, FSDP_LAYERS = "qwen1.5-32b", 6
+FSDP_BATCH, FSDP_PROMPT, FSDP_MAX_LEN = 4, 1024, 1032
+FSDP_MESHES = ((1, 1), (2, 2))
 
 
 def load_records(path=DEFAULT_PATH):
@@ -225,13 +236,16 @@ def _tree_bytes(tree) -> int:
 def lm_record(cfg, kind: str, batch: int, prompt: int, max_len: int,
               model_axis: int, arch: str | None = None,
               overrides: dict | None = None,
-              moe_impl: str = "psum") -> dict:
+              moe_impl: str = "psum", data_axis: int = 1) -> dict:
     """The record of one ``kind`` step ("prefill" of ``prompt`` tokens, a
     VLM's patches before them, or one "decode" step at the position after
-    them, against a ``max_len``-deep cache) on rank 0 of ``model_axis``
-    tensor-parallel ranks, counted on ``meta``; a MoE model's experts
-    padded to the axis and combined by ``moe_impl`` (an ``"a2a"`` record's
-    shape ends in ``_a2a``)."""
+    them, against a ``max_len``-deep cache) on rank 0 of ``data_axis x
+    model_axis`` ranks (FSDP on over the data ranks, the batch cut over
+    them), counted on ``meta``; a MoE model's experts padded to the model
+    axis and combined by ``moe_impl`` (an ``"a2a"`` record's shape ends in
+    ``_a2a``).  Over data ranks the collectives add the FSDP gathers
+    (``FSDP.dry``) and the logits' gather over the batch, and the bytes
+    the gathered leaves, written by the gather and read by the products."""
 
     import torch
     from torch.utils.flop_counter import FlopCounterMode
@@ -244,10 +258,13 @@ def lm_record(cfg, kind: str, batch: int, prompt: int, max_len: int,
     from repro_torch.train import sharding as S
     from repro_torch.config import ShapeConfig
     from repro_torch.models.api import cache_specs
-    from repro_torch.train.shard import (kv_cache_layout, model_split,
-                                         rank_cache_pspecs, shard_params)
+    from repro_torch.models.layers import FSDP
+    from repro_torch.train.shard import (fsdp_split, kv_cache_layout,
+                                         model_split, rank_cache_pspecs,
+                                         shard_params)
 
-    mesh_cfg = MeshConfig(data=1, model=model_axis, fsdp=False)
+    mesh_cfg = MeshConfig(data=data_axis, model=model_axis,
+                          fsdp=data_axis > 1)
     ctx = Ctx(attn_impl="kernel", moe_impl=moe_impl,
               ep_pad_to=model_axis if cfg.moe is not None else 0)
     meta_model = build_model(cfg, ctx, device="meta")
@@ -262,8 +279,12 @@ def lm_record(cfg, kind: str, batch: int, prompt: int, max_len: int,
     tp = (TP.dry(model_axis, model_split(shapes, pspecs),
                  kv_cache=kv_cache_layout(cshapes, cspecs))
           if model_axis > 1 else None)
-    model = build_model(cfg, dataclasses.replace(ctx, tp=tp), device="meta")
+    fsdp = (FSDP.dry(data_axis, fsdp_split(shapes, pspecs))
+            if data_axis > 1 else None)
+    model = build_model(cfg, dataclasses.replace(ctx, tp=tp, fsdp=fsdp),
+                        device="meta")
     params = shard_params(shapes, pspecs, mesh_cfg, 0)
+    global_batch, batch = batch, batch // data_axis
     cache = model.init_cache(batch, max_len)
     positions = patches + prompt
     meta = dict(device="meta")
@@ -286,24 +307,37 @@ def lm_record(cfg, kind: str, batch: int, prompt: int, max_len: int,
     torch_flops = float(fc.get_total_flops())
     kernel_flops = flash_flops(calls)
     param_bytes, cache_bytes = _tree_bytes(params), _tree_bytes(cache)
-    stats = tp.stats if tp is not None else {}
+    stats = dict(tp.stats) if tp is not None else {}
+    wire = ring_bytes(stats, model_axis)
+    gathered = 0
+    if fsdp is not None:
+        gathered = fsdp.stats.get("all_gather", [0, 0.0, 0])[2] * data_axis
+        # the logits' all-gather over the batch ranks: (B / data, V) f32
+        batch_stats = {"all_gather": [1, 0.0, 4 * batch * cfg.vocab_size]}
+        wire += (ring_bytes(fsdp.stats, data_axis)
+                 + ring_bytes(batch_stats, data_axis))
+        stats.update({f"fsdp_{op}": row for op, row in fsdp.stats.items()})
+        stats.update({f"batch_{op}": row for op, row in batch_stats.items()})
     # model_flops counts prefill tokens; a decode step's seq_len is its
     # cache's depth in tokens
     seq = positions if kind == "prefill" else max_len - patches
-    shape = f"{kind}_{batch}x{positions if kind == 'prefill' else max_len}"
+    shape = (f"{kind}_{global_batch}x"
+             f"{positions if kind == 'prefill' else max_len}")
     shape += "_a2a" if moe_impl == "a2a" else ""
     return {"arch": arch or cfg.name, "shape": shape,
-            "mesh": f"1x{model_axis}", "chips": model_axis,
+            "mesh": f"{data_axis}x{model_axis}",
+            "chips": data_axis * model_axis,
             "flops_per_device": torch_flops + kernel_flops,
-            "bytes_accessed_per_device": float(param_bytes + cache_bytes),
-            "collective_bytes_per_device": ring_bytes(stats, model_axis),
+            "bytes_accessed_per_device": float(param_bytes + cache_bytes
+                                               + 2 * gathered),
+            "collective_bytes_per_device": wire,
             "counted": "computed",
             "overrides": dict(overrides or {}),
             "shape_cfg": {"name": shape, "seq_len": seq,
-                          "global_batch": batch, "kind": kind},
+                          "global_batch": global_batch, "kind": kind},
             "torch_flops": torch_flops, "flash_flops": kernel_flops,
             "flash_calls": len(calls), "param_bytes": param_bytes,
-            "cache_bytes": cache_bytes,
+            "cache_bytes": cache_bytes, "fsdp_gathered_bytes": gathered,
             "collectives": {op: {"calls": c, "bytes": b}
                             for op, (c, _, b) in stats.items()}}
 
@@ -347,9 +381,22 @@ def mqa_records() -> list[dict]:
             for tp in LM_MODEL_AXES for kind in ("prefill", "decode")]
 
 
+def fsdp_records() -> list[dict]:
+    """The ``[fsdp]`` cell's records (module docstring)."""
+
+    from repro_torch.config import get_model_config
+
+    overrides = {"num_layers": FSDP_LAYERS}
+    cfg = dataclasses.replace(get_model_config(FSDP_ARCH), **overrides)
+    return [lm_record(cfg, kind, FSDP_BATCH, FSDP_PROMPT, FSDP_MAX_LEN,
+                      model, arch=FSDP_ARCH, overrides=overrides,
+                      data_axis=data)
+            for data, model in FSDP_MESHES for kind in ("prefill", "decode")]
+
+
 def write_records(path: str) -> list[dict]:
     records = (gossip_records() + lm_records() + moe_records()
-               + mqa_records())
+               + mqa_records() + fsdp_records())
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "a") as f:
         for r in records:

@@ -1,13 +1,15 @@
-"""Serving launcher: tensor-parallel decode on a grid of ranks (port of
-``repro.launch.serve``).
+"""Serving launcher: decode on a ``pod x data x model`` grid of ranks (port
+of ``repro.launch.serve``).
 
-    python -m repro_torch.launch.serve --arch internvl2-76b --tp 4 \\
+    python -m repro_torch.launch.serve --arch qwen1.5-32b --data 2 --tp 2 \
+        --batch 8 --seq-len 4096 --steps 8 [--device cpu]
+    python -m repro_torch.launch.serve --arch internvl2-76b --tp 4 \
         --batch 4 --seq-len 2048 --steps 32 [--device cpu]
-    python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \\
+    python -m repro_torch.launch.serve --arch granite-moe-3b-a800m \
         --tp 4 --batch 4 --seq-len 4096 --steps 8 [--device cpu]
-    python -m repro_torch.launch.serve --arch whisper-large-v3 --tp 2 \\
+    python -m repro_torch.launch.serve --arch whisper-large-v3 --tp 2 \
         --batch 4 --seq-len 448 --steps 8 [--device cpu]
-    python -m repro_torch.launch.serve --arch granite-34b --tp 4 \\
+    python -m repro_torch.launch.serve --arch granite-34b --tp 4 \
         --batch 32 --seq-len 32768 --steps 16 [--device cpu]
 
 As the reference does, it runs ``--steps`` decode steps of
@@ -16,36 +18,43 @@ feeding each step's greedy token back, and prints ``[serve] ... tok/s``.
 There is no prefill, so no prompt, frames or patches: mamba2 and zamba2
 decode from a zero SSM state, whisper from a zero cross-attention cache.
 The parameters are seeded shards (``train/shard.py::init_shard``, seed 0),
-so ``--tp 1`` and ``--tp N`` serve the same weights and print the same
-greedy tokens.  Every arch serves on ``--tp`` ranks where its query heads
-split (``models/api.py::tp_refusal``); where its KV heads do not
+so every grid serves the same weights and prints the same greedy tokens.
+Every arch serves on ``--tp`` model ranks where its query heads split
+(``models/api.py::tp_refusal``); where its KV heads do not
 (granite-34b's one), each rank holds every KV head over its slice of the
-positions, as the rules cut the cache, and each rank's cache bytes are
-printed beside the one process's.  A batch equal to a stacking dim of
-its cache (zamba2's 9 units, whisper's 32 decoder layers) is refused by
-the step (``lm_engine._check_cache``).
+positions, as the rules cut the cache.  A batch equal to a stacking dim
+of its cache (zamba2's 9 units, whisper's 32 decoder layers) is refused
+by the step (``lm_engine._check_cache``).
 
-``--tp N`` sets the ``model`` axis: N ranks of ``launch/gossip.py``'s
-``run_on_grid``, one card a rank (``nccl``) where the machine has N
-cards, else sharing one card (``gloo``, collectives staged through the
-host).  A MoE arch (granite-moe-3b-a800m, deepseek-v2-lite-16b) is
-served expert parallel on those ranks, its experts padded to a multiple
-of N (``ep_pad_to``) and combined by the psum form, as the reference's
-launcher serves it.  Rank 0 times its collectives (the card
-synchronised around each) and the printout gives their calls, bytes and
-seconds a step, over all steps and over the steps after the first (in
-which ``nccl`` makes its communicators); on a card one more step runs,
-rank 0's under the profiler, for its device busy share.  ``--seq-len``
-and ``--batch`` cut the named ``--shape`` (``decode_32k``'s batch of 128
-at 32k positions is sized for the reference's 256-chip pod); every cut
-is printed.  ``--multi-pod`` is
-refused: the port serves on ``model`` ranks only.  ``--device cpu`` is
-the only way onto the CPU.
+The grid is the reference launcher's: ``--data N`` data ranks (one pod;
+``--multi-pod`` two, as ``multi_pod_config``) times ``--tp`` model ranks,
+FSDP on over the data ranks (``MeshConfig.fsdp``, the reference's
+default) unless ``--no-fsdp``, the batch cut over ``pod x data``, and the
+``Ctx`` built as the reference builds it (``dp`` the batch axes, a MoE
+arch's experts padded to a multiple of ``--tp`` and combined by the psum
+form).  The dense, VLM and MoE families (MLA's included) serve data
+parallel; the others, and a batch that does not split over ``pod x
+data``, are refused naming their ROADMAP item
+(``train/shard.py::check_mesh``).  The ranks are ``launch/gossip.py``'s
+``run_on_grid``: one card a rank (``nccl``) where the machine has that
+many cards, else all on one card (``gloo``, collectives staged through
+the host).  Each rank's parameter and cache bytes are printed beside the
+one process's and beside ``--no-fsdp``'s (``shard_nbytes`` of the
+specs).  Rank 0 times its collectives (the card synchronised around
+each): its model group's, its FSDP gathers (one a unit) and the logits'
+gather over its batch group, in calls, bytes and seconds a step, over all
+steps and over the steps after the first (in which ``nccl`` makes its
+communicators); on a card one more step runs, rank 0's under the
+profiler, for its device busy share.  ``--seq-len`` and ``--batch`` cut
+the named ``--shape`` (``decode_32k``'s batch of 128 at 32k positions is
+sized for the reference's 256-chip pod); every cut is printed.
+``--device cpu`` is the only way onto the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -62,8 +71,10 @@ from repro_torch.core.state import resolve_device
 from repro_torch.launch.gossip import pick_backend, run_on_grid
 from repro_torch.launch.lm_engine import make_serve_step
 from repro_torch.models import Ctx, build_model
-from repro_torch.models.api import cache_specs, tp_refusal
-from repro_torch.train.shard import init_shard
+from repro_torch.models.api import cache_specs, param_specs, tp_refusal
+from repro_torch.train import sharding as S
+from repro_torch.train.shard import (check_mesh, dp_size, init_shard,
+                                     rank_cache_pspecs, shard_nbytes)
 
 SEED = 0
 
@@ -74,6 +85,10 @@ def _nbytes(tree) -> int:
     if isinstance(tree, tuple):
         return sum(_nbytes(v) for v in tree)
     return tree.numel() * tree.element_size()
+
+
+def _gb(n: int) -> str:
+    return f"{n / 1e9:.6g} GB"
 
 
 def busy_share(fn, device) -> dict:
@@ -94,28 +109,48 @@ def busy_share(fn, device) -> dict:
     return {"wall_ms": 1e3 * wall, "busy": busy_us / (1e6 * wall)}
 
 
+def collectives(info) -> dict:
+    """The rank's collective records by op: its model group's
+    (``TP.stats``), its FSDP gathers (``"fsdp_all_gather"``) and the
+    logits' gather over its batch group (``"batch_all_gather"``)."""
+
+    ctx, batch = info["model"].ctx, info["grid"].batch
+    out = {} if ctx.tp is None else dict(ctx.tp.stats)
+    for name, tp in (("fsdp", ctx.fsdp), ("batch", batch)):
+        if tp is not None:
+            out.update({f"{name}_{op}": row for op, row in tp.stats.items()})
+    return out
+
+
+def set_timed(info, on: bool) -> None:
+    """Set ``timed`` on every group of a step's rank (``collectives``)."""
+
+    ctx = info["model"].ctx
+    for tp in (ctx.tp, ctx.fsdp, info["grid"].batch):
+        if tp is not None:
+            tp.timed = on
+
+
 def serve_rank(rank, device, cfg, shape: ShapeConfig, mesh_cfg: MeshConfig,
                steps: int) -> dict:
     """One rank's decode loop: its shards, a zero cache shard, ``steps``
     greedy steps.  Returns the tokens (steps, B), the loop's seconds, each
     step's seconds (the card synchronised after it), rank 0's collectives
-    (``TP.stats``: calls, host seconds with the card synchronised around
-    each, bytes; ``collectives_first_step`` those of the first step, in
-    which ``nccl`` makes its communicators) and the rank's bytes of shards
-    and cache and its peak device memory; on a card, one more step on
-    every rank, rank 0's under the profiler with its collectives untimed
-    (``busy_share``)."""
+    (``collectives``: calls, host seconds with the card synchronised
+    around each, bytes; ``collectives_first_step`` those of the first
+    step, in which ``nccl`` makes its communicators) and the rank's bytes
+    of shards and cache and its peak device memory; on a card, one more
+    step on every rank, rank 0's under the profiler with its collectives
+    untimed (``busy_share``)."""
 
     group = dist.group.WORLD if dist.is_initialized() else None
-    ep = cfg.moe is not None and mesh_cfg.model > 1
-    ctx = Ctx(attn_impl="kernel", ep_pad_to=mesh_cfg.model if ep else 0)
+    ctx = serving_ctx(cfg, mesh_cfg)
     model = build_model(cfg, ctx, device=device)
     step, info = make_serve_step(model, group, mesh_cfg, shape)
     params = init_shard(SEED, cfg, ctx, mesh_cfg, rank, device)
-    tp = info["model"].ctx.tp
-    if tp is not None:
-        tp.timed = rank == 0
-    cache = info["model"].init_cache(shape.global_batch, info["max_len"])
+    set_timed(info, rank == 0)
+    cache = info["model"].init_cache(shape.global_batch // dp_size(mesh_cfg),
+                                     info["max_len"])
     tok = torch.zeros(shape.global_batch, dtype=torch.int32, device=device)
     cuda = device.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(device)) if cuda else (lambda: None)
@@ -128,12 +163,11 @@ def serve_rank(rank, device, cfg, shape: ShapeConfig, mesh_cfg: MeshConfig,
         out.append(tok)
         sync()
         step_s.append(time.perf_counter() - t0)
-        if len(step_s) == 1 and tp is not None:
-            first = {op: list(row) for op, row in tp.stats.items()}
+        if len(step_s) == 1:
+            first = {op: list(row) for op, row in collectives(info).items()}
     busy = None
     if cuda:
-        if tp is not None:
-            tp.timed = False
+        set_timed(info, False)
         run = lambda: step(params, cache, tok, shape.seq_len - 1)  # noqa: E731
         if rank == 0:
             busy = busy_share(run, device)
@@ -142,11 +176,46 @@ def serve_rank(rank, device, cfg, shape: ShapeConfig, mesh_cfg: MeshConfig,
             sync()
     return {"tokens": torch.stack(out).cpu().tolist(), "profile": busy,
             "seconds": sum(step_s), "step_seconds": step_s,
-            "collectives": {} if tp is None else tp.stats,
+            "collectives": collectives(info),
             "collectives_first_step": first,
             "param_bytes": _nbytes(params), "cache_bytes": _nbytes(cache),
             "peak_bytes": torch.cuda.max_memory_allocated(device)
             if cuda else None}
+
+
+def serving_ctx(cfg, mesh_cfg: MeshConfig) -> Ctx:
+    """The ``Ctx`` the reference launcher builds: the kernel attention, a
+    MoE arch's experts padded to the model axis, the batch axes as
+    ``dp``."""
+
+    ep = cfg.moe is not None and mesh_cfg.model > 1
+    return Ctx(attn_impl="kernel", ep_pad_to=mesh_cfg.model if ep else 0,
+               dp=S.dp_axes(mesh_cfg))
+
+
+def rank_bytes(cfg, shape: ShapeConfig, mesh_cfg: MeshConfig,
+               cache_dtype=torch.bfloat16) -> dict:
+    """A rank's bytes of parameters and cache by the specs (``meta``;
+    nothing is allocated): at ``mesh_cfg``, without FSDP, and in one
+    process, each ``(parameter bytes, cache bytes)``."""
+
+    ctx = dataclasses.replace(serving_ctx(cfg, mesh_cfg),
+                              cache_dtype=cache_dtype)
+    meta = build_model(cfg, ctx, device="meta")
+    shapes = param_specs(meta)
+    max_len = shape.seq_len + (cfg.num_patch_tokens if cfg.family == "vlm"
+                               else 0)
+    cshapes = cache_specs(meta, shape.global_batch, max_len)
+    out = {}
+    for key, mc in (("grid", mesh_cfg),
+                    ("no_fsdp", dataclasses.replace(mesh_cfg, fsdp=False)),
+                    ("one", MeshConfig(data=1, model=1, fsdp=False))):
+        pspecs = S.param_pspecs(cfg, shapes, mc)
+        cspecs = rank_cache_pspecs(cshapes, S.cache_pspecs_tree(
+            cfg, shape, mc, cshapes))
+        out[key] = (shard_nbytes(shapes, pspecs, mc),
+                    shard_nbytes(cshapes, cspecs, mc))
+    return out
 
 
 def main(argv=None) -> dict:
@@ -156,18 +225,17 @@ def main(argv=None) -> dict:
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--tp", type=int, default=1,
                     help="ranks on the model axis")
+    ap.add_argument("--data", type=int, default=1,
+                    help="ranks on the data axis (a pod's)")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="two pods, as the reference's multi_pod_config")
+    ap.add_argument("--no-fsdp", action="store_true",
+                    help="weights whole over the data ranks")
     ap.add_argument("--batch", type=int, help="cut the shape's batch")
     ap.add_argument("--seq-len", type=int, help="cut the shape's length")
-    ap.add_argument("--multi-pod", action="store_true",
-                    help="not ported: the JAX package's multi-pod mesh")
     ap.add_argument("--device", default="cuda",
                     help="the card unless 'cpu' is asked for")
     args = ap.parse_args(argv)
-    if args.multi_pod:
-        ap.error("--multi-pod: the JAX package's pod x data x model mesh; "
-                 "the port serves on the ranks of the model axis only "
-                 "(--tp), and data-parallel or FSDP serving is not ported "
-                 "(ROADMAP.md queue 1, item 6.8)")
 
     device = resolve_device(args.device)
     cfg = get_model_config(args.arch)
@@ -184,28 +252,33 @@ def main(argv=None) -> dict:
     reason = tp_refusal(cfg, args.tp)
     if reason:
         raise NotImplementedError(reason)
-    mesh_cfg = MeshConfig(data=1, model=args.tp, fsdp=False)
-    backend = (pick_backend(device.type, args.tp) if args.tp > 1
-               else "none")
-    print(f"[serve] {cfg.name} on {args.tp} rank(s) ({backend}, "
-          f"{device.type}); cuts: {', '.join(cuts) or 'none'}", flush=True)
+    pods = 2 if args.multi_pod else 1
+    mesh_cfg = MeshConfig(multi_pod=args.multi_pod, pod=pods,
+                          data=args.data, model=args.tp,
+                          fsdp=not args.no_fsdp)
+    check_mesh(mesh_cfg, cfg, shape.global_batch)
+    world = mesh_cfg.num_devices
+    backend = pick_backend(device.type, world) if world > 1 else "none"
+    print(f"[serve] {cfg.name} on {pods} x {args.data} x {args.tp} "
+          f"(pod x data x model) rank(s), FSDP "
+          f"{'on' if mesh_cfg.fsdp and args.data > 1 else 'off'} "
+          f"({backend}, {device.type}); cuts: {', '.join(cuts) or 'none'}",
+          flush=True)
 
-    if args.tp == 1:
+    if world == 1:
         ranks = [serve_rank(0, device, cfg, shape, mesh_cfg, args.steps)]
     else:
-        ranks = run_on_grid(serve_rank, (1, args.tp), cfg, shape, mesh_cfg,
-                            args.steps, device=device.type)
-    # the one process's cache at the same batch and depth, on meta
-    max_len = shape.seq_len + (cfg.num_patch_tokens if cfg.family == "vlm"
-                               else 0)
-    one_cache = _nbytes(cache_specs(build_model(cfg, device="meta"),
-                                    shape.global_batch, max_len))
+        ranks = run_on_grid(serve_rank, (pods * args.data, args.tp), cfg,
+                            shape, mesh_cfg, args.steps, device=device.type)
+    reckoned = rank_bytes(cfg, shape, mesh_cfg)
+    (one_p, one_c), (nf_p, nf_c) = reckoned["one"], reckoned["no_fsdp"]
     for r, res in enumerate(ranks):
         peak = ("n/a" if res["peak_bytes"] is None
                 else f"{res['peak_bytes'] / 2**30:.2f} GiB")
-        print(f"[serve] rank {r}: parameters {res['param_bytes'] / 1e9:.3f} "
-              f"GB, cache {res['cache_bytes'] / 1e9:.3f} GB (one process: "
-              f"{one_cache / 1e9:.3f} GB), peak {peak}", flush=True)
+        print(f"[serve] rank {r}: parameters {_gb(res['param_bytes'])} "
+              f"(one process: {_gb(one_p)}, --no-fsdp: {_gb(nf_p)}), cache "
+              f"{_gb(res['cache_bytes'])} (one process: {_gb(one_c)}, "
+              f"--no-fsdp: {_gb(nf_c)}), peak {peak}", flush=True)
     dt, step_s = ranks[0]["seconds"], sorted(ranks[0]["step_seconds"])
     print(f"[serve] greedy tokens (step x batch): {ranks[0]['tokens']}",
           flush=True)
@@ -233,7 +306,8 @@ def main(argv=None) -> dict:
                   f"{1e3 * secs / (args.steps - 1):.3f} ms a step "
                   f"({100 * secs / later:.1f}% of those steps)", flush=True)
     return {"ranks": ranks, "shape": shape, "cuts": cuts, "backend": backend,
-            "one_process_cache_bytes": one_cache}
+            "mesh_cfg": mesh_cfg, "one_process_cache_bytes": one_c,
+            "reckoned_bytes": reckoned}
 
 
 if __name__ == "__main__":

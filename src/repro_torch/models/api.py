@@ -128,8 +128,9 @@ def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
     given to ``loss``/``prefill``/``decode`` are moved to the device:
     tokens and targets as ``long``, frames and patches in their own float
     dtype.  Under ``ctx.tp`` the model serves a rank's shards (any family;
-    ``tp_refusal`` names the head counts it refuses); its ``loss`` raises
-    (tensor-parallel training is not ported).
+    ``tp_refusal`` names the head counts it refuses), under ``ctx.fsdp``
+    and ``ctx.dp`` a data-parallel rank's; its ``loss`` raises then
+    (training on the rank grid is not ported).
     """
 
     fam = cfg.family
@@ -141,11 +142,13 @@ def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
     reason = tp_refusal(cfg, ctx.tp_size)
     if reason:
         raise NotImplementedError(reason)
-    if ctx.tp_size > 1:
+    if ctx.tp_size > 1 or ctx.fsdp is not None or ctx.dp:
         def loss(*_):
             raise NotImplementedError(
-                "tensor-parallel training is not ported: the port trains on "
-                "one card or by gossip data parallelism (train/gossip_dp.py)")
+                "tensor-parallel, data-parallel and FSDP training on the "
+                "rank grid is not ported: the port trains on one card or by "
+                "gossip data parallelism (train/gossip_dp.py; ROADMAP.md "
+                "queue 1, item 6.2)")
 
     def tokens(x):
         return torch.as_tensor(x, device=device).long()

@@ -32,7 +32,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import time
-from typing import Any
+from typing import Any, Optional
 
 import torch
 import torch.distributed as dist
@@ -194,6 +194,171 @@ def all_to_all(x, tp: TP | None):
         out = torch.empty_like(src)
         dist.all_to_all_single(out, src, group=tp.group)
         return out.to(x.device)
+
+
+@dataclasses.dataclass(eq=False)
+class FSDP(TP):
+    """One rank's FSDP group: the ``data`` ranks of its pod that share its
+    model coordinate, each holding a ``1/size`` slice of the leaves the
+    rules split on ``"data"``.  ``split`` is ``train/shard.py::
+    fsdp_split``'s ``{top-level key: {path below it: dim}}``, the one
+    record of which leaves a rank gathers and on which dim; ``gather``
+    makes them whole.  ``timed``, ``stats`` and ``dry`` as ``TP``'s (its
+    op ``"all_gather"``).
+
+    Ranks that share one card (``staged``: ``gloo``, which moves host
+    tensors) gather a unit's shards laid out as ``train/shard.py`` lays
+    them out by copying them device to device from the peers' memory:
+    each rank sends the CUDA IPC handle of each such buffer over the group
+    once, after a synchronize, and the shards, weights that no step
+    writes, are read from then on.  Other shards on a shared card go
+    through the host, as ``all_gather`` does."""
+
+    split: dict = dataclasses.field(default_factory=dict)
+    peers: dict = dataclasses.field(default_factory=dict, repr=False)
+    one_card: Optional[bool] = None
+
+    @classmethod
+    def of(cls, group, device, split=None) -> "FSDP":
+        tp = TP.of(group, device)
+        return cls(tp.group, tp.rank, tp.size, tp.staged, dict(split or {}))
+
+    @classmethod
+    def dry(cls, size: int, split=None, rank: int = 0) -> "FSDP":
+        return cls(None, rank, size, False, dict(split or {}))
+
+    def gather(self, tree: dict, key: str) -> dict:
+        """``tree`` (``params[key]``, or one unit of ``params["units"]``)
+        with its FSDP leaves whole: one all-gather a dtype of the leaves'
+        shards as one flat run (a view where ``train/shard.py`` laid them
+        out so), then each leaf's ``size`` slices joined on its dim."""
+
+        dims = self.split.get(key)
+        if not dims or self.size == 1:
+            return tree
+        by_dtype: dict = {}
+        for keys in dims:
+            x = leaf_at(tree, keys)
+            by_dtype.setdefault(x.dtype, []).append((keys, x))
+        whole = {}
+        for items in by_dtype.values():
+            parts = self._all_gather_flat(*_flat([x for _, x in items]))
+            at = 0
+            for keys, x in items:
+                n, d = x.numel(), dims[keys] % x.ndim
+                p = parts[:, at:at + n].view((self.size,) + x.shape)
+                shape = list(x.shape)
+                shape[d] *= self.size
+                whole[keys] = p.movedim(0, d).reshape(shape)
+                at += n
+        return _replace(tree, whole)
+
+    def _all_gather_flat(self, flat: torch.Tensor,
+                         view: bool = False) -> torch.Tensor:
+        """(size, n): the ranks' ``flat`` (n,) in rank order; ``view``:
+        ``flat`` is a view of a buffer the rank keeps."""
+
+        if self.group is None:
+            self._dry("all_gather", flat)
+            return flat.new_empty((self.size, flat.numel()))
+        with self._timing("all_gather", flat):
+            if self.staged and view and self._on_one_card(flat.device):
+                return self._peer_copies(flat)
+            src = flat.cpu() if self.staged else flat.contiguous()
+            out = src.new_empty((self.size * src.numel(),))
+            dist.all_gather_into_tensor(out, src, group=self.group)
+            return out.view(self.size, -1).to(flat.device)
+
+    def _on_one_card(self, device: torch.device) -> bool:
+        if self.one_card is None:
+            where = [None] * self.size
+            dist.all_gather_object(where, device.index, group=self.group)
+            self.one_card = len(set(where)) == 1
+        return self.one_card
+
+    def _peer_copies(self, flat: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``flat`` copied from their buffers on this card: the
+        first gather from a buffer sends its IPC handle over the group."""
+
+        from torch.multiprocessing.reductions import reduce_tensor
+
+        storage = flat.untyped_storage()
+        peers = self.peers.get(storage.data_ptr())
+        if peers is None:
+            torch.cuda.synchronize(flat.device)
+            # the handles are made and opened outside inference mode: the
+            # buffer is an ordinary tensor's
+            with torch.inference_mode(False):
+                whole = torch.empty(0, dtype=flat.dtype,
+                                    device=flat.device).set_(
+                    storage, 0, (storage.nbytes() // flat.element_size(),),
+                    (1,))
+                sent = [None] * self.size
+                dist.all_gather_object(sent, reduce_tensor(whole),
+                                       group=self.group)
+                peers = [whole if r == self.rank else fn(*args)
+                         for r, (fn, args) in enumerate(sent)]
+            if any(p.shape != whole.shape for p in peers):
+                raise RuntimeError("the FSDP ranks' buffers differ in size: "
+                                   "they were not laid out alike")
+            self.peers[storage.data_ptr()] = peers
+        at, n = flat.storage_offset(), flat.numel()
+        out = flat.new_empty((self.size, n))
+        for r, peer in enumerate(peers):
+            out[r].copy_(peer[at:at + n])
+        return out
+
+
+def leaf_at(tree, keys):
+    """The leaf of nested dicts at the key path ``keys``."""
+
+    for k in keys:
+        tree = tree[k]
+    return tree
+
+
+def _replace(tree: dict, leaves: dict) -> dict:
+    """``tree`` with the leaves at ``leaves``' key paths replaced (the
+    dicts on their paths copied, the rest shared)."""
+
+    out = dict(tree)
+    heads: dict = {}
+    for keys, x in leaves.items():
+        if len(keys) == 1:
+            out[keys[0]] = x
+        else:
+            heads.setdefault(keys[0], {})[keys[1:]] = x
+    for k, sub in heads.items():
+        out[k] = _replace(tree[k], sub)
+    return out
+
+
+def _flat(xs: list) -> tuple[torch.Tensor, bool]:
+    """The tensors ``xs`` as one flat run, and whether it is a view: of
+    their storage where they lie in it contiguously one after another
+    (``train/shard.py``'s layout of a unit's FSDP shards), else a
+    concatenated copy."""
+
+    x0 = xs[0]
+    if x0.device.type != "meta":
+        end = x0.storage_offset()
+        for x in xs:
+            if (not x.is_contiguous() or x.storage_offset() != end
+                    or x.untyped_storage().data_ptr()
+                    != x0.untyped_storage().data_ptr()):
+                break
+            end += x.numel()
+        else:
+            return x0.as_strided((end - x0.storage_offset(),), (1,),
+                                 x0.storage_offset()), True
+    return torch.cat([x.reshape(-1) for x in xs]), False
+
+
+def fsdp_gather(tree: dict, fsdp: FSDP | None, key: str) -> dict:
+    """``tree`` with its FSDP leaves whole (``FSDP.gather``), or itself
+    without an FSDP group."""
+
+    return tree if fsdp is None else fsdp.gather(tree, key)
 
 
 def _normal(gen, shape, std, dtype, device, lead=()):

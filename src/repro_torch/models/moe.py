@@ -23,7 +23,9 @@ never picked.
 Expert parallelism (EP) runs on the ranks of a ``models.layers.TP``, the
 ``model`` axis (the JAX launcher's ``ep_axis="model"``), whose expert
 leaves the sharding rules split on the expert dim (``"moe.wi_gate"`` in
-``tp.split``): a rank holds ``Ep / n`` consecutive experts.
+``tp.split``): a rank holds ``Ep / n`` consecutive experts.  On a ``pod x
+data x model`` grid the EP ranks are those of one data row, and the
+forms below run on that row's tokens, the rank's batch slice.
 
 * ``impl="psum"`` (``_moe_local`` with an axis): activations whole on
   every rank; the rank sorts its slots by ``(e - e0) mod Ep`` so that its
@@ -55,9 +57,15 @@ from repro_torch.models import layers as L
 
 EP_REASON = (
     "expert parallelism on the 'model' ranks is ported (tp=, the psum and "
-    "a2a forms); the JAX package's data-parallel axes (dp, data > 1) and "
-    "experts that neither divide the model axis nor are padded to it "
-    "(Ctx.ep_pad_to) are not (ROADMAP.md queue 1, item 6.8)")
+    "a2a forms); experts that neither divide the model axis nor are padded "
+    "to it (Ctx.ep_pad_to) are not: the rules split them on their width "
+    "(ROADMAP.md queue 1, item 6.8.2d)")
+DP_REASON = (
+    "moe_ffn takes a rank's own tokens: the port's steps cut the batch "
+    "over the pod x data ranks before the model runs "
+    "(launch/lm_engine.py), so the expert-parallel forms run inside a data "
+    "row on its tokens and take no data-parallel axes (ROADMAP.md queue 1, "
+    "item 6.8.2)")
 MOE_IMPLS = ("psum", "a2a")
 
 
@@ -255,12 +263,14 @@ def moe_ffn(params, x, cfg: MoEConfig, *, tp: L.TP | None = None,
     whole on every rank in both.  The a2a form splits the sequence over
     the ranks and raises ``ValueError`` where L does not split (decode's
     L = 1), as the JAX package's ``shard_map`` fails there.  ``dp`` (the
-    JAX package's data-parallel axes) raises."""
+    JAX package's data-parallel axes) raises: on a ``pod x data x model``
+    grid x is already the rank's batch slice, and its ``tp`` the model
+    ranks of its data row (``DP_REASON``)."""
 
     if impl not in MOE_IMPLS:
         raise ValueError(f"impl {impl!r}: one of {MOE_IMPLS}")
     if dp is not None:
-        raise NotImplementedError(EP_REASON)
+        raise NotImplementedError(DP_REASON)
     B, Lx, d = x.shape
     if tp is None or tp.size == 1:
         xt = x.reshape(-1, d)

@@ -41,10 +41,17 @@ rank's whole heads (``models/ssm.py``: its state holds its heads), one
 all-reduce after each row-parallel product (attention's, the MLP's, the
 shared experts' and Mamba2's ``out_proj``), and the expert-parallel MoE
 (``Ctx.ep_pad_to``, ``Ctx.moe_impl``; the EP axis is the ``model`` axis,
-as the JAX launcher's ``ep_axis="model"``).  The JAX
-package's other mesh fields of ``Ctx`` (dp, one-hot embedding) have no
-twin: ``models/api.py`` refuses the families and specs this does not
-cover.
+as the JAX launcher's ``ep_axis="model"``).
+
+Data parallelism and FSDP (``Ctx.dp``, ``Ctx.fsdp``): a rank of a ``pod x
+data x model`` grid runs its batch slice (``launch/lm_engine.py`` cuts
+it), and where the rules split weights on ``"data"`` it gathers them
+whole over its FSDP group just before the unit, head sublayer or VLM
+projector that reads them (``_unit``, ``_whole``) and drops them after:
+one all-gather a unit.  The training loop (``lm_hidden_train``) takes
+no gather: a rank's model refuses ``loss``.  The JAX package's one-hot
+embedding has no twin: ``models/api.py`` refuses the families and specs
+this does not cover.
 """
 
 from __future__ import annotations
@@ -78,9 +85,14 @@ class Ctx:
     backward; ``"ref"``: the plain reference), whether training recomputes
     each unit in the backward (``remat``), the KV cache's dtype and the
     rank's tensor-parallel group (``tp``; ``None``: one process holds the
-    whole model); and the JAX package's expert-parallel fields: the
+    whole model); the JAX package's expert-parallel fields: the
     expert count padded to a multiple of ``ep_pad_to`` (the EP ranks) and
-    the EP combine ``moe_impl`` (``models/moe.py``)."""
+    the EP combine ``moe_impl`` (``models/moe.py``); and its
+    data-parallel ones: ``dp``, the mesh axes a rank's batch is cut on
+    (the steps of ``launch/lm_engine.py`` take the rank's slice before
+    the model runs, so its layers see that slice and need no collective
+    for it), and the rank's FSDP group (``fsdp``, ``layers.FSDP``), over
+    which it gathers each unit's weights just before running it."""
 
     attn_impl: str = "ref"
     remat: bool = False
@@ -88,6 +100,8 @@ class Ctx:
     tp: Optional[L.TP] = dataclasses.field(default=None, compare=False)
     ep_pad_to: int = 0                 # pad experts to a multiple (EP ranks)
     moe_impl: str = "psum"             # psum | a2a (EP combine strategy)
+    dp: Optional[tuple] = None         # activation batch axes, e.g. ("pod","data")
+    fsdp: Optional[L.FSDP] = dataclasses.field(default=None, compare=False)
 
     @property
     def tp_size(self) -> int:
@@ -140,6 +154,21 @@ def _index(tree, i):
     if isinstance(tree, (A.KVCache, MLA.MLACache, SSM.SSMState)):
         return type(tree)(*(x[i] for x in tree))
     return tree[i]
+
+
+def _whole(params, key: str, ctx: Ctx) -> dict:
+    """``params[key]`` (a head sublayer, the VLM's projector) with its
+    FSDP leaves gathered whole over ``ctx.fsdp``, for the one use."""
+
+    return L.fsdp_gather(params[key], ctx.fsdp, key)
+
+
+def _unit(params, n: int, ctx: Ctx) -> dict:
+    """Unit ``n`` of ``params["units"]``, its FSDP leaves gathered whole
+    over ``ctx.fsdp`` (one collective a unit and dtype), for the one
+    use: the caller drops them after the unit runs."""
+
+    return L.fsdp_gather(_index(params["units"], n), ctx.fsdp, "units")
 
 
 # ---------------------------------------------------------------------------
@@ -469,15 +498,16 @@ def prefill_embedded(params, x, max_len, cfg: ModelConfig, ctx: Ctx):
     cache = {f"head{i}": _sublayer_cache(cfg, sl, ctx, B, max_len, x.device)
              for i, sl in enumerate(head)}
     for i, sl in enumerate(head):
-        x, _ = apply_sublayer_prefill(params[f"head{i}"], x, max_len, cfg,
-                                      sl, ctx, cache[f"head{i}"])
+        x, _ = apply_sublayer_prefill(_whole(params, f"head{i}", ctx), x,
+                                      max_len, cfg, sl, ctx,
+                                      cache[f"head{i}"])
     filled = {f"s{i}": _sublayer_cache(cfg, sl, ctx, B, max_len, x.device,
                                        (n_scan,))
               for i, sl in enumerate(unit) if sl.mixer != "ssm"}
     states = {f"s{i}": [] for i, sl in enumerate(unit) if sl.mixer == "ssm"}
     for n in range(n_scan):
-        x, out = apply_unit_prefill(_index(params["units"], n), x, max_len,
-                                    cfg, unit, ctx, _index(filled, n))
+        x, out = apply_unit_prefill(_unit(params, n, ctx), x, max_len, cfg,
+                                    unit, ctx, _index(filled, n))
         for key, st in states.items():
             st.append(out[key])
     cache["units"] = {**filled, **{key: SSM.stack_states(st)
@@ -493,10 +523,10 @@ def lm_decode_step(params, cache, token, pos, cfg: ModelConfig, ctx: Ctx):
     unit, n_scan, head = unit_spec(cfg)
     x = embed_tokens(params, token[:, None], cfg, ctx.tp)
     for i, sl in enumerate(head):
-        x, _ = apply_sublayer_decode(params[f"head{i}"], cache[f"head{i}"],
-                                     x, pos, cfg, sl, ctx)
+        x, _ = apply_sublayer_decode(_whole(params, f"head{i}", ctx),
+                                     cache[f"head{i}"], x, pos, cfg, sl, ctx)
     for n in range(n_scan):
-        x, _ = apply_unit_decode(_index(params["units"], n),
+        x, _ = apply_unit_decode(_unit(params, n, ctx),
                                  _index(cache["units"], n), x, pos, cfg,
                                  unit, ctx)
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

@@ -9,7 +9,8 @@ and they go before the token embeddings: the sequence is [patch tokens]
 that fused sequence.  The loss covers the text positions only.  Under
 tensor parallelism the projector's ``w1`` is replicated and its ``w2``
 row-parallel: each rank multiplies its slice of the GELU's output by its
-rows of ``w2``, and the ranks all-reduce before the first layer.
+rows of ``w2``, and the ranks all-reduce before the first layer; under
+FSDP a rank gathers both leaves whole over its FSDP group first.
 """
 
 from __future__ import annotations
@@ -36,11 +37,13 @@ def init_vlm(gen, cfg: ModelConfig, ctx: T.Ctx, device) -> dict:
     return params
 
 
-def _fuse(params, patches, tokens, cfg: ModelConfig, tp=None):
-    """(B, P + L, d): the projected patches, then the token embeddings."""
+def _fuse(params, patches, tokens, cfg: ModelConfig, tp=None, fsdp=None):
+    """(B, P + L, d): the projected patches, then the token embeddings.
+    Under ``fsdp`` the projector's leaves are gathered whole first."""
 
-    pe = F.gelu(patches @ params["projector"]["w1"], approximate="tanh")
-    w2, w2_tp = params["projector"]["w2"], L.sharded(tp, "projector.w2")
+    proj = L.fsdp_gather(params["projector"], fsdp, "projector")
+    pe = F.gelu(patches @ proj["w1"], approximate="tanh")
+    w2, w2_tp = proj["w2"], L.sharded(tp, "projector.w2")
     if w2_tp is not None:              # row-parallel: this rank's rows
         n = w2.shape[0]
         pe = pe[..., w2_tp.rank * n:(w2_tp.rank + 1) * n]
@@ -66,8 +69,8 @@ def vlm_prefill(params, patches, tokens, max_len, cfg: ModelConfig,
     [patches][prompt]); ``max_len`` must hold P + L."""
 
     return T.prefill_embedded(
-        params, _fuse(params, patches, tokens, cfg, ctx.tp), max_len, cfg,
-        ctx)
+        params, _fuse(params, patches, tokens, cfg, ctx.tp, ctx.fsdp),
+        max_len, cfg, ctx)
 
 
 def vlm_decode_step(params, cache, token, pos, cfg: ModelConfig,

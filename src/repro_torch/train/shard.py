@@ -1,12 +1,30 @@
 """A rank's shards of the parameter and cache trees, by the specs of
-``train/sharding.py``, and sharded initialisation.
+``train/sharding.py``, on a ``pod x data x model`` grid of ranks, and
+sharded initialisation.
 
-The port serves on a ``1 x model`` grid: rank r of the tensor-parallel
-group holds the r-th of ``model`` equal contiguous slices of every dim
-that a spec puts on ``"model"``, and the whole of every other dim.  A
-mesh with more than one ``data`` or ``pod`` rank (data parallelism, or
-FSDP across data ranks) is refused: its batch and weight slices would
-need collectives the serving path does not make.
+A rank's coordinates (pod, data, model) follow the reference mesh's
+device order: rank = (pod·D + data)·M + model (``grid_coords``).  A dim
+that a spec puts on an axis is cut into that axis's equal contiguous
+slices and the rank holds the slice of its coordinate; a dim on several
+axes (the batch on ``("pod", "data")``) is cut by their coordinates in
+order, the first the slowest, as a JAX ``PartitionSpec`` cuts it.  The
+rules put ``"model"`` on the tensor-parallel dim of a weight, ``"data"``
+on its other matrix dim where FSDP is on (``MeshConfig.fsdp``), and
+``("pod", "data")`` on the batch of the inputs and caches; ``"pod"``
+never carries weights.  ``check_mesh`` refuses what the serving ranks do
+not cover, naming its ROADMAP item: a batch that does not split over
+``pod x data`` (the rules then cut the caches' sequence on ``"data"``,
+item 6.8.2b) and the SSM, hybrid and encoder-decoder families on more
+than one ``pod x data`` rank (item 6.8.2c).
+
+``fsdp_split`` names the leaves the specs split on ``"data"``, and the
+dim, by the top-level key whose subtree a rank gathers at once (the
+stacked ``"units"``, a head sublayer ``"head0"``, the VLM's
+``"projector"``): a rank's model gathers them over its FSDP group just
+before it runs that unit (``models/layers.py::FSDP``).  ``shard_params``
+and ``init_shard`` lay a rank's FSDP shards of one such key and dtype
+out in one buffer, unit after unit, so that a unit's shards are one
+contiguous run of memory and its gather one collective.
 
 ``init_shard(seed, cfg, ctx, mesh_cfg, rank, device)`` draws a rank's
 slices of any family's parameter tree without the whole tree ever
@@ -20,9 +38,9 @@ follow ``init``'s distributions but not its values: normal with std
 whisper's ``dec_pos`` 0.01), RMSNorm offsets, biases and ``lora_b``
 zero, LayerNorm scales one; Mamba2's ``A_log`` is log(linspace(1, 16,
 heads)), its ``D`` one, its ``dt_bias`` the inverse softplus of a
-log-uniform dt in [1e-3, 1e-1], one draw a head.  The shards at
-``model = n`` concatenate to the tree at ``model = 1``, bit for bit;
-experts padded for the axis (``Ctx.ep_pad_to``) are drawn like the
+log-uniform dt in [1e-3, 1e-1], one draw a head.  The shards at any
+grid are, rank by rank, the slices of the tree at ``1 x 1 x 1``, bit for
+bit; experts padded for the axis (``Ctx.ep_pad_to``) are drawn like the
 others, after them.
 
 A rank's cache is cut by the rules' cache specs, except for the leaves of
@@ -44,14 +62,24 @@ import torch
 
 from repro_torch.config import MeshConfig, ModelConfig
 from repro_torch.models import api
+from repro_torch.models.layers import leaf_at
 from repro_torch.models.transformer import Ctx
-from repro_torch.optim.optimizers import tree_map_with_path
+from repro_torch.optim.optimizers import tree_leaves, tree_map_with_path
 from repro_torch.train import sharding as S
 
-MESH_REASON = (
-    "the port shards on the 'model' axis only: data > 1 or pod > 1 "
-    "(data parallel serving, or FSDP across data ranks) is not ported "
-    "(ROADMAP.md queue 1, item 6.8)")
+GRID_ITEM = "ROADMAP.md queue 1, item 6.8.2"
+BATCH_REASON = (
+    "a batch of {batch} does not split over the {dp} pod x data ranks: "
+    "the sharding rules then keep the batch whole and cut the KV caches' "
+    "and MLA latents' sequence on 'data' (the long_500k cell), which "
+    "needs a masked partial softmax over the FSDP group; not ported "
+    f"({GRID_ITEM}b)")
+FAMILY_REASON = (
+    "the {family} family on {dp} pod x data ranks: the port serves the "
+    "families of models/transformer.py (dense, VLM, MoE, MLA) data "
+    "parallel; the SSM, hybrid and encoder-decoder families serve on the "
+    f"model axis only ({GRID_ITEM}c)")
+DATA_PARALLEL_FAMILIES = ("dense", "vlm", "moe")
 
 # cache leaves a rank holds whole where the rules split them: Mamba2's B
 # and C conv registers, which the rules split on d_state.  A rank's
@@ -61,9 +89,47 @@ MESH_REASON = (
 WHOLE_CACHE = ("conv_B", "conv_C")
 
 
-def check_mesh(mesh_cfg: MeshConfig) -> None:
-    if mesh_cfg.multi_pod or mesh_cfg.pod > 1 or mesh_cfg.data > 1:
-        raise NotImplementedError(MESH_REASON)
+def dp_size(mesh_cfg: MeshConfig) -> int:
+    """Ranks on the batch axes, ``("pod", "data")`` or ``("data",)``."""
+
+    return mesh_cfg.pod * mesh_cfg.data
+
+
+def check_mesh(mesh_cfg: MeshConfig, cfg: ModelConfig | None = None,
+               batch: int | None = None) -> None:
+    """Refuse a grid the serving ranks do not cover: a ``pod`` axis off a
+    multi-pod mesh (``ValueError``: the reference's mesh has none), and,
+    on more than one ``pod x data`` rank, a family other than
+    ``DATA_PARALLEL_FAMILIES`` (item 6.8.2c) or a ``batch`` that does not
+    split over those ranks (item 6.8.2b)."""
+
+    sizes = (mesh_cfg.pod, mesh_cfg.data, mesh_cfg.model)
+    if min(sizes) < 1:
+        raise ValueError(f"axis sizes (pod, data, model) {sizes} must be "
+                         "at least 1")
+    if mesh_cfg.pod > 1 and not mesh_cfg.multi_pod:
+        raise ValueError(f"pod = {mesh_cfg.pod} on a mesh without its pod "
+                         "axis: set multi_pod=True, as multi_pod_config does")
+    dp = dp_size(mesh_cfg)
+    if dp == 1:
+        return
+    if cfg is not None and cfg.family not in DATA_PARALLEL_FAMILIES:
+        raise NotImplementedError(FAMILY_REASON.format(family=cfg.family,
+                                                       dp=dp))
+    if batch is not None and batch % dp:
+        raise NotImplementedError(BATCH_REASON.format(batch=batch, dp=dp))
+
+
+def grid_coords(mesh_cfg: MeshConfig, rank: int) -> dict[str, int]:
+    """Rank ``rank``'s coordinate on each axis: rank = (pod·D + data)·M +
+    model, the reference mesh's device order."""
+
+    M, D = mesh_cfg.model, mesh_cfg.data
+    if not 0 <= rank < mesh_cfg.num_devices:
+        raise ValueError(f"rank {rank} is not on a {mesh_cfg.pod} x "
+                         f"{mesh_cfg.data} x {mesh_cfg.model} grid")
+    return {"pod": rank // (D * M), "data": rank // M % D,
+            "model": rank % M}
 
 
 def _axes(entry) -> tuple:
@@ -71,11 +137,25 @@ def _axes(entry) -> tuple:
         (entry,) if isinstance(entry, str) else tuple(entry))
 
 
-def _parts(entry, mesh_cfg: MeshConfig) -> int:
-    """How many ways a spec entry cuts its dim (``"data"`` is 1 here)."""
+def _sizes(mesh_cfg: MeshConfig) -> dict[str, int]:
+    return {"model": mesh_cfg.model, "data": mesh_cfg.data,
+            "pod": mesh_cfg.pod}
 
-    return math.prod({"model": mesh_cfg.model, "data": mesh_cfg.data,
-                      "pod": mesh_cfg.pod}[a] for a in _axes(entry))
+
+def _parts(entry, mesh_cfg: MeshConfig) -> int:
+    """How many ways a spec entry cuts its dim."""
+
+    return math.prod(_sizes(mesh_cfg)[a] for a in _axes(entry))
+
+
+def _part(entry, mesh_cfg: MeshConfig, coords: dict[str, int]) -> int:
+    """Which of those parts a rank of ``coords`` holds: the axes' mixed-
+    radix index, the first the slowest."""
+
+    sizes, index = _sizes(mesh_cfg), 0
+    for a in _axes(entry):
+        index = index * sizes[a] + coords[a]
+    return index
 
 
 def local_shape(shape, spec, mesh_cfg: MeshConfig) -> tuple[int, ...]:
@@ -93,29 +173,107 @@ def local_shape(shape, spec, mesh_cfg: MeshConfig) -> tuple[int, ...]:
 
 def _slice(x: torch.Tensor, spec, mesh_cfg: MeshConfig,
            rank: int) -> torch.Tensor:
-    if not 0 <= rank < mesh_cfg.model:
-        raise ValueError(f"rank {rank} is not on a {mesh_cfg.model}-rank "
-                         "model axis")
+    coords = grid_coords(mesh_cfg, rank)
     index = []
-    for n, m in zip(x.shape, local_shape(x.shape, spec, mesh_cfg)):
-        index.append(slice(None) if n == m
-                     else slice(rank * m, (rank + 1) * m))
+    for n, m, entry in zip(x.shape, local_shape(x.shape, spec, mesh_cfg),
+                           spec):
+        i = _part(entry, mesh_cfg, coords)
+        index.append(slice(None) if n == m else slice(i * m, (i + 1) * m))
     return x[tuple(index)]
 
 
-def shard_leaf(x: torch.Tensor, spec, mesh_cfg: MeshConfig,
-               rank: int) -> torch.Tensor:
-    """Rank ``rank``'s slice of ``x`` under ``spec`` (a copy)."""
+def shard_leaf(x, spec, mesh_cfg: MeshConfig, rank: int) -> torch.Tensor:
+    """Rank ``rank``'s slice of ``x`` (a tensor or an array) under
+    ``spec`` (a copy)."""
 
-    return _slice(x, spec, mesh_cfg, rank).clone()
+    return _slice(torch.as_tensor(x), spec, mesh_cfg, rank).clone()
+
+
+def _keys(path: str) -> tuple[str, ...]:
+    return tuple(re.findall(r"\['([^']+)'\]", path))
+
+
+def fsdp_split(shapes, pspecs) -> dict[str, dict[tuple, int]]:
+    """The leaves ``pspecs`` split on ``"data"`` (FSDP), by the top-level
+    key a rank gathers them under (``"units"``, ``"head0"``,
+    ``"projector"``): ``{key: {path below it as keys: dim}}``, the dim
+    counted from the end (``-2``: the rows of a (in, out) matrix), in the
+    tree's order; empty without FSDP.  The one place the port decides
+    which leaves a rank gathers over its FSDP group, the counterpart of
+    ``model_split``.  Refuses a top-level leaf split on ``"data"`` (the
+    rules keep the embeddings and ``lm_head`` on ``"model"`` only), a leaf
+    split on it twice, and ``"pod"`` on a weight."""
+
+    out: dict[str, dict[tuple, int]] = {}
+    bad = []
+
+    def visit(path, x, spec):
+        on = [i for i, e in enumerate(spec) if "data" in _axes(e)]
+        keys = _keys(path)
+        if any("pod" in _axes(e) for e in spec) or len(on) > 1 or (
+                on and len(keys) < 2):
+            bad.append(path)
+        elif on:
+            out.setdefault(keys[0], {})[keys[1:]] = on[0] - len(spec)
+
+    tree_map_with_path(visit, shapes, pspecs)
+    if bad:
+        raise NotImplementedError(
+            f"the sharding rules split {bad} on the data axis in a way the "
+            "port's FSDP gathers do not follow: a top-level leaf, two dims "
+            f"of one leaf, or a weight on 'pod' ({GRID_ITEM})")
+    return out
+
+
+def _fsdp_views(shapes, pspecs, mesh_cfg: MeshConfig, device) -> dict:
+    """``{path: empty view}`` for a rank's FSDP shards of the leaves of
+    ``shapes`` (tensors of any device): one buffer a top-level key and
+    dtype, ``(n_scan, total)`` for the stacked ``"units"`` (a unit's
+    shards one contiguous row, leaf after leaf), ``(total,)`` otherwise;
+    empty at ``data = 1``."""
+
+    if mesh_cfg.data == 1:
+        return {}
+    views = {}
+    for top, leaves in fsdp_split(shapes, pspecs).items():
+        by_dtype: dict = {}
+        for keys in leaves:
+            x = leaf_at(shapes[top], keys)
+            spec = leaf_at(pspecs[top], keys)
+            by_dtype.setdefault(x.dtype, []).append(
+                (keys, local_shape(x.shape, spec, mesh_cfg)))
+        stacked = top == "units"
+        for dtype, items in by_dtype.items():
+            lead = items[0][1][:1] if stacked else ()
+            if any(shape[:len(lead)] != lead for _, shape in items):
+                raise ValueError(f"the stacked FSDP leaves of {top!r} do not "
+                                 "share their stacking dim")
+            size = [math.prod(shape[len(lead):]) for _, shape in items]
+            buf = torch.empty(lead + (sum(size),), dtype=dtype,
+                              device=device)
+            at = 0
+            for (keys, shape), n in zip(items, size):
+                path = f"['{top}']" + "".join(f"['{k}']" for k in keys)
+                views[path] = buf[..., at:at + n].view(shape)
+                at += n
+    return views
 
 
 def shard_params(params, pspecs, mesh_cfg: MeshConfig, rank: int):
-    """Rank ``rank``'s slices of a parameter tree (``param_pspecs``)."""
+    """Rank ``rank``'s slices of a parameter tree (``param_pspecs``), its
+    FSDP shards laid out unit by unit in one buffer (``_fsdp_views``)."""
 
-    return tree_map_with_path(
-        lambda _, x, spec: shard_leaf(x, spec, mesh_cfg, rank), params,
-        pspecs)
+    leaves = tree_leaves(params)
+    views = _fsdp_views(params, pspecs, mesh_cfg,
+                        leaves[0].device if leaves else None)
+
+    def leaf(path, x, spec):
+        part = _slice(x, spec, mesh_cfg, rank)
+        if path in views:
+            return views[path].copy_(part)
+        return part.clone()
+
+    return tree_map_with_path(leaf, params, pspecs)
 
 
 def rank_cache_pspecs(cshapes, cspecs):
@@ -159,7 +317,9 @@ def shard_cache(cache, cspecs, mesh_cfg: MeshConfig, rank: int):
     """Rank ``rank``'s slices of a cache tree (by ``rank_cache_pspecs``
     of the rules' specs)."""
 
-    return shard_params(cache, cspecs, mesh_cfg, rank)
+    return tree_map_with_path(
+        lambda _, x, spec: shard_leaf(x, spec, mesh_cfg, rank), cache,
+        cspecs)
 
 
 def shard_nbytes(shapes, specs, mesh_cfg: MeshConfig) -> int:
@@ -232,7 +392,7 @@ def model_split(shapes, pspecs) -> frozenset:
             "on their width (TP within an expert): their count neither "
             "divides the model axis nor is padded to it; build the model "
             "with Ctx(ep_pad_to=<model axis>), as the JAX launcher does "
-            "(ROADMAP.md queue 1, item 6.8)")
+            f"({GRID_ITEM}d)")
     split = frozenset(k for k, v in seen.items() if True in v)
     bad = sorted(k for k, v in seen.items() if len(v) > 1)
     bad += [row for row, cols in _ROW_PARALLEL.items() if any(
@@ -300,14 +460,18 @@ def init_shard(seed: int, cfg: ModelConfig, ctx: Ctx | None,
 
     check_mesh(mesh_cfg)
     device = torch.device(device)
+    coords = grid_coords(mesh_cfg, rank)
     shapes = api.param_specs(api.build_model(cfg, ctx, device="meta"))
     specs = S.param_pspecs(cfg, shapes, mesh_cfg)
+    views = _fsdp_views(shapes, specs, mesh_cfg, device)
 
     def leaf(path, meta, spec):
         name = S.leaf_name(path)
         k = min(S.rule_ndim(name, path), meta.ndim)
-        out = torch.empty(local_shape(meta.shape, spec, mesh_cfg),
-                          dtype=meta.dtype, device=device)
+        out = views.get(path)
+        if out is None:
+            out = torch.empty(local_shape(meta.shape, spec, mesh_cfg),
+                              dtype=meta.dtype, device=device)
         std = _std(cfg, name, tuple(meta.shape[-k:]))
         if std is None and name != "dt_bias":
             fill = _fill(name, meta.shape)
@@ -318,8 +482,9 @@ def init_shard(seed: int, cfg: ModelConfig, ctx: Ctx | None,
         # dim is drawn expert by expert like a stacking dim, and only the
         # rank's experts are
         n_lead = meta.ndim - min(k, 2)
-        ranges = [range(n) if n == m else range(rank * m, (rank + 1) * m)
-                  for n, m in zip(meta.shape[:n_lead], out.shape)]
+        ranges = [range(i * m, (i + 1) * m) for i, m in (
+            (_part(e, mesh_cfg, coords), m)
+            for e, m in zip(spec[:n_lead], out.shape))]
         for layer in itertools.product(*ranges):
             gen = torch.Generator(device=device)
             gen.manual_seed(_key(seed, path, layer))

@@ -20,8 +20,9 @@ Policy (MaxText-style 2-D sharding):
 Rules are expressed on the *trailing* dims of each leaf and padded with
 ``None`` on the left, so stacked unit params ((n_units, ...) or hybrid's
 (n_units, k, ...)) inherit the per-layer rule.  The port serves what
-``train/shard.py`` cuts by these specs on the ``model`` axis alone;
-``models/api.py::tp_refusal`` names what it does not cover.
+``train/shard.py`` cuts by these specs on every axis; ``models/api.py::
+tp_refusal`` and ``train/shard.py::check_mesh`` name what it does not
+cover.
 """
 
 from __future__ import annotations

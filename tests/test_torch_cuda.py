@@ -1541,6 +1541,91 @@ def test_tp_serving_on_one_card_runs_the_flash_kernel_on_each_rank(cuda):
             assert torch.equal(got.argmax(-1)[sure], ref.argmax(-1)[sure])
 
 
+def _fsdp_card_rank(rank, device, cfg, batch, fed, max_len):
+    """A rank of a 2 x 2 (data x model) FSDP grid of a smoke model on the
+    card: its seeded shards, the prefill and decode steps fed ``fed`` (a
+    float32 cache); the logits on the host, the flash launches, the
+    decode's FSDP gathers and whether they read the peers' buffers on
+    this card."""
+
+    import torch.distributed as dist
+
+    from repro_torch.config import MeshConfig, ShapeConfig
+    from repro_torch.launch import lm_engine
+    from repro_torch.train.shard import init_shard
+
+    mesh_cfg = MeshConfig(data=2, model=2, fsdp=True)
+    model = build_model(cfg, Ctx(attn_impl="kernel",
+                                 cache_dtype=torch.float32), device=device)
+    B, L = batch["tokens"].shape
+    prefill, _ = lm_engine.make_prefill_step(
+        model, dist.group.WORLD, mesh_cfg, ShapeConfig("p", L, B, "prefill"),
+        max_len)
+    decode, dinfo = lm_engine.make_serve_step(
+        model, dist.group.WORLD, mesh_cfg,
+        ShapeConfig("d", max_len, B, "decode"))
+    fsdp = dinfo["model"].ctx.fsdp
+    fsdp.timed = True
+    params = init_shard(0, cfg, None, mesh_cfg, rank, device)
+    n0 = flash_ops.flash_attention.launches
+    logits, cache = prefill(params, batch)
+    out = [logits.cpu().numpy()]
+    for i, tok in enumerate(fed):
+        logits, cache = decode(params, cache, tok.to(device), L + i)
+        out.append(logits.cpu().numpy())
+    # numpy: a tensor would cross the queue as shared storage
+    return {"logits": out, "launches": flash_ops.flash_attention.launches - n0,
+            "gathers": fsdp.stats["all_gather"][0],
+            "peer_copies": fsdp.one_card is True and bool(fsdp.peers)}
+
+
+def test_fsdp_serving_on_one_card_reads_the_peers_shards(cuda):
+    """A 2 x 2 grid (data x model, FSDP on) of ranks sharing the card
+    (``gloo``; a unit's FSDP gather copies the peers' shards device to
+    device) against the unsharded plain-attention model on the same
+    seeded weights: one flash launch a layer on each rank, one FSDP gather
+    a unit and decode step, logits within 1e-3 x max|logit| (the LM
+    phases' gate, kernel against plain), greedy tokens equal where the
+    plain model's top-2 margin exceeds that bound."""
+
+    from repro_torch.config import MeshConfig
+    from repro_torch.launch.gossip import run_on_grid
+    from repro_torch.train.shard import init_shard
+
+    cfg = get_smoke_config("qwen1.5-32b")
+    rng = np.random.default_rng(0)
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (4, 40))}
+    steps = 3
+    max_len = 40 + steps
+    plain = build_model(cfg, Ctx(attn_impl="ref", cache_dtype=torch.float32),
+                        device=cuda)
+    params = init_shard(0, cfg, None, MeshConfig(data=1, model=1, fsdp=False),
+                        0, cuda)
+    with torch.inference_mode():
+        want, cache = plain.prefill(params, batch, max_len)
+        wants, fed = [want.cpu()], []
+        for i in range(steps):
+            tok = want.argmax(-1).to(torch.int32)
+            fed.append(tok.cpu())
+            want, cache = plain.decode(params, cache, tok, 40 + i)
+            wants.append(want.cpu())
+    del params, cache
+    ranks = run_on_grid(_fsdp_card_rank, (2, 2), cfg, batch, fed, max_len,
+                        device="cuda", timeout=300)
+    for res in ranks:
+        assert res["launches"] == cfg.num_layers
+        if torch.cuda.device_count() < 4:
+            assert res["peer_copies"]
+        assert res["gathers"] == steps * cfg.num_layers
+        for got, ref in zip(res["logits"], wants):
+            got = torch.from_numpy(got)
+            bound = 1e-3 * float(ref.abs().max())
+            assert float((got - ref).abs().max()) <= bound
+            top2 = ref.topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > bound
+            assert torch.equal(got.argmax(-1)[sure], ref.argmax(-1)[sure])
+
+
 @pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b",
                                   "whisper-large-v3"])
 def test_tp_serving_of_ssm_hybrid_encdec_on_one_card(cuda, arch):

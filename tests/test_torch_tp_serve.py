@@ -70,7 +70,7 @@ from repro_torch.models.layers import TP  # noqa: E402
 from repro_torch.optim.optimizers import tree_map_with_path  # noqa: E402
 from repro_torch.train import sharding as S  # noqa: E402
 from repro_torch.train.shard import (  # noqa: E402
-    MESH_REASON,
+    GRID_ITEM,
     init_shard,
     model_split,
     shard_cache,
@@ -321,9 +321,13 @@ def test_launcher_tp2_prints_the_tp1_tokens(monkeypatch, capsys):
     assert len(two["ranks"]) == 2 and two["backend"] == "gloo"
     assert "tok/s" in out and "batch 128 -> 2" in out
     assert "seq_len 32768 -> 16" in out
-    with pytest.raises(SystemExit):
-        serve.main(argv + ["--multi-pod"])
-    assert "model axis only" in capsys.readouterr().err
+    # two pods of one data rank each serve the batch's halves: the same
+    # tokens; a batch that does not split over them is refused
+    pods = serve.main(argv + ["--multi-pod", "--tp", "2"])
+    assert pods["ranks"][3]["tokens"] == one["ranks"][0]["tokens"]
+    with pytest.raises(NotImplementedError, match=f"{GRID_ITEM}b"):
+        serve.main(argv[:2] + ["--batch", "3"] + argv[4:]
+                   + ["--multi-pod", "--tp", "2"])
 
 
 def _fake_tp(size, split=frozenset()):
@@ -465,14 +469,31 @@ def test_cache_layout_the_rules_misplace_is_refused():
 def test_refusals_of_the_mesh_and_of_training():
     cfg = get_smoke_config("internvl2-76b")
     model = build_model(cfg, device="cpu")
-    shape = ShapeConfig("d", 16, B, "decode")
+    # data parallel and FSDP serve (tests/test_torch_fsdp_serve.py); what
+    # stays refused on those meshes names its item: a batch that does not
+    # split over pod x data (b), the SSM, hybrid and encoder-decoder
+    # families (c), experts split on their width (d)
+    odd = ShapeConfig("d", 16, 3, "decode")
     for mesh_cfg in (MeshConfig(data=2, model=2, fsdp=True),
                      MeshConfig(multi_pod=True, pod=2, data=1, model=2)):
-        with pytest.raises(NotImplementedError, match="item 6.8") as err:
-            lm_engine.make_serve_step(model, None, mesh_cfg, shape)
-        assert str(err.value) == MESH_REASON
-        with pytest.raises(NotImplementedError):
-            init_shard(0, cfg, None, mesh_cfg, 0, "cpu")
+        with pytest.raises(NotImplementedError, match=f"{GRID_ITEM}b"):
+            lm_engine.make_serve_step(model, None, mesh_cfg, odd)
+        for arch in ("mamba2-780m", "zamba2-2.7b", "whisper-large-v3"):
+            with pytest.raises(NotImplementedError,
+                               match=f"{GRID_ITEM}c"):
+                lm_engine.make_serve_step(
+                    build_model(get_smoke_config(arch), device="cpu"),
+                    None, mesh_cfg, ShapeConfig("d", 16, B, "decode"))
+        # the shards themselves are cut on these meshes
+        assert init_shard(0, cfg, None, mesh_cfg, 0, "cpu")
+    moe = get_smoke_config("granite-moe-3b-a800m")
+    moe = dataclasses.replace(moe, moe=dataclasses.replace(moe.moe,
+                                                          num_experts=6))
+    shapes = api.param_specs(build_model(moe, device="meta"))
+    with pytest.raises(NotImplementedError, match=f"{GRID_ITEM}d"):
+        model_split(shapes, S.param_pspecs(
+            moe, shapes, MeshConfig(data=2, model=4, fsdp=True)))
+    shape = ShapeConfig("d", 16, B, "decode")
     tp_model = build_model(cfg, Ctx(tp=_fake_tp(2)), device="cpu")
     with pytest.raises(NotImplementedError, match="training"):
         tp_model.loss({}, {"tokens": np.zeros((1, 2)),
