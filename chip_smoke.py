@@ -379,6 +379,32 @@ to B = 8 at 4096 positions, reckoned from the specs: a rank's weights
 with and without FSDP, its bf16 cache and the bytes a decode step
 gathers, against the card.
 
+``[long]`` (after ``[fsdp]``): the reference's ``long_500k`` cell (B =
+1) on the same 2 x 2 grid: the batch does not split over the data ranks,
+so every rank runs it whole; the rules cut the KV cache's heads over
+``"model"`` and its positions over ``"data"``; a rank gathers the hybrid's
+shared block once a step and each unit in one all-gather.  The flash
+kernel against its plain version, float64 and SDPA at a rank's zamba2
+prefill, q/k/v (1, 16, 16384, 80) causal (row 5r).  Then zamba2-2.7b (2 of
+9 units; 1 would equal B = 1, which the cache rule takes for the batch)
+and mamba2-780m (8 of 48 layers) at full width, each in this process
+from ``init_shard`` at 1 x 1: a prefill of 16,384 tokens, which fills
+data rank 0's half of a float32 cache 32,768 deep, and 8 greedy decode
+steps, which write into data rank 1's half; its float64 evaluation (the
+plain attention 512 queries at a time) beside it.  Then one grid of 2 x
+2 ranks serves both from ``init_shard`` on the grid, fed the reference's
+tokens after a warm-up on the first 512, every rank timing its
+collectives, held as ``[tp_ssm_encdec]`` holds its ranks (1e-5 x
+max|logit|, the float64 referee past it, greedy tokens), one flash launch
+a zamba2 invocation, one FSDP all-gather a unit (and the shared block's)
+and three partial-softmax all-reduces over the data ranks a zamba2
+invocation in each decode step.  Prints, per rank, its KV, SSM-state and
+parameter bytes (equal to ``shard_nbytes`` of the specs) beside the one
+process's, its peak, prefill s, median decode step, and its gathers' and
+all-reduces' calls, bytes and share of a step; rank 0's device busy
+share on one more decode step; and the full depth at 524,288 positions
+with a bf16 cache, reckoned from the specs, against the card.
+
 ``[stream]`` (after ``[gossip]``): the streaming loop at the Table 3
 cell through ``launch/streaming.py``: 85% of the training ratings
 ingested with the headroom of the stream's largest per-block count; the
@@ -465,7 +491,9 @@ a sparse engine's ∇L or cost differs from the dense one's by more than
 1e-5 relative; ``launch/gossip_comm.py --measure`` on a 2x2 grid of gloo
 ranks on the card; and ``launch/roofline_bench.py``'s records, printed
 beside ``[main]``'s and ``[gossip]``'s ms a round and, after ``[tp]``,
-beside its prefill and decode times.
+beside its prefill and decode times; the ``long_500k`` decode records
+(full depth, which one card does not hold) with their cache, gathered
+bytes and collectives.
 
 The launch counts of the ``{"kernels": ...}`` line add up the main
 path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included),
@@ -473,10 +501,11 @@ path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included),
 ``faults_launches_by_stack``), ``[serve]``, ``[sharded]`` (the ranks'),
 ``[measure]`` (the ranks' included), ``[lm]``, ``[moe]``, ``[ssm]``,
 ``[encdec]``, ``[vlm]``, ``[tp]``, ``[ep]``, ``[tp_ssm_encdec]``,
-``[tp_mqa]`` and ``[fsdp]`` (the flash row's ``moe``, ``ssm``,
-``encdec``, ``vlm``, ``tp``, ``ep``, ``tp_ssm_encdec``, ``tp_mqa`` and
-``fsdp`` keys have those phases' numbers; the rank phases' are
-the reference runs' and every rank's); ``[train]`` launches none.
+``[tp_mqa]``, ``[fsdp]`` and ``[long]`` (the flash row's ``moe``,
+``ssm``, ``encdec``, ``vlm``, ``tp``, ``ep``, ``tp_ssm_encdec``,
+``tp_mqa``, ``fsdp`` and ``long`` keys have those phases' numbers; the
+rank phases' are the reference runs' and every rank's); ``[train]``
+launches none.
 
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
 (``benchmarks/table3_rmse.py --full``): the 6040x3706 ``movielens_proxy``
@@ -618,6 +647,7 @@ from repro_torch.launch.serve_recommend import (  # noqa: E402
 from repro_torch.mesh import MeshPlan  # noqa: E402
 from repro_torch.models import Ctx, build_model  # noqa: E402
 from repro_torch.models import api as model_api  # noqa: E402
+from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
@@ -668,10 +698,11 @@ P = Q = 5
 RANK = 15
 PHASES = ("kernels", "main", "table2", "gossip", "stream", "faults",
           "serve", "sharded", "measure", "lm", "train", "moe", "ssm",
-          "encdec", "vlm", "tp", "ep", "tp_ssm_encdec", "tp_mqa", "fsdp")
+          "encdec", "vlm", "tp", "ep", "tp_ssm_encdec", "tp_mqa", "fsdp",
+          "long")
 NEEDS = {"serve": ("main",), "sharded": ("main",), "measure": ("main",)}
 LM_PHASES = ("lm", "moe", "ssm", "encdec", "vlm", "tp", "ep",
-             "tp_ssm_encdec", "tp_mqa", "fsdp")
+             "tp_ssm_encdec", "tp_mqa", "fsdp", "long")
 CFG = dict(rho=1e3, lam=1e-6, a=2.0e-4, b=5.0e-7)
 FULL_ROUNDS = 800   # the Table 3 cell's rounds (benchmarks/table3_rmse.py)
 COMPARE_ROUNDS = 40  # sparse and dense FullGD are compared at this round
@@ -864,6 +895,24 @@ FSDP_WARM = 64
 # the four-card cell it stands for: decode_32k cut to B = 8 at 4096
 # positions, all 64 layers
 FSDP_FULL_BATCH, FSDP_FULL_LEN = 8, 4096
+# [long]: the reference's long_500k cell (B = 1 at 524,288 positions: the
+# batch does not split, so every rank runs it whole and the rules cut the
+# KV cache's sequence over "data") cut for one card: zamba2-2.7b at full
+# width and 2 of 9 units (1 unit would equal B = 1, which the cache rule
+# takes for the batch dim), mamba2-780m at full width and 8 of 48 layers;
+# a float32 cache 32,768 deep, so a 16,384-token prompt fills data rank
+# 0's half of the positions exactly and 8 greedy decode steps write into
+# data rank 1's; 2 x 2 ranks (data x model, FSDP on) against one process;
+# the ranks warm up on the prompt's first 512 tokens; the float64
+# referee's attention runs 512 queries at a time (its whole logits at
+# 16,384 positions would not fit the card)
+LONG_ARCHS = ("zamba2-2.7b", "mamba2-780m")
+LONG_LAYERS = {"zamba2-2.7b": 12, "mamba2-780m": 8}
+LONG_PROMPT, LONG_NEW, LONG_MAX_LEN = 16384, 8, 32768
+LONG_MESH = dict(pod=1, data=2, model=2, fsdp=True)
+LONG_WARM, LONG_F64_BLOCK = 512, 512
+# the four-card cell it stands for: long_500k at full depth
+LONG_FULL_LEN = 524288
 # [measure]: the traffic tape, the density sweep, the gossip_comm grid
 MEASURE_REQUESTS, MEASURE_RATE, MEASURE_K = 200, 200.0, 100
 MEASURE_SHAPE = (6040, 3706)         # the Table 3 cell's matrix
@@ -4665,6 +4714,375 @@ def fsdp_phase(card, flash_row, device="cuda") -> dict:
     return out
 
 
+def long_steps(cfg, group, mesh_cfg, device,
+               ctx=Ctx(attn_impl="kernel", cache_dtype=torch.float32)):
+    """``[long]``'s prefill and decode steps of ``cfg`` under ``ctx`` (the
+    flash kernel and a float32 cache) at B = 1 with a cache
+    ``LONG_MAX_LEN`` deep, and the steps' infos."""
+
+    model = build_model(cfg, ctx, device=device)
+    prefill, info = make_prefill_step(
+        model, group, mesh_cfg, ShapeConfig("long", LONG_PROMPT, 1,
+                                            "prefill"), LONG_MAX_LEN)
+    decode, dinfo = make_serve_step(
+        model, group, mesh_cfg, ShapeConfig("long", LONG_MAX_LEN, 1,
+                                            "decode"))
+    return prefill, decode, info, dinfo
+
+
+def _blocked_ref(q, k, v, *, causal=True, window=0, softcap=0.0,
+                 q_offset=0):
+    """``attention_ref`` ``LONG_F64_BLOCK`` queries at a time: the float64
+    referee's attention, whose whole logits would not fit the card."""
+
+    return torch.cat([attention_ref(
+        q[:, :, i:i + LONG_F64_BLOCK], k, v, causal=causal, window=window,
+        softcap=softcap, q_offset=q_offset + i)
+        for i in range(0, q.shape[2], LONG_F64_BLOCK)], dim=2)
+
+
+def long_float64(cfg, batch, fed, device) -> list:
+    """The logits of ``long_reference``'s steps in a float64 evaluation of
+    the same model (``init_shard``'s draws widened, the plain attention
+    blocked by ``_blocked_ref``, a float64 cache), fed the same tokens;
+    on the host."""
+
+    cfg64 = dataclasses.replace(cfg, param_dtype="float64")
+    one = MeshConfig(data=1, model=1, fsdp=False)
+    prefill, decode, _, _ = long_steps(
+        cfg64, None, one, device, Ctx(attn_impl="ref",
+                                      cache_dtype=torch.float64))
+    params = init_shard(TSE_SEED, cfg64, None, one, 0, device)
+    plain = attention_mod.attention_ref
+    attention_mod.attention_ref = _blocked_ref
+    try:
+        logits, cache = prefill(params, batch)
+        out = [logits.cpu()]
+        for i, tok in enumerate(fed):
+            logits, cache = decode(params, cache, tok, LONG_PROMPT + i)
+            out.append(logits.cpu())
+    finally:
+        attention_mod.attention_ref = plain
+    del params, cache, logits, prefill, decode
+    _free()
+    return out
+
+
+def _parts(cache) -> dict:
+    """{"kv": bytes, "state": bytes} of a cache shard."""
+
+    return serve_launcher.cache_parts(
+        cache, lambda x: x.numel() * x.element_size())
+
+
+def long_reference(cfg, batch, device) -> dict:
+    """``[long]``'s one-process run of ``cfg`` from ``init_shard`` at 1 x
+    1: a warm-up on the prompt's first ``LONG_WARM`` tokens, then the
+    prefill and ``LONG_NEW`` greedy decode steps; the logits of every step
+    on the host, the tokens it fed, times, flash launches, bytes, and the
+    float64 evaluation's logits."""
+
+    one = MeshConfig(data=1, model=1, fsdp=False)
+    prefill, decode, _, _ = long_steps(cfg, None, one, device)
+    t0 = time.perf_counter()
+    params = init_shard(TSE_SEED, cfg, None, one, 0, device)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    _tp_steps(prefill, decode, params,
+              {"tokens": batch["tokens"][:, :LONG_WARM]},
+              torch.zeros((1, 1), dtype=torch.int32), LONG_WARM, device)
+    reset_counts()
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    _sync(device)
+    t_pre = time.perf_counter() - t0
+    ref, fed, t_dec = [logits.float().cpu()], [], []
+    for i in range(LONG_NEW):
+        tok = logits.argmax(-1).to(torch.int32)
+        fed.append(tok.cpu())
+        t0 = time.perf_counter()
+        logits, cache = decode(params, cache, tok, LONG_PROMPT + i)
+        _sync(device)
+        t_dec.append(time.perf_counter() - t0)
+        ref.append(logits.float().cpu())
+    out = {"logits": ref, "fed": torch.stack(fed), "prefill_s": t_pre,
+           "decode_s": t_dec, "init_s": t_init,
+           "launches": counts()["flash_attention"],
+           "peak_bytes": torch.cuda.max_memory_allocated()
+           if device.type == "cuda" else 0,
+           "param_bytes": _nbytes(tree_leaves(params)),
+           "cache_bytes": _nbytes(tree_leaves(cache)),
+           "cache_parts": _parts(cache)}
+    del params, cache, logits, prefill, decode
+    _free()
+    t0 = time.perf_counter()
+    out["logits64"] = long_float64(cfg, batch, out["fed"], device)
+    out["f64_s"] = time.perf_counter() - t0
+    return out
+
+
+def long_serve(rank, device, cfg, batch, fed) -> dict:
+    """``[long]``'s rank for one arch: its ``init_shard`` shards on the 2 x
+    2 grid, a warm-up on the prompt's first ``LONG_WARM`` tokens, then the
+    prefill and decode steps fed the reference's tokens, every rank timing
+    its collectives (the card synchronised around each); its logits,
+    times, bytes and collectives, and on rank 0 one more decode step under
+    the profiler."""
+
+    import torch.distributed as dist
+
+    mesh_cfg = MeshConfig(**LONG_MESH)
+    prefill, decode, info, dinfo = long_steps(cfg, dist.group.WORLD,
+                                              mesh_cfg, device)
+    t0 = time.perf_counter()
+    params = init_shard(TSE_SEED, cfg, None, mesh_cfg, rank, device)
+    _sync(device)
+    t_init = time.perf_counter() - t0
+    _tp_steps(prefill, decode, params,
+              {"tokens": batch["tokens"][:, :LONG_WARM]}, fed[:1],
+              LONG_WARM, device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    serve_launcher.set_timed(info, True)
+    serve_launcher.set_timed(dinfo, True)
+    n0 = flash_ops.flash_attention.launches
+    logits, t_pre, t_dec, cache = _tp_steps(prefill, decode, params, batch,
+                                            fed, LONG_PROMPT, device)
+    serve_launcher.set_timed(info, False)
+    serve_launcher.set_timed(dinfo, False)
+    out = {"launches": flash_ops.flash_attention.launches - n0,
+           "prefill_s": t_pre, "decode_s": t_dec, "init_s": t_init,
+           "param_bytes": _nbytes(tree_leaves(params)),
+           "cache_bytes": _nbytes(tree_leaves(cache)),
+           "cache_parts": _parts(cache),
+           "peak_bytes": torch.cuda.max_memory_allocated(device)
+           if device.type == "cuda" else 0,
+           "prefill_collectives": serve_launcher.collectives(info),
+           "decode_collectives": serve_launcher.collectives(dinfo),
+           # numpy: a tensor would cross the queue as shared storage that
+           # this process takes with it when it exits
+           "logits": [x.numpy() for x in logits]}
+    tok = torch.from_numpy(out["logits"][-1]).argmax(-1).to(
+        torch.int32).to(device)
+    step = lambda: decode(params, cache, tok,  # noqa: E731
+                          LONG_PROMPT + len(fed))
+    if rank == 0:
+        _, secs, bd = profiled(step)
+        out["profile"] = {"wall_ms": 1e3 * secs,
+                          "busy": sum(bd.values()) / (1e3 * secs),
+                          "top": top(bd)}
+    else:
+        step()
+        _sync(device)
+    del params, cache
+    _free()
+    return out
+
+
+def long_rank(rank, device, jobs) -> list:
+    """``[long]``'s rank over every arch of ``jobs`` in turn."""
+
+    return [long_serve(rank, device, *job) for job in jobs]
+
+
+def _units(cfg) -> int:
+    """FSDP gathers of one pass over ``cfg``: one a unit, and one for a
+    hybrid's shared block."""
+
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.shared_attn_every + 1
+    return cfg.num_layers
+
+
+def long_report(cfg, full, ref, ranks, backend, card_total) -> dict:
+    """``[long]``'s gates and lines for one arch."""
+
+    tag = f"[long] {cfg.name}"
+    mesh_cfg = MeshConfig(**LONG_MESH)
+    D = mesh_cfg.data
+    want_launches = tse_flash_launches(cfg)
+    launches = [r["launches"] for r in ranks]
+    if launches != [want_launches] * len(ranks) \
+            or ref["launches"] != want_launches:
+        fail(f"{tag}: flash_attention launches {ref['launches']} in the "
+             f"reference and {launches} by rank, expected {want_launches} "
+             "on each")
+    worst, checked, refereed, one64 = hold_logits(tag, ranks, ref)
+    shape = ShapeConfig("long", LONG_MAX_LEN, 1, "decode")
+    reckon = serve_launcher.rank_bytes(cfg, shape, mesh_cfg, torch.float32)
+    attn = tse_flash_launches(cfg)      # shared-block invocations
+    for r, res in enumerate(ranks):
+        if (res["param_bytes"], res["cache_bytes"]) != reckon["grid"] or \
+                res["cache_parts"] != reckon["parts"]["grid"]:
+            fail(f"{tag} rank {r}: {res['param_bytes']} bytes of shards and "
+                 f"{res['cache_parts']} of cache, the specs reckon "
+                 f"{reckon['grid']} and {reckon['parts']['grid']}")
+        stats = res["decode_collectives"]
+        gathers = stats.get("fsdp_all_gather", [0])[0]
+        if gathers != LONG_NEW * _units(cfg):
+            fail(f"{tag} rank {r}: {gathers} FSDP all-gathers in "
+                 f"{LONG_NEW} decode steps, expected one a unit "
+                 f"({LONG_NEW * _units(cfg)})")
+        got = (stats.get("kv_seq_all_reduce_max", [0])[0],
+               stats.get("kv_seq_all_reduce", [0])[0])
+        if got != (LONG_NEW * attn, 2 * LONG_NEW * attn):
+            fail(f"{tag} rank {r}: partial-softmax all-reduces over the "
+                 f"data ranks {got} in {LONG_NEW} decode steps, expected "
+                 f"{(LONG_NEW * attn, 2 * LONG_NEW * attn)} (three an "
+                 "invocation)")
+    r0 = ranks[0]
+    ms = 1e3 * statistics.median(r0["decode_s"])
+    ref_ms = 1e3 * statistics.median(ref["decode_s"])
+    print(f"{tag}: reference, 1 process ({ref['param_bytes'] / 1e9:.3f} GB "
+          f"of f32 parameters, init_shard {ref['init_s']:.2f}s): prefill "
+          f"{ref['prefill_s']:.3f}s of 1 x {LONG_PROMPT} tokens, decode "
+          f"{ref_ms:.3f} ms/step (median of {len(ref['decode_s'])}), "
+          f"{ref['launches']} flash launches, peak "
+          f"{ref['peak_bytes'] / 2**30:.2f} GiB; cache "
+          f"{json.dumps(ref['cache_parts'])} bytes; float64 referee "
+          f"{ref['f64_s']:.1f}s", flush=True)
+    print(f"{tag}: {len(ranks)} ranks ({backend}, "
+          f"{'one card' if backend == 'gloo' else 'a card a rank'}), B = 1 "
+          f"whole on every rank: flash launches by rank {launches}; every "
+          f"rank's logits within {worst['prefill']:.3f} (prefill) and "
+          f"{worst['decode']:.3f} (decode, float32 cache) x the bound "
+          f"({TSE_TOL} x max|logit|) of the one process's; greedy tokens "
+          f"equal on all {checked} (rank, row, step) with a margin over "
+          f"twice the bound", flush=True)
+    ratio = max((x["rank_f64_err"] / x["one_f64_err"] for x in refereed),
+                default=None)
+    print(f"{tag}: against a float64 evaluation of the same model, the one "
+          f"process's float32 logits err by {max(one64):.3e} x max|logit| "
+          f"(prefill {one64[0]:.3e}); {len(refereed)} of "
+          f"{len(ref['logits']) * len(ranks)} (rank, step) past the bound, "
+          f"held to float64: the rank's error at most "
+          f"{'-' if ratio is None else f'{ratio:.3f}'} x the one process's "
+          f"(limit {TSE_F64_FACTOR})", flush=True)
+    (one_p, one_c), parts_one = reckon["one"], reckon["parts"]["one"]
+    for r, res in enumerate(ranks):
+        steps = len(res["decode_s"])
+        dec_s = sum(res["decode_s"])
+        parts = res["cache_parts"]
+        line = (f"{tag} rank {r}: KV {parts['kv']} bytes (one process "
+                f"{parts_one['kv']}), SSM state {parts['state']} bytes (one "
+                f"process {parts_one['state']}), shards {res['param_bytes']}"
+                f" bytes (one process {one_p}); equal to shard_nbytes of the "
+                f"specs; peak {res['peak_bytes'] / 2**30:.2f} GiB; init_shard"
+                f" {res['init_s']:.2f}s; prefill {res['prefill_s']:.3f}s, "
+                f"decode {1e3 * statistics.median(res['decode_s']):.3f} "
+                f"ms/step (median of {steps})")
+        for op in ("fsdp_all_gather", "kv_seq_all_reduce_max",
+                   "kv_seq_all_reduce", "all_reduce"):
+            if op in res["decode_collectives"]:
+                calls, secs, nbytes = res["decode_collectives"][op]
+                line += (f"; {op} a decode step: {calls / steps:g} calls, "
+                         f"{nbytes / steps:.0f} bytes, "
+                         f"{1e3 * secs / steps:.3f} ms "
+                         f"({100 * secs / dec_s:.1f}%)")
+        print(line, flush=True)
+    prof = r0["profile"]
+    print(f"{tag} rank 0 decode step under the profiler: wall "
+          f"{prof['wall_ms']:.3f} ms, device busy {100 * prof['busy']:.1f}%;"
+          f" by kernel: {prof['top']}", flush=True)
+    shares = {"prefill": _shares(r0["prefill_collectives"],
+                                 r0["prefill_s"]),
+              "decode_step": _shares(r0["decode_collectives"],
+                                     sum(r0["decode_s"]),
+                                     len(r0["decode_s"]))}
+    print(f"{tag} collectives on rank 0, the card synchronised around each: "
+          f"prefill {json.dumps(shares['prefill'])}; decode step "
+          f"{json.dumps(shares['decode_step'])}", flush=True)
+    full_shape = ShapeConfig("long_500k", LONG_FULL_LEN, 1, "decode")
+    reckon_full = serve_launcher.rank_bytes(full, full_shape, mesh_cfg)
+    pf = reckon_full["parts"]
+    print(f"{tag} at full depth ({full.num_layers} layers), long_500k (B = "
+          f"1, {LONG_FULL_LEN} positions, bf16 cache), reckoned from the "
+          f"specs: a rank of the {D} x {mesh_cfg.model} grid holds "
+          f"{reckon_full['grid'][0] / 1e9:.3f} GB of f32 weights (one process "
+          f"{reckon_full['one'][0] / 1e9:.3f} GB) + {pf['grid']['kv'] / 1e9:.3f}"
+          f" GB of KV (one process {pf['one']['kv'] / 1e9:.3f} GB) + "
+          f"{pf['grid']['state'] / 1e6:.3f} MB of SSM state, against the "
+          f"card's {card_total / 1e9:.1f} GB", flush=True)
+    return {"backend": backend, "layers": cfg.num_layers,
+            "reference": {"prefill_s": ref["prefill_s"],
+                          "decode_ms_per_step": ref_ms,
+                          "peak_gib": ref["peak_bytes"] / 2**30,
+                          "parameter_bytes": ref["param_bytes"],
+                          "cache_parts": ref["cache_parts"],
+                          "f64_s": ref["f64_s"]},
+            "ranks": [{k: v for k, v in r.items()
+                       if k not in ("logits", "profile")} for r in ranks],
+            "prefill_s": r0["prefill_s"], "decode_ms_per_step": ms,
+            "busy": prof["busy"], "collectives": shares,
+            "logit_err_over_bound": worst, "greedy_checked": checked,
+            "one_process_f64_err": one64, "refereed": refereed,
+            "reckoning": reckon, "full_depth": reckon_full,
+            "launches": ref["launches"] + sum(launches)}
+
+
+def long_phase(card, flash_row, device="cuda") -> dict:
+    """``[long]``: row 5r, then zamba2-2.7b and mamba2-780m at full width
+    (depth cut, ``LONG_LAYERS``) at B = 1, served by one process and by
+    one grid of 2 x 2 ranks (data x model, FSDP on) that runs the batch
+    whole, the KV positions cut over the data ranks; see the module
+    docstring.  Adds the phase's flash launches to ``flash_row``."""
+
+    t_phase = time.perf_counter()
+    tag = "[long]"
+    mesh_cfg = MeshConfig(**LONG_MESH)
+    n, D, M = mesh_cfg.num_devices, mesh_cfg.data, mesh_cfg.model
+    zamba = get_model_config(LONG_ARCHS[0])
+    hd = zamba.resolved_head_dim
+    flash = {"5r rank": prefill_flash(
+        card, tag, "zamba2-2.7b data x model rank (5r)", 1, LONG_PROMPT,
+        zamba.num_heads // M, zamba.num_kv_heads // M, hd, hd)}
+    f = flash["5r rank"]
+    print(f"{tag} row 5r rank: {f['ms']:.4f} ms (plain {f['plain_ms']:.4f}, "
+          f"SDPA {f['library_ms']:.4f}; bound {f['bound_ms']:.4f} 3xTF32, "
+          f"{f['bound_f32_cuda_core_ms']:.4f} f32), max abs err "
+          f"{f['max_abs_err']:.3e} against plain", flush=True)
+    dev = torch.device(device)
+    card_total = (torch.cuda.get_device_properties(0).total_memory
+                  if dev.type == "cuda" else 0)
+    cfgs, refs, jobs = {}, {}, []
+    for arch in LONG_ARCHS:
+        full = get_model_config(arch)
+        cfg = dataclasses.replace(full, num_layers=LONG_LAYERS[arch])
+        cfgs[arch] = (cfg, full)
+        batch = {"tokens": np.random.default_rng(13).integers(
+            0, cfg.vocab_size, (1, LONG_PROMPT))}
+        refs[arch] = long_reference(cfg, batch, dev)
+        jobs.append((cfg, batch, refs[arch]["fed"]))
+    print(f"{tag} depth cut for one card, widths whole: "
+          + "; ".join(f"{arch} num_layers {cfgs[arch][0].num_layers} of "
+                      f"{cfgs[arch][1].num_layers}" for arch in LONG_ARCHS)
+          + f"; B = 1 at a float32 cache {LONG_MAX_LEN} deep ({LONG_FULL_LEN}"
+          f" in the cell), {LONG_PROMPT} prompt tokens filling data rank 0's "
+          f"half, {LONG_NEW} decode steps in data rank 1's", flush=True)
+    backend = pick_backend(device, n)
+    marks: list = []
+    t0 = time.perf_counter()
+    ranks = run_on_grid(long_rank, (D, M), jobs, device=device, timeout=900,
+                        marks=marks)
+    print(f"{tag} one grid of {D} x {M} ranks ({backend}) served both "
+          f"archs in {time.perf_counter() - t0:.1f}s (start-up "
+          f"{max(m['group_s'] for m in marks):.1f}s)", flush=True)
+    out = {"backend": backend, "flash": flash}
+    for i, arch in enumerate(LONG_ARCHS):
+        cfg, full = cfgs[arch]
+        out[arch] = long_report(cfg, full, refs[arch], [r[i] for r in ranks],
+                                backend, card_total)
+    out["launches"] = sum(out[arch]["launches"] for arch in LONG_ARCHS)
+    flash_row["launches"] += out["launches"]
+    flash_row["long"] = out
+    print(f"{tag} phase: {time.perf_counter() - t_phase:.1f}s of command",
+          flush=True)
+    return out
+
+
 class StateAt(Callback):
     """Keeps a copy of the fit's state at one eval boundary."""
 
@@ -5963,7 +6381,8 @@ def measure_phase(fitted, device="cuda") -> tuple[dict, list]:
         "ep": [analyze_record(r) for r in roofline_bench.moe_records()],
         "tp_mqa": [analyze_record(r)
                    for r in roofline_bench.mqa_records()],
-        "fsdp": [analyze_record(r) for r in roofline_bench.fsdp_records()]}
+        "fsdp": [analyze_record(r) for r in roofline_bench.fsdp_records()],
+        "long": [analyze_record(r) for r in roofline_bench.long_records()]}
     print(f"[measure] roofline records counted in "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
     beside = {"1x1": ("[main] FullGD sparse/segment ms/round",
@@ -6021,6 +6440,15 @@ def roofline_after_tp(lm_analyses, tp_out, ep_out, mqa_out=None,
             print(f"[measure] {roofline_bench.roofline_line(a)} | [{key}] "
                   f"measured: {'not run' if run is None else seen(a, run)}",
                   flush=True)
+    for a in lm_analyses["long"]:
+        # the full cell does not fit one card: launch.serve --shape
+        # long_500k on four cards measures it
+        print(f"[measure] {roofline_bench.roofline_line(a)} | [long] cuts "
+              f"its depth and length for one card; the cell: launch.serve "
+              f"--shape long_500k --data 2 --tp 2 on four cards (cache "
+              f"{a['cache_bytes']} B, FSDP-gathered "
+              f"{a['fsdp_gathered_bytes']} B, collectives "
+              f"{json.dumps(a['collectives'])})", flush=True)
 
 
 def _leaves(tree):
@@ -6278,6 +6706,11 @@ def main() -> None:
     # 13. qwen1.5-32b data parallel and FSDP on a 2 x 2 grid
     fsdp_out = fsdp_phase(card, rows[-1]) if want("fsdp") else None
     _free()
+    # 14. the long_500k cell: zamba2 and mamba2 at B = 1 on the same grid,
+    # the batch whole and the KV positions cut over the data ranks
+    if want("long"):
+        long_phase(card, rows[-1])
+        _free()
     if lm_analyses is not None:
         roofline_after_tp(lm_analyses, tp_out, ep_out, mqa_out, fsdp_out)
     print(f"[main] peak device memory "

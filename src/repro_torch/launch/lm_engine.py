@@ -31,9 +31,14 @@ sequence, or keep them whole: the rank's model takes that layout from
 the specs (``train/shard.py::kv_cache_layout``, its ``TP.kv_cache``).
 Decode writes the cache shard in place: the port's form of
 ``donate_argnums=(1,)``.  On one rank (no group) the step is the
-model's own.  ``train/shard.py::check_mesh`` refuses the grids this does
-not cover (a batch that does not split over ``pod x data``, the SSM,
-hybrid and encoder-decoder families on more than one of them).
+model's own.  A batch that does not split over ``pod x data`` (the
+``long_500k`` cell's B = 1) is not cut: every rank runs it whole and
+returns its own logits, and where the rules then cut the KV caches'
+positions on ``"data"`` the rank's model holds its data group's slice of
+them (``Ctx.kv_seq``, the FSDP group's ranks).  ``train/shard.py::
+check_mesh`` refuses the grids this does not cover (the encoder-decoder
+family on more than one ``pod x data`` rank, MLA's latent cache at a
+batch that does not split).
 
 ``ServeLoop`` runs one prefill, then one cached decode step per generated
 token, every slot of the batch at the same position.
@@ -53,10 +58,11 @@ from repro_torch.models.api import (Model, build_model, cache_specs,
 from repro_torch.models.layers import FSDP, TP, all_gather
 from repro_torch.optim.optimizers import tree_map_with_path
 from repro_torch.train import sharding as S
-from repro_torch.train.shard import (check_mesh, dp_size, fsdp_split,
-                                     grid_coords, kv_cache_layout,
-                                     local_shape, model_split,
-                                     rank_cache_pspecs, shard_leaf)
+from repro_torch.train.shard import (batch_splits, check_mesh, dp_size,
+                                     fsdp_split, grid_coords,
+                                     kv_cache_layout, local_shape,
+                                     model_split, rank_cache_pspecs,
+                                     shard_leaf)
 
 # (id of the world group, pod, data, model) -> the groups every rank made
 _GROUPS: dict = {}
@@ -109,8 +115,10 @@ def grid_groups(group, mesh_cfg: MeshConfig) -> tuple:
 @dataclasses.dataclass
 class Grid:
     """A rank's place on the grid, as its steps use it: the mesh, its
-    rank, and the ``TP`` of its batch group (``None`` without a ``pod x
-    data`` axis), over which the steps all-gather the logits."""
+    rank, and the ``TP`` of its batch group, over which the steps cut the
+    batch and all-gather the logits (``None`` without a ``pod x data``
+    axis, or where the batch does not split over it: every rank then runs
+    the whole batch)."""
 
     mesh_cfg: MeshConfig
     rank: int
@@ -125,9 +133,15 @@ class Grid:
         return shard_leaf(x, spec, self.mesh_cfg, self.rank)
 
     def gather(self, logits: torch.Tensor) -> torch.Tensor:
-        """The batch group's logits in rank order: the full (B, V)."""
+        """The batch group's logits in rank order: the full (B, V); the
+        rank's own without a batch group."""
 
         return all_gather(logits, self.batch, 0)
+
+    def rows(self, batch: int) -> int:
+        """The rows of a global batch of ``batch`` that the rank runs."""
+
+        return batch if self.batch is None else batch // self.batch.size
 
 
 def with_ep(model: Model, mesh_cfg: MeshConfig) -> Model:
@@ -147,10 +161,12 @@ def _rank_model(model: Model, group, mesh_cfg: MeshConfig, shapes,
                 pspecs, cshapes, cspecs, batch: int) -> tuple[Model, Grid]:
     """``model`` on this rank's shards and its ``Grid``: rebuilt with its
     model group's ``TP`` (the leaves ``pspecs`` split on ``"model"``,
-    ``model_split``, and the KV cache layout of ``cspecs``,
+    ``model_split``, and the KV cache layout of ``cspecs`` on that axis,
     ``kv_cache_layout``), its FSDP group's ``FSDP`` (the leaves they
-    split on ``"data"``, ``fsdp_split``) and the batch axes, refusing what
-    the port does not shard; or itself on one rank."""
+    split on ``"data"``, ``fsdp_split``), the batch axes where the batch
+    splits over them, and, where ``cspecs`` cut the KV positions on
+    ``"data"``, a ``TP`` of the FSDP group's ranks as ``Ctx.kv_seq``;
+    refusing what the port does not shard; or itself on one rank."""
 
     check_mesh(mesh_cfg, model.cfg, batch)
     if mesh_cfg.num_devices == 1:
@@ -165,16 +181,19 @@ def _rank_model(model: Model, group, mesh_cfg: MeshConfig, shapes,
                          "group")
     model_group, fsdp_group, batch_group = grid_groups(group, mesh_cfg)
     device = model.device
-    tp = fsdp = None
+    tp = fsdp = kv_seq = None
     if mesh_cfg.model > 1:
         tp = TP.of(model_group, device, model_split(shapes, pspecs),
                    kv_cache_layout(cshapes, cspecs))
     split = fsdp_split(shapes, pspecs) if mesh_cfg.data > 1 else {}
     if split:
         fsdp = FSDP.of(fsdp_group, device, split)
-    data_parallel = dp_size(mesh_cfg) > 1
+    if mesh_cfg.data > 1 and kv_cache_layout(cshapes, cspecs,
+                                             "data") == "sequence":
+        kv_seq = TP.of(fsdp_group, device)
+    data_parallel = dp_size(mesh_cfg) > 1 and batch_splits(mesh_cfg, batch)
     ctx = dataclasses.replace(
-        model.ctx, tp=tp, fsdp=fsdp,
+        model.ctx, tp=tp, fsdp=fsdp, kv_seq=kv_seq,
         dp=S.dp_axes(mesh_cfg) if data_parallel else None)
     grid = Grid(mesh_cfg, dist.get_rank(group),
                 TP.of(batch_group, device) if data_parallel else None)
@@ -184,7 +203,7 @@ def _rank_model(model: Model, group, mesh_cfg: MeshConfig, shapes,
 def _check_cache(rank_model: Model, cshapes, cspecs, mesh_cfg: MeshConfig,
                  batch: int, max_len: int) -> None:
     """Refuse a cache whose specs (``rank_cache_pspecs``) do not cut it as
-    the rank's model holds it at its ``batch`` slice (its KV heads or its
+    the rank's model holds it at its ``batch`` rows (its KV heads or its
     slice of the positions, its Mamba heads).  The rules find the batch
     dim as the first dim equal to the global batch size, so a stacking dim
     of that size takes the batch's place and the heads' ``"model"`` lands
@@ -216,7 +235,7 @@ def _max_len(model: Model, shape_cfg: ShapeConfig) -> int:
 
 
 def _dp_or_none(mesh_cfg: MeshConfig, batch: int):
-    return S.dp_axes(mesh_cfg) if batch % dp_size(mesh_cfg) == 0 else None
+    return S.dp_axes(mesh_cfg) if batch_splits(mesh_cfg, batch) else None
 
 
 def _setup(model: Model, group, mesh_cfg: MeshConfig,
@@ -233,8 +252,8 @@ def _setup(model: Model, group, mesh_cfg: MeshConfig,
         cshapes, S.cache_pspecs_tree(cfg, shape_cfg, mesh_cfg, cshapes))
     rank_model, grid = _rank_model(model, group, mesh_cfg, shapes, pspecs,
                                    cshapes, cspecs, B)
-    _check_cache(rank_model, cshapes, cspecs, mesh_cfg,
-                 B // dp_size(mesh_cfg), max_len)
+    _check_cache(rank_model, cshapes, cspecs, mesh_cfg, grid.rows(B),
+                 max_len)
     return rank_model, grid, pspecs, cshapes, cspecs
 
 

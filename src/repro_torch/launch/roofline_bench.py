@@ -59,7 +59,16 @@ counted from shapes, never measured.
   rank 0 of ``data`` 2 × ``model`` 2 (FSDP on, a rank's batch of 2): the
   collectives add the FSDP gathers, one a unit (``FSDP.dry``), counted
   with the all-gather formula, and the logits' all-gather over the batch;
-  the bytes add the gathered leaves, written once and read once.  ::
+  the bytes add the gathered leaves, written once and read once.
+* **The long-context cell** (:func:`long_records`): ``long_500k``'s one
+  decode step (B = 1 at position 524,287 of a 524,288-deep bf16 cache) of
+  zamba2-2.7b and mamba2-780m at their published widths and full depth,
+  in one process and on rank 0 of ``data`` 2 × ``model`` 2 (FSDP on):
+  the batch does not split, so it stays whole on every rank and no
+  logits are gathered; zamba2's KV cache is cut on its heads over
+  ``"model"`` and on its sequence over ``"data"``, and its masked partial
+  softmax adds three all-reduces an invocation over the data group
+  (``kv_seq_all_reduce_max``, ``kv_seq_all_reduce``).  ::
 
     python -m repro_torch.launch.roofline_bench [--write PATH] [--path GLOB]
 """
@@ -95,6 +104,9 @@ MQA_BATCH, MQA_PROMPT, MQA_MAX_LEN = 4, 1024, 1376
 FSDP_ARCH, FSDP_LAYERS = "qwen1.5-32b", 6
 FSDP_BATCH, FSDP_PROMPT, FSDP_MAX_LEN = 4, 1024, 1032
 FSDP_MESHES = ((1, 1), (2, 2))
+# the long_500k cell (launch/serve.py --shape long_500k --data 2 --tp 2)
+LONG_ARCHS = ("zamba2-2.7b", "mamba2-780m")
+LONG_BATCH, LONG_MAX_LEN = 1, 524288
 
 
 def load_records(path=DEFAULT_PATH):
@@ -259,9 +271,9 @@ def lm_record(cfg, kind: str, batch: int, prompt: int, max_len: int,
     from repro_torch.config import ShapeConfig
     from repro_torch.models.api import cache_specs
     from repro_torch.models.layers import FSDP
-    from repro_torch.train.shard import (fsdp_split, kv_cache_layout,
-                                         model_split, rank_cache_pspecs,
-                                         shard_params)
+    from repro_torch.train.shard import (batch_splits, fsdp_split,
+                                         kv_cache_layout, model_split,
+                                         rank_cache_pspecs, shard_params)
 
     mesh_cfg = MeshConfig(data=data_axis, model=model_axis,
                           fsdp=data_axis > 1)
@@ -281,10 +293,16 @@ def lm_record(cfg, kind: str, batch: int, prompt: int, max_len: int,
           if model_axis > 1 else None)
     fsdp = (FSDP.dry(data_axis, fsdp_split(shapes, pspecs))
             if data_axis > 1 else None)
-    model = build_model(cfg, dataclasses.replace(ctx, tp=tp, fsdp=fsdp),
+    # a batch that does not split stays whole, its KV positions cut over
+    # the data ranks where the rules say so
+    kv_seq = (TP.dry(data_axis) if data_axis > 1 and kv_cache_layout(
+        cshapes, cspecs, "data") == "sequence" else None)
+    model = build_model(cfg, dataclasses.replace(ctx, tp=tp, fsdp=fsdp,
+                                                 kv_seq=kv_seq),
                         device="meta")
     params = shard_params(shapes, pspecs, mesh_cfg, 0)
-    global_batch, batch = batch, batch // data_axis
+    splits = batch_splits(mesh_cfg, batch)
+    global_batch, batch = batch, batch // data_axis if splits else batch
     cache = model.init_cache(batch, max_len)
     positions = patches + prompt
     meta = dict(device="meta")
@@ -312,12 +330,17 @@ def lm_record(cfg, kind: str, batch: int, prompt: int, max_len: int,
     gathered = 0
     if fsdp is not None:
         gathered = fsdp.stats.get("all_gather", [0, 0.0, 0])[2] * data_axis
+        wire += ring_bytes(fsdp.stats, data_axis)
+        stats.update({f"fsdp_{op}": row for op, row in fsdp.stats.items()})
+    if data_axis > 1 and splits:
         # the logits' all-gather over the batch ranks: (B / data, V) f32
         batch_stats = {"all_gather": [1, 0.0, 4 * batch * cfg.vocab_size]}
-        wire += (ring_bytes(fsdp.stats, data_axis)
-                 + ring_bytes(batch_stats, data_axis))
-        stats.update({f"fsdp_{op}": row for op, row in fsdp.stats.items()})
+        wire += ring_bytes(batch_stats, data_axis)
         stats.update({f"batch_{op}": row for op, row in batch_stats.items()})
+    if kv_seq is not None:
+        wire += ring_bytes(kv_seq.stats, data_axis)
+        stats.update({f"kv_seq_{op}": row
+                      for op, row in kv_seq.stats.items()})
     # model_flops counts prefill tokens; a decode step's seq_len is its
     # cache's depth in tokens
     seq = positions if kind == "prefill" else max_len - patches
@@ -394,9 +417,19 @@ def fsdp_records() -> list[dict]:
             for data, model in FSDP_MESHES for kind in ("prefill", "decode")]
 
 
+def long_records() -> list[dict]:
+    """The ``long_500k`` cell's decode records (module docstring)."""
+
+    from repro_torch.config import get_model_config
+
+    return [lm_record(get_model_config(arch), "decode", LONG_BATCH,
+                      LONG_MAX_LEN - 1, LONG_MAX_LEN, model, data_axis=data)
+            for arch in LONG_ARCHS for data, model in FSDP_MESHES]
+
+
 def write_records(path: str) -> list[dict]:
     records = (gossip_records() + lm_records() + moe_records()
-               + mqa_records() + fsdp_records())
+               + mqa_records() + fsdp_records() + long_records())
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "a") as f:
         for r in records:

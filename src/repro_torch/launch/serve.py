@@ -11,6 +11,8 @@ of ``repro.launch.serve``).
         --batch 4 --seq-len 448 --steps 8 [--device cpu]
     python -m repro_torch.launch.serve --arch granite-34b --tp 4 \
         --batch 32 --seq-len 32768 --steps 16 [--device cpu]
+    python -m repro_torch.launch.serve --arch zamba2-2.7b \
+        --shape long_500k --data 2 --tp 2 --steps 8 [--device cpu]
 
 As the reference does, it runs ``--steps`` decode steps of
 ``make_serve_step`` from a zero cache at position ``seq_len - 1``,
@@ -32,17 +34,23 @@ FSDP on over the data ranks (``MeshConfig.fsdp``, the reference's
 default) unless ``--no-fsdp``, the batch cut over ``pod x data``, and the
 ``Ctx`` built as the reference builds it (``dp`` the batch axes, a MoE
 arch's experts padded to a multiple of ``--tp`` and combined by the psum
-form).  The dense, VLM and MoE families (MLA's included) serve data
-parallel; the others, and a batch that does not split over ``pod x
-data``, are refused naming their ROADMAP item
+form).  The dense, VLM, MoE, SSM and hybrid families serve data
+parallel.  A batch that does not split over ``pod x data`` (``--shape
+long_500k``: B = 1 at 524,288 positions, mamba2-780m's and zamba2-2.7b's
+cell) runs whole on every rank, and the rules cut its KV caches' positions
+over the data ranks; the encoder-decoder family on data ranks and MLA at
+such a batch are refused naming their ROADMAP item
 (``train/shard.py::check_mesh``).  The ranks are ``launch/gossip.py``'s
 ``run_on_grid``: one card a rank (``nccl``) where the machine has that
 many cards, else all on one card (``gloo``, collectives staged through
 the host).  Each rank's parameter and cache bytes are printed beside the
 one process's and beside ``--no-fsdp``'s (``shard_nbytes`` of the
-specs).  Rank 0 times its collectives (the card synchronised around
-each): its model group's, its FSDP gathers (one a unit) and the logits'
-gather over its batch group, in calls, bytes and seconds a step, over all
+specs), and its cache's KV and SSM-state bytes beside the one process's.
+Rank 0 times its collectives (the card synchronised around each): its
+model group's, its FSDP gathers (one a unit), the partial softmax's
+all-reduces over its data group where the KV positions are cut on
+``"data"`` and the logits' gather over its batch group, in calls, bytes
+and seconds a step, over all
 steps and over the steps after the first (in which ``nccl`` makes its
 communicators); on a card one more step runs, rank 0's under the
 profiler, for its device busy share.  ``--seq-len`` and ``--batch`` cut
@@ -72,8 +80,9 @@ from repro_torch.launch.gossip import pick_backend, run_on_grid
 from repro_torch.launch.lm_engine import make_serve_step
 from repro_torch.models import Ctx, build_model
 from repro_torch.models.api import cache_specs, param_specs, tp_refusal
+from repro_torch.optim.optimizers import tree_map_with_path
 from repro_torch.train import sharding as S
-from repro_torch.train.shard import (check_mesh, dp_size, init_shard,
+from repro_torch.train.shard import (check_mesh, init_shard,
                                      rank_cache_pspecs, shard_nbytes)
 
 SEED = 0
@@ -109,24 +118,35 @@ def busy_share(fn, device) -> dict:
     return {"wall_ms": 1e3 * wall, "busy": busy_us / (1e6 * wall)}
 
 
+def _groups(info) -> dict:
+    """A step's rank's groups other than its model group, by the prefix
+    of their ops in ``collectives``."""
+
+    ctx = info["model"].ctx
+    return {"fsdp": ctx.fsdp, "kv_seq": ctx.kv_seq,
+            "batch": info["grid"].batch}
+
+
 def collectives(info) -> dict:
     """The rank's collective records by op: its model group's
-    (``TP.stats``), its FSDP gathers (``"fsdp_all_gather"``) and the
-    logits' gather over its batch group (``"batch_all_gather"``)."""
+    (``TP.stats``), its FSDP gathers (``"fsdp_all_gather"``), the partial
+    softmax's over its data group (``"kv_seq_all_reduce"``,
+    ``"kv_seq_all_reduce_max"``) and the logits' gather over its batch
+    group (``"batch_all_gather"``)."""
 
-    ctx, batch = info["model"].ctx, info["grid"].batch
-    out = {} if ctx.tp is None else dict(ctx.tp.stats)
-    for name, tp in (("fsdp", ctx.fsdp), ("batch", batch)):
-        if tp is not None:
-            out.update({f"{name}_{op}": row for op, row in tp.stats.items()})
+    tp = info["model"].ctx.tp
+    out = {} if tp is None else dict(tp.stats)
+    for name, group in _groups(info).items():
+        if group is not None:
+            out.update({f"{name}_{op}": row
+                        for op, row in group.stats.items()})
     return out
 
 
 def set_timed(info, on: bool) -> None:
     """Set ``timed`` on every group of a step's rank (``collectives``)."""
 
-    ctx = info["model"].ctx
-    for tp in (ctx.tp, ctx.fsdp, info["grid"].batch):
+    for tp in (info["model"].ctx.tp, *_groups(info).values()):
         if tp is not None:
             tp.timed = on
 
@@ -149,7 +169,7 @@ def serve_rank(rank, device, cfg, shape: ShapeConfig, mesh_cfg: MeshConfig,
     step, info = make_serve_step(model, group, mesh_cfg, shape)
     params = init_shard(SEED, cfg, ctx, mesh_cfg, rank, device)
     set_timed(info, rank == 0)
-    cache = info["model"].init_cache(shape.global_batch // dp_size(mesh_cfg),
+    cache = info["model"].init_cache(info["grid"].rows(shape.global_batch),
                                      info["max_len"])
     tok = torch.zeros(shape.global_batch, dtype=torch.int32, device=device)
     cuda = device.type == "cuda"
@@ -179,8 +199,33 @@ def serve_rank(rank, device, cfg, shape: ShapeConfig, mesh_cfg: MeshConfig,
             "collectives": collectives(info),
             "collectives_first_step": first,
             "param_bytes": _nbytes(params), "cache_bytes": _nbytes(cache),
+            "cache_parts": cache_parts(cache, lambda x: x.numel()
+                                       * x.element_size()),
             "peak_bytes": torch.cuda.max_memory_allocated(device)
             if cuda else None}
+
+
+# an SSM state's leaves (``SSMState``); every other cache leaf is an
+# attention cache's (k and v, MLA's latents, whisper's cross k and v)
+STATE_LEAVES = ("h", "conv_x", "conv_B", "conv_C")
+
+
+def cache_parts(cache, nbytes, specs=None) -> dict:
+    """``{"kv": bytes, "state": bytes}`` of a cache tree: ``nbytes(leaf)``
+    or, with ``specs``, ``nbytes(leaf, spec)``, summed over its attention
+    caches' leaves and its SSM states' leaves."""
+
+    out = {"kv": 0, "state": 0}
+
+    def visit(path, x, *spec):
+        out["state" if S.leaf_name(path) in STATE_LEAVES
+            else "kv"] += nbytes(x, *spec)
+
+    if specs is None:
+        tree_map_with_path(visit, cache)
+    else:
+        tree_map_with_path(visit, cache, specs)
+    return out
 
 
 def serving_ctx(cfg, mesh_cfg: MeshConfig) -> Ctx:
@@ -197,7 +242,9 @@ def rank_bytes(cfg, shape: ShapeConfig, mesh_cfg: MeshConfig,
                cache_dtype=torch.bfloat16) -> dict:
     """A rank's bytes of parameters and cache by the specs (``meta``;
     nothing is allocated): at ``mesh_cfg``, without FSDP, and in one
-    process, each ``(parameter bytes, cache bytes)``."""
+    process, each ``(parameter bytes, cache bytes)``; and under
+    ``"parts"`` the cache's ``cache_parts`` at ``mesh_cfg`` and in one
+    process (``{"grid": ..., "one": ...}``)."""
 
     ctx = dataclasses.replace(serving_ctx(cfg, mesh_cfg),
                               cache_dtype=cache_dtype)
@@ -215,6 +262,10 @@ def rank_bytes(cfg, shape: ShapeConfig, mesh_cfg: MeshConfig,
             cfg, shape, mc, cshapes))
         out[key] = (shard_nbytes(shapes, pspecs, mc),
                     shard_nbytes(cshapes, cspecs, mc))
+        if key != "no_fsdp":
+            out.setdefault("parts", {})[key] = cache_parts(
+                cshapes, lambda x, spec, mc=mc: shard_nbytes(x, spec, mc),
+                cspecs)
     return out
 
 
@@ -272,13 +323,18 @@ def main(argv=None) -> dict:
                             shape, mesh_cfg, args.steps, device=device.type)
     reckoned = rank_bytes(cfg, shape, mesh_cfg)
     (one_p, one_c), (nf_p, nf_c) = reckoned["one"], reckoned["no_fsdp"]
+    one_parts = reckoned["parts"]["one"]
     for r, res in enumerate(ranks):
         peak = ("n/a" if res["peak_bytes"] is None
                 else f"{res['peak_bytes'] / 2**30:.2f} GiB")
+        parts = res["cache_parts"]
         print(f"[serve] rank {r}: parameters {_gb(res['param_bytes'])} "
               f"(one process: {_gb(one_p)}, --no-fsdp: {_gb(nf_p)}), cache "
               f"{_gb(res['cache_bytes'])} (one process: {_gb(one_c)}, "
-              f"--no-fsdp: {_gb(nf_c)}), peak {peak}", flush=True)
+              f"--no-fsdp: {_gb(nf_c)}): KV {_gb(parts['kv'])} (one "
+              f"process: {_gb(one_parts['kv'])}), SSM state "
+              f"{_gb(parts['state'])} (one process: "
+              f"{_gb(one_parts['state'])}); peak {peak}", flush=True)
     dt, step_s = ranks[0]["seconds"], sorted(ranks[0]["step_seconds"])
     print(f"[serve] greedy tokens (step x batch): {ranks[0]['tokens']}",
           flush=True)

@@ -128,9 +128,9 @@ def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
     given to ``loss``/``prefill``/``decode`` are moved to the device:
     tokens and targets as ``long``, frames and patches in their own float
     dtype.  Under ``ctx.tp`` the model serves a rank's shards (any family;
-    ``tp_refusal`` names the head counts it refuses), under ``ctx.fsdp``
-    and ``ctx.dp`` a data-parallel rank's; its ``loss`` raises then
-    (training on the rank grid is not ported).
+    ``tp_refusal`` names the head counts it refuses), under ``ctx.fsdp``,
+    ``ctx.dp`` and ``ctx.kv_seq`` a data-parallel rank's; its ``loss``
+    raises then (training on the rank grid is not ported).
     """
 
     fam = cfg.family
@@ -142,7 +142,8 @@ def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
     reason = tp_refusal(cfg, ctx.tp_size)
     if reason:
         raise NotImplementedError(reason)
-    if ctx.tp_size > 1 or ctx.fsdp is not None or ctx.dp:
+    if (ctx.tp_size > 1 or ctx.fsdp is not None or ctx.dp
+            or ctx.kv_seq is not None):
         def loss(*_):
             raise NotImplementedError(
                 "tensor-parallel, data-parallel and FSDP training on the "
@@ -177,10 +178,12 @@ def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
 
 
 def _on_meta(model: Model) -> Model:
-    """``model`` built on the ``meta`` device without its TP group, so its
-    trees have their global shapes and allocate nothing."""
+    """``model`` built on the ``meta`` device without its TP group and its
+    KV positions' group, so its trees have their global shapes and
+    allocate nothing."""
 
-    return build_model(model.cfg, dataclasses.replace(model.ctx, tp=None),
+    return build_model(model.cfg, dataclasses.replace(model.ctx, tp=None,
+                                                      kv_seq=None),
                        device="meta")
 
 

@@ -17,22 +17,28 @@ returns its partial sum of the row-parallel ``wo`` product, which the
 caller all-reduces.  Where its KV heads are its own too (the rules cut
 the cache on its heads), the same code runs its local heads, the GQA
 group unchanged.  Where they are not (MQA/GQA whose KV heads do not
-divide the ranks), the caller passes a ``KVShard``:
+divide the ranks), or where the rules cut the cache's positions, the
+caller passes a ``KVShard``:
 
 * a rank whose ``wk``/``wv`` hold a part of the k/v columns (the rules cut
   them in parts of a head) all-gathers k and v whole before the rotation,
   which pairs column i with column i + D/2; a rank with ``wk`` whole
   computes them whole;
-* the prefill runs the rank's query heads against the KV heads they read
-  (``_rank_kv``) and writes the positions of its cache: all of them where
-  the cache is whole, ``[rank·Lr, (rank+1)·Lr)`` where the rules cut it on
-  its sequence (``Lr`` the rank's length);
+* a rank whose KV heads are not its own runs its query heads against the
+  KV heads they read (``_rank_kv``);
+* where the rules cut the cache on its sequence, over the model group
+  (the KV heads do not divide it) or over the rank's data group (a batch
+  that does not split, ``long_500k``), the group's rank ``s`` of ``n``
+  holds positions ``[s·Lr, (s+1)·Lr)`` (``Lr = Lmax / n``): the prefill
+  computes the whole prompt and writes the prompt's positions among them;
 * a decode step over a sequence-cut cache is a masked partial softmax:
-  only the rank that owns ``pos`` writes it; q is all-gathered (every
-  head against the rank's keys), the logits' maxima are all-reduced, then
-  the sums of ``exp(l - m)``; ``p = exp(l - m) / s`` is rounded to the
-  cache dtype as the reference rounds its normalised softmax, and the
-  partial P·V products are summed over the ranks (``softmax_pv``).  A
+  only the rank that owns ``pos`` writes it; where the positions' group
+  is the model group, q is all-gathered (every head against the rank's
+  keys), and where it is the data group the rank's own heads are all it
+  needs; the logits' maxima are all-reduced over the positions' group,
+  then the sums of ``exp(l - m)``; ``p = exp(l - m) / s`` is rounded to
+  the cache dtype as the reference rounds its normalised softmax, and the
+  partial P·V products are summed over the group (``softmax_pv``).  A
   slice wholly masked gives ``exp(-1e30 - m) = 0``: the rank that owns
   ``pos`` always holds a live key, so ``m`` is a real logit.
 """
@@ -57,15 +63,25 @@ class KVCache(NamedTuple):
 
 class KVShard(NamedTuple):
     """A rank's view of K/V where its KV heads are not its own (the rules'
-    cache layout ``"sequence"`` or ``"whole"``,
-    ``train/shard.py::kv_cache_layout``): its group, whether its
-    ``wk``/``wv`` hold a part of the k/v columns (then k and v are
-    all-gathered), and whether its cache holds the rank's slice of the
-    positions.  The rank's query heads are its own ``H / tp.size``."""
+    ``"model"`` layout ``"sequence"`` or ``"whole"``,
+    ``train/shard.py::kv_cache_layout``) or its cache holds a slice of
+    the positions: ``tp``, its model group where its KV heads are not its
+    own (``None`` where they are); ``gather``, whether its ``wk``/``wv``
+    hold a part of the k/v columns (then k and v are all-gathered over
+    ``tp``); ``seq``, the group whose ranks hold the slices of the
+    positions (``tp`` itself, the rank's data group, or ``None``: every
+    position).  The rank's query heads are its own."""
 
-    tp: L.TP
+    tp: L.TP | None
     gather: bool
-    seq: bool
+    seq: L.TP | None
+
+    @property
+    def gather_q(self) -> bool:
+        """Whether a decode step gathers every rank's query heads: the
+        positions are cut over the group that also cuts the heads."""
+
+        return self.seq is not None and self.seq is self.tp
 
 
 def _attend(q, k, v, impl, *, causal, window=0, softcap=0.0, q_offset=0):
@@ -169,7 +185,7 @@ def _self_attention(params, x, *, head_dim, causal, window, attn_softcap,
     positions = torch.arange(Lx, device=x.device)
     q = L.apply_rope(q, positions, rope_theta)
     k = L.apply_rope(k, positions, rope_theta)
-    kr, vr = (k, v) if kv is None else (
+    kr, vr = (k, v) if kv is None or kv.tp is None else (
         t.contiguous() for t in _rank_kv(k, v, kv, q.shape[1]))
     o = _attend(q, kr, vr, impl, causal=causal, window=window,
                 softcap=attn_softcap)
@@ -205,19 +221,19 @@ def attention_prefill(params, x, max_len, *, head_dim, window=0,
     out, k, v = _self_attention(
         params, x, head_dim=head_dim, causal=True, window=window,
         attn_softcap=attn_softcap, rope_theta=rope_theta, impl=impl, kv=kv)
-    seq = kv is not None and kv.seq
+    seq = None if kv is None else kv.seq
     if cache is None:
         cache = init_cache(B, k.shape[1], seq_len_of_rank(max_len, kv),
                            head_dim, cache_dtype, x.device)
-    if not seq:
+    if seq is None:
         cache.k[..., :Lx, :] = k
         cache.v[..., :Lx, :] = v
         return out, cache
     n = cache.k.shape[-2]
-    if Lx > n * kv.tp.size:
-        raise ValueError(f"a prompt of {Lx} does not fit {kv.tp.size} "
+    if Lx > n * seq.size:
+        raise ValueError(f"a prompt of {Lx} does not fit {seq.size} "
                          f"slices of {n} positions")
-    lo = kv.tp.rank * n
+    lo = seq.rank * n
     hi = min(Lx, lo + n)
     if hi > lo:
         cache.k[..., :hi - lo, :] = k[:, :, lo:hi]
@@ -229,13 +245,13 @@ def seq_len_of_rank(max_len: int, kv: KVShard | None) -> int:
     """The positions a rank's KV cache holds: ``max_len``, or its slice of
     them where the cache is cut on its sequence."""
 
-    if kv is None or not kv.seq:
+    if kv is None or kv.seq is None:
         return max_len
-    if max_len % kv.tp.size:
+    if max_len % kv.seq.size:
         raise ValueError(f"the rules cut the KV cache on its sequence, but "
                          f"max_len {max_len} does not split over "
-                         f"{kv.tp.size} ranks")
-    return max_len // kv.tp.size
+                         f"{kv.seq.size} ranks")
+    return max_len // kv.seq.size
 
 
 def init_cache(batch, num_kv_heads, max_len, head_dim, dtype=torch.bfloat16,
@@ -302,26 +318,27 @@ def decode_attention(params, x, cache: KVCache, pos, *, head_dim, window=0,
     (out (B, 1, d), cache)."""
 
     B = x.shape[0]
-    seq = kv is not None and kv.seq
-    q, k, v = _project_qkv(params, x, head_dim, kv, gather_q=seq)
+    seq = None if kv is None else kv.seq
+    gather_q = kv is not None and kv.gather_q
+    q, k, v = _project_qkv(params, x, head_dim, kv, gather_q=gather_q)
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)
     q = L.apply_rope(q, posv, rope_theta)
     k = L.apply_rope(k, posv, rope_theta)
     ck, cv = cache
     n = ck.shape[2]
-    lo = kv.tp.rank * n if seq else 0
+    lo = 0 if seq is None else seq.rank * n
     if lo <= pos < lo + n:
         ck[:, :, pos - lo:pos - lo + 1] = k
         cv[:, :, pos - lo:pos - lo + 1] = v
-    heads = q.shape[1] // (kv.tp.size if seq else 1)
-    if kv is not None and not seq:
+    heads = q.shape[1] // (kv.tp.size if gather_q else 1)
+    if kv is not None and kv.tp is not None and not gather_q:
         ck, cv = _rank_kv(ck, cv, kv, heads)
     logits = decode_logits(q, ck, lo + torch.arange(n, device=x.device), pos,
                            head_dim=head_dim, window=window,
                            attn_softcap=attn_softcap)
-    o = softmax_pv(logits, cv, tp_reduce(kv.tp) if seq else None)
+    o = softmax_pv(logits, cv, None if seq is None else tp_reduce(seq))
     o = o.to(x.dtype).reshape(B, q.shape[1], head_dim)
-    if seq:
+    if gather_q:
         # the rank's own heads, for its rows of the row-parallel wo
         o = o[:, kv.tp.rank * heads:(kv.tp.rank + 1) * heads]
     return L.linear(o.reshape(B, 1, heads * head_dim), params["wo"]), cache

@@ -34,6 +34,18 @@ columns only where the query and KV head counts are equal
 (``models/api.py::tp_refusal`` refuses the others), and the Mamba layers'
 pre-norm weights (``mamba.norm``) on ``d_model``: a unit's are
 all-gathered once, since every rank normalises the whole hidden state.
+
+FSDP and a batch that does not split (``ctx.fsdp``, ``ctx.kv_seq``; a
+rank of a ``pod x data x model`` grid, ``launch/lm_engine.py``): a step
+gathers the shared block's leaves the rules split on ``"data"`` (its
+attention and MLP) over the rank's FSDP group once, and keeps them for
+the step's invocations; each unit's own leaves (``w_cat``, ``lora_a``
+and its Mamba layers' projections) in one all-gather a unit, just before
+the unit runs.  Where the batch does not split, every rank runs it whole,
+its Mamba states are its heads' (whole over ``"data"``: each data rank
+updates its own identical copy) and each invocation's KV cache holds the
+rank's heads over its data group's slice of the positions, decoded by the
+masked partial softmax (``models/attention.py``).
 """
 
 from __future__ import annotations
@@ -45,7 +57,8 @@ from repro_torch.config import ModelConfig
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
-from repro_torch.models.transformer import Ctx, _dtype, _index
+from repro_torch.models.transformer import (Ctx, _dtype, _index,
+                                           _kv_shard, _unit, _whole)
 
 _LORA_RANK = 8
 
@@ -210,7 +223,8 @@ def hybrid_init_cache(cfg: ModelConfig, ctx: Ctx, batch: int, max_len: int,
         "ssm": SSM.init_ssm_state(batch, cfg.d_model, cfg.ssm,
                                   ctx.cache_dtype, device,
                                   (n, cfg.shared_attn_every), ctx.tp),
-        "kv": A.init_cache(batch, _kv_heads(cfg, ctx), max_len,
+        "kv": A.init_cache(batch, _kv_heads(cfg, ctx),
+                           A.seq_len_of_rank(max_len, _kv_shard(cfg, ctx)),
                            cfg.resolved_head_dim, ctx.cache_dtype, device,
                            (n,)),
     }
@@ -221,15 +235,16 @@ def hybrid_decode_step(params, cache, token, pos, cfg: ModelConfig,
     """token: (B,) int; pos: int.  Writes position ``pos`` of the KV caches
     and the SSM states in place; returns (logits (B, V), cache)."""
 
-    tp = ctx.tp
+    tp, kv = ctx.tp, _kv_shard(cfg, ctx)
+    shared = _whole(params, "shared", ctx)   # gathered once a step
     x = _embed(params, token[:, None], tp)
     x0 = x
     for n in range(_n_units(cfg)):
-        unit = _index(params["units"], n)
-        h, h_in, attn_p = _shared_in(params["shared"], unit, x, x0, cfg, tp)
+        unit = _unit(params, n, ctx)   # its FSDP leaves whole
+        h, h_in, attn_p = _shared_in(shared, unit, x, x0, cfg, tp)
         h1, _ = A.decode_attention(attn_p, h_in, _index(cache["kv"], n), pos,
-                                   **_attn_kw(cfg))
-        x = _shared_out(params["shared"], x, h, h1, cfg, tp)
+                                   kv=kv, **_attn_kw(cfg))
+        x = _shared_out(shared, x, h, h1, cfg, tp)
         states = _index(cache["ssm"], n)
         norms = _mamba_norms(unit, tp)
         for j in range(cfg.shared_attn_every):
@@ -238,6 +253,7 @@ def hybrid_decode_step(params, cache, token, pos, cfg: ModelConfig,
                 lp["ssm"], L.rms_norm(x, norms[j], cfg.norm_eps),
                 _index(states, j), cfg.ssm, cfg.d_model, tp)
             x = x + h
+        del unit
     h = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, h[:, 0], tp), cache
 
@@ -245,23 +261,25 @@ def hybrid_decode_step(params, cache, token, pos, cfg: ModelConfig,
 def hybrid_prefill(params, tokens, max_len, cfg: ModelConfig, ctx: Ctx):
     """tokens (B, L) -> (last-position logits (B, V), cache for decode)."""
 
-    tp = ctx.tp
+    tp, kv_shard = ctx.tp, _kv_shard(cfg, ctx)
+    shared = _whole(params, "shared", ctx)   # gathered once a step
     x = _embed(params, tokens, tp)
     x0 = x
     n_units = _n_units(cfg)
-    kv = A.init_cache(tokens.shape[0], _kv_heads(cfg, ctx), max_len,
+    kv = A.init_cache(tokens.shape[0], _kv_heads(cfg, ctx),
+                      A.seq_len_of_rank(max_len, kv_shard),
                       cfg.resolved_head_dim, ctx.cache_dtype, x.device,
                       (n_units,))
     states = []
     for n in range(n_units):
-        unit = _index(params["units"], n)
-        h, h_in, attn_p = _shared_in(params["shared"], unit, x, x0, cfg, tp)
+        unit = _unit(params, n, ctx)   # its FSDP leaves whole
+        h, h_in, attn_p = _shared_in(shared, unit, x, x0, cfg, tp)
         h1, _ = A.attention_prefill(
             attn_p, h_in, max_len, impl=ctx.attn_impl,
-            cache_dtype=ctx.cache_dtype, cache=_index(kv, n),
+            cache_dtype=ctx.cache_dtype, cache=_index(kv, n), kv=kv_shard,
             **_attn_kw(cfg))
         del h_in
-        x = _shared_out(params["shared"], x, h, h1, cfg, tp)
+        x = _shared_out(shared, x, h, h1, cfg, tp)
         del h, h1
         unit_states = []
         norms = _mamba_norms(unit, tp)
@@ -273,6 +291,7 @@ def hybrid_prefill(params, tokens, max_len, cfg: ModelConfig, ctx: Ctx):
             x = x + hm
             unit_states.append(st)
         states.append(SSM.stack_states(unit_states))
+        del unit
     h = L.rms_norm(x[:, -1], params["final_norm"], cfg.norm_eps)
     return _logits(params, h, tp), {"ssm": SSM.stack_states(states),
                                     "kv": kv}

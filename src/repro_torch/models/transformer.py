@@ -45,11 +45,14 @@ as the JAX launcher's ``ep_axis="model"``).
 
 Data parallelism and FSDP (``Ctx.dp``, ``Ctx.fsdp``): a rank of a ``pod x
 data x model`` grid runs its batch slice (``launch/lm_engine.py`` cuts
-it), and where the rules split weights on ``"data"`` it gathers them
-whole over its FSDP group just before the unit, head sublayer or VLM
-projector that reads them (``_unit``, ``_whole``) and drops them after:
-one all-gather a unit.  The training loop (``lm_hidden_train``) takes
-no gather: a rank's model refuses ``loss``.  The JAX package's one-hot
+it), or the whole batch where it does not split, its KV caches then cut
+on their positions over its data group (``Ctx.kv_seq``, decoded by the
+masked partial softmax), and where the rules split weights on
+``"data"`` it gathers them whole over its FSDP group just before the
+unit, head sublayer or VLM projector that reads them (``_unit``,
+``_whole``) and drops them after: one all-gather a unit.  The training
+loop (``lm_hidden_train``) takes no gather: a rank's model refuses
+``loss``.  The JAX package's one-hot
 embedding has no twin: ``models/api.py`` refuses the families and specs
 this does not cover.
 """
@@ -92,7 +95,11 @@ class Ctx:
     (the steps of ``launch/lm_engine.py`` take the rank's slice before
     the model runs, so its layers see that slice and need no collective
     for it), and the rank's FSDP group (``fsdp``, ``layers.FSDP``), over
-    which it gathers each unit's weights just before running it."""
+    which it gathers each unit's weights just before running it; and
+    ``kv_seq``, the group of the data ranks of its pod at its model
+    coordinate where the rules cut the KV caches' positions on
+    ``"data"`` (a batch that does not split: every rank holds it whole,
+    and its KV cache a slice of the positions)."""
 
     attn_impl: str = "ref"
     remat: bool = False
@@ -102,6 +109,7 @@ class Ctx:
     moe_impl: str = "psum"             # psum | a2a (EP combine strategy)
     dp: Optional[tuple] = None         # activation batch axes, e.g. ("pod","data")
     fsdp: Optional[L.FSDP] = dataclasses.field(default=None, compare=False)
+    kv_seq: Optional[L.TP] = dataclasses.field(default=None, compare=False)
 
     @property
     def tp_size(self) -> int:
@@ -242,23 +250,31 @@ def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
 
 def _kv_shard(cfg: ModelConfig, ctx: Ctx) -> A.KVShard | None:
     """The attention's view of K/V on this rank where its KV heads are not
-    its own (``ctx.tp.kv_cache`` ``"sequence"`` or ``"whole"``), else
-    ``None``.  A rank told its KV heads are its own whose KV heads do not
-    divide the ranks is refused: its cache layout must come from the
-    specs (``launch/lm_engine.py``), never be guessed."""
+    its own (``ctx.tp.kv_cache`` ``"sequence"`` or ``"whole"``) or its
+    cache holds a slice of the positions (``"sequence"``, or
+    ``ctx.kv_seq``), else ``None``.  A rank told its KV heads are its own
+    whose KV heads do not divide the ranks is refused: its cache layout
+    must come from the specs (``launch/lm_engine.py``), never be
+    guessed."""
 
-    tp = ctx.tp
-    if tp is None or tp.size == 1:
-        return None
-    if tp.kv_cache == "heads":
-        if cfg.num_kv_heads % tp.size:
+    tp = ctx.tp if ctx.tp is not None and ctx.tp.size > 1 else None
+    seq = ctx.kv_seq if ctx.kv_seq is not None and ctx.kv_seq.size > 1 \
+        else None
+    if tp is None or tp.kv_cache == "heads":
+        if tp is not None and cfg.num_kv_heads % tp.size:
             raise ValueError(
                 f"{cfg.num_kv_heads} KV heads do not split over {tp.size} "
                 "ranks, but the rank's TP holds its KV cache by heads: "
                 "build it with the layout of the rules' cache specs "
                 "(train/shard.py::kv_cache_layout)")
-        return None
-    return A.KVShard(tp, "attn.wk" in tp.split, tp.kv_cache == "sequence")
+        return None if seq is None else A.KVShard(None, False, seq)
+    if tp.kv_cache == "sequence":
+        if seq is not None:
+            raise ValueError("the KV positions are cut over the model "
+                             "group and over the data group at once; the "
+                             "rules cut them on one axis")
+        seq = tp
+    return A.KVShard(tp, "attn.wk" in tp.split, seq)
 
 
 def _heads(cfg: ModelConfig, ctx: Ctx) -> int:
@@ -461,7 +477,8 @@ def _sublayer_cache(cfg: ModelConfig, sl: SubLayer, ctx: Ctx, batch: int,
     # a rank's KV heads where they are its own (``"heads"``); else every
     # KV head, over its slice of the positions where the rules cut them
     kv = _kv_shard(cfg, ctx)
-    kv_tp = L.sharded(ctx.tp, "attn.wk") if kv is None else None
+    kv_tp = L.sharded(ctx.tp, "attn.wk") if kv is None or kv.tp is None \
+        else None
     kv_heads = cfg.num_kv_heads // (kv_tp.size if kv_tp else 1)
     return A.init_cache(batch, kv_heads, A.seq_len_of_rank(max_len, kv),
                         cfg.resolved_head_dim, ctx.cache_dtype, device, lead)

@@ -11,11 +11,13 @@ order, the first the slowest, as a JAX ``PartitionSpec`` cuts it.  The
 rules put ``"model"`` on the tensor-parallel dim of a weight, ``"data"``
 on its other matrix dim where FSDP is on (``MeshConfig.fsdp``), and
 ``("pod", "data")`` on the batch of the inputs and caches; ``"pod"``
-never carries weights.  ``check_mesh`` refuses what the serving ranks do
-not cover, naming its ROADMAP item: a batch that does not split over
-``pod x data`` (the rules then cut the caches' sequence on ``"data"``,
-item 6.8.2b) and the SSM, hybrid and encoder-decoder families on more
-than one ``pod x data`` rank (item 6.8.2c).
+never carries weights.  A batch that does not split over ``pod x data``
+(the ``long_500k`` cell's B = 1) stays whole on every rank, and the rules
+then cut the attention KV caches' sequence on ``"data"``.  ``check_mesh``
+refuses what the serving ranks do not cover, naming its ROADMAP item: the
+encoder-decoder family on more than one ``pod x data`` rank (item
+6.8.2c) and MLA's latent cache at a batch that does not split, which the
+rules cut on ``"data"`` (item 6.8.2e).
 
 ``fsdp_split`` names the leaves the specs split on ``"data"``, and the
 dim, by the top-level key whose subtree a rank gathers at once (the
@@ -46,9 +48,13 @@ others, after them.
 A rank's cache is cut by the rules' cache specs, except for the leaves of
 ``WHOLE_CACHE`` (``rank_cache_pspecs``).  Where the KV heads do not
 divide the model axis the rules cut the attention caches on their
-sequence (or keep them whole where the length does not divide either):
-``kv_cache_layout`` reads which from the specs, the one place the port
-decides it, and the rank's model takes it as ``TP.kv_cache``.
+sequence (or keep them whole where the length does not divide either),
+and at a batch that does not split they cut the sequence on ``"data"``
+where ``"model"`` left it whole: ``kv_cache_layout`` reads both from the
+specs, axis by axis, the one place the port decides them.  The rank's
+model takes the ``"model"`` layout as ``TP.kv_cache`` and a ``"data"``
+cut as ``Ctx.kv_seq``, the group of the data ranks of its pod at its
+model coordinate; the pods hold the same positions.
 """
 
 from __future__ import annotations
@@ -68,24 +74,24 @@ from repro_torch.optim.optimizers import tree_leaves, tree_map_with_path
 from repro_torch.train import sharding as S
 
 GRID_ITEM = "ROADMAP.md queue 1, item 6.8.2"
-BATCH_REASON = (
-    "a batch of {batch} does not split over the {dp} pod x data ranks: "
-    "the sharding rules then keep the batch whole and cut the KV caches' "
-    "and MLA latents' sequence on 'data' (the long_500k cell), which "
-    "needs a masked partial softmax over the FSDP group; not ported "
-    f"({GRID_ITEM}b)")
 FAMILY_REASON = (
     "the {family} family on {dp} pod x data ranks: the port serves the "
-    "families of models/transformer.py (dense, VLM, MoE, MLA) data "
-    "parallel; the SSM, hybrid and encoder-decoder families serve on the "
-    f"model axis only ({GRID_ITEM}c)")
-DATA_PARALLEL_FAMILIES = ("dense", "vlm", "moe")
+    "dense, VLM, MoE, SSM and hybrid families data parallel; the "
+    "encoder-decoder serves on the model axis only "
+    f"({GRID_ITEM}c)")
+MLA_REASON = (
+    "MLA's latent cache at a batch of {batch}, which does not split over "
+    "the {dp} pod x data ranks: the sharding rules then cut c_kv and "
+    "k_rope on their sequence over 'data', and the port's MLA decode "
+    f"holds its latent cache whole ({GRID_ITEM}e)")
+DATA_PARALLEL_FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
-# cache leaves a rank holds whole where the rules split them: Mamba2's B
-# and C conv registers, which the rules split on d_state.  A rank's
-# w_B/w_C and B/C convs are whole (the rules keep them so), so it computes
-# the whole B and C and needs their whole windows: the port holds the
-# registers whole on every rank and updates them redundantly
+# cache leaves a rank holds whole over "model" where the rules split them
+# there: Mamba2's B and C conv registers, which the rules split on
+# d_state.  A rank's w_B/w_C and B/C convs are whole (the rules keep them
+# so), so it computes the whole B and C and needs their whole windows: the
+# port holds the registers whole on every model rank and updates them
+# redundantly
 WHOLE_CACHE = ("conv_B", "conv_C")
 
 
@@ -100,8 +106,9 @@ def check_mesh(mesh_cfg: MeshConfig, cfg: ModelConfig | None = None,
     """Refuse a grid the serving ranks do not cover: a ``pod`` axis off a
     multi-pod mesh (``ValueError``: the reference's mesh has none), and,
     on more than one ``pod x data`` rank, a family other than
-    ``DATA_PARALLEL_FAMILIES`` (item 6.8.2c) or a ``batch`` that does not
-    split over those ranks (item 6.8.2b)."""
+    ``DATA_PARALLEL_FAMILIES`` (item 6.8.2c) or an MLA model at a
+    ``batch`` that does not split over those ranks (item 6.8.2e).  Any
+    other batch that does not split is served whole on every rank."""
 
     sizes = (mesh_cfg.pod, mesh_cfg.data, mesh_cfg.model)
     if min(sizes) < 1:
@@ -111,13 +118,21 @@ def check_mesh(mesh_cfg: MeshConfig, cfg: ModelConfig | None = None,
         raise ValueError(f"pod = {mesh_cfg.pod} on a mesh without its pod "
                          "axis: set multi_pod=True, as multi_pod_config does")
     dp = dp_size(mesh_cfg)
-    if dp == 1:
+    if dp == 1 or cfg is None:
         return
-    if cfg is not None and cfg.family not in DATA_PARALLEL_FAMILIES:
+    if cfg.family not in DATA_PARALLEL_FAMILIES:
         raise NotImplementedError(FAMILY_REASON.format(family=cfg.family,
                                                        dp=dp))
-    if batch is not None and batch % dp:
-        raise NotImplementedError(BATCH_REASON.format(batch=batch, dp=dp))
+    if cfg.mla is not None and batch is not None and batch % dp:
+        raise NotImplementedError(MLA_REASON.format(batch=batch, dp=dp))
+
+
+def batch_splits(mesh_cfg: MeshConfig, batch: int) -> bool:
+    """Whether the rules cut a batch of ``batch`` over the ``pod x data``
+    ranks (``batch_pspecs``, ``cache_pspecs_tree``); where it does not,
+    every rank holds it whole."""
+
+    return batch % dp_size(mesh_cfg) == 0
 
 
 def grid_coords(mesh_cfg: MeshConfig, rank: int) -> dict[str, int]:
@@ -276,12 +291,20 @@ def shard_params(params, pspecs, mesh_cfg: MeshConfig, rank: int):
     return tree_map_with_path(leaf, params, pspecs)
 
 
+def _off_model(entry):
+    """A spec entry without the ``"model"`` axis."""
+
+    axes = tuple(a for a in _axes(entry) if a != "model")
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
 def rank_cache_pspecs(cshapes, cspecs):
     """The specs a rank holds its cache of ``cshapes`` by: the rules'
-    (``cache_pspecs_tree``), with the leaves of ``WHOLE_CACHE`` whole."""
+    (``cache_pspecs_tree``), with the leaves of ``WHOLE_CACHE`` whole
+    over ``"model"`` (their batch still cut over ``pod x data``)."""
 
     return tree_map_with_path(
-        lambda path, _, spec: S.P(*[None] * len(spec))
+        lambda path, _, spec: S.P(*map(_off_model, spec))
         if S.leaf_name(path) in WHOLE_CACHE else spec, cshapes, cspecs)
 
 
@@ -289,28 +312,33 @@ def rank_cache_pspecs(cshapes, cspecs):
 KV_LEAVES = ("k", "v")
 
 
-def kv_cache_layout(cshapes, cspecs) -> str:
-    """How a rank holds its attention KV caches under ``cspecs`` (the
-    steps' ``info["cspecs"]``): ``"heads"`` where the specs put
-    ``"model"`` on their KV heads, ``"sequence"`` where on their positions
+def kv_cache_layout(cshapes, cspecs, axis: str = "model") -> str:
+    """How the rules' ``cspecs`` (the steps' ``info["cspecs"]``) cut the
+    attention KV caches on ``axis``.  On ``"model"``: ``"heads"`` where
+    they put it on their KV heads, ``"sequence"`` where on their positions
     (the KV heads do not divide the axis: ``cache_pspecs_tree`` cuts the
     sequence instead), ``"whole"`` where on neither; ``"heads"`` for a
-    tree without KV caches.  Refuses caches laid out two ways."""
+    tree without KV caches.  On ``"data"``: ``"sequence"`` where they cut
+    the positions on it (a batch that does not split, and ``"model"``
+    left the sequence whole), else ``"whole"``.  Refuses caches laid out
+    two ways on one axis, and ``"data"`` on the KV heads."""
 
     seen = set()
 
     def visit(path, _, spec):
         if S.leaf_name(path) in KV_LEAVES:
-            on = ["model" in _axes(e) for e in spec]
+            on = [axis in _axes(e) for e in spec]
             seen.add("heads" if on[-3] else
                      "sequence" if on[-2] else "whole")
 
     tree_map_with_path(visit, cshapes, cspecs)
-    if len(seen) > 1:
+    if len(seen) > 1 or (axis == "data" and "heads" in seen):
         raise NotImplementedError(
-            f"the sharding rules cut the KV caches {sorted(seen)} ways; the "
-            "port holds one layout a model (ROADMAP.md queue 1, item 6.8)")
-    return seen.pop() if seen else "heads"
+            f"the sharding rules cut the KV caches {sorted(seen)} on "
+            f"{axis!r}; the port holds one layout a model, the heads on "
+            "'model' only (ROADMAP.md queue 1, item 6.8)")
+    return seen.pop() if seen else ("heads" if axis == "model" else
+                                     "whole")
 
 
 def shard_cache(cache, cspecs, mesh_cfg: MeshConfig, rank: int):

@@ -35,10 +35,15 @@ Held:
 * **Launcher.** ``launch.serve.main`` at ``--tp 1``, ``--data 2 --tp 2``
   and ``--multi-pod --data 1 --tp 2`` prints the same greedy tokens, and
   rank 0's FSDP gathers one a unit.
-* **Refusals.** A batch that does not split over ``pod x data`` (item
-  6.8.2b), the SSM, hybrid and encoder-decoder families on data ranks
-  (6.8.2c), experts split on their width (6.8.2d) and training on the
-  grid raise ``NotImplementedError`` naming their item.
+* **Whole batches and the other families.** A batch that does not split
+  over ``pod x data`` (B = 3 on (2, 2), B = 6 on (pod 2, data 2, model
+  1)) serves whole on every rank and matches JAX's one-device steps;
+  mamba2 and zamba2 serve on data ranks, with the tokens of one process
+  (``tests/test_torch_long_context_serve.py`` holds them against JAX).
+* **Refusals.** The encoder-decoder family on data ranks (item 6.8.2c),
+  MLA's latent cache at a batch that does not split (6.8.2e), experts
+  split on their width (6.8.2d) and training on the grid raise
+  ``NotImplementedError`` naming their item.
 """
 
 import dataclasses
@@ -107,20 +112,21 @@ def _patches(cfg):
     return cfg.num_patch_tokens if cfg.family == "vlm" else 0
 
 
-def _batch(cfg, seed=3):
+def _batch(cfg, seed=3, batch_size=B):
     rng = np.random.default_rng(seed)
-    batch = {"tokens": rng.integers(0, cfg.vocab_size, (B, PROMPT))
+    batch = {"tokens": rng.integers(0, cfg.vocab_size, (batch_size, PROMPT))
              .astype(np.int32)}
     if cfg.family == "vlm":
         batch["patches"] = rng.standard_normal(
-            (B, cfg.num_patch_tokens, 1024)).astype(np.float32)
+            (batch_size, cfg.num_patch_tokens, 1024)).astype(np.float32)
     return batch
 
 
 @functools.lru_cache(maxsize=None)
-def jax_run(arch):
+def jax_run(arch, batch_size=B):
     """JAX's prefill + STEPS greedy decode steps on a one-device mesh
-    (float32 cache): (numpy params, batch, logits per step, tokens fed)."""
+    (float32 cache) at a batch of ``batch_size``: (numpy params, batch,
+    logits per step, tokens fed)."""
 
     jcfg = j_smoke(arch)
     mcfg = JMesh(pod=1, data=1, model=1, fsdp=False)
@@ -130,11 +136,12 @@ def jax_run(arch):
     params = model.init(jax.random.PRNGKey(0))
     P = _patches(jcfg)
     max_len = P + PROMPT + STEPS
-    batch = _batch(jcfg)
+    batch = _batch(jcfg, batch_size=batch_size)
     prefill, _ = JE.make_prefill_step(
-        model, mesh, mcfg, JShape("p", PROMPT, B, "prefill"), max_len)
+        model, mesh, mcfg, JShape("p", PROMPT, batch_size, "prefill"),
+        max_len)
     decode, _ = JE.make_serve_step(
-        model, mesh, mcfg, JShape("d", max_len - P, B, "decode"))
+        model, mesh, mcfg, JShape("d", max_len - P, batch_size, "decode"))
     logits, cache = prefill(params, batch)
     out, fed = [np.asarray(logits)], []
     for i in range(STEPS):
@@ -163,12 +170,13 @@ def _case(rank, device, cfg, mesh_kw, moe_impl, params_np, batch, fed):
                                  cache_dtype=torch.float32), device=device)
     P = _patches(cfg)
     max_len = P + PROMPT + STEPS
+    Bx = batch["tokens"].shape[0]
     prefill, info = lm_engine.make_prefill_step(
         model, dist.group.WORLD, mesh_cfg,
-        ShapeConfig("p", PROMPT, B, "prefill"), max_len)
+        ShapeConfig("p", PROMPT, Bx, "prefill"), max_len)
     decode, dinfo = lm_engine.make_serve_step(
         model, dist.group.WORLD, mesh_cfg,
-        ShapeConfig("d", max_len - P, B, "decode"))
+        ShapeConfig("d", max_len - P, Bx, "decode"))
     params = shard_params(lm_params_from_numpy(params_np, device),
                           info["pspecs"], mesh_cfg, rank)
     fsdp = dinfo["model"].ctx.fsdp
@@ -211,7 +219,7 @@ def _hold(name, ranks, want, fed, steps):
     for r, res in enumerate(ranks):
         assert len(res["logits"]) == steps, (name, r)
         for step, (got, ref) in enumerate(zip(res["logits"], want)):
-            assert got.shape == (B, ref.shape[-1])
+            assert got.shape == ref.shape
             bound = LOGIT_TOL * float(np.abs(ref).max())
             err = float(np.abs(got - ref).max())
             assert err <= bound, (name, r, step, err, bound)
@@ -467,40 +475,53 @@ def _fake(size):
 
 
 @pytest.mark.parametrize("batch", [3, 6])
-def test_a_batch_that_does_not_split_is_refused(batch, monkeypatch):
-    """Item 6.8.2b: at B = 3 over 2 data ranks, and B = 6 over 2 pods x 2
-    data ranks, the rules keep the batch whole and cut the caches'
-    sequence on "data"."""
+def test_a_batch_that_does_not_split_is_refused(batch):
+    """Item 6.8.2b, now served: at B = 3 over 2 data ranks, and B = 6 over
+    2 pods x 2 data ranks, the rules keep the batch whole; every rank runs
+    it whole and matches JAX's one-device steps (at B = 6 the KV cache is
+    cut on its sequence over "data"; at B = 3 the rules take qwen's 3
+    stacked layers for the batch and cut its heads)."""
 
     cfg = get_smoke_config("qwen1.5-32b")
-    model = build_model(cfg, device="cpu")
-    mesh_cfg = (MeshConfig(data=2, model=2, fsdp=True) if batch == 3 else
-                MeshConfig(multi_pod=True, pod=2, data=2, model=1))
-    shape = ShapeConfig("d", 16, batch, "decode")
-    for make in (lm_engine.make_serve_step, lm_engine.make_prefill_step):
-        with pytest.raises(NotImplementedError, match="item 6.8.2b"):
-            make(model, None, mesh_cfg, shape)
-    monkeypatch.setattr(serve, "get_model_config", get_smoke_config)
-    with pytest.raises(NotImplementedError, match="item 6.8.2b"):
-        serve.main(["--arch", "qwen1.5-32b", "--data", "2", "--tp", "2",
-                    "--batch", "3", "--device", "cpu"])
+    mesh = (dict(pod=1, data=2, model=2, fsdp=True) if batch == 3 else
+            dict(multi_pod=True, pod=2, data=2, model=1, fsdp=True))
+    npp, tokens, want, fed = jax_run("qwen1.5-32b", batch)
+    ranks = [r[0] for r in tlaunch.run_on_grid(
+        _rank, (2, 2), [(cfg, mesh, "psum", npp, tokens, fed)],
+        device="cpu", timeout=300)]
+    assert all(res["decode_error"] is None for res in ranks)
+    _hold(f"qwen-b{batch}", ranks, want, fed, STEPS + 1)
+    for res in ranks:
+        # the whole batch's cache: B rows on every rank
+        assert res["cache_bytes"] % batch == 0
 
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "zamba2-2.7b",
                                   "whisper-large-v3"])
-def test_the_other_families_on_data_ranks_are_refused(arch, monkeypatch):
-    """Item 6.8.2c."""
+def test_the_other_families_on_data_ranks_are_refused(arch, monkeypatch,
+                                                      capsys):
+    """Item 6.8.2c: the encoder-decoder family is refused on data ranks;
+    mamba2 and zamba2 serve there, with the one process's tokens."""
 
     cfg = get_smoke_config(arch)
     model = build_model(cfg, device="cpu")
     shape = ShapeConfig("d", 16, 4, "decode")
-    with pytest.raises(NotImplementedError, match="item 6.8.2c"):
-        lm_engine.make_serve_step(model, None,
-                                  MeshConfig(data=2, model=1), shape)
     monkeypatch.setattr(serve, "get_model_config", get_smoke_config)
-    with pytest.raises(NotImplementedError, match="item 6.8.2c"):
-        serve.main(["--arch", arch, "--multi-pod", "--data", "1",
-                    "--batch", "4", "--device", "cpu"])
+    argv = ["--arch", arch, "--batch", "4", "--seq-len", "16", "--steps",
+            "2", "--device", "cpu"]
+    if cfg.family == "encdec":
+        with pytest.raises(NotImplementedError, match="item 6.8.2c"):
+            lm_engine.make_serve_step(model, None,
+                                      MeshConfig(data=2, model=1), shape)
+        with pytest.raises(NotImplementedError, match="item 6.8.2c"):
+            serve.main(argv + ["--multi-pod", "--data", "1"])
+    else:
+        one = serve.main(argv)
+        pods = serve.main(argv + ["--multi-pod", "--data", "1"])
+        assert len(pods["ranks"]) == 2
+        assert all(r["tokens"] == one["ranks"][0]["tokens"]
+                   for r in pods["ranks"])
+        assert "FSDP off" in capsys.readouterr().out
     # the shards themselves are cut on any grid
     mesh_cfg = MeshConfig(data=2, model=1, fsdp=True)
     specs = S.param_pspecs(cfg, api.param_specs(model), mesh_cfg)
@@ -510,6 +531,25 @@ def test_the_other_families_on_data_ranks_are_refused(arch, monkeypatch):
                        init_shard(0, cfg, None, mesh_cfg, 1, "cpu"),
                        shard_params(full, specs, mesh_cfg, 1))
     assert pairs and all(pairs)
+
+
+@pytest.mark.parametrize("mesh", ["2x2", "pods-2x2x1"])
+def test_mla_at_a_batch_that_does_not_split_is_refused(mesh, monkeypatch):
+    """Item 6.8.2e: at B = 1 the rules cut MLA's c_kv and k_rope on their
+    sequence over "data"; a batch that splits serves (``CASES``)."""
+
+    cfg = get_smoke_config("deepseek-v2-lite-16b")
+    model = build_model(cfg, device="cpu")
+    mesh_cfg = MeshConfig(**MESHES[mesh])
+    shape = ShapeConfig("d", 16, 1, "decode")
+    for make in (lm_engine.make_serve_step, lm_engine.make_prefill_step):
+        with pytest.raises(NotImplementedError, match="item 6.8.2e"):
+            make(model, None, mesh_cfg, shape)
+    monkeypatch.setattr(serve, "get_model_config", get_smoke_config)
+    with pytest.raises(NotImplementedError, match="item 6.8.2e"):
+        serve.main(["--arch", "deepseek-v2-lite-16b", "--data", "2",
+                    "--tp", "2", "--batch", "1", "--seq-len", "16",
+                    "--device", "cpu"])
 
 
 def test_width_split_experts_and_grid_training_are_refused():

@@ -333,17 +333,21 @@ def test_roofline_bench_writes_the_fit_records(tmp_path):
         ("internvl2-76b", m) for m in ("1x1", "1x1", "1x4", "1x4")] + [
         (arch, "1x4") for arch in RB.MOE_ARCHS for _ in range(3)] + [
         ("granite-34b", m) for m in ("1x1", "1x1", "1x4", "1x4")] + [
-        ("qwen1.5-32b", m) for m in ("1x1", "1x1", "2x2", "2x2")]
+        ("qwen1.5-32b", m) for m in ("1x1", "1x1", "2x2", "2x2")] + [
+        (arch, m) for arch in RB.LONG_ARCHS for m in ("1x1", "2x2")]
     # the expert-parallel cell: psum and a2a prefills, a psum decode step
-    assert [a["shape"] for a in got[-11:-8]] == [
+    assert [a["shape"] for a in got[-15:-12]] == [
         "prefill_4x4000", "prefill_4x4000_a2a", "decode_4x4096"]
     # the sequence-sharded KV cell: a prefill and a decode step a mesh
-    assert [a["shape"] for a in got[-8:-4]] == [
+    assert [a["shape"] for a in got[-12:-8]] == [
         "prefill_4x1024", "decode_4x1376"] * 2
     # the FSDP cell: the same, the 2 x 2 records counting the gathers
-    assert [a["shape"] for a in got[-4:]] == [
+    assert [a["shape"] for a in got[-8:-4]] == [
         "prefill_4x1024", "decode_4x1032"] * 2
-    assert [a["chips"] for a in got[-4:]] == [1, 1, 4, 4]
+    assert [a["chips"] for a in got[-8:-4]] == [1, 1, 4, 4]
+    # the long_500k cell: one decode step a mesh, B = 1 whole on a rank
+    assert [a["shape"] for a in got[-4:]] == ["decode_1x524288"] * 4
+    assert [a["chips"] for a in got[-4:]] == [1, 4, 1, 4]
     assert all(json.loads(x)["counted"] == "computed"
                for x in path.read_text().splitlines())
     assert out[0].startswith("roofline_gossip-mc_6040x3706_r15_grid5x5_1x1,")

@@ -322,12 +322,15 @@ def test_launcher_tp2_prints_the_tp1_tokens(monkeypatch, capsys):
     assert "tok/s" in out and "batch 128 -> 2" in out
     assert "seq_len 32768 -> 16" in out
     # two pods of one data rank each serve the batch's halves: the same
-    # tokens; a batch that does not split over them is refused
+    # tokens; a batch that does not split over them runs whole on every
+    # rank, with the one process's tokens too
     pods = serve.main(argv + ["--multi-pod", "--tp", "2"])
     assert pods["ranks"][3]["tokens"] == one["ranks"][0]["tokens"]
-    with pytest.raises(NotImplementedError, match=f"{GRID_ITEM}b"):
-        serve.main(argv[:2] + ["--batch", "3"] + argv[4:]
-                   + ["--multi-pod", "--tp", "2"])
+    odd = argv[:2] + ["--batch", "3"] + argv[4:]
+    odd_one = serve.main(odd + ["--tp", "1"])
+    odd_pods = serve.main(odd + ["--multi-pod", "--tp", "2"])
+    assert all(r["tokens"] == odd_one["ranks"][0]["tokens"]
+               for r in odd_pods["ranks"])
 
 
 def _fake_tp(size, split=frozenset()):
@@ -469,21 +472,27 @@ def test_cache_layout_the_rules_misplace_is_refused():
 def test_refusals_of_the_mesh_and_of_training():
     cfg = get_smoke_config("internvl2-76b")
     model = build_model(cfg, device="cpu")
-    # data parallel and FSDP serve (tests/test_torch_fsdp_serve.py); what
-    # stays refused on those meshes names its item: a batch that does not
-    # split over pod x data (b), the SSM, hybrid and encoder-decoder
-    # families (c), experts split on their width (d)
+    # data parallel and FSDP serve (tests/test_torch_fsdp_serve.py), and so
+    # do a batch that does not split over pod x data and the SSM and
+    # hybrid families (tests/test_torch_long_context_serve.py): past the
+    # mesh check, their steps ask for the grid's process group.  What
+    # stays refused on those meshes names its item: the encoder-decoder
+    # family (c), experts split on their width (d)
     odd = ShapeConfig("d", 16, 3, "decode")
     for mesh_cfg in (MeshConfig(data=2, model=2, fsdp=True),
                      MeshConfig(multi_pod=True, pod=2, data=1, model=2)):
-        with pytest.raises(NotImplementedError, match=f"{GRID_ITEM}b"):
+        with pytest.raises(ValueError, match="needs its process group"):
             lm_engine.make_serve_step(model, None, mesh_cfg, odd)
-        for arch in ("mamba2-780m", "zamba2-2.7b", "whisper-large-v3"):
-            with pytest.raises(NotImplementedError,
-                               match=f"{GRID_ITEM}c"):
+        for arch in ("mamba2-780m", "zamba2-2.7b"):
+            with pytest.raises(ValueError, match="needs its process group"):
                 lm_engine.make_serve_step(
                     build_model(get_smoke_config(arch), device="cpu"),
                     None, mesh_cfg, ShapeConfig("d", 16, B, "decode"))
+        with pytest.raises(NotImplementedError, match=f"{GRID_ITEM}c"):
+            lm_engine.make_serve_step(
+                build_model(get_smoke_config("whisper-large-v3"),
+                            device="cpu"),
+                None, mesh_cfg, ShapeConfig("d", 16, B, "decode"))
         # the shards themselves are cut on these meshes
         assert init_shard(0, cfg, None, mesh_cfg, 0, "cpu")
     moe = get_smoke_config("granite-moe-3b-a800m")
