@@ -141,6 +141,31 @@ reference's gate, ``tests/test_distributed.py``: consensus error below
 0.05, the final loss within 15%); staleness 2 and int8 messages too, each
 with its consensus error, ms per exchange and bytes per exchange.
 
+``[dp_train]`` (after ``[train]``): the sharded train step on the data
+axis (``train/step.py::make_sharded_train_step``; no kernel on this path
+either).  gemma2-2b at full width and 4 of its 26 layers (2 units), 8
+sequences of 512 tokens a step as ``microbatch=2``, AdamW at lr 1e-3
+(``TrainConfig``'s clip on), two steps from one seeded init
+(``init_shard``, whose shards at any grid are the one process's slices
+bit for bit): first one process on the card through the one-card step
+(``make_train_step``, the step held against JAX's in
+``tests/test_torch_train.py``), then one grid of 4 ``gloo`` ranks on the
+card, each rank's allocator capped at ``DPT_CARD_SHARE`` of it, trains
+at (data 4) and then at (pod 2, data 2), each rank's FSDP gathers
+copying the peers' shards device to device (step 2 reads the shards step
+1 updated in place).  Held: every rank's losses
+within ``DPT_LOSS_RTOL`` of the one process's; the parameters after two
+steps by ``tests/test_torch_train.py``'s AdamW rule (every coordinate
+within ``ADAM_MAX`` x lr, all but ``ADAM_FRAC`` within 1e-3 x lr); the
+replicated leaves equal on every rank; a rank's bytes of parameters and
+state equal to ``shard_nbytes`` of the specs; the FSDP gathers and
+reduce-scatters of step 1 counted exactly (2 units x 2 parts x 2: remat
+gathers again; one reduce-scatter a unit and part).  Printed: s a step,
+the collectives' calls, bytes, seconds and share of step 1 (the card
+synchronised around each), each rank's peak, the card's least free
+memory while the grid ran (sampled every 10 ms), and rank 0's step 2
+under the profiler (busy share, top kernels).
+
 ``[moe]`` (after ``[train]``): the MoE family at full width and depth.
 First the flash kernel against its plain version at both archs' prefill
 shapes, causal with no window and no softcap: granite-moe's q (4, 24,
@@ -505,7 +530,7 @@ path's phases, ``[table2]``, ``[gossip]`` (the grid's ranks included),
 ``ssm``, ``encdec``, ``vlm``, ``tp``, ``ep``, ``tp_ssm_encdec``,
 ``tp_mqa``, ``fsdp`` and ``long`` keys have those phases' numbers; the
 rank phases' are the reference runs' and every rank's); ``[train]``
-launches none.
+and ``[dp_train]`` launch none.
 
 The configuration is the paper's Table 3 cell at MovieLens-1M scale
 (``benchmarks/table3_rmse.py --full``): the 6040x3706 ``movielens_proxy``
@@ -669,9 +694,14 @@ from repro_torch.train import sharding as shard_rules  # noqa: E402
 from repro_torch.train.shard import (  # noqa: E402
     init_shard,
     rank_cache_pspecs,
+    shard_leaf,
     shard_nbytes,
 )
-from repro_torch.train.step import loss_and_grads, split_batch  # noqa: E402
+from repro_torch.train.step import (  # noqa: E402
+    loss_and_grads,
+    make_sharded_train_step,
+    split_batch,
+)
 from repro_torch.serve.quant import index_nbytes, quantize_index  # noqa: E402
 from repro_torch.serve.recommend import (  # noqa: E402
     RecommendIndex,
@@ -697,11 +727,11 @@ from repro_torch.sparse.store import MinibatchStream  # noqa: E402
 P = Q = 5
 RANK = 15
 PHASES = ("kernels", "main", "table2", "gossip", "stream", "faults",
-          "serve", "sharded", "measure", "lm", "train", "moe", "ssm",
-          "encdec", "vlm", "tp", "ep", "tp_ssm_encdec", "tp_mqa", "fsdp",
-          "long")
+          "serve", "sharded", "measure", "lm", "train", "dp_train", "moe",
+          "ssm", "encdec", "vlm", "tp", "ep", "tp_ssm_encdec", "tp_mqa",
+          "fsdp", "long")
 NEEDS = {"serve": ("main",), "sharded": ("main",), "measure": ("main",)}
-LM_PHASES = ("lm", "moe", "ssm", "encdec", "vlm", "tp", "ep",
+LM_PHASES = ("lm", "dp_train", "moe", "ssm", "encdec", "vlm", "tp", "ep",
              "tp_ssm_encdec", "tp_mqa", "fsdp", "long")
 CFG = dict(rho=1e3, lam=1e-6, a=2.0e-4, b=5.0e-7)
 FULL_ROUNDS = 800   # the Table 3 cell's rounds (benchmarks/table3_rmse.py)
@@ -798,6 +828,30 @@ DP_CASES = {"staleness1": dict(staleness=1, compression="none"),
             "staleness2": dict(staleness=2, compression="none"),
             "int8": dict(staleness=1, compression="int8")}
 DP_CERR, DP_LOSS = 0.05, 0.15   # tests/test_distributed.py's gossip-DP gate
+# [dp_train]: the sharded train step on the data axis.  gemma2-2b at full
+# width and 4 of its 26 layers (2 units; every rank holds the replicated
+# 2.36 GB embedding with its gradient and AdamW moments, 9.4 GB, and 4
+# ranks share the card), 8 sequences of 512 tokens a step as microbatch=2
+# (one row of each part a rank; at 1024 tokens a part's logits, 1.05 GB a
+# copy, and their gradients took the four ranks past the card's 79 GiB),
+# AdamW at lr 1e-3 (at which a
+# stale read of a peer's updated shard moves step 2's loss far past the
+# bound), two steps: one process, then 4 gloo ranks on the card at each
+# of DPT_MESHES, from one seeded init (init_shard, whose shards at any grid
+# are the one process's slices bit for bit).  Each rank's caching
+# allocator is capped at DPT_CARD_SHARE of the card (17.4 GiB; a rank's
+# allocated peak was 15.9 GiB), so that the four ranks' cached blocks
+# cannot together fill it whatever their timing: a rank that needs more
+# fails alone and every run alike
+DPT_LAYERS, DPT_BATCH, DPT_SEQ, DPT_MICRO, DPT_STEPS = 4, 8, 512, 2, 2
+DPT_CARD_SHARE = 0.22
+DPT_SEED, DPT_LR, DPT_LOSS_RTOL = 0, 1e-3, 1e-5
+DPT_MESHES = {"data4": dict(pod=1, data=4, model=1, fsdp=True),
+              "pods2x2": dict(multi_pod=True, pod=2, data=2, model=1,
+                              fsdp=True)}
+# tests/test_torch_train.py's AdamW rule: every coordinate within
+# ADAM_MAX x lr of the one process's, all but ADAM_FRAC within 1e-3 x lr
+ADAM_MAX, ADAM_FRAC = 0.25, 1e-3
 # [moe]: both MoE archs at full width and depth; 4 prompts of 4000 tokens
 # and 32 new tokens in Granite 3.0's context of 4096
 MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
@@ -2288,6 +2342,300 @@ def train_phase(card, device="cuda") -> dict:
            "gossip_dp": train_gossip_dp(card, device)}
     print(f"[train] phase: {time.perf_counter() - t_phase:.1f}s of command",
           flush=True)
+    return out
+
+
+def dpt_setup(cfg, mesh_cfg, group, rank, device):
+    """``[dp_train]``'s step, its info and rank ``rank``'s seeded shards
+    with a fresh optimizer state; without a group, the one process's
+    whole tree and the one-card step (``make_train_step``, the step that
+    ``tests/test_torch_train.py`` holds against JAX's)."""
+
+    model = build_model(cfg, Ctx(attn_impl="ref", remat=True), device=device)
+    tc = TrainConfig(learning_rate=DPT_LR, warmup_steps=1, total_steps=10,
+                     microbatch=DPT_MICRO)
+    if group is None:
+        optimizer = make_optimizer(tc)
+        step, info = make_train_step(model, tc, optimizer), {
+            "optimizer": optimizer}
+    else:
+        step, info = make_sharded_train_step(
+            model, group, mesh_cfg,
+            ShapeConfig("dp_train", DPT_SEQ, DPT_BATCH, "train"), tc)
+    params = init_shard(DPT_SEED, cfg, None, mesh_cfg, rank, device)
+    return step, info, params, info["optimizer"].init(params)
+
+
+def dpt_groups(info) -> dict:
+    grid = info["grid"]
+    return {k: g for k, g in (("fsdp", grid.fsdp), ("batch", grid.batch),
+                              ("pod", grid.pod)) if g is not None}
+
+
+def dpt_hold(params, ref, pspecs, mesh_cfg, rank, device) -> dict:
+    """The rank's shards ``params`` against their slices of the one
+    process's parameters ``ref`` (``{path: CPU tensor}``, memory-mapped):
+    the largest difference, and how many coordinates of how many differ by
+    more than 1e-3 x lr."""
+
+    out = {"max": 0.0, "past": 0, "total": 0}
+
+    def hold(path, x, spec):
+        want = shard_leaf(ref[path], spec, mesh_cfg, rank)
+        # a leaf a slab of rows at a time: the card holds little else
+        rows = max(1, (1 << 26) // max(1, x[:1].numel()))
+        for got, part in zip(x.split(rows), want.split(rows)):
+            d = (got - part.to(device)).abs_()
+            out["max"] = max(out["max"], float(d.max()))
+            out["past"] += int((d > 1e-3 * DPT_LR).sum())
+            out["total"] += d.numel()
+
+    tree_map_with_path(hold, params, pspecs)
+    return out
+
+
+def dp_train_rank(rank, device, cfg, meshes, data, ref_file) -> dict:
+    """``[dp_train]``'s rank: for each mesh its seeded shards, step 1 with
+    every collective timed and counted, step 2 (rank 0's under the
+    profiler, which reads the peers' updated shards); its losses, seconds,
+    collectives, bytes, peak, and its shards after the steps held against
+    the one process's parameters saved in ``ref_file`` (``dpt_hold``)."""
+
+    import torch.distributed as dist
+
+    if device.type == "cuda":
+        torch.cuda.set_per_process_memory_fraction(DPT_CARD_SHARE, device)
+    ref = torch.load(ref_file, mmap=True, weights_only=True)
+    out = {}
+    for name, mesh_kw in meshes.items():
+        t0 = time.perf_counter()
+        mesh_cfg = MeshConfig(**mesh_kw)
+        step, info, params, state = dpt_setup(cfg, mesh_cfg,
+                                              dist.group.WORLD, rank, device)
+        _sync(device)
+        res = {"param_bytes": _nbytes(tree_leaves(params)),
+               "opt_bytes": _nbytes(tree_leaves(state)),
+               "reckoned": (info["param_bytes"], info["opt_bytes"]),
+               "losses": [], "step_s": [],
+               "setup_s": time.perf_counter() - t0}
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(device)
+        for i, batch in enumerate(data):
+            for g in dpt_groups(info).values():
+                g.timed = i == 0
+            _sync(device)
+            t0 = time.perf_counter()
+            if i == len(data) - 1 and rank == 0 and device.type == "cuda":
+                (params, state, m), secs, bd = profiled(
+                    lambda: step(params, state, batch))
+                res["profile"] = {"wall_s": secs, "busy": sum(bd.values())
+                                  / (1e3 * secs), "top": top(bd)}
+            else:
+                params, state, m = step(params, state, batch)
+            _sync(device)
+            res["step_s"].append(time.perf_counter() - t0)
+            res["losses"].append(float(m["loss"]))
+            if i == 0:
+                res["collectives"] = {
+                    f"{k}_{op}": list(row) for k, g in dpt_groups(
+                        info).items() for op, row in g.stats.items()}
+        res["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
+                             if device.type == "cuda" else 0)
+        res["peak_reserved"] = (torch.cuda.max_memory_reserved(device)
+                                if device.type == "cuda" else 0)
+        t0 = time.perf_counter()
+        res["held"] = dpt_hold(params, ref, info["pspecs"], mesh_cfg, rank,
+                               device)
+        res["hold_s"] = time.perf_counter() - t0
+        if rank == 0:
+            print(f"[dp_train] rank 0 {name}: set-up {res['setup_s']:.2f}s, "
+                  f"steps {res['step_s']}, hold {res['hold_s']:.2f}s",
+                  flush=True)
+        out[name] = res
+        del step, info, params, state
+        if device.type == "cuda":
+            _free()
+    return out
+
+
+def dp_train_phase(card, device="cuda") -> dict:
+    """``[dp_train]``: the sharded train step on the data axis; see the
+    module docstring."""
+
+    t_phase = time.perf_counter()
+    tag = "[dp_train]"
+    dev = torch.device(device)
+    full = get_model_config(LM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=DPT_LAYERS)
+    pipe = LMTokenPipeline(cfg.vocab_size, DPT_SEQ, DPT_BATCH)
+    data = [dict(zip(("tokens", "targets"), pipe.batch_at(i)))
+            for i in range(DPT_STEPS)]
+    one = MeshConfig(data=1, model=1, fsdp=True)
+    meta = build_model(cfg, device="meta")
+    shapes = model_api.param_specs(meta)
+    embed_gb = 4 * cfg.vocab_size * cfg.d_model / 1e9
+    units_gb = 4 * (_n_elems(shapes) - cfg.vocab_size * cfg.d_model) / 1e9
+    rows = DPT_BATCH // max(DPT_MICRO, 1) // 4
+    print(f"{tag} {cfg.name} at full width, {DPT_LAYERS} of "
+          f"{full.num_layers} layers ({_n_elems(shapes)} f32 parameters: "
+          f"embed {embed_gb:.2f} GB, the rest {units_gb:.2f} GB); "
+          f"{DPT_BATCH} x {DPT_SEQ} tokens a step as microbatch={DPT_MICRO}, "
+          f"AdamW lr {DPT_LR}.  Reckoning a rank of 4: the replicated embed "
+          f"with its gradient and 2 moments {4 * embed_gb:.2f} GB, its unit "
+          f"shards x 4 {units_gb:.2f} GB, a part's logits ({rows} x "
+          f"{DPT_SEQ} x {cfg.vocab_size}) "
+          f"{4 * rows * DPT_SEQ * cfg.vocab_size / 1e9:.2f} GB a copy",
+          flush=True)
+
+    # the one process; its parameters after the steps go to a file the
+    # ranks map, and the card is freed for them
+    step, info, params, state = dpt_setup(cfg, one, None, 0, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ref = {"losses": [], "step_s": []}
+    for batch in data:
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        _sync(dev)
+        ref["step_s"].append(time.perf_counter() - t0)
+        ref["losses"].append(float(m["loss"]))
+    ref["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                         if dev.type == "cuda" else 0)
+    if any(counts().values()):
+        fail(f"{tag} the training path launched a kernel: {counts()} (it "
+             "trains through the plain attention)")
+    ref["bytes"] = (_nbytes(tree_leaves(params)), _nbytes(tree_leaves(state)))
+    print(f"{tag} one process: losses {ref['losses']}, step seconds "
+          f"{ref['step_s']}, peak {ref['peak_bytes'] / 2**30:.2f} GiB",
+          flush=True)
+    if not all(np.isfinite(ref["losses"])):
+        fail(f"{tag} non-finite loss in one process: {ref['losses']}")
+    ref_dir = tempfile.mkdtemp(prefix="dp-train-ref-")
+    ref_file = os.path.join(ref_dir, "params.pt")
+    flat = {}
+    tree_map_with_path(lambda path, x: flat.__setitem__(path, x.cpu()),
+                       params)
+    torch.save(flat, ref_file)
+    del step, info, params, state, flat
+    if dev.type == "cuda":
+        _free()
+        print(f"{tag} before the grid this process holds "
+              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card",
+              flush=True)
+    marks: list = []
+    free = {"min": None, "samples": 0}
+    done = threading.Event()
+
+    def sample():
+        # the card's free memory, every process's use, while the grid runs
+        while not done.wait(0.01):
+            f = torch.cuda.mem_get_info(dev)[0]
+            free["min"] = f if free["min"] is None else min(free["min"], f)
+            free["samples"] += 1
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    if dev.type == "cuda":
+        sampler.start()
+    t0 = time.perf_counter()
+    try:
+        ranks = run_on_grid(dp_train_rank, (4, 1), cfg, DPT_MESHES, data,
+                            ref_file, device=device, timeout=900,
+                            marks=marks)
+    finally:
+        done.set()
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    if dev.type == "cuda":
+        sampler.join()
+    t_grid = time.perf_counter() - t0
+    backend = pick_backend(device, 4)
+    out = {"layers": DPT_LAYERS, "reference": {
+        k: ref[k] for k in ("losses", "step_s", "peak_bytes", "bytes")},
+        "backend": backend, "grid_s": t_grid, "marks": marks,
+        "meshes": {}, "card_share": DPT_CARD_SHARE,
+        "min_free_gib": None if free["min"] is None else free["min"] / 2**30}
+    n_units = DPT_LAYERS // (cfg.local_global_pattern or 1)
+    parts = max(DPT_MICRO, 1)
+    for name, mesh_kw in DPT_MESHES.items():
+        mesh_cfg = MeshConfig(**mesh_kw)
+        pspecs = shard_rules.param_pspecs(cfg, shapes, mesh_cfg)
+        res = [r[name] for r in ranks]
+        label = f"{tag} {name} ({mesh_cfg.pod} x {mesh_cfg.data} x 1)"
+        worst_loss = max(abs(a - b) / abs(b) for r in res
+                         for a, b in zip(r["losses"], ref["losses"]))
+        if worst_loss > DPT_LOSS_RTOL:
+            fail(f"{label}: losses {[r['losses'] for r in res]} against "
+                 f"the one process's {ref['losses']}")
+        for r, rr in enumerate(res):
+            if (rr["param_bytes"], rr["opt_bytes"]) != rr["reckoned"]:
+                fail(f"{label}: rank {r} holds {rr['param_bytes']} bytes "
+                     f"of parameters and {rr['opt_bytes']} of state, the "
+                     f"specs reckon {rr['reckoned']}")
+            c = {op: row[0] for op, row in rr["collectives"].items()}
+            want = {"fsdp_all_gather": parts * n_units * 2,
+                    "fsdp_reduce_scatter": parts * n_units}
+            if any(c.get(op) != n for op, n in want.items()):
+                fail(f"{label}: rank {r}'s collectives in a step {c}, "
+                     f"expected {want}")
+        dmax = max(rr["held"]["max"] for rr in res)
+        frac = (sum(rr["held"]["past"] for rr in res)
+                / sum(rr["held"]["total"] for rr in res))
+        if dmax > ADAM_MAX * DPT_LR or frac > ADAM_FRAC:
+            fail(f"{label}: parameters after {DPT_STEPS} AdamW steps differ "
+                 f"from the one process's by up to {dmax:.3e} (limit "
+                 f"{ADAM_MAX * DPT_LR:.1e}), {frac:.2e} of coordinates past "
+                 f"1e-3 lr (limit {ADAM_FRAC})")
+        r0 = res[0]
+        step1 = r0["step_s"][0]
+        coll = {op: {"calls": row[0], "seconds": row[1], "bytes": row[2],
+                     "share": row[1] / step1}
+                for op, row in r0["collectives"].items()}
+        row = {"losses": r0["losses"], "step_s": r0["step_s"],
+               "collectives_step1": coll,
+               "param_bytes": r0["param_bytes"],
+               "opt_bytes": r0["opt_bytes"],
+               "one_process_bytes": ref["bytes"],
+               "peak_gib": [r["peak_bytes"] / 2**30 for r in res],
+               "peak_reserved_gib": [r["peak_reserved"] / 2**30
+                                     for r in res],
+               "profile": r0.get("profile"),
+               "max_abs_param_diff": dmax, "frac_past_1e-3_lr": frac,
+               "loss_rel_err": worst_loss,
+               "setup_s": [r["setup_s"] for r in res],
+               "hold_s": [r["hold_s"] for r in res]}
+        out["meshes"][name] = row
+        prof = r0.get("profile") or {}
+        print(f"{label}: losses {r0['losses']} (one process "
+              f"{ref['losses']}, worst rel {worst_loss:.2e}); step seconds "
+              f"{r0['step_s']}; parameters after {DPT_STEPS} steps within "
+              f"{dmax:.3e} of the one process's ({frac:.2e} of coordinates "
+              f"past 1e-3 lr); a rank holds {r0['param_bytes']} bytes of "
+              f"parameters + {r0['opt_bytes']} of state (= shard_nbytes; "
+              f"one process {ref['bytes'][0]} + {ref['bytes'][1]}); "
+              f"peak by rank {[round(x, 2) for x in row['peak_gib']]} GiB "
+              f"(reserved {[round(x, 2) for x in row['peak_reserved_gib']]})"
+              f"; rank set-up s {[round(x, 2) for x in row['setup_s']]}, "
+              f"hold s {[round(x, 2) for x in row['hold_s']]}", flush=True)
+        print(f"{label} rank 0 collectives in step 1, the card synchronised "
+              f"around each: {json.dumps(coll)}", flush=True)
+        if prof:
+            print(f"{label} rank 0 step 2 under the profiler: wall "
+                  f"{prof['wall_s']:.3f} s, device busy "
+                  f"{100 * prof['busy']:.1f}%; by kernel: {prof['top']}",
+                  flush=True)
+    if free["min"] is not None:
+        total = torch.cuda.get_device_properties(dev).total_memory
+        print(f"{tag} the card's least free memory while the grid ran: "
+              f"{free['min'] / 2**30:.2f} GiB of {total / 2**30:.2f} "
+              f"({free['samples']} samples, every 10 ms; each rank's "
+              f"allocator capped at {DPT_CARD_SHARE} of the card, "
+              f"{DPT_CARD_SHARE * total / 2**30:.2f} GiB)", flush=True)
+    print(f"{tag} grid {t_grid:.1f}s ({backend}, 4 ranks on one card; by "
+          f"rank, s from the spawn to the group formed "
+          f"{[round(m['group_s'], 1) for m in marks]} and to the rank done "
+          f"{[round(m['done_s'], 1) for m in marks]}); phase "
+          f"{time.perf_counter() - t_phase:.1f}s of command", flush=True)
     return out
 
 
@@ -6674,6 +7022,10 @@ def main() -> None:
         _free()
     if want("train"):
         train_phase(card)
+        _free()
+    # the sharded train step on 4 data ranks of the card
+    if want("dp_train"):
+        dp_train_phase(card)
         _free()
     # 7. the MoE family: granite-moe, then deepseek (MLA), full width
     if want("moe"):

@@ -36,6 +36,7 @@ from __future__ import annotations
 import atexit
 import dataclasses
 import datetime
+import math
 import multiprocessing.forkserver
 import multiprocessing.resource_tracker
 import os
@@ -97,7 +98,8 @@ def _entry(fn, rank, world, init_file, backend, device, timeout, results,
         marks["device_s"] = time.time() - spawned
         dist.init_process_group(
             backend, init_method=f"file://{init_file}", rank=rank,
-            world_size=world, timeout=datetime.timedelta(seconds=timeout))
+            world_size=world, timeout=None if timeout is None
+            else datetime.timedelta(seconds=timeout))
         marks["group_s"] = time.time() - spawned
         try:
             out = fn(rank, dev, *args)
@@ -110,13 +112,15 @@ def _entry(fn, rank, world, init_file, backend, device, timeout, results,
 
 
 def run_on_grid(fn: Callable, grid: tuple[int, int], *args,
-                device: str = "cuda", timeout: float = 600.0,
+                device: str = "cuda", timeout: float | None = 600.0,
                 marks: list | None = None) -> list:
     """Run ``fn(rank, device, *args)`` in R·C processes, one a rank, and
     return their results in rank order.  ``fn`` must be picklable (a
     module-level function).  Raises if a rank raises (with every failed
     rank's traceback), or if the grid has not finished within ``timeout``
-    seconds; every process is ended either way.  ``marks``, if given, gets
+    seconds (also each collective's limit; ``None``: no deadline, and the
+    backend's default limit a collective); every process is ended either
+    way.  ``marks``, if given, gets
     each rank's seconds from the spawn to its entry (``entered_s``), its
     device ready (``device_s``), the process group formed (``group_s``)
     and ``fn`` done (``done_s``)."""
@@ -140,7 +144,7 @@ def run_on_grid(fn: Callable, grid: tuple[int, int], *args,
         target=_entry, daemon=True,
         args=(fn, rank, world, os.path.join(tmp, "store"), backend, device,
               timeout, results, spawned, args)) for rank in range(world)]
-    deadline = time.monotonic() + timeout
+    deadline = math.inf if timeout is None else time.monotonic() + timeout
     out: dict[int, Any] = {}
     failed: dict[int, str] = {}
     try:
@@ -150,8 +154,8 @@ def run_on_grid(fn: Callable, grid: tuple[int, int], *args,
             if failed:      # the others fail soon after; name them all
                 deadline = min(deadline, time.monotonic() + FAIL_GRACE_S)
             try:
-                rank, ok, payload = results.get(
-                    timeout=max(0.1, deadline - time.monotonic()))
+                rank, ok, payload = results.get(timeout=None if math.isinf(
+                    deadline) else max(0.1, deadline - time.monotonic()))
             except queue.Empty:
                 if failed:
                     break
@@ -167,7 +171,8 @@ def run_on_grid(fn: Callable, grid: tuple[int, int], *args,
                 f"rank {rank} failed:\n{tb}"
                 for rank, tb in sorted(failed.items())))
         for proc in procs:
-            proc.join(timeout=max(1.0, deadline - time.monotonic()))
+            proc.join(timeout=None if math.isinf(deadline) else max(
+                1.0, deadline - time.monotonic()))
     finally:
         for proc in procs:
             if proc.is_alive():

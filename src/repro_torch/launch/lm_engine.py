@@ -9,10 +9,12 @@ JAX package's do, with its ``info`` keys (``pspecs``, ``cspecs``,
 program over the mesh, the port's runs on one rank of a
 ``torch.distributed`` group of ``pod x data x model`` ranks (the whole
 default group; rank = (pod·D + data)·M + model, ``train/shard.py::
-grid_coords``).  Each rank makes three subgroups once
+grid_coords``).  Each rank makes its subgroups once
 (``grid_groups``): its model group (the ``TP`` of its data row), its
-FSDP group (the ``data`` ranks of its pod at its model coordinate) and
-its batch group (every ``pod x data`` rank at its model coordinate).  The
+FSDP group (the ``data`` ranks of its pod at its model coordinate), its
+batch group (every ``pod x data`` rank at its model coordinate) and its
+cross-pod group (the ranks of its data and model coordinates in every
+pod, over which a training step sums the FSDP shards' gradients).  The
 step takes the rank's parameter shards (``train/shard.py``) and cache
 shard; it cuts the global batch (prefill) or tokens (decode) it is given
 to the rank's slice by ``bspecs`` and the token spec, runs the rank's
@@ -69,14 +71,17 @@ _GROUPS: dict = {}
 
 
 def grid_groups(group, mesh_cfg: MeshConfig) -> tuple:
-    """(model group, FSDP group, batch group) of this rank of ``group``,
-    a ``pod x data x model`` grid that must be the whole default group;
-    ``None`` for a group of one rank.  Every rank makes every subgroup
+    """(model group, FSDP group, batch group, cross-pod group) of this
+    rank of ``group``, a ``pod x data x model`` grid that must be the
+    whole default group; ``None`` for a group of one rank.  The cross-pod
+    group is the ranks of the rank's (data, model) coordinates in every
+    pod, which hold the same FSDP shards.  Every rank makes every subgroup
     once, in one fixed order (``dist.new_group`` asks it of all ranks):
     the model groups by (pod, data), the FSDP groups by (pod, model), the
-    batch groups by model; a group of the same ranks as one made before
-    is that one.  Without a ``pod x data`` axis the model group is
-    ``group`` itself and no subgroup is made."""
+    batch groups by model, the cross-pod groups by (data, model); a group
+    of the same ranks as one made before is that one.  Without a ``pod x
+    data`` axis the model group is ``group`` itself and no subgroup is
+    made."""
 
     P, D, M = mesh_cfg.pod, mesh_cfg.data, mesh_cfg.model
     n = P * D * M
@@ -84,7 +89,7 @@ def grid_groups(group, mesh_cfg: MeshConfig) -> tuple:
         raise ValueError(f"the group has {dist.get_world_size(group)} "
                          f"ranks, the grid {P} x {D} x {M}")
     if P * D == 1:
-        return group, None, None
+        return group, None, None, None
     if dist.get_process_group_ranks(group) != list(range(
             dist.get_world_size())):
         raise ValueError("a pod x data x model grid of ranks is the whole "
@@ -105,11 +110,13 @@ def grid_groups(group, mesh_cfg: MeshConfig) -> tuple:
                  for p in range(P) for m in range(M)}
         batches = {m: make(r for r in range(n) if r % M == m)
                    for m in range(M)}
-        _GROUPS[key] = (group, models, fsdps, batches)
-    _, models, fsdps, batches = _GROUPS[key]
+        pods = {(d, m): make((p * D + d) * M + m for p in range(P))
+                for d in range(D) for m in range(M)}
+        _GROUPS[key] = (group, models, fsdps, batches, pods)
+    _, models, fsdps, batches, pods = _GROUPS[key]
     c = grid_coords(mesh_cfg, dist.get_rank(group))
     return (models[c["pod"], c["data"]], fsdps[c["pod"], c["model"]],
-            batches[c["model"]])
+            batches[c["model"]], pods[c["data"], c["model"]])
 
 
 @dataclasses.dataclass
@@ -179,7 +186,7 @@ def _rank_model(model: Model, group, mesh_cfg: MeshConfig, shapes,
         raise ValueError(f"a {mesh_cfg.pod} x {mesh_cfg.data} x "
                          f"{mesh_cfg.model} grid of ranks needs its process "
                          "group")
-    model_group, fsdp_group, batch_group = grid_groups(group, mesh_cfg)
+    model_group, fsdp_group, batch_group, _ = grid_groups(group, mesh_cfg)
     device = model.device
     tp = fsdp = kv_seq = None
     if mesh_cfg.model > 1:

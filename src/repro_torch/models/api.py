@@ -48,6 +48,17 @@ from repro_torch.optim.optimizers import tree_flatten_with_path
 Ctx = T.Ctx
 
 TP_ITEM = "ROADMAP.md queue 1, item 6.8"
+TRAIN_ITEM = "ROADMAP.md queue 1, item 6.2"
+TP_TRAIN_REASON = (
+    "tensor-parallel training on the rank grid is not ported: the model "
+    "axis's collectives have no backward rules yet (the all-reduce's "
+    "conjugate, the all-gather's slice, the vocab-parallel cross-entropy; "
+    f"{TRAIN_ITEM}a-ii)")
+FAMILY_TRAIN_REASON = (
+    "training the {family} family on data ranks is not ported: the port "
+    "trains the dense family there (the MoE aux loss is not linear in the "
+    "batch; the hybrid, VLM and encoder-decoder losses gather nothing; "
+    f"{TRAIN_ITEM}c)")
 
 
 class Model(NamedTuple):
@@ -118,6 +129,32 @@ def tp_refusal(cfg: ModelConfig, size: int) -> str | None:
     return None
 
 
+def loss_refusal(cfg: ModelConfig, ctx: T.Ctx) -> str | None:
+    """Why a rank's model under ``ctx`` cannot train, or ``None`` where it
+    can: in one process, and for the dense family on data ranks at one
+    model rank, its batch cut over ``pod x data`` (``ctx.dp``) and its
+    batch group given (``ctx.dp_group``, over which the loss counts the
+    whole batch's targets), as ``train/step.py::make_sharded_train_step``
+    builds it.  Tensor-parallel training waits for the backward rules of
+    the model axis's collectives (item 6.2a-ii), the other families on
+    data ranks for their own losses (item 6.2c)."""
+
+    if ctx.tp_size > 1:
+        return TP_TRAIN_REASON
+    if (ctx.fsdp is None and not ctx.dp and ctx.kv_seq is None
+            and ctx.dp_group is None):
+        return None
+    if cfg.family != "dense":
+        return FAMILY_TRAIN_REASON.format(family=cfg.family)
+    if ctx.kv_seq is not None or not ctx.dp or ctx.dp_group is None:
+        return ("training on data ranks needs the batch cut over pod x "
+                "data and the batch group (Ctx.dp, Ctx.dp_group), so that "
+                "each rank's loss is its rows' share of the whole batch's "
+                "mean: train/step.py::make_sharded_train_step builds such "
+                f"a rank ({TRAIN_ITEM}a)")
+    return None
+
+
 def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
                 device="cuda") -> Model:
     """The model of ``cfg.family`` on ``device`` (the card unless
@@ -129,8 +166,8 @@ def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
     tokens and targets as ``long``, frames and patches in their own float
     dtype.  Under ``ctx.tp`` the model serves a rank's shards (any family;
     ``tp_refusal`` names the head counts it refuses), under ``ctx.fsdp``,
-    ``ctx.dp`` and ``ctx.kv_seq`` a data-parallel rank's; its ``loss``
-    raises then (training on the rank grid is not ported).
+    ``ctx.dp`` and ``ctx.kv_seq`` a data-parallel rank's.  Its ``loss``
+    raises where ``loss_refusal`` says why the rank cannot train.
     """
 
     fam = cfg.family
@@ -142,14 +179,10 @@ def build_model(cfg: ModelConfig, ctx: T.Ctx | None = None,
     reason = tp_refusal(cfg, ctx.tp_size)
     if reason:
         raise NotImplementedError(reason)
-    if (ctx.tp_size > 1 or ctx.fsdp is not None or ctx.dp
-            or ctx.kv_seq is not None):
+    refusal = loss_refusal(cfg, ctx)
+    if refusal:
         def loss(*_):
-            raise NotImplementedError(
-                "tensor-parallel, data-parallel and FSDP training on the "
-                "rank grid is not ported: the port trains on one card or by "
-                "gossip data parallelism (train/gossip_dp.py; ROADMAP.md "
-                "queue 1, item 6.2)")
+            raise NotImplementedError(refusal)
 
     def tokens(x):
         return torch.as_tensor(x, device=device).long()

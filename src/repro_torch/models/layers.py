@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import time
 from typing import Any, Optional
 
@@ -139,11 +140,14 @@ _REDUCE_OPS = {"sum": ("all_reduce", dist.ReduceOp.SUM),
                "max": ("all_reduce_max", dist.ReduceOp.MAX)}
 
 
-def all_reduce(x, tp: TP | None, op: str = "sum"):
+def all_reduce(x, tp: TP | None, op: str = "sum", inplace: bool = False):
     """The sum (``op="max"``: the maximum) of ``x`` over the ranks of
     ``tp`` (``x`` itself without a group): the partial sums of a
     row-parallel product, the maxima of a partial softmax.  ``stats``
-    counts the two ops apart (``"all_reduce"``, ``"all_reduce_max"``)."""
+    counts the two ops apart (``"all_reduce"``, ``"all_reduce_max"``).
+    ``inplace`` writes the result into ``x`` (contiguous), also where it
+    is staged through the host, so that no second copy of ``x`` is made
+    on the card (a training step's gradients)."""
 
     if tp is None or tp.size == 1:
         return x
@@ -155,7 +159,7 @@ def all_reduce(x, tp: TP | None, op: str = "sum"):
         if tp.staged:
             host = x.cpu()
             dist.all_reduce(host, op=reduce_op, group=tp.group)
-            return host.to(x.device)
+            return x.copy_(host) if inplace else host.to(x.device)
         x = x.contiguous()
         dist.all_reduce(x, op=reduce_op, group=tp.group)
         return x
@@ -204,15 +208,29 @@ class FSDP(TP):
     fsdp_split``'s ``{top-level key: {path below it: dim}}``, the one
     record of which leaves a rank gathers and on which dim; ``gather``
     makes them whole.  ``timed``, ``stats`` and ``dry`` as ``TP``'s (its
-    op ``"all_gather"``).
+    ops ``"all_gather"`` and ``"reduce_scatter"``, each recording the
+    bytes of its input: the rank's shards, the whole gradients).
+
+    Under autograd (a leaf that requires grad) the gather is a
+    ``torch.autograd.Function`` whose backward reduce-scatters each whole
+    leaf's gradient over the group: the sum of the ranks' gradients, the
+    rank's slice of it in its shard's shape (op ``"reduce_scatter"``:
+    ``reduce_scatter_tensor`` of one flat run a dtype under ``nccl``;
+    ``gloo`` has no reduce-scatter, so an all-reduce of that run, staged
+    through the host on a card, and the rank's row of it).  The leaves it
+    takes are the parameters' own tensors (or their views), so their
+    gradients reach the leaves autograd knows.
 
     Ranks that share one card (``staged``: ``gloo``, which moves host
     tensors) gather a unit's shards laid out as ``train/shard.py`` lays
     them out by copying them device to device from the peers' memory:
     each rank sends the CUDA IPC handle of each such buffer over the group
-    once, after a synchronize, and the shards, weights that no step
-    writes, are read from then on.  Other shards on a shared card go
-    through the host, as ``all_gather`` does."""
+    once, after a synchronize, and reads the peers' shards from then on.
+    A training step writes those shards in place, so after its update
+    every rank synchronizes its card and the group passes a barrier
+    (``train/step.py``) before any gather reads a peer's buffer again.
+    Other shards on a shared card go through the host, as ``all_gather``
+    does."""
 
     split: dict = dataclasses.field(default_factory=dict)
     peers: dict = dataclasses.field(default_factory=dict, repr=False)
@@ -231,7 +249,8 @@ class FSDP(TP):
         """``tree`` (``params[key]``, or one unit of ``params["units"]``)
         with its FSDP leaves whole: one all-gather a dtype of the leaves'
         shards as one flat run (a view where ``train/shard.py`` laid them
-        out so), then each leaf's ``size`` slices joined on its dim."""
+        out so), then each leaf's ``size`` slices joined on its dim; under
+        autograd through ``_Gather``, whose backward reduce-scatters."""
 
         dims = self.split.get(key)
         if not dims or self.size == 1:
@@ -242,16 +261,64 @@ class FSDP(TP):
             by_dtype.setdefault(x.dtype, []).append((keys, x))
         whole = {}
         for items in by_dtype.values():
-            parts = self._all_gather_flat(*_flat([x for _, x in items]))
-            at = 0
-            for keys, x in items:
-                n, d = x.numel(), dims[keys] % x.ndim
-                p = parts[:, at:at + n].view((self.size,) + x.shape)
-                shape = list(x.shape)
-                shape[d] *= self.size
-                whole[keys] = p.movedim(0, d).reshape(shape)
-                at += n
+            xs = [x for _, x in items]
+            ds = tuple(dims[keys] % x.ndim for keys, x in items)
+            if torch.is_grad_enabled() and any(x.requires_grad for x in xs):
+                outs = _Gather.apply(self, ds, *xs)
+            else:
+                outs = self._gather_leaves(xs, ds)
+            whole.update(zip((keys for keys, _ in items), outs))
         return _replace(tree, whole)
+
+    def _gather_leaves(self, xs: list, ds) -> list:
+        """The shards ``xs`` whole: each joined with the ranks' on its dim
+        in ``ds``, by one all-gather of their flat run."""
+
+        parts = self._all_gather_flat(*_flat(xs))
+        out, at = [], 0
+        for x, d in zip(xs, ds):
+            n = x.numel()
+            p = parts[:, at:at + n].view((self.size,) + x.shape)
+            shape = list(x.shape)
+            shape[d] *= self.size
+            out.append(p.movedim(0, d).reshape(shape))
+            at += n
+        return out
+
+    def _scatter_grads(self, grads, shapes, ds) -> list:
+        """The whole leaves' gradients ``grads`` summed over the group,
+        each cut back to the rank's slice on its dim in ``ds``, in its
+        shard's shape: one reduce-scatter of their flat run."""
+
+        rows = []
+        for g, shape, d in zip(grads, shapes, ds):
+            cut = shape[:d] + (self.size, shape[d]) + shape[d + 1:]
+            rows.append(g.reshape(cut).movedim(d, 0).reshape(self.size, -1))
+        mine = self._reduce_scatter_flat(torch.cat(rows, dim=1))
+        out, at = [], 0
+        for shape in shapes:
+            n = math.prod(shape)
+            out.append(mine[at:at + n].view(shape))
+            at += n
+        return out
+
+    def _reduce_scatter_flat(self, flat: torch.Tensor) -> torch.Tensor:
+        """(n,): row ``rank`` of the sum of the ranks' ``flat`` (size,
+        n)."""
+
+        if self.group is None:
+            self._dry("reduce_scatter", flat)
+            return flat.new_empty(flat.shape[1:])
+        with self._timing("reduce_scatter", flat):
+            if dist.get_backend(self.group) != "nccl":
+                # gloo has no reduce-scatter: the whole sum, then the row
+                src = flat.cpu() if self.staged else flat.contiguous()
+                dist.all_reduce(src, group=self.group)
+                return src[self.rank].to(flat.device, copy=True)
+            out = flat.new_empty(flat.shape[1:])
+            dist.reduce_scatter_tensor(out, flat.contiguous(),
+                                       group=self.group)
+            return out
 
     def _all_gather_flat(self, flat: torch.Tensor,
                          view: bool = False) -> torch.Tensor:
@@ -352,6 +419,24 @@ def _flat(xs: list) -> tuple[torch.Tensor, bool]:
             return x0.as_strided((end - x0.storage_offset(),), (1,),
                                  x0.storage_offset()), True
     return torch.cat([x.reshape(-1) for x in xs]), False
+
+
+class _Gather(torch.autograd.Function):
+    """``FSDP._gather_leaves`` with a backward: the whole leaves'
+    gradients reduce-scattered back to the shards (``_scatter_grads``).
+    Gradients the loss does not reach come in as zeros, so every rank
+    makes the same collectives."""
+
+    @staticmethod
+    def forward(ctx, fsdp, ds, *xs):
+        ctx.fsdp, ctx.ds = fsdp, ds
+        ctx.shapes = [tuple(x.shape) for x in xs]
+        return tuple(fsdp._gather_leaves(list(xs), ds))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        return (None, None,
+                *ctx.fsdp._scatter_grads(grads, ctx.shapes, ctx.ds))
 
 
 def fsdp_gather(tree: dict, fsdp: FSDP | None, key: str) -> dict:
@@ -492,14 +577,17 @@ def init_embedding(gen, vocab: int, d_model: int, dtype, device):
     return _normal(gen, (vocab, d_model), d_model ** -0.5, dtype, device)
 
 
-def embed(emb, tokens, tp: TP | None = None):
+def embed(emb, tokens, tp: TP | None = None, sparse_grad: bool = False):
     """Rows ``tokens`` of the table.  Under ``tp`` the table holds this
     rank's range of ``tp.size`` contiguous vocab ranges: each rank writes
     the rows of its range and zeros for the rest, and the ranks
-    all-reduce: every sum has one nonzero term, so the rows are exact."""
+    all-reduce: every sum has one nonzero term, so the rows are exact.
+    ``sparse_grad``: the lookup's gradient is sparse (its rows only), for
+    a tied table whose unembedding gives it a dense one to add into, so
+    that the backward holds one dense gradient of the table, not two."""
 
     if tp is None:
-        return emb[tokens]
+        return F.embedding(tokens, emb, sparse=sparse_grad)
     lo = tp.rank * emb.shape[0]
     local = tokens - lo
     inside = (local >= 0) & (local < emb.shape[0])

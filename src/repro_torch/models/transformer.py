@@ -50,9 +50,15 @@ on their positions over its data group (``Ctx.kv_seq``, decoded by the
 masked partial softmax), and where the rules split weights on
 ``"data"`` it gathers them whole over its FSDP group just before the
 unit, head sublayer or VLM projector that reads them (``_unit``,
-``_whole``) and drops them after: one all-gather a unit.  The training
-loop (``lm_hidden_train``) takes no gather: a rank's model refuses
-``loss``.  The JAX package's one-hot
+``_whole``) and drops them after: one all-gather a unit.  Training
+(``lm_hidden_train``) gathers each unit inside its ``checkpoint``-ed
+function, so that remat gathers it again in the backward and only one
+unit is whole at a time; the gather's backward reduce-scatters the
+unit's gradients to the shards (``layers.FSDP``).  A data-parallel
+rank's loss (``Ctx.dp_group``) divides its rows' token losses by the
+valid targets of the whole batch, all-reduced over its batch group, so
+that the ranks' losses sum to the one process's mean
+(``train/step.py::make_sharded_train_step``).  The JAX package's one-hot
 embedding has no twin: ``models/api.py`` refuses the families and specs
 this does not cover.
 """
@@ -99,7 +105,10 @@ class Ctx:
     ``kv_seq``, the group of the data ranks of its pod at its model
     coordinate where the rules cut the KV caches' positions on
     ``"data"`` (a batch that does not split: every rank holds it whole,
-    and its KV cache a slice of the positions)."""
+    and its KV cache a slice of the positions); and ``dp_group``, the
+    ``TP`` of a training rank's batch group (every ``pod x data`` rank at
+    its model coordinate), over which its loss counts the whole batch's
+    valid targets."""
 
     attn_impl: str = "ref"
     remat: bool = False
@@ -110,6 +119,8 @@ class Ctx:
     dp: Optional[tuple] = None         # activation batch axes, e.g. ("pod","data")
     fsdp: Optional[L.FSDP] = dataclasses.field(default=None, compare=False)
     kv_seq: Optional[L.TP] = dataclasses.field(default=None, compare=False)
+    dp_group: Optional[L.TP] = dataclasses.field(default=None,
+                                                 compare=False)
 
     @property
     def tp_size(self) -> int:
@@ -421,9 +432,10 @@ def _embed_scale(cfg: ModelConfig) -> float:
     return cfg.d_model ** 0.5 if cfg.logit_softcap else 1.0
 
 
-def embed_tokens(params, tokens, cfg: ModelConfig, tp=None):
-    return (L.embed(params["embed"], tokens, L.sharded(tp, "embed"))
-            * _embed_scale(cfg))
+def embed_tokens(params, tokens, cfg: ModelConfig, tp=None,
+                 sparse_grad: bool = False):
+    return (L.embed(params["embed"], tokens, L.sharded(tp, "embed"),
+                    sparse_grad) * _embed_scale(cfg))
 
 
 def _unembed(params, x, cfg: ModelConfig, tp=None):
@@ -432,38 +444,59 @@ def _unembed(params, x, cfg: ModelConfig, tp=None):
                      L.sharded(tp, leaf))
 
 
+def _unit_train(params, n: int, x, cfg: ModelConfig, unit, ctx: Ctx):
+    """Unit ``n`` on x, its FSDP leaves gathered whole for it."""
+
+    return apply_unit_train(_unit(params, n, ctx), x, cfg, unit, ctx)
+
+
 def lm_hidden_train(params, x, cfg: ModelConfig, ctx: Ctx):
     """Embedded input -> final hidden states (+ MoE aux).  x: (B, L, d).
 
     With ``ctx.remat`` each unit keeps only its input for the backward and
-    recomputes the rest there (non-reentrant ``checkpoint``, which takes
-    the unit's parameter dict as it is)."""
+    recomputes the rest there (non-reentrant ``checkpoint``), its FSDP
+    gather included: the gather runs inside the checkpointed function, so
+    only the unit being run or recomputed is whole."""
 
     unit, n_scan, head = unit_spec(cfg)
     # the head sublayers' aux is dropped, as in the JAX package (their FFN
     # is dense in every config)
     for i, sl in enumerate(head):
-        x, _ = apply_sublayer_train(params[f"head{i}"], x, cfg, sl, ctx)
+        x, _ = apply_sublayer_train(_whole(params, f"head{i}", ctx), x, cfg,
+                                    sl, ctx)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for n in range(n_scan):
-        unit_params = _index(params["units"], n)
         if ctx.remat:
-            x, a = checkpoint(apply_unit_train, unit_params, x, cfg, unit,
-                              ctx, use_reentrant=False)
+            x, a = checkpoint(_unit_train, params, n, x, cfg, unit, ctx,
+                              use_reentrant=False)
         else:
-            x, a = apply_unit_train(unit_params, x, cfg, unit, ctx)
+            x, a = _unit_train(params, n, x, cfg, unit, ctx)
         aux = aux + a
     return L.rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
+def global_valid(targets, ctx: Ctx):
+    """``None`` in one process; under ``ctx.dp_group`` the valid targets
+    (not -1) of the whole batch, all-reduced over the batch group, at
+    least 1 (the denominator ``cross_entropy`` would take)."""
+
+    if ctx.dp_group is None:
+        return None
+    return L.all_reduce((targets >= 0).sum(), ctx.dp_group).clamp(min=1)
+
+
 def lm_loss(params, tokens, targets, cfg: ModelConfig, ctx: Ctx):
     """Mean next-token cross-entropy of ``tokens`` (B, L) against
-    ``targets`` (B, L; -1 is padding), as a 0-d f32 tensor."""
+    ``targets`` (B, L; -1 is padding), as a 0-d f32 tensor; on a
+    data-parallel rank its rows' share of the whole batch's mean."""
 
-    x = embed_tokens(params, tokens, cfg)
+    # a tied table's lookup gradient is sparse and adds its rows into the
+    # unembedding's dense gradient: the backward holds one dense gradient
+    # of the table, not two (2.2 GiB more at gemma2-2b's f32 table)
+    x = embed_tokens(params, tokens, cfg, sparse_grad=cfg.tie_embeddings)
     h, aux = lm_hidden_train(params, x, cfg, ctx)
     logits = _unembed(params, h, cfg)
-    return L.cross_entropy(logits, targets) + aux
+    return L.cross_entropy(logits, targets, global_valid(targets, ctx)) + aux
 
 
 def _sublayer_cache(cfg: ModelConfig, sl: SubLayer, ctx: Ctx, batch: int,

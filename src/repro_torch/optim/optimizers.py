@@ -137,12 +137,20 @@ def cosine_warmup(base_lr: float, warmup: int, total: int):
     return schedule
 
 
+def square_norm(grads) -> torch.Tensor:
+    """‖g‖² of a tree, in float32."""
+
+    return sum(torch.sum(torch.square(g.float())) for g in tree_leaves(grads))
+
+
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
-    """(grads scaled in place by min(1, max_norm / (‖g‖ + 1e-9)), ‖g‖)."""
+def clip_by_global_norm(grads, max_norm: float, sq_norm=square_norm):
+    """(grads scaled in place by min(1, max_norm / (‖g‖ + 1e-9)), ‖g‖);
+    ‖g‖² is ``sq_norm(grads)``: a rank's shards of a tree pass the norm
+    over every rank's (``train/step.py``)."""
 
     leaves = tree_leaves(grads)
-    gnorm = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    gnorm = torch.sqrt(sq_norm(grads))
     scale = torch.clamp(max_norm / (gnorm + 1e-9), max=1.0)
     for g in leaves:
         g.mul_(scale.to(g.dtype))
@@ -150,7 +158,7 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def adamw(lr_schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
-          max_grad_norm=0.0):
+          max_grad_norm=0.0, sq_norm=square_norm):
     def init(params):
         return AdamWState(_step0(params), tree_map(_f32_zeros, params),
                           tree_map(_f32_zeros, params))
@@ -158,7 +166,8 @@ def adamw(lr_schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
     @torch.no_grad()
     def update(grads, state, params):
         if max_grad_norm:
-            grads, _ = clip_by_global_norm(grads, max_grad_norm)
+            grads, _ = clip_by_global_norm(grads, max_grad_norm,
+                                           sq_norm)
         step = state.step + 1
         lr = lr_schedule(step)
         t = step.float()
@@ -179,14 +188,15 @@ def adamw(lr_schedule, b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1,
     return Optimizer(init, update)
 
 
-def sgd(lr_schedule, momentum=0.9, max_grad_norm=0.0):
+def sgd(lr_schedule, momentum=0.9, max_grad_norm=0.0, sq_norm=square_norm):
     def init(params):
         return SGDState(_step0(params), tree_map(_f32_zeros, params))
 
     @torch.no_grad()
     def update(grads, state, params):
         if max_grad_norm:
-            grads, _ = clip_by_global_norm(grads, max_grad_norm)
+            grads, _ = clip_by_global_norm(grads, max_grad_norm,
+                                           sq_norm)
         step = state.step + 1
         lr = lr_schedule(step)
 
@@ -216,13 +226,15 @@ def paper_sgd(a: float, b: float):
     return Optimizer(init, update)
 
 
-def make_optimizer(cfg: TrainConfig) -> Optimizer:
+def make_optimizer(cfg: TrainConfig, sq_norm=square_norm) -> Optimizer:
+    """The optimizer of ``cfg``; its clip takes ‖g‖² from ``sq_norm``."""
+
     sched = cosine_warmup(cfg.learning_rate, cfg.warmup_steps, cfg.total_steps)
     if cfg.optimizer == "adamw":
         return adamw(sched, cfg.beta1, cfg.beta2, cfg.eps, cfg.weight_decay,
-                     cfg.max_grad_norm)
+                     cfg.max_grad_norm, sq_norm)
     if cfg.optimizer == "sgd":
-        return sgd(sched, cfg.beta1, cfg.max_grad_norm)
+        return sgd(sched, cfg.beta1, cfg.max_grad_norm, sq_norm)
     if cfg.optimizer == "paper_sgd":
         return paper_sgd(cfg.learning_rate, 5e-7)
     raise ValueError(cfg.optimizer)

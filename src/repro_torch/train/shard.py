@@ -17,7 +17,10 @@ then cut the attention KV caches' sequence on ``"data"``.  ``check_mesh``
 refuses what the serving ranks do not cover, naming its ROADMAP item: the
 encoder-decoder family on more than one ``pod x data`` rank (item
 6.8.2c) and MLA's latent cache at a batch that does not split, which the
-rules cut on ``"data"`` (item 6.8.2e).
+rules cut on ``"data"`` (item 6.8.2e).  ``check_train_mesh`` refuses
+what the training ranks do not cover: more than one model rank (item
+6.2a-ii), a family other than the dense one on more than one rank (item
+6.2c), and microbatch parts whose rows do not split over ``pod x data``.
 
 ``fsdp_split`` names the leaves the specs split on ``"data"``, and the
 dim, by the top-level key whose subtree a rank gathers at once (the
@@ -125,6 +128,31 @@ def check_mesh(mesh_cfg: MeshConfig, cfg: ModelConfig | None = None,
                                                        dp=dp))
     if cfg.mla is not None and batch is not None and batch % dp:
         raise NotImplementedError(MLA_REASON.format(batch=batch, dp=dp))
+
+
+def check_train_mesh(mesh_cfg: MeshConfig, cfg: ModelConfig,
+                     batch: int | None = None, microbatch: int = 0) -> None:
+    """``check_mesh``'s training twin: refuse a grid the training ranks do
+    not cover, more than one model rank (item 6.2a-ii) or a family other
+    than the dense one on more than one rank (item 6.2c), and
+    (``ValueError``) a global ``batch`` whose ``microbatch`` parts (one
+    without) do not each split over the ``pod x data`` ranks: a rank
+    runs its rows of each part, as the rules cut the part."""
+
+    check_mesh(mesh_cfg)
+    if mesh_cfg.model > 1:
+        raise NotImplementedError(api.TP_TRAIN_REASON)
+    if mesh_cfg.num_devices > 1 and cfg.family != "dense":
+        raise NotImplementedError(
+            api.FAMILY_TRAIN_REASON.format(family=cfg.family))
+    if batch is None:
+        return
+    parts, dp = max(microbatch, 1), dp_size(mesh_cfg)
+    if batch % parts or (batch // parts) % dp:
+        raise ValueError(
+            f"a batch of {batch} in {parts} microbatch part(s) does not "
+            f"split over the {dp} pod x data ranks: each part's rows are "
+            "cut over them")
 
 
 def batch_splits(mesh_cfg: MeshConfig, batch: int) -> bool:
@@ -274,19 +302,23 @@ def _fsdp_views(shapes, pspecs, mesh_cfg: MeshConfig, device) -> dict:
     return views
 
 
-def shard_params(params, pspecs, mesh_cfg: MeshConfig, rank: int):
+def shard_params(params, pspecs, mesh_cfg: MeshConfig, rank: int,
+                 device=None):
     """Rank ``rank``'s slices of a parameter tree (``param_pspecs``), its
-    FSDP shards laid out unit by unit in one buffer (``_fsdp_views``)."""
+    FSDP shards laid out unit by unit in one buffer (``_fsdp_views``), on
+    ``device`` (the tree's by default: a whole tree read from a
+    checkpoint on the host is sliced there and only the slices moved)."""
 
-    leaves = tree_leaves(params)
-    views = _fsdp_views(params, pspecs, mesh_cfg,
-                        leaves[0].device if leaves else None)
+    if device is None:
+        leaves = tree_leaves(params)
+        device = leaves[0].device if leaves else None
+    views = _fsdp_views(params, pspecs, mesh_cfg, device)
 
     def leaf(path, x, spec):
         part = _slice(x, spec, mesh_cfg, rank)
         if path in views:
             return views[path].copy_(part)
-        return part.clone()
+        return part.to(device, copy=True)
 
     return tree_map_with_path(leaf, params, pspecs)
 

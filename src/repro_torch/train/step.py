@@ -1,11 +1,12 @@
 """Train and eval step factories of the LM harness (port of
-``repro.train.step``, one device, no mesh).
+``repro.train.step``): on one card, and on a ``pod x data`` grid of
+ranks.
 
-``make_train_step`` builds the step: the model loss and its gradients by
-autograd, optional microbatched gradient accumulation, then the optimizer
-update.  The JAX step's shardings (``opt_pspecs``/``shardings_for``) have
-no counterpart here; its buffer donation does: the step updates ``params``
-and ``opt_state`` in place and returns them.
+``make_train_step`` builds the one-card step: the model loss and its
+gradients by autograd, optional microbatched gradient accumulation, then
+the optimizer update.  The JAX step's buffer donation has its
+counterpart: the step updates ``params`` and ``opt_state`` in place and
+returns them.
 
 With ``microbatch = n > 1`` the leading batch dim is split into n equal
 parts as the JAX step's ``grads_of`` splits it; each part's forward is
@@ -13,16 +14,54 @@ followed by the backward of ``loss_i / n``, which adds into the
 parameters' ``.grad``, so the gradients of the n parts sum in one tree
 (JAX's ``lax.scan`` carries a second, zero-initialised one) and only one
 part's activations are alive at a time.  The loss is Σ loss_i / n.
+
+``make_sharded_train_step(model, group, mesh_cfg, shape_cfg, train_cfg)``
+is the grid form of the reference's ``make_train_step`` on a mesh of
+data axes alone (``model = 1``), FSDP on or off: where the JAX step is
+one program whose gradient reductions GSPMD inserts, the port's runs on
+one rank of a ``torch.distributed`` group of ``pod x data`` ranks (the
+whole default group; ``launch/lm_engine.py::grid_groups``).  The step
+takes the rank's parameter shards (``train/shard.py``: the rules' specs,
+the FSDP shards of a unit in one buffer) and optimizer state (the same
+specs, ``opt_pspecs``), and the **global** batch.  It splits the batch
+into the microbatch parts as the JAX step does, then cuts each part's
+rows over ``pod x data`` as the rules cut the part, so that each part's
+mean covers JAX's tokens: a rank's loss is its rows' token losses over
+the part's valid targets, counted over the batch group
+(``Ctx.dp_group``), and the ranks' losses sum to JAX's.  Gradients: an
+FSDP leaf's arrives reduce-scattered over the FSDP group by the gather's
+backward (``models/layers.py::FSDP``), summed over the pods by an
+all-reduce over the cross-pod group; a replicated leaf's (``embed``,
+the norms) is all-reduced over the batch group once, after the last
+part.  The clip takes the norm over the whole tree: the shards' squares
+summed over the FSDP group, each replicated leaf counted once
+(``sq_norm``).  Parameters and state update in place; where the FSDP
+ranks share one card and read each other's shards (``FSDP.one_card``),
+every rank then synchronizes its card and the group passes a barrier
+before the next gather.  ``train/shard.py::check_train_mesh`` refuses
+more than one model rank (item 6.2a-ii), the families other than the
+dense one on more than one rank (6.2c) and parts that do not split.
 """
 
 from __future__ import annotations
 
-import torch
+import dataclasses
+from typing import Any
 
-from repro_torch.config import TrainConfig
-from repro_torch.models.api import Model
+import torch
+import torch.distributed as dist
+
+from repro_torch.config import MeshConfig, ShapeConfig, TrainConfig
+from repro_torch.models.api import (Model, build_model, input_specs,
+                                    param_specs)
+from repro_torch.models.layers import FSDP, TP, all_gather, all_reduce
 from repro_torch.optim import Optimizer, apply_updates, make_optimizer
-from repro_torch.optim.optimizers import tree_leaves, tree_map
+from repro_torch.optim.optimizers import (AdamWState, SGDState,
+                                          square_norm, tree_leaves,
+                                          tree_map, tree_map_with_path)
+from repro_torch.train import sharding as S
+from repro_torch.train.shard import (check_train_mesh, fsdp_split,
+                                     shard_leaf, shard_nbytes, shard_params)
 
 
 def loss_and_grads(loss_fn, params, batches):
@@ -71,22 +110,30 @@ def split_batch(batch: dict, n: int) -> list[dict]:
             for i in range(n)]
 
 
+def _step(grads_of, optimizer: Optimizer, after=None):
+    """The train step of either form: ``grads_of(params, batch) -> (loss,
+    grads)``, the optimizer update applied in place, then ``after()``."""
+
+    def train_step(params, opt_state, batch):
+        loss, grads = grads_of(params, batch)
+        updates, opt_state = optimizer.update(grads, opt_state, params)
+        params = apply_updates(params, updates)
+        if after is not None:
+            after()
+        return params, opt_state, {"loss": loss}
+
+    return train_step
+
+
 def make_train_step(model: Model, train_cfg: TrainConfig,
                     optimizer: Optimizer | None = None):
     """``step(params, opt_state, batch) -> (params, opt_state, {"loss":
     loss})``; ``params`` and ``opt_state`` are updated in place."""
 
-    optimizer = optimizer or make_optimizer(train_cfg)
     n_micro = train_cfg.microbatch
-
-    def train_step(params, opt_state, batch):
-        loss, grads = loss_and_grads(model.loss, params,
-                                     split_batch(batch, n_micro))
-        updates, opt_state = optimizer.update(grads, opt_state, params)
-        params = apply_updates(params, updates)
-        return params, opt_state, {"loss": loss}
-
-    return train_step
+    return _step(lambda params, batch: loss_and_grads(
+        model.loss, params, split_batch(batch, n_micro)),
+        optimizer or make_optimizer(train_cfg))
 
 
 def make_eval_step(model: Model):
@@ -97,3 +144,190 @@ def make_eval_step(model: Model):
         return model.loss(params, batch)
 
     return eval_step
+
+
+# ---------------------------------------------------------------------------
+# The step on a pod x data grid of ranks
+# ---------------------------------------------------------------------------
+
+
+def opt_pspecs(opt_state: Any, param_specs_tree: Any):
+    """Optimizer-state specs mirror the parameter specs (ZeRO for free),
+    as the JAX package's ``opt_pspecs``."""
+
+    if isinstance(opt_state, AdamWState):
+        return AdamWState(S.P(), param_specs_tree, param_specs_tree)
+    if isinstance(opt_state, SGDState):
+        mom = param_specs_tree if opt_state.momentum != () else ()
+        return SGDState(S.P(), mom)
+    raise TypeError(type(opt_state))
+
+
+def _data_dim(spec) -> int | None:
+    """The dim a spec puts on ``"data"`` (an FSDP shard's), or None."""
+
+    for d, entry in enumerate(spec):
+        if entry == "data" or (isinstance(entry, tuple) and "data" in entry):
+            return d
+    return None
+
+
+def _fsdp_paths(split: dict) -> frozenset:
+    """The parameter paths of ``fsdp_split``'s leaves, spelled as
+    ``tree_map_with_path`` spells them."""
+
+    return frozenset(f"['{top}']" + "".join(f"['{k}']" for k in keys)
+                     for top, leaves in split.items() for keys in leaves)
+
+
+@dataclasses.dataclass(eq=False)
+class TrainGrid:
+    """A training rank's place on the grid: the mesh, its rank, the
+    ``TP`` of its batch group (every ``pod x data`` rank), of its
+    cross-pod group (``None`` in one pod) and its ``FSDP`` group (``None``
+    without FSDP), and the paths of the leaves it holds FSDP shards of."""
+
+    mesh_cfg: MeshConfig
+    rank: int
+    batch: TP | None
+    pod: TP | None
+    fsdp: FSDP | None
+    sharded: frozenset
+
+    def parts(self, batch: dict, n_micro: int) -> list[dict]:
+        """The rank's rows of each microbatch part of the global
+        ``batch``: the part as the JAX step splits it, then cut over
+        ``pod x data`` as the rules cut it."""
+
+        spec = S.P(S.dp_axes(self.mesh_cfg), None)
+        return [{k: v if self.batch is None else
+                 shard_leaf(v, spec, self.mesh_cfg, self.rank)
+                 for k, v in part.items()}
+                for part in split_batch(batch, n_micro)]
+
+    def reduce(self, grads):
+        """The gradient tree summed over the grid: an FSDP leaf's over the
+        pods (the reduce-scatter summed it over the pod's data ranks), a
+        replicated leaf's over the batch group."""
+
+        return tree_map_with_path(
+            lambda path, g: all_reduce(
+                g, self.pod if path in self.sharded else self.batch,
+                inplace=True), grads)
+
+    def sq_norm(self, grads) -> torch.Tensor:
+        """‖g‖² of the whole tree: the rank's shards' squares summed over
+        the FSDP group, each replicated leaf's counted once."""
+
+        if not self.sharded:
+            return square_norm(grads)
+        own, whole = [], []
+        tree_map_with_path(lambda path, g: (
+            own if path in self.sharded else whole).append(g), grads)
+        total = square_norm(whole) if whole else 0.0
+        if own:
+            total = total + all_reduce(square_norm(own), self.fsdp)
+        return total
+
+    def whole(self, tree, specs, keep: bool):
+        """``tree`` (parameters or optimizer state) with every FSDP shard
+        gathered whole over the FSDP group (the pods hold the same
+        shards), on the host where ``keep``, else ``None`` leaves: a
+        checkpoint, in the JAX package's format, of the whole tree."""
+
+        def leaf(path, x, spec):
+            d = _data_dim(spec)
+            if d is not None and self.fsdp is not None:
+                x = all_gather(x, self.fsdp, d)
+            return x.detach().cpu() if keep else None
+
+        return tree_map_with_path(leaf, tree, specs)
+
+
+def make_sharded_train_step(model: Model, group, mesh_cfg: MeshConfig,
+                            shape_cfg: ShapeConfig, train_cfg: TrainConfig):
+    """``(step, info)``: ``step(params, opt_state, batch) -> (params,
+    opt_state, {"loss": loss})`` on this rank's shards of a ``pod x data``
+    grid (``model = 1``), ``batch`` the global batch of ``shape_cfg``;
+    ``loss`` is the whole batch's mean on every rank.  ``info``: the specs
+    (``pspecs``, ``ospecs``, ``bspecs``), the rank's ``model`` and
+    ``grid`` (``TrainGrid``), the ``optimizer`` (``TrainConfig``'s, its
+    clip over the whole tree), the reckoned bytes of a rank's shards
+    (``param_bytes``, ``opt_bytes``), ``grads(params, batch) -> (loss,
+    grads)`` (the rank's reduced gradients, before the clip) and
+    ``grad_norm(grads)``.  On one rank the step is ``make_train_step``'s
+    own (the one-card step), with these ``info`` keys."""
+
+    cfg = model.cfg
+    B, n_micro = shape_cfg.global_batch, train_cfg.microbatch
+    check_train_mesh(mesh_cfg, cfg, B, n_micro)
+    shapes = param_specs(model)
+    pspecs = S.param_pspecs(cfg, shapes, mesh_cfg)
+    bspecs = S.batch_pspecs(cfg, shape_cfg, mesh_cfg,
+                            input_specs(cfg, shape_cfg))
+    split = fsdp_split(shapes, pspecs) if mesh_cfg.data > 1 else {}
+    device = model.device
+    if mesh_cfg.num_devices == 1:
+        grid = TrainGrid(mesh_cfg, 0, None, None, None, frozenset())
+        rank_model = model
+    else:
+        # here, not at the top: launch/lm_engine.py imports this package
+        from repro_torch.launch.lm_engine import grid_groups
+
+        if group is None:
+            raise ValueError(f"a {mesh_cfg.pod} x {mesh_cfg.data} grid of "
+                             "ranks needs its process group")
+        _, fsdp_group, batch_group, pod_group = grid_groups(group, mesh_cfg)
+        grid = TrainGrid(
+            mesh_cfg, dist.get_rank(group), TP.of(batch_group, device),
+            None if pod_group is None else TP.of(pod_group, device),
+            FSDP.of(fsdp_group, device, split) if split else None,
+            _fsdp_paths(split))
+        rank_model = build_model(cfg, dataclasses.replace(
+            model.ctx, fsdp=grid.fsdp, dp=S.dp_axes(mesh_cfg),
+            dp_group=grid.batch), device=device)
+    optimizer = make_optimizer(train_cfg, grid.sq_norm)
+    opt_shapes = optimizer.init(shapes)
+    ospecs = opt_pspecs(opt_shapes, pspecs)
+
+    def grads_of(params, batch):
+        rows = {len(v) for v in batch.values()}
+        if rows != {B}:
+            raise ValueError(f"the step takes the global batch of {B} "
+                             f"rows, got {sorted(rows)}")
+        loss, grads = loss_and_grads(rank_model.loss, params,
+                                     grid.parts(batch, n_micro))
+        return all_reduce(loss, grid.batch), grid.reduce(grads)
+
+    def after():
+        # the peers read these shards at the next gather
+        torch.cuda.synchronize(device)
+        dist.barrier(group=grid.fsdp.group)
+
+    if mesh_cfg.num_devices == 1:
+        train_step = make_train_step(model, train_cfg, optimizer)
+    else:
+        train_step = _step(grads_of, optimizer, after if (
+            grid.fsdp is not None and grid.fsdp.one_card) else None)
+
+    info = {"pspecs": pspecs, "ospecs": ospecs, "bspecs": bspecs,
+            "model": rank_model, "grid": grid, "optimizer": optimizer,
+            "param_bytes": shard_nbytes(shapes, pspecs, mesh_cfg),
+            "opt_bytes": shard_nbytes(opt_shapes, ospecs, mesh_cfg),
+            "grads": grads_of,
+            "grad_norm": lambda grads: torch.sqrt(grid.sq_norm(grads))}
+    return train_step, info
+
+
+def shard_state(params, opt_state, info, rank: int, device):
+    """A rank's shards of a whole parameter tree and optimizer state (a
+    seeded init, or a checkpoint read on the host) by the step's specs:
+    the parameters laid out as ``train/shard.py::shard_params`` lays them
+    out, the state cut leaf by leaf, both on ``device``."""
+
+    mesh_cfg = info["grid"].mesh_cfg
+    params = shard_params(params, info["pspecs"], mesh_cfg, rank, device)
+    opt_state = tree_map_with_path(
+        lambda _, x, spec: shard_leaf(x, spec, mesh_cfg, rank).to(device),
+        opt_state, info["ospecs"])
+    return params, opt_state

@@ -396,7 +396,9 @@ def test_launch_train_resume_is_bitwise(smoke_launcher, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,why", [
-    (["--multi-pod"], "launch/mesh.py has no twin"),
+    # --multi-pod trains on two pods now (tests/test_torch_dp_train.py);
+    # with --distributed it still raises
+    (["--multi-pod", "--distributed"], "launch/mesh.py has no twin"),
     (["--distributed"], "launch/mesh.py has no twin"),
     (["--sync", "gossip"], "never reads it"),
 ])
