@@ -142,8 +142,9 @@ reference's gate, ``tests/test_distributed.py``: consensus error below
 with its consensus error, ms per exchange and bytes per exchange.
 
 ``[dp_train]`` (after ``[train]``): the sharded train step on the data
-axis (``train/step.py::make_sharded_train_step``; no kernel on this path
-either).  gemma2-2b at full width and 4 of its 26 layers (2 units), 8
+and model axes (``train/step.py::make_sharded_train_step``; no kernel on
+this path either: the JAX flash kernel has no VJP, so training runs the
+plain attention).  gemma2-2b at full width and 4 of its 26 layers (2 units), 8
 sequences of 512 tokens a step as ``microbatch=2``, AdamW at lr 1e-3
 (``TrainConfig``'s clip on), two steps from one seeded init
 (``init_shard``, whose shards at any grid are the one process's slices
@@ -151,16 +152,27 @@ bit for bit): first one process on the card through the one-card step
 (``make_train_step``, the step held against JAX's in
 ``tests/test_torch_train.py``), then one grid of 4 ``gloo`` ranks on the
 card, each rank's allocator capped at ``DPT_CARD_SHARE`` of it, trains
-at (data 4) and then at (pod 2, data 2), each rank's FSDP gathers
-copying the peers' shards device to device (step 2 reads the shards step
-1 updated in place).  Held: every rank's losses
+at (data 4), at (pod 2, data 2) and at (data 2, model 2), each rank's
+FSDP gathers copying the peers' shards device to device (step 2 reads
+the shards step 1 updated in place); at model 2 a rank holds its heads,
+FFN columns and vocab half, its loss the vocab-parallel cross-entropy
+(the logits never gathered).  Held: every rank's losses
 within ``DPT_LOSS_RTOL`` of the one process's; the parameters after two
 steps by ``tests/test_torch_train.py``'s AdamW rule (every coordinate
-within ``ADAM_MAX`` x lr, all but ``ADAM_FRAC`` within 1e-3 x lr); the
+within ``ADAM_MAX`` x lr, all but ``ADAM_FRAC`` within 1e-3 x lr; a
+coordinate past ``ADAM_MAX`` x lr is held by its cause, ``dpt_referee``:
+at 900M coordinates a step-1 gradient within f32 rounding of zero turns
+up, whose AdamW update g / (|g| + eps) the rounding moves by up to lr, so
+the rank's step-1 gradient there must match the one process's within
+``DPT_GRAD_TOL`` x its leaf's max and the two first updates must account
+for the difference within ``ADAM_MAX`` x lr); the
 replicated leaves equal on every rank; a rank's bytes of parameters and
 state equal to ``shard_nbytes`` of the specs; the FSDP gathers and
 reduce-scatters of step 1 counted exactly (2 units x 2 parts x 2: remat
-gathers again; one reduce-scatter a unit and part).  Printed: s a step,
+gathers again; one reduce-scatter a unit and part), and at model 2 the
+model group's all-reduces (a part: the lookup, 6 a sublayer, the final
+norm's conjugate, the cross-entropy's; the clip's) and the logits'
+maxima, no all-gather outside the FSDP group.  Printed: s a step,
 the collectives' calls, bytes, seconds and share of step 1 (the card
 synchronised around each), each rank's peak, the card's least free
 memory while the grid ran (sampled every 10 ms), and rank 0's step 2
@@ -279,8 +291,9 @@ step's logits within 1e-3 x max|logit| of the reference's, the greedy
 tokens equal wherever its top-2 margin exceeds that bound, 8 flash
 launches a rank.  Prints prefill s and decode ms a step of both runs,
 the all-reduce and all-gather share of the prefill and of a decode step
-(the prefill and 8 decode steps run again, rank 0 synchronising the card
-around each collective; the times reported are the untimed run's), each
+(timed in the same run: rank 0 synchronises the card around each
+collective, which the staged ``gloo`` path does anyway; the prefill and 8
+decode steps used to run again for it, cut for the run's time), each
 rank's peak memory and bytes of shards and
 cache, and the per-rank bytes of the four-rank full-depth model
 reckoned from its specs (``train/shard.py::shard_nbytes``) beside
@@ -368,9 +381,8 @@ a rank); then one grid of 4 ranks serving it from ``init_shard`` at
 ``model = 4``, fed the reference's tokens, held as ``[tp_ssm_encdec]``
 holds its ranks (1e-5 x max|logit|, the float64 referee past it, greedy
 tokens), one flash launch a layer on every rank.  Rank 0 times its
-collectives on the prefill and 4 decode steps run again and profiles one
-more step.  Prints prefill s and the median decode step of both runs,
-the collectives' calls, seconds and bytes by kind, each rank's bytes of
+collectives in the same run and profiles one more step.  Prints prefill
+s and the median decode step of both runs, the collectives' calls, seconds and bytes by kind, each rank's bytes of
 shards and cache (equal to ``shard_nbytes`` of the specs), and the full
 depth at ``decode_32k``'s length, B = 32, reckoned from the specs: a
 rank's weights and sequence-cut bf16 cache against the card.
@@ -680,6 +692,7 @@ from repro_torch.models.layers import rms_norm  # noqa: E402
 from repro_torch.models.transformer import _index  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.optim.optimizers import (  # noqa: E402
+    square_norm,
     tree_leaves,
     tree_map,
     tree_map_with_path,
@@ -828,10 +841,11 @@ DP_CASES = {"staleness1": dict(staleness=1, compression="none"),
             "staleness2": dict(staleness=2, compression="none"),
             "int8": dict(staleness=1, compression="int8")}
 DP_CERR, DP_LOSS = 0.05, 0.15   # tests/test_distributed.py's gossip-DP gate
-# [dp_train]: the sharded train step on the data axis.  gemma2-2b at full
-# width and 4 of its 26 layers (2 units; every rank holds the replicated
-# 2.36 GB embedding with its gradient and AdamW moments, 9.4 GB, and 4
-# ranks share the card), 8 sequences of 512 tokens a step as microbatch=2
+# [dp_train]: the sharded train step on the data and model axes.  gemma2-2b
+# at full width and 4 of its 26 layers (2 units; every rank at model 1
+# holds the replicated 2.36 GB embedding with its gradient and AdamW
+# moments, 9.4 GB, at model 2 its vocab half, and 4 ranks share the
+# card), 8 sequences of 512 tokens a step as microbatch=2
 # (one row of each part a rank; at 1024 tokens a part's logits, 1.05 GB a
 # copy, and their gradients took the four ranks past the card's 79 GiB),
 # AdamW at lr 1e-3 (at which a
@@ -848,10 +862,16 @@ DPT_CARD_SHARE = 0.22
 DPT_SEED, DPT_LR, DPT_LOSS_RTOL = 0, 1e-3, 1e-5
 DPT_MESHES = {"data4": dict(pod=1, data=4, model=1, fsdp=True),
               "pods2x2": dict(multi_pod=True, pod=2, data=2, model=1,
-                              fsdp=True)}
+                              fsdp=True),
+              "data2model2": dict(pod=1, data=2, model=2, fsdp=True)}
 # tests/test_torch_train.py's AdamW rule: every coordinate within
 # ADAM_MAX x lr of the one process's, all but ADAM_FRAC within 1e-3 x lr
 ADAM_MAX, ADAM_FRAC = 0.25, 1e-3
+# a coordinate past ADAM_MAX x lr is held by its cause (dpt_referee): the
+# rank's gradient of step 1 within DPT_GRAD_TOL x its leaf's max|g| of the
+# one process's (tests/test_torch_dp_train.py's GRAD_TOL), at most
+# DPT_REFEREE_CAP such coordinates a rank
+DPT_GRAD_TOL, DPT_REFEREE_CAP = 1e-4, 64
 # [moe]: both MoE archs at full width and depth; 4 prompts of 4000 tokens
 # and 32 new tokens in Granite 3.0's context of 4096
 MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
@@ -893,7 +913,7 @@ VLM_SPLIT = 1760      # continuation: patches + 1760 tokens + 32 decodes
 # [tp]: the [vlm] cell on 4 tensor-parallel ranks (the model axis of the
 # JAX package's mesh), each holding 16 query and 2 KV heads; decode steps
 # timed with the collectives synchronised on rank 0
-TP_RANKS, TP_SEED, TP_TIMED_STEPS = 4, 0, 8
+TP_RANKS, TP_SEED = 4, 0
 # [ep]: the [moe] cell on 4 expert-parallel ranks (granite-moe's 40
 # experts 10 a rank, deepseek's 64 16 a rank), a prefill and 7 decode
 # steps (8 logits) fed the one-process run's tokens; on one card shared by
@@ -931,7 +951,7 @@ TSE_F64_FACTOR = 4.0
 # the ranks warm up on one request of 64 tokens
 MQA_ARCH, MQA_LAYERS = "granite-34b", 5
 MQA_BATCH, MQA_PROMPT, MQA_NEW, MQA_MAX_LEN = 4, 1024, 16, 1376
-MQA_TIMED_STEPS, MQA_WARM = 4, 64
+MQA_WARM = 64
 # the four-card cell it stands for: decode_32k's length at B = 32
 MQA_FULL_BATCH, MQA_FULL_LEN = 32, 32768
 # [fsdp]: qwen1.5-32b (40 query and 40 KV heads of 128, d_model 5120) at
@@ -2345,6 +2365,11 @@ def train_phase(card, device="cuda") -> dict:
     return out
 
 
+def dpt_train_config() -> TrainConfig:
+    return TrainConfig(learning_rate=DPT_LR, warmup_steps=1, total_steps=10,
+                       microbatch=DPT_MICRO)
+
+
 def dpt_setup(cfg, mesh_cfg, group, rank, device):
     """``[dp_train]``'s step, its info and rank ``rank``'s seeded shards
     with a fresh optimizer state; without a group, the one process's
@@ -2352,12 +2377,11 @@ def dpt_setup(cfg, mesh_cfg, group, rank, device):
     ``tests/test_torch_train.py`` holds against JAX's)."""
 
     model = build_model(cfg, Ctx(attn_impl="ref", remat=True), device=device)
-    tc = TrainConfig(learning_rate=DPT_LR, warmup_steps=1, total_steps=10,
-                     microbatch=DPT_MICRO)
+    tc = dpt_train_config()
     if group is None:
         optimizer = make_optimizer(tc)
         step, info = make_train_step(model, tc, optimizer), {
-            "optimizer": optimizer}
+            "optimizer": optimizer, "model": model}
     else:
         step, info = make_sharded_train_step(
             model, group, mesh_cfg,
@@ -2369,28 +2393,115 @@ def dpt_setup(cfg, mesh_cfg, group, rank, device):
 def dpt_groups(info) -> dict:
     grid = info["grid"]
     return {k: g for k, g in (("fsdp", grid.fsdp), ("batch", grid.batch),
-                              ("pod", grid.pod)) if g is not None}
+                              ("pod", grid.pod), ("model", grid.model))
+            if g is not None}
+
+
+def dpt_model_all_reduces(cfg, parts: int) -> int:
+    """The model group's all-reduces in a step at ``parts`` microbatch
+    parts: a part's lookup, each sublayer's two row-parallel sums, the
+    same two recomputed by remat (gemma2's post-norm saves each sum) and
+    its two conjugates' gradients, the final norm's conjugate, the
+    cross-entropy's sums; the clip's once a step."""
+
+    return parts * (6 * cfg.num_layers + 3) + 1
 
 
 def dpt_hold(params, ref, pspecs, mesh_cfg, rank, device) -> dict:
     """The rank's shards ``params`` against their slices of the one
     process's parameters ``ref`` (``{path: CPU tensor}``, memory-mapped):
-    the largest difference, and how many coordinates of how many differ by
-    more than 1e-3 x lr."""
+    the largest difference, how many coordinates of how many differ by
+    more than 1e-3 x lr, and the coordinates past ``ADAM_MAX`` x lr
+    (``flagged``: path, flat index in the rank's shard, its value and the
+    one process's; at most ``DPT_REFEREE_CAP``, ``over`` the rest)."""
 
-    out = {"max": 0.0, "past": 0, "total": 0}
+    out = {"max": 0.0, "past": 0, "total": 0, "flagged": [], "over": 0}
 
     def hold(path, x, spec):
         want = shard_leaf(ref[path], spec, mesh_cfg, rank)
         # a leaf a slab of rows at a time: the card holds little else
         rows = max(1, (1 << 26) // max(1, x[:1].numel()))
+        at = 0
         for got, part in zip(x.split(rows), want.split(rows)):
             d = (got - part.to(device)).abs_()
             out["max"] = max(out["max"], float(d.max()))
             out["past"] += int((d > 1e-3 * DPT_LR).sum())
             out["total"] += d.numel()
+            for i in torch.nonzero(d.reshape(-1) > ADAM_MAX * DPT_LR
+                                   ).reshape(-1).tolist():
+                if len(out["flagged"]) == DPT_REFEREE_CAP:
+                    out["over"] += 1
+                    continue
+                out["flagged"].append((path, at + i,
+                                       float(got.reshape(-1)[i]),
+                                       float(part.reshape(-1)[i])))
+            at += d.numel()
 
     tree_map_with_path(hold, params, pspecs)
+    return out
+
+
+def dpt_rank_grads(cfg, mesh_cfg, rank, device, batch, flagged) -> dict:
+    """The rank's gradient of step 1 at its ``flagged`` coordinates
+    (``dpt_hold``'s), recomputed from its seeded shards
+    (``info["grads"]``, before the clip), and its norm over the grid, for
+    ``dpt_referee``.  Every rank runs it: the gradient is a collective."""
+
+    import torch.distributed as dist
+
+    _, info, params, _ = dpt_setup(cfg, mesh_cfg, dist.group.WORLD, rank,
+                                   device)
+    _, grads = info["grads"](params, batch)
+    leaves: dict = {}
+    tree_map_with_path(lambda path, g: leaves.__setitem__(
+        path, g.reshape(-1)), grads)
+    out = {"norm": float(info["grad_norm"](grads)),
+           "grads": [float(leaves[path][i]) for path, i, _, _ in flagged]}
+    del info, params, grads, leaves
+    return out
+
+
+def dpt_referee(cfg, flagged: list, grads: dict) -> list:
+    """The coordinates past ``ADAM_MAX`` x lr after the steps, held by
+    their cause, as a float64 referee holds logits past their bound in
+    the serving phases: ``flagged`` is ``[(mesh_cfg, rank, (path, index,
+    got, want), the rank's gradient of step 1 there and its norm)]``.
+    AdamW's first update of a coordinate is -lr x g / (|g| + eps) of its
+    clipped gradient g (lr whole at step 1): where g is within f32
+    rounding of zero, rounding moves the update by up to lr, which the
+    steps keep.  A coordinate passes where the rank's gradient is within
+    ``DPT_GRAD_TOL`` x its leaf's max|g| of the one process's (``grads``,
+    its gradient of step 1 from the same init: ``{path: tensor}`` and
+    ``"norm"``) and its difference from the one process's less the
+    difference of the two first updates (each gradient clipped by its own
+    norm) is within ``ADAM_MAX`` x lr."""
+
+    tc = dpt_train_config()
+    shapes = model_api.param_specs(build_model(cfg, device="meta"))
+
+    def first(g, n):
+        g *= min(1.0, tc.max_grad_norm / (n + 1e-9))
+        return g / (abs(g) + tc.eps)
+
+    out = []
+    for mesh_cfg, rank, (path, i, got, want), g_rank, norm in flagged:
+        specs = {}
+        tree_map_with_path(lambda p, _, spec: specs.__setitem__(p, spec),
+                           shapes, shard_rules.param_pspecs(cfg, shapes,
+                                                            mesh_cfg))
+        whole = grads[path]
+        g_one = float(shard_leaf(whole, specs[path], mesh_cfg, rank)
+                      .reshape(-1)[i])
+        scale = float(whole.abs().max())
+        du = first(g_rank, norm) - first(g_one, grads["norm"])
+        rest = (got - want) / DPT_LR + du
+        out.append({"rank": rank, "path": path, "index": i,
+                    "diff_lr": (got - want) / DPT_LR, "grad": g_rank,
+                    "one_grad": g_one,
+                    "grad_err_over_leaf_max": abs(g_rank - g_one) / scale,
+                    "first_update_diff_lr": -du, "rest_lr": rest,
+                    "ok": abs(g_rank - g_one) <= DPT_GRAD_TOL * scale
+                    and abs(rest) <= ADAM_MAX})
     return out
 
 
@@ -2399,7 +2510,9 @@ def dp_train_rank(rank, device, cfg, meshes, data, ref_file) -> dict:
     every collective timed and counted, step 2 (rank 0's under the
     profiler, which reads the peers' updated shards); its losses, seconds,
     collectives, bytes, peak, and its shards after the steps held against
-    the one process's parameters saved in ``ref_file`` (``dpt_hold``)."""
+    the one process's parameters saved in ``ref_file`` (``dpt_hold``),
+    with its gradient of step 1 where a coordinate is past ``ADAM_MAX`` x
+    lr on any rank (``dpt_rank_grads``)."""
 
     import torch.distributed as dist
 
@@ -2407,6 +2520,8 @@ def dp_train_rank(rank, device, cfg, meshes, data, ref_file) -> dict:
         torch.cuda.set_per_process_memory_fraction(DPT_CARD_SHARE, device)
     ref = torch.load(ref_file, mmap=True, weights_only=True)
     out = {}
+    flags = torch.zeros((1,), dtype=torch.int64, device=device if
+                        dist.get_backend() == "nccl" else "cpu")
     for name, mesh_kw in meshes.items():
         t0 = time.perf_counter()
         mesh_cfg = MeshConfig(**mesh_kw)
@@ -2447,14 +2562,40 @@ def dp_train_rank(rank, device, cfg, meshes, data, ref_file) -> dict:
         res["held"] = dpt_hold(params, ref, info["pspecs"], mesh_cfg, rank,
                                device)
         res["hold_s"] = time.perf_counter() - t0
-        if rank == 0:
-            print(f"[dp_train] rank 0 {name}: set-up {res['setup_s']:.2f}s, "
-                  f"steps {res['step_s']}, hold {res['hold_s']:.2f}s",
-                  flush=True)
-        out[name] = res
         del step, info, params, state
         if device.type == "cuda":
             _free()
+        # every rank referees, if any rank has a coordinate to referee
+        flags.fill_(len(res["held"]["flagged"]))
+        dist.all_reduce(flags)
+        if int(flags):
+            res["flagged_grads"] = dpt_rank_grads(
+                cfg, mesh_cfg, rank, device, data[0], res["held"]["flagged"])
+        if rank == 0:
+            print(f"[dp_train] rank 0 {name}: set-up {res['setup_s']:.2f}s, "
+                  f"steps {res['step_s']}, hold {res['hold_s']:.2f}s, "
+                  f"referee {time.perf_counter() - t0 - res['hold_s']:.2f}s",
+                  flush=True)
+        out[name] = res
+        if device.type == "cuda":
+            _free()
+    return out
+
+
+def dpt_one_grads(cfg, batch, device) -> dict:
+    """The one process's gradient of step 1 from the seeded init, on the
+    host (``{path: tensor}``), and its norm (``"norm"``), for
+    ``dpt_referee``."""
+
+    step, info, params, _ = dpt_setup(
+        cfg, MeshConfig(data=1, model=1, fsdp=True), None, 0, device)
+    _, grads = loss_and_grads(info["model"].loss, params,
+                              split_batch(batch, DPT_MICRO))
+    out = {"norm": float(torch.sqrt(square_norm(grads)))}
+    tree_map_with_path(lambda path, g: out.__setitem__(path, g.cpu()), grads)
+    del step, info, params, grads
+    if torch.device(device).type == "cuda":
+        _free()
     return out
 
 
@@ -2476,6 +2617,7 @@ def dp_train_phase(card, device="cuda") -> dict:
     embed_gb = 4 * cfg.vocab_size * cfg.d_model / 1e9
     units_gb = 4 * (_n_elems(shapes) - cfg.vocab_size * cfg.d_model) / 1e9
     rows = DPT_BATCH // max(DPT_MICRO, 1) // 4
+    act_mb = 4 * 2 * rows * DPT_SEQ * cfg.d_model / 1e6
     print(f"{tag} {cfg.name} at full width, {DPT_LAYERS} of "
           f"{full.num_layers} layers ({_n_elems(shapes)} f32 parameters: "
           f"embed {embed_gb:.2f} GB, the rest {units_gb:.2f} GB); "
@@ -2484,7 +2626,13 @@ def dp_train_phase(card, device="cuda") -> dict:
           f"with its gradient and 2 moments {4 * embed_gb:.2f} GB, its unit "
           f"shards x 4 {units_gb:.2f} GB, a part's logits ({rows} x "
           f"{DPT_SEQ} x {cfg.vocab_size}) "
-          f"{4 * rows * DPT_SEQ * cfg.vocab_size / 1e9:.2f} GB a copy",
+          f"{4 * rows * DPT_SEQ * cfg.vocab_size / 1e9:.2f} GB a copy; at "
+          f"data 2 x model 2 the embed's vocab half with its gradient and "
+          f"moments {2 * embed_gb:.2f} GB, a part's logits ({2 * rows} x "
+          f"{DPT_SEQ} x {cfg.vocab_size // 2}) the same bytes, "
+          f"{dpt_model_all_reduces(cfg, max(DPT_MICRO, 1))} all-reduces a "
+          f"step over the model group, {act_mb:.1f} MB each but the "
+          f"cross-entropy's and the clip's",
           flush=True)
 
     # the one process; its parameters after the steps go to a file the
@@ -2557,11 +2705,13 @@ def dp_train_phase(card, device="cuda") -> dict:
         "min_free_gib": None if free["min"] is None else free["min"] / 2**30}
     n_units = DPT_LAYERS // (cfg.local_global_pattern or 1)
     parts = max(DPT_MICRO, 1)
+    grads_one = None
     for name, mesh_kw in DPT_MESHES.items():
         mesh_cfg = MeshConfig(**mesh_kw)
         pspecs = shard_rules.param_pspecs(cfg, shapes, mesh_cfg)
         res = [r[name] for r in ranks]
-        label = f"{tag} {name} ({mesh_cfg.pod} x {mesh_cfg.data} x 1)"
+        label = (f"{tag} {name} ({mesh_cfg.pod} x {mesh_cfg.data} x "
+                 f"{mesh_cfg.model})")
         worst_loss = max(abs(a - b) / abs(b) for r in res
                          for a, b in zip(r["losses"], ref["losses"]))
         if worst_loss > DPT_LOSS_RTOL:
@@ -2575,17 +2725,37 @@ def dp_train_phase(card, device="cuda") -> dict:
             c = {op: row[0] for op, row in rr["collectives"].items()}
             want = {"fsdp_all_gather": parts * n_units * 2,
                     "fsdp_reduce_scatter": parts * n_units}
+            if mesh_cfg.model > 1:
+                want.update(model_all_reduce=dpt_model_all_reduces(
+                    cfg, parts), model_all_reduce_max=parts)
+            if any("all_gather" in op and not op.startswith("fsdp_")
+                   for op in c):
+                fail(f"{label}: rank {r} all-gathered outside its FSDP "
+                     f"group in a step (the logits are never gathered): "
+                     f"{c}")
             if any(c.get(op) != n for op, n in want.items()):
                 fail(f"{label}: rank {r}'s collectives in a step {c}, "
                      f"expected {want}")
         dmax = max(rr["held"]["max"] for rr in res)
         frac = (sum(rr["held"]["past"] for rr in res)
                 / sum(rr["held"]["total"] for rr in res))
-        if dmax > ADAM_MAX * DPT_LR or frac > ADAM_FRAC:
+        flagged = [(mesh_cfg, r, x, g, rr["flagged_grads"]["norm"])
+                   for r, rr in enumerate(res) if "flagged_grads" in rr
+                   for x, g in zip(rr["held"]["flagged"],
+                                   rr["flagged_grads"]["grads"])]
+        if flagged and grads_one is None:
+            grads_one = dpt_one_grads(cfg, data[0], dev)
+        refereed = dpt_referee(cfg, flagged, grads_one) if flagged else []
+        over = sum(rr["held"]["over"] for rr in res)
+        if (over or frac > ADAM_FRAC or not all(x["ok"] for x in refereed)
+                or len(refereed) != sum(len(rr["held"]["flagged"])
+                                        for rr in res)):
             fail(f"{label}: parameters after {DPT_STEPS} AdamW steps differ "
                  f"from the one process's by up to {dmax:.3e} (limit "
-                 f"{ADAM_MAX * DPT_LR:.1e}), {frac:.2e} of coordinates past "
-                 f"1e-3 lr (limit {ADAM_FRAC})")
+                 f"{ADAM_MAX * DPT_LR:.1e} where the referee does not "
+                 f"explain it: {json.dumps(refereed)}; {over} more past "
+                 f"it), {frac:.2e} of coordinates past 1e-3 lr (limit "
+                 f"{ADAM_FRAC})")
         r0 = res[0]
         step1 = r0["step_s"][0]
         coll = {op: {"calls": row[0], "seconds": row[1], "bytes": row[2],
@@ -2601,6 +2771,7 @@ def dp_train_phase(card, device="cuda") -> dict:
                                      for r in res],
                "profile": r0.get("profile"),
                "max_abs_param_diff": dmax, "frac_past_1e-3_lr": frac,
+               "refereed": refereed,
                "loss_rel_err": worst_loss,
                "setup_s": [r["setup_s"] for r in res],
                "hold_s": [r["hold_s"] for r in res]}
@@ -2619,6 +2790,13 @@ def dp_train_phase(card, device="cuda") -> dict:
               f"hold s {[round(x, 2) for x in row['hold_s']]}", flush=True)
         print(f"{label} rank 0 collectives in step 1, the card synchronised "
               f"around each: {json.dumps(coll)}", flush=True)
+        if refereed:
+            print(f"{label}: {len(refereed)} coordinate(s) past "
+                  f"{ADAM_MAX} x lr, each rank's gradient of step 1 within "
+                  f"{DPT_GRAD_TOL} x its leaf's max of the one process's, the "
+                  f"difference within {ADAM_MAX} x lr of the two first "
+                  f"AdamW updates' (dpt_referee): {json.dumps(refereed)}",
+                  flush=True)
         if prof:
             print(f"{label} rank 0 step 2 under the profiler: wall "
                   f"{prof['wall_s']:.3f} s, device busy "
@@ -3625,9 +3803,9 @@ def _tp_steps(prefill, decode, params, batch, fed, start, device):
 def tp_rank(rank, device, cfg, patches, prompts, fed, max_len, ranks):
     """``[tp]``'s rank: its ``init_shard`` shards, a warm-up, the prefill
     and decode steps fed the reference's tokens (its logits returned from
-    rank 0, its times the ones reported), then the prefill and
-    ``TP_TIMED_STEPS`` decode steps again with rank 0 timing their
-    collectives (their shares; the card synchronised around each)."""
+    rank 0, its times the ones reported), rank 0 timing their collectives
+    (their shares; the card synchronised around each, which the staged
+    ``gloo`` path does before each one anyway)."""
 
     import torch.distributed as dist
 
@@ -3655,26 +3833,20 @@ def tp_rank(rank, device, cfg, patches, prompts, fed, max_len, ranks):
     if cuda:
         torch.cuda.reset_peak_memory_stats(device)
     n0 = flash_ops.flash_attention.launches
+    tp, dtp = info["model"].ctx.tp, dinfo["model"].ctx.tp
+    tp.timed = dtp.timed = rank == 0
     logits, t_pre, t_dec, cache = _tp_steps(prefill, decode, params, batch,
                                             fed, P + L, device)
+    tp.timed = dtp.timed = False
     out = {"launches": flash_ops.flash_attention.launches - n0,
            "prefill_s": t_pre, "decode_s": t_dec, "init_s": t_init,
            "param_bytes": _nbytes(_leaves(params)),
            "cache_bytes": _nbytes(x for c in _flat_caches(cache) for x in c),
            "peak_bytes": torch.cuda.max_memory_allocated(device)
            if cuda else 0}
-    # the same prefill and decode steps again, rank 0 timing the
-    # collectives: it synchronises the card around each (the staged gloo
-    # path waits for the card before each one anyway)
-    del cache
-    tp, dtp = info["model"].ctx.tp, dinfo["model"].ctx.tp
-    tp.timed = dtp.timed = rank == 0
-    _, t_pre2, t_dec2, cache = _tp_steps(prefill, decode, params, batch,
-                                         fed[:TP_TIMED_STEPS], P + L, device)
-    tp.timed = dtp.timed = False
     if rank == 0:
-        out["timed"] = {"prefill_s": t_pre2, "prefill": tp.stats,
-                        "decode_s": t_dec2, "decode": dtp.stats}
+        out["timed"] = {"prefill_s": t_pre, "prefill": tp.stats,
+                        "decode_s": t_dec, "decode": dtp.stats}
         # numpy: a tensor would cross the queue as shared storage that
         # this process takes with it when it exits
         out["logits"] = [x.numpy() for x in logits]
@@ -3839,8 +4011,8 @@ def tp_phase(card, flash_row, device="cuda") -> dict:
               f"{res['peak_bytes'] / 2**30:.2f} GiB, init_shard "
               f"{res['init_s']:.2f}s", flush=True)
     print(f"[tp] collectives on rank 0, the card synchronised around each "
-          f"(the prefill and {len(timed['decode_s'])} decode steps run "
-          f"again): prefill {timed['prefill_s']:.3f}s "
+          f"(timed in the run above, {len(timed['decode_s'])} decode "
+          f"steps): prefill {timed['prefill_s']:.3f}s "
           f"{json.dumps(shares['prefill'])}; decode step "
           f"{1e3 * statistics.median(timed['decode_s']):.3f} ms "
           f"{json.dumps(shares['decode_step'])}", flush=True)
@@ -4379,14 +4551,14 @@ def tse_float64(cfg, batch, fed, device, max_len=None) -> list:
 
 
 def tse_serve(rank, device, cfg, batch, fed, max_len=None,
-              timed_steps=None, warm_len=None) -> dict:
+              warm_len=None) -> dict:
     """``[tp_ssm_encdec]``'s (and ``[tp_mqa]``'s) rank for one arch: its
     ``init_shard`` shards at ``model = TP_RANKS``, a warm-up (one request,
     its prompt cut to ``warm_len`` where given), the prefill
     and decode steps fed the reference's tokens (its logits returned from
-    every rank), then the prefill and the first ``timed_steps`` decode
-    steps (all by default) again with rank 0 timing its collectives, and
-    one more decode step, profiled on rank 0."""
+    every rank), rank 0 timing its collectives (the card synchronised
+    around each, which the staged ``gloo`` path does before each one
+    anyway), and one more decode step, profiled on rank 0."""
 
     import torch.distributed as dist
 
@@ -4402,8 +4574,11 @@ def tse_serve(rank, device, cfg, batch, fed, max_len=None,
               warm["tokens"].shape[1], device)
     torch.cuda.reset_peak_memory_stats(device)
     n0 = flash_ops.flash_attention.launches
+    tp, dtp = info["model"].ctx.tp, dinfo["model"].ctx.tp
+    tp.timed = dtp.timed = rank == 0
     logits, t_pre, t_dec, cache = _tp_steps(prefill, decode, params, batch,
                                             fed, L, device)
+    tp.timed = dtp.timed = False
     out = {"launches": flash_ops.flash_attention.launches - n0,
            "prefill_s": t_pre, "decode_s": t_dec, "init_s": t_init,
            "param_bytes": _nbytes(tree_leaves(params)),
@@ -4412,19 +4587,12 @@ def tse_serve(rank, device, cfg, batch, fed, max_len=None,
            # numpy: a tensor would cross the queue as shared storage that
            # this process takes with it when it exits
            "logits": [x.numpy() for x in logits]}
-    del cache
-    tp, dtp = info["model"].ctx.tp, dinfo["model"].ctx.tp
-    tp.timed = dtp.timed = rank == 0
-    _, t_pre2, t_dec2, cache = _tp_steps(prefill, decode, params, batch,
-                                         fed[:timed_steps], L, device)
-    tp.timed = dtp.timed = False
     tok = torch.from_numpy(out["logits"][-1]).argmax(-1).to(
         torch.int32).to(device)
-    step = lambda: decode(params, cache, tok,  # noqa: E731
-                          L + len(fed[:timed_steps]))
+    step = lambda: decode(params, cache, tok, L + len(fed))  # noqa: E731
     if rank == 0:
-        out["timed"] = {"prefill_s": t_pre2, "prefill": dict(tp.stats),
-                        "decode_s": t_dec2, "decode": dict(dtp.stats),
+        out["timed"] = {"prefill_s": t_pre, "prefill": dict(tp.stats),
+                        "decode_s": t_dec, "decode": dict(dtp.stats),
                         "kv_cache": dtp.kv_cache}
         _, secs, bd = profiled(step)
         out["profile"] = {"wall_ms": 1e3 * secs,
@@ -4571,8 +4739,8 @@ def tse_report(cfg, full, ref, ranks, backend, card_total) -> dict:
           f"{prof['wall_ms']:.3f} ms, device busy {100 * prof['busy']:.1f}%;"
           f" by kernel: {prof['top']}", flush=True)
     print(f"{tag} collectives on rank 0, the card synchronised around each "
-          f"(the prefill and {len(timed['decode_s'])} decode steps run "
-          f"again): prefill {timed['prefill_s']:.3f}s "
+          f"(timed in the run above, {len(timed['decode_s'])} decode "
+          f"steps): prefill {timed['prefill_s']:.3f}s "
           f"{json.dumps(shares['prefill'])}; decode step "
           f"{1e3 * statistics.median(timed['decode_s']):.3f} ms "
           f"{json.dumps(shares['decode_step'])}", flush=True)
@@ -4708,7 +4876,7 @@ def mqa_phase(card, flash_row, device="cuda") -> dict:
     t0 = time.perf_counter()
     ranks = [r[0] for r in run_on_grid(
         tse_rank, (1, n), [(cfg, batch, ref["fed"], MQA_MAX_LEN,
-                            MQA_TIMED_STEPS, MQA_WARM)],
+                            MQA_WARM)],
         device=device, timeout=900, marks=marks)]
     t_grid = time.perf_counter() - t0
     launches = [r["launches"] for r in ranks]
@@ -4778,8 +4946,8 @@ def mqa_phase(card, flash_row, device="cuda") -> dict:
           f"{prof['wall_ms']:.3f} ms, device busy {100 * prof['busy']:.1f}%;"
           f" by kernel: {prof['top']}", flush=True)
     print(f"{tag} collectives on rank 0, the card synchronised around each "
-          f"(the prefill and {len(timed['decode_s'])} decode steps run "
-          f"again): prefill {timed['prefill_s']:.3f}s "
+          f"(timed in the run above, {len(timed['decode_s'])} decode "
+          f"steps): prefill {timed['prefill_s']:.3f}s "
           f"{json.dumps(shares['prefill'])}; decode step "
           f"{1e3 * statistics.median(timed['decode_s']):.3f} ms "
           f"{json.dumps(shares['decode_step'])}", flush=True)

@@ -62,6 +62,11 @@ from repro_torch.mesh.plan import MeshPlan
 
 # after one rank fails, how long the others get to report theirs
 FAIL_GRACE_S = 10.0
+# a collective's limit on a grid without a deadline: a rank may do long
+# host work (a profile's processing, a checkpoint's write) while the
+# others wait at the next collective, which the backend's default limit
+# (10 minutes under nccl) would end
+NO_DEADLINE = datetime.timedelta(days=7)
 
 
 def shutdown() -> None:
@@ -98,7 +103,7 @@ def _entry(fn, rank, world, init_file, backend, device, timeout, results,
         marks["device_s"] = time.time() - spawned
         dist.init_process_group(
             backend, init_method=f"file://{init_file}", rank=rank,
-            world_size=world, timeout=None if timeout is None
+            world_size=world, timeout=NO_DEADLINE if timeout is None
             else datetime.timedelta(seconds=timeout))
         marks["group_s"] = time.time() - spawned
         try:
@@ -118,8 +123,8 @@ def run_on_grid(fn: Callable, grid: tuple[int, int], *args,
     return their results in rank order.  ``fn`` must be picklable (a
     module-level function).  Raises if a rank raises (with every failed
     rank's traceback), or if the grid has not finished within ``timeout``
-    seconds (also each collective's limit; ``None``: no deadline, and the
-    backend's default limit a collective); every process is ended either
+    seconds (also each collective's limit; ``None``: no deadline, and a
+    collective waits up to ``NO_DEADLINE``); every process is ended either
     way.  ``marks``, if given, gets
     each rank's seconds from the spawn to its entry (``entered_s``), its
     device ready (``device_s``), the process group formed (``group_s``)

@@ -1,11 +1,11 @@
-"""LM training launcher on one card or a ``pod x data`` grid of ranks (port
-of ``repro.launch.train``).
+"""LM training launcher on one card or a ``pod x data x model`` grid of
+ranks (port of ``repro.launch.train``).
 
     python -m repro_torch.launch.train --arch gemma2-2b --shape train_4k \\
         --steps 500 --microbatch 8 --ckpt DIR --ckpt-every 100 [--device cpu]
     python -m repro_torch.launch.train --arch gemma2-2b --shape train_4k \\
-        --data 4 [--multi-pod] --microbatch 64 --steps 2 --ckpt DIR \\
-        [--device cpu]
+        --data 2 --tp 2 [--multi-pod] --microbatch 128 --steps 2 \\
+        --ckpt DIR [--device cpu]
 
 Data comes from ``LMTokenPipeline(vocab, seq_len, global_batch)`` at each
 step; the model is built with ``Ctx(attn_impl="ref", remat=True)`` (the
@@ -17,18 +17,21 @@ the end (atomic, in the JAX package's format), and a restart resumes from
 the latest valid one; the pipeline is a pure function of (seed, step), so
 a resumed run continues the exact stream.
 
-The grid is the reference launcher's mesh at ``model = 1``: ``--data N``
-data ranks (one pod; ``--multi-pod`` two, as ``multi_pod_config``), FSDP
-on over the data ranks, the batch and each microbatch part cut over
-``pod x data``; ``--tp`` is accepted at 1 only (the model axis's backward
-rules are item 6.2a-ii), and the dense family only on more than one rank
-(item 6.2c).  The ranks are ``launch/gossip.py``'s ``run_on_grid``: one
-card a rank (``nccl``) where the machine has that many cards, else all on
-one card (``gloo``, collectives staged through the host).  Every grid
-starts from one seeded init (``model.init``, one card's), each rank
-keeping its slice (``train/shard.py::shard_params``).  A checkpoint holds
-the whole tree: each FSDP shard is gathered whole to rank 0, which saves;
-a restart reads the whole leaves on every rank and keeps its slice, so a
+The grid is the reference launcher's mesh: ``--data N`` data ranks (one
+pod; ``--multi-pod`` two, as ``multi_pod_config``), FSDP on over the
+data ranks, the batch and each microbatch part cut over ``pod x data``,
+and ``--tp M`` model ranks in each data row, holding its heads, FFN
+columns and vocab range (the logits never gathered: a vocab-parallel
+cross-entropy); ranks = pods·N·M, rank = (pod·N + data)·M + model.  The
+dense family only on more than one rank (item 6.2c), with query heads
+(item 6.8) and KV heads (item 6.2a-iii) that divide ``--tp``.  The ranks
+are ``launch/gossip.py``'s ``run_on_grid``: one card a rank (``nccl``)
+where the machine has that many cards, else all on one card (``gloo``,
+collectives staged through the host).  Every grid starts from one seeded
+init (``model.init``, one card's), each rank keeping its slice
+(``train/shard.py::shard_params``).  A checkpoint holds the whole tree:
+each FSDP and model shard is gathered whole to rank 0, which saves; a
+restart reads the whole leaves on every rank and keeps its slice, so a
 checkpoint written on one grid restores on another and on one card.
 Rank 0 prints its bytes of parameters and state beside one card's, each
 step's seconds, its collectives (the card synchronised around each) and,
@@ -88,15 +91,20 @@ def _nbytes(tree) -> int:
 
 def _groups(info) -> dict:
     grid = info["grid"]
-    return {"fsdp": grid.fsdp, "batch": grid.batch, "pod": grid.pod}
+    return {"fsdp": grid.fsdp, "batch": grid.batch, "pod": grid.pod,
+            "model": grid.model}
 
 
 def collectives(info) -> dict:
     """The rank's collective records by op (``[calls, seconds, bytes]``):
     its FSDP gathers and reduce-scatters and the clip's all-reduce
     (``"fsdp_*"``), the replicated gradients', the loss's and the valid
-    targets' all-reduces over the batch group (``"batch_all_reduce"``)
-    and the FSDP gradients' over the pods (``"pod_all_reduce"``)."""
+    targets' all-reduces over the batch group (``"batch_all_reduce"``),
+    the FSDP gradients' over the pods (``"pod_all_reduce"``) and the
+    model group's: the row-parallel products' sums and their conjugates'
+    gradients, the lookup's, the cross-entropy's, the clip's
+    (``"model_all_reduce"``) and the logits' maxima
+    (``"model_all_reduce_max"``)."""
 
     out = {}
     for name, group in _groups(info).items():
@@ -148,6 +156,8 @@ def train_rank(rank, device, cfg, shape, mesh_cfg: MeshConfig,
     specs = {"p": info["pspecs"], "o": info["ospecs"]}
 
     def save(at: int) -> None:
+        # the checkpoint's gathers are not a step's collectives
+        _set_timed(info, False)
         tree = {"p": params, "o": opt_state}
         if world > 1:
             tree = info["grid"].whole(tree, specs, keep=rank == 0)
@@ -232,7 +242,8 @@ def train(argv=None) -> dict:
     ap.add_argument("--multi-pod", action="store_true",
                     help="two pods, as the reference's multi_pod_config")
     ap.add_argument("--tp", type=int, default=1,
-                    help="ranks on the model axis: 1 only (item 6.2a-ii)")
+                    help="ranks on the model axis in each data row (the "
+                         "query and KV heads must divide it)")
     ap.add_argument("--sync", choices=["allreduce", "gossip"],
                     default="allreduce")
     ap.add_argument("--microbatch", type=int, default=8)
@@ -267,8 +278,8 @@ def train(argv=None) -> dict:
     world = mesh_cfg.num_devices
     backend = pick_backend(device.type, world) if world > 1 else "none"
     parts = max(args.microbatch, 1)
-    print(f"[launch] {cfg.name} on {pods} x {args.data} x 1 (pod x data x "
-          f"model) rank(s), FSDP {'on' if args.data > 1 else 'off'} "
+    print(f"[launch] {cfg.name} on {pods} x {args.data} x {args.tp} (pod x "
+          f"data x model) rank(s), FSDP {'on' if args.data > 1 else 'off'} "
           f"({backend}, {device.type}); {shape.global_batch} x "
           f"{shape.seq_len} tokens a step in {parts} part(s), "
           f"{shape.global_batch // parts // dp_size(mesh_cfg)} row(s) of "
@@ -278,8 +289,10 @@ def train(argv=None) -> dict:
         ranks = [train_rank(0, device, *job)]
     else:
         # a training run has no deadline, as the reference launcher's has
-        # none (run_on_grid's default would end the ranks after 600 s)
-        ranks = run_on_grid(train_rank, (pods * args.data, 1), *job,
+        # none (run_on_grid's default would end the ranks after 600 s),
+        # nor has a collective: rank 0 may process a profile or write a
+        # checkpoint while the others wait
+        ranks = run_on_grid(train_rank, (pods * args.data, args.tp), *job,
                             device=device.type, timeout=None)
     report(ranks, cfg, tc, shape)
     return {"ranks": ranks, "mesh_cfg": mesh_cfg, "backend": backend,

@@ -26,7 +26,10 @@ gathered whole and the KV cache cut on its sequence where the rules cut
 it (``TP.kv_cache``).  The shapes it does not cover (query or Mamba2
 heads that do not split into whole heads a rank, the hybrid's unequal
 query and KV heads) raise ``NotImplementedError`` here, naming their
-ROADMAP item: there is no replicated fallback.
+ROADMAP item: there is no replicated fallback.  The same ``Ctx`` trains
+the dense family where its KV heads divide the ranks too
+(``loss_refusal``): ``models/transformer.py::lm_loss`` on the rank's
+shards, the collectives' backward rules in ``models/layers.py``.
 """
 
 from __future__ import annotations
@@ -50,15 +53,17 @@ Ctx = T.Ctx
 TP_ITEM = "ROADMAP.md queue 1, item 6.8"
 TRAIN_ITEM = "ROADMAP.md queue 1, item 6.2"
 TP_TRAIN_REASON = (
-    "tensor-parallel training on the rank grid is not ported: the model "
-    "axis's collectives have no backward rules yet (the all-reduce's "
-    "conjugate, the all-gather's slice, the vocab-parallel cross-entropy; "
-    f"{TRAIN_ITEM}a-ii)")
+    "training on {size} model ranks where the {kv_heads} KV heads do not "
+    "divide them is not ported: each rank would gather k and v whole and "
+    "run them with its own query heads, so the all-gather's backward there "
+    "is a reduce-scatter over the model group, not the rank's slice "
+    f"({TRAIN_ITEM}a-iii)")
 FAMILY_TRAIN_REASON = (
-    "training the {family} family on data ranks is not ported: the port "
-    "trains the dense family there (the MoE aux loss is not linear in the "
-    "batch; the hybrid, VLM and encoder-decoder losses gather nothing; "
-    f"{TRAIN_ITEM}c)")
+    "training the {family} family on more than one rank is not ported: the "
+    "port trains the dense family on data and model ranks (the MoE aux "
+    "loss is not linear in the batch and its experts' collectives have no "
+    "backward rules; the hybrid, VLM and encoder-decoder losses gather "
+    f"nothing; {TRAIN_ITEM}c)")
 
 
 class Model(NamedTuple):
@@ -129,24 +134,51 @@ def tp_refusal(cfg: ModelConfig, size: int) -> str | None:
     return None
 
 
-def loss_refusal(cfg: ModelConfig, ctx: T.Ctx) -> str | None:
-    """Why a rank's model under ``ctx`` cannot train, or ``None`` where it
-    can: in one process, and for the dense family on data ranks at one
-    model rank, its batch cut over ``pod x data`` (``ctx.dp``) and its
-    batch group given (``ctx.dp_group``, over which the loss counts the
-    whole batch's targets), as ``train/step.py::make_sharded_train_step``
-    builds it.  Tensor-parallel training waits for the backward rules of
-    the model axis's collectives (item 6.2a-ii), the other families on
-    data ranks for their own losses (item 6.2c)."""
+def tp_train_refusal(cfg: ModelConfig, size: int) -> str | None:
+    """Why ``cfg`` cannot train on ``size`` model ranks, or ``None``: the
+    dense family alone (item 6.2c), its query heads split into whole heads
+    a rank (``tp_refusal``, item 6.8) and its KV heads too (item
+    6.2a-iii)."""
 
-    if ctx.tp_size > 1:
-        return TP_TRAIN_REASON
-    if (ctx.fsdp is None and not ctx.dp and ctx.kv_seq is None
-            and ctx.dp_group is None):
+    if size <= 1:
         return None
     if cfg.family != "dense":
         return FAMILY_TRAIN_REASON.format(family=cfg.family)
-    if ctx.kv_seq is not None or not ctx.dp or ctx.dp_group is None:
+    reason = tp_refusal(cfg, size)
+    if reason is None and cfg.num_kv_heads % size:
+        reason = TP_TRAIN_REASON.format(size=size,
+                                        kv_heads=cfg.num_kv_heads)
+    return reason
+
+
+def loss_refusal(cfg: ModelConfig, ctx: T.Ctx) -> str | None:
+    """Why a rank's model under ``ctx`` cannot train, or ``None`` where it
+    can: in one process; for the dense family on model ranks
+    (``ctx.tp``) whose query and KV heads divide them
+    (``tp_train_refusal``), each rank holding its own KV heads
+    (``TP.kv_cache`` ``"heads"``); and on data ranks, its batch cut over
+    ``pod x data`` (``ctx.dp``) and its batch group given
+    (``ctx.dp_group``, over which the loss counts the whole batch's
+    targets), as ``train/step.py::make_sharded_train_step`` builds it.  KV heads that do not divide the
+    model ranks wait for the all-gather's backward (item 6.2a-iii), the
+    other families on more than one rank for their own losses (item
+    6.2c)."""
+
+    data = (ctx.fsdp is not None or bool(ctx.dp) or ctx.kv_seq is not None
+            or ctx.dp_group is not None)
+    if ctx.tp_size == 1 and not data:
+        return None
+    if cfg.family != "dense":
+        return FAMILY_TRAIN_REASON.format(family=cfg.family)
+    if ctx.tp_size > 1:
+        reason = tp_train_refusal(cfg, ctx.tp_size)
+        if reason is None and ctx.tp.kv_cache != "heads":
+            reason = TP_TRAIN_REASON.format(size=ctx.tp_size,
+                                            kv_heads=cfg.num_kv_heads)
+        if reason:
+            return reason
+    if data and (ctx.kv_seq is not None or not ctx.dp
+                 or ctx.dp_group is None):
         return ("training on data ranks needs the batch cut over pod x "
                 "data and the batch group (Ctx.dp, Ctx.dp_group), so that "
                 "each rank's loss is its rows' share of the whole batch's "

@@ -25,6 +25,15 @@ by the all-reduced sum of squares, ``all_gather`` joins a column-parallel
 product's slices, and ``all_to_all`` carries the expert-parallel MoE's
 token slots to the ranks that hold their experts and back
 (``models/moe.py``).
+
+Training on model ranks (Megatron's pair of rules, where the JAX package
+lets GSPMD insert the collectives' transposes): under autograd
+``all_reduce``'s sum has the identity backward, and its conjugate
+``all_reduce_grad`` (the identity forward, the gradient all-reduced)
+stands where a whole activation enters a product split on ``"model"``;
+``vocab_parallel_cross_entropy`` takes the loss from each rank's vocab
+range of the logits, which are never gathered.  ``FSDP``'s gather
+reduce-scatters in its backward.
 """
 
 from __future__ import annotations
@@ -147,22 +156,85 @@ def all_reduce(x, tp: TP | None, op: str = "sum", inplace: bool = False):
     counts the two ops apart (``"all_reduce"``, ``"all_reduce_max"``).
     ``inplace`` writes the result into ``x`` (contiguous), also where it
     is staged through the host, so that no second copy of ``x`` is made
-    on the card (a training step's gradients)."""
+    on the card (a training step's gradients).
+
+    Under autograd (``x`` requires grad) the sum is ``_AllReduce``, whose
+    backward is the identity: every rank holds the same sum, and each
+    passes its gradient to its own partial sum.  It writes into a copy,
+    never into ``x``, which autograd may have saved.  The maximum carries
+    no gradient: it is taken of ``x`` detached (the maxima of a softmax,
+    which cancel in its value)."""
 
     if tp is None or tp.size == 1:
         return x
+    if op == "max":
+        x = x.detach()
+    elif torch.is_grad_enabled() and x.requires_grad:
+        return _AllReduce.apply(x, tp)
+    return _reduce(x, tp, op, inplace)
+
+
+def _reduce(x, tp: TP, op: str = "sum", inplace: bool = False,
+            copy: bool = False):
+    """``all_reduce``'s collective, without autograd; ``copy``: into a new
+    tensor, ``x`` left as it is."""
+
     name, reduce_op = _REDUCE_OPS[op]
     if tp.group is None:
         tp._dry(name, x)
-        return x
+        return x.clone() if copy else x
     with tp._timing(name, x):
         if tp.staged:
-            host = x.cpu()
+            host = x.to("cpu", copy=True) if copy else x.cpu()
             dist.all_reduce(host, op=reduce_op, group=tp.group)
             return x.copy_(host) if inplace else host.to(x.device)
-        x = x.contiguous()
+        x = x.clone(memory_format=torch.contiguous_format) if copy else \
+            x.contiguous()
         dist.all_reduce(x, op=reduce_op, group=tp.group)
         return x
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over ``tp`` of a row-parallel product's partial sums; the
+    backward is the identity."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        return _reduce(x, tp, copy=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _AllReduceGrad(torch.autograd.Function):
+    """``all_reduce``'s conjugate: the identity forward, and the sum of
+    the ranks' gradients over ``tp`` backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.tp, copy=True), None
+
+
+def all_reduce_grad(x, tp: TP | None):
+    """``x`` itself, whose gradient is summed over the ranks of ``tp``
+    (``all_reduce``'s conjugate).  A whole activation (the residual
+    stream's norm) enters a product split on ``"model"`` through it: each
+    rank's product gives the gradient of its own columns' share only, and
+    the sum makes it the whole gradient on every rank, so that a leaf
+    replicated on ``"model"`` (a norm, the residual before it) gets the
+    same, whole gradient on every model rank.  Without autograd it is
+    ``x``."""
+
+    if tp is None or tp.size == 1 or not (torch.is_grad_enabled()
+                                           and x.requires_grad):
+        return x
+    return _AllReduceGrad.apply(x, tp)
 
 
 def all_gather(x, tp: TP | None, dim: int):
@@ -619,5 +691,32 @@ def cross_entropy(logits, targets, n_valid=None):
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, t[..., None])[..., 0]
     nll = torch.where(valid, logz - gold, 0.0)
+    denom = valid.sum().clamp(min=1) if n_valid is None else n_valid
+    return nll.sum() / denom
+
+
+def vocab_parallel_cross_entropy(logits, targets, tp: TP, n_valid=None):
+    """``cross_entropy`` of the ranks' logits joined on the vocab, without
+    joining them: ``logits`` (..., V / n) are this rank's contiguous vocab
+    range (rank ``r`` holds ``[r·V/n, (r+1)·V/n)``), softcapped already
+    (the softcap is elementwise).  The maximum m of each row is the
+    all-reduced maximum of the ranks' (detached: it cancels), S the
+    all-reduced Σ exp(l − m), the gold logit the all-reduced pick of the
+    rank that holds the target (zero on the others); the loss is
+    Σ_valid (log S + m − gold) / n_valid, targets of -1 padding.  S and
+    the gold logits go in one all-reduce, whose identity backward hands
+    each rank the gradient of its own range."""
+
+    logits = upcast(logits)
+    n = logits.shape[-1]
+    valid = targets >= 0
+    local = targets.long() - tp.rank * n
+    inside = valid & (local >= 0) & (local < n)
+    m = all_reduce(logits.amax(dim=-1), tp, op="max")
+    picked = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    s, gold = all_reduce(torch.stack([
+        torch.exp(logits - m[..., None]).sum(dim=-1),
+        torch.where(inside, picked, 0.0)]), tp)
+    nll = torch.where(valid, torch.log(s) + m - gold, 0.0)
     denom = valid.sum().clamp(min=1) if n_valid is None else n_valid
     return nll.sum() / denom

@@ -236,7 +236,8 @@ def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
     """The sublayer after its mixer: x + h (h post-normed in gemma2's
     sandwich), then the pre-norm FFN half (SwiGLU or MoE; none in an SSM
     sublayer).  Returns (x, aux), aux the MoE's aux loss or None.  Under
-    ``ctx.tp`` a SwiGLU split on its hidden width is all-reduced, and a
+    ``ctx.tp`` a SwiGLU split on its hidden width is all-reduced (its
+    input's gradient too, in training: ``layers.all_reduce_grad``), and a
     MoE whose experts are split runs the expert-parallel ``ctx.moe_impl``
     form."""
 
@@ -251,8 +252,9 @@ def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
         h, aux = MOE.moe_ffn(p["moe"], hin, cfg.moe, tp=ctx.tp,
                              impl=ctx.moe_impl)
     else:
-        h, aux = L.mlp_swiglu(p["mlp"], hin), None
-        h = L.all_reduce(h, L.sharded(ctx.tp, "mlp.wo"))
+        h = L.mlp_swiglu(p["mlp"], L.all_reduce_grad(
+            hin, L.sharded(ctx.tp, "mlp.wi_gate")))
+        h, aux = L.all_reduce(h, L.sharded(ctx.tp, "mlp.wo")), None
     del hin
     if sl.post_norm:
         h = L.rms_norm(h, p["post_norm2"], cfg.norm_eps)
@@ -298,6 +300,14 @@ def _heads(cfg: ModelConfig, ctx: Ctx) -> int:
 
 
 def _mixer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
+    """The mixer under autograd.  Attention reads its head counts from the
+    weights: on a model rank (``ctx.tp``; training requires its KV heads
+    to divide the ranks, ``models/api.py::loss_refusal``) rank r's query
+    heads ``[r·H/n, (r+1)·H/n)`` run against its own KV heads ``[r·Hkv/n,
+    (r+1)·Hkv/n)``, the GQA grouping of the one process, as
+    ``apply_sublayer_prefill`` runs them where the cache is held by
+    heads; the caller all-reduces the row-parallel ``wo`` product."""
+
     if sl.mixer == "ssm":
         return SSM.ssm_block(p["ssm"], x, cfg.ssm, cfg.d_model)
     if sl.mixer == "mla":
@@ -312,10 +322,17 @@ def _mixer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
 
 def apply_sublayer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
     """Pre-norm residual block; returns (x, aux): the MoE's
-    load-balancing and z losses, 0 for a dense sublayer."""
+    load-balancing and z losses, 0 for a dense sublayer.  On a model rank
+    the normed input enters the split q/k/v products through
+    ``layers.all_reduce_grad`` and the ``wo`` product's partial sums are
+    all-reduced, as in ``apply_sublayer_prefill``."""
 
-    h = _mixer_train(p, L.rms_norm(x, p["norm1"], cfg.norm_eps), cfg, sl,
-                     ctx)
+    h_in = L.all_reduce_grad(L.rms_norm(x, p["norm1"], cfg.norm_eps),
+                             L.sharded(ctx.tp, "attn.wq"))
+    h = _mixer_train(p, h_in, cfg, sl, ctx)
+    del h_in
+    if sl.mixer != "ssm":
+        h = L.all_reduce(h, L.sharded(ctx.tp, "attn.wo"))
     x, aux = _residual(p, x, h, cfg, sl, ctx)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -488,15 +505,31 @@ def global_valid(targets, ctx: Ctx):
 def lm_loss(params, tokens, targets, cfg: ModelConfig, ctx: Ctx):
     """Mean next-token cross-entropy of ``tokens`` (B, L) against
     ``targets`` (B, L; -1 is padding), as a 0-d f32 tensor; on a
-    data-parallel rank its rows' share of the whole batch's mean."""
+    data-parallel rank its rows' share of the whole batch's mean.  On a
+    model rank whose table (or head) the rules split on the vocab, the
+    lookup is vocab-parallel, the rank's logits are its vocab range alone
+    (``h`` entering the product through ``layers.all_reduce_grad``) and
+    the loss is ``layers.vocab_parallel_cross_entropy``: the logits are
+    never gathered."""
 
     # a tied table's lookup gradient is sparse and adds its rows into the
     # unembedding's dense gradient: the backward holds one dense gradient
-    # of the table, not two (2.2 GiB more at gemma2-2b's f32 table)
-    x = embed_tokens(params, tokens, cfg, sparse_grad=cfg.tie_embeddings)
+    # of the table, not two (2.2 GiB more at gemma2-2b's f32 table); the
+    # vocab-parallel lookup's is dense over the rank's range
+    x = embed_tokens(params, tokens, cfg, ctx.tp,
+                     sparse_grad=cfg.tie_embeddings)
     h, aux = lm_hidden_train(params, x, cfg, ctx)
-    logits = _unembed(params, h, cfg)
-    return L.cross_entropy(logits, targets, global_valid(targets, ctx)) + aux
+    n_valid = global_valid(targets, ctx)
+    leaf = "embed" if cfg.tie_embeddings else "lm_head"
+    vocab = L.sharded(ctx.tp, leaf)
+    if vocab is None:
+        logits = _unembed(params, h, cfg)
+        return L.cross_entropy(logits, targets, n_valid) + aux
+    table = params[leaf]
+    logits = L.softcap(L.all_reduce_grad(h, vocab) @ (
+        table.T if cfg.tie_embeddings else table), cfg.logit_softcap)
+    return L.vocab_parallel_cross_entropy(logits, targets, vocab,
+                                          n_valid) + aux
 
 
 def _sublayer_cache(cfg: ModelConfig, sl: SubLayer, ctx: Ctx, batch: int,

@@ -18,9 +18,10 @@ refuses what the serving ranks do not cover, naming its ROADMAP item: the
 encoder-decoder family on more than one ``pod x data`` rank (item
 6.8.2c) and MLA's latent cache at a batch that does not split, which the
 rules cut on ``"data"`` (item 6.8.2e).  ``check_train_mesh`` refuses
-what the training ranks do not cover: more than one model rank (item
-6.2a-ii), a family other than the dense one on more than one rank (item
-6.2c), and microbatch parts whose rows do not split over ``pod x data``.
+what the training ranks do not cover: a family other than the dense one
+on more than one rank (item 6.2c), query heads that do not split over
+the model ranks (item 6.8) or KV heads that do not (item 6.2a-iii), and
+microbatch parts whose rows do not split over ``pod x data``.
 
 ``fsdp_split`` names the leaves the specs split on ``"data"``, and the
 dim, by the top-level key whose subtree a rank gathers at once (the
@@ -133,18 +134,20 @@ def check_mesh(mesh_cfg: MeshConfig, cfg: ModelConfig | None = None,
 def check_train_mesh(mesh_cfg: MeshConfig, cfg: ModelConfig,
                      batch: int | None = None, microbatch: int = 0) -> None:
     """``check_mesh``'s training twin: refuse a grid the training ranks do
-    not cover, more than one model rank (item 6.2a-ii) or a family other
-    than the dense one on more than one rank (item 6.2c), and
+    not cover, a family other than the dense one on more than one rank
+    (item 6.2c), model ranks over which the query heads (item 6.8) or the
+    KV heads (item 6.2a-iii) do not split (``api.tp_train_refusal``), and
     (``ValueError``) a global ``batch`` whose ``microbatch`` parts (one
     without) do not each split over the ``pod x data`` ranks: a rank
     runs its rows of each part, as the rules cut the part."""
 
     check_mesh(mesh_cfg)
-    if mesh_cfg.model > 1:
-        raise NotImplementedError(api.TP_TRAIN_REASON)
     if mesh_cfg.num_devices > 1 and cfg.family != "dense":
         raise NotImplementedError(
             api.FAMILY_TRAIN_REASON.format(family=cfg.family))
+    reason = api.tp_train_refusal(cfg, mesh_cfg.model)
+    if reason:
+        raise NotImplementedError(reason)
     if batch is None:
         return
     parts, dp = max(microbatch, 1), dp_size(mesh_cfg)

@@ -16,31 +16,42 @@ parameters' ``.grad``, so the gradients of the n parts sum in one tree
 part's activations are alive at a time.  The loss is Σ loss_i / n.
 
 ``make_sharded_train_step(model, group, mesh_cfg, shape_cfg, train_cfg)``
-is the grid form of the reference's ``make_train_step`` on a mesh of
-data axes alone (``model = 1``), FSDP on or off: where the JAX step is
-one program whose gradient reductions GSPMD inserts, the port's runs on
-one rank of a ``torch.distributed`` group of ``pod x data`` ranks (the
-whole default group; ``launch/lm_engine.py::grid_groups``).  The step
-takes the rank's parameter shards (``train/shard.py``: the rules' specs,
-the FSDP shards of a unit in one buffer) and optimizer state (the same
-specs, ``opt_pspecs``), and the **global** batch.  It splits the batch
-into the microbatch parts as the JAX step does, then cuts each part's
-rows over ``pod x data`` as the rules cut the part, so that each part's
-mean covers JAX's tokens: a rank's loss is its rows' token losses over
+is the grid form of the reference's ``make_train_step`` on a ``pod x
+data x model`` mesh, FSDP on or off: where the JAX step is one program
+whose collectives and their transposes GSPMD inserts, the port's runs on
+one rank of a ``torch.distributed`` group of ``pod x data x model``
+ranks (the whole default group; ``launch/lm_engine.py::grid_groups``).
+The step takes the rank's parameter shards (``train/shard.py``: the
+rules' specs, the FSDP shards of a unit in one buffer) and optimizer
+state (the same specs, ``opt_pspecs``), and the **global** batch.  It
+splits the batch into the microbatch parts as the JAX step does, then
+cuts each part's rows over ``pod x data`` as the rules cut the part, so
+that each part's mean covers JAX's tokens: a rank's loss is its rows' token losses over
 the part's valid targets, counted over the batch group
-(``Ctx.dp_group``), and the ranks' losses sum to JAX's.  Gradients: an
-FSDP leaf's arrives reduce-scattered over the FSDP group by the gather's
-backward (``models/layers.py::FSDP``), summed over the pods by an
-all-reduce over the cross-pod group; a replicated leaf's (``embed``,
-the norms) is all-reduced over the batch group once, after the last
-part.  The clip takes the norm over the whole tree: the shards' squares
-summed over the FSDP group, each replicated leaf counted once
-(``sq_norm``).  Parameters and state update in place; where the FSDP
-ranks share one card and read each other's shards (``FSDP.one_card``),
-every rank then synchronizes its card and the group passes a barrier
-before the next gather.  ``train/shard.py::check_train_mesh`` refuses
-more than one model rank (item 6.2a-ii), the families other than the
-dense one on more than one rank (6.2c) and parts that do not split.
+(``Ctx.dp_group``), and the ranks' losses sum to JAX's.  The model ranks
+of a data row run the same rows: the rank's model holds its heads, FFN
+columns and vocab range (``Ctx.tp``, the split ``train/shard.py::
+model_split`` names, as serving splits them), and the backward rules of
+``models/layers.py`` (an all-reduce's identity backward, its conjugate's
+all-reduce, the vocab-parallel cross-entropy) give every model rank its
+own shards' gradients and the same, whole gradient of each leaf
+replicated on ``"model"``.  Gradients: an FSDP leaf's arrives
+reduce-scattered over the FSDP group by the gather's backward
+(``models/layers.py::FSDP``), summed over the pods by an all-reduce over
+the cross-pod group; any other leaf's (``embed``, the norms) is
+all-reduced over the batch group once, after the last part.  The batch
+and FSDP groups are per model coordinate, so a model-split leaf is
+summed only with the ranks that hold its shard; no sum runs over the
+model group.  The clip takes the norm over the whole tree: the shards'
+squares summed over the FSDP group and over the model group as their
+specs split them, each replicated leaf counted once (``sq_norm``).
+Parameters and state update in place; where the FSDP ranks share one
+card and read each other's shards (``FSDP.one_card``), every rank then
+synchronizes its card and the group passes a barrier before the next
+gather.  ``train/shard.py::check_train_mesh`` refuses the families other
+than the dense one on more than one rank (6.2c), query heads (6.8) and
+KV heads (6.2a-iii) that do not divide the model ranks, and parts that
+do not split.
 """
 
 from __future__ import annotations
@@ -61,7 +72,8 @@ from repro_torch.optim.optimizers import (AdamWState, SGDState,
                                           tree_map, tree_map_with_path)
 from repro_torch.train import sharding as S
 from repro_torch.train.shard import (check_train_mesh, fsdp_split,
-                                     shard_leaf, shard_nbytes, shard_params)
+                                     model_split, shard_leaf, shard_nbytes,
+                                     shard_params)
 
 
 def loss_and_grads(loss_fn, params, batches):
@@ -163,11 +175,12 @@ def opt_pspecs(opt_state: Any, param_specs_tree: Any):
     raise TypeError(type(opt_state))
 
 
-def _data_dim(spec) -> int | None:
-    """The dim a spec puts on ``"data"`` (an FSDP shard's), or None."""
+def _axis_dim(spec, axis: str) -> int | None:
+    """The dim a spec puts on ``axis`` (``"data"``: an FSDP shard's;
+    ``"model"``: a model shard's), or None."""
 
     for d, entry in enumerate(spec):
-        if entry == "data" or (isinstance(entry, tuple) and "data" in entry):
+        if entry == axis or (isinstance(entry, tuple) and axis in entry):
             return d
     return None
 
@@ -180,12 +193,25 @@ def _fsdp_paths(split: dict) -> frozenset:
                      for top, leaves in split.items() for keys in leaves)
 
 
+def _model_paths(shapes, pspecs) -> frozenset:
+    """The parameter paths whose specs split them on ``"model"``."""
+
+    out = []
+    tree_map_with_path(lambda path, _, spec: out.append(path)
+                       if _axis_dim(spec, "model") is not None else None,
+                       shapes, pspecs)
+    return frozenset(out)
+
+
 @dataclasses.dataclass(eq=False)
 class TrainGrid:
     """A training rank's place on the grid: the mesh, its rank, the
-    ``TP`` of its batch group (every ``pod x data`` rank), of its
-    cross-pod group (``None`` in one pod) and its ``FSDP`` group (``None``
-    without FSDP), and the paths of the leaves it holds FSDP shards of."""
+    ``TP`` of its batch group (every ``pod x data`` rank at its model
+    coordinate), of its cross-pod group (``None`` in one pod) and its
+    ``FSDP`` group (``None`` without FSDP), the paths of the leaves it
+    holds FSDP shards of, the ``TP`` of its model group (``None`` at one
+    model rank; the rank model's ``Ctx.tp``) and the paths of the leaves
+    it holds model shards of."""
 
     mesh_cfg: MeshConfig
     rank: int
@@ -193,6 +219,8 @@ class TrainGrid:
     pod: TP | None
     fsdp: FSDP | None
     sharded: frozenset
+    model: TP | None = None
+    split: frozenset = frozenset()
 
     def parts(self, batch: dict, n_micro: int) -> list[dict]:
         """The rank's rows of each microbatch part of the global
@@ -207,8 +235,9 @@ class TrainGrid:
 
     def reduce(self, grads):
         """The gradient tree summed over the grid: an FSDP leaf's over the
-        pods (the reduce-scatter summed it over the pod's data ranks), a
-        replicated leaf's over the batch group."""
+        pods (the reduce-scatter summed it over the pod's data ranks), any
+        other leaf's over the batch group (the ranks at the rank's model
+        coordinate: a model shard's with the ranks that hold it)."""
 
         return tree_map_with_path(
             lambda path, g: all_reduce(
@@ -216,29 +245,42 @@ class TrainGrid:
                 inplace=True), grads)
 
     def sq_norm(self, grads) -> torch.Tensor:
-        """‖g‖² of the whole tree: the rank's shards' squares summed over
-        the FSDP group, each replicated leaf's counted once."""
+        """‖g‖² of the whole tree: the rank's FSDP shards' squares summed
+        over the FSDP group, its model shards' over the model group (a
+        leaf split on both over both: one all-reduce a group), each
+        replicated leaf's counted once."""
 
-        if not self.sharded:
+        if not self.sharded and not self.split:
             return square_norm(grads)
-        own, whole = [], []
-        tree_map_with_path(lambda path, g: (
-            own if path in self.sharded else whole).append(g), grads)
-        total = square_norm(whole) if whole else 0.0
-        if own:
-            total = total + all_reduce(square_norm(own), self.fsdp)
-        return total
+        by = {}
+        tree_map_with_path(lambda path, g: by.setdefault(
+            (path in self.sharded, path in self.split), []).append(g),
+            grads)
+        sq = {k: square_norm(v) for k, v in by.items()}
+        total = sq.get((False, False), 0.0)
+        if not self.split:
+            return total + all_reduce(sq[True, False], self.fsdp)
+        zero = torch.zeros((), dtype=torch.float32,
+                           device=tree_leaves(grads)[0].device)
+        fsdp_only, both = all_reduce(torch.stack(
+            [sq.get((True, False), zero), sq.get((True, True), zero)]),
+            self.fsdp)
+        return total + fsdp_only + all_reduce(
+            both + sq.get((False, True), zero), self.model)
 
     def whole(self, tree, specs, keep: bool):
         """``tree`` (parameters or optimizer state) with every FSDP shard
         gathered whole over the FSDP group (the pods hold the same
-        shards), on the host where ``keep``, else ``None`` leaves: a
-        checkpoint, in the JAX package's format, of the whole tree."""
+        shards) and every model shard over the model group (the data
+        rows hold the same ones), on the host where ``keep``, else
+        ``None`` leaves: a checkpoint, in the JAX package's format, of
+        the whole tree."""
 
         def leaf(path, x, spec):
-            d = _data_dim(spec)
-            if d is not None and self.fsdp is not None:
-                x = all_gather(x, self.fsdp, d)
+            for axis, group in (("data", self.fsdp), ("model", self.model)):
+                d = _axis_dim(spec, axis)
+                if d is not None and group is not None:
+                    x = all_gather(x, group, d)
             return x.detach().cpu() if keep else None
 
         return tree_map_with_path(leaf, tree, specs)
@@ -247,8 +289,8 @@ class TrainGrid:
 def make_sharded_train_step(model: Model, group, mesh_cfg: MeshConfig,
                             shape_cfg: ShapeConfig, train_cfg: TrainConfig):
     """``(step, info)``: ``step(params, opt_state, batch) -> (params,
-    opt_state, {"loss": loss})`` on this rank's shards of a ``pod x data``
-    grid (``model = 1``), ``batch`` the global batch of ``shape_cfg``;
+    opt_state, {"loss": loss})`` on this rank's shards of a ``pod x data
+    x model`` grid, ``batch`` the global batch of ``shape_cfg``;
     ``loss`` is the whole batch's mean on every rank.  ``info``: the specs
     (``pspecs``, ``ospecs``, ``bspecs``), the rank's ``model`` and
     ``grid`` (``TrainGrid``), the ``optimizer`` (``TrainConfig``'s, its
@@ -275,16 +317,26 @@ def make_sharded_train_step(model: Model, group, mesh_cfg: MeshConfig,
         from repro_torch.launch.lm_engine import grid_groups
 
         if group is None:
-            raise ValueError(f"a {mesh_cfg.pod} x {mesh_cfg.data} grid of "
-                             "ranks needs its process group")
-        _, fsdp_group, batch_group, pod_group = grid_groups(group, mesh_cfg)
+            raise ValueError(f"a {mesh_cfg.pod} x {mesh_cfg.data} x "
+                             f"{mesh_cfg.model} grid of ranks needs its "
+                             "process group")
+        model_group, fsdp_group, batch_group, pod_group = grid_groups(
+            group, mesh_cfg)
+        tp = None
+        if mesh_cfg.model > 1:
+            # the split serving's ranks use (launch/lm_engine.py), each
+            # rank's KV heads its own (check_train_mesh)
+            tp = TP.of(model_group, device, model_split(shapes, pspecs))
         grid = TrainGrid(
-            mesh_cfg, dist.get_rank(group), TP.of(batch_group, device),
+            mesh_cfg, dist.get_rank(group),
+            None if batch_group is None else TP.of(batch_group, device),
             None if pod_group is None else TP.of(pod_group, device),
             FSDP.of(fsdp_group, device, split) if split else None,
-            _fsdp_paths(split))
+            _fsdp_paths(split), tp,
+            _model_paths(shapes, pspecs) if tp is not None else frozenset())
         rank_model = build_model(cfg, dataclasses.replace(
-            model.ctx, fsdp=grid.fsdp, dp=S.dp_axes(mesh_cfg),
+            model.ctx, tp=tp, fsdp=grid.fsdp,
+            dp=None if grid.batch is None else S.dp_axes(mesh_cfg),
             dp_group=grid.batch), device=device)
     optimizer = make_optimizer(train_cfg, grid.sq_norm)
     opt_shapes = optimizer.init(shapes)
@@ -300,15 +352,16 @@ def make_sharded_train_step(model: Model, group, mesh_cfg: MeshConfig,
         return all_reduce(loss, grid.batch), grid.reduce(grads)
 
     def after():
-        # the peers read these shards at the next gather
-        torch.cuda.synchronize(device)
-        dist.barrier(group=grid.fsdp.group)
+        # the peers read these shards at the next gather; one_card is
+        # known from the first gather on
+        if grid.fsdp is not None and grid.fsdp.one_card:
+            torch.cuda.synchronize(device)
+            dist.barrier(group=grid.fsdp.group)
 
     if mesh_cfg.num_devices == 1:
         train_step = make_train_step(model, train_cfg, optimizer)
     else:
-        train_step = _step(grads_of, optimizer, after if (
-            grid.fsdp is not None and grid.fsdp.one_card) else None)
+        train_step = _step(grads_of, optimizer, after)
 
     info = {"pspecs": pspecs, "ospecs": ospecs, "bspecs": bspecs,
             "model": rank_model, "grid": grid, "optimizer": optimizer,

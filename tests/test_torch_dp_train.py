@@ -44,9 +44,12 @@ Held:
 * **One rank.**  At ``1 x 1`` the grid form's step is the one-card
   ``make_train_step`` (the step ``tests/test_torch_train.py`` holds
   against JAX's): two steps from one init agree bit for bit.
-* **Refusals.**  ``--tp 2`` (item 6.2a-ii), MoE and hybrid on data ranks
-  (6.2c), a microbatch part that does not split over the ranks
-  (``ValueError``), and ``Model.loss`` under those contexts.
+* **Refusals.**  What the model axis does not train yet: KV heads that
+  do not divide the model ranks (item 6.2a-iii) and MoE on model ranks
+  (6.2c); MoE and hybrid on data ranks (6.2c), a microbatch part that
+  does not split over the ranks (``ValueError``), and ``Model.loss``
+  under those contexts.  The model axis itself trains:
+  ``tests/test_torch_tp_train.py``.
 """
 
 import functools
@@ -543,12 +546,23 @@ def test_launcher_grid_has_no_deadline(launcher, tmp_path, monkeypatch):
 
 
 def _rank_of(rank, device):
-    return rank
+    import torch.distributed as dist
+
+    backend = dist.group.WORLD._get_backend(torch.device("cpu"))
+    return rank, backend.options._timeout.total_seconds()
 
 
 def test_run_on_grid_without_a_deadline():
+    """No deadline: a collective too waits as long as a peer's host work
+    takes (``NO_DEADLINE``, not the backend's default limit, which ended a
+    four-card ``launch.train`` run's ranks in the checkpoint's gather while
+    rank 0 processed its profile); a deadline is each collective's."""
+
+    week = glaunch.NO_DEADLINE.total_seconds()
     assert glaunch.run_on_grid(_rank_of, (2, 1), device="cpu",
-                               timeout=None) == [0, 1]
+                               timeout=None) == [(0, week), (1, week)]
+    assert glaunch.run_on_grid(_rank_of, (2, 1), device="cpu",
+                               timeout=60) == [(0, 60.0), (1, 60.0)]
 
 
 def test_launcher_checkpoint_loads_in_the_jax_manager(launcher, tmp_path):
@@ -575,18 +589,29 @@ def test_launcher_checkpoint_loads_in_the_jax_manager(launcher, tmp_path):
 
 
 def test_model_axis_is_refused(launcher, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 6.2a-ii"):
-        launcher(1, tmp_path, "--data", "2", "--tp", "2")
-    cfg = get_smoke_config("gemma2-2b")
-    with pytest.raises(NotImplementedError, match="item 6.2a-ii"):
-        make_sharded_train_step(build_model(cfg, device="cpu"), None,
-                                MeshConfig(data=2, model=2),
-                                ShapeConfig("t", SEQ, B, "train"),
-                                TrainConfig())
-    tp = L.TP(group=None, rank=0, size=2, staged=False)
-    with pytest.raises(NotImplementedError, match="item 6.2a-ii"):
-        build_model(cfg, Ctx(tp=tp), device="cpu").loss(
-            {}, {"tokens": np.zeros((1, 2)), "targets": np.zeros((1, 2))})
+    """The model axis trains the dense family (``tests/test_torch_tp_
+    train.py``); what it does not train yet is refused, naming its item:
+    gemma2's 2 KV heads over 4 model ranks (6.2a-iii: the gathered k/v's
+    backward is a reduce-scatter) and a MoE model on model ranks (6.2c)."""
+
+    for arch, tp, item in (("gemma2-2b", 4, "6.2a-iii"),
+                           ("granite-moe-3b-a800m", 2, "6.2c")):
+        match = f"item {item}"
+        with pytest.raises(NotImplementedError, match=match):
+            tlaunch.train(["--arch", arch, "--data", "1", "--tp", str(tp),
+                           "--steps", "1", "--ckpt", str(tmp_path),
+                           "--device", "cpu"])
+        cfg = get_smoke_config(arch)
+        with pytest.raises(NotImplementedError, match=match):
+            make_sharded_train_step(build_model(cfg, device="cpu"), None,
+                                    MeshConfig(data=1, model=tp),
+                                    ShapeConfig("t", SEQ, B, "train"),
+                                    TrainConfig())
+        ranks = L.TP(group=None, rank=0, size=tp, staged=False)
+        with pytest.raises(NotImplementedError, match=match):
+            build_model(cfg, Ctx(tp=ranks), device="cpu").loss(
+                {}, {"tokens": np.zeros((1, 2)),
+                     "targets": np.zeros((1, 2))})
 
 
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "zamba2-2.7b",

@@ -554,7 +554,10 @@ def test_mla_at_a_batch_that_does_not_split_is_refused(mesh, monkeypatch):
 
 def test_width_split_experts_and_grid_training_are_refused():
     """Item 6.8.2d: six experts on four model ranks, unpadded, are split
-    on their width by the rules; training on the grid is not ported."""
+    on their width by the rules; a serving rank's context does not train
+    (FSDP without the batch group, the batch axes without it, and model
+    ranks holding the KV cache cut on its sequence, item 6.2a-iii; model
+    ranks holding their own KV heads train: tests/test_torch_tp_train.py)."""
 
     cfg = get_smoke_config("granite-moe-3b-a800m")
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
@@ -564,8 +567,9 @@ def test_width_split_experts_and_grid_training_are_refused():
     with pytest.raises(NotImplementedError, match="item 6.8.2d"):
         model_split(shapes, pspecs)
     qwen = get_smoke_config("qwen1.5-32b")
-    for ctx in (Ctx(fsdp=L.FSDP.dry(2)), Ctx(dp=("data",)),
-                Ctx(tp=_fake(2))):
+    seq = L.TP(group=None, rank=0, size=2, staged=False,
+               kv_cache="sequence")
+    for ctx in (Ctx(fsdp=L.FSDP.dry(2)), Ctx(dp=("data",)), Ctx(tp=seq)):
         with pytest.raises(NotImplementedError, match="training"):
             build_model(qwen, ctx, device="cpu").loss(
                 {}, {"tokens": np.zeros((1, 2)),
