@@ -144,7 +144,8 @@ with its consensus error, ms per exchange and bytes per exchange.
 ``[dp_train]`` (after ``[train]``): the sharded train step on the data
 and model axes (``train/step.py::make_sharded_train_step``; no kernel on
 this path either: the JAX flash kernel has no VJP, so training runs the
-plain attention).  gemma2-2b at full width and 4 of its 26 layers (2 units), 8
+plain attention).  gemma2-2b at full width and 2 of its 26 layers (one
+unit; 4 before granite-34b's case joined the phase), 8
 sequences of 512 tokens a step as ``microbatch=2``, AdamW at lr 1e-3
 (``TrainConfig``'s clip on), two steps from one seeded init
 (``init_shard``, whose shards at any grid are the one process's slices
@@ -156,7 +157,12 @@ at (data 4), at (pod 2, data 2) and at (data 2, model 2), each rank's
 FSDP gathers copying the peers' shards device to device (step 2 reads
 the shards step 1 updated in place); at model 2 a rank holds its heads,
 FFN columns and vocab half, its loss the vocab-parallel cross-entropy
-(the logits never gathered).  Held: every rank's losses
+(the logits never gathered).  In the same grid granite-34b (MQA: one KV
+head of 128 under 48 query heads) at full width and 2 of its 88 layers
+trains at (data 1, model 4) against its own one process: a rank holds 12
+query heads and 32 of the KV head's 128 k/v columns, and gathers k and v
+whole under autograd (the gather's backward a reduce-scatter over the
+model group).  Held: every rank's losses
 within ``DPT_LOSS_RTOL`` of the one process's; the parameters after two
 steps by ``tests/test_torch_train.py``'s AdamW rule (every coordinate
 within ``ADAM_MAX`` x lr, all but ``ADAM_FRAC`` within 1e-3 x lr; a
@@ -168,11 +174,14 @@ the rank's step-1 gradient there must match the one process's within
 for the difference within ``ADAM_MAX`` x lr); the
 replicated leaves equal on every rank; a rank's bytes of parameters and
 state equal to ``shard_nbytes`` of the specs; the FSDP gathers and
-reduce-scatters of step 1 counted exactly (2 units x 2 parts x 2: remat
-gathers again; one reduce-scatter a unit and part), and at model 2 the
-model group's all-reduces (a part: the lookup, 6 a sublayer, the final
-norm's conjugate, the cross-entropy's; the clip's) and the logits'
-maxima, no all-gather outside the FSDP group.  Printed: s a step,
+reduce-scatters of step 1 counted exactly (a unit x 2 parts x 2: remat
+gathers again; one reduce-scatter a unit and part), and at model 2 and 4
+the model group's all-reduces (a part: the lookup, 6 a gemma2 sublayer,
+5 a granite one, whose unit ends in the residual add, the final norm's
+conjugate, the cross-entropy's; the clip's) and the logits' maxima,
+granite's k/v gathers (a layer and part, twice: remat gathers again) and
+their reduce-scatters, no other all-gather outside the FSDP group; the
+card's least free memory at least ``DPT_MIN_FREE`` GiB.  Printed: s a step,
 the collectives' calls, bytes, seconds and share of step 1 (the card
 synchronised around each), each rank's peak, the card's least free
 memory while the grid ran (sampled every 10 ms), and rank 0's step 2
@@ -706,9 +715,11 @@ from repro_torch.train import (  # noqa: E402
 from repro_torch.train import sharding as shard_rules  # noqa: E402
 from repro_torch.train.shard import (  # noqa: E402
     init_shard,
+    model_split,
     rank_cache_pspecs,
     shard_leaf,
     shard_nbytes,
+    whole_kv,
 )
 from repro_torch.train.step import (  # noqa: E402
     loss_and_grads,
@@ -842,7 +853,8 @@ DP_CASES = {"staleness1": dict(staleness=1, compression="none"),
             "int8": dict(staleness=1, compression="int8")}
 DP_CERR, DP_LOSS = 0.05, 0.15   # tests/test_distributed.py's gossip-DP gate
 # [dp_train]: the sharded train step on the data and model axes.  gemma2-2b
-# at full width and 4 of its 26 layers (2 units; every rank at model 1
+# at full width and 2 of its 26 layers (one unit, for the run's time since
+# the granite-34b case below joined; 4 before; every rank at model 1
 # holds the replicated 2.36 GB embedding with its gradient and AdamW
 # moments, 9.4 GB, at model 2 its vocab half, and 4 ranks share the
 # card), 8 sequences of 512 tokens a step as microbatch=2
@@ -857,13 +869,23 @@ DP_CERR, DP_LOSS = 0.05, 0.15   # tests/test_distributed.py's gossip-DP gate
 # allocated peak was 15.9 GiB), so that the four ranks' cached blocks
 # cannot together fill it whatever their timing: a rank that needs more
 # fails alone and every run alike
-DPT_LAYERS, DPT_BATCH, DPT_SEQ, DPT_MICRO, DPT_STEPS = 4, 8, 512, 2, 2
+DPT_LAYERS, DPT_BATCH, DPT_SEQ, DPT_MICRO, DPT_STEPS = 2, 8, 512, 2, 2
 DPT_CARD_SHARE = 0.22
 DPT_SEED, DPT_LR, DPT_LOSS_RTOL = 0, 1e-3, 1e-5
 DPT_MESHES = {"data4": dict(pod=1, data=4, model=1, fsdp=True),
               "pods2x2": dict(multi_pod=True, pod=2, data=2, model=1,
                               fsdp=True),
               "data2model2": dict(pod=1, data=2, model=2, fsdp=True)}
+# the granite-34b case (MQA: 48 query heads of 128 over one KV head,
+# d_ff 24576, an untied vocab of 49,152) at full width and 2 of its 88
+# layers on (data 1, model 4), [tp_mqa]'s layout: each rank holds 12 query
+# heads and 32 of the KV head's 128 k/v columns, gathered whole under
+# autograd (the gather's backward a reduce-scatter); the phase's traffic,
+# its one process after gemma2's, its ranks in the same grid
+DPT_KV_ARCH, DPT_KV_LAYERS = "granite-34b", 2
+DPT_KV_MESHES = {"granite_model4": dict(pod=1, data=1, model=4, fsdp=True)}
+# the least free memory of the card while the grid runs, GiB
+DPT_MIN_FREE = 5.0
 # tests/test_torch_train.py's AdamW rule: every coordinate within
 # ADAM_MAX x lr of the one process's, all but ADAM_FRAC within 1e-3 x lr
 ADAM_MAX, ADAM_FRAC = 0.25, 1e-3
@@ -2320,12 +2342,9 @@ def train_gossip_dp(card, device) -> dict:
     _free()
     marks: list = []
     t0 = time.perf_counter()
-    try:
-        outs = run_on_grid(gossip_dp_rank, (DP_WORKERS, 1), DP_CASES,
-                           device=torch.device(device).type, timeout=600,
-                           marks=marks)
-    finally:
-        shutdown_grids()        # the forkserver would outlive this phase
+    outs = run_on_grid(gossip_dp_rank, (DP_WORKERS, 1), DP_CASES,
+                       device=torch.device(device).type, timeout=600,
+                       marks=marks)
     grid_s = time.perf_counter() - t0
     res = outs[0]
     for name in DP_CASES:
@@ -2397,14 +2416,36 @@ def dpt_groups(info) -> dict:
             if g is not None}
 
 
-def dpt_model_all_reduces(cfg, parts: int) -> int:
-    """The model group's all-reduces in a step at ``parts`` microbatch
-    parts: a part's lookup, each sublayer's two row-parallel sums, the
-    same two recomputed by remat (gemma2's post-norm saves each sum) and
-    its two conjugates' gradients, the final norm's conjugate, the
-    cross-entropy's sums; the clip's once a step."""
+def dpt_model_collectives(cfg, mesh_cfg, parts: int) -> dict:
+    """The model group's collectives in a step at ``parts`` microbatch
+    parts, by op: all-reduces of a part's lookup, each sublayer's two
+    row-parallel sums, those that remat recomputes (both where a post-norm
+    follows each sum, gemma2's; one a unit where the unit ends in the
+    residual add after the MLP's sum, granite's: torch's non-reentrant
+    checkpoint stops recomputing once it has every tensor the backward
+    saved), its two conjugates' gradients, the final norm's conjugate and
+    the cross-entropy's sums; once a step the clip's and one a whole k/v
+    leaf's (``whole_kv``); the logits' maxima once a part; and where the
+    KV heads do not divide the model ranks and the rules cut ``wk``/``wv``
+    in parts of a head, one k/v gather a layer and part in the forward and
+    one in remat's recompute, one reduce-scatter a layer and part in the
+    backward.  Empty at one model rank."""
 
-    return parts * (6 * cfg.num_layers + 3) + 1
+    if mesh_cfg.model == 1:
+        return {}
+    shapes = model_api.param_specs(build_model(cfg, device="meta"))
+    pspecs = shard_rules.param_pspecs(cfg, shapes, mesh_cfg)
+    layers = cfg.num_layers
+    units = layers // (cfg.local_global_pattern or 1)
+    recomputed = 2 * layers - (0 if cfg.local_global_pattern else units)
+    want = {"model_all_reduce": parts * (4 * layers + recomputed + 3) + 1
+            + len(whole_kv(shapes, pspecs)),
+            "model_all_reduce_max": parts}
+    if (cfg.num_kv_heads % mesh_cfg.model
+            and "attn.wk" in model_split(shapes, pspecs)):
+        want.update(model_all_gather=2 * parts * layers,
+                    model_reduce_scatter=parts * layers)
+    return want
 
 
 def dpt_hold(params, ref, pspecs, mesh_cfg, rank, device) -> dict:
@@ -2505,80 +2546,84 @@ def dpt_referee(cfg, flagged: list, grads: dict) -> list:
     return out
 
 
-def dp_train_rank(rank, device, cfg, meshes, data, ref_file) -> dict:
-    """``[dp_train]``'s rank: for each mesh its seeded shards, step 1 with
-    every collective timed and counted, step 2 (rank 0's under the
-    profiler, which reads the peers' updated shards); its losses, seconds,
-    collectives, bytes, peak, and its shards after the steps held against
-    the one process's parameters saved in ``ref_file`` (``dpt_hold``),
-    with its gradient of step 1 where a coordinate is past ``ADAM_MAX`` x
-    lr on any rank (``dpt_rank_grads``)."""
+def dp_train_rank(rank, device, cases) -> dict:
+    """``[dp_train]``'s rank: for each case ``(cfg, meshes, data,
+    ref_file)`` and each of its meshes the rank's seeded shards, step 1
+    with every collective timed and counted, step 2 (rank 0's under the
+    profiler, which reads the peers' updated shards); its losses,
+    seconds, collectives, bytes, peak, and its shards after the steps
+    held against the one process's parameters saved in ``ref_file``
+    (``dpt_hold``), with its gradient of step 1 where a coordinate is
+    past ``ADAM_MAX`` x lr on any rank (``dpt_rank_grads``)."""
 
     import torch.distributed as dist
 
     if device.type == "cuda":
         torch.cuda.set_per_process_memory_fraction(DPT_CARD_SHARE, device)
-    ref = torch.load(ref_file, mmap=True, weights_only=True)
     out = {}
     flags = torch.zeros((1,), dtype=torch.int64, device=device if
                         dist.get_backend() == "nccl" else "cpu")
-    for name, mesh_kw in meshes.items():
-        t0 = time.perf_counter()
-        mesh_cfg = MeshConfig(**mesh_kw)
-        step, info, params, state = dpt_setup(cfg, mesh_cfg,
-                                              dist.group.WORLD, rank, device)
-        _sync(device)
-        res = {"param_bytes": _nbytes(tree_leaves(params)),
-               "opt_bytes": _nbytes(tree_leaves(state)),
-               "reckoned": (info["param_bytes"], info["opt_bytes"]),
-               "losses": [], "step_s": [],
-               "setup_s": time.perf_counter() - t0}
-        if device.type == "cuda":
-            torch.cuda.reset_peak_memory_stats(device)
-        for i, batch in enumerate(data):
-            for g in dpt_groups(info).values():
-                g.timed = i == 0
-            _sync(device)
+    for cfg, meshes, data, ref_file in cases:
+        ref = torch.load(ref_file, mmap=True, weights_only=True)
+        for name, mesh_kw in meshes.items():
             t0 = time.perf_counter()
-            if i == len(data) - 1 and rank == 0 and device.type == "cuda":
-                (params, state, m), secs, bd = profiled(
-                    lambda: step(params, state, batch))
-                res["profile"] = {"wall_s": secs, "busy": sum(bd.values())
-                                  / (1e3 * secs), "top": top(bd)}
-            else:
-                params, state, m = step(params, state, batch)
+            mesh_cfg = MeshConfig(**mesh_kw)
+            step, info, params, state = dpt_setup(
+                cfg, mesh_cfg, dist.group.WORLD, rank, device)
             _sync(device)
-            res["step_s"].append(time.perf_counter() - t0)
-            res["losses"].append(float(m["loss"]))
-            if i == 0:
-                res["collectives"] = {
-                    f"{k}_{op}": list(row) for k, g in dpt_groups(
-                        info).items() for op, row in g.stats.items()}
-        res["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
-                             if device.type == "cuda" else 0)
-        res["peak_reserved"] = (torch.cuda.max_memory_reserved(device)
-                                if device.type == "cuda" else 0)
-        t0 = time.perf_counter()
-        res["held"] = dpt_hold(params, ref, info["pspecs"], mesh_cfg, rank,
-                               device)
-        res["hold_s"] = time.perf_counter() - t0
-        del step, info, params, state
-        if device.type == "cuda":
-            _free()
-        # every rank referees, if any rank has a coordinate to referee
-        flags.fill_(len(res["held"]["flagged"]))
-        dist.all_reduce(flags)
-        if int(flags):
-            res["flagged_grads"] = dpt_rank_grads(
-                cfg, mesh_cfg, rank, device, data[0], res["held"]["flagged"])
-        if rank == 0:
-            print(f"[dp_train] rank 0 {name}: set-up {res['setup_s']:.2f}s, "
-                  f"steps {res['step_s']}, hold {res['hold_s']:.2f}s, "
-                  f"referee {time.perf_counter() - t0 - res['hold_s']:.2f}s",
-                  flush=True)
-        out[name] = res
-        if device.type == "cuda":
-            _free()
+            res = {"param_bytes": _nbytes(tree_leaves(params)),
+                   "opt_bytes": _nbytes(tree_leaves(state)),
+                   "reckoned": (info["param_bytes"], info["opt_bytes"]),
+                   "losses": [], "step_s": [],
+                   "setup_s": time.perf_counter() - t0}
+            if device.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(device)
+            for i, batch in enumerate(data):
+                for g in dpt_groups(info).values():
+                    g.timed = i == 0
+                _sync(device)
+                t0 = time.perf_counter()
+                if i == len(data) - 1 and rank == 0 and device.type == "cuda":
+                    (params, state, m), secs, bd = profiled(
+                        lambda: step(params, state, batch))
+                    res["profile"] = {"wall_s": secs, "busy": sum(bd.values())
+                                      / (1e3 * secs), "top": top(bd)}
+                else:
+                    params, state, m = step(params, state, batch)
+                _sync(device)
+                res["step_s"].append(time.perf_counter() - t0)
+                res["losses"].append(float(m["loss"]))
+                if i == 0:
+                    res["collectives"] = {
+                        f"{k}_{op}": list(row) for k, g in dpt_groups(
+                            info).items() for op, row in g.stats.items()}
+            res["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
+                                 if device.type == "cuda" else 0)
+            res["peak_reserved"] = (torch.cuda.max_memory_reserved(device)
+                                    if device.type == "cuda" else 0)
+            t0 = time.perf_counter()
+            res["held"] = dpt_hold(params, ref, info["pspecs"], mesh_cfg, rank,
+                                   device)
+            res["hold_s"] = time.perf_counter() - t0
+            del step, info, params, state
+            if device.type == "cuda":
+                _free()
+            # every rank referees, if any rank has a coordinate to referee
+            flags.fill_(len(res["held"]["flagged"]))
+            dist.all_reduce(flags)
+            if int(flags):
+                res["flagged_grads"] = dpt_rank_grads(
+                    cfg, mesh_cfg, rank, device, data[0],
+                    res["held"]["flagged"])
+            if rank == 0:
+                refereed = time.perf_counter() - t0 - res["hold_s"]
+                print(f"[dp_train] rank 0 {name}: set-up "
+                      f"{res['setup_s']:.2f}s, steps {res['step_s']}, hold "
+                      f"{res['hold_s']:.2f}s, referee {refereed:.2f}s",
+                      flush=True)
+            out[name] = res
+            if device.type == "cuda":
+                _free()
     return out
 
 
@@ -2599,45 +2644,14 @@ def dpt_one_grads(cfg, batch, device) -> dict:
     return out
 
 
-def dp_train_phase(card, device="cuda") -> dict:
-    """``[dp_train]``: the sharded train step on the data axis; see the
-    module docstring."""
+def dpt_reference(tag, cfg, data, dev, ref_dir) -> dict:
+    """``[dp_train]``'s one process of ``cfg``: the one-card step on the
+    seeded init over ``data``; its losses, seconds, peak and bytes, its
+    parameters after the steps saved to a file in ``ref_dir`` that the
+    ranks map (``"file"``), the card freed after it."""
 
-    t_phase = time.perf_counter()
-    tag = "[dp_train]"
-    dev = torch.device(device)
-    full = get_model_config(LM_ARCH)
-    cfg = dataclasses.replace(full, num_layers=DPT_LAYERS)
-    pipe = LMTokenPipeline(cfg.vocab_size, DPT_SEQ, DPT_BATCH)
-    data = [dict(zip(("tokens", "targets"), pipe.batch_at(i)))
-            for i in range(DPT_STEPS)]
-    one = MeshConfig(data=1, model=1, fsdp=True)
-    meta = build_model(cfg, device="meta")
-    shapes = model_api.param_specs(meta)
-    embed_gb = 4 * cfg.vocab_size * cfg.d_model / 1e9
-    units_gb = 4 * (_n_elems(shapes) - cfg.vocab_size * cfg.d_model) / 1e9
-    rows = DPT_BATCH // max(DPT_MICRO, 1) // 4
-    act_mb = 4 * 2 * rows * DPT_SEQ * cfg.d_model / 1e6
-    print(f"{tag} {cfg.name} at full width, {DPT_LAYERS} of "
-          f"{full.num_layers} layers ({_n_elems(shapes)} f32 parameters: "
-          f"embed {embed_gb:.2f} GB, the rest {units_gb:.2f} GB); "
-          f"{DPT_BATCH} x {DPT_SEQ} tokens a step as microbatch={DPT_MICRO}, "
-          f"AdamW lr {DPT_LR}.  Reckoning a rank of 4: the replicated embed "
-          f"with its gradient and 2 moments {4 * embed_gb:.2f} GB, its unit "
-          f"shards x 4 {units_gb:.2f} GB, a part's logits ({rows} x "
-          f"{DPT_SEQ} x {cfg.vocab_size}) "
-          f"{4 * rows * DPT_SEQ * cfg.vocab_size / 1e9:.2f} GB a copy; at "
-          f"data 2 x model 2 the embed's vocab half with its gradient and "
-          f"moments {2 * embed_gb:.2f} GB, a part's logits ({2 * rows} x "
-          f"{DPT_SEQ} x {cfg.vocab_size // 2}) the same bytes, "
-          f"{dpt_model_all_reduces(cfg, max(DPT_MICRO, 1))} all-reduces a "
-          f"step over the model group, {act_mb:.1f} MB each but the "
-          f"cross-entropy's and the clip's",
-          flush=True)
-
-    # the one process; its parameters after the steps go to a file the
-    # ranks map, and the card is freed for them
-    step, info, params, state = dpt_setup(cfg, one, None, 0, dev)
+    step, info, params, state = dpt_setup(
+        cfg, MeshConfig(data=1, model=1, fsdp=True), None, 0, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     reset_counts()
@@ -2655,153 +2669,254 @@ def dp_train_phase(card, device="cuda") -> dict:
         fail(f"{tag} the training path launched a kernel: {counts()} (it "
              "trains through the plain attention)")
     ref["bytes"] = (_nbytes(tree_leaves(params)), _nbytes(tree_leaves(state)))
-    print(f"{tag} one process: losses {ref['losses']}, step seconds "
-          f"{ref['step_s']}, peak {ref['peak_bytes'] / 2**30:.2f} GiB",
-          flush=True)
+    print(f"{tag} {cfg.name}, one process: losses {ref['losses']}, step "
+          f"seconds {ref['step_s']}, peak "
+          f"{ref['peak_bytes'] / 2**30:.2f} GiB", flush=True)
     if not all(np.isfinite(ref["losses"])):
-        fail(f"{tag} non-finite loss in one process: {ref['losses']}")
-    ref_dir = tempfile.mkdtemp(prefix="dp-train-ref-")
-    ref_file = os.path.join(ref_dir, "params.pt")
+        fail(f"{tag} {cfg.name}: non-finite loss in one process: "
+             f"{ref['losses']}")
+    t0 = time.perf_counter()
+    ref["file"] = os.path.join(ref_dir, f"{cfg.name}.pt")
     flat = {}
     tree_map_with_path(lambda path, x: flat.__setitem__(path, x.cpu()),
                        params)
-    torch.save(flat, ref_file)
+    torch.save(flat, ref["file"])
+    ref["save_s"] = time.perf_counter() - t0
     del step, info, params, state, flat
     if dev.type == "cuda":
         _free()
-        print(f"{tag} before the grid this process holds "
-              f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB of the card",
-              flush=True)
-    marks: list = []
-    free = {"min": None, "samples": 0}
-    done = threading.Event()
+    return ref
 
-    def sample():
-        # the card's free memory, every process's use, while the grid runs
-        while not done.wait(0.01):
-            f = torch.cuda.mem_get_info(dev)[0]
-            free["min"] = f if free["min"] is None else min(free["min"], f)
-            free["samples"] += 1
 
-    sampler = threading.Thread(target=sample, daemon=True)
-    if dev.type == "cuda":
-        sampler.start()
-    t0 = time.perf_counter()
-    try:
-        ranks = run_on_grid(dp_train_rank, (4, 1), cfg, DPT_MESHES, data,
-                            ref_file, device=device, timeout=900,
-                            marks=marks)
-    finally:
-        done.set()
-        shutil.rmtree(ref_dir, ignore_errors=True)
-    if dev.type == "cuda":
-        sampler.join()
-    t_grid = time.perf_counter() - t0
-    backend = pick_backend(device, 4)
-    out = {"layers": DPT_LAYERS, "reference": {
-        k: ref[k] for k in ("losses", "step_s", "peak_bytes", "bytes")},
-        "backend": backend, "grid_s": t_grid, "marks": marks,
-        "meshes": {}, "card_share": DPT_CARD_SHARE,
-        "min_free_gib": None if free["min"] is None else free["min"] / 2**30}
-    n_units = DPT_LAYERS // (cfg.local_global_pattern or 1)
+def dpt_check(tag, cfg, name, mesh_kw, res, ref, data, dev,
+              one_grads) -> dict:
+    """``[dp_train]``'s holds of one mesh's ranks ``res`` against the one
+    process ``ref``: losses, bytes, step 1's collectives counted exactly,
+    parameters by the AdamW rule (its referee's one-process gradients in
+    ``one_grads``, made at first need); the row it prints."""
+
+    mesh_cfg = MeshConfig(**mesh_kw)
+    shapes = model_api.param_specs(build_model(cfg, device="meta"))
+    pspecs = shard_rules.param_pspecs(cfg, shapes, mesh_cfg)
+    n_units = cfg.num_layers // (cfg.local_global_pattern or 1)
     parts = max(DPT_MICRO, 1)
-    grads_one = None
-    for name, mesh_kw in DPT_MESHES.items():
-        mesh_cfg = MeshConfig(**mesh_kw)
-        pspecs = shard_rules.param_pspecs(cfg, shapes, mesh_cfg)
-        res = [r[name] for r in ranks]
-        label = (f"{tag} {name} ({mesh_cfg.pod} x {mesh_cfg.data} x "
-                 f"{mesh_cfg.model})")
-        worst_loss = max(abs(a - b) / abs(b) for r in res
-                         for a, b in zip(r["losses"], ref["losses"]))
-        if worst_loss > DPT_LOSS_RTOL:
-            fail(f"{label}: losses {[r['losses'] for r in res]} against "
-                 f"the one process's {ref['losses']}")
-        for r, rr in enumerate(res):
-            if (rr["param_bytes"], rr["opt_bytes"]) != rr["reckoned"]:
-                fail(f"{label}: rank {r} holds {rr['param_bytes']} bytes "
-                     f"of parameters and {rr['opt_bytes']} of state, the "
-                     f"specs reckon {rr['reckoned']}")
-            c = {op: row[0] for op, row in rr["collectives"].items()}
-            want = {"fsdp_all_gather": parts * n_units * 2,
-                    "fsdp_reduce_scatter": parts * n_units}
-            if mesh_cfg.model > 1:
-                want.update(model_all_reduce=dpt_model_all_reduces(
-                    cfg, parts), model_all_reduce_max=parts)
-            if any("all_gather" in op and not op.startswith("fsdp_")
-                   for op in c):
-                fail(f"{label}: rank {r} all-gathered outside its FSDP "
-                     f"group in a step (the logits are never gathered): "
-                     f"{c}")
-            if any(c.get(op) != n for op, n in want.items()):
-                fail(f"{label}: rank {r}'s collectives in a step {c}, "
-                     f"expected {want}")
-        dmax = max(rr["held"]["max"] for rr in res)
-        frac = (sum(rr["held"]["past"] for rr in res)
-                / sum(rr["held"]["total"] for rr in res))
-        flagged = [(mesh_cfg, r, x, g, rr["flagged_grads"]["norm"])
-                   for r, rr in enumerate(res) if "flagged_grads" in rr
-                   for x, g in zip(rr["held"]["flagged"],
-                                   rr["flagged_grads"]["grads"])]
-        if flagged and grads_one is None:
-            grads_one = dpt_one_grads(cfg, data[0], dev)
-        refereed = dpt_referee(cfg, flagged, grads_one) if flagged else []
-        over = sum(rr["held"]["over"] for rr in res)
-        if (over or frac > ADAM_FRAC or not all(x["ok"] for x in refereed)
-                or len(refereed) != sum(len(rr["held"]["flagged"])
-                                        for rr in res)):
-            fail(f"{label}: parameters after {DPT_STEPS} AdamW steps differ "
-                 f"from the one process's by up to {dmax:.3e} (limit "
-                 f"{ADAM_MAX * DPT_LR:.1e} where the referee does not "
-                 f"explain it: {json.dumps(refereed)}; {over} more past "
-                 f"it), {frac:.2e} of coordinates past 1e-3 lr (limit "
-                 f"{ADAM_FRAC})")
-        r0 = res[0]
-        step1 = r0["step_s"][0]
-        coll = {op: {"calls": row[0], "seconds": row[1], "bytes": row[2],
-                     "share": row[1] / step1}
-                for op, row in r0["collectives"].items()}
-        row = {"losses": r0["losses"], "step_s": r0["step_s"],
-               "collectives_step1": coll,
-               "param_bytes": r0["param_bytes"],
-               "opt_bytes": r0["opt_bytes"],
-               "one_process_bytes": ref["bytes"],
-               "peak_gib": [r["peak_bytes"] / 2**30 for r in res],
-               "peak_reserved_gib": [r["peak_reserved"] / 2**30
-                                     for r in res],
-               "profile": r0.get("profile"),
-               "max_abs_param_diff": dmax, "frac_past_1e-3_lr": frac,
-               "refereed": refereed,
-               "loss_rel_err": worst_loss,
-               "setup_s": [r["setup_s"] for r in res],
-               "hold_s": [r["hold_s"] for r in res]}
-        out["meshes"][name] = row
-        prof = r0.get("profile") or {}
-        print(f"{label}: losses {r0['losses']} (one process "
-              f"{ref['losses']}, worst rel {worst_loss:.2e}); step seconds "
-              f"{r0['step_s']}; parameters after {DPT_STEPS} steps within "
-              f"{dmax:.3e} of the one process's ({frac:.2e} of coordinates "
-              f"past 1e-3 lr); a rank holds {r0['param_bytes']} bytes of "
-              f"parameters + {r0['opt_bytes']} of state (= shard_nbytes; "
-              f"one process {ref['bytes'][0]} + {ref['bytes'][1]}); "
-              f"peak by rank {[round(x, 2) for x in row['peak_gib']]} GiB "
-              f"(reserved {[round(x, 2) for x in row['peak_reserved_gib']]})"
-              f"; rank set-up s {[round(x, 2) for x in row['setup_s']]}, "
-              f"hold s {[round(x, 2) for x in row['hold_s']]}", flush=True)
-        print(f"{label} rank 0 collectives in step 1, the card synchronised "
-              f"around each: {json.dumps(coll)}", flush=True)
-        if refereed:
-            print(f"{label}: {len(refereed)} coordinate(s) past "
-                  f"{ADAM_MAX} x lr, each rank's gradient of step 1 within "
-                  f"{DPT_GRAD_TOL} x its leaf's max of the one process's, the "
-                  f"difference within {ADAM_MAX} x lr of the two first "
-                  f"AdamW updates' (dpt_referee): {json.dumps(refereed)}",
-                  flush=True)
-        if prof:
-            print(f"{label} rank 0 step 2 under the profiler: wall "
-                  f"{prof['wall_s']:.3f} s, device busy "
-                  f"{100 * prof['busy']:.1f}%; by kernel: {prof['top']}",
-                  flush=True)
+    label = (f"{tag} {name} ({cfg.name}, {mesh_cfg.pod} x {mesh_cfg.data} "
+             f"x {mesh_cfg.model})")
+    worst_loss = max(abs(a - b) / abs(b) for r in res
+                     for a, b in zip(r["losses"], ref["losses"]))
+    if worst_loss > DPT_LOSS_RTOL:
+        fail(f"{label}: losses {[r['losses'] for r in res]} against "
+             f"the one process's {ref['losses']}")
+    want = dpt_model_collectives(cfg, mesh_cfg, parts)
+    if mesh_cfg.data > 1:
+        want.update(fsdp_all_gather=parts * n_units * 2,
+                    fsdp_reduce_scatter=parts * n_units)
+    for r, rr in enumerate(res):
+        if (rr["param_bytes"], rr["opt_bytes"]) != rr["reckoned"]:
+            fail(f"{label}: rank {r} holds {rr['param_bytes']} bytes "
+                 f"of parameters and {rr['opt_bytes']} of state, the "
+                 f"specs reckon {rr['reckoned']}")
+        c = {op: row[0] for op, row in rr["collectives"].items()}
+        # a gather outside the FSDP group is a k/v gather, counted: the
+        # logits are never gathered
+        if any("all_gather" in op and op not in want for op in c):
+            fail(f"{label}: rank {r} all-gathered outside its FSDP "
+                 f"group and the k/v gathers in a step (the logits are "
+                 f"never gathered): {c}")
+        if any(c.get(op) != n for op, n in want.items()):
+            fail(f"{label}: rank {r}'s collectives in a step {c}, "
+                 f"expected {want}")
+    dmax = max(rr["held"]["max"] for rr in res)
+    frac = (sum(rr["held"]["past"] for rr in res)
+            / sum(rr["held"]["total"] for rr in res))
+    flagged = [(mesh_cfg, r, x, g, rr["flagged_grads"]["norm"])
+               for r, rr in enumerate(res) if "flagged_grads" in rr
+               for x, g in zip(rr["held"]["flagged"],
+                               rr["flagged_grads"]["grads"])]
+    if flagged and cfg.name not in one_grads:
+        one_grads[cfg.name] = dpt_one_grads(cfg, data[0], dev)
+    refereed = (dpt_referee(cfg, flagged, one_grads[cfg.name]) if flagged
+                else [])
+    over = sum(rr["held"]["over"] for rr in res)
+    if (over or frac > ADAM_FRAC or not all(x["ok"] for x in refereed)
+            or len(refereed) != sum(len(rr["held"]["flagged"])
+                                    for rr in res)):
+        fail(f"{label}: parameters after {DPT_STEPS} AdamW steps differ "
+             f"from the one process's by up to {dmax:.3e} (limit "
+             f"{ADAM_MAX * DPT_LR:.1e} where the referee does not "
+             f"explain it: {json.dumps(refereed)}; {over} more past "
+             f"it), {frac:.2e} of coordinates past 1e-3 lr (limit "
+             f"{ADAM_FRAC})")
+    r0 = res[0]
+    step1 = r0["step_s"][0]
+    coll = {op: {"calls": row[0], "seconds": row[1], "bytes": row[2],
+                 "share": row[1] / step1}
+            for op, row in r0["collectives"].items()}
+    row = {"arch": cfg.name, "layers": cfg.num_layers,
+           "losses": r0["losses"], "step_s": r0["step_s"],
+           "collectives_step1": coll, "expected_counts": want,
+           "param_bytes": r0["param_bytes"],
+           "opt_bytes": r0["opt_bytes"],
+           "one_process_bytes": ref["bytes"],
+           "peak_gib": [r["peak_bytes"] / 2**30 for r in res],
+           "peak_reserved_gib": [r["peak_reserved"] / 2**30
+                                 for r in res],
+           "profile": r0.get("profile"),
+           "max_abs_param_diff": dmax, "frac_past_1e-3_lr": frac,
+           "refereed": refereed,
+           "loss_rel_err": worst_loss,
+           "setup_s": [r["setup_s"] for r in res],
+           "hold_s": [r["hold_s"] for r in res]}
+    prof = r0.get("profile") or {}
+    print(f"{label}: losses {r0['losses']} (one process "
+          f"{ref['losses']}, worst rel {worst_loss:.2e}); step seconds "
+          f"{r0['step_s']}; parameters after {DPT_STEPS} steps within "
+          f"{dmax:.3e} of the one process's ({frac:.2e} of coordinates "
+          f"past 1e-3 lr); a rank holds {r0['param_bytes']} bytes of "
+          f"parameters + {r0['opt_bytes']} of state (= shard_nbytes; "
+          f"one process {ref['bytes'][0]} + {ref['bytes'][1]}); "
+          f"peak by rank {[round(x, 2) for x in row['peak_gib']]} GiB "
+          f"(reserved {[round(x, 2) for x in row['peak_reserved_gib']]})"
+          f"; rank set-up s {[round(x, 2) for x in row['setup_s']]}, "
+          f"hold s {[round(x, 2) for x in row['hold_s']]}", flush=True)
+    print(f"{label} rank 0 collectives in step 1, the card synchronised "
+          f"around each (counts as expected: {json.dumps(want)}): "
+          f"{json.dumps(coll)}", flush=True)
+    if refereed:
+        print(f"{label}: {len(refereed)} coordinate(s) past "
+              f"{ADAM_MAX} x lr, each rank's gradient of step 1 within "
+              f"{DPT_GRAD_TOL} x its leaf's max of the one process's, the "
+              f"difference within {ADAM_MAX} x lr of the two first "
+              f"AdamW updates' (dpt_referee): {json.dumps(refereed)}",
+              flush=True)
+    if prof:
+        print(f"{label} rank 0 step 2 under the profiler: wall "
+              f"{prof['wall_s']:.3f} s, device busy "
+              f"{100 * prof['busy']:.1f}%; by kernel: {prof['top']}",
+              flush=True)
+    return row
+
+
+def dpt_data(cfg) -> list:
+    pipe = LMTokenPipeline(cfg.vocab_size, DPT_SEQ, DPT_BATCH)
+    return [dict(zip(("tokens", "targets"), pipe.batch_at(i)))
+            for i in range(DPT_STEPS)]
+
+
+def dp_train_phase(card, device="cuda") -> dict:
+    """``[dp_train]``: the sharded train step on the data and model axes;
+    see the module docstring."""
+
+    t_phase = time.perf_counter()
+    tag = "[dp_train]"
+    dev = torch.device(device)
+    full = get_model_config(LM_ARCH)
+    cfg = dataclasses.replace(full, num_layers=DPT_LAYERS)
+    kv_full = get_model_config(DPT_KV_ARCH)
+    kv_cfg = dataclasses.replace(kv_full, num_layers=DPT_KV_LAYERS)
+    parts = max(DPT_MICRO, 1)
+    shapes = model_api.param_specs(build_model(cfg, device="meta"))
+    embed_gb = 4 * cfg.vocab_size * cfg.d_model / 1e9
+    units_gb = 4 * (_n_elems(shapes) - cfg.vocab_size * cfg.d_model) / 1e9
+    rows = DPT_BATCH // parts // 4
+    act_mb = 4 * 2 * rows * DPT_SEQ * cfg.d_model / 1e6
+    mm = MeshConfig(**DPT_MESHES["data2model2"])
+    print(f"{tag} {cfg.name} at full width, {DPT_LAYERS} of "
+          f"{full.num_layers} layers ({_n_elems(shapes)} f32 parameters: "
+          f"embed {embed_gb:.2f} GB, the rest {units_gb:.2f} GB); "
+          f"{DPT_BATCH} x {DPT_SEQ} tokens a step as microbatch={DPT_MICRO}, "
+          f"AdamW lr {DPT_LR}.  Reckoning a rank of 4: the replicated embed "
+          f"with its gradient and 2 moments {4 * embed_gb:.2f} GB, its unit "
+          f"shards x 4 {units_gb:.2f} GB, a part's logits ({rows} x "
+          f"{DPT_SEQ} x {cfg.vocab_size}) "
+          f"{4 * rows * DPT_SEQ * cfg.vocab_size / 1e9:.2f} GB a copy; at "
+          f"data 2 x model 2 the embed's vocab half with its gradient and "
+          f"moments {2 * embed_gb:.2f} GB, a part's logits ({2 * rows} x "
+          f"{DPT_SEQ} x {cfg.vocab_size // 2}) the same bytes, "
+          f"{dpt_model_collectives(cfg, mm, parts)['model_all_reduce']} "
+          f"all-reduces a step over the model group, {act_mb:.1f} MB each "
+          f"but the cross-entropy's and the clip's", flush=True)
+    kv_shapes = model_api.param_specs(build_model(kv_cfg, device="meta"))
+    for name, mesh_kw in DPT_KV_MESHES.items():
+        kv_mesh = MeshConfig(**mesh_kw)
+        kv_specs = shard_rules.param_pspecs(kv_cfg, kv_shapes, kv_mesh)
+        n = _n_elems(kv_shapes)
+        rank_p = shard_nbytes(kv_shapes, kv_specs, kv_mesh)
+        tokens = DPT_BATCH // parts * DPT_SEQ
+        cols = kv_cfg.num_kv_heads * kv_cfg.resolved_head_dim // kv_mesh.model
+        print(f"{tag} {name}: {kv_cfg.name} at full width, {DPT_KV_LAYERS} "
+              f"of {kv_full.num_layers} layers ({kv_cfg.num_heads} query "
+              f"heads over {kv_cfg.num_kv_heads} KV head(s) of "
+              f"{kv_cfg.resolved_head_dim}), on {kv_mesh.data} x "
+              f"{kv_mesh.model} ranks.  Reckoning: one process {n} f32 "
+              f"parameters ({4 * n / 1e9:.2f} GB; "
+              f"{16 * n / 1e9:.1f} GB with gradients and 2 moments); a rank "
+              f"{rank_p} bytes of parameters and {2 * rank_p} of state; a "
+              f"part's model-group all-reduces {tokens} x {kv_cfg.d_model} "
+              f"f32 ({4 * tokens * kv_cfg.d_model / 1e6:.1f} MB each); its "
+              f"{cols} of {kv_cfg.num_kv_heads * kv_cfg.resolved_head_dim} "
+              f"k/v columns gathered, {tokens} x 2 x {cols} f32 "
+              f"({4 * tokens * 2 * cols / 1e6:.2f} MB) a rank a layer; "
+              f"collectives a step: "
+              f"{json.dumps(dpt_model_collectives(kv_cfg, kv_mesh, parts))}",
+              flush=True)
+
+    # the one processes; their parameters after the steps go to files the
+    # ranks map, and the card is freed for them
+    ref_dir = tempfile.mkdtemp(prefix="dp-train-ref-")
+    cases = [(cfg, DPT_MESHES, dpt_data(cfg)),
+             (kv_cfg, DPT_KV_MESHES, dpt_data(kv_cfg))]
+    try:
+        refs = [dpt_reference(tag, c, data, dev, ref_dir)
+                for c, _, data in cases]
+        if dev.type == "cuda":
+            print(f"{tag} before the grid this process holds "
+                  f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB of the "
+                  f"card", flush=True)
+        marks: list = []
+        free = {"min": None, "samples": 0}
+        done = threading.Event()
+
+        def sample():
+            # the card's free memory, every process's use, while the grid
+            # runs
+            while not done.wait(0.01):
+                f = torch.cuda.mem_get_info(dev)[0]
+                free["min"] = f if free["min"] is None else min(free["min"],
+                                                                f)
+                free["samples"] += 1
+
+        sampler = threading.Thread(target=sample, daemon=True)
+        if dev.type == "cuda":
+            sampler.start()
+        t0 = time.perf_counter()
+        try:
+            ranks = run_on_grid(
+                dp_train_rank, (4, 1),
+                [(c, meshes, data, ref["file"])
+                 for (c, meshes, data), ref in zip(cases, refs)],
+                device=device, timeout=900, marks=marks)
+        finally:
+            done.set()
+        if dev.type == "cuda":
+            sampler.join()
+        t_grid = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    backend = pick_backend(device, 4)
+    out = {"layers": DPT_LAYERS, "backend": backend, "grid_s": t_grid,
+           "marks": marks, "meshes": {}, "card_share": DPT_CARD_SHARE,
+           "min_free_gib": None if free["min"] is None
+           else free["min"] / 2**30,
+           "reference": {c.name: {k: ref[k] for k in (
+               "losses", "step_s", "peak_bytes", "bytes", "save_s")}
+               for (c, _, _), ref in zip(cases, refs)}}
+    one_grads: dict = {}
+    for (c, meshes, data), ref in zip(cases, refs):
+        for name, mesh_kw in meshes.items():
+            out["meshes"][name] = dpt_check(
+                tag, c, name, mesh_kw, [r[name] for r in ranks], ref, data,
+                dev, one_grads)
     if free["min"] is not None:
         total = torch.cuda.get_device_properties(dev).total_memory
         print(f"{tag} the card's least free memory while the grid ran: "
@@ -2809,10 +2924,16 @@ def dp_train_phase(card, device="cuda") -> dict:
               f"({free['samples']} samples, every 10 ms; each rank's "
               f"allocator capped at {DPT_CARD_SHARE} of the card, "
               f"{DPT_CARD_SHARE * total / 2**30:.2f} GiB)", flush=True)
+        if free["min"] < DPT_MIN_FREE * 2**30:
+            fail(f"{tag} the card's least free memory while the grid ran, "
+                 f"{free['min'] / 2**30:.2f} GiB, is under the "
+                 f"{DPT_MIN_FREE} GiB margin")
     print(f"{tag} grid {t_grid:.1f}s ({backend}, 4 ranks on one card; by "
           f"rank, s from the spawn to the group formed "
           f"{[round(m['group_s'], 1) for m in marks]} and to the rank done "
-          f"{[round(m['done_s'], 1) for m in marks]}); phase "
+          f"{[round(m['done_s'], 1) for m in marks]}); the one processes' "
+          f"parameters saved in "
+          f"{[round(ref['save_s'], 2) for ref in refs]} s; phase "
           f"{time.perf_counter() - t_phase:.1f}s of command", flush=True)
     return out
 
@@ -5808,13 +5929,10 @@ def gossip_phase(sparse, scatter, state0, ml_cfg, card) -> tuple[dict, list]:
     add(counts())
     stale = dataclasses.replace(sched, staleness=2, compression="int8")
     t0 = time.perf_counter()
-    try:
-        outs = fit_on_grid([FitJob(rec1, exp1, sched, st1),
-                            FitJob(rec1, exp1, stale, st1),
-                            FitJob(recml, cfg4, sched, stml)],
-                           grid=GRID, warmup_rounds=2, timeout=600)
-    finally:
-        shutdown_grids()        # the forkserver would outlive this phase
+    outs = fit_on_grid([FitJob(rec1, exp1, sched, st1),
+                        FitJob(rec1, exp1, stale, st1),
+                        FitJob(recml, cfg4, sched, stml)],
+                       grid=GRID, warmup_rounds=2, timeout=600)
     print(f"[gossip] 2x2 grid: 3 fits in {time.perf_counter() - t0:.1f}s; "
           f"slowest rank's seconds from spawn: "
           f"{json.dumps(outs[0]['startup'])}", flush=True)
@@ -6053,11 +6171,8 @@ def stream_gossip(sparse, state0, ml_cfg, card) -> tuple[dict, list]:
     oneml, cml, stml = grid_reference(ML_4X4, cfg4, sched)
     for name, n in counts().items():
         total[name] += n
-    try:
-        out, = fit_on_grid([FitJob(ML_4X4, cfg4, sched, stml)], grid=GRID,
-                           warmup_rounds=2, timeout=600)
-    finally:
-        shutdown_grids()        # the forkserver would outlive this phase
+    out, = fit_on_grid([FitJob(ML_4X4, cfg4, sched, stml)], grid=GRID,
+                       warmup_rounds=2, timeout=600)
     for name, n in out["launches"].items():
         total[name] += n
     check_grid(f"ML-1M 4x4 sparse/segment Gossip(batch={MB_BATCH})", ML_4X4,
@@ -6293,11 +6408,8 @@ def faults_phase(sparse, ml_cfg, card) -> tuple[dict, dict]:
     tmp = tempfile.mkdtemp(prefix="chip-smoke-faults-")
     jobs = faults_jobs(ml_cfg, tmp)
     t0 = time.perf_counter()
-    try:
-        outs = fit_on_grid(list(jobs.values()), grid=GRID, warmup_rounds=2,
-                           timeout=600)
-    finally:
-        shutdown_grids()        # the forkserver would outlive this phase
+    outs = fit_on_grid(list(jobs.values()), grid=GRID, warmup_rounds=2,
+                       timeout=600)
     print(f"[faults] 2x2 grid: {len(jobs)} fits in "
           f"{time.perf_counter() - t0:.1f}s; slowest rank's seconds from "
           f"spawn: {json.dumps(outs[0]['startup'])}", flush=True)
@@ -6669,11 +6781,8 @@ def sharded_phase(ml_cfg, fitted, card) -> tuple[dict, list, list]:
                                          ("f32", None, None))}
     marks: list = []
     t0 = time.perf_counter()
-    try:
-        outs = run_on_grid(sharded_rank, GRID, ml_cfg, jobs, timeout=900,
-                           marks=marks)
-    finally:
-        shutdown_grids()        # the forkserver would outlive this phase
+    outs = run_on_grid(sharded_rank, GRID, ml_cfg, jobs, timeout=900,
+                       marks=marks)
     print(f"[sharded] 2x2 grid of 4 gloo processes: parts a-d in "
           f"{time.perf_counter() - t0:.1f}s; slowest rank's seconds from "
           f"spawn: {json.dumps({k: max(x[k] for x in marks) for k in marks[0]})}",
@@ -6880,10 +6989,7 @@ def measure_phase(fitted, device="cuda") -> tuple[dict, list]:
     total = {k: total[k] + n for k, n in counts().items()}
 
     t0 = time.perf_counter()
-    try:
-        measured = gossip_comm.measured_row(MEASURE_ROUNDS, device=device)
-    finally:
-        shutdown_grids()
+    measured = gossip_comm.measured_row(MEASURE_ROUNDS, device=device)
     for name, n in measured["launches"].items():
         total[name] += n
     print(f"[measure] gossip_comm --measure ({time.perf_counter() - t0:.1f}"
@@ -7233,6 +7339,10 @@ def main() -> None:
         _free()
     if lm_analyses is not None:
         roofline_after_tp(lm_analyses, tp_out, ep_out, mqa_out, fsdp_out)
+    # one forkserver served every grid phase (a restart costs a grid 6-10 s
+    # of start-up); it and the resource tracker stop here (and at exit,
+    # where a phase fails)
+    shutdown_grids()
     print(f"[main] peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
           f"{time.perf_counter() - started:.1f}s since start", flush=True)

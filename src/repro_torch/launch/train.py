@@ -24,7 +24,9 @@ and ``--tp M`` model ranks in each data row, holding its heads, FFN
 columns and vocab range (the logits never gathered: a vocab-parallel
 cross-entropy); ranks = pods·N·M, rank = (pod·N + data)·M + model.  The
 dense family only on more than one rank (item 6.2c), with query heads
-(item 6.8) and KV heads (item 6.2a-iii) that divide ``--tp``.  The ranks
+that divide ``--tp`` (item 6.8); its KV heads need not (granite-34b's one
+KV head trains at ``--tp 4``: each rank gathers k and v whole, or
+computes them whole where the rules keep ``wk``/``wv`` whole).  The ranks
 are ``launch/gossip.py``'s ``run_on_grid``: one card a rank (``nccl``)
 where the machine has that many cards, else all on one card (``gloo``,
 collectives staged through the host).  Every grid starts from one seeded
@@ -102,9 +104,13 @@ def collectives(info) -> dict:
     targets' all-reduces over the batch group (``"batch_all_reduce"``),
     the FSDP gradients' over the pods (``"pod_all_reduce"``) and the
     model group's: the row-parallel products' sums and their conjugates'
-    gradients, the lookup's, the cross-entropy's, the clip's
-    (``"model_all_reduce"``) and the logits' maxima
-    (``"model_all_reduce_max"``)."""
+    gradients, the lookup's, the cross-entropy's, the clip's and, where
+    the rules keep ``wk``/``wv`` whole under a split ``wo``, their
+    gradients' (``"model_all_reduce"``), the logits' maxima
+    (``"model_all_reduce_max"``) and, where they cut ``wk``/``wv`` in
+    parts of a head, the k/v gathers and their backward's
+    reduce-scatters (``"model_all_gather"``,
+    ``"model_reduce_scatter"``)."""
 
     out = {}
     for name, group in _groups(info).items():
@@ -243,7 +249,7 @@ def train(argv=None) -> dict:
                     help="two pods, as the reference's multi_pod_config")
     ap.add_argument("--tp", type=int, default=1,
                     help="ranks on the model axis in each data row (the "
-                         "query and KV heads must divide it)")
+                         "query heads must divide it)")
     ap.add_argument("--sync", choices=["allreduce", "gossip"],
                     default="allreduce")
     ap.add_argument("--microbatch", type=int, default=8)

@@ -27,9 +27,13 @@ it (``TP.kv_cache``).  The shapes it does not cover (query or Mamba2
 heads that do not split into whole heads a rank, the hybrid's unequal
 query and KV heads) raise ``NotImplementedError`` here, naming their
 ROADMAP item: there is no replicated fallback.  The same ``Ctx`` trains
-the dense family where its KV heads divide the ranks too
-(``loss_refusal``): ``models/transformer.py::lm_loss`` on the rank's
-shards, the collectives' backward rules in ``models/layers.py``.
+the dense family wherever its query heads split (``loss_refusal``):
+``models/transformer.py::lm_loss`` on the rank's shards, the
+collectives' backward rules in ``models/layers.py``.  KV heads that do
+not divide the ranks train too: k and v gathered whole where the rules
+cut ``wk``/``wv`` in parts of a head (the gather's backward a
+reduce-scatter), computed whole where they keep them whole (their
+gradients then summed over the model group, ``train/step.py``).
 """
 
 from __future__ import annotations
@@ -52,12 +56,6 @@ Ctx = T.Ctx
 
 TP_ITEM = "ROADMAP.md queue 1, item 6.8"
 TRAIN_ITEM = "ROADMAP.md queue 1, item 6.2"
-TP_TRAIN_REASON = (
-    "training on {size} model ranks where the {kv_heads} KV heads do not "
-    "divide them is not ported: each rank would gather k and v whole and "
-    "run them with its own query heads, so the all-gather's backward there "
-    "is a reduce-scatter over the model group, not the rank's slice "
-    f"({TRAIN_ITEM}a-iii)")
 FAMILY_TRAIN_REASON = (
     "training the {family} family on more than one rank is not ported: the "
     "port trains the dense family on data and model ranks (the MoE aux "
@@ -137,31 +135,26 @@ def tp_refusal(cfg: ModelConfig, size: int) -> str | None:
 def tp_train_refusal(cfg: ModelConfig, size: int) -> str | None:
     """Why ``cfg`` cannot train on ``size`` model ranks, or ``None``: the
     dense family alone (item 6.2c), its query heads split into whole heads
-    a rank (``tp_refusal``, item 6.8) and its KV heads too (item
-    6.2a-iii)."""
+    a rank (``tp_refusal``, item 6.8).  Its KV heads need not divide the
+    ranks (``models/transformer.py::_kv_train``)."""
 
     if size <= 1:
         return None
     if cfg.family != "dense":
         return FAMILY_TRAIN_REASON.format(family=cfg.family)
-    reason = tp_refusal(cfg, size)
-    if reason is None and cfg.num_kv_heads % size:
-        reason = TP_TRAIN_REASON.format(size=size,
-                                        kv_heads=cfg.num_kv_heads)
-    return reason
+    return tp_refusal(cfg, size)
 
 
 def loss_refusal(cfg: ModelConfig, ctx: T.Ctx) -> str | None:
     """Why a rank's model under ``ctx`` cannot train, or ``None`` where it
     can: in one process; for the dense family on model ranks
-    (``ctx.tp``) whose query and KV heads divide them
-    (``tp_train_refusal``), each rank holding its own KV heads
-    (``TP.kv_cache`` ``"heads"``); and on data ranks, its batch cut over
-    ``pod x data`` (``ctx.dp``) and its batch group given
-    (``ctx.dp_group``, over which the loss counts the whole batch's
-    targets), as ``train/step.py::make_sharded_train_step`` builds it.  KV heads that do not divide the
-    model ranks wait for the all-gather's backward (item 6.2a-iii), the
-    other families on more than one rank for their own losses (item
+    (``ctx.tp``) whose query heads divide them (``tp_train_refusal``),
+    whatever its KV heads and its ``TP.kv_cache`` (training holds no
+    cache); and on data ranks, its batch cut over ``pod x data``
+    (``ctx.dp``) and its batch group given (``ctx.dp_group``, over which
+    the loss counts the whole batch's targets), as
+    ``train/step.py::make_sharded_train_step`` builds it.  The other
+    families on more than one rank wait for their own losses (item
     6.2c)."""
 
     data = (ctx.fsdp is not None or bool(ctx.dp) or ctx.kv_seq is not None
@@ -170,13 +163,9 @@ def loss_refusal(cfg: ModelConfig, ctx: T.Ctx) -> str | None:
         return None
     if cfg.family != "dense":
         return FAMILY_TRAIN_REASON.format(family=cfg.family)
-    if ctx.tp_size > 1:
-        reason = tp_train_refusal(cfg, ctx.tp_size)
-        if reason is None and ctx.tp.kv_cache != "heads":
-            reason = TP_TRAIN_REASON.format(size=ctx.tp_size,
-                                            kv_heads=cfg.num_kv_heads)
-        if reason:
-            return reason
+    reason = tp_train_refusal(cfg, ctx.tp_size)
+    if reason:
+        return reason
     if data and (ctx.kv_seq is not None or not ctx.dp
                  or ctx.dp_group is None):
         return ("training on data ranks needs the batch cut over pod x "

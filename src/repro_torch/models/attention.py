@@ -18,7 +18,8 @@ caller all-reduces.  Where its KV heads are its own too (the rules cut
 the cache on its heads), the same code runs its local heads, the GQA
 group unchanged.  Where they are not (MQA/GQA whose KV heads do not
 divide the ranks), or where the rules cut the cache's positions, the
-caller passes a ``KVShard``:
+caller passes a ``KVShard`` (training too, with no positions' group: the
+gather's backward reduce-scatters):
 
 * a rank whose ``wk``/``wv`` hold a part of the k/v columns (the rules cut
   them in parts of a head) all-gathers k and v whole before the rotation,
@@ -119,7 +120,8 @@ def init_attention(gen, d_model, num_heads, num_kv_heads, head_dim,
 
 def _gather_columns(parts, tp: L.TP):
     """Each of ``parts`` (B, Lx, w) whole: the ranks' column slices
-    concatenated in rank order, all of them in one all-gather."""
+    concatenated in rank order, all of them in one all-gather (under
+    autograd one whose backward reduce-scatters)."""
 
     widths = [p.shape[-1] for p in parts]
     got = L.all_gather(torch.cat(parts, dim=-1)[None], tp, 0)  # (n, B, Lx, W)
@@ -195,12 +197,19 @@ def _self_attention(params, x, *, head_dim, causal, window, attn_softcap,
 
 
 def attention(params, x, *, head_dim, causal=True, window=0,
-              attn_softcap=0.0, rope_theta=10000.0, impl="ref"):
-    """Training self-attention.  x: (B, L, d)."""
+              attn_softcap=0.0, rope_theta=10000.0, impl="ref",
+              kv: KVShard | None = None):
+    """Training self-attention.  x: (B, L, d).  Under ``kv`` (a model
+    rank whose KV heads are not its own; no positions' group: training
+    holds no cache) the rank's query heads run against the KV heads they
+    read, k and v gathered whole where its ``wk``/``wv`` hold a part of
+    their columns.  Under autograd the gather's backward reduce-scatters
+    (``layers.all_gather``), and the KV heads the rank picks pass their
+    gradients back (a head two of its query heads read gets their sum)."""
 
     out, _, _ = _self_attention(
         params, x, head_dim=head_dim, causal=causal, window=window,
-        attn_softcap=attn_softcap, rope_theta=rope_theta, impl=impl)
+        attn_softcap=attn_softcap, rope_theta=rope_theta, impl=impl, kv=kv)
     return out
 
 

@@ -32,8 +32,8 @@ lets GSPMD insert the collectives' transposes): under autograd
 ``all_reduce_grad`` (the identity forward, the gradient all-reduced)
 stands where a whole activation enters a product split on ``"model"``;
 ``vocab_parallel_cross_entropy`` takes the loss from each rank's vocab
-range of the logits, which are never gathered.  ``FSDP``'s gather
-reduce-scatters in its backward.
+range of the logits, which are never gathered.  ``all_gather``'s
+backward, and ``FSDP``'s gather's, reduce-scatters.
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ class TP:
     collective synchronizes the card before and after it and adds its
     host seconds and bytes to ``stats`` (``{"all_reduce": [calls,
     seconds, bytes], "all_reduce_max": ..., "all_gather": ...,
-    "all_to_all": ...}``)."""
+    "reduce_scatter": ..., "all_to_all": ...}``)."""
 
     group: Any
     rank: int
@@ -238,10 +238,26 @@ def all_reduce_grad(x, tp: TP | None):
 
 
 def all_gather(x, tp: TP | None, dim: int):
-    """The ranks' ``x`` concatenated in rank order along ``dim``."""
+    """The ranks' ``x`` concatenated in rank order along ``dim``.
+
+    Under autograd (``x`` requires grad) it is ``_AllGather``, whose
+    backward reduce-scatters: each rank's gradient of the whole result
+    summed over ``tp``, the rank's slice of the sum (op
+    ``"reduce_scatter"``).  A column-parallel product gathered whole and
+    read by every rank (k and v where the KV heads do not divide the
+    ranks, ``models/attention.py``) so gets the gradient of every rank's
+    reads.  Without autograd it is the plain gather."""
 
     if tp is None or tp.size == 1:
         return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _AllGather.apply(x, tp, dim)
+    return _gather(x, tp, dim)
+
+
+def _gather(x, tp: TP, dim: int):
+    """``all_gather``'s collective, without autograd."""
+
     if tp.group is None:
         tp._dry("all_gather", x)
         return torch.cat([x] * tp.size, dim=dim)
@@ -250,6 +266,43 @@ def all_gather(x, tp: TP | None, dim: int):
         parts = [torch.empty_like(src) for _ in range(tp.size)]
         dist.all_gather(parts, src, group=tp.group)
         return torch.cat(parts, dim=dim).to(x.device)
+
+
+def _reduce_scatter(g, tp: TP, dim: int):
+    """The sum over ``tp`` of the ranks' ``g``, cut into ``tp.size``
+    slices along ``dim``: the rank's slice, in a new tensor.  Under
+    ``nccl`` one ``reduce_scatter_tensor``; ``gloo`` has none, so an
+    all-reduce of a copy (staged through the host on a card) and the
+    rank's slice of it."""
+
+    n = g.shape[dim] // tp.size
+    if tp.group is None:
+        tp._dry("reduce_scatter", g)
+        return g.narrow(dim, tp.rank * n, n).clone()
+    with tp._timing("reduce_scatter", g):
+        if dist.get_backend(tp.group) != "nccl":
+            src = g.to("cpu", copy=True) if tp.staged else g.clone(
+                memory_format=torch.contiguous_format)
+            dist.all_reduce(src, group=tp.group)
+            return src.narrow(dim, tp.rank * n, n).to(g.device, copy=True)
+        rows = g.movedim(dim, 0).contiguous()
+        out = rows.new_empty((n,) + rows.shape[1:])
+        dist.reduce_scatter_tensor(out, rows, group=tp.group)
+        return out.movedim(0, dim)
+
+
+class _AllGather(torch.autograd.Function):
+    """The ranks' column slices joined in rank order; the backward
+    reduce-scatters the whole result's gradient back to the slices."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return _gather(x, tp, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.tp, ctx.dim), None, None
 
 
 def all_to_all(x, tp: TP | None):
@@ -378,19 +431,7 @@ class FSDP(TP):
         """(n,): row ``rank`` of the sum of the ranks' ``flat`` (size,
         n)."""
 
-        if self.group is None:
-            self._dry("reduce_scatter", flat)
-            return flat.new_empty(flat.shape[1:])
-        with self._timing("reduce_scatter", flat):
-            if dist.get_backend(self.group) != "nccl":
-                # gloo has no reduce-scatter: the whole sum, then the row
-                src = flat.cpu() if self.staged else flat.contiguous()
-                dist.all_reduce(src, group=self.group)
-                return src[self.rank].to(flat.device, copy=True)
-            out = flat.new_empty(flat.shape[1:])
-            dist.reduce_scatter_tensor(out, flat.contiguous(),
-                                       group=self.group)
-            return out
+        return _reduce_scatter(flat, self, 0)[0]
 
     def _all_gather_flat(self, flat: torch.Tensor,
                          view: bool = False) -> torch.Tensor:

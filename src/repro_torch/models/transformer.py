@@ -41,7 +41,10 @@ rank's whole heads (``models/ssm.py``: its state holds its heads), one
 all-reduce after each row-parallel product (attention's, the MLP's, the
 shared experts' and Mamba2's ``out_proj``), and the expert-parallel MoE
 (``Ctx.ep_pad_to``, ``Ctx.moe_impl``; the EP axis is the ``model`` axis,
-as the JAX launcher's ``ep_axis="model"``).
+as the JAX launcher's ``ep_axis="model"``).  Training on model ranks
+runs the dense family's attention the same way, with no cache: where the
+KV heads do not divide the ranks k and v are gathered under autograd
+(``_kv_train``).
 
 Data parallelism and FSDP (``Ctx.dp``, ``Ctx.fsdp``): a rank of a ``pod x
 data x model`` grid runs its batch slice (``launch/lm_engine.py`` cuts
@@ -299,14 +302,28 @@ def _heads(cfg: ModelConfig, ctx: Ctx) -> int:
     return cfg.num_heads // (tp.size if tp else 1)
 
 
+def _kv_train(cfg: ModelConfig, ctx: Ctx) -> A.KVShard | None:
+    """The training attention's view of K/V on a model rank whose KV
+    heads do not divide the ranks: its model group, k and v gathered
+    where the rules split ``wk`` (in parts of a head), computed whole
+    from whole leaves where they keep it whole, and no positions' group
+    (training holds no cache: ``TP.kv_cache`` is not read).  ``None``
+    where the KV heads are the rank's own."""
+
+    tp = ctx.tp
+    if tp is None or tp.size == 1 or cfg.num_kv_heads % tp.size == 0:
+        return None
+    return A.KVShard(tp, "attn.wk" in tp.split, None)
+
+
 def _mixer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
     """The mixer under autograd.  Attention reads its head counts from the
-    weights: on a model rank (``ctx.tp``; training requires its KV heads
-    to divide the ranks, ``models/api.py::loss_refusal``) rank r's query
-    heads ``[r·H/n, (r+1)·H/n)`` run against its own KV heads ``[r·Hkv/n,
-    (r+1)·Hkv/n)``, the GQA grouping of the one process, as
-    ``apply_sublayer_prefill`` runs them where the cache is held by
-    heads; the caller all-reduces the row-parallel ``wo`` product."""
+    weights: on a model rank (``ctx.tp``) rank r's query heads ``[r·H/n,
+    (r+1)·H/n)`` run against its own KV heads ``[r·Hkv/n, (r+1)·Hkv/n)``
+    where the KV heads divide the ranks, the GQA grouping of the one
+    process, and against the KV heads they read where they do not
+    (``_kv_train``), as ``apply_sublayer_prefill`` runs them; the caller
+    all-reduces the row-parallel ``wo`` product."""
 
     if sl.mixer == "ssm":
         return SSM.ssm_block(p["ssm"], x, cfg.ssm, cfg.d_model)
@@ -317,7 +334,8 @@ def _mixer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
     return A.attention(
         p["attn"], x, head_dim=cfg.resolved_head_dim, causal=True,
         window=sl.window, attn_softcap=cfg.attn_softcap,
-        rope_theta=cfg.rope_theta, impl=ctx.attn_impl)
+        rope_theta=cfg.rope_theta, impl=ctx.attn_impl,
+        kv=_kv_train(cfg, ctx))
 
 
 def apply_sublayer_train(p, x, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):

@@ -20,8 +20,9 @@ encoder-decoder family on more than one ``pod x data`` rank (item
 rules cut on ``"data"`` (item 6.8.2e).  ``check_train_mesh`` refuses
 what the training ranks do not cover: a family other than the dense one
 on more than one rank (item 6.2c), query heads that do not split over
-the model ranks (item 6.8) or KV heads that do not (item 6.2a-iii), and
-microbatch parts whose rows do not split over ``pod x data``.
+the model ranks (item 6.8), and microbatch parts whose rows do not split
+over ``pod x data``; KV heads that do not divide the model ranks train
+(``whole_kv`` names the k/v leaves a rank then holds whole).
 
 ``fsdp_split`` names the leaves the specs split on ``"data"``, and the
 dim, by the top-level key whose subtree a rank gathers at once (the
@@ -135,8 +136,8 @@ def check_train_mesh(mesh_cfg: MeshConfig, cfg: ModelConfig,
                      batch: int | None = None, microbatch: int = 0) -> None:
     """``check_mesh``'s training twin: refuse a grid the training ranks do
     not cover, a family other than the dense one on more than one rank
-    (item 6.2c), model ranks over which the query heads (item 6.8) or the
-    KV heads (item 6.2a-iii) do not split (``api.tp_train_refusal``), and
+    (item 6.2c), model ranks over which the query heads do not split
+    (item 6.8, ``api.tp_train_refusal``; the KV heads need not), and
     (``ValueError``) a global ``batch`` whose ``microbatch`` parts (one
     without) do not each split over the ``pod x data`` ranks: a rank
     runs its rows of each part, as the rules cut the part."""
@@ -470,6 +471,28 @@ def model_split(shapes, pspecs) -> frozenset:
             "row-parallel after column-parallel; GSPMD reshards such a "
             "layout, the port does not (ROADMAP.md queue 1, item 6.8)")
     return split
+
+
+def whole_kv(shapes, pspecs) -> frozenset:
+    """The paths of the leaves a rank holds whole under a row-parallel
+    leaf split on ``"model"``: the attention's k/v leaves (``_GATHERED``,
+    the rule that lets ``model_split`` accept them) where the rules keep
+    them whole, their width not dividing the axis.  Each rank computes k
+    and v whole from them but reads only its query heads' KV heads, so
+    its gradient of such a leaf is its heads' share, and the ranks' sum
+    over the model group is the whole gradient (``train/step.py::
+    TrainGrid.reduce``).  Where the rules split them, the gather's
+    backward sums the ranks' shares already (``layers.all_gather``)."""
+
+    split = model_split(shapes, pspecs)
+    whole = {leaf for row, leaves in _GATHERED.items() if row in split
+             for leaf in leaves if leaf not in split}
+    out = []
+    tree_map_with_path(
+        lambda path, _, __: out.append(path) if ".".join(
+            re.findall(r"\['([^']+)'\]", path)[-2:]) in whole else None,
+        shapes, pspecs)
+    return frozenset(out)
 
 
 def _key(seed: int, path: str, layer: tuple[int, ...]) -> int:

@@ -41,17 +41,24 @@ reduce-scattered over the FSDP group by the gather's backward
 the cross-pod group; any other leaf's (``embed``, the norms) is
 all-reduced over the batch group once, after the last part.  The batch
 and FSDP groups are per model coordinate, so a model-split leaf is
-summed only with the ranks that hold its shard; no sum runs over the
-model group.  The clip takes the norm over the whole tree: the shards'
-squares summed over the FSDP group and over the model group as their
-specs split them, each replicated leaf counted once (``sq_norm``).
-Parameters and state update in place; where the FSDP ranks share one
-card and read each other's shards (``FSDP.one_card``), every rank then
-synchronizes its card and the group passes a barrier before the next
-gather.  ``train/shard.py::check_train_mesh`` refuses the families other
-than the dense one on more than one rank (6.2c), query heads (6.8) and
-KV heads (6.2a-iii) that do not divide the model ranks, and parts that
-do not split.
+summed only with the ranks that hold its shard.  One sum runs over the
+model group: where the KV heads do not divide the model ranks and the
+rules keep ``wk``/``wv`` (and their biases) whole, each rank computes k
+and v whole but reads only its query heads' KV heads, so those leaves'
+gradients (``train/shard.py::whole_kv``) are summed over the model group
+once a step, after the sums above and before the clip; where the rules
+cut them in parts of a head, k and v are gathered and the gather's
+backward reduce-scatters (``models/layers.py::all_gather``).  The clip
+takes the norm over the whole tree: the shards' squares summed over the
+FSDP group and over the model group as their specs split them, each
+replicated leaf counted once (``sq_norm``; a whole k/v leaf is the same
+on every model rank after its sum).  Parameters and state update in
+place; where the FSDP ranks share one card and read each other's shards
+(``FSDP.one_card``), every rank then synchronizes its card and the group
+passes a barrier before the next gather.
+``train/shard.py::check_train_mesh`` refuses the families other than the
+dense one on more than one rank (6.2c), query heads that do not divide
+the model ranks (6.8), and parts that do not split.
 """
 
 from __future__ import annotations
@@ -73,7 +80,7 @@ from repro_torch.optim.optimizers import (AdamWState, SGDState,
 from repro_torch.train import sharding as S
 from repro_torch.train.shard import (check_train_mesh, fsdp_split,
                                      model_split, shard_leaf, shard_nbytes,
-                                     shard_params)
+                                     shard_params, whole_kv)
 
 
 def loss_and_grads(loss_fn, params, batches):
@@ -210,8 +217,9 @@ class TrainGrid:
     coordinate), of its cross-pod group (``None`` in one pod) and its
     ``FSDP`` group (``None`` without FSDP), the paths of the leaves it
     holds FSDP shards of, the ``TP`` of its model group (``None`` at one
-    model rank; the rank model's ``Ctx.tp``) and the paths of the leaves
-    it holds model shards of."""
+    model rank; the rank model's ``Ctx.tp``), the paths of the leaves it
+    holds model shards of and those of the k/v leaves it holds whole
+    under a split ``wo`` (``train/shard.py::whole_kv``)."""
 
     mesh_cfg: MeshConfig
     rank: int
@@ -221,6 +229,7 @@ class TrainGrid:
     sharded: frozenset
     model: TP | None = None
     split: frozenset = frozenset()
+    kv_whole: frozenset = frozenset()
 
     def parts(self, batch: dict, n_micro: int) -> list[dict]:
         """The rank's rows of each microbatch part of the global
@@ -237,12 +246,18 @@ class TrainGrid:
         """The gradient tree summed over the grid: an FSDP leaf's over the
         pods (the reduce-scatter summed it over the pod's data ranks), any
         other leaf's over the batch group (the ranks at the rank's model
-        coordinate: a model shard's with the ranks that hold it)."""
+        coordinate: a model shard's with the ranks that hold it); a whole
+        k/v leaf's then over the model group too (each rank's holds its
+        query heads' share)."""
 
-        return tree_map_with_path(
-            lambda path, g: all_reduce(
-                g, self.pod if path in self.sharded else self.batch,
-                inplace=True), grads)
+        def leaf(path, g):
+            g = all_reduce(g, self.pod if path in self.sharded
+                           else self.batch, inplace=True)
+            if path in self.kv_whole:
+                g = all_reduce(g, self.model, inplace=True)
+            return g
+
+        return tree_map_with_path(leaf, grads)
 
     def sq_norm(self, grads) -> torch.Tensor:
         """‖g‖² of the whole tree: the rank's FSDP shards' squares summed
@@ -324,8 +339,7 @@ def make_sharded_train_step(model: Model, group, mesh_cfg: MeshConfig,
             group, mesh_cfg)
         tp = None
         if mesh_cfg.model > 1:
-            # the split serving's ranks use (launch/lm_engine.py), each
-            # rank's KV heads its own (check_train_mesh)
+            # the split serving's ranks use (launch/lm_engine.py)
             tp = TP.of(model_group, device, model_split(shapes, pspecs))
         grid = TrainGrid(
             mesh_cfg, dist.get_rank(group),
@@ -333,7 +347,8 @@ def make_sharded_train_step(model: Model, group, mesh_cfg: MeshConfig,
             None if pod_group is None else TP.of(pod_group, device),
             FSDP.of(fsdp_group, device, split) if split else None,
             _fsdp_paths(split), tp,
-            _model_paths(shapes, pspecs) if tp is not None else frozenset())
+            _model_paths(shapes, pspecs) if tp is not None else frozenset(),
+            whole_kv(shapes, pspecs) if tp is not None else frozenset())
         rank_model = build_model(cfg, dataclasses.replace(
             model.ctx, tp=tp, fsdp=grid.fsdp,
             dp=None if grid.batch is None else S.dp_axes(mesh_cfg),

@@ -44,12 +44,13 @@ Held:
 * **One rank.**  At ``1 x 1`` the grid form's step is the one-card
   ``make_train_step`` (the step ``tests/test_torch_train.py`` holds
   against JAX's): two steps from one init agree bit for bit.
-* **Refusals.**  What the model axis does not train yet: KV heads that
-  do not divide the model ranks (item 6.2a-iii) and MoE on model ranks
+* **Refusals.**  What the model axis does not train yet: query heads
+  that do not divide the model ranks (item 6.8) and MoE on model ranks
   (6.2c); MoE and hybrid on data ranks (6.2c), a microbatch part that
   does not split over the ranks (``ValueError``), and ``Model.loss``
   under those contexts.  The model axis itself trains:
-  ``tests/test_torch_tp_train.py``.
+  ``tests/test_torch_tp_train.py``, and where the KV heads do not divide
+  it ``tests/test_torch_kv_train.py``.
 """
 
 import functools
@@ -590,11 +591,12 @@ def test_launcher_checkpoint_loads_in_the_jax_manager(launcher, tmp_path):
 
 def test_model_axis_is_refused(launcher, tmp_path):
     """The model axis trains the dense family (``tests/test_torch_tp_
-    train.py``); what it does not train yet is refused, naming its item:
-    gemma2's 2 KV heads over 4 model ranks (6.2a-iii: the gathered k/v's
-    backward is a reduce-scatter) and a MoE model on model ranks (6.2c)."""
+    train.py``, ``tests/test_torch_kv_train.py``); what it does not train
+    yet is refused, naming its item: gemma2's 4 query heads over 3 model
+    ranks (6.8: the rules cut the flat q width into parts of a head) and
+    a MoE model on model ranks (6.2c)."""
 
-    for arch, tp, item in (("gemma2-2b", 4, "6.2a-iii"),
+    for arch, tp, item in (("gemma2-2b", 3, "6.8"),
                            ("granite-moe-3b-a800m", 2, "6.2c")):
         match = f"item {item}"
         with pytest.raises(NotImplementedError, match=match):

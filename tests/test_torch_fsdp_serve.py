@@ -555,9 +555,10 @@ def test_mla_at_a_batch_that_does_not_split_is_refused(mesh, monkeypatch):
 def test_width_split_experts_and_grid_training_are_refused():
     """Item 6.8.2d: six experts on four model ranks, unpadded, are split
     on their width by the rules; a serving rank's context does not train
-    (FSDP without the batch group, the batch axes without it, and model
-    ranks holding the KV cache cut on its sequence, item 6.2a-iii; model
-    ranks holding their own KV heads train: tests/test_torch_tp_train.py)."""
+    (FSDP without the batch group, the batch axes without it); model
+    ranks train whatever their KV cache layout, the cache cut on its
+    sequence too (training holds no cache: tests/test_torch_tp_train.py,
+    tests/test_torch_kv_train.py)."""
 
     cfg = get_smoke_config("granite-moe-3b-a800m")
     cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
@@ -569,11 +570,22 @@ def test_width_split_experts_and_grid_training_are_refused():
     qwen = get_smoke_config("qwen1.5-32b")
     seq = L.TP(group=None, rank=0, size=2, staged=False,
                kv_cache="sequence")
-    for ctx in (Ctx(fsdp=L.FSDP.dry(2)), Ctx(dp=("data",)), Ctx(tp=seq)):
+    for ctx in (Ctx(fsdp=L.FSDP.dry(2)), Ctx(dp=("data",))):
         with pytest.raises(NotImplementedError, match="training"):
             build_model(qwen, ctx, device="cpu").loss(
                 {}, {"tokens": np.zeros((1, 2)),
                      "targets": np.zeros((1, 2))})
+    # a model rank holding its KV cache cut on its sequence trains: its
+    # loss on its shards (on meta, the collectives counted) is a scalar
+    assert api.loss_refusal(qwen, Ctx(tp=seq)) is None
+    mesh_cfg = MeshConfig(data=1, model=2, fsdp=False)
+    shapes = api.param_specs(build_model(qwen, device="meta"))
+    pspecs = S.param_pspecs(qwen, shapes, mesh_cfg)
+    seq.split = model_split(shapes, pspecs)
+    loss = build_model(qwen, Ctx(tp=seq), device="meta").loss(
+        shard_params(shapes, pspecs, mesh_cfg, 0),
+        {"tokens": np.zeros((1, 2)), "targets": np.zeros((1, 2))})
+    assert loss.shape == () and seq.stats["all_reduce"][0] > 0
     with pytest.raises(ValueError, match="multi_pod"):
         init_shard(0, qwen, None, MeshConfig(pod=2, data=1, model=1), 0,
                    "cpu")

@@ -42,21 +42,26 @@ Held:
 * **The backward rules alone**, on the same ranks with and without the
   staged (host) path: ``all_reduce``'s identity backward,
   ``all_reduce_grad``'s all-reduce, a column-parallel then row-parallel
-  pair, and ``vocab_parallel_cross_entropy`` (softcap, -1 targets)
-  against ``cross_entropy`` of the whole logits, value and gradient.
+  pair, a column-parallel product gathered whole and read in part by
+  each rank (``all_gather``'s reduce-scatter backward), and
+  ``vocab_parallel_cross_entropy`` (softcap, -1 targets) against
+  ``cross_entropy`` of the whole logits, value and gradient.
 * **The launcher.**  ``--data 2 --tp 2`` resumes from a ``--data 4``
   checkpoint (saving back the tree it restored, bitwise) and goes on
   within ``LOSS_RTOL`` of a straight ``--data 2 --tp 2`` run, whose
   checkpoint in turn goes on at ``--data 4`` and on one process.
-* **Refusals.**  gemma2's smoke config at ``--tp 4``, where its 2 KV
-  heads do not divide the ranks (item 6.2a-iii), ``--tp 3`` (6.8), MoE
-  and hybrid at ``--tp 2`` (6.2c), through the launcher,
-  ``make_sharded_train_step`` and ``Model.loss``.
+* **Refusals.**  Query heads that do not divide the model ranks
+  (granite-34b's 8 and gemma2's 4 over ``--tp 3``, item 6.8), MoE and
+  hybrid at ``--tp 2`` (6.2c), through the launcher,
+  ``make_sharded_train_step`` and ``Model.loss``.  KV heads that do not
+  divide the ranks train (``tests/test_torch_kv_train.py``), whatever
+  the rank's ``TP.kv_cache``: on the same four ranks both archs' smoke
+  configs at ``model = 4`` give the same loss under a ``"sequence"`` TP
+  as under a ``"heads"`` one.
 """
 
 import functools
 import os
-import shutil
 import subprocess
 import sys
 
@@ -91,7 +96,6 @@ from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.optim.optimizers import (  # noqa: E402
     square_norm,
     tree_leaves,
-    tree_map_with_path,
 )
 from repro_torch.train import sharding as S  # noqa: E402
 from repro_torch.train.shard import (  # noqa: E402
@@ -99,7 +103,7 @@ from repro_torch.train.shard import (  # noqa: E402
     fsdp_split,
     grid_coords,
     model_split,
-    shard_leaf,
+    shard_params,
 )
 from repro_torch.train.step import (  # noqa: E402
     loss_and_grads,
@@ -108,18 +112,30 @@ from repro_torch.train.step import (  # noqa: E402
     split_batch,
 )
 
+from _train_grid import (  # noqa: E402
+    ADAM_FRAC,
+    ADAM_MAX,
+    GRAD_TOL,
+    LOSS_RTOL,
+    LR,
+    NORM_RTOL,
+    SEQ,
+    SGD_TOL,
+    STEPS,
+    B,
+    copy_step,
+    grid_groups,
+    nested,
+    numpy_tree,
+    on_model,
+    slices,
+    tc_kw,
+    trees_equal,
+)
+
 torch.set_num_threads(2)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-B, SEQ, STEPS = 8, 16, 2
-LR = 1e-3
-# tests/test_torch_train.py's tolerances
-LOSS_RTOL = 1e-5
-GRAD_TOL = 1e-4
-SGD_TOL = 1e-5
-ADAM_MAX = 0.25
-ADAM_FRAC = 1e-3
-NORM_RTOL = 1e-6
 # the backward rules alone: f32 sums in another order
 RULE_RTOL = 1e-5
 MESHES = {
@@ -133,11 +149,6 @@ CASES = {f"{arch}-{mesh}-{opt}": (arch, mesh, mb, opt)
          for mb, opt in ((0, "sgd"), (2, "adamw"))}
 
 
-def _tc(mb, opt):
-    return dict(learning_rate=LR, warmup_steps=1, total_steps=10,
-                microbatch=mb, optimizer=opt)
-
-
 @functools.lru_cache(maxsize=None)
 def jax_init(arch):
     """JAX's one-device init of ``arch``'s smoke config, as numpy."""
@@ -148,7 +159,7 @@ def jax_init(arch):
 
 
 def jax_opt_init(arch, opt):
-    state = j_make_optimizer(JTrainConfig(**_tc(0, opt))).init(
+    state = j_make_optimizer(JTrainConfig(**tc_kw(0, opt))).init(
         jax_init(arch))
     return jax.tree.map(np.asarray, state)
 
@@ -208,7 +219,7 @@ def _start_jax(tmp):
         flat = jax.tree_util.tree_flatten_with_path(jax_init(arch))[0]
         np.savez(os.path.join(tmp, f"{arch}.npz"),
                  **{jax.tree_util.keystr(p): x for p, x in flat})
-    cases = {name: (arch, *JAX_AXES[mesh], _tc(mb, opt))
+    cases = {name: (arch, *JAX_AXES[mesh], tc_kw(mb, opt))
              for name, (arch, mesh, mb, opt) in CASES.items()}
     env = dict(os.environ)
     env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
@@ -218,19 +229,6 @@ def _start_jax(tmp):
         [sys.executable, "-c", JAX_STEP, repr(cases), tmp,
          os.path.join(tmp, "out.npz")], stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True, env=env)
-
-
-def _numpy(tree):
-    out = {}
-    tree_map_with_path(lambda p, x: out.__setitem__(
-        p, x.detach().cpu().numpy().copy()), tree)
-    return out
-
-
-def _groups(grid):
-    return {k: g for k, g in (("model", grid.model), ("fsdp", grid.fsdp),
-                              ("batch", grid.batch), ("pod", grid.pod))
-            if g is not None}
 
 
 def _case(rank, device, cfg, mesh_kw, tc_kw, params_np, opt_state, data):
@@ -247,7 +245,7 @@ def _case(rank, device, cfg, mesh_kw, tc_kw, params_np, opt_state, data):
     params, state = shard_state(lm_params_from_numpy(params_np, device),
                                 opt_state, info, rank, device)
     loss0, grads = info["grads"](params, data[0])
-    out = {"grads": _numpy(grads), "loss0": float(loss0),
+    out = {"grads": numpy_tree(grads), "loss0": float(loss0),
            "grad_norm": float(info["grad_norm"](grads)),
            "param_bytes": sum(x.numel() * x.element_size()
                               for x in tree_leaves(params)),
@@ -256,7 +254,7 @@ def _case(rank, device, cfg, mesh_kw, tc_kw, params_np, opt_state, data):
            "reckoned": (info["param_bytes"], info["opt_bytes"]),
            "split": sorted(info["model"].ctx.tp.split)}
     del grads
-    groups = _groups(info["grid"])
+    groups = grid_groups(info["grid"])
     for g in groups.values():
         g.stats.clear()
         g.timed = True
@@ -264,7 +262,7 @@ def _case(rank, device, cfg, mesh_kw, tc_kw, params_np, opt_state, data):
     for batch in data:
         params, state, m = step(params, state, batch)
         losses.append(float(m["loss"]))
-    out.update(losses=losses, params=_numpy(params),
+    out.update(losses=losses, params=numpy_tree(params),
                counts={f"{k}_{op}": row[0] for k, g in groups.items()
                        for op, row in g.stats.items()})
     return out
@@ -276,13 +274,22 @@ def _case(rank, device, cfg, mesh_kw, tc_kw, params_np, opt_state, data):
 
 RULE_N, RULE_D, RULE_H, RULE_V = 6, 8, 12, 20
 RULE_CAP = 5.0
+# the gather's check: the columns of the whole product each rank reads
+# (overlapping: two ranks read some of the same columns, as two query
+# heads read one KV head)
+RULE_READ = 5
+
+
+def rule_reads(rank):
+    return [(2 * rank + j) % RULE_H for j in range(RULE_READ)]
 
 
 def rule_inputs():
     """The seeded inputs of the rules' checks: x (N, d), the pair's w1 (d,
     h) column-split and w2 (h, d) row-split, a weight c (N, d), four
-    ranks' partial sums p (4, N, d) and cotangents cs (4, N, d), and
-    logits (2, 3, V) with targets holding -1."""
+    ranks' partial sums p (4, N, d) and cotangents cs (4, N, d), the
+    gather's cotangents cg (4, N, ``RULE_READ``), and logits (2, 3, V)
+    with targets holding -1."""
 
     rng = np.random.default_rng(7)
     f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
@@ -291,6 +298,7 @@ def rule_inputs():
     return {"x": f(RULE_N, RULE_D), "w1": f(RULE_D, RULE_H),
             "w2": f(RULE_H, RULE_D), "c": f(RULE_N, RULE_D),
             "p": f(4, RULE_N, RULE_D), "cs": f(4, RULE_N, RULE_D),
+            "cg": f(4, RULE_N, RULE_READ),
             "logits": 4 * f(2, 3, RULE_V), "targets": targets}
 
 
@@ -331,6 +339,16 @@ def rules_rank(rank, staged, inp):
                                 (x, w1, w2))
     out["pair"] = o.detach().numpy()
     out["pair_grads"] = [g.numpy() for g in grads]
+    # the gather: x -> conjugate -> x @ w1[:, cols] gathered whole -> the
+    # rank's columns read -> tanh, as k and v are gathered and read by the
+    # rank's query heads
+    x, w1 = _leaf(inp["x"]), _leaf(inp["w1"][:, rank * h:(rank + 1) * h])
+    whole = L.all_gather(L.all_reduce_grad(x, tp) @ w1, tp, -1)
+    read = torch.tanh(whole[:, rule_reads(rank)])
+    grads = torch.autograd.grad(
+        (read * torch.tensor(inp["cg"][rank])).sum(), (x, w1))
+    out["gather"] = whole.detach().numpy()
+    out["gather_grads"] = [g.numpy() for g in grads]
     # the vocab-parallel cross-entropy of the rank's softcapped range
     v = RULE_V // n
     lg = _leaf(inp["logits"][..., rank * v:(rank + 1) * v])
@@ -341,26 +359,60 @@ def rules_rank(rank, staged, inp):
     return out
 
 
-def _rank(rank, device, jobs, rules):
+# archs whose smoke configs' KV heads do not divide four model ranks,
+# trained on them under either cache layout of the rank's TP
+KV_LAYOUT_ARCHS = ("gemma2-2b", "granite-34b")
+
+
+def kv_layouts_rank(rank, inputs):
+    """Each arch's loss and gradients of its first batch on this rank of
+    the world group at ``model = 4`` (its KV heads do not divide the
+    ranks) under a ``TP`` holding its KV cache by ``"heads"`` and by
+    ``"sequence"``: training holds no cache, so both train alike."""
+
+    import torch.distributed as dist
+
+    mesh_cfg = MeshConfig(data=1, model=4, fsdp=False)
+    out = {}
+    for arch, (params_np, batch) in inputs.items():
+        cfg = get_smoke_config(arch)
+        shapes = api.param_specs(build_model(cfg, device="meta"))
+        pspecs = S.param_pspecs(cfg, shapes, mesh_cfg)
+        params = shard_params(lm_params_from_numpy(params_np, "cpu"),
+                              pspecs, mesh_cfg, rank)
+        for layout in ("heads", "sequence"):
+            tp = L.TP.of(dist.group.WORLD, "cpu",
+                         model_split(shapes, pspecs), kv_cache=layout)
+            loss, grads = loss_and_grads(
+                build_model(cfg, Ctx(tp=tp), device="cpu").loss, params,
+                [batch])
+            out[arch, layout] = (float(loss), numpy_tree(grads))
+    return out
+
+
+def _rank(rank, device, jobs, rules, layouts):
     return ([_case(rank, device, *job) for job in jobs],
             {staged: rules_rank(rank, staged, rules)
-             for staged in (False, True)})
+             for staged in (False, True)},
+            kv_layouts_rank(rank, layouts))
 
 
 def runs(tmp):
     """Every case: (the grid's rank results, the rules' rank results,
-    JAX's {key: array})."""
+    JAX's {key: array}, the KV layouts' rank results)."""
 
     proc = _start_jax(tmp)
     try:
         jobs = []
         for arch, mesh, mb, opt in CASES.values():
-            jobs.append((get_smoke_config(arch), MESHES[mesh], _tc(mb, opt),
+            jobs.append((get_smoke_config(arch), MESHES[mesh], tc_kw(mb, opt),
                          jax_init(arch),
                          opt_state_from_numpy(jax_opt_init(arch, opt), "cpu"),
                          batches(arch)))
+        layouts = {arch: (jax_init(arch), batches(arch)[0])
+                   for arch in KV_LAYOUT_ARCHS}
         ranks = glaunch.run_on_grid(_rank, (4, 1), jobs, rule_inputs(),
-                                    device="cpu", timeout=300)
+                                    layouts, device="cpu", timeout=300)
         _, err = proc.communicate(timeout=300)
     finally:
         if proc.poll() is None:
@@ -369,7 +421,7 @@ def runs(tmp):
     assert proc.returncode == 0, err[-4000:]
     want = dict(np.load(os.path.join(tmp, "out.npz")))
     cases = {name: [r[0][i] for r in ranks] for i, name in enumerate(CASES)}
-    return cases, [r[1] for r in ranks], want
+    return cases, [r[1] for r in ranks], want, [r[2] for r in ranks]
 
 
 @pytest.fixture(scope="module")
@@ -384,38 +436,6 @@ def _specs(arch, mesh):
     return cfg, shapes, S.param_pspecs(cfg, shapes, mesh_cfg), mesh_cfg
 
 
-def _nested(flat):
-    """``{"['a']['b']": x}`` as nested dicts ``{"a": {"b": x}}``."""
-
-    out = {}
-    for path, x in flat.items():
-        keys = path[2:-2].split("']['")
-        node = out
-        for k in keys[:-1]:
-            node = node.setdefault(k, {})
-        node[keys[-1]] = x
-    return out
-
-
-def _slices(tree_np, pspecs, mesh_cfg, rank):
-    """``{path: the rank's slice}`` of a numpy tree by ``pspecs``."""
-
-    out = {}
-    tree_map_with_path(lambda p, x, s: out.__setitem__(
-        p, shard_leaf(x, s, mesh_cfg, rank).numpy()), tree_np, pspecs)
-    return out
-
-
-def _on_model(shapes, pspecs) -> set:
-    """The paths the specs split on ``"model"``."""
-
-    out = set()
-    tree_map_with_path(lambda p, _, s: out.add(p) if any(
-        e == "model" or (isinstance(e, tuple) and "model" in e)
-        for e in s) else None, shapes, pspecs)
-    return out
-
-
 @functools.lru_cache(maxsize=None)
 def one_process(arch, mb):
     """One process's loss and gradient of the first batch at the init."""
@@ -425,12 +445,13 @@ def one_process(arch, mb):
     params = lm_params_from_numpy(jax_init(arch), "cpu")
     loss, grads = loss_and_grads(model.loss, params,
                                  split_batch(batches(arch)[0], mb))
-    return float(loss), _numpy(grads), float(torch.sqrt(square_norm(grads)))
+    return (float(loss), numpy_tree(grads),
+            float(torch.sqrt(square_norm(grads))))
 
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_losses_match_jax_sharded_step(grid, name):
-    ranks, _, want = grid
+    ranks, _, want, _ = grid
     ref = want[f"{name}|loss"]
     for r, res in enumerate(ranks[name]):
         assert len(res["losses"]) == STEPS
@@ -440,14 +461,14 @@ def test_losses_match_jax_sharded_step(grid, name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_params_match_jax_sharded_step(grid, name):
-    ranks, _, want = grid
+    ranks, _, want, _ = grid
     arch, mesh, _, opt = CASES[name]
     _, _, pspecs, mesh_cfg = _specs(arch, mesh)
-    jtree_np = _nested({k.split("|", 1)[1]: v for k, v in want.items()
+    jtree_np = nested({k.split("|", 1)[1]: v for k, v in want.items()
                         if k.startswith(name + "|[")})
     diffs = []
     for r, res in enumerate(ranks[name]):
-        ref = _slices(jtree_np, pspecs, mesh_cfg, r)
+        ref = slices(jtree_np, pspecs, mesh_cfg, r)
         assert set(ref) == set(res["params"])
         for path, got in res["params"].items():
             if opt == "sgd":
@@ -464,23 +485,23 @@ def test_params_match_jax_sharded_step(grid, name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_shard_gradients_are_slices_of_one_process(grid, name):
-    ranks, _, _ = grid
+    ranks, _, _, _ = grid
     arch, mesh, mb, _ = CASES[name]
     _, shapes, pspecs, mesh_cfg = _specs(arch, mesh)
     loss, grads, _ = one_process(arch, mb)
-    on_model = _on_model(shapes, pspecs)
+    model_paths = on_model(shapes, pspecs)
     # the embedding, each head and FFN product and the unembedding
     assert {"['embed']", "['units']['s0']['attn']['wq']",
-            "['units']['s0']['mlp']['wo']"} <= on_model
-    nested = _nested(grads)
+            "['units']['s0']['mlp']['wo']"} <= model_paths
+    tree_np = nested(grads)
     for r, res in enumerate(ranks[name]):
         np.testing.assert_allclose(res["loss0"], loss, rtol=LOSS_RTOL)
-        ref = _slices(nested, pspecs, mesh_cfg, r)
+        ref = slices(tree_np, pspecs, mesh_cfg, r)
         for path, got in res["grads"].items():
             scale = float(np.abs(grads[path]).max())
             err = float(np.abs(got - ref[path]).max())
             assert err <= GRAD_TOL * scale, (name, r, path, err, scale)
-            if path in on_model:
+            if path in model_paths:
                 assert got.shape != grads[path].shape, path
                 assert np.abs(got).max() > 0, (name, r, path)
 
@@ -491,11 +512,11 @@ def test_replicated_leaves_agree_over_the_model_ranks(grid, name):
     same gradient on both model ranks of a data row, with no sum over the
     model group: the conjugates made each rank's the whole one."""
 
-    ranks, _, _ = grid
+    ranks, _, _, _ = grid
     arch, mesh, _, _ = CASES[name]
     _, shapes, pspecs, mesh_cfg = _specs(arch, mesh)
-    on_model = _on_model(shapes, pspecs)
-    whole = [p for p in ranks[name][0]["grads"] if p not in on_model]
+    model_paths = on_model(shapes, pspecs)
+    whole = [p for p in ranks[name][0]["grads"] if p not in model_paths]
     assert any("norm" in p for p in whole)
     for r, res in enumerate(ranks[name]):
         if grid_coords(mesh_cfg, r)["model"]:
@@ -508,7 +529,7 @@ def test_replicated_leaves_agree_over_the_model_ranks(grid, name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_clip_norm_over_the_shards(grid, name):
-    ranks, _, _ = grid
+    ranks, _, _, _ = grid
     arch, _, mb, _ = CASES[name]
     want = one_process(arch, mb)[2]
     for res in ranks[name]:
@@ -517,7 +538,7 @@ def test_clip_norm_over_the_shards(grid, name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_collectives_a_step_are_exact(grid, name):
-    ranks, _, _ = grid
+    ranks, _, _, _ = grid
     arch, mesh, mb, _ = CASES[name]
     cfg, shapes, pspecs, mesh_cfg = _specs(arch, mesh)
     split = fsdp_split(shapes, pspecs) if mesh_cfg.data > 1 else {}
@@ -553,7 +574,7 @@ def test_collectives_a_step_are_exact(grid, name):
 
 @pytest.mark.parametrize("name", list(CASES))
 def test_rank_bytes_are_shard_nbytes(grid, name):
-    ranks, _, _ = grid
+    ranks, _, _, _ = grid
     arch, mesh, _, _ = CASES[name]
     _, shapes, _, _ = _specs(arch, mesh)
     one = sum(x.numel() * x.element_size() for x in tree_leaves(shapes))
@@ -571,12 +592,13 @@ def _ce_reference(inp):
 
 
 @pytest.mark.parametrize("staged", [False, True])
-@pytest.mark.parametrize("rule", ["sum", "copy", "pair", "cross_entropy"])
+@pytest.mark.parametrize("rule", ["sum", "copy", "pair", "gather",
+                                  "cross_entropy"])
 def test_backward_rules_match_one_process(grid, rule, staged):
     """Each rank's gradients by ``torch.autograd.grad`` equal its slice of
     one process's, staged through the host or not."""
 
-    _, rules, _ = grid
+    _, rules, _, _ = grid
     inp = rule_inputs()
     c = torch.tensor(inp["c"])
     n = len(rules)
@@ -585,6 +607,15 @@ def test_backward_rules_match_one_process(grid, rule, staged):
                      for k in ("x", "w1", "w2"))
         o = torch.tanh(x @ w1) @ w2
         want = torch.autograd.grad((o * c).sum(), (x, w1, w2))
+        h = RULE_H // n
+    elif rule == "gather":
+        # one process: every rank's reads of the whole product, summed
+        x, w1 = (torch.tensor(inp[k], requires_grad=True)
+                 for k in ("x", "w1"))
+        whole = x @ w1
+        f = sum((torch.tanh(whole[:, rule_reads(r)])
+                 * torch.tensor(inp["cg"][r])).sum() for r in range(n))
+        want = torch.autograd.grad(f, (x, w1))
         h = RULE_H // n
     elif rule == "cross_entropy":
         ce, ce_grad = _ce_reference(inp)
@@ -609,6 +640,14 @@ def test_backward_rules_match_one_process(grid, rule, staged):
                          (gw2, want[2][cols])):
                 np.testing.assert_allclose(a, b.numpy(), rtol=RULE_RTOL,
                                            atol=1e-5)
+        elif rule == "gather":
+            np.testing.assert_allclose(got["gather"], whole.detach().numpy(),
+                                       rtol=RULE_RTOL, atol=1e-5)
+            gx, gw1 = got["gather_grads"]
+            np.testing.assert_allclose(gx, want[0].numpy(), rtol=RULE_RTOL,
+                                       atol=1e-5)
+            np.testing.assert_allclose(gw1, want[1][:, r * h:(r + 1) * h]
+                                       .numpy(), rtol=RULE_RTOL, atol=1e-5)
         else:
             np.testing.assert_allclose(got["ce"], ce, rtol=RULE_RTOL)
             np.testing.assert_allclose(
@@ -644,17 +683,6 @@ def _saved(ckpt, step):
                        {"p": shapes, "o": opt.init(shapes)})
 
 
-def _equal(a, b):
-    return all(x.dtype == y.dtype and torch.equal(x, y)
-               for x, y in zip(tree_leaves(a), tree_leaves(b)))
-
-
-def _copy_step(src, dst, step):
-    os.makedirs(dst)
-    name = f"step_{step:010d}"
-    shutil.copytree(os.path.join(src, name), os.path.join(dst, name))
-
-
 def test_launcher_checkpoints_move_between_model_and_data_ranks(
         launcher, tmp_path):
     tp = ("--data", "2", "--tp", "2")
@@ -670,10 +698,10 @@ def test_launcher_checkpoints_move_between_model_and_data_ranks(
     # back at once is the one restored, and the run goes on as the
     # straight one
     launcher(2, tmp_path / "b", "--data", "4")
-    _copy_step(tmp_path / "b", tmp_path / "c", 2)
+    copy_step(tmp_path / "b", tmp_path / "c", 2)
     again = launcher(2, tmp_path / "c", *tp)
     assert again["ranks"][0]["start"] == 2 and not again["losses"]
-    assert _equal(_saved(tmp_path / "c", 2), _saved(tmp_path / "b", 2))
+    assert trees_equal(_saved(tmp_path / "c", 2), _saved(tmp_path / "b", 2))
     on = launcher(4, tmp_path / "c", *tp)
     np.testing.assert_allclose(on["losses"], straight["losses"][2:],
                                rtol=LOSS_RTOL)
@@ -681,7 +709,7 @@ def test_launcher_checkpoints_move_between_model_and_data_ranks(
     # and the straight run's checkpoint goes on at data 4 and on one
     # process
     for name, flags in (("d", ("--data", "4")), ("e", ())):
-        _copy_step(tmp_path / "a", tmp_path / name, 2)
+        copy_step(tmp_path / "a", tmp_path / name, 2)
         on = launcher(4, tmp_path / name, *flags)
         assert on["ranks"][0]["start"] == 2
         np.testing.assert_allclose(on["losses"], straight["losses"][2:],
@@ -700,13 +728,14 @@ def _loss_under(cfg, tp):
 
 
 @pytest.mark.parametrize("arch,tp,item", [
-    ("gemma2-2b", 4, "6.2a-iii"),          # 2 KV heads over 4 ranks
+    ("granite-34b", 3, "6.8"),             # 8 query heads over 3
     ("gemma2-2b", 3, "6.8"),               # 4 query heads over 3
     ("granite-moe-3b-a800m", 2, "6.2c"),
     ("zamba2-2.7b", 2, "6.2c"),
 ])
 def test_what_the_model_axis_does_not_train_is_refused(arch, tp, item,
-                                                       launcher, tmp_path):
+                                                       launcher, tmp_path,
+                                                       grid):
     cfg = get_smoke_config(arch)
     match = f"item {item}"
     with pytest.raises(NotImplementedError, match=match):
@@ -720,15 +749,23 @@ def test_what_the_model_axis_does_not_train_is_refused(arch, tp, item,
                                 TrainConfig())
     with pytest.raises(NotImplementedError, match=match):
         _loss_under(cfg, L.TP(group=None, rank=0, size=tp, staged=False))
-    if item == "6.8":
+    if cfg.family != "dense":
         return
-    # the same model trains at a size its heads divide, or held by its
-    # own KV heads
-    ok = L.TP(group=None, rank=0, size=2, staged=False)
-    if cfg.family == "dense":
-        check_train_mesh(MeshConfig(data=2, model=2), cfg, B, 2)
-        assert api.loss_refusal(cfg, Ctx(tp=ok)) is None
-        seq = L.TP(group=None, rank=0, size=2, staged=False,
-                   kv_cache="sequence")
-        with pytest.raises(NotImplementedError, match="item 6.2a-iii"):
-            _loss_under(cfg, seq)
+    # the same model trains where its query heads divide the ranks,
+    # whether its KV heads do (model 2) or not (model 4), and a TP that
+    # holds its KV cache cut on its sequence trains with the same loss
+    # and gradients as one that holds it by heads
+    for model in (2, 4):
+        check_train_mesh(MeshConfig(data=4 // model, model=model), cfg, B, 2)
+        for kv_cache in L.TP.KV_CACHES:
+            ok = L.TP(group=None, rank=0, size=model, staged=False,
+                      kv_cache=kv_cache)
+            assert api.loss_refusal(cfg, Ctx(tp=ok)) is None
+    want = one_process(arch, 0)[0]
+    for res in grid[3]:
+        heads, seq = res[arch, "heads"], res[arch, "sequence"]
+        assert heads[0] == seq[0]
+        np.testing.assert_allclose(heads[0], want, rtol=LOSS_RTOL)
+        assert heads[1].keys() == seq[1].keys()
+        for path, g in heads[1].items():
+            np.testing.assert_array_equal(g, seq[1][path], err_msg=path)
