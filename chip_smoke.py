@@ -162,7 +162,29 @@ head of 128 under 48 query heads) at full width and 2 of its 88 layers
 trains at (data 1, model 4) against its own one process: a rank holds 12
 query heads and 32 of the KV head's 128 k/v columns, and gathers k and v
 whole under autograd (the gather's backward a reduce-scatter over the
-model group).  Held: every rank's losses
+model group).  Then the MoE family, each against its own one process,
+built as the launcher builds it (``launch/train.py::train_ctx``):
+granite-moe-3b-a800m (40 experts top-8, the tied table of 49,155 rows) at
+full width and 2 of its 32 layers on (data 4) with FSDP, its router's
+aux over the batch group's tokens (``models/moe.py::aux_reckoning``:
+the rank's sums summed over the group); deepseek-v2-lite-16b (MLA, 64
+experts top-6 and 2 shared) at full width and 2 of its 27 layers on
+(data 1, model 4): expert parallelism in the psum form, MLA's whole
+latent summed over the model group.  At those two meshes the one
+process reckons the reference's aux; at data x model the reference
+takes the mean of the data rows' auxes, which one process does not
+compute, so that mesh is held against JAX on the CPU only
+(``tests/test_torch_moe_train.py``).  A MoE case's ranks route by the
+one process's expert choices (``RouteLog``'s force; a token whose own
+top-k differs must be a tie within ``DPT_FLIP_GAP``), are held after step
+1, then start step 2 from the one process's parameters and AdamW state
+after step 1 (``dpt_restart``, as the CPU tests start it from JAX's): a
+top-k is discrete, and a near-tie that the ranks' rounding turns moves
+an expert's whole AdamW update.  Each MoE case prints its step
+seconds, the model group's all-reduces (calls, MB, share of step 1),
+the run lengths' host reads a step (held: a MoE layer and part, again
+in remat's recompute), the busy share of step 2 and each rank's peak,
+beside the card's ``nvidia-smi`` name and power limit.  Held: every rank's losses
 within ``DPT_LOSS_RTOL`` of the one process's; the parameters after two
 steps by ``tests/test_torch_train.py``'s AdamW rule (every coordinate
 within ``ADAM_MAX`` x lr, all but ``ADAM_FRAC`` within 1e-3 x lr; a
@@ -585,6 +607,7 @@ the ``{"kernels": [...]}`` summary, and the line before that the card's
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -675,6 +698,7 @@ from repro_torch.launch import streaming  # noqa: E402
 from repro_torch.launch import gossip_comm  # noqa: E402
 from repro_torch.launch import roofline_bench  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.launch.train import train_ctx  # noqa: E402
 from repro_torch.launch import serving_traffic  # noqa: E402
 from repro_torch.launch import sparse_vs_dense  # noqa: E402
 from repro_torch.kernels.quant import autotune as quant_autotune  # noqa: E402
@@ -698,7 +722,7 @@ from repro_torch.models import encdec as encdec_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.layers import rms_norm  # noqa: E402
-from repro_torch.models.transformer import _index  # noqa: E402
+from repro_torch.models.transformer import _index, unit_spec  # noqa: E402
 from repro_torch.optim import make_optimizer  # noqa: E402
 from repro_torch.optim.optimizers import (  # noqa: E402
     square_norm,
@@ -714,6 +738,9 @@ from repro_torch.train import (  # noqa: E402
 )
 from repro_torch.train import sharding as shard_rules  # noqa: E402
 from repro_torch.train.shard import (  # noqa: E402
+    dp_size,
+    fsdp_split,
+    grid_coords,
     init_shard,
     model_split,
     rank_cache_pspecs,
@@ -884,6 +911,31 @@ DPT_MESHES = {"data4": dict(pod=1, data=4, model=1, fsdp=True),
 # its one process after gemma2's, its ranks in the same grid
 DPT_KV_ARCH, DPT_KV_LAYERS = "granite-34b", 2
 DPT_KV_MESHES = {"granite_model4": dict(pod=1, data=1, model=4, fsdp=True)}
+# the MoE family, each case against its own one process, its ranks in the
+# same grid, built as the launcher builds them (launch/train.py::
+# train_ctx): granite-moe (40 experts top-8 of 512, 24 query and 8 KV
+# heads of 64, the tied table of 49,155 rows) at full width and 2 of its
+# 32 layers on (data 4), FSDP: the global aux, its statistics summed over
+# the batch group, and the tied table's sparse lookup gradient beside its
+# dense one; deepseek-v2-lite (MLA with kv_lora 512 and 16 heads, 64
+# experts top-6 of 1408 and 2 shared, a vocab of 102,400, split) at full
+# width and 2 of its 27 layers (the dense head sublayer and one MoE unit)
+# on (data 1, model 4): expert parallelism in the psum form, the router's
+# two gradient paths, MLA's whole latent summed over the model group.  At
+# these two meshes the one process reckons the reference's aux; at data x
+# model the reference's is the mean of the data rows' auxes, which one
+# process does not compute, so that mesh is held against JAX only, on the
+# CPU (tests/test_torch_moe_train.py).  Their ranks route by the one
+# process's expert choices (RouteLog's force; a token whose own top-k
+# differs is held to a tie within DPT_FLIP_GAP), are held after step 1,
+# and start step 2 from the one process's state after step 1
+# (dpt_restart): in PR 41's first runs a step-2 token of deepseek's whose
+# top-k the ranks' rounding turned moved one expert's whole AdamW update,
+# also from the one process's state
+DPT_MOE = {"granite-moe-3b-a800m": (2, {"granite_moe_data4": dict(
+               pod=1, data=4, model=1, fsdp=True)}),
+           "deepseek-v2-lite-16b": (2, {"deepseek_model4": dict(
+               pod=1, data=1, model=4, fsdp=True)})}
 # the least free memory of the card while the grid runs, GiB
 DPT_MIN_FREE = 5.0
 # tests/test_torch_train.py's AdamW rule: every coordinate within
@@ -894,6 +946,10 @@ ADAM_MAX, ADAM_FRAC = 0.25, 1e-3
 # one process's (tests/test_torch_dp_train.py's GRAD_TOL), at most
 # DPT_REFEREE_CAP such coordinates a rank
 DPT_GRAD_TOL, DPT_REFEREE_CAP = 1e-4, 64
+# the MoE cases' ranks route by the one process's choices (RouteLog's
+# force); a token whose own top-k differs is held to a gap of at most this
+# between its k-th and (k+1)-th probability: a flip within rounding
+DPT_FLIP_GAP = 1e-5
 # [moe]: both MoE archs at full width and depth; 4 prompts of 4000 tokens
 # and 32 new tokens in Granite 3.0's context of 4096
 MOE_ARCHS = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b")
@@ -2391,11 +2447,14 @@ def dpt_train_config() -> TrainConfig:
 
 def dpt_setup(cfg, mesh_cfg, group, rank, device):
     """``[dp_train]``'s step, its info and rank ``rank``'s seeded shards
-    with a fresh optimizer state; without a group, the one process's
-    whole tree and the one-card step (``make_train_step``, the step that
-    ``tests/test_torch_train.py`` holds against JAX's)."""
+    with a fresh optimizer state, the model built as the launcher builds
+    it (``train_ctx``: the MoE family's experts padded to the model
+    axis); without a group, the one process's whole tree and the one-card
+    step (``make_train_step``, the step that ``tests/test_torch_train.py``
+    holds against JAX's)."""
 
-    model = build_model(cfg, Ctx(attn_impl="ref", remat=True), device=device)
+    ctx = train_ctx(cfg, mesh_cfg)
+    model = build_model(cfg, ctx, device=device)
     tc = dpt_train_config()
     if group is None:
         optimizer = make_optimizer(tc)
@@ -2405,7 +2464,7 @@ def dpt_setup(cfg, mesh_cfg, group, rank, device):
         step, info = make_sharded_train_step(
             model, group, mesh_cfg,
             ShapeConfig("dp_train", DPT_SEQ, DPT_BATCH, "train"), tc)
-    params = init_shard(DPT_SEED, cfg, None, mesh_cfg, rank, device)
+    params = init_shard(DPT_SEED, cfg, ctx, mesh_cfg, rank, device)
     return step, info, params, info["optimizer"].init(params)
 
 
@@ -2448,6 +2507,59 @@ def dpt_model_collectives(cfg, mesh_cfg, parts: int) -> dict:
     return want
 
 
+def dpt_moe_collectives(cfg, mesh_cfg, parts: int) -> dict:
+    """The MoE family's collectives in a step at ``parts`` microbatch
+    parts, by group and op (``tests/test_torch_moe_train.py``'s count).
+    The model group's all-reduces a part: the lookup's where the rules
+    split the table, each layer's attention sum, the dense head
+    sublayer's MLP sum and its conjugate, each MoE layer's experts' sum,
+    the attention sums remat recomputes (one a unit: the recompute stops
+    before the experts' sum, once it has every tensor the backward
+    saved), each layer's mixer-input conjugate, each MoE layer's two
+    conjugates (the experts' input, the combine weights), and where the
+    rules split the head the final norm's conjugate and the
+    cross-entropy's sums and maximum; once a step the clip's and one a
+    whole k/v or latent leaf's (``whole_kv``); k/v gathers as
+    ``dpt_model_collectives`` counts them.  At one model rank on data
+    ranks, the batch group's: each replicated leaf's gradient, a part's
+    valid targets and each MoE layer's router sums (the forward,
+    remat's recompute, the backward), the loss.  The FSDP group's: a
+    unit's gathers (again in remat) and a head sublayer's, one
+    reduce-scatter each a part, the clip's all-reduce."""
+
+    shapes = model_api.param_specs(build_model(
+        cfg, train_ctx(cfg, mesh_cfg), device="meta"))
+    pspecs = shard_rules.param_pspecs(cfg, shapes, mesh_cfg)
+    _, n_moe, head = unit_spec(cfg)
+    layers = cfg.num_layers
+    split = model_split(shapes, pspecs) if mesh_cfg.model > 1 else set()
+    want = {}
+    if mesh_cfg.model > 1:
+        lookup = "embed" in split
+        vocab = ("embed" if cfg.tie_embeddings else "lm_head") in split
+        per_part = (lookup + layers + 2 * len(head) + n_moe + n_moe
+                    + layers + 2 * n_moe + 2 * vocab)
+        want["model_all_reduce"] = (parts * per_part + 1
+                                    + len(whole_kv(shapes, pspecs)))
+        if vocab:
+            want["model_all_reduce_max"] = parts
+        if cfg.num_kv_heads % mesh_cfg.model and "attn.wk" in split:
+            want.update(model_all_gather=2 * parts * layers,
+                        model_reduce_scatter=parts * layers)
+    if mesh_cfg.data > 1:
+        fsdp = fsdp_split(shapes, pspecs)
+        units, heads = len(fsdp.get("units", {})), len(fsdp.get("head0", {}))
+        stats = 3 * n_moe if mesh_cfg.model == 1 else 0
+        n_leaves = len(tree_leaves(shapes))
+        want["batch_all_reduce"] = (n_leaves - units - heads
+                                    + parts * (1 + stats) + 1)
+        n_head = len(head) if heads else 0
+        want.update(fsdp_all_gather=parts * (2 * n_moe + n_head),
+                    fsdp_reduce_scatter=parts * (n_moe + n_head),
+                    fsdp_all_reduce=1)
+    return want
+
+
 def dpt_hold(params, ref, pspecs, mesh_cfg, rank, device) -> dict:
     """The rank's shards ``params`` against their slices of the one
     process's parameters ``ref`` (``{path: CPU tensor}``, memory-mapped):
@@ -2482,17 +2594,69 @@ def dpt_hold(params, ref, pspecs, mesh_cfg, rank, device) -> dict:
     return out
 
 
-def dpt_rank_grads(cfg, mesh_cfg, rank, device, batch, flagged) -> dict:
+def dpt_restart(params, state, step1, pspecs, mesh_cfg, rank, device):
+    """The one process's parameters and AdamW state after step 1
+    (``step1``: ``{"params", "mu", "nu": {path: CPU tensor}, "step"}``,
+    memory-mapped) written into the rank's own tensors in place, each cut
+    to the rank's slice (an FSDP shard is a view of its unit's buffer,
+    which the peers read through CUDA IPC), then the card synchronised
+    and the grid at a barrier before any peer reads them."""
+
+    import torch.distributed as dist
+
+    for tree, flat in ((params, step1["params"]), (state.mu, step1["mu"]),
+                       (state.nu, step1["nu"])):
+        tree_map_with_path(lambda path, x, spec, flat=flat: x.copy_(
+            shard_leaf(flat[path], spec, mesh_cfg, rank)), tree, pspecs)
+    state.step.copy_(step1["step"])
+    _sync(device)
+    dist.barrier()
+
+
+def dpt_rank_routes(routes, mesh_cfg, rank) -> list:
+    """The one process's expert choices, a router call each ((a part's
+    rows x ``DPT_SEQ``, k)), cut to rank ``rank``'s rows of the part, as
+    the grid cuts each part over ``pod x data``."""
+
+    c = grid_coords(mesh_cfg, rank)
+    part = DPT_BATCH // max(DPT_MICRO, 1)
+    per = part // dp_size(mesh_cfg)
+    r = c["pod"] * mesh_cfg.data + c["data"]
+    return [x.reshape(part, DPT_SEQ, -1)[r * per:(r + 1) * per]
+            .reshape(-1, x.shape[-1]) for x in routes]
+
+
+def dpt_flips(log) -> dict:
+    """A forced ``RouteLog``'s flips: the tokens whose own expert set
+    differs from the one they were routed by, of all its calls' tokens,
+    and the largest gap between such a token's own k-th and (k+1)-th
+    probability."""
+
+    flips, total, gaps = 0, 0, [0.0]
+    for own, forced, gap in zip(log.own, log.idx, log.gap):
+        diff = (np.sort(own, -1) != np.sort(forced, -1)).any(-1)
+        flips += int(diff.sum())
+        total += diff.size
+        gaps += gap[diff].tolist()
+    return {"flips": flips, "tokens": total, "max_gap": max(gaps)}
+
+
+def dpt_rank_grads(cfg, mesh_cfg, rank, device, batch, flagged,
+                   force=None) -> dict:
     """The rank's gradient of step 1 at its ``flagged`` coordinates
     (``dpt_hold``'s), recomputed from its seeded shards
-    (``info["grads"]``, before the clip), and its norm over the grid, for
-    ``dpt_referee``.  Every rank runs it: the gradient is a collective."""
+    (``info["grads"]``, before the clip; routed by ``force``, the one
+    process's choices of step 1, where given), and its norm over the
+    grid, for ``dpt_referee``.  Every rank runs it: the gradient is a
+    collective."""
 
     import torch.distributed as dist
 
     _, info, params, _ = dpt_setup(cfg, mesh_cfg, dist.group.WORLD, rank,
                                    device)
-    _, grads = info["grads"](params, batch)
+    with (contextlib.nullcontext() if force is None
+          else RouteLog(force=force)):
+        _, grads = info["grads"](params, batch)
     leaves: dict = {}
     tree_map_with_path(lambda path, g: leaves.__setitem__(
         path, g.reshape(-1)), grads)
@@ -2548,13 +2712,23 @@ def dpt_referee(cfg, flagged: list, grads: dict) -> list:
 
 def dp_train_rank(rank, device, cases) -> dict:
     """``[dp_train]``'s rank: for each case ``(cfg, meshes, data,
-    ref_file)`` and each of its meshes the rank's seeded shards, step 1
-    with every collective timed and counted, step 2 (rank 0's under the
-    profiler, which reads the peers' updated shards); its losses,
-    seconds, collectives, bytes, peak, and its shards after the steps
-    held against the one process's parameters saved in ``ref_file``
-    (``dpt_hold``), with its gradient of step 1 where a coordinate is
-    past ``ADAM_MAX`` x lr on any rank (``dpt_rank_grads``)."""
+    ref_file, step1_file, routes_file)`` and each of its meshes the rank's seeded
+    shards, step 1 with every collective timed and counted, step 2 (rank
+    0's under the profiler, which reads the peers' updated shards); its
+    losses, seconds, collectives, bytes, peak, and its shards after the
+    steps held against the one process's parameters saved in
+    ``ref_file`` (``dpt_hold``), with its gradient of step 1 where a
+    coordinate is past ``ADAM_MAX`` x lr on any rank
+    (``dpt_rank_grads``).  Where the case has a ``step1_file`` (the MoE
+    family) the shards after step 1 are held against the one process's
+    then (``held1``, the coordinates the referee takes), and step 2
+    starts from the one process's parameters and AdamW state after step
+    1 (``dpt_restart``), as ``tests/test_torch_moe_train.py`` starts it
+    from JAX's, and its routers take the one process's expert choices
+    (``routes_file``, cut to the rank's rows: ``dpt_rank_routes``; its
+    own that differ are counted, ``dpt_flips``): a router's top-k is
+    discrete, and a near-tie that the rank's rounding turns moves that
+    expert's whole AdamW update."""
 
     import torch.distributed as dist
 
@@ -2563,8 +2737,14 @@ def dp_train_rank(rank, device, cases) -> dict:
     out = {}
     flags = torch.zeros((1,), dtype=torch.int64, device=device if
                         dist.get_backend() == "nccl" else "cpu")
-    for cfg, meshes, data, ref_file in cases:
+    for cfg, meshes, data, ref_file, step1_file, routes_file in cases:
         ref = torch.load(ref_file, mmap=True, weights_only=True)
+        step1 = (None if step1_file is None else
+                 torch.load(step1_file, mmap=True, weights_only=True))
+        routes = None
+        if routes_file is not None:
+            with np.load(routes_file) as z:
+                routes = [z[f"arr_{i}"] for i in range(len(z.files))]
         for name, mesh_kw in meshes.items():
             t0 = time.perf_counter()
             mesh_cfg = MeshConfig(**mesh_kw)
@@ -2578,18 +2758,31 @@ def dp_train_rank(rank, device, cases) -> dict:
                    "setup_s": time.perf_counter() - t0}
             if device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(device)
+            forced = (None if routes is None
+                      else dpt_rank_routes(routes, mesh_cfg, rank))
+            log = (contextlib.nullcontext() if forced is None
+                   else RouteLog(force=forced))
             for i, batch in enumerate(data):
+                if i == 1 and step1 is not None:
+                    res["held1"] = dpt_hold(params, step1["params"],
+                                            info["pspecs"], mesh_cfg, rank,
+                                            device)
+                    dpt_restart(params, state, step1, info["pspecs"],
+                                mesh_cfg, rank, device)
                 for g in dpt_groups(info).values():
                     g.timed = i == 0
+                moe_mod.run_length_reads[0] = 0
                 _sync(device)
                 t0 = time.perf_counter()
                 if i == len(data) - 1 and rank == 0 and device.type == "cuda":
-                    (params, state, m), secs, bd = profiled(
-                        lambda: step(params, state, batch))
+                    with log:
+                        (params, state, m), secs, bd = profiled(
+                            lambda: step(params, state, batch))
                     res["profile"] = {"wall_s": secs, "busy": sum(bd.values())
                                       / (1e3 * secs), "top": top(bd)}
                 else:
-                    params, state, m = step(params, state, batch)
+                    with log:
+                        params, state, m = step(params, state, batch)
                 _sync(device)
                 res["step_s"].append(time.perf_counter() - t0)
                 res["losses"].append(float(m["loss"]))
@@ -2597,6 +2790,9 @@ def dp_train_rank(rank, device, cases) -> dict:
                     res["collectives"] = {
                         f"{k}_{op}": list(row) for k, g in dpt_groups(
                             info).items() for op, row in g.stats.items()}
+                    res["reads"] = moe_mod.run_length_reads[0]
+            if forced is not None:
+                res["routes"] = dpt_flips(log)
             res["peak_bytes"] = (torch.cuda.max_memory_allocated(device)
                                  if device.type == "cuda" else 0)
             res["peak_reserved"] = (torch.cuda.max_memory_reserved(device)
@@ -2609,12 +2805,15 @@ def dp_train_rank(rank, device, cases) -> dict:
             if device.type == "cuda":
                 _free()
             # every rank referees, if any rank has a coordinate to referee
-            flags.fill_(len(res["held"]["flagged"]))
+            # (after step 1 where step 2 restarted)
+            first = res.get("held1", res["held"])
+            flags.fill_(len(first["flagged"]))
             dist.all_reduce(flags)
             if int(flags):
                 res["flagged_grads"] = dpt_rank_grads(
-                    cfg, mesh_cfg, rank, device, data[0],
-                    res["held"]["flagged"])
+                    cfg, mesh_cfg, rank, device, data[0], first["flagged"],
+                    None if forced is None
+                    else forced[:len(forced) // len(data)])
             if rank == 0:
                 refereed = time.perf_counter() - t0 - res["hold_s"]
                 print(f"[dp_train] rank 0 {name}: set-up "
@@ -2648,21 +2847,41 @@ def dpt_reference(tag, cfg, data, dev, ref_dir) -> dict:
     """``[dp_train]``'s one process of ``cfg``: the one-card step on the
     seeded init over ``data``; its losses, seconds, peak and bytes, its
     parameters after the steps saved to a file in ``ref_dir`` that the
-    ranks map (``"file"``), the card freed after it."""
+    ranks map (``"file"``), for the MoE family its parameters and AdamW
+    state after step 1 too (``"step1"``, ``dpt_restart``'s; else
+    ``None``) and its routers' choices, a call each (``"routes"``, a
+    ``RouteLog``'s, which the ranks route by), the card freed after it."""
 
     step, info, params, state = dpt_setup(
         cfg, MeshConfig(data=1, model=1, fsdp=True), None, 0, dev)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    ref = {"losses": [], "step_s": []}
-    for batch in data:
+    ref = {"losses": [], "step_s": [], "step1": None, "step1_save_s": 0.0,
+           "routes": None}
+    log = RouteLog() if cfg.moe is not None else contextlib.nullcontext()
+
+    def host(tree):
+        flat = {}
+        tree_map_with_path(lambda path, x: flat.__setitem__(path, x.cpu()),
+                           tree)
+        return flat
+
+    for i, batch in enumerate(data):
         _sync(dev)
         t0 = time.perf_counter()
-        params, state, m = step(params, state, batch)
+        with log:
+            params, state, m = step(params, state, batch)
         _sync(dev)
         ref["step_s"].append(time.perf_counter() - t0)
         ref["losses"].append(float(m["loss"]))
+        if i == 0 and cfg.moe is not None:
+            t0 = time.perf_counter()
+            ref["step1"] = os.path.join(ref_dir, f"{cfg.name}.step1.pt")
+            torch.save({"params": host(params), "mu": host(state.mu),
+                        "nu": host(state.nu), "step": state.step.cpu()},
+                       ref["step1"])
+            ref["step1_save_s"] = time.perf_counter() - t0
     ref["peak_bytes"] = (torch.cuda.max_memory_allocated()
                          if dev.type == "cuda" else 0)
     if any(counts().values()):
@@ -2676,30 +2895,33 @@ def dpt_reference(tag, cfg, data, dev, ref_dir) -> dict:
         fail(f"{tag} {cfg.name}: non-finite loss in one process: "
              f"{ref['losses']}")
     t0 = time.perf_counter()
+    if cfg.moe is not None:
+        ref["routes"] = os.path.join(ref_dir, f"{cfg.name}.routes.npz")
+        np.savez(ref["routes"], *log.idx)
     ref["file"] = os.path.join(ref_dir, f"{cfg.name}.pt")
-    flat = {}
-    tree_map_with_path(lambda path, x: flat.__setitem__(path, x.cpu()),
-                       params)
-    torch.save(flat, ref["file"])
-    ref["save_s"] = time.perf_counter() - t0
-    del step, info, params, state, flat
+    torch.save(host(params), ref["file"])
+    ref["save_s"] = time.perf_counter() - t0 + ref["step1_save_s"]
+    del step, info, params, state
     if dev.type == "cuda":
         _free()
     return ref
 
 
 def dpt_check(tag, cfg, name, mesh_kw, res, ref, data, dev,
-              one_grads) -> dict:
+              one_grads, smi) -> dict:
     """``[dp_train]``'s holds of one mesh's ranks ``res`` against the one
-    process ``ref``: losses, bytes, step 1's collectives counted exactly,
-    parameters by the AdamW rule (its referee's one-process gradients in
-    ``one_grads``, made at first need); the row it prints."""
+    process ``ref``: losses, bytes, step 1's collectives counted exactly
+    (and, for the MoE family, the run lengths' host reads), parameters by
+    the AdamW rule (its referee's one-process gradients in
+    ``one_grads``, made at first need); the row it prints, the card's
+    ``smi`` line (name and power limit) beside the MoE cases' numbers."""
 
     mesh_cfg = MeshConfig(**mesh_kw)
     shapes = model_api.param_specs(build_model(cfg, device="meta"))
     pspecs = shard_rules.param_pspecs(cfg, shapes, mesh_cfg)
     n_units = cfg.num_layers // (cfg.local_global_pattern or 1)
     parts = max(DPT_MICRO, 1)
+    moe = cfg.moe is not None
     label = (f"{tag} {name} ({cfg.name}, {mesh_cfg.pod} x {mesh_cfg.data} "
              f"x {mesh_cfg.model})")
     worst_loss = max(abs(a - b) / abs(b) for r in res
@@ -2707,10 +2929,25 @@ def dpt_check(tag, cfg, name, mesh_kw, res, ref, data, dev,
     if worst_loss > DPT_LOSS_RTOL:
         fail(f"{label}: losses {[r['losses'] for r in res]} against "
              f"the one process's {ref['losses']}")
-    want = dpt_model_collectives(cfg, mesh_cfg, parts)
-    if mesh_cfg.data > 1:
-        want.update(fsdp_all_gather=parts * n_units * 2,
-                    fsdp_reduce_scatter=parts * n_units)
+    if moe:
+        want = dpt_moe_collectives(cfg, mesh_cfg, parts)
+        reads = parts * unit_spec(cfg)[1] * 2
+        if any(rr["reads"] != reads for rr in res):
+            fail(f"{label}: the run lengths' host reads in step 1 by rank "
+                 f"{[rr['reads'] for rr in res]}, expected {reads} (a MoE "
+                 "layer and part, again in remat's recompute)")
+        # routed by the one process's choices: a token whose own top-k
+        # differs must be a tie within rounding
+        routes = [rr["routes"] for rr in res]
+        if max(x["max_gap"] for x in routes) > DPT_FLIP_GAP:
+            fail(f"{label}: a rank's own top-k differs from the one "
+                 f"process's where the k-th and (k+1)-th probabilities are "
+                 f"more than {DPT_FLIP_GAP} apart: {routes}")
+    else:
+        want = dpt_model_collectives(cfg, mesh_cfg, parts)
+        if mesh_cfg.data > 1:
+            want.update(fsdp_all_gather=parts * n_units * 2,
+                        fsdp_reduce_scatter=parts * n_units)
     for r, rr in enumerate(res):
         if (rr["param_bytes"], rr["opt_bytes"]) != rr["reckoned"]:
             fail(f"{label}: rank {r} holds {rr['param_bytes']} bytes "
@@ -2726,26 +2963,37 @@ def dpt_check(tag, cfg, name, mesh_kw, res, ref, data, dev,
         if any(c.get(op) != n for op, n in want.items()):
             fail(f"{label}: rank {r}'s collectives in a step {c}, "
                  f"expected {want}")
-    dmax = max(rr["held"]["max"] for rr in res)
-    frac = (sum(rr["held"]["past"] for rr in res)
-            / sum(rr["held"]["total"] for rr in res))
+    # where step 2 restarted from the one process's state after step 1
+    # (the MoE family), the shards after step 1 are held too, and the
+    # referee takes their coordinates; after the restarted step 2 no
+    # coordinate may pass ADAM_MAX x lr
+    holds = [h for rr in res for h in (rr.get("held1"), rr["held"]) if h]
+    dmax = max(h["max"] for h in holds)
+    frac = max(sum(rr[k]["past"] for rr in res)
+               / sum(rr[k]["total"] for rr in res)
+               for k in ("held1", "held") if k in res[0])
+    firsts = [rr.get("held1", rr["held"]) for rr in res]
     flagged = [(mesh_cfg, r, x, g, rr["flagged_grads"]["norm"])
-               for r, rr in enumerate(res) if "flagged_grads" in rr
-               for x, g in zip(rr["held"]["flagged"],
-                               rr["flagged_grads"]["grads"])]
+               for r, (rr, first) in enumerate(zip(res, firsts))
+               if "flagged_grads" in rr
+               for x, g in zip(first["flagged"], rr["flagged_grads"]["grads"])]
     if flagged and cfg.name not in one_grads:
         one_grads[cfg.name] = dpt_one_grads(cfg, data[0], dev)
     refereed = (dpt_referee(cfg, flagged, one_grads[cfg.name]) if flagged
                 else [])
-    over = sum(rr["held"]["over"] for rr in res)
+    over = sum(h["over"] for h in holds)
+    after_restart = [x for rr in res if "held1" in rr
+                     for x in rr["held"]["flagged"]]
     if (over or frac > ADAM_FRAC or not all(x["ok"] for x in refereed)
-            or len(refereed) != sum(len(rr["held"]["flagged"])
-                                    for rr in res)):
+            or len(refereed) != sum(len(f["flagged"]) for f in firsts)
+            or after_restart):
         fail(f"{label}: parameters after {DPT_STEPS} AdamW steps differ "
              f"from the one process's by up to {dmax:.3e} (limit "
              f"{ADAM_MAX * DPT_LR:.1e} where the referee does not "
              f"explain it: {json.dumps(refereed)}; {over} more past "
-             f"it), {frac:.2e} of coordinates past 1e-3 lr (limit "
+             f"it; past it after step 2 from the one process's step-1 "
+             f"state: {json.dumps(after_restart[:DPT_REFEREE_CAP])}), "
+             f"{frac:.2e} of coordinates past 1e-3 lr (limit "
              f"{ADAM_FRAC})")
     r0 = res[0]
     step1 = r0["step_s"][0]
@@ -2768,12 +3016,20 @@ def dpt_check(tag, cfg, name, mesh_kw, res, ref, data, dev,
            "setup_s": [r["setup_s"] for r in res],
            "hold_s": [r["hold_s"] for r in res]}
     prof = r0.get("profile") or {}
+    restarted = ""
+    if "held1" in r0:
+        row["max_abs_param_diff_step1"] = max(rr["held1"]["max"]
+                                              for rr in res)
+        restarted = (f"; after step 1 within "
+                     f"{row['max_abs_param_diff_step1']:.3e}, step 2 from "
+                     "the one process's state after step 1")
     print(f"{label}: losses {r0['losses']} (one process "
           f"{ref['losses']}, worst rel {worst_loss:.2e}); step seconds "
           f"{r0['step_s']}; parameters after {DPT_STEPS} steps within "
           f"{dmax:.3e} of the one process's ({frac:.2e} of coordinates "
-          f"past 1e-3 lr); a rank holds {r0['param_bytes']} bytes of "
-          f"parameters + {r0['opt_bytes']} of state (= shard_nbytes; "
+          f"past 1e-3 lr{restarted}); a rank holds "
+          f"{r0['param_bytes']} bytes of parameters + "
+          f"{r0['opt_bytes']} of state (= shard_nbytes; "
           f"one process {ref['bytes'][0]} + {ref['bytes'][1]}); "
           f"peak by rank {[round(x, 2) for x in row['peak_gib']]} GiB "
           f"(reserved {[round(x, 2) for x in row['peak_reserved_gib']]})"
@@ -2794,6 +3050,25 @@ def dpt_check(tag, cfg, name, mesh_kw, res, ref, data, dev,
               f"{prof['wall_s']:.3f} s, device busy "
               f"{100 * prof['busy']:.1f}%; by kernel: {prof['top']}",
               flush=True)
+    if moe:
+        model_ar = coll.get("model_all_reduce", {"calls": 0, "bytes": 0,
+                                                 "share": 0.0})
+        row["reads_step1"] = r0["reads"]
+        row["routes"] = [rr["routes"] for rr in res]
+        print(f"{label} MoE on {smi}: the ranks routed by the one "
+              f"process's choices; their own top-k differed for "
+              f"{[x['flips'] for x in row['routes']]} of "
+              f"{row['routes'][0]['tokens']} router calls' tokens by rank, "
+              f"gaps at most {max(x['max_gap'] for x in row['routes']):.3e} "
+              f"(limit {DPT_FLIP_GAP})", flush=True)
+        print(f"{label} MoE on {smi}: step seconds {r0['step_s']}; the "
+              f"model group's all-reduces in step 1: {model_ar['calls']} "
+              f"calls, {model_ar['bytes'] / 1e6:.1f} MB, "
+              f"{100 * model_ar['share']:.1f}% of the step (the card "
+              f"synchronised around each); the run lengths' host reads a "
+              f"step: {r0['reads']}; step 2 busy "
+              f"{100 * prof.get('busy', float('nan')):.1f}%; peak by rank "
+              f"{[round(x, 2) for x in row['peak_gib']]} GiB", flush=True)
     return row
 
 
@@ -2861,11 +3136,44 @@ def dp_train_phase(card, device="cuda") -> dict:
               f"{json.dumps(dpt_model_collectives(kv_cfg, kv_mesh, parts))}",
               flush=True)
 
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    moe_cases = []
+    for arch, (layers, meshes) in DPT_MOE.items():
+        moe_full = get_model_config(arch)
+        moe_cfg = dataclasses.replace(moe_full, num_layers=layers)
+        moe_cases.append((moe_cfg, meshes, dpt_data(moe_cfg)))
+        moe_shapes = model_api.param_specs(build_model(moe_cfg,
+                                                       device="meta"))
+        n = _n_elems(moe_shapes)
+        for name, mesh_kw in meshes.items():
+            moe_mesh = MeshConfig(**mesh_kw)
+            rank_p = shard_nbytes(moe_shapes, shard_rules.param_pspecs(
+                moe_cfg, moe_shapes, moe_mesh), moe_mesh)
+            tokens = DPT_BATCH // parts // moe_mesh.data * DPT_SEQ
+            m = moe_cfg.moe
+            print(f"{tag} {name}: {moe_cfg.name} at full width, {layers} "
+                  f"of {moe_full.num_layers} layers (d {moe_cfg.d_model}; "
+                  f"{m.num_experts} experts top-{m.num_experts_per_tok} of "
+                  f"{m.expert_d_ff}, {m.num_shared_experts} shared; vocab "
+                  f"{moe_cfg.vocab_size}), on {moe_mesh.data} x "
+                  f"{moe_mesh.model} ranks.  Reckoning: one process {n} "
+                  f"f32 parameters ({4 * n / 1e9:.2f} GB; "
+                  f"{16 * n / 1e9:.1f} GB with gradients and 2 moments); a "
+                  f"rank {rank_p} bytes of parameters and {2 * rank_p} of "
+                  f"state; {tokens} tokens a rank and part, "
+                  f"{tokens * m.num_experts_per_tok} slots; collectives a "
+                  f"step: "
+                  f"{json.dumps(dpt_moe_collectives(moe_cfg, moe_mesh, parts))}"
+                  f" ({smi})", flush=True)
+
     # the one processes; their parameters after the steps go to files the
     # ranks map, and the card is freed for them
     ref_dir = tempfile.mkdtemp(prefix="dp-train-ref-")
     cases = [(cfg, DPT_MESHES, dpt_data(cfg)),
-             (kv_cfg, DPT_KV_MESHES, dpt_data(kv_cfg))]
+             (kv_cfg, DPT_KV_MESHES, dpt_data(kv_cfg))] + moe_cases
     try:
         refs = [dpt_reference(tag, c, data, dev, ref_dir)
                 for c, _, data in cases]
@@ -2893,7 +3201,7 @@ def dp_train_phase(card, device="cuda") -> dict:
         try:
             ranks = run_on_grid(
                 dp_train_rank, (4, 1),
-                [(c, meshes, data, ref["file"])
+                [(c, meshes, data, ref["file"], ref["step1"], ref["routes"])
                  for (c, meshes, data), ref in zip(cases, refs)],
                 device=device, timeout=900, marks=marks)
         finally:
@@ -2916,7 +3224,7 @@ def dp_train_phase(card, device="cuda") -> dict:
         for name, mesh_kw in meshes.items():
             out["meshes"][name] = dpt_check(
                 tag, c, name, mesh_kw, [r[name] for r in ranks], ref, data,
-                dev, one_grads)
+                dev, one_grads, smi)
     if free["min"] is not None:
         total = torch.cuda.get_device_properties(dev).total_memory
         print(f"{tag} the card's least free memory while the grid ran: "
@@ -3022,7 +3330,8 @@ class RouteLog:
     probability on the host.  Given ``force`` (an earlier log's choices) it
     routes by those instead, weighted by this model's own probabilities and
     renormalised as ``route`` does, so that two models can be compared
-    under the same routing; its own choices go to ``own``."""
+    under the same routing; its own choices go to ``own``.  A batch group
+    (``route``'s ``group``, a training rank's) passes through."""
 
     def __init__(self, force=None):
         self.idx, self.gap, self.own, self.force = [], [], [], force
@@ -3035,8 +3344,8 @@ class RouteLog:
     def __exit__(self, *exc):
         moe_mod.route = self._route
 
-    def __call__(self, params, xt, cfg):
-        top_idx, top_w, aux = self._route(params, xt, cfg)
+    def __call__(self, params, xt, cfg, *group):
+        top_idx, top_w, aux = self._route(params, xt, cfg, *group)
         k = cfg.num_experts_per_tok
         probs = torch.softmax(xt.float() @ params["router"], dim=-1)
         if self.force is not None:
@@ -3045,7 +3354,7 @@ class RouteLog:
                                       device=xt.device)
             top_w = probs.gather(-1, top_idx)
             top_w = top_w / top_w.sum(dim=-1, keepdim=True)
-        top = probs.topk(k + 1, dim=-1).values
+        top = probs.detach().topk(k + 1, dim=-1).values
         self.idx.append(top_idx.cpu().numpy())
         self.gap.append((top[:, k - 1] - top[:, k]).cpu().numpy())
         return top_idx, top_w, aux

@@ -9,7 +9,9 @@ ranks (port of ``repro.launch.train``).
 
 Data comes from ``LMTokenPipeline(vocab, seq_len, global_batch)`` at each
 step; the model is built with ``Ctx(attn_impl="ref", remat=True)`` (the
-flash kernel has no backward) and trained by ``train/step.py``'s
+flash kernel has no backward; ``train_ctx``: the MoE family on model
+ranks in the psum form, its experts padded to the axis, as the
+reference's launcher builds it) and trained by ``train/step.py``'s
 ``make_sharded_train_step`` with the optimizer of ``TrainConfig``'s
 defaults (its clip over the whole tree).  Fault tolerance: a checkpoint
 of ``{"p": params, "o": opt_state}`` every ``--ckpt-every`` steps and at
@@ -23,10 +25,12 @@ data ranks, the batch and each microbatch part cut over ``pod x data``,
 and ``--tp M`` model ranks in each data row, holding its heads, FFN
 columns and vocab range (the logits never gathered: a vocab-parallel
 cross-entropy); ranks = pods·N·M, rank = (pod·N + data)·M + model.  The
-dense family only on more than one rank (item 6.2c), with query heads
-that divide ``--tp`` (item 6.8); its KV heads need not (granite-34b's one
-KV head trains at ``--tp 4``: each rank gathers k and v whole, or
-computes them whole where the rules keep ``wk``/``wv`` whole).  The ranks
+dense and MoE families only on more than one rank (item 6.2c), with
+query heads that divide ``--tp`` (item 6.8); the KV heads need not
+(granite-34b's one KV head trains at ``--tp 4``: each rank gathers k and
+v whole, or computes them whole where the rules keep ``wk``/``wv``
+whole); the MoE family trains with expert parallelism on the model
+ranks, as the reference's launcher trains it.  The ranks
 are ``launch/gossip.py``'s ``run_on_grid``: one card a rank (``nccl``)
 where the machine has that many cards, else all on one card (``gloo``,
 collectives staged through the host).  Every grid starts from one seeded
@@ -126,6 +130,18 @@ def _set_timed(info, on: bool) -> None:
             group.timed = on
 
 
+def train_ctx(cfg, mesh_cfg: MeshConfig) -> Ctx:
+    """The model's ``Ctx``, as the reference's launcher builds it: the
+    plain attention (``"ref"``), remat, and for the MoE family on more
+    than one model rank expert parallelism in the psum form with the
+    experts padded to the model axis (``ep_pad_to``,
+    ``src/repro/launch/train.py:59–63``)."""
+
+    ep = cfg.moe is not None and mesh_cfg.model > 1
+    return Ctx(attn_impl="ref", remat=True,
+               ep_pad_to=mesh_cfg.model if ep else 0, moe_impl="psum")
+
+
 def train_rank(rank, device, cfg, shape, mesh_cfg: MeshConfig,
                tc: TrainConfig, steps: int, ckpt: str,
                ckpt_every: int) -> dict:
@@ -138,7 +154,7 @@ def train_rank(rank, device, cfg, shape, mesh_cfg: MeshConfig,
 
     group = dist.group.WORLD if dist.is_initialized() else None
     world = mesh_cfg.num_devices
-    model = build_model(cfg, Ctx(attn_impl="ref", remat=True), device=device)
+    model = build_model(cfg, train_ctx(cfg, mesh_cfg), device=device)
     step, info = make_sharded_train_step(model, group, mesh_cfg, shape, tc)
     optimizer = info["optimizer"]
     mgr = CheckpointManager(ckpt)

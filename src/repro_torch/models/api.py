@@ -27,13 +27,16 @@ it (``TP.kv_cache``).  The shapes it does not cover (query or Mamba2
 heads that do not split into whole heads a rank, the hybrid's unequal
 query and KV heads) raise ``NotImplementedError`` here, naming their
 ROADMAP item: there is no replicated fallback.  The same ``Ctx`` trains
-the dense family wherever its query heads split (``loss_refusal``):
-``models/transformer.py::lm_loss`` on the rank's shards, the
-collectives' backward rules in ``models/layers.py``.  KV heads that do
-not divide the ranks train too: k and v gathered whole where the rules
-cut ``wk``/``wv`` in parts of a head (the gather's backward a
-reduce-scatter), computed whole where they keep them whole (their
-gradients then summed over the model group, ``train/step.py``).
+the dense and MoE families wherever their query heads split
+(``loss_refusal``): ``models/transformer.py::lm_loss`` on the rank's
+shards, the collectives' backward rules in ``models/layers.py``.  KV
+heads that do not divide the ranks train too: k and v gathered whole
+where the rules cut ``wk``/``wv`` in parts of a head (the gather's
+backward a reduce-scatter), computed whole where they keep them whole
+(their gradients then summed over the model group, ``train/step.py``,
+as MLA's whole latent leaves are).  The MoE family trains in the psum
+form, its router's aux reckoned as the reference reckons it on the mesh
+(``models/moe.py::aux_reckoning``).
 """
 
 from __future__ import annotations
@@ -48,6 +51,7 @@ from repro_torch.config import ModelConfig, ShapeConfig
 from repro_torch.core.state import resolve_device
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
+from repro_torch.models import moe as MOE
 from repro_torch.models import transformer as T
 from repro_torch.models import vlm as V
 from repro_torch.optim.optimizers import tree_flatten_with_path
@@ -56,12 +60,14 @@ Ctx = T.Ctx
 
 TP_ITEM = "ROADMAP.md queue 1, item 6.8"
 TRAIN_ITEM = "ROADMAP.md queue 1, item 6.2"
+# the families that train on more than one rank
+TRAIN_FAMILIES = ("dense", "moe")
 FAMILY_TRAIN_REASON = (
     "training the {family} family on more than one rank is not ported: the "
-    "port trains the dense family on data and model ranks (the MoE aux "
-    "loss is not linear in the batch and its experts' collectives have no "
-    "backward rules; the hybrid, VLM and encoder-decoder losses gather "
-    f"nothing; {TRAIN_ITEM}c)")
+    "port trains the dense and MoE families on data and model ranks (the "
+    "SSM and hybrid families' collectives have no backward rules; the VLM "
+    "and encoder-decoder losses gather nothing; "
+    f"{TRAIN_ITEM}c)")
 
 
 class Model(NamedTuple):
@@ -132,38 +138,45 @@ def tp_refusal(cfg: ModelConfig, size: int) -> str | None:
     return None
 
 
-def tp_train_refusal(cfg: ModelConfig, size: int) -> str | None:
+def tp_train_refusal(cfg: ModelConfig, size: int,
+                     moe_impl: str = "psum") -> str | None:
     """Why ``cfg`` cannot train on ``size`` model ranks, or ``None``: the
-    dense family alone (item 6.2c), its query heads split into whole heads
-    a rank (``tp_refusal``, item 6.8).  Its KV heads need not divide the
-    ranks (``models/transformer.py::_kv_train``)."""
+    dense and MoE families alone (item 6.2c), the MoE family in the psum
+    form (``moe_impl``; the a2a form is item 6.2c-i-b), their query heads
+    split into whole heads a rank (``tp_refusal``, item 6.8).  The KV
+    heads need not divide the ranks (``models/transformer.py::
+    _kv_train``); the experts are split by expert, padded to the axis
+    where they do not divide it (``Ctx.ep_pad_to``; otherwise
+    ``train/shard.py::model_split`` and ``moe.EP_REASON`` refuse them)."""
 
     if size <= 1:
         return None
-    if cfg.family != "dense":
+    if cfg.family not in TRAIN_FAMILIES:
         return FAMILY_TRAIN_REASON.format(family=cfg.family)
+    if cfg.family == "moe" and moe_impl == "a2a":
+        return MOE.A2A_TRAIN_REASON
     return tp_refusal(cfg, size)
 
 
 def loss_refusal(cfg: ModelConfig, ctx: T.Ctx) -> str | None:
     """Why a rank's model under ``ctx`` cannot train, or ``None`` where it
-    can: in one process; for the dense family on model ranks
-    (``ctx.tp``) whose query heads divide them (``tp_train_refusal``),
-    whatever its KV heads and its ``TP.kv_cache`` (training holds no
-    cache); and on data ranks, its batch cut over ``pod x data``
-    (``ctx.dp``) and its batch group given (``ctx.dp_group``, over which
-    the loss counts the whole batch's targets), as
-    ``train/step.py::make_sharded_train_step`` builds it.  The other
-    families on more than one rank wait for their own losses (item
-    6.2c)."""
+    can: in one process; for the dense and MoE families on model ranks
+    (``ctx.tp``) whose query heads divide them (``tp_train_refusal``; the
+    MoE family in the psum form), whatever the KV heads and the
+    ``TP.kv_cache`` (training holds no cache); and on data ranks, its
+    batch cut over ``pod x data`` (``ctx.dp``) and its batch group given
+    (``ctx.dp_group``, over which the loss counts the whole batch's
+    targets and the MoE router its aux), as ``train/step.py::
+    make_sharded_train_step`` builds it.  The other families on more than
+    one rank wait for their own losses (item 6.2c)."""
 
     data = (ctx.fsdp is not None or bool(ctx.dp) or ctx.kv_seq is not None
             or ctx.dp_group is not None)
     if ctx.tp_size == 1 and not data:
         return None
-    if cfg.family != "dense":
+    if cfg.family not in TRAIN_FAMILIES:
         return FAMILY_TRAIN_REASON.format(family=cfg.family)
-    reason = tp_train_refusal(cfg, ctx.tp_size)
+    reason = tp_train_refusal(cfg, ctx.tp_size, ctx.moe_impl)
     if reason:
         return reason
     if data and (ctx.kv_seq is not None or not ctx.dp

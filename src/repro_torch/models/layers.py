@@ -33,7 +33,9 @@ lets GSPMD insert the collectives' transposes): under autograd
 stands where a whole activation enters a product split on ``"model"``;
 ``vocab_parallel_cross_entropy`` takes the loss from each rank's vocab
 range of the logits, which are never gathered.  ``all_gather``'s
-backward, and ``FSDP``'s gather's, reduce-scatters.
+backward, and ``FSDP``'s gather's, reduce-scatters.  ``psum`` sums both
+ways, for sums whose upstream each rank holds only its share of (the
+MoE router's statistics over a batch group).
 """
 
 from __future__ import annotations
@@ -235,6 +237,38 @@ def all_reduce_grad(x, tp: TP | None):
                                            and x.requires_grad):
         return x
     return _AllReduceGrad.apply(x, tp)
+
+
+class _Psum(torch.autograd.Function):
+    """The sum over ``tp`` both ways: forward and backward."""
+
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return _reduce(x, tp, copy=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.tp, copy=True), None
+
+
+def psum(x, tp: TP | None):
+    """The sum of ``x`` over the ranks of ``tp`` whose gradient is the
+    sum of the ranks' gradients (JAX's ``psum`` as ``shard_map``
+    transposes it without its replication check).  Where each rank's
+    upstream is its own share of a loss summed over the ranks (the MoE
+    router's statistics, ``models/moe.py::route``: every rank adds
+    ``aux / n`` of the one aux formed from the sums), the backward's sum
+    gives each rank the whole gradient of the sums; ``all_reduce``'s
+    identity backward, right where every rank's upstream is already the
+    whole one, would hand it ``1/n`` of it.  Without a group it is
+    ``x``."""
+
+    if tp is None or tp.size == 1:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Psum.apply(x, tp)
+    return _reduce(x, tp)
 
 
 def all_gather(x, tp: TP | None, dim: int):

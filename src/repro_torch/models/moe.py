@@ -33,6 +33,14 @@ forms below run on that row's tokens, the rank's batch slice.
   the ranks' partial outputs.  The shared experts, split by width like a
   dense MLP, add their partial sum before that one all-reduce.  aux is
   every rank's own, the global aux, as the ranks route the same tokens.
+  Under autograd (training) the sum's backward is the identity (its
+  upstream is whole on every rank), and two conjugates
+  (``layers.all_reduce_grad``) sum what each rank's experts give only
+  their own share of: the input's gradient of the routed and split
+  shared experts, and the combine weights' gradient, nonzero on a rank
+  for its own experts' slots only.  The router's gradient, and its share
+  of the input's, is then whole and the same on every rank; its aux path
+  is every rank's whole one already and gets no sum.
 * ``impl="a2a"`` (``_moe_a2a``): the rank takes its ``L / n`` positions
   of the sequence, puts its slots into capacity buckets by owner rank
   (JAX's rule: a stable sort by owner, a slot kept while its place in
@@ -44,7 +52,16 @@ forms below run on that row's tokens, the rank's batch slice.
   the mean of the ranks'.  The JAX body also writes every dropped slot
   into bucket (0, 0) and, where XLA applies duplicate scatter writes in
   order (the CPU), so drops the slot kept there; the port keeps it
-  (ROADMAP.md §3).
+  (ROADMAP.md §3).  It does not train (``A2A_TRAIN_REASON``).
+
+The aux of a training rank (``aux_reckoning``) is the reference's on its
+mesh: at one model rank its statistics are summed over the batch group
+before the aux is formed (the JAX step's aux over the part's tokens), on
+model ranks it is the rank's data row's own (JAX's mean of the data rows'
+auxes); either way the rank adds ``aux / n`` of a batch group of n, so
+that the ranks' losses sum to the reference's.  ``run_length_reads``
+counts the host reads of the run lengths (one a layer a forward, remat's
+recompute included).
 """
 
 from __future__ import annotations
@@ -66,7 +83,14 @@ DP_REASON = (
     "(launch/lm_engine.py), so the expert-parallel forms run inside a data "
     "row on its tokens and take no data-parallel axes (ROADMAP.md queue 1, "
     "item 6.8.2)")
+A2A_TRAIN_REASON = (
+    "training in the a2a form (Ctx.moe_impl='a2a') on model ranks is not "
+    "ported: its sequence split, capacity drops and the all-gather of its "
+    "output need backward rules of their own; the reference's launcher "
+    "trains in the psum form (ROADMAP.md queue 1, item 6.2c-i-b)")
 MOE_IMPLS = ("psum", "a2a")
+# the host reads of the run lengths (``_run_lengths``) since the last reset
+run_length_reads = [0]
 
 
 def padded_experts(cfg: MoEConfig, pad_to: int) -> int:
@@ -107,24 +131,76 @@ def top_k(probs, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def route(params, xt, cfg: MoEConfig):
+def aux_reckoning(tp, batch):
+    """(group, n): how a training rank reckons the router's aux, as the
+    reference reckons it on its mesh.  ``batch`` is the rank's batch group
+    (``Ctx.dp_group``: every ``pod x data`` rank at its model coordinate,
+    ``None`` in one process), ``tp`` its model group.
+
+    * At one model rank the reference runs ``_moe_local(..., None)``
+      under GSPMD (``src/repro/models/moe.py:215–216``), whose ``route``
+      (:92–106) takes ``me``, ``fe`` and the z-loss over the whole part's
+      tokens: the rank's sums are summed over ``group = batch`` before the
+      aux is formed (``route``).
+    * On model ranks (the psum form) its ``shard_map`` body takes each
+      data shard's own aux and ``pmean``s it over the data axes and
+      ``"model"`` (:126, :230): the mean of the data rows' auxes.  The
+      model ranks of a row route the same tokens, so their mean is the
+      row's aux: ``group = None``.
+
+    Each rank adds ``aux / n`` (n the batch group's size), so that the
+    batch group's losses, summed, count the aux once: the global aux, or
+    the mean of the rows'.  The gradient follows: the train step sums the
+    replicated router's gradients over the batch group, and ``route``'s
+    sum of the statistics (``layers.psum``) sums the ranks' ``1/n``
+    shares back to the whole gradient."""
+
+    n = 1 if batch is None else batch.size
+    if (tp is not None and tp.size > 1) or n == 1:
+        return None, n
+    return batch, n
+
+
+def route(params, xt, cfg: MoEConfig, group=None):
     """Router: (top_idx (T, k), renormalised top_w (T, k), aux): the
-    switch-style load-balance loss plus a 1e-4 router z-loss."""
+    switch-style load-balance loss plus a 1e-4 router z-loss.  Under
+    ``group`` (``aux_reckoning``'s) the rank's sums over its tokens (of
+    ``probs``, of the slots each expert took, of the squared
+    logsumexp) and its token count are summed over the group in one
+    ``layers.psum`` before ``me``, ``fe`` and the z-loss are formed: the
+    aux over the group's tokens, whose gradient is the sum of the ranks'.
+    The slot counts carry no gradient (``top_idx`` has none in JAX
+    either)."""
 
     logits = L.upcast(xt) @ params["router"]               # (T, E)
     probs = torch.softmax(logits, dim=-1)
     top_w, top_idx = top_k(probs, cfg.num_experts_per_tok)
     top_w = top_w / top_w.sum(dim=-1, keepdim=True)
     E = cfg.num_experts
-    me = probs.mean(dim=0)
     # the slots each expert took: exact in f32, and a fixed shape, which
     # the meta device counts (bincount's size is read from its data)
     slots = top_idx.reshape(-1)
-    fe = probs.new_zeros(E).index_add_(
-        0, slots, probs.new_ones(slots.shape)) / xt.shape[0]
+    taken = probs.new_zeros(E).index_add_(0, slots,
+                                          probs.new_ones(slots.shape))
+    lse2 = torch.logsumexp(logits, dim=-1).square().sum()
+    stats = L.psum(torch.cat([probs.sum(dim=0), taken, lse2[None],
+                              probs.new_full((1,), xt.shape[0])]), group)
+    tokens = stats[-1]
+    me, fe = stats[:E] / tokens, stats[E:2 * E] / tokens
     aux = E * (me * fe).sum() * cfg.router_aux_loss_coef
-    aux = aux + 1e-4 * torch.logsumexp(logits, dim=-1).square().mean()
+    aux = aux + 1e-4 * stats[2 * E] / tokens
     return top_idx, top_w, aux
+
+
+def _route(params, xt, cfg: MoEConfig, group):
+    """``route`` as the module holds it at the call, with ``group`` only
+    where one sums the statistics: a stand-in that records or forces the
+    routing (the LM parity tests, ``chip_smoke.py``'s ``RouteLog``)
+    takes the one-process signature."""
+
+    if group is None:
+        return route(params, xt, cfg)
+    return route(params, xt, cfg, group)
 
 
 def _run_lengths(keys, first: int, minlength: int, expected: float):
@@ -136,11 +212,17 @@ def _run_lengths(keys, first: int, minlength: int, expected: float):
     if keys.device.type == "meta":
         n = int(round(expected))
         return [n // first + (i < n % first) for i in range(first)]
+    run_length_reads[0] += 1
     return torch.bincount(keys, minlength=minlength)[:first].tolist()
 
 
 def _grouped_swiglu(params, xs, sizes):
-    """Expert e's SwiGLU on its run of ``sizes[e]`` sorted slots."""
+    """Expert e's SwiGLU on its run of ``sizes[e]`` sorted slots.  Where
+    no slot is the experts' (xs has no rows), xs itself, its width
+    d_model: the output stays a function of xs, so that under autograd
+    the gradient reaches xs's collective on every rank (a rank whose
+    experts took no slot, the padded ones' rank, would otherwise skip the
+    conjugate's all-reduce that its peers wait in)."""
 
     out, start = [], 0
     for e, n in enumerate(sizes):
@@ -149,8 +231,7 @@ def _grouped_swiglu(params, xs, sizes):
             h = F.silu(x @ params["wi_gate"][e]) * (x @ params["wi_up"][e])
             out.append(h @ params["wo"][e])
             start += n
-    return torch.cat(out) if out else xs.new_zeros(
-        (0, params["wo"].shape[-1]))
+    return torch.cat(out) if out else xs
 
 
 def _routed(params, xt, top_idx, top_w, e0: int = 0, n_total: int = 0):
@@ -183,13 +264,17 @@ def _shared(params, xt):
     return L.mlp_swiglu(params["shared"], xt) if "shared" in params else None
 
 
-def _moe_psum(params, xt, cfg: MoEConfig, tp):
-    top_idx, top_w, aux = route(params, xt, cfg)
+def _moe_psum(params, xt, cfg: MoEConfig, tp, group):
+    top_idx, top_w, aux = _route(params, xt, cfg, group)
     n_local = params["wi_gate"].shape[0]
-    y = _routed(params, xt, top_idx, top_w, tp.rank * n_local,
-                n_local * tp.size)
-    sh = _shared(params, xt)
+    # the backward rules (module docstring): the experts' input and the
+    # combine weights through the conjugate, the router's input not (its
+    # aux path is whole on every rank: summed, it would count n times)
+    xe = L.all_reduce_grad(xt, tp)
+    y = _routed(params, xe, top_idx, L.all_reduce_grad(top_w, tp),
+                tp.rank * n_local, n_local * tp.size)
     split = L.sharded(tp, "shared.wo") is not None
+    sh = _shared(params, xe if split else xt)
     if sh is not None and split:
         y = y + sh                          # partial: joins the one sum
     y = L.all_reduce(y, tp)
@@ -254,7 +339,8 @@ def _moe_a2a(params, xt, cfg: MoEConfig, tp, capacity_factor: float):
 
 
 def moe_ffn(params, x, cfg: MoEConfig, *, tp: L.TP | None = None,
-            impl: str = "psum", capacity_factor: float = 2.0, dp=None):
+            impl: str = "psum", capacity_factor: float = 2.0, dp=None,
+            batch: L.TP | None = None):
     """MoE FFN.  x: (B, L, d) -> (y, aux_loss).
 
     Single program without ``tp`` (or on one rank).  On the ranks of
@@ -265,25 +351,31 @@ def moe_ffn(params, x, cfg: MoEConfig, *, tp: L.TP | None = None,
     L = 1), as the JAX package's ``shard_map`` fails there.  ``dp`` (the
     JAX package's data-parallel axes) raises: on a ``pod x data x model``
     grid x is already the rank's batch slice, and its ``tp`` the model
-    ranks of its data row (``DP_REASON``)."""
+    ranks of its data row (``DP_REASON``).  ``batch``, a training rank's
+    batch group (``Ctx.dp_group``), makes aux the rank's share of the
+    reference's aux on its mesh (``aux_reckoning``); the a2a form does
+    not train under it (``A2A_TRAIN_REASON``)."""
 
     if impl not in MOE_IMPLS:
         raise ValueError(f"impl {impl!r}: one of {MOE_IMPLS}")
     if dp is not None:
         raise NotImplementedError(DP_REASON)
+    group, n_batch = aux_reckoning(tp, batch)
     B, Lx, d = x.shape
     if tp is None or tp.size == 1:
         xt = x.reshape(-1, d)
-        top_idx, top_w, aux = route(params, xt, cfg)
+        top_idx, top_w, aux = _route(params, xt, cfg, group)
         y = _routed(params, xt, top_idx, top_w)
         sh = _shared(params, xt)
         y = y if sh is None else y + sh
-        return y.reshape(B, Lx, d).to(x.dtype), aux
+        return y.reshape(B, Lx, d).to(x.dtype), aux / n_batch
     if L.sharded(tp, "moe.wi_gate") is None:
         raise NotImplementedError(EP_REASON)
     if impl == "psum":
-        y, aux = _moe_psum(params, x.reshape(-1, d), cfg, tp)
-        return y.reshape(B, Lx, d).to(x.dtype), aux
+        y, aux = _moe_psum(params, x.reshape(-1, d), cfg, tp, group)
+        return y.reshape(B, Lx, d).to(x.dtype), aux / n_batch
+    if batch is not None:
+        raise NotImplementedError(A2A_TRAIN_REASON)
     n = tp.size
     if Lx % n:
         raise ValueError(

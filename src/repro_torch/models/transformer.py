@@ -238,11 +238,12 @@ def init_sublayer(gen, cfg: ModelConfig, sl: SubLayer, device,
 def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
     """The sublayer after its mixer: x + h (h post-normed in gemma2's
     sandwich), then the pre-norm FFN half (SwiGLU or MoE; none in an SSM
-    sublayer).  Returns (x, aux), aux the MoE's aux loss or None.  Under
-    ``ctx.tp`` a SwiGLU split on its hidden width is all-reduced (its
-    input's gradient too, in training: ``layers.all_reduce_grad``), and a
-    MoE whose experts are split runs the expert-parallel ``ctx.moe_impl``
-    form."""
+    sublayer).  Returns (x, aux), aux the MoE's aux loss or None: on a
+    training rank (``ctx.dp_group``) its share of the reference's aux on
+    its mesh (``moe.aux_reckoning``).  Under ``ctx.tp`` a SwiGLU split
+    on its hidden width is all-reduced (its input's gradient too, in
+    training: ``layers.all_reduce_grad``), and a MoE whose experts are
+    split runs the expert-parallel ``ctx.moe_impl`` form."""
 
     # the post-normed h is a temporary of the sum: the caller still holds
     # the raw h, and one more (B, L, d) tensor would be alive in the MLP
@@ -253,7 +254,7 @@ def _residual(p, x, h, cfg: ModelConfig, sl: SubLayer, ctx: Ctx):
     hin = L.rms_norm(x, p["norm2"], cfg.norm_eps)
     if sl.ffn == "moe":
         h, aux = MOE.moe_ffn(p["moe"], hin, cfg.moe, tp=ctx.tp,
-                             impl=ctx.moe_impl)
+                             impl=ctx.moe_impl, batch=ctx.dp_group)
     else:
         h = L.mlp_swiglu(p["mlp"], L.all_reduce_grad(
             hin, L.sharded(ctx.tp, "mlp.wi_gate")))

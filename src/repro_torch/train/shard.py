@@ -18,11 +18,13 @@ refuses what the serving ranks do not cover, naming its ROADMAP item: the
 encoder-decoder family on more than one ``pod x data`` rank (item
 6.8.2c) and MLA's latent cache at a batch that does not split, which the
 rules cut on ``"data"`` (item 6.8.2e).  ``check_train_mesh`` refuses
-what the training ranks do not cover: a family other than the dense one
-on more than one rank (item 6.2c), query heads that do not split over
-the model ranks (item 6.8), and microbatch parts whose rows do not split
+what the training ranks do not cover: a family other than the dense and
+MoE ones on more than one rank (item 6.2c), the MoE family's a2a form on
+model ranks (item 6.2c-i-b), query heads that do not split over the
+model ranks (item 6.8), and microbatch parts whose rows do not split
 over ``pod x data``; KV heads that do not divide the model ranks train
-(``whole_kv`` names the k/v leaves a rank then holds whole).
+(``whole_kv`` names the k/v leaves a rank then holds whole, and MLA's
+latent leaves, which a rank always holds whole).
 
 ``fsdp_split`` names the leaves the specs split on ``"data"``, and the
 dim, by the top-level key whose subtree a rank gathers at once (the
@@ -133,20 +135,25 @@ def check_mesh(mesh_cfg: MeshConfig, cfg: ModelConfig | None = None,
 
 
 def check_train_mesh(mesh_cfg: MeshConfig, cfg: ModelConfig,
-                     batch: int | None = None, microbatch: int = 0) -> None:
+                     batch: int | None = None, microbatch: int = 0,
+                     moe_impl: str = "psum") -> None:
     """``check_mesh``'s training twin: refuse a grid the training ranks do
-    not cover, a family other than the dense one on more than one rank
-    (item 6.2c), model ranks over which the query heads do not split
-    (item 6.8, ``api.tp_train_refusal``; the KV heads need not), and
-    (``ValueError``) a global ``batch`` whose ``microbatch`` parts (one
-    without) do not each split over the ``pod x data`` ranks: a rank
-    runs its rows of each part, as the rules cut the part."""
+    not cover, a family other than the dense and MoE ones on more than
+    one rank (item 6.2c), model ranks over which the query heads do not
+    split (item 6.8, ``api.tp_train_refusal``; the KV heads need not) or
+    on which the MoE family would train in the a2a form (item 6.2c-i-b;
+    the psum form trains, its experts split by expert, ``model_split``
+    refusing them split on their width), and (``ValueError``) a global
+    ``batch`` whose ``microbatch`` parts (one without) do not each split
+    over the ``pod x data`` ranks: a rank runs its rows of each part, as
+    the rules cut the part."""
 
     check_mesh(mesh_cfg)
-    if mesh_cfg.num_devices > 1 and cfg.family != "dense":
+    if (mesh_cfg.num_devices > 1
+            and cfg.family not in api.TRAIN_FAMILIES):
         raise NotImplementedError(
             api.FAMILY_TRAIN_REASON.format(family=cfg.family))
-    reason = api.tp_train_refusal(cfg, mesh_cfg.model)
+    reason = api.tp_train_refusal(cfg, mesh_cfg.model, moe_impl)
     if reason:
         raise NotImplementedError(reason)
     if batch is None:
@@ -405,9 +412,15 @@ def shard_nbytes(shapes, specs, mesh_cfg: MeshConfig) -> int:
 # pre-norm (mamba.norm) are gathered where split, whichever way, and so
 # are the LM attention's k/v leaves (_GATHERED) under a split wo: a rank
 # whose KV heads are not its own gathers k and v whole, or computes them
-# whole from whole leaves (models/attention.py).
+# whole from whole leaves (models/attention.py).  _READ_BY_HEAD adds the
+# leaves a rank holds whole under a split wo whose output its heads read
+# only their share of: those k/v leaves, and MLA's latent (wkv_a, whose
+# c_kv and shared rope key every head reads through its wkv_b slice, and
+# kv_norm), which the rules never split
 _QKV = ("wq", "wk", "wv", "bq", "bk", "bv")
 _GATHERED = {"attn.wo": ("attn.wk", "attn.wv", "attn.bk", "attn.bv")}
+_READ_BY_HEAD = {"attn.wo": _GATHERED["attn.wo"]
+                 + ("attn.wkv_a", "attn.kv_norm")}
 _ROW_PARALLEL = {"attn.wo": tuple(f"attn.{w}" for w in _QKV + ("wkv_b",))
                  + ("units.lora_b",),
                  "self_attn.wo": tuple(f"self_attn.{w}" for w in _QKV),
@@ -475,17 +488,20 @@ def model_split(shapes, pspecs) -> frozenset:
 
 def whole_kv(shapes, pspecs) -> frozenset:
     """The paths of the leaves a rank holds whole under a row-parallel
-    leaf split on ``"model"``: the attention's k/v leaves (``_GATHERED``,
-    the rule that lets ``model_split`` accept them) where the rules keep
-    them whole, their width not dividing the axis.  Each rank computes k
-    and v whole from them but reads only its query heads' KV heads, so
-    its gradient of such a leaf is its heads' share, and the ranks' sum
-    over the model group is the whole gradient (``train/step.py::
-    TrainGrid.reduce``).  Where the rules split them, the gather's
-    backward sums the ranks' shares already (``layers.all_gather``)."""
+    leaf split on ``"model"`` whose output its heads read only their share
+    of (``_READ_BY_HEAD``): the attention's k/v leaves where the rules
+    keep them whole, their width not dividing the axis, and MLA's latent
+    leaves ``wkv_a`` and ``kv_norm``, which they never split.  Each rank
+    computes k and v, or the latent and the shared rope key, whole from
+    them but reads only its query heads' part (its KV heads; its
+    ``wkv_b`` slice), so its gradient of such a leaf is its heads' share,
+    and the ranks' sum over the model group is the whole gradient
+    (``train/step.py::TrainGrid.reduce``).  Where the rules split the k/v
+    leaves, the gather's backward sums the ranks' shares already
+    (``layers.all_gather``)."""
 
     split = model_split(shapes, pspecs)
-    whole = {leaf for row, leaves in _GATHERED.items() if row in split
+    whole = {leaf for row, leaves in _READ_BY_HEAD.items() if row in split
              for leaf in leaves if leaf not in split}
     out = []
     tree_map_with_path(

@@ -35,7 +35,15 @@ model_split`` names, as serving splits them), and the backward rules of
 ``models/layers.py`` (an all-reduce's identity backward, its conjugate's
 all-reduce, the vocab-parallel cross-entropy) give every model rank its
 own shards' gradients and the same, whole gradient of each leaf
-replicated on ``"model"``.  Gradients: an FSDP leaf's arrives
+replicated on ``"model"``.  The MoE family trains in the psum form,
+its experts split by expert over the model ranks (padded to the axis by
+``Ctx.ep_pad_to`` where they do not divide it): the experts' input and
+the combine weights enter through the conjugate, so the router's
+gradient is whole on every model rank, and the router's aux is the
+reference's on the mesh (``models/moe.py::aux_reckoning``): at one
+model rank its statistics summed over the batch group (a sum whose
+backward sums, ``layers.psum``), on model ranks the data row's own, each
+rank adding its ``1/n`` share.  Gradients: an FSDP leaf's arrives
 reduce-scattered over the FSDP group by the gather's backward
 (``models/layers.py::FSDP``), summed over the pods by an all-reduce over
 the cross-pod group; any other leaf's (``embed``, the norms) is
@@ -44,21 +52,28 @@ and FSDP groups are per model coordinate, so a model-split leaf is
 summed only with the ranks that hold its shard.  One sum runs over the
 model group: where the KV heads do not divide the model ranks and the
 rules keep ``wk``/``wv`` (and their biases) whole, each rank computes k
-and v whole but reads only its query heads' KV heads, so those leaves'
-gradients (``train/shard.py::whole_kv``) are summed over the model group
-once a step, after the sums above and before the clip; where the rules
-cut them in parts of a head, k and v are gathered and the gather's
-backward reduce-scatters (``models/layers.py::all_gather``).  The clip
-takes the norm over the whole tree: the shards' squares summed over the
-FSDP group and over the model group as their specs split them, each
-replicated leaf counted once (``sq_norm``; a whole k/v leaf is the same
-on every model rank after its sum).  Parameters and state update in
+and v whole but reads only its query heads' KV heads, and MLA's
+``wkv_a`` and ``kv_norm``, which the rules keep whole, give the latent
+and the shared rope key that a rank's heads read through its ``wkv_b``
+slice, so those leaves' gradients (``train/shard.py::whole_kv``) are
+each rank's heads' share and are summed over the model group once a
+step, after the sums above and before the clip (the latent's share of
+the input's gradient is summed by the mixer input's conjugate); where
+the rules cut ``wk``/``wv`` in parts of a head, k and v are gathered
+and the gather's backward reduce-scatters (``models/layers.py::
+all_gather``).  The clip takes the norm over the whole tree: the shards'
+squares summed over the FSDP group and over the model group as their
+specs split them, each replicated leaf counted once (``sq_norm``; a
+whole k/v or latent leaf is the same on every model rank after its sum,
+the router's and a tied table kept whole on the model ranks are before
+it).  Parameters and state update in
 place; where the FSDP ranks share one card and read each other's shards
 (``FSDP.one_card``), every rank then synchronizes its card and the group
 passes a barrier before the next gather.
 ``train/shard.py::check_train_mesh`` refuses the families other than the
-dense one on more than one rank (6.2c), query heads that do not divide
-the model ranks (6.8), and parts that do not split.
+dense and MoE ones on more than one rank (6.2c), the MoE family's a2a
+form on model ranks (6.2c-i-b), query heads that do not divide the model
+ranks (6.8), and parts that do not split.
 """
 
 from __future__ import annotations
@@ -218,8 +233,8 @@ class TrainGrid:
     ``FSDP`` group (``None`` without FSDP), the paths of the leaves it
     holds FSDP shards of, the ``TP`` of its model group (``None`` at one
     model rank; the rank model's ``Ctx.tp``), the paths of the leaves it
-    holds model shards of and those of the k/v leaves it holds whole
-    under a split ``wo`` (``train/shard.py::whole_kv``)."""
+    holds model shards of and those of the k/v and MLA latent leaves it
+    holds whole under a split ``wo`` (``train/shard.py::whole_kv``)."""
 
     mesh_cfg: MeshConfig
     rank: int
@@ -247,8 +262,8 @@ class TrainGrid:
         pods (the reduce-scatter summed it over the pod's data ranks), any
         other leaf's over the batch group (the ranks at the rank's model
         coordinate: a model shard's with the ranks that hold it); a whole
-        k/v leaf's then over the model group too (each rank's holds its
-        query heads' share)."""
+        k/v or latent leaf's then over the model group too (each rank's
+        holds its query heads' share)."""
 
         def leaf(path, g):
             g = all_reduce(g, self.pod if path in self.sharded
@@ -317,7 +332,7 @@ def make_sharded_train_step(model: Model, group, mesh_cfg: MeshConfig,
 
     cfg = model.cfg
     B, n_micro = shape_cfg.global_batch, train_cfg.microbatch
-    check_train_mesh(mesh_cfg, cfg, B, n_micro)
+    check_train_mesh(mesh_cfg, cfg, B, n_micro, model.ctx.moe_impl)
     shapes = param_specs(model)
     pspecs = S.param_pspecs(cfg, shapes, mesh_cfg)
     bspecs = S.batch_pspecs(cfg, shape_cfg, mesh_cfg,

@@ -45,12 +45,14 @@ Held:
   ``make_train_step`` (the step ``tests/test_torch_train.py`` holds
   against JAX's): two steps from one init agree bit for bit.
 * **Refusals.**  What the model axis does not train yet: query heads
-  that do not divide the model ranks (item 6.8) and MoE on model ranks
-  (6.2c); MoE and hybrid on data ranks (6.2c), a microbatch part that
+  that do not divide the model ranks (item 6.8) and SSM on model ranks
+  (6.2c); SSM and hybrid on data ranks (6.2c), a microbatch part that
   does not split over the ranks (``ValueError``), and ``Model.loss``
   under those contexts.  The model axis itself trains:
   ``tests/test_torch_tp_train.py``, and where the KV heads do not divide
-  it ``tests/test_torch_kv_train.py``.
+  it ``tests/test_torch_kv_train.py``; the MoE family trains on both
+  axes (``tests/test_torch_moe_train.py``), its a2a form refused (item
+  6.2c-i-b).
 """
 
 import functools
@@ -590,14 +592,15 @@ def test_launcher_checkpoint_loads_in_the_jax_manager(launcher, tmp_path):
 
 
 def test_model_axis_is_refused(launcher, tmp_path):
-    """The model axis trains the dense family (``tests/test_torch_tp_
-    train.py``, ``tests/test_torch_kv_train.py``); what it does not train
-    yet is refused, naming its item: gemma2's 4 query heads over 3 model
-    ranks (6.8: the rules cut the flat q width into parts of a head) and
-    a MoE model on model ranks (6.2c)."""
+    """The model axis trains the dense and MoE families (``tests/test_
+    torch_tp_train.py``, ``tests/test_torch_kv_train.py``, ``tests/test_
+    torch_moe_train.py``); what it does not train yet is refused, naming
+    its item: gemma2's 4 query heads over 3 model ranks (6.8: the rules
+    cut the flat q width into parts of a head) and an SSM model on model
+    ranks (6.2c)."""
 
     for arch, tp, item in (("gemma2-2b", 3, "6.8"),
-                           ("granite-moe-3b-a800m", 2, "6.2c")):
+                           ("mamba2-780m", 2, "6.2c")):
         match = f"item {item}"
         with pytest.raises(NotImplementedError, match=match):
             tlaunch.train(["--arch", arch, "--data", "1", "--tp", str(tp),
@@ -619,11 +622,25 @@ def test_model_axis_is_refused(launcher, tmp_path):
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "zamba2-2.7b",
                                   "mamba2-780m"])
 def test_other_families_on_data_ranks_are_refused(arch):
+    """The SSM and hybrid families on data ranks wait for item 6.2c.  The
+    MoE family trains there (``tests/test_torch_moe_train.py``): its
+    meshes pass, and only its a2a form on a model axis is refused (item
+    6.2c-i-b)."""
+
     cfg = get_smoke_config(arch)
+    batch_tp = L.TP(group=None, rank=0, size=4, staged=False)
+    if cfg.family == "moe":
+        for mesh in MESHES.values():
+            check_train_mesh(MeshConfig(**mesh), cfg, B, 2)
+        assert api.loss_refusal(
+            cfg, Ctx(dp=("data",), dp_group=batch_tp)) is None
+        with pytest.raises(NotImplementedError, match="item 6.2c-i-b"):
+            check_train_mesh(MeshConfig(data=2, model=2), cfg, B, 2,
+                             moe_impl="a2a")
+        return
     for mesh in MESHES.values():
         with pytest.raises(NotImplementedError, match="item 6.2c"):
             check_train_mesh(MeshConfig(**mesh), cfg, B, 2)
-    batch_tp = L.TP(group=None, rank=0, size=4, staged=False)
     model = build_model(cfg, Ctx(dp=("data",), dp_group=batch_tp),
                         device="cpu")
     with pytest.raises(NotImplementedError, match="item 6.2c"):

@@ -51,8 +51,9 @@ Held:
   within ``LOSS_RTOL`` of a straight ``--data 2 --tp 2`` run, whose
   checkpoint in turn goes on at ``--data 4`` and on one process.
 * **Refusals.**  Query heads that do not divide the model ranks
-  (granite-34b's 8 and gemma2's 4 over ``--tp 3``, item 6.8), MoE and
-  hybrid at ``--tp 2`` (6.2c), through the launcher,
+  (granite-34b's 8 and gemma2's 4 over ``--tp 3``, item 6.8), MoE in
+  the a2a form (6.2c-i-b) and the hybrid at ``--tp 2`` (6.2c), through
+  the launcher (the hybrid's; it builds MoE in the psum form),
   ``make_sharded_train_step`` and ``Model.loss``.  KV heads that do not
   divide the ranks train (``tests/test_torch_kv_train.py``), whatever
   the rank's ``TP.kv_cache``: on the same four ranks both archs' smoke
@@ -722,8 +723,9 @@ def test_launcher_checkpoints_move_between_model_and_data_ranks(
 # ---------------------------------------------------------------------- #
 
 
-def _loss_under(cfg, tp):
-    return build_model(cfg, Ctx(tp=tp), device="cpu").loss(
+def _loss_under(cfg, tp, moe_impl="psum"):
+    return build_model(cfg, Ctx(tp=tp, moe_impl=moe_impl),
+                       device="cpu").loss(
         {}, {"tokens": np.zeros((1, 2)), "targets": np.zeros((1, 2))})
 
 
@@ -738,17 +740,29 @@ def test_what_the_model_axis_does_not_train_is_refused(arch, tp, item,
                                                        grid):
     cfg = get_smoke_config(arch)
     match = f"item {item}"
+    # the MoE family trains on the model axis in the psum form
+    # (tests/test_torch_moe_train.py), as the launcher builds it; its a2a
+    # form is refused (item 6.2c-i-b)
+    impl = "a2a" if cfg.family == "moe" else "psum"
+    if cfg.family != "moe":
+        with pytest.raises(NotImplementedError, match=match):
+            launcher(1, tmp_path, "--tp", str(tp), arch=arch)
     with pytest.raises(NotImplementedError, match=match):
-        launcher(1, tmp_path, "--tp", str(tp), arch=arch)
+        check_train_mesh(MeshConfig(data=1, model=tp), cfg, B, 2,
+                         moe_impl=impl)
     with pytest.raises(NotImplementedError, match=match):
-        check_train_mesh(MeshConfig(data=1, model=tp), cfg, B, 2)
-    with pytest.raises(NotImplementedError, match=match):
-        make_sharded_train_step(build_model(cfg, device="cpu"), None,
+        make_sharded_train_step(build_model(cfg, Ctx(moe_impl=impl),
+                                            device="cpu"), None,
                                 MeshConfig(data=1, model=tp),
                                 ShapeConfig("t", SEQ, B, "train"),
                                 TrainConfig())
     with pytest.raises(NotImplementedError, match=match):
-        _loss_under(cfg, L.TP(group=None, rank=0, size=tp, staged=False))
+        _loss_under(cfg, L.TP(group=None, rank=0, size=tp, staged=False),
+                    impl)
+    if cfg.family == "moe":
+        check_train_mesh(MeshConfig(data=1, model=tp), cfg, B, 2)
+        assert api.loss_refusal(cfg, Ctx(tp=L.TP(
+            group=None, rank=0, size=tp, staged=False))) is None
     if cfg.family != "dense":
         return
     # the same model trains where its query heads divide the ranks,
